@@ -1,0 +1,92 @@
+"""Public kernel entry points, routed by the device of their inputs.
+
+  * a CPU tensor runs the plain PyTorch version (``kernels/ref.py``);
+  * a CUDA tensor launches the hand-written CUDA kernel
+    (``kernels/fused.py``), or raises;
+  * anything else raises.
+
+There is no capability probe and no fallback: a CUDA tensor never runs
+a plain version.  ``backend_signature(device)`` is part of every
+program-cache key over stage programs (``runtime/pipeline.py``), so a
+program built for one device, card or kernel build is never served to
+another.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build as _build
+from repro_torch.kernels import fused as _fused
+from repro_torch.kernels import ref as _ref
+
+
+def _route(name: str, x: torch.Tensor) -> str:
+    kind = x.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel or plain version for device "
+                         f"{x.device}")
+    return kind
+
+
+@functools.lru_cache(maxsize=None)
+def _device_identity(device: torch.device) -> Tuple:
+    if device.type == "cuda":
+        return (torch.cuda.get_device_name(device),
+                torch.cuda.get_device_capability(device))
+    return (device.type, None)
+
+
+def backend_signature(device="cuda") -> Tuple:
+    """(device type, device name, capability, torch version, hash of the
+    kernel sources)."""
+    dev = torch.device(device)
+    name, capability = _device_identity(dev)
+    return (dev.type, name, capability, torch.__version__,
+            _build.source_hash())
+
+
+def fused_add_rmsnorm(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
+                      eps: float = 1e-6
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused (res, h) = (x + r, rms_norm(w, x + r)).  x/r: [..., d];
+    ``w`` must already be in x's dtype."""
+    if _route("fused_add_rmsnorm", x) == "cpu":
+        return _ref.add_rmsnorm_ref(x, r, w, eps=eps)
+    d = x.shape[-1]
+    res, h = _fused.AddRMSNorm.apply(x.reshape(-1, d), r.reshape(-1, d), w,
+                                     float(eps))
+    return res.reshape(x.shape), h.reshape(x.shape)
+
+
+def fused_qkv(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+              wv: torch.Tensor, bq: Optional[torch.Tensor] = None,
+              bk: Optional[torch.Tensor] = None,
+              bv: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused QKV projection: one GEMM against the concatenated weight
+    with the bias in its epilogue.  x: [..., d]; w*: [d, cols_*].
+    Returns the three flat projections [..., cols_*]."""
+    if _route("fused_qkv", x) == "cpu":
+        return _ref.qkv_ref(x, wq, wk, wv, bq, bk, bv)
+    d = x.shape[-1]
+    cq, ck = wq.shape[1], wk.shape[1]
+    wcat = torch.cat([wq, wk, wv], dim=1).to(x.dtype)
+    bcat = (torch.cat([bq, bk, bv]).to(x.dtype) if bq is not None else None)
+    y2 = _fused.MatmulBias.apply(x.reshape(-1, d), wcat, bcat)
+    y = y2.reshape(*x.shape[:-1], y2.shape[-1])
+    return tuple(torch.split(y, [cq, ck, y.shape[-1] - cq - ck], dim=-1))
+
+
+def flash_attention(q, k, v, window: int = 0):
+    raise NotImplementedError(
+        "flash attention (TPU kernels 4-7) is ported in the flash-attention "
+        "slice (ROADMAP queue 1); use attn_impl='naive' or 'blocked'")
+
+
+def ssd(x, dt, A, B, C, chunk: Optional[int] = None):
+    raise NotImplementedError(
+        "the SSD scan (TPU kernels 8-9) is ported in the SSD slice "
+        "(ROADMAP queue 1)")

@@ -1,0 +1,154 @@
+"""GQA attention, training path: ``naive`` (materialised [S, S] scores)
+and ``blocked`` (online softmax over KV blocks), as
+``repro/models/attention.py``.
+
+``fused=True`` routes the QKV projection through ``ops.fused_qkv`` —
+one GEMM against the concatenated weight with the bias in its epilogue —
+for S > 1.  ``impl="kernel"`` (and ``"auto"``) raise until the
+flash-attention slice ports kernels 4-7; they never quietly run another
+path.  The decode path comes with the serving slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import apply_rope, rms_norm
+
+
+def init_attention(gen: torch.Generator, arch: ArchConfig,
+                   dtype=torch.float32):
+    d, H, KV, hd = arch.d_model, arch.num_heads, arch.num_kv_heads, arch.head_dim
+    dev = gen.device
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype) * scale
+    s = d ** -0.5
+    p = {"wq": normal((d, H * hd), s), "wk": normal((d, KV * hd), s),
+         "wv": normal((d, KV * hd), s),
+         "wo": normal((H * hd, d), (H * hd) ** -0.5)}
+    if arch.qkv_bias:
+        p["bq"] = torch.zeros((H * hd,), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros((KV * hd,), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros((KV * hd,), dtype=dtype, device=dev)
+    if arch.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=dev)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=dev)
+    return p
+
+
+def _project_qkv(params, arch: ArchConfig, x: torch.Tensor,
+                 positions: torch.Tensor, *, fused: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, S, _ = x.shape
+    H, KV, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
+    if fused and S > 1:
+        bias = ((params["bq"], params["bk"], params["bv"])
+                if arch.qkv_bias else (None, None, None))
+        q, k, v = kops.fused_qkv(x, params["wq"], params["wk"],
+                                 params["wv"], *bias)
+    else:
+        q = x @ params["wq"].to(x.dtype)
+        k = x @ params["wk"].to(x.dtype)
+        v = x @ params["wv"].to(x.dtype)
+        if arch.qkv_bias:
+            q = q + params["bq"].to(x.dtype)
+            k = k + params["bk"].to(x.dtype)
+            v = v + params["bv"].to(x.dtype)
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KV, hd)
+    v = v.reshape(B, S, KV, hd)
+    if arch.qk_norm:
+        q = rms_norm(params["q_norm"].to(x.dtype), q, arch.rms_norm_eps)
+        k = rms_norm(params["k_norm"].to(x.dtype), k, arch.rms_norm_eps)
+    q = apply_rope(q, positions, arch.rope_theta)
+    k = apply_rope(k, positions, arch.rope_theta)
+    return q, k, v
+
+
+def _sdpa_naive(q, k, v, *, causal: bool, window: int):
+    """q: [B,Sq,H,D], k/v: [B,Sk,KV,D] -> [B,Sq,H,D]."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, D)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k) / math.sqrt(D)
+    qpos = torch.arange(Sq, device=q.device)
+    kpos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    scores = scores.float().masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(B, Sq, H, D)
+
+
+def _sdpa_blocked(q, k, v, *, causal: bool, window: int,
+                  block_kv: int = 512):
+    """Online softmax over KV blocks: O(S) memory.  Shapes as naive."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    nblk = -(-Sk // block_kv)
+    pad = nblk * block_kv - Sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    qg = q.reshape(B, Sq, KV, G, D)
+    scale = 1.0 / math.sqrt(D)
+    qpos = torch.arange(Sq, device=q.device)
+    acc = torch.zeros((B, KV, G, Sq, D), dtype=q.dtype, device=q.device)
+    m = torch.full((B, KV, G, Sq), float("-inf"), device=q.device)
+    l = torch.zeros((B, KV, G, Sq), device=q.device)
+    for j in range(nblk):
+        kj = k[:, j * block_kv:(j + 1) * block_kv]
+        vj = v[:, j * block_kv:(j + 1) * block_kv]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kj).float() * scale
+        kpos = j * block_kv + torch.arange(block_kv, device=q.device)
+        mask = (kpos[None, :] < Sk).expand(Sq, block_kv)
+        if causal:
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        if window:
+            mask = mask & (kpos[None, :] > qpos[:, None] - window)
+        s = s.masked_fill(~mask, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        # guard fully-masked rows (m_new = -inf): contribute nothing
+        safe_m = torch.where(torch.isfinite(m_new), m_new,
+                             torch.zeros_like(m_new))
+        p = torch.exp(s - safe_m[..., None]).masked_fill(~mask, 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - safe_m),
+                           torch.zeros_like(m))
+        l = l * corr + p.sum(-1)
+        pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(q.dtype), vj)
+        acc = acc * corr[..., None].to(acc.dtype) + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-20)[..., None].to(acc.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+
+
+def attention(params, arch: ArchConfig, x: torch.Tensor, *,
+              impl: str = "blocked", block_kv: int = 512,
+              fused: bool = False) -> torch.Tensor:
+    """Training attention.  x: [B, S, d_model]."""
+    if impl in ("kernel", "auto"):
+        return kops.flash_attention(None, None, None)   # raises
+    if impl not in ("naive", "blocked"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = _project_qkv(params, arch, x, positions, fused=fused)
+    window = arch.sliding_window
+    if impl == "blocked" and S > 1:
+        o = _sdpa_blocked(q, k, v, causal=True, window=window,
+                          block_kv=min(block_kv, S))
+    else:
+        o = _sdpa_naive(q, k, v, causal=True, window=window)
+    return o.reshape(B, S, -1) @ params["wo"].to(x.dtype)

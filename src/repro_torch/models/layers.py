@@ -1,0 +1,110 @@
+"""Shared layers: RMSNorm, RoPE, MLPs, embeddings, cross-entropy.
+
+Plain functions on tensors; parameters are plain dicts with the JAX
+package's keys (``repro/models/layers.py``), so weights map 1:1.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    """fp32 second moment; the normalised value is cast back to x's
+    dtype before the weight multiply."""
+    x32 = x.float()
+    var = (x32 * x32).mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def init_rms_norm(d: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
+    return torch.ones((d,), dtype=dtype, device=device)
+
+
+# ----------------------------------------------------------------------
+# Rotary position embeddings (split-half)
+# ----------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: [..., seq, heads, head_dim]; positions: [..., seq]."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)            # [hd/2]
+    ang = positions[..., :, None].float() * freqs               # [..., s, hd/2]
+    cos = torch.cos(ang)[..., :, None, :]                       # [..., s, 1, hd/2]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# MLPs
+# ----------------------------------------------------------------------
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, variant: str,
+             dtype=torch.float32):
+    dev = gen.device
+    scale_in, scale_out = d_model ** -0.5, d_ff ** -0.5
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype) * scale
+    if variant == "swiglu":
+        return {"gate": normal((d_model, d_ff), scale_in),
+                "up": normal((d_model, d_ff), scale_in),
+                "down": normal((d_ff, d_model), scale_out)}
+    return {"up": normal((d_model, d_ff), scale_in),
+            "down": normal((d_ff, d_model), scale_out)}
+
+
+def mlp(params, x: torch.Tensor, variant: str) -> torch.Tensor:
+    if variant == "swiglu":
+        h = F.silu(x @ params["gate"].to(x.dtype))
+        h = h * (x @ params["up"].to(x.dtype))
+    else:
+        # jax.nn.gelu is the tanh approximation by default
+        h = F.gelu(x @ params["up"].to(x.dtype), approximate="tanh")
+    return h @ params["down"].to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# Embedding / head
+# ----------------------------------------------------------------------
+def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
+                   dtype=torch.float32):
+    table = torch.randn((vocab, d_model), generator=gen, device=gen.device,
+                        dtype=torch.float32).to(dtype) * 0.02
+    return {"table": table}
+
+
+def embed(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    # F.embedding: its CUDA backward sums the rows of a repeated token
+    # without float atomics
+    return F.embedding(tokens.long(), params["table"].to(dtype))
+
+
+def unembed(params, x: torch.Tensor) -> torch.Tensor:
+    """Project to vocab logits in fp32 (stable loss)."""
+    return x.float() @ params["table"].float().t()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL.  ``labels`` are pre-shifted next-token targets
+    aligned with ``logits`` (labels[..., t] is the target for position
+    t); ``mask`` (0/1) excludes positions."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -1,0 +1,514 @@
+"""Heterogeneous pipeline execution (paper §6), ``repro/runtime/pipeline.py``
+in PyTorch.
+
+Each PipelineInstance from the configuration engine is bound to tensors:
+every replica holds its layers' params and Adam moments (layer-indexed,
+the paper's unit of state).  A training step:
+
+  1. per pipeline: ONE program per (template signature, microbatch
+     count), built once and kept in a ProgramCache, runs the template's
+     stage functions over every microbatch, accumulates the per-layer
+     gradients and returns them with the per-microbatch NLL as a device
+     tensor (no host sync inside the schedule).  ``warm_templates``
+     builds the programs of the whole template set up front, so a
+     reconfiguration swaps programs by lookup;
+  2. cross-pipeline sync at LAYER granularity: the engine's bucket plan
+     through the bucketed data plane (``runtime/sync_exec.py``), a
+     weighted average whose weights are minibatch sizes;
+  3. the same global-norm clip and AdamW update on every replica, so
+     replicas stay bitwise identical;
+  4. on failure: the engine replans from the templates and emits a copy
+     plan; layer states (params AND moments) are copied from the
+     scheduled surviving replicas — recovery without a checkpoint — and
+     the new pipeline set's programs come straight from the cache.
+
+Every block of a stage runs the fused QKV GEMM and the fused residual-add
++ RMSNorm (``kernels/ops.py``): CUDA kernels when the state lies on the
+card, their plain versions on the CPU.  The eager 1F1B reference walker,
+elastic join and snapshots come in a later slice (ROADMAP queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Set, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.adapt import AdaptationError
+from repro_torch.core.engine import OobleckEngine
+from repro_torch.core.reconfigure import PipelineInstance
+from repro_torch.kernels import ops as kops
+from repro_torch.models import Model
+from repro_torch.models.layers import cross_entropy, embed, unembed
+from repro_torch.optim import adamw
+from repro_torch.runtime.executor import (Executor, ProgramCache, avals_of,
+                                          template_signature, tree_spec)
+from repro_torch.runtime.sync_exec import (BucketedSync, perlayer_global_sumsq,
+                                           perlayer_sync)
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
+
+LayerState = Dict[str, Any]     # {"p": params, "m": moment1, "v": moment2}
+
+_LATER = "comes with a later slice of the port (ROADMAP queue 1)"
+
+
+# ----------------------------------------------------------------------
+# Canonical layer-indexed parameter view
+# ----------------------------------------------------------------------
+def split_into_layers(model: Model, params: Dict) -> List[Dict]:
+    """Full param tree -> [embed, block_0..block_{L-1}, head] per the
+    cost-model layer indexing (embed = layer 0, head = layer L+1).
+    A tied embedding is untied: the head stage gets its own copy."""
+    L = model.arch.num_layers
+    layers: List[Dict] = [{"embed": params["embed"]}]
+    for i in range(L):
+        layers.append(tree_map(lambda t: t[i], params["blocks"]))
+    tail = {"final_norm": params["final_norm"]}
+    tail["head"] = params.get("head", tree_map(torch.clone, params["embed"]))
+    layers.append(tail)
+    return layers
+
+
+def zeros_like_tree(tree):
+    return tree_map(lambda t: torch.zeros_like(t, dtype=torch.float32), tree)
+
+
+# ----------------------------------------------------------------------
+# Stage program
+# ----------------------------------------------------------------------
+def make_stage_fn(model: Model, kinds: Sequence[str]) -> Callable:
+    """Stage function over its layer list:
+    fn(layer_params, carry, labels) -> carry' | (loss, nll),
+    carry = (x, aux) with x = tokens for the first stage."""
+    def fn(layer_params: List[Dict], carry, labels):
+        x, aux = carry
+        for kind, lp in zip(kinds, layer_params):
+            if kind == "embed":
+                x = embed(lp["embed"], x, model.dtype)
+            elif kind == "block":
+                x, aux = model.block(lp, x, aux)
+            else:  # head
+                x = model._norm(lp["final_norm"], x)
+                logits = unembed(lp["head"], x)
+                # pre-shifted labels; the final position is excluded
+                nll = cross_entropy(logits[:, :-1], labels[:, :-1])
+                return nll, nll
+        return x, aux
+    return fn
+
+
+# ----------------------------------------------------------------------
+# One bound pipeline
+# ----------------------------------------------------------------------
+@dataclasses.dataclass
+class PipelineRun:
+    instance: PipelineInstance
+    stage_layers: List[List[int]]           # per stage: its layer ids
+    states: Dict[int, LayerState]           # layer id -> state (this replica)
+
+    @property
+    def num_stages(self) -> int:
+        return len(self.stage_layers)
+
+    @property
+    def signature(self) -> Tuple[Tuple[int, int], ...]:
+        return template_signature(self.instance.template)
+
+    def all_stage_params(self) -> List[List[Dict]]:
+        return [[self.states[l]["p"] for l in lids]
+                for lids in self.stage_layers]
+
+
+class HeteroTrainer(Executor):
+    """Drives N heterogeneous pipeline replicas through train steps and
+    failure recovery, with the engine for all planning and a
+    template-keyed ProgramCache for all execution.  The device is the
+    one ``params`` lie on."""
+
+    def __init__(self, model: Model, engine: OobleckEngine,
+                 params: Dict, opt_cfg: adamw.AdamWConfig,
+                 codec: str = "none", sync_mode: str = "bucketed"):
+        if sync_mode not in ("bucketed", "perlayer"):
+            raise ValueError(f"unknown sync_mode {sync_mode!r}")
+        if codec != "none" and sync_mode != "bucketed":
+            raise ValueError("wire codecs ride the bucketed data plane only")
+        self.model = model
+        self.engine = engine
+        self.opt_cfg = opt_cfg
+        self.cache = ProgramCache()
+        self.sync_mode = sync_mode
+        self.codec = codec
+        layers = split_into_layers(model, params)
+        self.device = tree_leaves(layers[0])[0].device
+        self.opt_step = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.num_layers = len(layers)
+        self._kind = (["embed"] + ["block"] * model.arch.num_layers
+                      + ["head"])
+        # shape/dtype skeleton of every layer: programs for templates
+        # that are not currently instantiated are built from it
+        self._layer_avals = [avals_of(l) for l in layers]
+        self._bsync = BucketedSync(self.cache, opt_cfg, self._layer_avals,
+                                   codec=codec)
+        self._bucket_plan_cache = None
+        self.runs: List[PipelineRun] = [
+            self._bind_run(inst, layers) for inst in self.engine.instances]
+        engine.attach_executor(self)
+        self.bind()
+
+    # ------------------------------------------------------------------
+    def _bind_run(self, inst: PipelineInstance, layers: Optional[List[Dict]],
+                  state_fn: Optional[Callable[[str, int], LayerState]] = None
+                  ) -> PipelineRun:
+        stage_layers = [list(range(st.layer_start, st.layer_end))
+                        for st in inst.template.stages]
+        states: Dict[int, LayerState] = {}
+        for lids in stage_layers:
+            for l in lids:
+                # ALWAYS copy: replicas never alias layer state
+                if state_fn is not None:
+                    # the state a layer's owner receives comes from the
+                    # replica the transfer plan scheduled as its source
+                    src = state_fn(inst.layer_owners(l)[0], l)
+                    states[l] = tree_map(torch.clone, src)
+                else:
+                    p = layers[l]
+                    states[l] = {"p": tree_map(torch.clone, p),
+                                 "m": zeros_like_tree(p),
+                                 "v": zeros_like_tree(p)}
+        return PipelineRun(inst, stage_layers, states)
+
+    # ------------------------------------------------------------------
+    # Program cache plumbing
+    # ------------------------------------------------------------------
+    def _batch_spec(self, M: int) -> Tuple:
+        """Shape and dtype of the stacked tokens (and labels)."""
+        b = self.engine.config.microbatch
+        s = self.engine.profile.seq_len
+        return ((M, b, s), "int32")
+
+    def _grads_program(self, sig: Tuple[Tuple[int, int], ...], M: int
+                       ) -> Callable:
+        """Per-(template signature, microbatch count) step program: every
+        microbatch through the stage functions, per-layer gradients
+        accumulated, the mean returned with the per-microbatch NLL."""
+        key = ("grads", kops.backend_signature(self.device), sig,
+               self._batch_spec(M))
+
+        def build() -> Callable:
+            kinds = [[self._kind[l] for l in range(u, v)] for (u, v) in sig]
+            fns = [make_stage_fn(self.model, k) for k in kinds]
+
+            def grads_fn(stage_params, tokens, labels):
+                flat = tree_leaves(stage_params)
+                leaves = [t.detach().requires_grad_(True) for t in flat]
+                params = tree_unflatten_like(stage_params, leaves)
+                gsum, nlls = None, []
+                zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
+                for i in range(M):
+                    carry = (tokens[i], zero)
+                    for fn, sp in zip(fns, params):
+                        carry = fn(sp, carry, labels[i])
+                    loss, nll = carry
+                    g = torch.autograd.grad(loss, leaves)
+                    gsum = (list(g) if gsum is None
+                            else [a + b for a, b in zip(gsum, g)])
+                    nlls.append(nll.detach())
+                grads = [a / M for a in gsum]
+                return tree_unflatten_like(stage_params, grads), torch.stack(nlls)
+            return grads_fn
+
+        return self.cache.get_or_build(key, build)
+
+    def _update_program(self, l: int) -> Callable:
+        """Per-layer-structure AdamW update (the perlayer sync path)."""
+        key = ("update", tree_spec(self._layer_avals[l]))
+
+        def build() -> Callable:
+            layer_cfg = dataclasses.replace(self.opt_cfg, clip_norm=0.0)
+
+            def upd(st, g, scale, step):
+                g = tree_map(lambda t: t * scale, g)
+                new_p, new_opt, _ = adamw.update(
+                    layer_cfg, st["p"], g,
+                    adamw.AdamWState(step, st["m"], st["v"]))
+                return {"p": new_p, "m": new_opt.m, "v": new_opt.v}
+            return upd
+
+        return self.cache.get_or_build(key, build)
+
+    # ------------------------------------------------------------------
+    # Warming
+    # ------------------------------------------------------------------
+    def _bucket_plan(self):
+        """The engine's sync plan bound for execution (cached until the
+        next bind): per bucket, the replica lead owners' pods drive the
+        hierarchical reduction path."""
+        if self._bucket_plan_cache is None:
+            sync_plan = self.engine.sync_plan()
+            topo = self.engine.topology
+            pods = [[topo.pod_of(inst.layer_owners(b.layer_start)[0])
+                     for inst in self.engine.instances]
+                    for b in sync_plan]
+            self._bucket_plan_cache = self._bsync.exec_plan(sync_plan, pods)
+        return self._bucket_plan_cache
+
+    def bind(self) -> None:
+        """Ensure programs for the CURRENT pipeline set + batch plan are
+        cached (pure lookups after warm_templates())."""
+        self._bucket_plan_cache = None
+        mb_of = {id(inst): M for inst, M in zip(
+            self.engine.instances, self.engine.batch.num_microbatches)}
+        for run in self.runs:
+            self._grads_program(run.signature, mb_of[id(run.instance)])
+        if self.sync_mode == "bucketed":
+            plan = self._bucket_plan()
+            self._bsync.bind_plan(plan)
+            # a reconfiguration may have changed the bucket layout or
+            # replica count: stale error-feedback residuals go
+            self._bsync.retain_residuals(plan, len(self.engine.instances))
+        else:
+            for l in range(self.num_layers):
+                self._update_program(l)
+
+    def warm_templates(self, mb_counts: Optional[Iterable[int]] = None
+                       ) -> Dict[str, int]:
+        """Build step programs for EVERY template x every reachable
+        microbatch count (1..total_mb by default), and the bucket
+        programs of every reachable layout, so any reconfiguration swaps
+        programs by lookup with zero builds."""
+        if mb_counts is None:
+            total_mb = (self.engine.config.global_batch
+                        // self.engine.config.microbatch)
+            mb_counts = range(1, total_mb + 1)
+        mb_counts = list(mb_counts)
+        for tpl in self.engine.templates.values():
+            for M in mb_counts:
+                self._grads_program(template_signature(tpl), M)
+        if self.sync_mode == "bucketed":
+            self._bsync.warm(
+                self.engine.templates.values(),
+                [l.param_bytes for l in self.engine.profile.layers],
+                self.engine.config.bucket_cap_bytes)
+        self.bind()
+        return self.cache.stats.as_dict()
+
+    # ------------------------------------------------------------------
+    # One pipeline's iteration -> per-layer grad means + per-mb NLL
+    # ------------------------------------------------------------------
+    def _run_pipeline(self, run: PipelineRun, microbatches: List[Dict]
+                      ) -> Tuple[Dict[int, Any], torch.Tensor]:
+        def stack(key):
+            arr = np.stack([np.asarray(b[key]) for b in microbatches])
+            return torch.from_numpy(arr.astype(np.int32)).to(self.device)
+        tokens, labels = stack("tokens"), stack("labels")
+        prog = self._grads_program(run.signature, len(microbatches))
+        gstages, nll = prog(run.all_stage_params(), tokens, labels)
+        grads: Dict[int, Any] = {}
+        for s, lids in enumerate(run.stage_layers):
+            for j, l in enumerate(lids):
+                grads[l] = gstages[s][j]
+        return grads, nll
+
+    def train_step(self, per_pipeline_batches: List[List[Dict]]) -> Dict:
+        """per_pipeline_batches[i] = list of N_b,i microbatch dicts.
+        Metrics come back as device tensors; nothing here reads the
+        device back to the host."""
+        if len(per_pipeline_batches) != len(self.runs):
+            raise ValueError(f"{len(per_pipeline_batches)} batch lists for "
+                             f"{len(self.runs)} pipelines")
+        all_grads: List[Dict[int, Any]] = []
+        nlls, weights = [], []
+        for run, mbs in zip(self.runs, per_pipeline_batches):
+            g, nll = self._run_pipeline(run, mbs)
+            all_grads.append(g)
+            nlls.append(nll)
+            weights.append(len(mbs))
+        grad_norm = self._sync_and_update(all_grads, weights)
+        loss = sum(torch.sum(n) for n in nlls) / float(sum(weights))
+        return {"loss": loss, "grad_norm": grad_norm,
+                "num_pipelines": len(self.runs)}
+
+    def step(self, batches: List[List[Dict]]) -> Dict:
+        return self.train_step(batches)
+
+    # ------------------------------------------------------------------
+    # The sync tail: cross-replica sync + global-norm clip + AdamW
+    # ------------------------------------------------------------------
+    def _sync_and_update(self, all_grads: List[Dict[int, Any]],
+                         weights: List[int]) -> torch.Tensor:
+        if self.sync_mode == "bucketed":
+            plan = self._bucket_plan()
+            red = self._bsync.reduce(plan, all_grads, weights)
+            grad_norm = torch.sqrt(sum(red.sumsqs))
+            scale = self._clip_scale(grad_norm)
+            # ---- commit phase: the ONLY mutating part of the step ----
+            self._bsync.commit_residuals(red)
+            step_in = self.opt_step             # adamw.update increments
+            self.opt_step = self.opt_step + 1
+            for run in self.runs:
+                self._bsync.update(plan, red.flats, run.states, scale,
+                                   step_in)
+            return grad_norm
+
+        # ---- per-layer oracle (paper Figure 9) ----
+        synced = perlayer_sync(all_grads, weights, self.num_layers)
+        grad_norm = torch.sqrt(perlayer_global_sumsq(synced, self.num_layers))
+        scale = self._clip_scale(grad_norm)
+        step_in = self.opt_step
+        self.opt_step = self.opt_step + 1
+        for run in self.runs:
+            for l in sorted(run.states):
+                run.states[l] = self._update_program(l)(
+                    run.states[l], synced[l], scale, step_in)
+        return grad_norm
+
+    def _clip_scale(self, grad_norm: torch.Tensor) -> torch.Tensor:
+        if self.opt_cfg.clip_norm:
+            return torch.clamp(self.opt_cfg.clip_norm
+                               / torch.clamp(grad_norm, min=1e-12), max=1.0)
+        return torch.ones((), dtype=torch.float32, device=self.device)
+
+    # ------------------------------------------------------------------
+    # Failure recovery: copy layer states from the SCHEDULED survivors
+    # ------------------------------------------------------------------
+    def _states_by_node(self, exclude: Set[str] = frozenset()
+                        ) -> Dict[str, Dict[int, LayerState]]:
+        """node -> layer -> state, for every surviving owner."""
+        by_node: Dict[str, Dict[int, LayerState]] = {}
+        for run in self.runs:
+            for l, st in run.states.items():
+                for node in run.instance.layer_owners(l):
+                    if node not in exclude:
+                        by_node.setdefault(node, {})[l] = st
+        return by_node
+
+    def _apply_transfer_plan(self, result, by_node: Dict[str, Dict[int, LayerState]],
+                             dead: Set[str]) -> Dict:
+        """Rebind every pipeline, sourcing each moved layer from the
+        replica the transfer scheduler routed it from, then swap programs
+        by cache lookup."""
+        plan = self.engine.transfer_plan(result, dead=dead)
+        fallback: Dict[int, LayerState] = {}
+        for node_states in by_node.values():
+            for l, st in node_states.items():
+                fallback.setdefault(l, st)
+        missing = [l for l in range(self.num_layers) if l not in fallback]
+        if missing:
+            raise RuntimeError(f"layers {missing} lost (>f failures in a stage)")
+
+        def state_for(node: str, layer: int) -> LayerState:
+            held = by_node.get(node, {})
+            if layer in held:          # the node already owns this layer
+                return held[layer]
+            src = plan.source_of(node, layer)
+            if src is not None and layer in by_node.get(src, {}):
+                return by_node[src][layer]
+            return fallback[layer]
+
+        self.runs = [self._bind_run(inst, layers=None, state_fn=state_for)
+                     for inst in self.engine.instances]
+        self.bind()        # swap programs by lookup (zero builds if warm)
+        stats = plan.stats()
+        return {"copied_bytes": result.copy_bytes(),
+                "num_pipelines": len(self.runs),
+                "cache": self.cache.stats.as_dict(),
+                "transfer": stats,
+                "breakdown": {"replan": result.replan_seconds,
+                              "transfer": stats["seconds"],
+                              "compile": 0.0}}
+
+    def _apply_adaptation(self, plan, dead: Set[str],
+                          drained: bool = False) -> Dict:
+        """Commit a ReCycle adaptation: drop the damaged replicas' runs,
+        keep the survivors' states untouched, rebind — copy-free and
+        build-free."""
+        ref_iter = self.engine.adaptation_reference_iteration(dead)
+        breakdown = self.engine.adapt_cost_model().breakdown(plan, ref_iter)
+        kept = {id(inst) for inst in plan.instances}
+        self.engine.apply_adaptation(plan, dead=dead, drained=drained)
+        self.runs = [run for run in self.runs if id(run.instance) in kept]
+        self.bind()
+        return {"policy": "adapt", "copied_bytes": 0,
+                "num_pipelines": len(self.runs),
+                "parked_nodes": list(plan.parked_nodes),
+                "cache": self.cache.stats.as_dict(),
+                "breakdown": breakdown}
+
+    def handle_failure(self, dead_nodes: set, drained: bool = False,
+                       policy: Optional[str] = None) -> Dict:
+        """Route a failure through the recovery policy (the engine
+        config's ``recovery_policy`` unless overridden): "auto" picks per
+        event from predicted downtime; "adapt" and "spare" fall back to
+        the full replan when infeasible."""
+        dead = set(dead_nodes)
+        policy = policy or self.engine.config.recovery_policy
+        decision = None
+        if policy == "auto":
+            decision = self.engine.select_recovery_policy(dead)
+            policy = decision["policy"]
+        info = None
+        if policy == "adapt":
+            try:
+                info = self._apply_adaptation(
+                    self.engine.plan_adaptation(dead), dead, drained=drained)
+            except AdaptationError:
+                policy = "replan"
+        elif policy == "spare":
+            try:
+                result = self.engine.plan_spare_promotion(dead)
+                by_node = self._states_by_node(exclude=dead)
+                self.engine.apply_spare_promotion(result, dead=dead,
+                                                  drained=drained)
+                info = self._apply_transfer_plan(result, by_node, dead)
+                info["policy"] = "spare"
+            except AdaptationError:
+                policy = "replan"
+        if info is None:
+            by_node = self._states_by_node(exclude=dead)
+            result = self.engine.handle_failure(dead, drained=drained)
+            info = self._apply_transfer_plan(result, by_node, dead)
+            info["policy"] = "replan"
+        if decision is not None:
+            info["decision"] = decision["policy"]
+        return info
+
+    def recover(self, dead: Set[str], drained: bool = False) -> Dict:
+        return self.handle_failure(set(dead), drained=drained)
+
+    def handle_join(self, new_nodes: list) -> Dict:
+        raise NotImplementedError(f"elastic join {_LATER}")
+
+    def join(self, nodes: List[str]) -> Dict:
+        return self.handle_join(list(nodes))
+
+    def snapshot(self, data_state: Optional[Dict] = None, rng_seed: int = 0):
+        raise NotImplementedError(f"snapshots and checkpoints {_LATER}")
+
+    # ------------------------------------------------------------------
+    def replica_divergence(self) -> float:
+        """Max abs param difference across replicas (must be 0)."""
+        worst = torch.zeros((), dtype=torch.float32, device=self.device)
+        for l in range(self.num_layers):
+            reps = [r.states[l]["p"] for r in self.runs if l in r.states]
+            for other in reps[1:]:
+                for a, b in zip(tree_leaves(reps[0]), tree_leaves(other)):
+                    worst = torch.maximum(
+                        worst, torch.max(torch.abs(a.float() - b.float())))
+        return float(worst)
+
+    def full_params(self) -> Dict:
+        """Canonical full param tree (stacked blocks) from the first
+        replica holding each layer; leaves are copies."""
+        states: Dict[int, LayerState] = {}
+        for run in self.runs:
+            for l, st in run.states.items():
+                states.setdefault(l, st)
+        blocks = [states[1 + i]["p"] for i in range(self.model.arch.num_layers)]
+        tail = states[self.num_layers - 1]["p"]
+        tree = {"embed": tree_map(torch.clone, states[0]["p"]["embed"]),
+                "blocks": tree_map(lambda *xs: torch.stack(xs), *blocks),
+                "final_norm": tail["final_norm"].clone()}
+        if "head" in tail:
+            tree["head"] = tree_map(torch.clone, tail["head"])
+        return tree

@@ -8,6 +8,12 @@ from repro.configs import get_arch
 from repro.core import build_profile
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (the port's CUDA kernels); "
+        "skips with a reason elsewhere")
+
+
 @pytest.fixture(scope="session")
 def gpt27_profile():
     return build_profile(get_arch("gpt3_2_7b"), microbatch=2, seq_len=2048)
