@@ -7,21 +7,31 @@ Phases, each fatal on failure:
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (time,
      and nvcc's register / spill summary);
-  3. every kernel against its plain PyTorch version at the main path's
-     shapes and at ragged ones, in fp32 and bf16, the GEMM in all three
-     operand layouts, and twice on the same inputs (bitwise equal);
-  4. each kernel's time (CUDA events), its bound, its plain version's
-     time and the one-call library equivalent where there is one;
-  5. a small model with the kernels against the same model on plain
-     PyTorch ops (loss and gradients);
-  6. the main path: ``repro_torch.launch.train`` at gpt3-medium's full
-     width and depth (24 layers, d 1024, vocab 50257), 4 steps with a
-     node killed before step 2, asserting finite, decreasing losses,
-     zero replica divergence, zero program builds across the failure and
-     that every kernel's launch counter grew during the run.
-The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
-the repository beside it, it exits non-zero and prints no result.
+  3. every kernel against its plain PyTorch version at the shapes both
+     training paths give it and at ragged ones (flash: also GQA and a
+     sliding window), in fp32 and bf16, the GEMM in all three operand
+     layouts, and twice on the same inputs (bitwise equal);
+  4. each kernel's time at each path's shape (CUDA events, and the
+     device time of the kernel's own events under torch.profiler), its
+     bound, its plain version's time and the one-call library
+     equivalent where there is one;
+  5. small models with the kernels against the same models on plain
+     PyTorch ops (loss and gradients): fused vs unfused epilogues, and
+     flash vs naive attention (gpt3-medium, and GQA qwen2.5-3b with QKV
+     bias at a sequence that is not a multiple of 64);
+  6. the naive-attention path: ``repro_torch.launch.train`` at
+     gpt3-medium's full width and depth (24 layers, d 1024, vocab
+     50257), sequence 512, 4 steps with a node killed before step 2,
+     asserting finite, decreasing losses, zero replica divergence, zero
+     program builds across the failure and that every epilogue kernel
+     launched;
+  7. the flash path: the same at sequence 2048 with ``--attn-impl
+     kernel``, asserting the same and that all six kernels launched.
+The last lines are the card line, a ``{"kernels": [...]}`` JSON line
+(launches counted in phase 7; error, times and bound at the shapes
+phase 7 gives each kernel) and ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or without the repository beside it, it exits
+non-zero and prints no result.
 
 ``run(device="cpu")`` rehearses the same control flow on the CPU, with
 the plain versions standing in for the kernels (the tests do this).
@@ -43,16 +53,62 @@ SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
 
-MAIN_ARGV = ["--full", "--seq-len", "512", "--steps", "4", "--kill-at", "2",
-             "--device", "cuda"]
-REHEARSAL_ARGV = ["--steps", "3", "--kill-at", "1", "--device", "cpu"]
-
-KERNELS = {
-    "add_rmsnorm_fwd": "src/repro/kernels/fused.py:47",
-    "add_rmsnorm_bwd": "src/repro/kernels/fused.py:57",
-    "gemm_bias": "src/repro/kernels/fused.py:167",
+PATHS = {   # phase -> (label, argv on the card, argv of the CPU rehearsal)
+    6: ("naive", ["--full", "--seq-len", "512", "--steps", "4", "--kill-at",
+                 "2", "--device", "cuda"],
+        ["--steps", "3", "--kill-at", "1", "--device", "cpu"]),
+    7: ("flash", ["--full", "--seq-len", "2048", "--attn-impl", "kernel",
+                  "--steps", "4", "--kill-at", "2", "--device", "cuda"],
+        ["--steps", "3", "--kill-at", "1", "--attn-impl", "kernel",
+         "--device", "cpu"]),
 }
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/fused.cu"
+
+FUSED_SOURCE = "src/repro_torch/kernels/csrc/fused.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash.cu"
+FLASH_TPU = "src/repro/kernels/flash_attention.py"
+KERNELS = {   # name -> (TPU kernel it replaces, CUDA source)
+    "add_rmsnorm_fwd": ("src/repro/kernels/fused.py:47", FUSED_SOURCE),
+    "add_rmsnorm_bwd": ("src/repro/kernels/fused.py:57", FUSED_SOURCE),
+    "gemm_bias": ("src/repro/kernels/fused.py:167", FUSED_SOURCE),
+    "flash_fwd": (f"{FLASH_TPU}:101", FLASH_SOURCE),
+    "flash_bwd_dq": (f"{FLASH_TPU}:220", FLASH_SOURCE),
+    "flash_bwd_dkdv": (f"{FLASH_TPU}:247+:274", FLASH_SOURCE),
+}
+FUSED = ("add_rmsnorm_fwd", "add_rmsnorm_bwd", "gemm_bias")
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
+
+# Shapes per kernel: (label, shape).  Norms (M, d); GEMM (M, K, N) of
+# x[M,K].W[K,N]; flash (B, S, H, KV, D, window).  A label that names a
+# path (PATHS) is the shape that path gives the kernel: gpt3-medium with
+# microbatch 2, so M = 4096 rows at phase 7's sequence 2048 and 1024 at
+# phase 6's 512.  Those shapes are checked and timed; the kernels line
+# reports REPORTED's, the path whose launches it counts.
+CARD_SHAPES = {
+    "add_rmsnorm_fwd": [("flash", (4096, 1024)), ("naive", (1024, 1024)),
+                        ("ragged", (1000, 999))],
+    "add_rmsnorm_bwd": [("flash", (4096, 1024)), ("naive", (1024, 1024)),
+                        ("ragged", (1000, 999))],
+    "gemm_bias": [("flash", (4096, 1024, 3072)), ("naive", (1024, 1024, 3072)),
+                  ("ragged", (1000, 999, 3000))],
+    # gqa: qwen2.5-3b's heads (16 / kv 2, head dim 128) at a ragged
+    # sequence; window: a sliding window of 256 (hymba's 2048 scaled
+    # down) with hymba's group of 5 query heads per kv head
+    "flash": [("flash", (2, 2048, 16, 16, 64, 0)),
+              ("gqa", (2, 1000, 16, 2, 128, 0)),
+              ("window", (2, 1000, 20, 4, 64, 256))],
+}
+CPU_SHAPES = {
+    "add_rmsnorm_fwd": [("flash", (128, 64)), ("naive", (64, 64)),
+                        ("ragged", (33, 47))],
+    "add_rmsnorm_bwd": [("flash", (128, 64)), ("naive", (64, 64)),
+                        ("ragged", (33, 47))],
+    "gemm_bias": [("flash", (128, 64, 192)), ("naive", (64, 64, 192)),
+                  ("ragged", (33, 47, 95))],
+    "flash": [("flash", (1, 64, 2, 2, 32, 0)), ("gqa", (1, 40, 4, 2, 32, 0)),
+              ("window", (1, 40, 4, 1, 32, 16))],
+}
+PATH_LABELS = tuple(label for label, _, _ in PATHS.values())
+REPORTED = PATHS[7][0]
 
 
 class SmokeFailure(AssertionError):
@@ -64,12 +120,17 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+def _shapes(table, name):
+    return table["flash" if name in FLASH else name]
+
+
 # ----------------------------------------------------------------------
 # Kernels, their plain versions, and how each is compared
 # ----------------------------------------------------------------------
 def kernel_table(device):
     """name -> (kernel, plain, library or None), all on the same inputs.
-    On the CPU (rehearsal) the plain versions stand in for the kernels."""
+    On the CPU (rehearsal) the plain versions stand in for the kernels.
+    The flash entries take the window as their last argument."""
     import torch
     from repro_torch.kernels import ref
     plain = {
@@ -77,26 +138,48 @@ def kernel_table(device):
         "add_rmsnorm_bwd": lambda res, w, gres, gh: ref.add_rmsnorm_bwd_ref(
             res, w, gres, gh, eps=1e-6),
         "gemm_bias": ref.matmul_bias_ref,
+        "flash_fwd": lambda q, k, v, win: ref.flash_fwd_ref(q, k, v, window=win),
+        "flash_bwd_dq": lambda q, k, v, g, lse, delta, win: ref.flash_bwd_ref(
+            q, k, v, None, lse, g, window=win, delta=delta)[0],
+        "flash_bwd_dkdv": lambda q, k, v, g, lse, delta, win: ref.flash_bwd_ref(
+            q, k, v, None, lse, g, window=win, delta=delta)[1:],
     }
-    library = {"gemm_bias": lambda a, b, bias: torch.addmm(bias, a, b)}
+    library = {"gemm_bias": lambda a, b, bias: torch.addmm(bias, a, b),
+               "flash_fwd": sdpa_forward}
     if device.type == "cpu":
         kern = plain
     else:
-        from repro_torch.kernels import fused
+        from repro_torch.kernels import flash, fused
         kern = {
             "add_rmsnorm_fwd": lambda x, r, w: fused.add_rmsnorm_fwd(x, r, w, 1e-6),
             "add_rmsnorm_bwd": lambda res, w, gres, gh: fused.add_rmsnorm_bwd(
                 res, w, gres, gh, 1e-6),
             "gemm_bias": fused.gemm_bias,
+            "flash_fwd": flash.flash_fwd,
+            "flash_bwd_dq": flash.flash_bwd_dq,
+            "flash_bwd_dkdv": flash.flash_bwd_dkdv,
         }
     return {k: (kern[k], plain[k], library.get(k)) for k in KERNELS}
+
+
+def sdpa_forward(q, k, v, window):
+    """The library yardstick of the flash forward: one causal
+    scaled_dot_product_attention call on [B, H, S, D] views (timed only;
+    the port never calls it)."""
+    import torch
+    check(window == 0 and q.shape[2] == k.shape[2],
+          "the SDPA yardstick is timed at the main shape only")
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True)
 
 
 def make_inputs(name, shape, dtype, device, seed, layout="fwd"):
     """Inputs for one kernel call.  Norms: shape = (M, d).  GEMM: shape =
     (M, K, N) of the forward x[M,K].W[K,N]; ``layout`` picks the product
     the fused QKV runs: fwd x.W+b, dx g.W^T (W read transposed), dW
-    x^T.g (x read transposed)."""
+    x^T.g (x read transposed).  Flash: shape = (B, S, H, KV, D, window);
+    the backward kernels get the plain forward's lse and delta."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(seed)
 
@@ -108,6 +191,15 @@ def make_inputs(name, shape, dtype, device, seed, layout="fwd"):
     if name == "add_rmsnorm_bwd":
         M, d = shape
         return (randn(M, d), randn(d, scale=0.2) + 1.0, randn(M, d), randn(M, d))
+    if name in FLASH:
+        from repro_torch.kernels import ref
+        B, S, H, KV, D, window = shape
+        q, k, v = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D)
+        if name == "flash_fwd":
+            return (q, k, v, window)
+        dout = randn(B, S, H, D)
+        out, lse = ref.flash_fwd_ref(q, k, v, window=window)
+        return (q, k, v, dout, lse, ref.flash_delta(out, dout), window)
     M, K, N = shape
     x, w = randn(M, K), randn(K, N, scale=K ** -0.5)
     if layout == "fwd":
@@ -121,30 +213,109 @@ def _flat(out):
     return list(out) if isinstance(out, (tuple, list)) else [out]
 
 
-def _scales(name, args, want):
-    """Per output, the magnitude each element's error is measured
-    against.  Elementwise outputs: the value itself.  The norm weight
-    gradient is a sum over M rows, so its rounding error scales with the
-    sum of the terms' magnitudes, sum_rows |gh * n|, not with the
-    (possibly much smaller) result: it gets that condition-aware scale."""
-    scales = [b.float().abs() for b in want]
-    if name == "add_rmsnorm_bwd":
+def _conds(name, args, want):
+    """Per output, its condition-aware scale, or None.  An output that
+    is a sum of many terms (the norm's weight gradient over M rows; the
+    GEMM's over K; the flash out and dq over kv positions; dk and dv over
+    the G query heads and all q positions) rounds in proportion to the
+    sum of its terms' magnitudes, not to the (often much smaller)
+    result: that sum is its scale."""
+    import torch
+    scales = [None] * len(want)
+    if name == "gemm_bias":
+        a, b, _ = args
+        scales[0] = a.float().abs() @ b.float().abs()
+    elif name == "add_rmsnorm_bwd":
         res, _, _, gh = (t.float() for t in args)
         n = res * (res.square().mean(-1, keepdim=True) + 1e-6).rsqrt()
         scales[1] = (gh.abs() * n.abs()).sum(0)
+    elif name == "flash_fwd":
+        from repro_torch.kernels import ref
+        q, k, v, window = args
+        lse = want[1]
+        p, _ = ref.flash_bwd_terms(q, k, v, lse, torch.zeros_like(q),
+                                   torch.zeros_like(lse), window=window)
+        scales[0] = torch.einsum("bkgqs,bskd->bqkgd", p, v.float().abs()
+                                 ).reshape(q.shape)
+    elif name in ("flash_bwd_dq", "flash_bwd_dkdv"):
+        from repro_torch.kernels import ref
+        q, k, v, dout, lse, delta, window = args
+        B, S, H, D = q.shape
+        KV = k.shape[2]
+        p, ds = ref.flash_bwd_terms(q, k, v, lse, dout, delta, window=window)
+        ds = ds.abs()
+
+        def grouped(t):
+            return t.float().abs().reshape(B, S, KV, H // KV, D)
+        if name == "flash_bwd_dq":
+            scales[0] = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float().abs()
+                                     ).reshape(B, S, H, D)
+        else:
+            scales[0] = torch.einsum("bkgqs,bqkgd->bskd", ds, grouped(q))
+            scales[1] = torch.einsum("bkgqs,bqkgd->bskd", p, grouped(dout))
     return scales
 
 
-def compare(name, kern, plain, args, dtype, tol):
+def _tol(rtol, atol, ctol=0.0):
+    return dict(rtol=rtol, atol=atol, ctol=ctol)
+
+
+# An element fails when |kernel - plain| > atol + rtol.|plain| +
+# ctol.cond, cond being the output's condition-aware scale (_conds).
+# fp32: another summation order.  The norms rtol 1e-5 / atol 1e-6 (dw
+# against its cond); the GEMM and the flash out 1e-4, the GEMM plus 1e-6
+# of its cond (in the dW layout at the flash path's K = 4096 an output
+# may be 2 % of its cond, and the two summation orders differed by
+# 3.4e-7 of it); the flash lse 1e-5; the flash gradients 1e-4 against
+# their cond.
+TOL_FP32 = {
+    "add_rmsnorm_fwd": [_tol(1e-5, 1e-6)] * 2,
+    "add_rmsnorm_bwd": [_tol(1e-5, 1e-6), _tol(0.0, 1e-6, 1e-5)],
+    "gemm_bias": [_tol(1e-4, 1e-4, 1e-6)],
+    "flash_fwd": [_tol(1e-4, 1e-4), _tol(1e-5, 1e-5)],
+    "flash_bwd_dq": [_tol(0.0, 1e-4, 1e-4)],
+    "flash_bwd_dkdv": [_tol(0.0, 1e-4, 1e-4)] * 2,
+}
+# bf16: both sides compute in fp32 from the same bf16 inputs and round
+# once, so two results may sit one bf16 ulp apart (2^-7 relative):
+# rtol 2e-2.  Elementwise outputs (magnitudes near 1) take atol 2e-2.  A
+# sum of many terms is often only a few percent of its cond, so a cond
+# term as loose as 2e-2 would pass a zeroed output: those get 1e-3 of
+# their cond (the fp32 sums agree to ~1e-6 of it) and atol 1e-5.  The
+# flash lse is fp32 on both sides: as in fp32.
+_SUM_BF16 = _tol(2e-2, 1e-5, 1e-3)
+TOL_BF16 = {
+    "add_rmsnorm_fwd": [_tol(2e-2, 2e-2)] * 2,
+    "add_rmsnorm_bwd": [_tol(2e-2, 2e-2), _SUM_BF16],
+    "gemm_bias": [_tol(2e-2, 2e-2)],
+    "flash_fwd": [_SUM_BF16, _tol(1e-5, 1e-5)],
+    "flash_bwd_dq": [_SUM_BF16],
+    "flash_bwd_dkdv": [_SUM_BF16] * 2,
+}
+
+
+def tolerances(name, dtype):
+    """Per output: dict(rtol, atol, ctol)."""
+    import torch
+    return (TOL_BF16 if dtype == torch.bfloat16 else TOL_FP32)[name]
+
+
+def compare(name, kern, plain, args, dtype):
     import torch
     got, want = _flat(kern(*args)), _flat(plain(*args))
     err = 0.0
-    for i, (a, b, scale) in enumerate(zip(got, want, _scales(name, args, want))):
+    for i, (a, b, cond, tol) in enumerate(zip(
+            got, want, _conds(name, args, want), tolerances(name, dtype))):
         check(a.shape == b.shape and a.dtype == b.dtype,
               f"{name}[{i}]: {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
-        check(torch.isfinite(a.float()).all().item(), f"{name}[{i}]: non-finite")
+        for side, t in (("kernel", a), ("plain", b)):
+            check(torch.isfinite(t.float()).all().item(),
+                  f"{name}[{i}]: non-finite {side} output")
         diff = (a.float() - b.float()).abs()
-        bad = diff > tol["atol"] + tol["rtol"] * scale
+        limit = tol["atol"] + tol["rtol"] * b.float().abs()
+        if cond is not None:
+            limit = limit + tol["ctol"] * cond
+        bad = diff > limit
         check(not bad.any().item(),
               f"{name}[{i}] {dtype}: {int(bad.sum())} of {bad.numel()} "
               f"elements off, max abs err {float(diff.max()):.3e} (tol {tol})")
@@ -155,29 +326,23 @@ def compare(name, kern, plain, args, dtype, tol):
     return err
 
 
-def check_kernels(device, table, main_shapes, ragged_shapes):
-    """Phase 3.  Returns name -> max abs error at the main path's shape
-    in fp32."""
+def check_kernels(device, table, shapes):
+    """Phase 3.  Returns name -> max abs error at REPORTED's shape in
+    fp32."""
     import torch
-    tols = {torch.float32: {"gemm_bias": dict(rtol=1e-4, atol=1e-4),
-                            "norm": dict(rtol=1e-5, atol=1e-6)},
-            torch.bfloat16: {"gemm_bias": dict(rtol=2e-2, atol=2e-2),
-                             "norm": dict(rtol=2e-2, atol=2e-2)}}
     errors = {}
     for name, (kern, plain, _) in table.items():
         layouts = ("fwd", "dx", "dW") if name == "gemm_bias" else ("fwd",)
         for dtype in (torch.float32, torch.bfloat16):
-            tol = tols[dtype]["gemm_bias" if name == "gemm_bias" else "norm"]
-            for label, shape in (("main", main_shapes[name]),
-                                 ("ragged", ragged_shapes[name])):
+            for label, shape in _shapes(shapes, name):
                 for layout in layouts:
                     args = make_inputs(name, shape, dtype, device, seed=1,
                                        layout=layout)
-                    err = compare(name, kern, plain, args, dtype, tol)
+                    err = compare(name, kern, plain, args, dtype)
                     print(f"[check] {name:16s} {layout:3s} {label:6s} "
                           f"{str(dtype)[6:]:8s} shape={shape} "
                           f"max_abs_err={err:.3e} deterministic=yes")
-                    if dtype == torch.float32 and label == "main":
+                    if dtype == torch.float32 and label == REPORTED:
                         errors[name] = max(errors.get(name, 0.0), err)
     return errors
 
@@ -207,9 +372,37 @@ def time_ms(fn, args, device, iters):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def device_ms(fn, args, kernel, iters):
+    """Device milliseconds per call of the CUDA function ``kernel``
+    (``<name>_kernel`` in csrc/): its own events under torch.profiler,
+    summed over ``iters`` calls.  None where the profiler records no
+    such event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn(*args)
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for evt in prof.key_averages():
+        if kernel in evt.key:
+            total_us += getattr(evt, "device_time_total",
+                                getattr(evt, "cuda_time_total", 0.0))
+            count += evt.count
+    return total_us / 1e3 / iters if count else None
+
+
+def _causal_pairs(S, window):
+    """(q, k) pairs a causal (windowed) attention over S positions keeps."""
+    return sum(min(i + 1, window) if window > 0 else i + 1 for i in range(S))
+
+
 def bound(name, shape, dtype):
     """(ms, 'bytes' | 'operations'): each input read once, each output
-    written once, over 3.35 TB/s; operations over the type's peak."""
+    written once, over 3.35 TB/s; operations over the type's peak.  The
+    flash kernels count their matrix products (2 flops per multiply-add)
+    over the (q, k) pairs the causal mask keeps: 2 products in the
+    forward, 3 in dq, 4 in dk/dv."""
     import torch
     s = torch.tensor([], dtype=dtype).element_size()
     if name == "add_rmsnorm_fwd":
@@ -218,6 +411,14 @@ def bound(name, shape, dtype):
     elif name == "add_rmsnorm_bwd":
         M, d = shape
         nbytes, ops = (4 * M * d + d) * s + 4 * d, 12 * M * d
+    elif name in FLASH:
+        B, S, H, KV, D, window = shape
+        qn, kvn, rows = B * S * H * D, B * S * KV * D, B * H * S * 4
+        nbytes, products = {
+            "flash_fwd": ((2 * qn + 2 * kvn) * s + rows, 2),
+            "flash_bwd_dq": ((3 * qn + 2 * kvn) * s + 2 * rows, 3),
+            "flash_bwd_dkdv": ((2 * qn + 4 * kvn) * s + 2 * rows, 4)}[name]
+        ops = products * 2 * D * B * H * _causal_pairs(S, window)
     else:
         M, K, N = shape
         nbytes, ops = (M * K + K * N + M * N + N) * s, 2 * M * N * K
@@ -226,85 +427,131 @@ def bound(name, shape, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_kernels(device, table, main_shapes, iters):
-    """Phase 4, fp32 at the main path's shapes (the main path's dtype)."""
+def sdpa_backward_ms(args, device, iters):
+    """Library yardstick of the flash backward pair: causal
+    scaled_dot_product_attention forward + backward, minus its forward."""
     import torch
+    q, k, v, dout, _, _, window = args
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    def fwd_bwd():
+        out = sdpa_forward(*leaves, window)
+        return torch.autograd.grad(out, leaves, dout.transpose(1, 2))
+    return (time_ms(fwd_bwd, (), device, iters)
+            - time_ms(sdpa_forward, (*leaves, window), device, iters))
+
+
+def time_kernels(device, table, shapes, iters):
+    """Phase 4, fp32 (the paths' dtype), at each path's shape.  Returns
+    name -> the row at REPORTED's shape."""
+    import torch
+    on_card = device.type == "cuda"
     rows = {}
     for name, (kern, plain, lib) in table.items():
-        shape = main_shapes[name]
-        args = make_inputs(name, shape, torch.float32, device, seed=2)
-        ms = time_ms(kern, args, device, iters)
-        plain_ms = time_ms(plain, args, device, iters)
-        lib_ms = time_ms(lib, args, device, iters) if lib is not None else None
-        bms, by = bound(name, shape, torch.float32)
-        rows[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                      "bound_ms": bms, "bound_by": by}
-        print(f"[time] {name:16s} fwd shape={shape} fp32: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, library "
-              f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-              f"bound {bms:.4f} ms ({by})")
-        if name == "gemm_bias":
+        for label, shape in _shapes(shapes, name):
+            if label not in PATH_LABELS:
+                continue
+            args = make_inputs(name, shape, torch.float32, device, seed=2)
+            ms = time_ms(kern, args, device, iters)
+            dev_ms = (device_ms(kern, args, name + "_kernel", iters)
+                      if on_card else None)
+            plain_ms = time_ms(plain, args, device, iters)
+            if name in ("flash_bwd_dq", "flash_bwd_dkdv"):
+                lib_ms = sdpa_backward_ms(args, device, iters)
+            else:
+                lib_ms = (time_ms(lib, args, device, iters)
+                          if lib is not None else None)
+            bms, by = bound(name, shape, torch.float32)
+            if label == REPORTED:
+                rows[name] = {"ms": ms, "plain_ms": plain_ms,
+                              "library_ms": lib_ms, "bound_ms": bms,
+                              "bound_by": by}
+            print(f"[time] {name:16s} fwd {label:5s} shape={shape} fp32: "
+                  f"kernel {ms:.4f} ms (profiler device time "
+                  f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), "
+                  f"plain {plain_ms:.4f} ms, library "
+                  f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+                  f"{' (SDPA fwd+bwd - fwd: dq and dk/dv together)' if name in FLASH[1:] else ''}, "
+                  f"bound {bms:.4f} ms ({by})")
+            if name != "gemm_bias":
+                continue
             for layout in ("dx", "dW"):
                 a = make_inputs(name, shape, torch.float32, device, seed=2,
                                 layout=layout)
                 sh = ((shape[0], shape[2], shape[1]) if layout == "dx"
                       else (shape[1], shape[0], shape[2]))
                 kms = time_ms(kern, a, device, iters)
+                dms = (device_ms(kern, a, name + "_kernel", iters)
+                       if on_card else None)
                 pms = time_ms(plain, a, device, iters)
                 lms = time_ms(torch.matmul, a[:2], device, iters)
                 bl, byl = bound(name, sh, torch.float32)
-                print(f"[time] {name:16s} {layout:3s} shape={sh} fp32: kernel "
-                      f"{kms:.4f} ms, plain {pms:.4f} ms, library {lms:.4f} ms, "
+                print(f"[time] {name:16s} {layout:3s} {label:5s} shape={sh} "
+                      f"fp32: kernel {kms:.4f} ms (profiler device time "
+                      f"{'not measured' if dms is None else f'{dms:.4f} ms'}), "
+                      f"plain {pms:.4f} ms, library {lms:.4f} ms, "
                       f"bound {bl:.4f} ms ({byl})")
     return rows
 
 
 # ----------------------------------------------------------------------
-# End-to-end agreement on a small model, then the main path
+# End-to-end agreement on small models, then the two paths
 # ----------------------------------------------------------------------
-def check_small_model(device):
-    """Phase 5: the same small model and batch through the fused path
-    (the kernels, on the card) and the unfused path (plain ops)."""
+def _loss_and_grads(device, arch, seq, attn_impl, fuse):
     import torch
-    from repro_torch.configs import get_arch, reduced
     from repro_torch.models import Model
     from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
-    arch = reduced(get_arch("gpt3_medium"), layers=2, d_model=128, vocab=512)
     g = torch.Generator(device="cpu").manual_seed(3)
-    tokens = torch.randint(0, arch.vocab_size, (2, 64), generator=g).to(device)
-    labels = torch.randint(0, arch.vocab_size, (2, 64), generator=g).to(device)
-    batch = {"tokens": tokens, "labels": labels}
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = Model(arch, dtype=torch.float32).init(gen)
-    out = {}
-    for fuse in ("fused", "none"):
-        m = Model(arch, dtype=torch.float32, attn_impl="naive",
-                  fuse=fuse)
-        leaves = [t.detach().clone().requires_grad_(True)
-                  for t in tree_leaves(params)]
-        p = tree_unflatten_like(params, leaves)
-        loss, _ = m.loss(p, batch)
-        out[fuse] = (loss.detach(), torch.autograd.grad(loss, leaves))
-    (lf, gf), (ln, gn) = out["fused"], out["none"]
-    check(torch.isfinite(lf).item(), "small model: non-finite loss")
-    check(abs(float(lf) - float(ln)) <= 1e-5 * abs(float(ln)) + 1e-6,
-          f"small model: loss {float(lf)} vs {float(ln)}")
-    worst = max(float((a - b).abs().max()) for a, b in zip(gf, gn))
-    check(worst <= 1e-4, f"small model: gradient max abs diff {worst:.3e}")
-    print(f"[model] fused vs unfused: loss {float(lf):.6f} vs {float(ln):.6f}, "
-          f"gradient max abs diff {worst:.3e}")
+    batch = {key: torch.randint(0, arch.vocab_size, (2, seq), generator=g
+                                ).to(device) for key in ("tokens", "labels")}
+    model = Model(arch, dtype=torch.float32, attn_impl=attn_impl, fuse=fuse)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    loss, _ = model.loss(tree_unflatten_like(params, leaves), batch)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
 
 
-def run_main_path(device, argv):
-    """Phase 6: returns the per-kernel launch counts of the run."""
+def check_small_model(device):
+    """Phase 5: the same small models, weights and batches through the
+    kernels and through plain ops.  Loss to 1e-5 relative, gradients to
+    1e-4."""
+    from repro_torch.configs import get_arch, reduced
+    gpt = reduced(get_arch("gpt3_medium"), layers=2, d_model=128, vocab=512)
+    qwen = reduced(get_arch("qwen2_5_3b"), layers=2, d_model=128, vocab=512)
+    cases = [  # (label, arch, seq, (attn, fuse) through kernels, plain)
+        ("gpt3-medium fused vs unfused", gpt, 64,
+         ("naive", "fused"), ("naive", "none")),
+        ("gpt3-medium flash vs naive", gpt, 64,
+         ("kernel", "fused"), ("naive", "fused")),
+        ("qwen2.5-3b (GQA 4/2, QKV bias) S=200 flash vs naive", qwen, 200,
+         ("kernel", "fused"), ("naive", "fused")),
+    ]
+    for label, arch, seq, through, plain in cases:
+        lk, gk = _loss_and_grads(device, arch, seq, *through)
+        ln, gn = _loss_and_grads(device, arch, seq, *plain)
+        check(math.isfinite(float(lk)), f"small model {label}: non-finite loss")
+        check(abs(float(lk) - float(ln)) <= 1e-5 * abs(float(ln)) + 1e-6,
+              f"small model {label}: loss {float(lk)} vs {float(ln)}")
+        worst = max(float((a - b).abs().max()) for a, b in zip(gk, gn))
+        check(worst <= 1e-4,
+              f"small model {label}: gradient max abs diff {worst:.3e}")
+        print(f"[model] {label}: loss {float(lk):.6f} vs {float(ln):.6f}, "
+              f"gradient max abs diff {worst:.3e}")
+
+
+def run_path(device, phase, kernels):
+    """Phases 6 and 7: one training run through a failure, with every
+    launch count set to 0 just before it.  Returns the run's launch
+    counts; on the card every kernel in ``kernels`` must have launched."""
     import torch
-    from repro_torch.kernels import fused
+    from repro_torch.kernels import build
     from repro_torch.launch import train
+    label, card_argv, cpu_argv = PATHS[phase]
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    fused.reset_launches()
-    out = train.main(argv)
-    launches = dict(fused.LAUNCHES)
+    build.reset_launches()
+    out = train.main(card_argv if device.type == "cuda" else cpu_argv)
+    launches = dict(build.LAUNCHES)
     losses = out["losses"]
     check(all(math.isfinite(l) for l in losses), f"non-finite loss {losses}")
     check(losses[-1] < losses[0], f"loss did not decrease: {losses}")
@@ -316,14 +563,14 @@ def run_main_path(device, argv):
           f"program builds changed across fail -> recover -> step: "
           f"{rec['builds_before']} -> {out['builds_after_step']}")
     if device.type == "cuda":
-        check(all(n > 0 for n in launches.values()),
-              f"a kernel never launched on the main path: {launches}")
+        check(all(launches[k] > 0 for k in kernels),
+              f"a kernel never launched on the {label} path: {launches}")
         mem = torch.cuda.max_memory_allocated() / 2**30
     else:
         mem = float("nan")
-    print(f"[main] step seconds (host clock around synchronize): "
+    print(f"[{label}] step seconds (host clock around synchronize): "
           f"{[round(s, 4) for s in out['step_seconds']]}")
-    print(f"[main] recovery {rec['seconds']:.3f}s, builds "
+    print(f"[{label}] recovery {rec['seconds']:.3f}s, builds "
           f"{rec['builds_before']} -> {out['builds_after_step'][-1]}, "
           f"max_memory_allocated {mem:.2f} GiB, launches {launches}")
     return launches
@@ -357,31 +604,22 @@ def run(device="cuda"):
         print(f"[build] {info.path} in "
               f"{time.perf_counter() - t0:.1f}s (nvcc {info.seconds:.1f}s)")
         print(build.ptxas_summary(info.log))
-        main_shapes = {"add_rmsnorm_fwd": (1024, 1024),
-                       "add_rmsnorm_bwd": (1024, 1024),
-                       "gemm_bias": (1024, 1024, 3072)}
-        ragged_shapes = {"add_rmsnorm_fwd": (1000, 999),
-                         "add_rmsnorm_bwd": (1000, 999),
-                         "gemm_bias": (1000, 999, 3000)}
-        iters, argv = 50, MAIN_ARGV
+        shapes, iters = CARD_SHAPES, 50
     else:
         print("[device] cpu rehearsal: plain versions stand in for kernels")
-        main_shapes = {"add_rmsnorm_fwd": (64, 64), "add_rmsnorm_bwd": (64, 64),
-                       "gemm_bias": (64, 64, 192)}
-        ragged_shapes = {"add_rmsnorm_fwd": (33, 47), "add_rmsnorm_bwd": (33, 47),
-                         "gemm_bias": (33, 47, 95)}
-        iters, argv = 2, REHEARSAL_ARGV
+        shapes, iters = CPU_SHAPES, 2
 
     table = kernel_table(device)
-    errors = check_kernels(device, table, main_shapes, ragged_shapes)
-    timing = time_kernels(device, table, main_shapes, iters)
+    errors = check_kernels(device, table, shapes)
+    timing = time_kernels(device, table, shapes, iters)
     check_small_model(device)
-    launches = run_main_path(device, argv)
+    run_path(device, 6, FUSED)
+    launches = run_path(device, 7, KERNELS)
     record = {"kernels": [
-        {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": KERNELS[name], "launches": launches[name],
-         "max_abs_err": errors[name], **timing[name]}
-        for name in KERNELS]}
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches[name], "max_abs_err": errors[name],
+         **timing[name]}
+        for name, (replaces, source) in KERNELS.items()]}
     if on_card:
         print(card)
     print(json.dumps(record))

@@ -1,17 +1,23 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build, load and launch the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled at first use with ``nvcc`` into a shared
-library with a plain C interface, keyed by a hash of the sources, and
-loaded with ``ctypes``::
+The sources are compiled at first use into one shared library with a
+plain C interface, keyed by a hash of the sources, and loaded with
+``ctypes``.  Each source gets its own ``nvcc`` process, all started
+together, and one more ``nvcc`` links the objects::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/kernels/<hash>/libfused.so \
-         src/repro_torch/kernels/csrc/fused.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu  # each
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o build/kernels/<hash>/libkernels.so *.o
 
 The library lands under ``build/kernels/`` at the root of the checkout
 (listed in ``.gitignore``).  Nothing is compiled when this module is
 imported: ``library()`` builds on its first call, and a failed build
 raises with the compiler's output.
+
+``launch(name, ...)`` calls one ``extern "C"`` launcher, raises if it
+returns a CUDA error, and counts the launch in ``LAUNCHES``: one per
+launch and nowhere else, so a run can show it went through the kernels.
 """
 from __future__ import annotations
 
@@ -21,36 +27,62 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
 import time
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "fused.cu",)
+SOURCES = (CSRC / "fused.cu", CSRC / "flash.cu")
 ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: extern "C" launchers of csrc/fused.cu and their argument types
+# flash launchers: B, S, H, KV, D, window, scale, then (batch, seq, head)
+# strides of q, k and v
+_FLASH_SHAPE = (_int,) * 6 + (_float,) + (_int,) * 9
+#: extern "C" launchers of csrc/*.cu and their argument types
 SIGNATURES = {
     "add_rmsnorm_fwd": (_vp, _vp, _vp, _vp, _vp, _int, _int, _float, _int, _vp),
     "add_rmsnorm_bwd": (_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
                         _float, _int, _vp),
     "gemm_bias": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int,
                   _int, _int, _vp),
+    "flash_fwd": (_vp,) * 5 + _FLASH_SHAPE + (_int, _vp),
+    "flash_bwd_dq": (_vp,) * 7 + _FLASH_SHAPE + (_int,) * 3 + (_int, _vp),
+    "flash_bwd_dkdv": (_vp,) * 8 + _FLASH_SHAPE + (_int,) * 3 + (_int, _vp),
 }
+
+#: launches per kernel since the last ``reset_launches()``
+LAUNCHES: Dict[str, int] = dict.fromkeys(SIGNATURES, 0)
+
+
+def build_inputs() -> Tuple[pathlib.Path, ...]:
+    """``SOURCES`` and the ``csrc/`` headers they ``#include "..."``,
+    directly or through another header."""
+    seen, todo = [], list(SOURCES)
+    while todo:
+        f = todo.pop(0)
+        if f not in seen:
+            seen.append(f)
+            todo += [CSRC / n for n in
+                     re.findall(r'^#include\s+"([^"]+)"', f.read_text(), re.M)]
+    return tuple(seen)
 
 
 @functools.lru_cache(maxsize=None)
 def source_hash() -> str:
-    """Hash of every kernel source and the compiler flags: the build key,
+    """Hash of ``build_inputs()`` and the compiler flags: the build key,
     and part of ``ops.backend_signature()``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in sorted(build_inputs()):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -74,32 +106,50 @@ def _nvcc() -> str:
                        "kernels are compiled on the machine with the card")
 
 
+def commands(tmp: str) -> Tuple[List[List[str]], List[str]]:
+    """(one ``nvcc -c`` per source, the link) writing into ``tmp``."""
+    nvcc = _nvcc()
+    objs = [os.path.join(tmp, src.stem + ".o") for src in SOURCES]
+    compile_cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                    for src, obj in zip(SOURCES, objs)]
+    return compile_cmds, [nvcc, *ARCH_FLAGS, "-shared", "-o",
+                          os.path.join(tmp, "libkernels.so"), *objs]
+
+
+def run_all(cmds) -> str:
+    """Run the commands concurrently; their combined output.  Raises
+    with that output if any of them fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [c for c, p in zip(cmds, procs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            " ".join(c) for c in failed) + "\n" + "".join(outs))
+    return "".join(outs)
+
+
 def build() -> BuildInfo:
-    """Compile the sources into ``build/kernels/<hash>/libfused.so``
-    unless that file exists.  The library is written to a temporary name
-    and renamed into place, so a concurrent or interrupted build never
-    leaves a half-written library behind."""
+    """Compile the sources into ``build/kernels/<hash>/libkernels.so``
+    unless that file exists: one ``nvcc`` per source, all at once, then
+    one link.  Objects and the library are written in a temporary
+    directory and the library renamed into place, so a concurrent or
+    interrupted build never leaves a half-written library behind."""
     out_dir = BUILD_DIR / source_hash()
-    lib = out_dir / "libfused.so"
+    lib = out_dir / "libkernels.so"
     log_file = out_dir / "nvcc.log"
     if lib.exists():
         log = log_file.read_text() if log_file.exists() else ""
         return BuildInfo(lib, 0.0, log)
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
-    os.replace(tmp, lib)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        compile_cmds, link_cmd = commands(tmp)
+        log = run_all(compile_cmds) + run_all([link_cmd])
+        os.replace(os.path.join(tmp, lib.name), lib)
     log_file.write_text(log)
-    return BuildInfo(lib, seconds, log)
+    return BuildInfo(lib, time.perf_counter() - t0, log)
 
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -124,6 +174,44 @@ def build_info() -> BuildInfo:
     """How the loaded library was obtained (after ``library()``)."""
     library()
     return _INFO
+
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_tensors(name: str, *tensors: torch.Tensor) -> int:
+    """Raise unless the tensors are CUDA tensors of one supported dtype on
+    one device; return the kernels' dtype code (0 fp32, 1 bf16)."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: CUDA tensors required, got {dev}")
+    dtype = tensors[0].dtype
+    if dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {dtype} not supported "
+                        f"(float32 or bfloat16)")
+    for t in tensors:
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{name}: mixed devices or dtypes "
+                             f"({t.device}, {t.dtype} vs {dev}, {dtype})")
+    return _DTYPES[dtype]
+
+
+def current_stream(t: torch.Tensor) -> int:
+    """The handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch(name: str, *args) -> None:
+    """Call the launcher ``name``; raise on a refused or failed launch."""
+    err = getattr(library(), name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    LAUNCHES[name] += 1
 
 
 def ptxas_summary(log: str) -> str:

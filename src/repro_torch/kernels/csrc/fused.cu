@@ -8,25 +8,9 @@
 // cudaGetLastError() so the Python wrapper can raise on a refused
 // launch.  dtype codes: 0 = float32, 1 = bfloat16.  No kernel uses
 // atomics: the same inputs give bitwise-equal outputs.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
-
-constexpr int kF32 = 0;
-constexpr int kBF16 = 1;
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even
-}
 
 // Sum of one float per thread over the whole block, in a fixed order
 // (warp butterfly, then warp 0 over the per-warp sums), returned to

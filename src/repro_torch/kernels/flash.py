@@ -1,0 +1,119 @@
+"""Causal GQA flash attention on the card: wrappers around the CUDA
+kernels of ``csrc/flash.cu`` (``ops.FlashAttention`` is their
+``torch.autograd.Function``).
+
+  * ``flash_fwd``: (out, lse) in one kernel; the [S, S] scores never
+    reach device memory.
+  * ``flash_bwd_dq`` and ``flash_bwd_dkdv``: the two-pass backward, p
+    rebuilt from the saved lse.  dk and dv come from ONE kernel that
+    loops the G query heads of each kv head itself, so they are written
+    once, at kv-head resolution, with no atomics.
+  * ``delta = rowsum(dO * O)`` is an input of both backward kernels:
+    one plain PyTorch reduction (``ref.flash_delta``), as the JAX
+    package computes it in plain jnp outside its kernels.
+
+q and out are [B, S, H, D]; k and v [B, S, KV, D]; lse and delta
+[B, H, S] fp32.  q, k, v and dO are read through their strides (the
+head dim must be dense); outputs are new contiguous tensors.  Every
+wrapper takes CUDA tensors only and raises on anything else, including
+a head dim the kernels are not built for; the CPU path never reaches
+this module (``kernels/ops.py`` routes a CPU tensor to the plain
+versions in ``kernels/ref.py``).  Launches are counted in
+``build.LAUNCHES``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels.build import check_tensors, current_stream, launch
+
+#: head dims with a template instance in csrc/flash.cu
+HEAD_DIMS = (32, 64, 128)
+
+
+def _strides(t: torch.Tensor) -> Tuple[int, int, int]:
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _check(name: str, q, k, v, *more, window: int) -> Tuple:
+    """Validate the attention operands (``more``: tensors shaped like q);
+    return (code, B, S, H, KV, D)."""
+    code = check_tensors(name, q, k, v, *more)
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"{name}: q [B,S,H,D] and k/v [B,S,KV,D] expected, "
+                         f"got {tuple(q.shape)} {tuple(k.shape)}")
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    if (k.shape != (B, S, KV, D) or v.shape != k.shape or KV == 0
+            or H % KV != 0 or S == 0
+            or any(t.shape != q.shape for t in more)):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} "
+                         f"{[tuple(t.shape) for t in more]}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D} not built (one of {HEAD_DIMS})")
+    if window < 0:
+        raise ValueError(f"{name}: window {window} < 0")
+    for t in (q, k, v, *more):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: the head dim must be dense "
+                             f"(strides {t.stride()})")
+    return code, B, S, H, KV, D
+
+
+def _check_rows(name: str, lse: torch.Tensor, delta: torch.Tensor,
+                B: int, H: int, S: int) -> None:
+    for t in (lse, delta):
+        if (t.shape != (B, H, S) or t.dtype != torch.float32
+                or t.device != lse.device or not t.is_contiguous()):
+            raise ValueError(f"{name}: lse and delta must be contiguous "
+                             f"[B,H,S] fp32 on the card, got "
+                             f"{tuple(t.shape)} {t.dtype} {t.device}")
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (out [B,S,H,D] in q's dtype, lse [B,H,S] fp32)."""
+    code, B, S, H, KV, D = _check("flash_fwd", q, k, v, window=window)
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           out.data_ptr(), lse.data_ptr(), B, S, H, KV, D, window,
+           1.0 / math.sqrt(D), *_strides(q), *_strides(k), *_strides(v),
+           code, current_stream(q))
+    return out, lse
+
+
+def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 window: int = 0) -> torch.Tensor:
+    """dq [B,S,H,D] from dO = g, the forward's lse and delta."""
+    code, B, S, H, KV, D = _check("flash_bwd_dq", q, k, v, g, window=window)
+    _check_rows("flash_bwd_dq", lse, delta, B, H, S)
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    launch("flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+           B, S, H, KV, D, window, 1.0 / math.sqrt(D), *_strides(q),
+           *_strides(k), *_strides(v), *_strides(g), code, current_stream(q))
+    return dq
+
+
+def flash_bwd_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                   window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv), each [B,S,KV,D], summed over the group in fp32."""
+    code, B, S, H, KV, D = _check("flash_bwd_dkdv", q, k, v, g,
+                                  window=window)
+    _check_rows("flash_bwd_dkdv", lse, delta, B, H, S)
+    dk = torch.empty((B, S, KV, D), dtype=k.dtype, device=k.device)
+    dv = torch.empty((B, S, KV, D), dtype=v.dtype, device=v.device)
+    launch("flash_bwd_dkdv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+           dv.data_ptr(), B, S, H, KV, D, window, 1.0 / math.sqrt(D),
+           *_strides(q), *_strides(k), *_strides(v), *_strides(g), code,
+           current_stream(q))
+    return dk, dv
+

@@ -12,58 +12,20 @@
 
 Every wrapper takes CUDA tensors only and raises on anything else; the
 CPU path never reaches this module (``kernels/ops.py`` routes a CPU
-tensor to ``kernels/ref.py``).  ``LAUNCHES`` counts each kernel's
-launches, one per launch and nowhere else, so a run can show it went
-through the kernels.
+tensor to ``kernels/ref.py``).  Launches are counted in
+``build.LAUNCHES``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
-
-#: launches per kernel since the last ``reset_launches()``
-LAUNCHES: Dict[str, int] = {"add_rmsnorm_fwd": 0, "add_rmsnorm_bwd": 0,
-                            "gemm_bias": 0}
+from repro_torch.kernels.build import check_tensors, current_stream, launch
 
 #: rows per block of the backward norm kernel: M / 8 blocks fill the
 #: card at the main path's M = 1024 and keep the dw partials small
 NORM_BWD_ROWS = 8
-
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _check(name: str, *tensors: torch.Tensor) -> int:
-    dev = tensors[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: CUDA tensors required, got {dev}")
-    dtype = tensors[0].dtype
-    if dtype not in _DTYPES:
-        raise TypeError(f"{name}: dtype {dtype} not supported "
-                        f"(float32 or bfloat16)")
-    for t in tensors:
-        if t.device != dev or t.dtype != dtype:
-            raise ValueError(f"{name}: mixed devices or dtypes "
-                             f"({t.device}, {t.dtype} vs {dev}, {dtype})")
-    return _DTYPES[dtype]
-
-
-def _launch(name: str, *args) -> None:
-    err = getattr(build.library(), name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    LAUNCHES[name] += 1
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 # ----------------------------------------------------------------------
@@ -72,14 +34,15 @@ def _stream(t: torch.Tensor) -> int:
 def add_rmsnorm_fwd(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
                     eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """x, r: [M, d] contiguous; w: [d].  Returns (res, h)."""
-    code = _check("add_rmsnorm_fwd", x, r, w)
+    code = check_tensors("add_rmsnorm_fwd", x, r, w)
     M, d = x.shape
     if r.shape != (M, d) or w.shape != (d,):
         raise ValueError(f"add_rmsnorm_fwd: shapes {x.shape} {r.shape} {w.shape}")
     x, r, w = x.contiguous(), r.contiguous(), w.contiguous()
     res, h = torch.empty_like(x), torch.empty_like(x)
-    _launch("add_rmsnorm_fwd", x.data_ptr(), r.data_ptr(), w.data_ptr(),
-            res.data_ptr(), h.data_ptr(), M, d, float(eps), code, _stream(x))
+    launch("add_rmsnorm_fwd", x.data_ptr(), r.data_ptr(), w.data_ptr(),
+           res.data_ptr(), h.data_ptr(), M, d, float(eps), code,
+           current_stream(x))
     return res, h
 
 
@@ -88,7 +51,7 @@ def add_rmsnorm_bwd(res: torch.Tensor, w: torch.Tensor, gres: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (dres, dw): dres is the cotangent of both addends; dw is
     the fp32 sum of the per-block partials, cast to w's dtype."""
-    code = _check("add_rmsnorm_bwd", res, w, gres, gh)
+    code = check_tensors("add_rmsnorm_bwd", res, w, gres, gh)
     M, d = res.shape
     if gres.shape != (M, d) or gh.shape != (M, d) or w.shape != (d,):
         raise ValueError("add_rmsnorm_bwd: shape mismatch")
@@ -97,9 +60,9 @@ def add_rmsnorm_bwd(res: torch.Tensor, w: torch.Tensor, gres: torch.Tensor,
     blocks = -(-M // NORM_BWD_ROWS)
     dres = torch.empty_like(res)
     partials = torch.empty((blocks, d), dtype=torch.float32, device=res.device)
-    _launch("add_rmsnorm_bwd", res.data_ptr(), w.data_ptr(), gres.data_ptr(),
-            gh.data_ptr(), dres.data_ptr(), partials.data_ptr(), M, d,
-            NORM_BWD_ROWS, float(eps), code, _stream(res))
+    launch("add_rmsnorm_bwd", res.data_ptr(), w.data_ptr(), gres.data_ptr(),
+           gh.data_ptr(), dres.data_ptr(), partials.data_ptr(), M, d,
+           NORM_BWD_ROWS, float(eps), code, current_stream(res))
     return dres, partials.sum(0).to(w.dtype)
 
 
@@ -109,7 +72,7 @@ def gemm_bias(a: torch.Tensor, b: torch.Tensor,
     a: [M, K], b: [K, N], any strides (a transposed view costs no copy);
     bias: [N] or None.  C is a new contiguous [M, N] tensor."""
     tensors = (a, b) if bias is None else (a, b, bias)
-    code = _check("gemm_bias", *tensors)
+    code = check_tensors("gemm_bias", *tensors)
     (M, K), (K2, N) = a.shape, b.shape
     if K != K2 or (bias is not None and bias.shape != (N,)):
         raise ValueError(f"gemm_bias: shapes {a.shape} {b.shape} "
@@ -117,10 +80,10 @@ def gemm_bias(a: torch.Tensor, b: torch.Tensor,
     if bias is not None:
         bias = bias.contiguous()
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    _launch("gemm_bias", a.data_ptr(), b.data_ptr(),
-            None if bias is None else bias.data_ptr(), c.data_ptr(),
-            M, N, K, a.stride(0), a.stride(1), b.stride(0), b.stride(1),
-            code, _stream(a))
+    launch("gemm_bias", a.data_ptr(), b.data_ptr(),
+           None if bias is None else bias.data_ptr(), c.data_ptr(),
+           M, N, K, a.stride(0), a.stride(1), b.stride(0), b.stride(1),
+           code, current_stream(a))
     return c
 
 

@@ -2,7 +2,7 @@
 
   * a CPU tensor runs the plain PyTorch version (``kernels/ref.py``);
   * a CUDA tensor launches the hand-written CUDA kernel
-    (``kernels/fused.py``), or raises;
+    (``kernels/fused.py``, ``kernels/flash.py``), or raises;
   * anything else raises.
 
 There is no capability probe and no fallback: a CUDA tensor never runs
@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import flash as _flash
 from repro_torch.kernels import fused as _fused
 from repro_torch.kernels import ref as _ref
 
@@ -80,10 +81,44 @@ def fused_qkv(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     return tuple(torch.split(y, [cq, ck, y.shape[-1] - cq - ck], dim=-1))
 
 
-def flash_attention(q, k, v, window: int = 0):
-    raise NotImplementedError(
-        "flash attention (TPU kernels 4-7) is ported in the flash-attention "
-        "slice (ROADMAP queue 1); use attn_impl='naive' or 'blocked'")
+class FlashAttention(torch.autograd.Function):
+    """Causal GQA attention whose backward rebuilds p from the saved lse:
+    the three CUDA kernels of ``kernels/flash.py`` on a CUDA tensor, their
+    plain versions on a CPU tensor (one structure, so the CPU tests run
+    the custom backward's math and a CPU tensor never reaches
+    ``kernels/flash.py``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int):
+        if q.device.type == "cpu":
+            out, lse = _ref.flash_fwd_ref(q, k, v, window=window)
+        else:
+            out, lse = _flash.flash_fwd(q, k, v, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        g = g.contiguous()
+        delta = _ref.flash_delta(out, g)
+        if q.device.type == "cpu":
+            dq, dk, dv = _ref.flash_bwd_ref(q, k, v, out, lse, g,
+                                            window=ctx.window, delta=delta)
+        else:
+            dq = _flash.flash_bwd_dq(q, k, v, g, lse, delta, ctx.window)
+            dk, dv = _flash.flash_bwd_dkdv(q, k, v, g, lse, delta, ctx.window)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: int = 0) -> torch.Tensor:
+    """Causal GQA attention with the flash backward.  q: [B, S, H, D];
+    k/v: [B, S, KV, D]; ``window > 0`` adds a sliding window.  Returns
+    [B, S, H, D] in q's dtype."""
+    _route("flash_attention", q)
+    return FlashAttention.apply(q, k, v, int(window))
 
 
 def ssd(x, dt, A, B, C, chunk: Optional[int] = None):

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the port's kernels.
 
-Each is the same function as a CUDA kernel in ``csrc/fused.cu``, written
-in the most obvious way.  The CPU path runs them (``kernels/ops.py``
+Each is the same function as a CUDA kernel in ``csrc/``, written in the
+most obvious way.  The CPU path runs them (``kernels/ops.py``
 routes a CPU tensor here), and ``chip_smoke.py`` holds each kernel
 against them on the card.  They keep the JAX package's rounding points
 so the CPU tests can compare the two packages tightly.
@@ -90,3 +90,91 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
     return out.reshape(B, S, H, D).to(q.dtype)
+
+
+#: the flash kernels' mask value (``repro/kernels/flash_attention.py``)
+NEG_INF = -1e30
+
+
+def _visible(S: int, window: int, device) -> torch.Tensor:
+    """[S, S] mask of the (q, k) pairs that take part: causal, and inside
+    the sliding window when window > 0."""
+    qpos = torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(S, device=device)[None, :]
+    mask = kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """fp32 scaled scores [B, KV, G, Sq, Sk] of q [B,S,H,D] against
+    k [B,S,KV,D]."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    qg = q.float().reshape(B, S, KV, H // KV, D)
+    return torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * (1.0 / math.sqrt(D))
+
+
+def flash_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the flash forward kernel computes: (out [B,S,H,D] in q's
+    dtype, lse [B,H,S] fp32), in fp32 with the reference's masked value
+    and ``l >= 1e-20`` clamp."""
+    B, S, H, D = q.shape
+    mask = _visible(S, window, q.device)
+    s = _scores(q, k).masked_fill(~mask, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m).masked_fill(~mask, 0.0)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-20)
+    o = torch.einsum("bkgqs,bskd->bkgqd", p, v.float()) / l
+    out = o.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+    lse = (m + torch.log(l)).reshape(B, H, S)
+    return out, lse
+
+
+def flash_delta(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32, [B,H,S]: the backward's
+    preprocess, a plain reduction on both routes."""
+    return (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_bwd_terms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    lse: torch.Tensor, g: torch.Tensor, delta: torch.Tensor,
+                    *, window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The terms the flash backward sums, fp32 [B, KV, G, Sq, Sk]:
+    p = exp(s - lse), rebuilt from the saved lse and masked, and
+    ds = p * (dp - delta) / sqrt(D) with dp = dO.V^T."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    mask = _visible(S, window, q.device)
+    p = torch.exp(_scores(q, k) - lse.reshape(B, KV, G, S, 1))
+    p = p.masked_fill(~mask, 0.0)
+    gg = g.float().reshape(B, S, KV, G, D)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", gg, v.float())
+    ds = p * (dp - delta.reshape(B, KV, G, S, 1)) * (1.0 / math.sqrt(D))
+    return p, ds
+
+
+def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: Optional[torch.Tensor], lse: torch.Tensor,
+                  g: torch.Tensor, *, window: int = 0,
+                  delta: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What the two flash backward kernels compute: (dq, dk, dv) =
+    (sum ds.k, sum ds^T.q, sum p^T.dO), dk and dv at KV-head resolution,
+    summed over the group in fp32 before one cast.  ``delta`` is
+    ``flash_delta(out, g)`` unless given."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    if delta is None:
+        delta = flash_delta(out, g)
+    p, ds = flash_bwd_terms(q, k, v, lse, g, delta, window=window)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()).reshape(B, S, H, D)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds,
+                      q.float().reshape(B, S, KV, G, D))
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p,
+                      g.float().reshape(B, S, KV, G, D))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

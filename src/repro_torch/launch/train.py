@@ -3,11 +3,12 @@
 Real training through the Oobleck stack on the card: planner ->
 templates -> heterogeneous pipeline instances -> per-template stage
 programs (fused QKV GEMM and fused residual-add + RMSNorm as CUDA
-kernels in every block) -> layer-bucketed sync -> AdamW, with a node
+kernels in every block, and flash attention with ``--attn-impl
+kernel``) -> layer-bucketed sync -> AdamW, with a node
 killed mid-run and training continued from the surviving replicas.
 
     PYTHONPATH=src python -m repro_torch.launch.train \
-        --full --seq-len 512 --steps 4 --kill-at 2
+        --full --seq-len 2048 --attn-impl kernel --steps 4 --kill-at 2
 
 Runs on the card by default; ``--device cpu`` runs the plain versions of
 the kernels on the CPU.  Without ``--full`` the architecture is reduced
@@ -77,8 +78,11 @@ def _parser() -> argparse.ArgumentParser:
                     help="skip building the programs of the template set")
     ap.add_argument("--attn-impl", default="naive",
                     choices=["naive", "blocked", "kernel", "auto"],
-                    help="attention path for stage layers; 'kernel' and "
-                         "'auto' come with the flash-attention slice")
+                    help="attention path for stage layers: 'naive' "
+                         "materialises the [S, S] scores, 'blocked' is an "
+                         "online softmax in plain ops, 'kernel' (and "
+                         "'auto') the flash-attention kernels (their plain "
+                         "versions with --device cpu)")
     ap.add_argument("--ssd-impl", default="chunked",
                     choices=["chunked", "scan", "kernel", "auto"],
                     help="SSD path (SSM/hybrid archs come with the SSD slice)")

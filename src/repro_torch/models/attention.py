@@ -1,12 +1,12 @@
-"""GQA attention, training path: ``naive`` (materialised [S, S] scores)
-and ``blocked`` (online softmax over KV blocks), as
+"""GQA attention, training path: ``naive`` (materialised [S, S] scores),
+``blocked`` (online softmax over KV blocks) and ``kernel`` (flash
+attention through ``ops.flash_attention``: the CUDA kernels on a CUDA
+tensor, their plain versions on a CPU tensor), as
 ``repro/models/attention.py``.
 
 ``fused=True`` routes the QKV projection through ``ops.fused_qkv`` —
 one GEMM against the concatenated weight with the bias in its epilogue —
-for S > 1.  ``impl="kernel"`` (and ``"auto"``) raise until the
-flash-attention slice ports kernels 4-7; they never quietly run another
-path.  The decode path comes with the serving slice.
+for S > 1.  The decode path comes with the serving slice.
 """
 from __future__ import annotations
 
@@ -138,15 +138,15 @@ def attention(params, arch: ArchConfig, x: torch.Tensor, *,
               impl: str = "blocked", block_kv: int = 512,
               fused: bool = False) -> torch.Tensor:
     """Training attention.  x: [B, S, d_model]."""
-    if impl in ("kernel", "auto"):
-        return kops.flash_attention(None, None, None)   # raises
-    if impl not in ("naive", "blocked"):
+    if impl not in ("naive", "blocked", "kernel"):
         raise ValueError(f"unknown attention impl {impl!r}")
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _project_qkv(params, arch, x, positions, fused=fused)
     window = arch.sliding_window
-    if impl == "blocked" and S > 1:
+    if impl == "kernel" and S > 1:
+        o = kops.flash_attention(q, k, v, window=window)
+    elif impl == "blocked" and S > 1:
         o = _sdpa_blocked(q, k, v, causal=True, window=window,
                           block_kv=min(block_kv, S))
     else:

@@ -8,8 +8,10 @@ layer, the paper's unit of planning, state copy and sync.
 
 ``fuse="fused"`` (what ``"auto"`` resolves to) routes the QKV projection
 and the residual-add + RMSNorm block epilogue through
-``kernels/ops.py``: the CUDA kernels on a CUDA tensor, the plain
-versions on a CPU tensor.  The MoE, SSM, hybrid, multimodal and decode
+``kernels/ops.py``, and ``attn_impl="kernel"`` (what ``"auto"`` resolves
+to) routes attention through ``ops.flash_attention``: the CUDA kernels
+on a CUDA tensor, the plain versions on a CPU tensor, so neither needs
+a probe.  The MoE, SSM, hybrid, multimodal and decode
 paths come with later slices and raise until then.
 """
 from __future__ import annotations
@@ -32,7 +34,7 @@ from repro_torch.utils.tree import tree_leaves, tree_map
 class Model:
     arch: ArchConfig
     dtype: torch.dtype = torch.bfloat16  # activations; parameters are fp32
-    attn_impl: str = "blocked"          # blocked | naive
+    attn_impl: str = "blocked"          # blocked | naive | kernel | auto
     fuse: str = "auto"                  # auto | fused | none
 
     def __post_init__(self):
@@ -46,8 +48,10 @@ class Model:
         if a.frontend is not None:
             raise NotImplementedError("multimodal frontends are not ported "
                                       "yet (ROADMAP queue 1)")
-        if self.attn_impl in ("kernel", "auto"):
-            kops.flash_attention(None, None, None)      # raises
+        if self.attn_impl == "auto":
+            self.attn_impl = "kernel"
+        if self.attn_impl not in ("naive", "blocked", "kernel"):
+            raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
         if self.fuse == "auto":
             self.fuse = "fused"
         if self.fuse not in ("fused", "none"):

@@ -7,13 +7,17 @@ CUDA has no CPU mode).  On a machine with the card:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances as chip_smoke.py states them: fp32 GEMM rtol = atol = 1e-4
-(another summation order), fp32 norms rtol 1e-5 / atol 1e-6 (the weight
-gradient, a sum over rows, against the sum of its terms' magnitudes),
-bf16 2e-2."""
+(another summation order), fp32 norms rtol 1e-5 / atol 1e-6, fp32 flash
+out 1e-4, flash lse 1e-5, bf16 elementwise outputs 2e-2.  An output that
+is a sum of many terms (the norm's weight gradient; the flash gradients,
+and the flash out in bf16) is held against the sum of its terms'
+magnitudes, ``cond``: fp32 1e-4 of cond (the norm's dw 1e-5); bf16 2e-2
+of its value plus 1e-3 of cond, since its value is often only a few
+percent of cond."""
 import pytest
 import torch
 
-from repro_torch.kernels import fused, ops, ref
+from repro_torch.kernels import build, flash, fused, ops, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -33,6 +37,17 @@ def _tol(dtype, gemm=False):
     return dict(rtol=1e-4, atol=1e-4) if gemm else dict(rtol=1e-5, atol=1e-6)
 
 
+def _sum_close(got, want, cond, fp32_ctol, fp32_atol):
+    """|got - want| within the tolerance of an output that is a sum of
+    many terms, ``cond`` being the sum of their magnitudes."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.bfloat16:
+        limit = 1e-5 + 2e-2 * want.float().abs() + 1e-3 * cond
+    else:
+        limit = fp32_atol + fp32_ctol * cond
+    assert ((got.float() - want.float()).abs() <= limit).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,d", [(256, 1024), (1000, 999), (7, 40)])
 def test_add_rmsnorm_kernels_match_plain(card, M, d, dtype):
@@ -49,10 +64,7 @@ def test_add_rmsnorm_kernels_match_plain(card, M, d, dtype):
     torch.testing.assert_close(dres, pres, **_tol(dtype))
     n = res.float() * (res.float().square().mean(-1, keepdim=True)
                        + 1e-6).rsqrt()
-    scale = (gh.float().abs() * n.abs()).sum(0)
-    tol = _tol(dtype)
-    assert ((dw.float() - pdw.float()).abs()
-            <= tol["atol"] + tol["rtol"] * scale).all()
+    _sum_close(dw, pdw, (gh.float().abs() * n.abs()).sum(0), 1e-5, 1e-6)
     assert torch.equal(fused.add_rmsnorm_bwd(res, w, gres, gh, 1e-6)[0], dres)
 
 
@@ -94,8 +106,95 @@ def test_fused_ops_gradients_match_plain_on_card(card):
 
 def test_training_on_card_launches_every_kernel(card):
     from repro_torch.launch import train
-    fused.reset_launches()
+    build.reset_launches()
     out = train.main(["--steps", "3", "--kill-at", "1", "--layers", "2"])
     assert out["losses"][-1] < out["losses"][0]
     assert all(d == 0.0 for d in out["divergences"])
-    assert all(n > 0 for n in fused.LAUNCHES.values()), fused.LAUNCHES
+    assert all(build.LAUNCHES[k] > 0 for k in
+               ("add_rmsnorm_fwd", "add_rmsnorm_bwd", "gemm_bias")), build.LAUNCHES
+
+
+def _flash_inputs(card, B, S, H, KV, D, dtype, seed=3):
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn(B, S, H, D, generator=g, device=card).to(dtype)
+    k, v = (torch.randn(B, S, KV, D, generator=g, device=card).to(dtype)
+            for _ in range(2))
+    return q, k, v, torch.randn(B, S, H, D, generator=g, device=card).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,D,window", [
+    (2, 256, 4, 4, 64, 0), (1, 200, 8, 2, 128, 0), (2, 130, 5, 1, 32, 48),
+    (1, 7, 2, 2, 64, 0)])
+def test_flash_kernels_match_plain(card, B, S, H, KV, D, window, dtype):
+    q, k, v, dout = _flash_inputs(card, B, S, H, KV, D, dtype)
+    out, lse = flash.flash_fwd(q, k, v, window)
+    pout, plse = ref.flash_fwd_ref(q, k, v, window=window)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+    delta = ref.flash_delta(pout, dout)
+    dq = flash.flash_bwd_dq(q, k, v, dout, plse, delta, window)
+    dk, dv = flash.flash_bwd_dkdv(q, k, v, dout, plse, delta, window)
+    p, ds = ref.flash_bwd_terms(q, k, v, plse, dout, delta, window=window)
+    if dtype == torch.bfloat16:
+        _sum_close(out, pout, torch.einsum("bkgqs,bskd->bqkgd", p,
+                                           v.float().abs()).reshape(q.shape),
+                   None, None)
+    else:
+        torch.testing.assert_close(out, pout, rtol=1e-4, atol=1e-4)
+    want = ref.flash_bwd_ref(q, k, v, None, plse, dout, window=window,
+                             delta=delta)
+    grouped = lambda t: t.float().abs().reshape(B, S, KV, H // KV, D)  # noqa: E731
+    scales = (torch.einsum("bkgqs,bskd->bqkgd", ds.abs(), k.float().abs()
+                           ).reshape(B, S, H, D),
+              torch.einsum("bkgqs,bqkgd->bskd", ds.abs(), grouped(q)),
+              torch.einsum("bkgqs,bqkgd->bskd", p, grouped(dout)))
+    for got, exp, scale in zip((dq, dk, dv), want, scales):
+        _sum_close(got, exp, scale, 1e-4, 1e-4)
+    assert torch.equal(flash.flash_bwd_dkdv(q, k, v, dout, plse, delta,
+                                            window)[0], dk)
+    assert torch.equal(flash.flash_fwd(q, k, v, window)[0], out)
+
+
+def test_flash_wrappers_refuse_other_head_dims(card):
+    q, k, v, _ = _flash_inputs(card, 1, 64, 2, 2, 16, torch.float32)
+    with pytest.raises(ValueError):
+        flash.flash_fwd(q, k, v)
+
+
+def test_flash_attention_gradients_match_plain_on_card(card):
+    q, k, v, dout = _flash_inputs(card, 2, 300, 8, 2, 64, torch.float32)
+    grads = {}
+    for route in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = (ops.flash_attention(*leaves, window=100) if route == "kernel"
+               else ref.attention_ref(*leaves, window=100))
+        grads[route] = (out, *torch.autograd.grad(out, leaves, dout))
+    for a, b in zip(grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch_name", ["gpt3_medium", "qwen2_5_3b"])
+def test_flash_model_matches_naive_on_card(card, arch_name):
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import Model
+    from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
+    arch = reduced(get_arch(arch_name), layers=2, d_model=128)   # head dim 32
+    g = torch.Generator(device=card).manual_seed(4)
+    batch = {key: torch.randint(0, arch.vocab_size, (2, 200), generator=g,
+                                device=card) for key in ("tokens", "labels")}
+    params = Model(arch, dtype=torch.float32).init(
+        torch.Generator(device=card).manual_seed(0))
+    out = {}
+    build.reset_launches()
+    for impl in ("kernel", "naive"):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in tree_leaves(params)]
+        model = Model(arch, dtype=torch.float32, attn_impl=impl)
+        loss, _ = model.loss(tree_unflatten_like(params, leaves), batch)
+        out[impl] = (loss, torch.autograd.grad(loss, leaves))
+    assert all(build.LAUNCHES[k] == 2 for k in
+               ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")), build.LAUNCHES
+    torch.testing.assert_close(out["kernel"][0], out["naive"][0],
+                               rtol=1e-5, atol=1e-6)
+    for a, b in zip(out["kernel"][1], out["naive"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

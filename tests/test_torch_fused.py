@@ -183,7 +183,7 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     x = torch.randn(4, 8)
     ops.fused_add_rmsnorm(x, x, torch.ones(8))
     ops.fused_qkv(x, torch.randn(8, 8), torch.randn(8, 4), torch.randn(8, 4))
-    assert all(n == 0 for n in fused.LAUNCHES.values())
+    assert all(n == 0 for n in build.LAUNCHES.values())
 
 
 def test_other_devices_raise():
@@ -210,10 +210,12 @@ def test_backend_signature_names_device_torch_and_sources():
 
 
 def test_ctypes_signatures_match_the_cuda_source():
-    src = (build.CSRC / "fused.cu").read_text()
-    block = src[src.index('extern "C" {'):]
-    decls = dict(re.findall(r"^int (\w+)\(([^)]*)\)", block, re.M | re.S))
-    assert set(decls) == set(build.SIGNATURES)
+    decls = {}
+    for path in build.SOURCES:
+        src = path.read_text()
+        block = src[src.index('extern "C" {'):]
+        decls.update(re.findall(r"^int (\w+)\(([^)]*)\)", block, re.M | re.S))
+    assert set(decls) == set(build.SIGNATURES) == set(build.LAUNCHES)
     for name, args in decls.items():
         params = [p.strip() for p in args.split(",")]
         assert len(params) == len(build.SIGNATURES[name]), name

@@ -25,10 +25,12 @@ torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
+@pytest.mark.parametrize("attn_impl", ["naive", "kernel"])
 @pytest.mark.parametrize("policy", ["replan", "adapt"])
-def test_train_cli_on_cpu_recovers_without_builds(policy, capsys):
+def test_train_cli_on_cpu_recovers_without_builds(policy, attn_impl, capsys):
     out = train.main(["--steps", "4", "--kill-at", "2", "--layers", "2",
-                      "--recovery-policy", policy, "--device", "cpu"])
+                      "--recovery-policy", policy, "--attn-impl", attn_impl,
+                      "--device", "cpu"])
     text = capsys.readouterr().out
     for tag in ("[plan]", "[sync]", "[warm]", "[fail]", "[step 3]", "[done]"):
         assert tag in text, tag
@@ -76,15 +78,53 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert [k["name"] for k in record["kernels"]] == [
-        "add_rmsnorm_fwd", "add_rmsnorm_bwd", "gemm_bias"]
+        "add_rmsnorm_fwd", "add_rmsnorm_bwd", "gemm_bias", "flash_fwd",
+        "flash_bwd_dq", "flash_bwd_dkdv"]
     for k in record["kernels"]:
         assert set(k) == keys
         assert (ROOT / k["source"]).exists()
-        path, line = k["replaces"].split(":")
-        src_line = (ROOT / path).read_text().splitlines()[int(line) - 1]
-        assert src_line.startswith("def _"), src_line
+        path, lines_at = k["replaces"].split(":", 1)       # "file:47" or
+        for line in lines_at.split("+:"):                   # "file:247+:274"
+            src_line = (ROOT / path).read_text().splitlines()[int(line) - 1]
+            assert src_line.startswith("def _"), src_line
     assert any("[check] gemm_bias        dW" in ln for ln in lines)
-    assert any(ln.startswith("[main]") for ln in lines)
+    for kind in ("flash", "gqa", "window"):
+        assert any(ln.startswith("[check] flash_bwd_dkdv") and kind in ln
+                   for ln in lines), kind
+    for path in ("flash", "naive"):       # each path's epilogue shapes
+        for layout in ("fwd", "dx", "dW"):
+            assert any(ln.split()[:4] == ["[time]", "gemm_bias", layout, path]
+                       for ln in lines), (layout, path)
+        assert any(ln.startswith("[check] add_rmsnorm_bwd") and path in ln
+                   for ln in lines), path
+    assert any(ln.startswith("[naive]") for ln in lines)
+    assert any(ln.startswith("[flash]") for ln in lines)
+
+
+def _zero(i):
+    return lambda out: tuple(torch.zeros_like(t) if j == i else t
+                             for j, t in enumerate(out))
+
+
+@pytest.mark.parametrize("name,shape,fault", [
+    ("flash_fwd", (1, 100, 4, 2, 32, 0), _zero(0)),
+    ("flash_bwd_dq", (1, 100, 4, 2, 32, 0), lambda dq: dq * 1.05),
+    ("flash_bwd_dkdv", (1, 100, 4, 2, 32, 0), _zero(0)),
+    ("flash_bwd_dkdv", (1, 100, 4, 1, 32, 24), _zero(1)),
+    ("add_rmsnorm_bwd", (256, 64), _zero(1)),
+], ids=["out-zeroed", "dq-5pct", "dk-zeroed", "dv-zeroed-window", "dw-zeroed"])
+def test_chip_smoke_bf16_checks_catch_planted_faults(name, shape, fault):
+    """The bf16 comparison of outputs that are sums of many terms holds
+    them to 2e-2 of their value plus 1e-3 of their condition-aware
+    scale: a zeroed or 5 %-scaled output fails it."""
+    cs = _load_chip_smoke()
+    cpu = torch.device("cpu")
+    _, plain, _ = cs.kernel_table(cpu)[name]
+    args = cs.make_inputs(name, shape, torch.bfloat16, cpu, seed=1)
+    cs.compare(name, plain, plain, args, torch.bfloat16)
+    with pytest.raises(cs.SmokeFailure, match="elements off"):
+        cs.compare(name, lambda *a: fault(plain(*a)), plain, args,
+                   torch.bfloat16)
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repository(tmp_path):

@@ -2,7 +2,9 @@
 package on the CPU: the same inputs (numpy, from a seed) and the same
 weights (the JAX package's init, carried over by repro_torch.convert)
 through both, in fp32.  On the CPU both packages run the plain versions
-of the fused QKV and residual-add + RMSNorm.
+of the fused QKV and residual-add + RMSNorm; with ``impl="kernel"`` the
+JAX package runs its Pallas flash attention in interpret mode and the
+port the plain versions of its flash kernels.
 
 Tolerance: fp32 rtol 1e-5 for values; gradients, which go through a
 backward whose sums run in another order in each framework, at
@@ -101,7 +103,7 @@ ARCHS = ["gpt3_medium", "qwen3_1_7b", "qwen2_5_3b"]   # plain, qk_norm, qkv_bias
 
 
 @pytest.mark.parametrize("arch_name", ARCHS)
-@pytest.mark.parametrize("impl", ["naive", "blocked"])
+@pytest.mark.parametrize("impl", ["naive", "blocked", "kernel"])
 @pytest.mark.parametrize("fused", [True, False])
 def test_attention(arch_name, impl, fused):
     jarch = jreduced(jget_arch(arch_name), layers=1)
@@ -147,7 +149,7 @@ def test_block(impl, fuse):
 
 
 @pytest.mark.parametrize("arch_name", ["gpt3_medium", "qwen3_1_7b"])
-@pytest.mark.parametrize("impl", ["naive", "blocked"])
+@pytest.mark.parametrize("impl", ["naive", "blocked", "kernel"])
 @pytest.mark.parametrize("fuse", ["fused", "none"])
 def test_model_loss_and_grads(arch_name, impl, fuse):
     jm, tm, jp, tp = _models(arch_name, impl, fuse)
@@ -192,7 +194,7 @@ def test_unported_families_and_paths_raise():
         Model(reduced(get_arch("granite_moe_1b_a400m")))
     with pytest.raises(NotImplementedError):
         Model(reduced(get_arch("mamba2_780m")))
-    with pytest.raises(NotImplementedError):
-        Model(reduced(get_arch("gpt3_medium")), attn_impl="kernel")
+    assert Model(reduced(get_arch("gpt3_medium")),
+                 attn_impl="auto").attn_impl == "kernel"
     with pytest.raises(NotImplementedError):
         Model(reduced(get_arch("gpt3_medium"))).decode_step()

@@ -1,5 +1,7 @@
 """The port's HeteroTrainer against the JAX package's on the same engine
-inputs, weights and batches: 3 steps with a node killed before step 2.
+inputs, weights and batches: 3 steps with a node killed before step 2,
+with naive attention and with the flash path (the JAX package's Pallas
+kernels interpreted, the port's plain versions of its kernels).
 Losses match at rtol 1e-4, parameters track by the reference's own rule
 (tests/test_executor.py::assert_params_track), replicas never diverge,
 and recovery builds nothing after warm_templates().  Inside the port,
@@ -62,12 +64,13 @@ def _engine_args(n_nodes, gb, policy="replan"):
             [f"n{i}" for i in range(n_nodes)])
 
 
-def test_trainer_tracks_jax_through_failure():
+@pytest.mark.parametrize("attn_impl", ["naive", "kernel"])
+def test_trainer_tracks_jax_through_failure(attn_impl):
     jarch = jreduced(jget_arch("gpt3_medium"), layers=2)
     arch = reduced(get_arch("gpt3_medium"), layers=2)
-    jmodel = JModel(jarch, dtype=jnp.float32, remat=False, attn_impl="naive",
-                    scan_layers=False)
-    model = Model(arch, dtype=torch.float32, attn_impl="naive")
+    jmodel = JModel(jarch, dtype=jnp.float32, remat=False,
+                    attn_impl=attn_impl, scan_layers=False)
+    model = Model(arch, dtype=torch.float32, attn_impl=attn_impl)
     jparams = jmodel.init(jax.random.PRNGKey(11))
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     cfg, nodes = _engine_args(5, GB)
