@@ -7,18 +7,20 @@ Phases, each fatal on failure:
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (time,
      and nvcc's register / spill summary);
-  3. every kernel against its plain PyTorch version at the shapes both
+  3. every kernel against its plain PyTorch version at the shapes the
      training paths give it and at ragged ones (flash: also GQA and a
-     sliding window), in fp32 and bf16, the GEMM in all three operand
-     layouts, and twice on the same inputs (bitwise equal);
+     sliding window; SSD: hymba's heads at a ragged sequence and the
+     reduced configs' widths), in fp32 and bf16, the GEMM in all three
+     operand layouts, and twice on the same inputs (bitwise equal);
   4. each kernel's time at each path's shape (CUDA events, and the
      device time of the kernel's own events under torch.profiler), its
      bound, its plain version's time and the one-call library
      equivalent where there is one;
   5. small models with the kernels against the same models on plain
-     PyTorch ops (loss and gradients): fused vs unfused epilogues, and
-     flash vs naive attention (gpt3-medium, and GQA qwen2.5-3b with QKV
-     bias at a sequence that is not a multiple of 64);
+     PyTorch ops (loss and gradients): fused vs unfused epilogues, flash
+     vs naive attention (gpt3-medium, and GQA qwen2.5-3b with QKV bias
+     at a sequence that is not a multiple of 64), the SSD kernels vs the
+     chunked scan (mamba2), and all kernels vs plain ops (hymba);
   6. the naive-attention path: ``repro_torch.launch.train`` at
      gpt3-medium's full width and depth (24 layers, d 1024, vocab
      50257), sequence 512, 4 steps with a node killed before step 2,
@@ -26,10 +28,16 @@ Phases, each fatal on failure:
      program builds across the failure and that every epilogue kernel
      launched;
   7. the flash path: the same at sequence 2048 with ``--attn-impl
-     kernel``, asserting the same and that all six kernels launched.
+     kernel``, asserting the same and that all six kernels launched;
+  8. the mamba path: ``--arch mamba2-780m`` at full width and depth (48
+     layers, d 1536, SSD heads 48 x 64, state 128, vocab 50280) at
+     sequence 2048 with ``--ssd-impl kernel`` and microbatch 1,
+     asserting the same and that each SSD kernel launched once per layer
+     and microbatch.
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line
-(launches counted in phase 7; error, times and bound at the shapes
-phase 7 gives each kernel) and ``{"ok": true, "device": {...}}``.
+(each kernel's launches counted on the path that reports it: phase 7
+for the six, phase 8 for the SSD pair; error, times and bound at the
+shapes that path gives it) and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
 
@@ -61,10 +69,21 @@ PATHS = {   # phase -> (label, argv on the card, argv of the CPU rehearsal)
                   "--steps", "4", "--kill-at", "2", "--device", "cuda"],
         ["--steps", "3", "--kill-at", "1", "--attn-impl", "kernel",
          "--device", "cpu"]),
+    # microbatch 1: at microbatch 2 the activations of 48 Mamba2 blocks
+    # beside two replicas' weights and AdamW state overflow the 80 GB
+    8: ("mamba", ["--arch", "mamba2-780m", "--full", "--seq-len", "2048",
+                  "--microbatch", "1", "--ssd-impl", "kernel", "--steps", "4",
+                  "--kill-at", "2", "--device", "cuda"],
+        ["--arch", "mamba2-780m", "--steps", "3", "--kill-at", "1",
+         "--ssd-impl", "kernel", "--device", "cpu"]),
 }
+#: launches of each SSD kernel on the mamba path's card run: one per
+#: layer and microbatch, 48 layers x 16 microbatches x 4 steps
+MAMBA_SSD_LAUNCHES = 48 * 16 * 4
 
 FUSED_SOURCE = "src/repro_torch/kernels/csrc/fused.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash.cu"
+SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd.cu"
 FLASH_TPU = "src/repro/kernels/flash_attention.py"
 KERNELS = {   # name -> (TPU kernel it replaces, CUDA source)
     "add_rmsnorm_fwd": ("src/repro/kernels/fused.py:47", FUSED_SOURCE),
@@ -73,16 +92,22 @@ KERNELS = {   # name -> (TPU kernel it replaces, CUDA source)
     "flash_fwd": (f"{FLASH_TPU}:101", FLASH_SOURCE),
     "flash_bwd_dq": (f"{FLASH_TPU}:220", FLASH_SOURCE),
     "flash_bwd_dkdv": (f"{FLASH_TPU}:247+:274", FLASH_SOURCE),
+    "ssd_fwd": ("src/repro/kernels/ssd.py:54", SSD_SOURCE),
+    "ssd_bwd": ("src/repro/kernels/ssd.py:190", SSD_SOURCE),
 }
 FUSED = ("add_rmsnorm_fwd", "add_rmsnorm_bwd", "gemm_bias")
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
+SSD = ("ssd_fwd", "ssd_bwd")
 
 # Shapes per kernel: (label, shape).  Norms (M, d); GEMM (M, K, N) of
 # x[M,K].W[K,N]; flash (B, S, H, KV, D, window).  A label that names a
 # path (PATHS) is the shape that path gives the kernel: gpt3-medium with
 # microbatch 2, so M = 4096 rows at phase 7's sequence 2048 and 1024 at
-# phase 6's 512.  Those shapes are checked and timed; the kernels line
-# reports REPORTED's, the path whose launches it counts.
+# phase 6's 512; mamba2-780m's SSD with phase 8's microbatch 1.  SSD
+# (b, S, H, P, N, expanded): expanded B and C are one group viewed over
+# the heads with head stride 0, as the Mamba2 block hands them over.
+# Those shapes are checked and timed; the kernels line reports the shape
+# of the path whose launches it counts (reported_path).
 CARD_SHAPES = {
     "add_rmsnorm_fwd": [("flash", (4096, 1024)), ("naive", (1024, 1024)),
                         ("ragged", (1000, 999))],
@@ -96,6 +121,11 @@ CARD_SHAPES = {
     "flash": [("flash", (2, 2048, 16, 16, 64, 0)),
               ("gqa", (2, 1000, 16, 2, 128, 0)),
               ("window", (2, 1000, 20, 4, 64, 256))],
+    # hymba: its SSD heads (50 x 64, state 16) at a ragged sequence;
+    # reduced: the reduced configs' widths, per-head B and C
+    "ssd": [("mamba", (1, 2048, 48, 64, 128, True)),
+            ("hymba", (2, 1000, 50, 64, 16, True)),
+            ("reduced", (2, 300, 8, 16, 16, False))],
 }
 CPU_SHAPES = {
     "add_rmsnorm_fwd": [("flash", (128, 64)), ("naive", (64, 64)),
@@ -106,9 +136,17 @@ CPU_SHAPES = {
                   ("ragged", (33, 47, 95))],
     "flash": [("flash", (1, 64, 2, 2, 32, 0)), ("gqa", (1, 40, 4, 2, 32, 0)),
               ("window", (1, 40, 4, 1, 32, 16))],
+    "ssd": [("mamba", (1, 100, 3, 16, 16, True)),
+            ("hymba", (1, 70, 3, 16, 8, True)),
+            ("reduced", (1, 33, 2, 8, 16, False))],
 }
 PATH_LABELS = tuple(label for label, _, _ in PATHS.values())
-REPORTED = PATHS[7][0]
+
+
+def reported_path(name):
+    """The label of the path whose launches, error and times the kernels
+    line reports for ``name``."""
+    return PATHS[8][0] if name in SSD else PATHS[7][0]
 
 
 class SmokeFailure(AssertionError):
@@ -121,7 +159,7 @@ def check(cond, msg):
 
 
 def _shapes(table, name):
-    return table["flash" if name in FLASH else name]
+    return table["flash" if name in FLASH else "ssd" if name in SSD else name]
 
 
 # ----------------------------------------------------------------------
@@ -143,13 +181,15 @@ def kernel_table(device):
             q, k, v, None, lse, g, window=win, delta=delta)[0],
         "flash_bwd_dkdv": lambda q, k, v, g, lse, delta, win: ref.flash_bwd_ref(
             q, k, v, None, lse, g, window=win, delta=delta)[1:],
+        "ssd_fwd": ref.ssd_fwd_ref,
+        "ssd_bwd": ref.ssd_bwd_ref,
     }
     library = {"gemm_bias": lambda a, b, bias: torch.addmm(bias, a, b),
                "flash_fwd": sdpa_forward}
     if device.type == "cpu":
         kern = plain
     else:
-        from repro_torch.kernels import flash, fused
+        from repro_torch.kernels import flash, fused, ssd
         kern = {
             "add_rmsnorm_fwd": lambda x, r, w: fused.add_rmsnorm_fwd(x, r, w, 1e-6),
             "add_rmsnorm_bwd": lambda res, w, gres, gh: fused.add_rmsnorm_bwd(
@@ -158,6 +198,8 @@ def kernel_table(device):
             "flash_fwd": flash.flash_fwd,
             "flash_bwd_dq": flash.flash_bwd_dq,
             "flash_bwd_dkdv": flash.flash_bwd_dkdv,
+            "ssd_fwd": ssd.ssd_fwd,
+            "ssd_bwd": ssd.ssd_bwd,
         }
     return {k: (kern[k], plain[k], library.get(k)) for k in KERNELS}
 
@@ -179,7 +221,11 @@ def make_inputs(name, shape, dtype, device, seed, layout="fwd"):
     (M, K, N) of the forward x[M,K].W[K,N]; ``layout`` picks the product
     the fused QKV runs: fwd x.W+b, dx g.W^T (W read transposed), dW
     x^T.g (x read transposed).  Flash: shape = (B, S, H, KV, D, window);
-    the backward kernels get the plain forward's lse and delta."""
+    the backward kernels get the plain forward's lse and delta.  SSD:
+    shape = (b, S, H, P, N, expanded), dt and A of the Mamba2 block's
+    ranges (per-step decays e^(dt.A) of 0.3-1, so the state carries
+    across chunks); the backward gets the plain forward's cstates and a
+    nonzero state cotangent."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(seed)
 
@@ -191,6 +237,20 @@ def make_inputs(name, shape, dtype, device, seed, layout="fwd"):
     if name == "add_rmsnorm_bwd":
         M, d = shape
         return (randn(M, d), randn(d, scale=0.2) + 1.0, randn(M, d), randn(M, d))
+    if name in SSD:
+        from repro_torch.kernels import ref
+        b, S, H, P, N, expanded = shape
+        x = randn(b, S, H, P)
+        dt = torch.nn.functional.softplus(torch.randn((b, S, H), generator=g)
+                                          - 3.0).to(device)
+        A = -torch.exp(torch.randn((H,), generator=g) * 0.5).to(device)
+        BC = [randn(b, S, 1, N).expand(b, S, H, N) if expanded
+              else randn(b, S, H, N) for _ in range(2)]
+        if name == "ssd_fwd":
+            return (x, dt, A, *BC)
+        cstates = ref.ssd_fwd_ref(x, dt, A, *BC)[2]
+        gstate = torch.randn((b, H, P, N), generator=g).to(device)
+        return (x, dt, A, *BC, cstates, randn(b, S, H, P), gstate)
     if name in FLASH:
         from repro_torch.kernels import ref
         B, S, H, KV, D, window = shape
@@ -217,11 +277,25 @@ def _conds(name, args, want):
     """Per output, its condition-aware scale, or None.  An output that
     is a sum of many terms (the norm's weight gradient over M rows; the
     GEMM's over K; the flash out and dq over kv positions; dk and dv over
-    the G query heads and all q positions) rounds in proportion to the
-    sum of its terms' magnitudes, not to the (often much smaller)
-    result: that sum is its scale."""
+    the G query heads and all q positions; every SSD output over the
+    chunk's rows, its state and the chunks before or after it) rounds in
+    proportion to the sum of its terms' magnitudes, not to the (often
+    much smaller) result: that sum is its scale.  The SSD scales are the
+    plain versions run on the inputs' magnitudes (all terms then
+    positive; the backward with ``magnitudes=True``)."""
     import torch
     scales = [None] * len(want)
+    if name in SSD:
+        from repro_torch.kernels import ref
+        x, dt, A, B, C = args[:5]
+        ax, aB, aC = (t.float().abs() for t in (x, B, C))
+        fwd = ref.ssd_fwd_ref(ax, dt, A, aB, aC)
+        if name == "ssd_fwd":
+            return list(fwd)
+        gy, gstate = args[6:]
+        return list(ref.ssd_bwd_ref(ax, dt, A, aB, aC, fwd[2],
+                                    gy.float().abs(), gstate.abs(),
+                                    magnitudes=True))
     if name == "gemm_bias":
         a, b, _ = args
         scales[0] = a.float().abs() @ b.float().abs()
@@ -267,7 +341,9 @@ def _tol(rtol, atol, ctol=0.0):
 # of its cond (in the dW layout at the flash path's K = 4096 an output
 # may be 2 % of its cond, and the two summation orders differed by
 # 3.4e-7 of it); the flash lse 1e-5; the flash gradients 1e-4 against
-# their cond.
+# their cond; the SSD outputs rtol 1e-4 plus 1e-5 of their cond (the
+# kernels' exp, cumsum and products round in another order than the
+# plain versions', each term to ~1e-7 of its magnitude).
 TOL_FP32 = {
     "add_rmsnorm_fwd": [_tol(1e-5, 1e-6)] * 2,
     "add_rmsnorm_bwd": [_tol(1e-5, 1e-6), _tol(0.0, 1e-6, 1e-5)],
@@ -275,6 +351,8 @@ TOL_FP32 = {
     "flash_fwd": [_tol(1e-4, 1e-4), _tol(1e-5, 1e-5)],
     "flash_bwd_dq": [_tol(0.0, 1e-4, 1e-4)],
     "flash_bwd_dkdv": [_tol(0.0, 1e-4, 1e-4)] * 2,
+    "ssd_fwd": [_tol(1e-4, 1e-6, 1e-5)] * 3,
+    "ssd_bwd": [_tol(1e-4, 1e-6, 1e-5)] * 5,
 }
 # bf16: both sides compute in fp32 from the same bf16 inputs and round
 # once, so two results may sit one bf16 ulp apart (2^-7 relative):
@@ -282,7 +360,8 @@ TOL_FP32 = {
 # sum of many terms is often only a few percent of its cond, so a cond
 # term as loose as 2e-2 would pass a zeroed output: those get 1e-3 of
 # their cond (the fp32 sums agree to ~1e-6 of it) and atol 1e-5.  The
-# flash lse is fp32 on both sides: as in fp32.
+# flash lse, the SSD states, ddt and dA are fp32 on both sides: as in
+# fp32.
 _SUM_BF16 = _tol(2e-2, 1e-5, 1e-3)
 TOL_BF16 = {
     "add_rmsnorm_fwd": [_tol(2e-2, 2e-2)] * 2,
@@ -291,6 +370,9 @@ TOL_BF16 = {
     "flash_fwd": [_SUM_BF16, _tol(1e-5, 1e-5)],
     "flash_bwd_dq": [_SUM_BF16],
     "flash_bwd_dkdv": [_SUM_BF16] * 2,
+    "ssd_fwd": [_SUM_BF16] + TOL_FP32["ssd_fwd"][1:],
+    "ssd_bwd": [_SUM_BF16, TOL_FP32["ssd_bwd"][1], TOL_FP32["ssd_bwd"][2],
+                _SUM_BF16, _SUM_BF16],
 }
 
 
@@ -327,8 +409,8 @@ def compare(name, kern, plain, args, dtype):
 
 
 def check_kernels(device, table, shapes):
-    """Phase 3.  Returns name -> max abs error at REPORTED's shape in
-    fp32."""
+    """Phase 3.  Returns name -> max abs error at the reported path's
+    shape in fp32."""
     import torch
     errors = {}
     for name, (kern, plain, _) in table.items():
@@ -342,7 +424,8 @@ def check_kernels(device, table, shapes):
                     print(f"[check] {name:16s} {layout:3s} {label:6s} "
                           f"{str(dtype)[6:]:8s} shape={shape} "
                           f"max_abs_err={err:.3e} deterministic=yes")
-                    if dtype == torch.float32 and label == REPORTED:
+                    if (dtype == torch.float32
+                            and label == reported_path(name)):
                         errors[name] = max(errors.get(name, 0.0), err)
     return errors
 
@@ -397,15 +480,44 @@ def _causal_pairs(S, window):
     return sum(min(i + 1, window) if window > 0 else i + 1 for i in range(S))
 
 
+def _ssd_work(name, shape, s):
+    """(bytes, flops) of one SSD kernel call.  Flops: the products of the
+    reference's kernels, the intra-chunk [Q, Q] ones over the T =
+    q(q+1)/2 causal pairs of a chunk's q rows, per (batch, head, chunk):
+    forward 2T(N+P) + 4qPN, backward 2T(3N+2P) + 8qPN.  Bytes: x, B, C
+    (one group when expanded), gy in ``s`` bytes, dt, A and the states
+    in fp32; the forward writes y, the final state and cstates (the
+    variant the training path runs), the backward dx, dB and dC per
+    head, ddt and the dA partials."""
+    from repro_torch.kernels.ref import SSD_CHUNK as Q
+    b, S, H, P, N, expanded = shape
+    nc = -(-S // Q)
+    rows = [min(Q, S - c * Q) for c in range(nc)]
+    tri = [q * (q + 1) // 2 for q in rows]
+    bc_in = 2 * b * S * (1 if expanded else H) * N * s
+    xn, dtn, state = b * S * H * P, b * S * H * 4, b * H * P * N * 4
+    if name == "ssd_fwd":
+        flops = sum(2 * t * (N + P) + 4 * q * P * N for t, q in zip(tri, rows))
+        nbytes = 2 * xn * s + dtn + H * 4 + bc_in + state * (1 + nc)
+    else:
+        flops = sum(2 * t * (3 * N + 2 * P) + 8 * q * P * N
+                    for t, q in zip(tri, rows))
+        nbytes = (3 * xn * s + 2 * dtn + H * 4 + bc_in + state * (1 + nc)
+                  + 2 * b * S * H * N * s + b * H * nc * 4)
+    return nbytes, flops * b * H
+
+
 def bound(name, shape, dtype):
     """(ms, 'bytes' | 'operations'): each input read once, each output
     written once, over 3.35 TB/s; operations over the type's peak.  The
     flash kernels count their matrix products (2 flops per multiply-add)
     over the (q, k) pairs the causal mask keeps: 2 products in the
-    forward, 3 in dq, 4 in dk/dv."""
+    forward, 3 in dq, 4 in dk/dv; the SSD kernels as ``_ssd_work``."""
     import torch
     s = torch.tensor([], dtype=dtype).element_size()
-    if name == "add_rmsnorm_fwd":
+    if name in SSD:
+        nbytes, ops = _ssd_work(name, shape, s)
+    elif name == "add_rmsnorm_fwd":
         M, d = shape
         nbytes, ops = (4 * M * d + d) * s, 6 * M * d        # x, r in; res, h out
     elif name == "add_rmsnorm_bwd":
@@ -443,7 +555,7 @@ def sdpa_backward_ms(args, device, iters):
 
 def time_kernels(device, table, shapes, iters):
     """Phase 4, fp32 (the paths' dtype), at each path's shape.  Returns
-    name -> the row at REPORTED's shape."""
+    name -> the row at the reported path's shape."""
     import torch
     on_card = device.type == "cuda"
     rows = {}
@@ -462,7 +574,7 @@ def time_kernels(device, table, shapes, iters):
                 lib_ms = (time_ms(lib, args, device, iters)
                           if lib is not None else None)
             bms, by = bound(name, shape, torch.float32)
-            if label == REPORTED:
+            if label == reported_path(name):
                 rows[name] = {"ms": ms, "plain_ms": plain_ms,
                               "library_ms": lib_ms, "bound_ms": bms,
                               "bound_by": by}
@@ -495,16 +607,17 @@ def time_kernels(device, table, shapes, iters):
 
 
 # ----------------------------------------------------------------------
-# End-to-end agreement on small models, then the two paths
+# End-to-end agreement on small models, then the three paths
 # ----------------------------------------------------------------------
-def _loss_and_grads(device, arch, seq, attn_impl, fuse):
+def _loss_and_grads(device, arch, seq, attn_impl, fuse, ssd_impl="chunked"):
     import torch
     from repro_torch.models import Model
     from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
     g = torch.Generator(device="cpu").manual_seed(3)
     batch = {key: torch.randint(0, arch.vocab_size, (2, seq), generator=g
                                 ).to(device) for key in ("tokens", "labels")}
-    model = Model(arch, dtype=torch.float32, attn_impl=attn_impl, fuse=fuse)
+    model = Model(arch, dtype=torch.float32, attn_impl=attn_impl, fuse=fuse,
+                  ssd_impl=ssd_impl)
     params = model.init(torch.Generator(device=device).manual_seed(0))
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     loss, _ = model.loss(tree_unflatten_like(params, leaves), batch)
@@ -518,13 +631,21 @@ def check_small_model(device):
     from repro_torch.configs import get_arch, reduced
     gpt = reduced(get_arch("gpt3_medium"), layers=2, d_model=128, vocab=512)
     qwen = reduced(get_arch("qwen2_5_3b"), layers=2, d_model=128, vocab=512)
-    cases = [  # (label, arch, seq, (attn, fuse) through kernels, plain)
+    mamba = reduced(get_arch("mamba2_780m"), layers=2, d_model=128, vocab=512)
+    hymba = reduced(get_arch("hymba_1_5b"), layers=2, d_model=128, vocab=512)
+    cases = [  # (label, arch, seq, (attn, fuse[, ssd]) through kernels, plain)
         ("gpt3-medium fused vs unfused", gpt, 64,
          ("naive", "fused"), ("naive", "none")),
         ("gpt3-medium flash vs naive", gpt, 64,
          ("kernel", "fused"), ("naive", "fused")),
         ("qwen2.5-3b (GQA 4/2, QKV bias) S=200 flash vs naive", qwen, 200,
          ("kernel", "fused"), ("naive", "fused")),
+        ("mamba2 (16 SSD heads, P 16, N 16) S=200 SSD kernels vs chunked",
+         mamba, 200, ("naive", "fused", "kernel"),
+         ("naive", "fused", "chunked")),
+        ("hymba (attention + Mamba heads) S=200 all kernels vs plain ops",
+         hymba, 200, ("kernel", "fused", "kernel"),
+         ("naive", "none", "chunked")),
     ]
     for label, arch, seq, through, plain in cases:
         lk, gk = _loss_and_grads(device, arch, seq, *through)
@@ -539,10 +660,11 @@ def check_small_model(device):
               f"gradient max abs diff {worst:.3e}")
 
 
-def run_path(device, phase, kernels):
-    """Phases 6 and 7: one training run through a failure, with every
-    launch count set to 0 just before it.  Returns the run's launch
-    counts; on the card every kernel in ``kernels`` must have launched."""
+def run_path(device, phase, kernels, exact=None):
+    """Phases 6-8: one training run through a failure, with every launch
+    count set to 0 just before it.  Returns the run's launch counts; on
+    the card every kernel in ``kernels`` must have launched (``exact``
+    times, where given)."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.launch import train
@@ -565,6 +687,9 @@ def run_path(device, phase, kernels):
     if device.type == "cuda":
         check(all(launches[k] > 0 for k in kernels),
               f"a kernel never launched on the {label} path: {launches}")
+        check(exact is None or all(launches[k] == exact for k in kernels),
+              f"{label} path: {launches}, expected {exact} of each of "
+              f"{kernels}")
         mem = torch.cuda.max_memory_allocated() / 2**30
     else:
         mem = float("nan")
@@ -614,7 +739,9 @@ def run(device="cuda"):
     timing = time_kernels(device, table, shapes, iters)
     check_small_model(device)
     run_path(device, 6, FUSED)
-    launches = run_path(device, 7, KERNELS)
+    launches = run_path(device, 7, FUSED + FLASH)
+    mamba = run_path(device, 8, SSD, exact=MAMBA_SSD_LAUNCHES)
+    launches.update({k: mamba[k] for k in SSD})
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errors[name],

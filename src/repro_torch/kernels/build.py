@@ -37,7 +37,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "fused.cu", CSRC / "flash.cu")
+SOURCES = (CSRC / "fused.cu", CSRC / "flash.cu", CSRC / "ssd.cu")
 ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -58,6 +58,11 @@ SIGNATURES = {
     "flash_fwd": (_vp,) * 5 + _FLASH_SHAPE + (_int, _vp),
     "flash_bwd_dq": (_vp,) * 7 + _FLASH_SHAPE + (_int,) * 3 + (_int, _vp),
     "flash_bwd_dkdv": (_vp,) * 8 + _FLASH_SHAPE + (_int,) * 3 + (_int, _vp),
+    # ssd launchers: pointers, then b, S, H, P, N, the chunk, the (batch,
+    # seq, head) strides of x, dt, B, C (and gy), the dtype code and the
+    # stream
+    "ssd_fwd": (_vp,) * 8 + (_int,) * 6 + (_int,) * 12 + (_int, _vp),
+    "ssd_bwd": (_vp,) * 13 + (_int,) * 6 + (_int,) * 15 + (_int, _vp),
 }
 
 #: launches per kernel since the last ``reset_launches()``

@@ -2,7 +2,8 @@
 
   * a CPU tensor runs the plain PyTorch version (``kernels/ref.py``);
   * a CUDA tensor launches the hand-written CUDA kernel
-    (``kernels/fused.py``, ``kernels/flash.py``), or raises;
+    (``kernels/fused.py``, ``kernels/flash.py``, ``kernels/ssd.py``), or
+    raises;
   * anything else raises.
 
 There is no capability probe and no fallback: a CUDA tensor never runs
@@ -22,6 +23,7 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels import flash as _flash
 from repro_torch.kernels import fused as _fused
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd as _ssd
 
 
 def _route(name: str, x: torch.Tensor) -> str:
@@ -121,7 +123,52 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return FlashAttention.apply(q, k, v, int(window))
 
 
-def ssd(x, dt, A, B, C, chunk: Optional[int] = None):
-    raise NotImplementedError(
-        "the SSD scan (TPU kernels 8-9) is ported in the SSD slice "
-        "(ROADMAP queue 1)")
+class SSD(torch.autograd.Function):
+    """The Mamba2 SSD chunked scan with the reverse-chunk backward: the
+    two CUDA kernels of ``kernels/ssd.py`` on a CUDA tensor (chunk
+    ``ssd.CHUNK``), their plain versions on a CPU tensor (one structure,
+    so the CPU tests run the custom backward's math and a CPU tensor
+    never reaches ``kernels/ssd.py``).  The forward saves only the
+    chunk-boundary states."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk: int):
+        if x.device.type == "cpu":
+            y, state, cstates = _ref.ssd_fwd_ref(x, dt, A, B, C, chunk=chunk)
+        else:
+            y, state, cstates = _ssd.ssd_fwd(x, dt, A, B, C)
+        ctx.save_for_backward(x, dt, A, B, C, cstates)
+        ctx.chunk = chunk
+        return y, state
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        # an unused output's cotangent arrives as zeros of its dtype (fp32
+        # for the state, as the reference's custom VJP casts it); a
+        # broadcast cotangent (of a sum) is made dense for the kernel
+        x, dt, A, B, C, cstates = ctx.saved_tensors
+        gstate = gstate.contiguous()
+        if gy.stride(-1) != 1:
+            gy = gy.contiguous()
+        if x.device.type == "cpu":
+            grads = _ref.ssd_bwd_ref(x, dt, A, B, C, cstates, gy, gstate,
+                                     chunk=ctx.chunk)
+        else:
+            grads = _ssd.ssd_bwd(x, dt, A, B, C, cstates, gy, gstate)
+        return (*grads, None)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+        B: torch.Tensor, C: torch.Tensor, chunk: Optional[int] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD with the kernels' forward AND backward.  x: [b,S,H,P];
+    dt: [b,S,H] fp32 (post-softplus); A: [H] fp32; B/C: [b,S,H,N] (may be
+    stride-0 views over the heads).  Returns (y in x's dtype, final state
+    [b,H,P,N] fp32).  ``chunk`` picks the plain version's chunk on the
+    CPU; the kernels take ``ssd.CHUNK`` (SSD is chunk-invariant)."""
+    kind = _route("ssd", x)
+    chunk = chunk or _ssd.CHUNK
+    if kind == "cuda" and chunk != _ssd.CHUNK:
+        raise ValueError(f"ssd: the kernels' chunk is {_ssd.CHUNK}, not "
+                         f"{chunk}")
+    return SSD.apply(x, dt, A, B, C, int(chunk))

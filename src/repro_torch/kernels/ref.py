@@ -178,3 +178,161 @@ def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.einsum("bkgqs,bqkgd->bskd", p,
                       g.float().reshape(B, S, KV, G, D))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ----------------------------------------------------------------------
+# Mamba2 SSD chunked scan
+# ----------------------------------------------------------------------
+#: the port's SSD chunk: the CUDA kernels' Q (SSD is chunk-invariant)
+SSD_CHUNK = 64
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            B: torch.Tensor, C: torch.Tensor,
+            state: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-timestep recurrence, in fp32 (the oracle,
+    ``repro/kernels/ref.py::ssd_ref``).  x: [b,S,H,P]; dt: [b,S,H]
+    (post-softplus); A: [H] (negative); B/C: [b,S,H,N].  Returns
+    (y [b,S,H,P] in x's dtype, final state [b,H,P,N] fp32)."""
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    if state is None:
+        state = torch.zeros((b, H, P, N), dtype=torch.float32,
+                            device=x.device)
+    ys = []
+    for t in range(S):
+        dtt = dt[:, t].float()
+        upd = torch.einsum("bh,bhp,bhn->bhpn", dtt, x[:, t].float(),
+                           B[:, t].float())
+        state = state * torch.exp(dtt * A)[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, C[:, t].float()))
+    return torch.stack(ys, 1).to(x.dtype), state
+
+
+def _ssd_chunks(t: torch.Tensor, chunk: int) -> torch.Tensor:
+    """[b, S, H, ...] -> fp32 [b, H, nc, Q, ...], the sequence zero-padded
+    to whole chunks (zero dt, x, B and C rows leave the state unchanged
+    and add nothing)."""
+    b, S, H = t.shape[:3]
+    nc = -(-S // chunk)
+    t = t.float()
+    pad = torch.zeros((b, nc * chunk - S, *t.shape[2:]), dtype=t.dtype,
+                      device=t.device)
+    t = torch.cat([t, pad], 1).reshape(b, nc, chunk, *t.shape[2:])
+    return t.movedim(3, 1)
+
+
+def _ssd_chunk_terms(dtq: torch.Tensor, A: torch.Tensor):
+    """One chunk (dtq [b,H,Q]): cum = cumsum(dt.A), the [Q, Q] decays
+    exp(cum_i - cum_j) (overflowing above the diagonal: mask AFTER
+    multiplying), the causal mask, and cum's last entry."""
+    Q = dtq.shape[-1]
+    cum = torch.cumsum(dtq * A[:, None], -1)                    # [b,H,Q]
+    decay = torch.exp(cum[..., :, None] - cum[..., None, :])
+    idx = torch.arange(Q, device=dtq.device)
+    tri = idx[:, None] >= idx[None, :]
+    return cum, decay, tri, cum[..., -1:]
+
+
+def ssd_fwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, *, chunk: int = SSD_CHUNK
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What the forward kernel computes (``repro/kernels/ssd.py::
+    _ssd_kernel``): per chunk of Q rows, in fp32,
+
+        cum     = cumsum(dt.A)
+        y       = (tri(C.B^T * e^(cum_i - cum_j)) * dt_j).x
+                  + (C * e^cum).state^T
+        state  <- state * e^cum_Q + (x * e^(cum_Q - cum) * dt)^T.B
+
+    Returns (y [b,S,H,P] in x's dtype, final state [b,H,P,N] fp32,
+    cstates [b,H,nc,P,N] fp32: the state ENTERING each chunk, the
+    backward's only residual)."""
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    xc, Bc, Cc = (_ssd_chunks(t, chunk) for t in (x, B, C))
+    dtc = _ssd_chunks(dt, chunk)                               # [b,H,nc,Q]
+    A = A.float()
+    nc = xc.shape[2]
+    state = torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+    cstates, ys = [], []
+    for c in range(nc):
+        xq, dtq, Bq, Cq = xc[:, :, c], dtc[:, :, c], Bc[:, :, c], Cc[:, :, c]
+        cum, decay, tri, cum_last = _ssd_chunk_terms(dtq, A)
+        w = torch.where(tri, (Cq @ Bq.transpose(-1, -2)) * decay, 0.0)
+        w = w * dtq[..., None, :]
+        cstates.append(state)
+        ys.append(w @ xq + (Cq * torch.exp(cum)[..., None])
+                  @ state.transpose(-1, -2))
+        w_last = torch.exp(cum_last - cum) * dtq
+        state = (state * torch.exp(cum_last)[..., None]
+                 + (xq * w_last[..., None]).transpose(-1, -2) @ Bq)
+    y = torch.stack(ys, 2).movedim(1, 3).reshape(b, nc * chunk, H, P)
+    return y[:, :S].to(x.dtype), state, torch.stack(cstates, 2)
+
+
+def ssd_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, cstates: torch.Tensor,
+                gy: torch.Tensor, gstate: torch.Tensor, *,
+                chunk: int = SSD_CHUNK, magnitudes: bool = False
+                ) -> Tuple[torch.Tensor, ...]:
+    """What the backward kernel computes (``repro/kernels/ssd.py::
+    _ssd_bwd_kernel``), written out: the chunks in reverse, carrying the
+    state cotangent dS (from ``gstate``), each chunk rebuilt from its
+    entering state in ``cstates``; fp32 throughout.  Decay products are
+    masked after the multiply.  One dA partial per (b, h, chunk), summed
+    over batch and chunks at the end.
+
+    Returns (dx, ddt, dA, dB, dC) in the primals' dtypes.  With
+    ``magnitudes=True`` and |x|, |B|, |C|, |gy|, |gstate| and the cstates
+    of the forward on |x|, |B|, |C| as inputs, every term enters with its
+    magnitude: each output is then the sum of its terms' magnitudes, the
+    condition-aware scale a kernel's rounding is held to."""
+    b, S, H, P = x.shape
+    xc, Bc, Cc, Gc = (_ssd_chunks(t, chunk) for t in (x, B, C, gy))
+    dtc = _ssd_chunks(dt, chunk)
+    Af = A.float()
+    sign, A_term = (1.0, Af.abs()) if magnitudes else (-1.0, Af)
+    nc = xc.shape[2]
+    dS1 = gstate.float()
+    dxs, ddts, dBs, dCs, dA_part = [], [], [], [], []
+    for c in reversed(range(nc)):
+        xq, dtq, Bq, Cq, G = (t[:, :, c] for t in (xc, dtc, Bc, Cc, Gc))
+        S0 = cstates[:, :, c].float()
+        cum, decay, tri, cum_last = _ssd_chunk_terms(dtq, Af)
+        dt_row = dtq[..., None, :]
+        cb = Cq @ Bq.transpose(-1, -2)
+        W = torch.where(tri, cb * decay, 0.0) * dt_row
+        ecum = torch.exp(cum)[..., None]                       # [b,H,Q,1]
+        eQ = torch.exp(cum_last)                               # [b,H,1]
+        e_last = torch.exp(cum_last - cum)
+        w_last = (e_last * dtq)[..., None]
+        dW = G @ xq.transpose(-1, -2)
+        dxs.append(W.transpose(-1, -2) @ G
+                   + (Bq @ dS1.transpose(-1, -2)) * w_last)
+        dW_decay = torch.where(tri, dW * decay, 0.0)
+        dcb = dW_decay * dt_row
+        GS0 = G @ S0
+        xdS1 = xq @ dS1
+        dCs.append(dcb @ Bq + GS0 * ecum)
+        dBs.append(dcb.transpose(-1, -2) @ Cq + xdS1 * w_last)
+        TW = dW * W
+        dcum = TW.sum(-1) + sign * TW.sum(-2) + (GS0 * Cq * ecum).sum(-1)
+        dw = (xdS1 * Bq).sum(-1)
+        V = dw * w_last[..., 0]
+        dcum = dcum + sign * V
+        last = (dS1 * S0).sum((-1, -2))[..., None] * eQ + V.sum(-1, True)
+        dcum = torch.cat([dcum[..., :-1], dcum[..., -1:] + last], -1)
+        ddt = (dW_decay * cb).sum(-2) + dw * e_last
+        da = dcum.sum(-1, True) - torch.cumsum(dcum, -1) + dcum
+        ddts.append(ddt + da * A_term[:, None])
+        dA_part.append((da * dtq).sum(-1))
+        dS1 = eQ[..., None] * dS1 + G.transpose(-1, -2) @ (Cq * ecum)
+
+    def unchunk(parts, like):
+        t = torch.stack(parts[::-1], 2).movedim(1, 3)
+        return t.reshape(b, -1, *t.shape[3:])[:, :S].to(like.dtype)
+    dA = torch.stack(dA_part[::-1], -1).sum((0, 2)).to(A.dtype)
+    return (unchunk(dxs, x), unchunk(ddts, dt), dA, unchunk(dBs, B),
+            unchunk(dCs, C))

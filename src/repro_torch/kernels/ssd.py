@@ -1,0 +1,125 @@
+"""Mamba2 SSD chunked scan on the card: wrappers around the CUDA kernels
+of ``csrc/ssd.cu`` (``ops.SSD`` is their ``torch.autograd.Function``).
+
+  * ``ssd_fwd``: (y, final state, cstates) in one kernel; one block per
+    (head, batch) walks the chunks in order with the [P, N] fp32 state
+    in shared memory.
+  * ``ssd_bwd``: (dx, ddt, dA, dB, dC) in one kernel walking the chunks in
+    reverse from the saved cstates, carrying dS.  dA comes out as one fp32
+    partial per (batch, head, chunk), summed here in a fixed order: no
+    atomics, so two runs are bitwise equal.
+
+x, y, gy and dx are [b, S, H, P]; dt and ddt [b, S, H] fp32; A [H] fp32;
+B, C, dB and dC [b, S, H, N]; states [b, H, P, N] fp32 and cstates
+[b, H, nc, P, N] fp32, nc = ceil(S / CHUNK).  x, dt, B, C and gy are read
+through their strides (the last dim must be dense; B and C may be one
+group expanded over the heads with head stride 0); outputs are new
+contiguous tensors.  Every wrapper takes CUDA tensors only and raises on
+anything else, including a (P, N) the kernels are not built for; the
+CPU path never reaches this module (``kernels/ops.py`` routes a CPU
+tensor to the plain versions in ``kernels/ref.py``).  Launches are
+counted in ``build.LAUNCHES``.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels.build import check_tensors, current_stream, launch
+from repro_torch.kernels.ref import SSD_CHUNK as CHUNK
+
+#: (head dim P, state size N) pairs with a template instance in
+#: csrc/ssd.cu: mamba2-780m, hymba-1.5b, the reduced configs
+SHAPES = ((64, 128), (64, 16), (16, 16))
+
+
+def _strides(t: torch.Tensor) -> Tuple[int, int, int]:
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _check(name: str, x, dt, A, B, C, *more) -> Tuple:
+    """Validate the scan's operands (``more``: tensors shaped like x);
+    return (code, b, S, H, P, N)."""
+    code = check_tensors(name, x, B, C, *more)
+    if x.dim() != 4 or B.dim() != 4:
+        raise ValueError(f"{name}: x [b,S,H,P] and B/C [b,S,H,N] expected, "
+                         f"got {tuple(x.shape)} {tuple(B.shape)}")
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    if (B.shape != (b, S, H, N) or C.shape != B.shape
+            or dt.shape != (b, S, H) or A.shape != (H,) or S == 0
+            or any(t.shape != x.shape for t in more)):
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)} dt "
+                         f"{tuple(dt.shape)} A {tuple(A.shape)} B "
+                         f"{tuple(B.shape)} C {tuple(C.shape)} "
+                         f"{[tuple(t.shape) for t in more]}")
+    if (P, N) not in SHAPES:
+        raise ValueError(f"{name}: (P, N) = {(P, N)} not built (one of "
+                         f"{SHAPES})")
+    for t in (dt, A):
+        if t.dtype != torch.float32 or t.device != x.device:
+            raise ValueError(f"{name}: dt and A must be fp32 on {x.device}, "
+                             f"got {t.dtype} on {t.device}")
+    if not A.is_contiguous():
+        raise ValueError(f"{name}: A must be contiguous")
+    for t in (x, B, C, *more):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: the last dim must be dense "
+                             f"(strides {t.stride()})")
+    return code, b, S, H, P, N
+
+
+def _check_states(name: str, like: torch.Tensor, *states: torch.Tensor
+                  ) -> None:
+    for t, shape in states:
+        if (t.shape != shape or t.dtype != torch.float32
+                or t.device != like.device or not t.is_contiguous()):
+            raise ValueError(f"{name}: state must be contiguous {shape} fp32 "
+                             f"on {like.device}, got {tuple(t.shape)} "
+                             f"{t.dtype} {t.device}")
+
+
+def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            B: torch.Tensor, C: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (y [b,S,H,P] in x's dtype, final state [b,H,P,N] fp32,
+    cstates [b,H,nc,P,N] fp32)."""
+    code, b, S, H, P, N = _check("ssd_fwd", x, dt, A, B, C)
+    nc = -(-S // CHUNK)
+    y = torch.empty((b, S, H, P), dtype=x.dtype, device=x.device)
+    state = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
+    cstates = torch.empty((b, H, nc, P, N), dtype=torch.float32,
+                          device=x.device)
+    launch("ssd_fwd", x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+           B.data_ptr(), C.data_ptr(), y.data_ptr(), state.data_ptr(),
+           cstates.data_ptr(), b, S, H, P, N, CHUNK, *_strides(x),
+           *_strides(dt), *_strides(B), *_strides(C), code,
+           current_stream(x))
+    return y, state, cstates
+
+
+def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            B: torch.Tensor, C: torch.Tensor, cstates: torch.Tensor,
+            gy: torch.Tensor, gstate: torch.Tensor
+            ) -> Tuple[torch.Tensor, ...]:
+    """(dx, ddt, dA, dB, dC) in the primals' dtypes from the cotangents
+    gy (of y) and gstate (of the final state, fp32) and the forward's
+    cstates."""
+    code, b, S, H, P, N = _check("ssd_bwd", x, dt, A, B, C, gy)
+    nc = -(-S // CHUNK)
+    _check_states("ssd_bwd", x, (cstates, (b, H, nc, P, N)),
+                  (gstate, (b, H, P, N)))
+    dx = torch.empty((b, S, H, P), dtype=x.dtype, device=x.device)
+    ddt = torch.empty((b, S, H), dtype=torch.float32, device=x.device)
+    dB = torch.empty((b, S, H, N), dtype=B.dtype, device=x.device)
+    dC = torch.empty((b, S, H, N), dtype=C.dtype, device=x.device)
+    dA_part = torch.empty((b, H, nc), dtype=torch.float32, device=x.device)
+    launch("ssd_bwd", x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+           B.data_ptr(), C.data_ptr(), cstates.data_ptr(), gy.data_ptr(),
+           gstate.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
+           dC.data_ptr(), dA_part.data_ptr(), b, S, H, P, N, CHUNK,
+           *_strides(x), *_strides(dt), *_strides(B), *_strides(C),
+           *_strides(gy), code, current_stream(x))
+    dA = dA_part.sum((0, 2))
+    return dx, ddt, dA, dB, dC

@@ -3,12 +3,15 @@
 Real training through the Oobleck stack on the card: planner ->
 templates -> heterogeneous pipeline instances -> per-template stage
 programs (fused QKV GEMM and fused residual-add + RMSNorm as CUDA
-kernels in every block, and flash attention with ``--attn-impl
-kernel``) -> layer-bucketed sync -> AdamW, with a node
-killed mid-run and training continued from the surviving replicas.
+kernels in every attention block, flash attention with ``--attn-impl
+kernel``, the Mamba2 SSD scan with ``--ssd-impl kernel``) ->
+layer-bucketed sync -> AdamW, with a node killed mid-run and training
+continued from the surviving replicas.
 
     PYTHONPATH=src python -m repro_torch.launch.train \
         --full --seq-len 2048 --attn-impl kernel --steps 4 --kill-at 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \
+        --full --seq-len 2048 --ssd-impl kernel --steps 4 --kill-at 2
 
 Runs on the card by default; ``--device cpu`` runs the plain versions of
 the kernels on the CPU.  Without ``--full`` the architecture is reduced
@@ -85,7 +88,10 @@ def _parser() -> argparse.ArgumentParser:
                          "versions with --device cpu)")
     ap.add_argument("--ssd-impl", default="chunked",
                     choices=["chunked", "scan", "kernel", "auto"],
-                    help="SSD path (SSM/hybrid archs come with the SSD slice)")
+                    help="SSD scan of SSM and hybrid blocks: 'chunked' "
+                         "and 'scan' in plain ops, 'kernel' (and 'auto') "
+                         "the SSD kernels (their plain versions with "
+                         "--device cpu)")
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--procs", type=int, default=0,
@@ -120,8 +126,8 @@ def main(argv=None) -> dict:
     arch = get_arch(args.arch)
     if not args.full:
         arch = reduced(arch, layers=args.layers)
-    model = Model(arch, dtype=torch.float32,
-                  attn_impl=args.attn_impl)
+    model = Model(arch, dtype=torch.float32, attn_impl=args.attn_impl,
+                  ssd_impl=args.ssd_impl)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = model.init(gen)

@@ -1,0 +1,193 @@
+"""Mamba2 block built on SSD (state-space duality, arXiv:2405.21060): the
+training half of ``repro/models/ssm.py``.
+
+Three numerically equivalent SSD evaluators for ``mamba``:
+  * ``ssd_scan``    — the per-timestep recurrence; the oracle.
+  * ``ssd_chunked`` — the chunked algorithm in plain ops (intra-chunk
+    quadratic + inter-chunk state recurrence).
+  * ``"kernel"``    — ``kernels/ops.ssd``: the CUDA kernels on a CUDA
+    tensor, their plain versions on a CPU tensor.
+
+State layout is [batch, heads, head_dim (P), state (N)] throughout.  The
+decode step and its caches come with the serving slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import rms_norm
+
+
+# ----------------------------------------------------------------------
+# SSD evaluators
+# ----------------------------------------------------------------------
+def ssd_scan(x, dt, A, B, C, state: Optional[torch.Tensor] = None):
+    """Oracle recurrence.
+
+    x: [b,S,H,P] dt: [b,S,H] (post-softplus) A: [H] (negative)
+    B, C: [b,S,H,N] (already expanded per head)
+    returns y: [b,S,H,P], final state [b,H,P,N] fp32.
+    """
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    if state is None:
+        state = torch.zeros((b, H, P, N), dtype=torch.float32,
+                            device=x.device)
+    ys = []
+    for t in range(S):
+        xt, dtt, Bt, Ct = x[:, t], dt[:, t], B[:, t], C[:, t]
+        upd = torch.einsum("bh,bhp,bhn->bhpn", dtt.float(), xt.float(),
+                           Bt.float())
+        state = state * torch.exp(dtt * A)[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bhn->bhp", state.to(xt.dtype), Ct))
+    return torch.stack(ys, 1), state
+
+
+def ssd_chunked(x, dt, A, B, C, chunk: int,
+                state: Optional[torch.Tensor] = None):
+    """Chunked SSD (same signature and returns as ``ssd_scan``), a loop
+    over chunks as in the reference (one chunk's [Q, Q] buffers live at
+    a time).  The one departure: the decay is masked before its exp, so
+    its gradient stays finite where the reference's would be NaN."""
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+    nc = (S + pad) // chunk
+    ii = torch.arange(chunk, device=x.device)
+    causal = (ii[:, None] >= ii[None, :])[None, :, :, None]    # [1,i,j,1]
+    if state is None:
+        state = torch.zeros((b, H, P, N), dtype=torch.float32,
+                            device=x.device)
+    ys = []
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        xq, dtq, Bq, Cq = x[:, sl], dt[:, sl], B[:, sl], C[:, sl]
+        cum = torch.cumsum((dtq * A).float(), 1)                  # [b,Q,H]
+        # masked BEFORE the exp: above the diagonal exp(cum_i - cum_j)
+        # overflows at real widths, and autograd through a mask applied
+        # after it gives 0 * inf = NaN
+        M = torch.exp((cum[:, :, None, :] - cum[:, None, :, :])
+                      .masked_fill(~causal, float("-inf")))
+        CB = torch.einsum("bihn,bjhn->bijh", Cq, Bq).float()
+        W = CB * M * dtq[:, None, :, :]
+        y = torch.einsum("bijh,bjhp->bihp", W.to(xq.dtype), xq)
+        # contribution of the incoming state
+        y = y + torch.einsum("bihn,bhpn->bihp",
+                             (Cq.float() * torch.exp(cum)[..., None]
+                              ).to(xq.dtype), state.to(xq.dtype))
+        # state update
+        w_last = torch.exp(cum[:, -1:, :] - cum) * dtq
+        cs = torch.einsum("bjh,bjhn,bjhp->bhpn", w_last.to(xq.dtype), Bq,
+                          xq).float()
+        state = state * torch.exp(cum[:, -1, :])[..., None, None] + cs
+        ys.append(y)
+    return torch.cat(ys, 1)[:, :S], state
+
+
+# ----------------------------------------------------------------------
+# Causal depthwise conv1d
+# ----------------------------------------------------------------------
+def causal_conv1d(x, weight, bias):
+    """x: [b,S,dim]; weight: [width, dim]; bias: [dim].  A plain
+    depthwise convolution (the reference leaves it to XLA too); the
+    result is laid out [b, S, dim] row-major, so the SSD kernels read x,
+    B and C with a dense last dim."""
+    width = weight.shape[0]
+    xp = F.pad(x.transpose(1, 2), (width - 1, 0))
+    out = F.conv1d(xp, weight.t()[:, None, :].to(x.dtype),
+                   groups=x.shape[-1]).transpose(1, 2).contiguous()
+    return F.silu(out + bias.to(x.dtype))
+
+
+# ----------------------------------------------------------------------
+# Mamba2 block
+# ----------------------------------------------------------------------
+def _dims(arch: ArchConfig):
+    c = arch.ssm
+    d_inner = c.expand * arch.d_model
+    n_heads = d_inner // c.head_dim
+    conv_dim = d_inner + 2 * c.n_groups * c.state_size
+    return c, d_inner, n_heads, conv_dim
+
+
+def init_mamba(gen: torch.Generator, arch: ArchConfig,
+               dtype=torch.float32) -> Dict:
+    """Same shapes and scales as ``repro/models/ssm.py::init_mamba``,
+    drawn from ``gen`` on its device."""
+    c, d_inner, n_heads, conv_dim = _dims(arch)
+    d, dev = arch.d_model, gen.device
+    in_dim = 2 * d_inner + 2 * c.n_groups * c.state_size + n_heads
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def uniform(n, lo, hi):
+        return torch.rand((n,), generator=gen, device=dev) * (hi - lo) + lo
+    dt = torch.exp(uniform(n_heads, math.log(1e-3), math.log(1e-1)))
+    return {
+        "in_proj": normal((d, in_dim), d ** -0.5).to(dtype),
+        "conv_w": normal((c.conv_width, conv_dim), 0.2).to(dtype),
+        "conv_b": torch.zeros((conv_dim,), dtype=dtype, device=dev),
+        "dt_bias": torch.log(torch.expm1(dt)).to(dtype),      # inv-softplus
+        "A_log": torch.log(uniform(n_heads, 1.0, 16.0)).to(dtype),
+        "D": torch.ones((n_heads,), dtype=dtype, device=dev),
+        "norm_w": torch.ones((d_inner,), dtype=dtype, device=dev),
+        "out_proj": normal((d_inner, d), d_inner ** -0.5).to(dtype),
+    }
+
+
+def _split_proj(arch: ArchConfig, proj):
+    c, d_inner, n_heads, _ = _dims(arch)
+    gn = c.n_groups * c.state_size
+    return torch.split(proj, [d_inner, d_inner + 2 * gn, n_heads], dim=-1)
+
+
+def _expand_groups(t, n_heads: int, n_groups: int):
+    """[b, S, G, N] -> [b, S, H, N] by repeating each group: a stride-0
+    view when n_groups = 1 (a copy otherwise)."""
+    b, S, G, N = t.shape
+    reps = n_heads // n_groups
+    return t.unsqueeze(3).expand(b, S, G, reps, N).reshape(b, S, n_heads, N)
+
+
+def mamba(params, arch: ArchConfig, x: torch.Tensor, *,
+          evaluator: str = "chunked") -> torch.Tensor:
+    """Full-sequence Mamba2 block. x: [b,S,d_model]."""
+    c, d_inner, n_heads, _ = _dims(arch)
+    b, S, _ = x.shape
+    proj = x @ params["in_proj"].to(x.dtype)
+    z, xbc, dt_raw = _split_proj(arch, proj)
+    xbc = causal_conv1d(xbc, params["conv_w"], params["conv_b"])
+    gn = c.n_groups * c.state_size
+    xin, B, C = torch.split(xbc, [d_inner, gn, gn], dim=-1)
+    xh = xin.reshape(b, S, n_heads, c.head_dim)
+    Bh = _expand_groups(B.reshape(b, S, c.n_groups, c.state_size), n_heads,
+                        c.n_groups)
+    Ch = _expand_groups(C.reshape(b, S, c.n_groups, c.state_size), n_heads,
+                        c.n_groups)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"].float())
+    A = -torch.exp(params["A_log"].float())
+    if evaluator == "chunked":
+        y, _ = ssd_chunked(xh, dt, A, Bh, Ch, chunk=c.chunk_size)
+    elif evaluator == "kernel":
+        y, _ = kops.ssd(xh, dt, A, Bh, Ch)
+    elif evaluator == "scan":
+        y, _ = ssd_scan(xh, dt, A, Bh, Ch)
+    else:
+        raise ValueError(f"unknown SSD evaluator {evaluator!r}")
+    y = y + params["D"].to(y.dtype)[None, None, :, None] * xh
+    y = y.reshape(b, S, d_inner)
+    y = rms_norm(params["norm_w"].to(x.dtype), y * F.silu(z),
+                 arch.rms_norm_eps)
+    return y @ params["out_proj"].to(x.dtype)

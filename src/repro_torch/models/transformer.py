@@ -8,11 +8,14 @@ layer, the paper's unit of planning, state copy and sync.
 
 ``fuse="fused"`` (what ``"auto"`` resolves to) routes the QKV projection
 and the residual-add + RMSNorm block epilogue through
-``kernels/ops.py``, and ``attn_impl="kernel"`` (what ``"auto"`` resolves
-to) routes attention through ``ops.flash_attention``: the CUDA kernels
-on a CUDA tensor, the plain versions on a CPU tensor, so neither needs
-a probe.  The MoE, SSM, hybrid, multimodal and decode
-paths come with later slices and raise until then.
+``kernels/ops.py``, ``attn_impl="kernel"`` (what ``"auto"`` resolves
+to) routes attention through ``ops.flash_attention``, and
+``ssd_impl="kernel"`` (what ``"auto"`` resolves to) the Mamba2 SSD scan
+through ``ops.ssd``: the CUDA kernels on a CUDA tensor, the plain
+versions on a CPU tensor, so none needs a probe.  The dense, SSM
+(mamba2) and hybrid (hymba: attention and Mamba heads in parallel)
+families are ported; the MoE, multimodal and decode paths come with
+later slices and raise until then.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (cross_entropy, embed, init_embedding,
                                        init_mlp, init_rms_norm, mlp, rms_norm,
                                        unembed)
@@ -35,6 +39,7 @@ class Model:
     arch: ArchConfig
     dtype: torch.dtype = torch.bfloat16  # activations; parameters are fp32
     attn_impl: str = "blocked"          # blocked | naive | kernel | auto
+    ssd_impl: str = "chunked"           # chunked | scan | kernel | auto
     fuse: str = "auto"                  # auto | fused | none
 
     def __post_init__(self):
@@ -42,9 +47,6 @@ class Model:
         if a.moe is not None:
             raise NotImplementedError("MoE blocks are ported in the MoE "
                                       "slice (ROADMAP queue 1)")
-        if a.family == "ssm" or a.hybrid_parallel_heads:
-            raise NotImplementedError("SSM and hybrid blocks are ported in "
-                                      "the SSD slice (ROADMAP queue 1)")
         if a.frontend is not None:
             raise NotImplementedError("multimodal frontends are not ported "
                                       "yet (ROADMAP queue 1)")
@@ -52,6 +54,10 @@ class Model:
             self.attn_impl = "kernel"
         if self.attn_impl not in ("naive", "blocked", "kernel"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
+        if self.ssd_impl == "auto":
+            self.ssd_impl = "kernel"
+        if self.ssd_impl not in ("chunked", "scan", "kernel"):
+            raise ValueError(f"unknown ssd_impl {self.ssd_impl!r}")
         if self.fuse == "auto":
             self.fuse = "fused"
         if self.fuse not in ("fused", "none"):
@@ -75,9 +81,14 @@ class Model:
 
     def _init_block(self, gen: torch.Generator) -> Dict:
         a, pd = self.arch, torch.float32
-        p: Dict = {"ln1": init_rms_norm(a.d_model, pd, gen.device),
-                   "attn": attn_lib.init_attention(gen, a, pd),
-                   "ln2": init_rms_norm(a.d_model, pd, gen.device)}
+        p: Dict = {"ln1": init_rms_norm(a.d_model, pd, gen.device)}
+        if a.family == "ssm":
+            p["mamba"] = ssm_lib.init_mamba(gen, a, pd)
+            return p
+        p["attn"] = attn_lib.init_attention(gen, a, pd)
+        if a.hybrid_parallel_heads:
+            p["mamba"] = ssm_lib.init_mamba(gen, a, pd)
+        p["ln2"] = init_rms_norm(a.d_model, pd, gen.device)
         if a.d_ff:
             p["mlp"] = init_mlp(gen, a.d_model, a.d_ff, a.mlp_variant, pd)
         return p
@@ -89,9 +100,15 @@ class Model:
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         a = self.arch
         h = self._norm(bp["ln1"], x)
+        if a.family == "ssm":
+            x = x + ssm_lib.mamba(bp["mamba"], a, h, evaluator=self.ssd_impl)
+            return x, aux
         fused = self.fuse == "fused"
         branch = attn_lib.attention(bp["attn"], a, h, impl=self.attn_impl,
                                     fused=fused)
+        if a.hybrid_parallel_heads:
+            branch = 0.5 * (branch + ssm_lib.mamba(bp["mamba"], a, h,
+                                                   evaluator=self.ssd_impl))
         if fused:
             # one pass over the residual: (x + branch) and its RMSNorm
             x, h = kops.fused_add_rmsnorm(x, branch, bp["ln2"].to(x.dtype),

@@ -13,11 +13,13 @@ is a sum of many terms (the norm's weight gradient; the flash gradients,
 and the flash out in bf16) is held against the sum of its terms'
 magnitudes, ``cond``: fp32 1e-4 of cond (the norm's dw 1e-5); bf16 2e-2
 of its value plus 1e-3 of cond, since its value is often only a few
-percent of cond."""
+percent of cond.  The SSD kernels are held by chip_smoke.py's own
+comparison (every output against its cond, fp32 rtol 1e-4 plus 1e-5 of
+cond)."""
 import pytest
 import torch
 
-from repro_torch.kernels import build, flash, fused, ops, ref
+from repro_torch.kernels import build, flash, fused, ops, ref, ssd
 
 pytestmark = pytest.mark.cuda
 
@@ -197,4 +199,97 @@ def test_flash_model_matches_naive_on_card(card, arch_name):
     torch.testing.assert_close(out["kernel"][0], out["naive"][0],
                                rtol=1e-5, atol=1e-6)
     for a, b in zip(out["kernel"][1], out["naive"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (1, 1000, 6, 64, 128, True), (2, 1000, 50, 64, 16, True),
+    (2, 300, 8, 16, 16, False), (1, 7, 2, 16, 16, False)],
+    ids=["mamba-heads", "hymba", "reduced", "short"])
+def test_ssd_kernels_match_plain(card, shape, dtype):
+    """Both SSD kernels against their plain versions with chip_smoke.py's
+    condition-aware tolerances (fp32: rtol 1e-4 plus 1e-5 of the sum of
+    the terms' magnitudes; bf16 outputs 2e-2 plus 1e-3 of it), bitwise
+    equal across two runs."""
+    cs = _chip_smoke()
+    table = cs.kernel_table(card)
+    for name in ("ssd_fwd", "ssd_bwd"):
+        kern, plain, _ = table[name]
+        args = cs.make_inputs(name, shape, dtype, card, seed=5)
+        cs.compare(name, kern, plain, args, dtype)
+
+
+def test_ssd_wrappers_refuse_other_shapes(card):
+    x = torch.zeros(1, 8, 2, 32, device=card)
+    dt = torch.zeros(1, 8, 2, device=card)
+    A = torch.zeros(2, device=card)
+    B = torch.zeros(1, 8, 2, 16, device=card)
+    with pytest.raises(ValueError):
+        ssd.ssd_fwd(x, dt, A, B, B)
+    with pytest.raises(ValueError):
+        ssd.ssd_fwd(x[..., :16], dt.double(), A, B, B)
+
+
+def test_ssd_gradients_match_autograd_on_card(card):
+    """ops.ssd (both kernels) against autograd through the per-timestep
+    oracle, B and C one group expanded over the heads: 2e-4 relative to
+    each output's largest entry (the reference's own oracle tolerance)."""
+    g = torch.Generator(device=card).manual_seed(6)
+    b, S, H, P, N = 2, 150, 4, 64, 16
+    x = torch.randn(b, S, H, P, generator=g, device=card)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, S, H, generator=g, device=card) - 3.0)
+    A = -torch.exp(torch.randn(H, generator=g, device=card) * 0.5)
+    Bg, Cg = (torch.randn(b, S, 1, N, generator=g, device=card)
+              for _ in range(2))
+    gy = torch.randn(b, S, H, P, generator=g, device=card)
+    outs = {}
+    for route in ("kernel", "oracle"):
+        leaves = [t.clone().requires_grad_(True) for t in (x, dt, A, Bg, Cg)]
+        xx, dd, AA, BB, CC = leaves
+        BB, CC = BB.expand(b, S, H, N), CC.expand(b, S, H, N)
+        fn = ops.ssd if route == "kernel" else ref.ssd_ref
+        y, _ = fn(xx, dd, AA, BB, CC)
+        outs[route] = (y, *torch.autograd.grad(y, leaves, gy))
+    for a, b_ in zip(outs["kernel"], outs["oracle"]):
+        scale = float(b_.abs().max())
+        torch.testing.assert_close(a, b_, rtol=0, atol=2e-4 * scale)
+
+
+def test_ssm_models_match_plain_on_card(card):
+    """Reduced mamba2 through the SSD kernels against the chunked scan in
+    plain ops: loss to 1e-5, gradients to 1e-4; every SSD launch counted
+    (one per layer)."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import Model
+    from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
+    arch = reduced(get_arch("mamba2_780m"), layers=2, d_model=128)
+    g = torch.Generator(device=card).manual_seed(7)
+    batch = {key: torch.randint(0, arch.vocab_size, (2, 200), generator=g,
+                                device=card) for key in ("tokens", "labels")}
+    params = Model(arch, dtype=torch.float32).init(
+        torch.Generator(device=card).manual_seed(0))
+    out = {}
+    build.reset_launches()
+    for impl in ("kernel", "chunked"):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in tree_leaves(params)]
+        model = Model(arch, dtype=torch.float32, ssd_impl=impl)
+        loss, _ = model.loss(tree_unflatten_like(params, leaves), batch)
+        out[impl] = (loss, torch.autograd.grad(loss, leaves))
+    assert build.LAUNCHES["ssd_fwd"] == build.LAUNCHES["ssd_bwd"] == 2
+    torch.testing.assert_close(out["kernel"][0], out["chunked"][0],
+                               rtol=1e-5, atol=1e-6)
+    for a, b in zip(out["kernel"][1], out["chunked"][1]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

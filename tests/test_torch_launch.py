@@ -40,6 +40,28 @@ def test_train_cli_on_cpu_recovers_without_builds(policy, attn_impl, capsys):
     assert set(out["builds_after_step"]) == {out["recovery"]["builds_before"]}
 
 
+def test_train_cli_on_cpu_trains_mamba2_through_the_ssd_kernels(capsys,
+                                                                monkeypatch):
+    """--arch mamba2-780m --ssd-impl kernel: the flag reaches the Model
+    (the SSD kernels' plain versions on the CPU) and training recovers
+    from the failure with no builds."""
+    seen = []
+
+    class Recording(Model):
+        def __post_init__(self):
+            seen.append(self.ssd_impl)
+            super().__post_init__()
+    monkeypatch.setattr(train, "Model", Recording)
+    out = train.main(["--arch", "mamba2-780m", "--ssd-impl", "kernel",
+                      "--steps", "4", "--kill-at", "2", "--layers", "2",
+                      "--device", "cpu"])
+    assert seen == ["kernel"]
+    assert "[fail]" in capsys.readouterr().out
+    assert out["losses"][-1] < out["losses"][0]
+    assert all(d == 0.0 for d in out["divergences"])
+    assert set(out["builds_after_step"]) == {out["recovery"]["builds_before"]}
+
+
 @pytest.mark.parametrize("flag", [["--procs", "2"], ["--eager"],
                                   ["--ckpt-dir", "x"], ["--join-at", "1"]])
 def test_later_slice_flags_raise(flag):
@@ -79,7 +101,7 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert [k["name"] for k in record["kernels"]] == [
         "add_rmsnorm_fwd", "add_rmsnorm_bwd", "gemm_bias", "flash_fwd",
-        "flash_bwd_dq", "flash_bwd_dkdv"]
+        "flash_bwd_dq", "flash_bwd_dkdv", "ssd_fwd", "ssd_bwd"]
     for k in record["kernels"]:
         assert set(k) == keys
         assert (ROOT / k["source"]).exists()
@@ -97,8 +119,16 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
                        for ln in lines), (layout, path)
         assert any(ln.startswith("[check] add_rmsnorm_bwd") and path in ln
                    for ln in lines), path
-    assert any(ln.startswith("[naive]") for ln in lines)
-    assert any(ln.startswith("[flash]") for ln in lines)
+    for kind in ("mamba", "hymba", "reduced"):
+        for dtype in ("float32", "bfloat16"):
+            assert any(ln.startswith("[check] ssd_bwd") and kind in ln
+                       and dtype in ln for ln in lines), (kind, dtype)
+    assert any(ln.split()[:4] == ["[time]", "ssd_bwd", "fwd", "mamba"]
+               for ln in lines)
+    assert any(ln.startswith("[model] mamba2") for ln in lines)
+    assert any(ln.startswith("[model] hymba") for ln in lines)
+    for path in ("naive", "flash", "mamba"):
+        assert any(ln.startswith(f"[{path}]") for ln in lines), path
 
 
 def _zero(i):
@@ -112,11 +142,17 @@ def _zero(i):
     ("flash_bwd_dkdv", (1, 100, 4, 2, 32, 0), _zero(0)),
     ("flash_bwd_dkdv", (1, 100, 4, 1, 32, 24), _zero(1)),
     ("add_rmsnorm_bwd", (256, 64), _zero(1)),
-], ids=["out-zeroed", "dq-5pct", "dk-zeroed", "dv-zeroed-window", "dw-zeroed"])
+    ("ssd_bwd", (2, 130, 3, 64, 16, True), _zero(3)),
+    ("ssd_bwd", (2, 130, 3, 64, 16, True), _zero(1)),
+    ("ssd_bwd", (2, 130, 3, 64, 16, True),
+     lambda out: (out[0] * 1.05, *out[1:])),
+], ids=["out-zeroed", "dq-5pct", "dk-zeroed", "dv-zeroed-window", "dw-zeroed",
+        "ssd-dB-zeroed", "ssd-ddt-zeroed", "ssd-dx-5pct"])
 def test_chip_smoke_bf16_checks_catch_planted_faults(name, shape, fault):
     """The bf16 comparison of outputs that are sums of many terms holds
     them to 2e-2 of their value plus 1e-3 of their condition-aware
-    scale: a zeroed or 5 %-scaled output fails it."""
+    scale (the fp32 ones, as the SSD's ddt, to 1e-4 plus 1e-5 of it): a
+    zeroed or 5 %-scaled output fails it."""
     cs = _load_chip_smoke()
     cpu = torch.device("cpu")
     _, plain, _ = cs.kernel_table(cpu)[name]

@@ -192,8 +192,8 @@ def test_model_init_matches_reference_shapes():
 def test_unported_families_and_paths_raise():
     with pytest.raises(NotImplementedError):
         Model(reduced(get_arch("granite_moe_1b_a400m")))
-    with pytest.raises(NotImplementedError):
-        Model(reduced(get_arch("mamba2_780m")))
+    for name in ("mamba2_780m", "hymba_1_5b"):     # ported with the SSD
+        assert Model(reduced(get_arch(name))).ssd_impl == "chunked"
     assert Model(reduced(get_arch("gpt3_medium")),
                  attn_impl="auto").attn_impl == "kernel"
     with pytest.raises(NotImplementedError):

@@ -1,7 +1,8 @@
 """The port's HeteroTrainer against the JAX package's on the same engine
 inputs, weights and batches: 3 steps with a node killed before step 2,
-with naive attention and with the flash path (the JAX package's Pallas
-kernels interpreted, the port's plain versions of its kernels).
+with naive attention, with the flash path, and for reduced mamba2 with
+the SSD kernels (the JAX package's Pallas kernels interpreted, the
+port's plain versions of its kernels).
 Losses match at rtol 1e-4, parameters track by the reference's own rule
 (tests/test_executor.py::assert_params_track), replicas never diverge,
 and recovery builds nothing after warm_templates().  Inside the port,
@@ -64,13 +65,17 @@ def _engine_args(n_nodes, gb, policy="replan"):
             [f"n{i}" for i in range(n_nodes)])
 
 
-@pytest.mark.parametrize("attn_impl", ["naive", "kernel"])
-def test_trainer_tracks_jax_through_failure(attn_impl):
-    jarch = jreduced(jget_arch("gpt3_medium"), layers=2)
-    arch = reduced(get_arch("gpt3_medium"), layers=2)
+@pytest.mark.parametrize("arch_name,attn_impl,ssd_impl", [
+    pytest.param("gpt3_medium", "naive", "chunked", id="naive"),
+    pytest.param("gpt3_medium", "kernel", "chunked", id="kernel"),
+    pytest.param("mamba2_780m", "naive", "kernel", id="mamba2-ssd-kernel")])
+def test_trainer_tracks_jax_through_failure(arch_name, attn_impl, ssd_impl):
+    jarch = jreduced(jget_arch(arch_name), layers=2)
+    arch = reduced(get_arch(arch_name), layers=2)
     jmodel = JModel(jarch, dtype=jnp.float32, remat=False,
-                    attn_impl=attn_impl, scan_layers=False)
-    model = Model(arch, dtype=torch.float32, attn_impl=attn_impl)
+                    attn_impl=attn_impl, ssd_impl=ssd_impl, scan_layers=False)
+    model = Model(arch, dtype=torch.float32, attn_impl=attn_impl,
+                  ssd_impl=ssd_impl)
     jparams = jmodel.init(jax.random.PRNGKey(11))
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     cfg, nodes = _engine_args(5, GB)
