@@ -14,8 +14,9 @@ Phases, each fatal on failure:
      operand layouts, and twice on the same inputs (bitwise equal);
   4. each kernel's time at each path's shape (CUDA events, and the
      device time of the kernel's own events under torch.profiler), its
-     bound, its plain version's time and the one-call library
-     equivalent where there is one;
+     bound (and, for the GEMM and dk/dv, the bound of their 3xTF32
+     tensor-core design), its plain version's time and the one-call
+     library equivalent where there is one;
   5. small models with the kernels against the same models on plain
      PyTorch ops (loss and gradients): fused vs unfused epilogues, flash
      vs naive attention (gpt3-medium, and GQA qwen2.5-3b with QKV bias
@@ -60,6 +61,12 @@ SRC = os.path.join(ROOT, "src")
 # kernel is the larger of bytes / memory rate and operations / peak.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
+# The tensor-core designs of gemm_bias and flash_bwd_dkdv: fp32 runs three
+# TF32 products per multiply-add (3xTF32) at the 495 TFLOP/s TF32 peak,
+# bf16 one product at 989.  Printed beside the bound above, which stays
+# the kernels line's bound_ms.
+TENSOR_CORE = ("gemm_bias", "flash_bwd_dkdv")
+TC_PEAK_FLOPS = {"torch.float32": 495e12 / 3, "torch.bfloat16": 989e12}
 
 PATHS = {   # phase -> (label, argv on the card, argv of the CPU rehearsal)
     6: ("naive", ["--full", "--seq-len", "512", "--steps", "4", "--kill-at",
@@ -383,9 +390,11 @@ def tolerances(name, dtype):
 
 
 def compare(name, kern, plain, args, dtype):
+    """Hold kern against plain on ``args``; returns (max abs error, max of
+    error / limit over the outputs' elements)."""
     import torch
     got, want = _flat(kern(*args)), _flat(plain(*args))
-    err = 0.0
+    err = ratio = 0.0
     for i, (a, b, cond, tol) in enumerate(zip(
             got, want, _conds(name, args, want), tolerances(name, dtype))):
         check(a.shape == b.shape and a.dtype == b.dtype,
@@ -402,10 +411,11 @@ def compare(name, kern, plain, args, dtype):
               f"{name}[{i}] {dtype}: {int(bad.sum())} of {bad.numel()} "
               f"elements off, max abs err {float(diff.max()):.3e} (tol {tol})")
         err = max(err, float(diff.max()))
+        ratio = max(ratio, float((diff / limit).max()))
     again = _flat(kern(*args))
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"{name} {dtype}: two runs on the same inputs differ")
-    return err
+    return err, ratio
 
 
 def check_kernels(device, table, shapes):
@@ -420,10 +430,11 @@ def check_kernels(device, table, shapes):
                 for layout in layouts:
                     args = make_inputs(name, shape, dtype, device, seed=1,
                                        layout=layout)
-                    err = compare(name, kern, plain, args, dtype)
+                    err, ratio = compare(name, kern, plain, args, dtype)
                     print(f"[check] {name:16s} {layout:3s} {label:6s} "
                           f"{str(dtype)[6:]:8s} shape={shape} "
-                          f"max_abs_err={err:.3e} deterministic=yes")
+                          f"max_abs_err={err:.3e} err/tol={ratio:.4f} "
+                          f"deterministic=yes")
                     if (dtype == torch.float32
                             and label == reported_path(name)):
                         errors[name] = max(errors.get(name, 0.0), err)
@@ -509,10 +520,24 @@ def _ssd_work(name, shape, s):
 
 def bound(name, shape, dtype):
     """(ms, 'bytes' | 'operations'): each input read once, each output
-    written once, over 3.35 TB/s; operations over the type's peak.  The
-    flash kernels count their matrix products (2 flops per multiply-add)
-    over the (q, k) pairs the causal mask keeps: 2 products in the
-    forward, 3 in dq, 4 in dk/dv; the SSD kernels as ``_ssd_work``."""
+    written once, over 3.35 TB/s; operations over the type's peak."""
+    nbytes, ops = work(name, shape, dtype)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[str(dtype)] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tensor_core_bound(name, shape, dtype):
+    """ms of a TENSOR_CORE kernel's operations at its design's
+    tensor-core rate (fp32: 3 x ops / 495 TFLOP/s; bf16: ops / 989)."""
+    return work(name, shape, dtype)[1] / TC_PEAK_FLOPS[str(dtype)] * 1e3
+
+
+def work(name, shape, dtype):
+    """(bytes, flops) of one call.  The flash kernels count their matrix
+    products (2 flops per multiply-add) over the (q, k) pairs the causal
+    mask keeps: 2 products in the forward, 3 in dq, 4 in dk/dv; the SSD
+    kernels as ``_ssd_work``."""
     import torch
     s = torch.tensor([], dtype=dtype).element_size()
     if name in SSD:
@@ -534,9 +559,7 @@ def bound(name, shape, dtype):
     else:
         M, K, N = shape
         nbytes, ops = (M * K + K * N + M * N + N) * s, 2 * M * N * K
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[str(dtype)] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return nbytes, ops
 
 
 def sdpa_backward_ms(args, device, iters):
@@ -574,6 +597,9 @@ def time_kernels(device, table, shapes, iters):
                 lib_ms = (time_ms(lib, args, device, iters)
                           if lib is not None else None)
             bms, by = bound(name, shape, torch.float32)
+            tc = (f", tensor-core bound "
+                  f"{tensor_core_bound(name, shape, torch.float32):.4f} ms "
+                  f"(3xTF32)" if name in TENSOR_CORE else "")
             if label == reported_path(name):
                 rows[name] = {"ms": ms, "plain_ms": plain_ms,
                               "library_ms": lib_ms, "bound_ms": bms,
@@ -584,7 +610,7 @@ def time_kernels(device, table, shapes, iters):
                   f"plain {plain_ms:.4f} ms, library "
                   f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}"
                   f"{' (SDPA fwd+bwd - fwd: dq and dk/dv together)' if name in FLASH[1:] else ''}, "
-                  f"bound {bms:.4f} ms ({by})")
+                  f"bound {bms:.4f} ms ({by}){tc}")
             if name != "gemm_bias":
                 continue
             for layout in ("dx", "dW"):
@@ -598,11 +624,13 @@ def time_kernels(device, table, shapes, iters):
                 pms = time_ms(plain, a, device, iters)
                 lms = time_ms(torch.matmul, a[:2], device, iters)
                 bl, byl = bound(name, sh, torch.float32)
+                tcl = tensor_core_bound(name, sh, torch.float32)
                 print(f"[time] {name:16s} {layout:3s} {label:5s} shape={sh} "
                       f"fp32: kernel {kms:.4f} ms (profiler device time "
                       f"{'not measured' if dms is None else f'{dms:.4f} ms'}), "
                       f"plain {pms:.4f} ms, library {lms:.4f} ms, "
-                      f"bound {bl:.4f} ms ({byl})")
+                      f"bound {bl:.4f} ms ({byl}), tensor-core bound "
+                      f"{tcl:.4f} ms (3xTF32)")
     return rows
 
 

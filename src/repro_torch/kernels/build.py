@@ -53,8 +53,9 @@ SIGNATURES = {
     "add_rmsnorm_fwd": (_vp, _vp, _vp, _vp, _vp, _int, _int, _float, _int, _vp),
     "add_rmsnorm_bwd": (_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
                         _float, _int, _vp),
-    "gemm_bias": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int,
-                  _int, _int, _vp),
+    # gemm_bias: A, B, bias, C, the split's fp32 workspace, M, N, K, the
+    # strides of A and B, then fused.gemm_config's tile, split and copies
+    "gemm_bias": (_vp,) * 5 + (_int,) * 7 + (_int,) * 7 + (_int, _vp),
     "flash_fwd": (_vp,) * 5 + _FLASH_SHAPE + (_int, _vp),
     "flash_bwd_dq": (_vp,) * 7 + _FLASH_SHAPE + (_int,) * 3 + (_int, _vp),
     "flash_bwd_dkdv": (_vp,) * 8 + _FLASH_SHAPE + (_int,) * 3 + (_int, _vp),

@@ -8,7 +8,9 @@
 // cudaGetLastError() so the Python wrapper can raise on a refused
 // launch.  dtype codes: 0 = float32, 1 = bfloat16.  No kernel uses
 // atomics: the same inputs give bitwise-equal outputs.
-#include "common.cuh"
+#include <cstdint>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -123,90 +125,339 @@ __global__ void add_rmsnorm_bwd_kernel(const T* __restrict__ res,
 }
 
 // ---------------------------------------------------------------------
-// Kernel 3: tiled GEMM with a bias epilogue, C = A.B + bias.
+// Kernel 3: GEMM with a bias epilogue, C = A.B + bias, fp32 accumulate.
 // Replaces repro/kernels/fused.py::_matmul_kernel (the fused QKV
 // forward over the concatenated weight, and the custom backward's
 // dx = g.W^T and dW = x^T.g).
-// Bound on the H100: operations.  At the main path's shapes (M = 1024
-// rows, K = 1024 or 3072, N = 1024 or 3072) each element read is used
-// hundreds of times.  Design: 64x64 output tiles per 256-thread block,
-// each thread holding a 4x4 fp32 accumulator in registers; A and B
-// stream through shared memory in K-steps of 16, converted to fp32 on
-// load.  A and B are read through explicit strides, so the transposed
-// operands of the backward need no copy; the load mapping follows
-// whichever stride is 1, so the reads stay coalesced in all three
-// layouts.  Ragged M, N and K are masked (K = M is small in the dW
-// product).  CUDA cores, no tensor cores yet: this is the simple first
-// version, and wgmma/TMA are the next step.
+// Bound on the H100: operations.  At the flash path's shapes (M 4096,
+// K and N 1024 or 3072; the dW product M 1024, K 4096) each element is
+// read once for hundreds of multiply-adds: 2MNK = 25.8 GFLOP, 0.385 ms
+// at the CUDA cores' 67 TFLOP/s, a rate cuBLAS's fp32 product already
+// reaches 75 % of.  Design: the tensor cores (tensor_core.cuh).  fp32
+// inputs take the 3xTF32 split, three m16n8k8 TF32 products per step
+// (0.156 ms at 495 TFLOP/s), each exact, the dropped small.small term
+// below 2^-22 of the product.  The mma accumulator truncates its
+// additions (tools/mma_rounding.py), so after every BK = 32 slice of K
+// it is added into a second, ordinary fp32 register sum and zeroed (the
+// promotion): in a CPU emulation of truncating accumulation over K =
+// 4096 the fp32 tolerance fails without it and holds at 3 % of it with
+// it (tests/test_torch_gemm_tiles.py).  bf16 inputs take one m16n8k16
+// product per step, with the same promotion.
+// A block computes a 128 x 128 tile with 8 warps (64 x 32 each) or a
+// 64 x 64 tile with 4 warps (32 x 32 each).  A and B stream through a
+// 4-stage ring of BK-slices in dynamic shared memory, filled by
+// 16-byte cp.async copies that stay in flight while earlier slices
+// compute (4-byte copies, or plain loads for bf16, where a row is not
+// 16-byte aligned, as at the ragged shapes).  A shared tile keeps the
+// global stride-1 dimension, so the four layouts (A K- or M-major, B
+// K- or N-major; the forward, dx and dW use three) are template
+// instances whose padded pitches put every fragment read on 32 banks;
+// no operand is transposed in memory.  A split over K (grid z) writes
+// fp32 partials that a second kernel sums in a fixed order with the
+// bias: no atomics, bitwise-equal reruns.  kernels/fused.py::gemm_config
+// picks the tile, the split and the copy width.
+// Why mma.sync and not wgmma + TMA: wgmma takes .tf32 operands only
+// K-major in shared memory, and the forward's W and the dW product's x
+// are MN-major.  A warp-specialised wgmma/TMA design needs them
+// transposed in shared memory first; it is the next step, now that the
+// 3xTF32 numerics hold on the card.
 // ---------------------------------------------------------------------
-constexpr int BM = 64, BN = 64, BK = 16, PAD = 4;
+constexpr int GBK = 32;        // K slice per ring stage = promotion interval
+constexpr int GSTAGES = 4;     // ring depth
 
+struct GemmArgs {
+  const void* A;
+  const void* B;
+  const void* bias;            // null: no bias
+  void* C;                     // [M, N] contiguous
+  float* ws;                   // [splits, M, N] fp32 partials when split
+  int M, N, K, kchunk;         // split z sums k in [z*kchunk, (z+1)*kchunk)
+  long long sam, sak, sbk, sbn;
+};
+
+// Shared-memory geometry of one operand's ring stage.  kmaj: the
+// stride-1 dim is K (A row-major, B column-major); the stage then holds
+// `mn` rows of GBK elements, else GBK rows of `mn`.  The pad keeps rows
+// 16-byte aligned and puts the 32 lanes of a fragment read on 32 banks.
+template <typename T, bool kmaj, int mn>
+struct TileGeom {
+  static constexpr int rows = kmaj ? mn : GBK;
+  static constexpr int cols = kmaj ? GBK : mn;
+  static constexpr int pitch = kmaj ? GBK + (sizeof(T) == 4 ? 4 : 8) : mn + 8;
+  static constexpr int size = rows * pitch;      // elements
+};
+
+// Element (r, k) of an operand stage (r indexes M for A, N for B).
+template <typename T, bool kmaj, int mn>
+__device__ __forceinline__ T tile_at(const T* s, int r, int k) {
+  using G = TileGeom<T, kmaj, mn>;
+  return kmaj ? s[r * G::pitch + k] : s[k * G::pitch + r];
+}
+
+// Elements (r, k) and (r, k + 1), k even, as one bf16x2 register.
+template <bool kmaj, int mn>
+__device__ __forceinline__ uint32_t tile_pair(const __nv_bfloat16* s, int r,
+                                              int k) {
+  using G = TileGeom<__nv_bfloat16, kmaj, mn>;
+  if constexpr (kmaj)
+    return *reinterpret_cast<const uint32_t*>(s + r * G::pitch + k);
+  else
+    return pack_bf16(s[k * G::pitch + r], s[(k + 1) * G::pitch + r]);
+}
+
+// Copy rows [r0, r0 + mn) x k in [k0, k0 + GBK) of an operand X, element
+// (r, k) at X[r * s_r + k * s_k], into one ring stage; elements with
+// r >= R or k >= kend read as 0.  VEC: 16-byte cp.async along the
+// stride-1 dim (which must be 1, with the other stride and X 16-byte
+// aligned); else one element per copy through both strides.
+template <typename T, bool kmaj, int mn, bool VEC, int NT>
+__device__ __forceinline__ void load_tile(T* dst, const T* X, long long s_r,
+                                          long long s_k, int r0, int R,
+                                          int k0, int kend) {
+  using G = TileGeom<T, kmaj, mn>;
+  if constexpr (VEC) {
+    constexpr int W = 16 / (int)sizeof(T);
+    constexpr int CPR = G::cols / W;             // 16-byte chunks per row
+    static_assert(G::rows * CPR % NT == 0, "chunks must split evenly");
+#pragma unroll
+    for (int i = 0; i < G::rows * CPR / NT; ++i) {
+      const int c = threadIdx.x + i * NT;
+      const int row = c / CPR, col = (c % CPR) * W;
+      int r, k, valid;
+      if constexpr (kmaj) {
+        r = r0 + row;
+        k = k0 + col;
+        valid = r < R ? min(max(kend - k, 0), W) : 0;
+      } else {
+        k = k0 + row;
+        r = r0 + col;
+        valid = k < kend ? min(max(R - r, 0), W) : 0;
+      }
+      const T* src = valid > 0 ? X + r * s_r + k * s_k : X;
+      cp_async16(dst + row * G::pitch + col, src, valid * (int)sizeof(T));
+    }
+  } else {
+    static_assert(G::rows * G::cols % NT == 0, "elements must split evenly");
+#pragma unroll 4
+    for (int i = 0; i < G::rows * G::cols / NT; ++i) {
+      const int e = threadIdx.x + i * NT;
+      const int row = e / G::cols, col = e % G::cols;
+      const int r = r0 + (kmaj ? row : col), k = k0 + (kmaj ? col : row);
+      const bool ok = r < R && k < kend;
+      const T* src = ok ? X + r * s_r + k * s_k : X;
+      if constexpr (sizeof(T) == 4)
+        cp_async4(dst + row * G::pitch + col, src, ok ? 4 : 0);
+      else
+        dst[row * G::pitch + col] = ok ? *src : from_f<T>(0.f);
+    }
+  }
+}
+
+// AK: A is K-major (row-major); BKM: B is K-major (column-major).
+// Grid (N tiles, M tiles, K splits); WM x WN warps.
+template <typename T, int BM, int BN, int WM, int WN, bool AK, bool BKM,
+          bool VEC>
+__global__ void __launch_bounds__(WM * WN * 32, 1)
+gemm_bias_kernel(const GemmArgs p) {
+  constexpr int NT = WM * WN * 32;
+  constexpr int MI = BM / WM / 16, NI = BN / WN / 8;   // m16 / n8 per warp
+  using GA = TileGeom<T, AK, BM>;
+  using GB = TileGeom<T, BKM, BN>;
+  extern __shared__ float4 smem4[];
+  T* As = reinterpret_cast<T*>(smem4);                 // [GSTAGES][GA::size]
+  T* Bs = As + GSTAGES * GA::size;                     // [GSTAGES][GB::size]
+  const T* A = static_cast<const T*>(p.A);
+  const T* B = static_cast<const T*>(p.B);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp / WN) * (BM / WM), wn = (warp % WN) * (BN / WN);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int kbeg = blockIdx.z * p.kchunk;
+  const int kend = min(p.K, kbeg + p.kchunk);
+  const int KT = kend > kbeg ? (kend - kbeg + GBK - 1) / GBK : 0;
+
+  auto load = [&](int kt) {
+    const int st = kt % GSTAGES, k0 = kbeg + kt * GBK;
+    load_tile<T, AK, BM, VEC, NT>(As + st * GA::size, A, p.sam, p.sak, m0,
+                                  p.M, k0, kend);
+    load_tile<T, BKM, BN, VEC, NT>(Bs + st * GB::size, B, p.sbn, p.sbk, n0,
+                                   p.N, k0, kend);
+  };
+
+  float acc[MI][NI][4];        // the promoted sum (ordinary fp32 adds)
+  float part[MI][NI][4];       // the tensor cores' sum over one slice
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < GSTAGES - 1; ++s) {
+    if (s < KT) load(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<GSTAGES - 2>();   // slice kt has landed (this thread's copies)
+    __syncthreads();                // ... every thread's; slice kt-1's stage is free
+    if (kt + GSTAGES - 1 < KT) load(kt + GSTAGES - 1);
+    cp_async_commit();
+    const T* as = As + (kt % GSTAGES) * GA::size;
+    const T* bs = Bs + (kt % GSTAGES) * GB::size;
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+    if constexpr (sizeof(T) == 4) {
+#pragma unroll
+      for (int kk = 0; kk < GBK; kk += 8) {
+        uint32_t bb[NI][2], bsm[NI][2];
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+          const int n = wn + j * 8 + g;
+          split_tf32(tile_at<T, BKM, BN>(bs, n, kk + t), bb[j][0], bsm[j][0]);
+          split_tf32(tile_at<T, BKM, BN>(bs, n, kk + t + 4), bb[j][1],
+                     bsm[j][1]);
+        }
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          const int r = wm + i * 16 + g;
+          uint32_t ab[4], asm_[4];
+          split_tf32(tile_at<T, AK, BM>(as, r, kk + t), ab[0], asm_[0]);
+          split_tf32(tile_at<T, AK, BM>(as, r + 8, kk + t), ab[1], asm_[1]);
+          split_tf32(tile_at<T, AK, BM>(as, r, kk + t + 4), ab[2], asm_[2]);
+          split_tf32(tile_at<T, AK, BM>(as, r + 8, kk + t + 4), ab[3],
+                     asm_[3]);
+          mma_3xtf32<NI>(part[i], ab, asm_, bb, bsm);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < GBK; kk += 16) {
+        uint32_t bf[NI][2];
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+          const int n = wn + j * 8 + g;
+          bf[j][0] = tile_pair<BKM, BN>(bs, n, kk + 2 * t);
+          bf[j][1] = tile_pair<BKM, BN>(bs, n, kk + 2 * t + 8);
+        }
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          const int r = wm + i * 16 + g;
+          const uint32_t af[4] = {tile_pair<AK, BM>(as, r, kk + 2 * t),
+                                  tile_pair<AK, BM>(as, r + 8, kk + 2 * t),
+                                  tile_pair<AK, BM>(as, r, kk + 2 * t + 8),
+                                  tile_pair<AK, BM>(as, r + 8, kk + 2 * t + 8)};
+#pragma unroll
+          for (int j = 0; j < NI; ++j) mma_bf16(part[i][j], af, bf[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+  }
+  cp_async_wait<0>();
+
+  // Epilogue: acc[i][j][2h + e] is C(wm + 16i + g + 8h, wn + 8j + 2t + e).
+  const T* bias = static_cast<const T*>(p.bias);
+  T* C = static_cast<T*>(p.C);
+  const bool split = gridDim.z > 1;
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + i * 16 + g + 8 * h;
+      if (m >= p.M) continue;
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + wn + j * 8 + 2 * t + e;
+          if (n >= p.N) continue;
+          float v = acc[i][j][2 * h + e];
+          const long long off = (long long)m * p.N + n;
+          if (split) {
+            p.ws[(long long)blockIdx.z * p.M * p.N + off] = v;
+          } else {
+            if (bias != nullptr) v += to_f(bias[n]);
+            C[off] = from_f<T>(v);
+          }
+        }
+    }
+}
+
+// Second pass of a split over K: C = sum_z ws[z] + bias, z in order.
 template <typename T>
 __global__ void __launch_bounds__(256)
-gemm_bias_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                 const T* __restrict__ bias, T* __restrict__ C,
-                 int M, int N, int K, long long sam, long long sak,
-                 long long sbk, long long sbn) {
-  __shared__ float As[BK][BM + PAD];
-  __shared__ float Bs[BK][BN + PAD];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+gemm_bias_kernel_reduce(const GemmArgs p, int splits) {
+  const long long mn = (long long)p.M * p.N;
+  const T* bias = static_cast<const T*>(p.bias);
+  T* C = static_cast<T*>(p.C);
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < mn;
+       i += (long long)gridDim.x * 256) {
+    float v = 0.f;
+    for (int z = 0; z < splits; ++z) v += p.ws[z * mn + i];
+    if (bias != nullptr) v += to_f(bias[i % p.N]);
+    C[i] = from_f<T>(v);
+  }
+}
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // A tile: BM x BK = 1024 elements, 4 per thread.
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int idx = tid + e * 256;
-      int mm, kk;
-      if (sak == 1) { kk = idx % BK; mm = idx / BK; }   // row-major A
-      else          { mm = idx % BM; kk = idx / BM; }   // column-major A
-      const int m = m0 + mm, k = k0 + kk;
-      As[kk][mm] = (m < M && k < K) ? to_f(A[m * sam + k * sak]) : 0.f;
-    }
-    // B tile: BK x BN = 1024 elements, 4 per thread.
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int idx = tid + e * 256;
-      int kk, nn;
-      if (sbn == 1) { nn = idx % BN; kk = idx / BN; }   // row-major B
-      else          { kk = idx % BK; nn = idx / BK; }   // column-major B
-      const int k = k0 + kk, n = n0 + nn;
-      Bs[kk][nn] = (k < K && n < N) ? to_f(B[k * sbk + n * sbn]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
-    }
-    __syncthreads();
+template <typename T, int BM, int BN, int WM, int WN, bool AK, bool BKM,
+          bool VEC>
+int launch_gemm(const GemmArgs& p, int splits, cudaStream_t s) {
+  constexpr int smem = GSTAGES *
+                       (TileGeom<T, AK, BM>::size + TileGeom<T, BKM, BN>::size) *
+                       (int)sizeof(T);
+  auto kernel = gemm_bias_kernel<T, BM, BN, WM, WN, AK, BKM, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, splits);
+  kernel<<<grid, WM * WN * 32, smem, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long want = ((long long)p.M * p.N + 255) / 256;
+  const int blocks = (int)(want < 132 * 8 ? want : 132 * 8);
+  gemm_bias_kernel_reduce<T><<<blocks, 256, 0, s>>>(p, splits);
+  return (int)cudaGetLastError();
+}
+
+// The built tiles: 64 x 64 for every type and copy width, 128 x 128 for
+// fp32 with 16-byte copies (kernels/fused.py::GEMM_TILES).
+template <typename T, bool AK, bool BKM, bool VEC>
+int gemm_tile(int bm, int bn, const GemmArgs& p, int splits,
+              cudaStream_t s) {
+  if (bm == 64 && bn == 64)
+    return launch_gemm<T, 64, 64, 2, 2, AK, BKM, VEC>(p, splits, s);
+  if constexpr (VEC && sizeof(T) == 4) {
+    if (bm == 128 && bn == 128)
+      return launch_gemm<T, 128, 128, 2, 4, AK, BKM, VEC>(p, splits, s);
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= N) continue;
-      float v = acc[i][j];
-      if (bias != nullptr) v += to_f(bias[n]);
-      C[(long long)m * N + n] = from_f<T>(v);
-    }
-  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, bool VEC>
+int gemm_layout(bool ak, bool bkm, int bm, int bn, const GemmArgs& p,
+                int splits, cudaStream_t s) {
+  if (ak)
+    return bkm ? gemm_tile<T, true, true, VEC>(bm, bn, p, splits, s)
+               : gemm_tile<T, true, false, VEC>(bm, bn, p, splits, s);
+  return bkm ? gemm_tile<T, false, true, VEC>(bm, bn, p, splits, s)
+             : gemm_tile<T, false, false, VEC>(bm, bn, p, splits, s);
+}
+
+// 16-byte copies need the stride-1 dim to have stride 1, the other
+// stride a multiple of 16 bytes and the base 16-byte aligned.
+bool rows_aligned(const void* ptr, long long unit, long long lead, int size) {
+  return unit == 1 && lead % (16 / size) == 0 &&
+         reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
 int norm_threads(int d) {
@@ -265,25 +516,34 @@ int add_rmsnorm_bwd(const void* res, const void* w, const void* gres,
   return (int)cudaGetLastError();
 }
 
-int gemm_bias(const void* A, const void* B, const void* bias, void* C, int M,
-              int N, int K, int sam, int sak, int sbk, int sbn, int dtype,
-              void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  if (dtype == kF32) {
-    gemm_bias_kernel<float><<<grid, 256, 0, s>>>(
-        (const float*)A, (const float*)B, (const float*)bias, (float*)C, M, N,
-        K, sam, sak, sbk, sbn);
-  } else if (dtype == kBF16) {
-    gemm_bias_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(
-        (const __nv_bfloat16*)A, (const __nv_bfloat16*)B,
-        (const __nv_bfloat16*)bias, (__nv_bfloat16*)C, M, N, K, sam, sak, sbk,
-        sbn);
-  } else {
+int gemm_bias(const void* A, const void* B, const void* bias, void* C,
+              void* ws, int M, int N, int K, int sam, int sak, int sbk,
+              int sbn, int bm, int bn, int splits, int kchunk, int a_kmajor,
+              int b_kmajor, int vec, int dtype, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || splits <= 0 || kchunk <= 0 ||
+      kchunk % GBK != 0 || (long long)kchunk * splits < K ||
+      (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const int size = dtype == kF32 ? 4 : 2;
+  const bool a_ok = a_kmajor ? rows_aligned(A, sak, sam, size)
+                            : rows_aligned(A, sam, sak, size);
+  const bool b_ok = b_kmajor ? rows_aligned(B, sbk, sbn, size)
+                            : rows_aligned(B, sbn, sbk, size);
+  if (vec && !(a_ok && b_ok)) return (int)cudaErrorMisalignedAddress;
+  GemmArgs p = {A, B, bias, C, (float*)ws, M, N, K, kchunk,
+                sam, sak, sbk, sbn};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == kF32)
+    return vec ? gemm_layout<float, true>(a_kmajor, b_kmajor, bm, bn, p,
+                                          splits, s)
+               : gemm_layout<float, false>(a_kmajor, b_kmajor, bm, bn, p,
+                                           splits, s);
+  if (dtype == kBF16)
+    return vec ? gemm_layout<__nv_bfloat16, true>(a_kmajor, b_kmajor, bm, bn,
+                                                  p, splits, s)
+               : gemm_layout<__nv_bfloat16, false>(a_kmajor, b_kmajor, bm,
+                                                   bn, p, splits, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -8,7 +8,9 @@
   * ``MatmulBias``: one tiled GEMM with a bias epilogue over the
     concatenated QKV weight; its backward runs the SAME kernel for
     ``dx = g.W^T`` and ``dW = x^T.g``, with strides instead of
-    transpose copies, and sums ``db`` in fp32.
+    transpose copies, and sums ``db`` in fp32.  ``gemm_config`` picks
+    each call's tile, split over K and copy width from the shapes,
+    strides and addresses alone (no measurement at run time).
 
 Every wrapper takes CUDA tensors only and raises on anything else; the
 CPU path never reaches this module (``kernels/ops.py`` routes a CPU
@@ -17,15 +19,119 @@ tensor to ``kernels/ref.py``).  Launches are counted in
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels.build import check_tensors, current_stream, launch
 
-#: rows per block of the backward norm kernel: M / 8 blocks fill the
-#: card at the main path's M = 1024 and keep the dw partials small
+#: rows per block of the backward norm kernel: M / 8 blocks (128 at the
+#: naive path's M = 1024, 512 at the flash path's 4096) fill the card's
+#: 132 SMs and keep the dw partials small
 NORM_BWD_ROWS = 8
+
+# ----------------------------------------------------------------------
+# GEMM launch configuration (pure functions of shapes, strides and
+# addresses: the same call always gets the same configuration)
+# ----------------------------------------------------------------------
+#: SMs of the H100 SXM, over which a grid's blocks are spread in waves
+GEMM_SMS = 132
+#: K slice of the kernel's shared-memory ring (csrc/fused.cu GBK); a
+#: split over K covers a whole number of slices
+GEMM_BK = 32
+#: built tiles (bm, bn) -> (blocks resident per SM, relative rate of an
+#: SM on that tile): 128 x 128 runs one 8-warp block per SM, 64 x 64 three
+#: 4-warp blocks, each warp with a smaller tile and so more shared loads
+#: per product.  128 x 128 is built for fp32 with 16-byte copies only.
+GEMM_TILES = {(128, 128): (1, 1.0), (64, 64): (3, 0.6)}
+#: assumed multiply-adds per second of one SM on the 128 x 128 tile,
+#: 3xTF32 (the planning model's unit; only ratios matter)
+_SM_MACS = 4.2e11
+_HBM_BYTES_PER_S = 3.35e12
+_LAUNCH_S = 5e-6
+_MAX_SPLITS = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmConfig:
+    """One launch of ``gemm_bias_kernel``: a bm x bn tile, K split into
+    ``splits`` ranges of ``kchunk`` (a second kernel sums the fp32
+    partials in order), the operands' shared layouts, and 16-byte
+    (``vec``) or element copies."""
+    bm: int
+    bn: int
+    splits: int
+    kchunk: int
+    a_kmajor: bool          # A's K stride is 1 (row-major A)
+    b_kmajor: bool          # B's K stride is 1 (B read transposed)
+    vec: bool
+
+
+def gemm_kchunk(K: int, splits: int) -> int:
+    """K rows per split: whole ``GEMM_BK`` slices."""
+    per_split = -(-K // splits)
+    return -(-per_split // GEMM_BK) * GEMM_BK
+
+
+def _vec_ok(unit: int, lead: int, addr: int, itemsize: int) -> bool:
+    """Whether an operand takes 16-byte copies: its stride-1 dim (stride
+    ``unit``) has stride 1, its other stride ``lead`` is a multiple of 16
+    bytes, and its base address is 16-byte aligned."""
+    return unit == 1 and (lead * itemsize) % 16 == 0 and addr % 16 == 0
+
+
+def _gemm_seconds(M: int, N: int, K: int, bm: int, bn: int,
+                  splits: int) -> float:
+    """Planning model: waves of resident blocks times one block's
+    multiply-adds over its SM's share of the rate, plus the second
+    pass's bytes and launch when split."""
+    occ, rate = GEMM_TILES[(bm, bn)]
+    jobs = -(-M // bm) * -(-N // bn) * splits
+    waves = -(-jobs // (GEMM_SMS * occ))
+    block_s = occ * bm * bn * gemm_kchunk(K, splits) / (rate * _SM_MACS)
+    reduce_s = (0.0 if splits == 1 else
+                (splits + 1) * M * N * 4 / _HBM_BYTES_PER_S + _LAUNCH_S)
+    return waves * block_s + reduce_s
+
+
+def gemm_config(M: int, N: int, K: int, a_strides: Sequence[int],
+                b_strides: Sequence[int], a_addr: int, b_addr: int,
+                itemsize: int) -> GemmConfig:
+    """The launch of C[M, N] = A[M, K].B[K, N]: A and B's strides (as the
+    [M, K] and [K, N] views), base addresses and element size.
+
+    Layouts: A is K-major when its K stride is 1 (else M-major), B when
+    its K stride is 1 and its N stride is not (else N-major).  Copies
+    are 16-byte where both operands allow it (``_vec_ok``), else one
+    element each (the 64 x 64 tile, no split).  The tile and split
+    minimise ``_gemm_seconds`` over the built tiles (128 x 128 for fp32
+    only) and 1-4 splits that each cover a nonempty range of K; ties go
+    to the larger tile and the fewer splits."""
+    sam, sak = a_strides
+    sbk, sbn = b_strides
+    a_kmajor = sak == 1
+    b_kmajor = sbk == 1 and sbn != 1
+    vec = (_vec_ok(sak if a_kmajor else sam, sam if a_kmajor else sak,
+                   a_addr, itemsize)
+           and _vec_ok(sbk if b_kmajor else sbn, sbn if b_kmajor else sbk,
+                       b_addr, itemsize))
+    if not vec:
+        return GemmConfig(64, 64, 1, gemm_kchunk(K, 1), a_kmajor, b_kmajor,
+                          False)
+    best = None
+    for bm, bn in GEMM_TILES:
+        if (bm, bn) == (128, 128) and itemsize != 4:
+            continue
+        for splits in range(1, _MAX_SPLITS + 1):
+            kchunk = gemm_kchunk(K, splits)
+            if kchunk * (splits - 1) >= K:
+                break
+            key = (_gemm_seconds(M, N, K, bm, bn, splits), -bm * bn, splits)
+            if best is None or key < best[0]:
+                best = (key, GemmConfig(bm, bn, splits, kchunk, a_kmajor,
+                                        b_kmajor, True))
+    return best[1]
 
 
 # ----------------------------------------------------------------------
@@ -79,11 +185,17 @@ def gemm_bias(a: torch.Tensor, b: torch.Tensor,
                          f"{None if bias is None else bias.shape}")
     if bias is not None:
         bias = bias.contiguous()
+    cfg = gemm_config(M, N, K, a.stride(), b.stride(), a.data_ptr(),
+                      b.data_ptr(), a.element_size())
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    ws = (torch.empty((cfg.splits, M, N), dtype=torch.float32,
+                      device=a.device) if cfg.splits > 1 else None)
     launch("gemm_bias", a.data_ptr(), b.data_ptr(),
            None if bias is None else bias.data_ptr(), c.data_ptr(),
+           None if ws is None else ws.data_ptr(),
            M, N, K, a.stride(0), a.stride(1), b.stride(0), b.stride(1),
-           code, current_stream(a))
+           cfg.bm, cfg.bn, cfg.splits, cfg.kchunk, int(cfg.a_kmajor),
+           int(cfg.b_kmajor), int(cfg.vec), code, current_stream(a))
     return c
 
 

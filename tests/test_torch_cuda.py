@@ -7,8 +7,10 @@ CUDA has no CPU mode).  On a machine with the card:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances as chip_smoke.py states them: fp32 GEMM rtol = atol = 1e-4
-(another summation order), fp32 norms rtol 1e-5 / atol 1e-6, fp32 flash
-out 1e-4, flash lse 1e-5, bf16 elementwise outputs 2e-2.  An output that
+plus 1e-6 of its cond (another summation order; the GEMM tests at the
+paths' shapes take chip_smoke.py's own comparison, the first, smaller
+one rtol = atol = 1e-4 alone), fp32 norms rtol 1e-5 / atol 1e-6, fp32
+flash out 1e-4, flash lse 1e-5, bf16 elementwise outputs 2e-2.  An output that
 is a sum of many terms (the norm's weight gradient; the flash gradients,
 and the flash out in bf16) is held against the sum of its terms'
 magnitudes, ``cond``: fp32 1e-4 of cond (the norm's dw 1e-5); bf16 2e-2
@@ -86,6 +88,49 @@ def test_gemm_kernel_all_layouts_match_plain(card, M, K, N, dtype):
         assert torch.equal(got, fused.gemm_bias(a_, b_, bias))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["fwd", "dx", "dW"])
+@pytest.mark.parametrize("label", ["flash", "naive"])
+def test_gemm_kernel_at_path_shapes_matches_plain(card, label, layout, dtype):
+    """The three products of the fused QKV at the flash and naive paths'
+    shapes (the dW product sums K = 4096 at the flash shape, split in
+    two), with chip_smoke.py's tolerance and its cond term; bitwise equal
+    across two runs."""
+    cs = _chip_smoke()
+    kern, plain, _ = cs.kernel_table(card)["gemm_bias"]
+    shape = dict(cs.CARD_SHAPES["gemm_bias"])[label]
+    args = cs.make_inputs("gemm_bias", shape, dtype, card, seed=6,
+                          layout=layout)
+    cs.compare("gemm_bias", kern, plain, args, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_kernel_unaligned_operands_match_plain(card, dtype):
+    """Operands whose base is one element off a 16-byte boundary, and a
+    row stride of 1001 elements, take the element-copy instance."""
+    cs = _chip_smoke()
+    g = torch.Generator(device=card).manual_seed(7)
+    x = torch.randn(300 * 512 + 1, generator=g, device=card).to(dtype)
+    x = x[1:].view(300, 512)
+    w = (torch.randn(512, 1001, generator=g, device=card) * 512 ** -0.5
+         ).to(dtype)[:, :640]
+    b = torch.randn(640, generator=g, device=card).to(dtype)
+    cfg = fused.gemm_config(300, 640, 512, x.stride(), w.stride(),
+                            x.data_ptr(), w.data_ptr(), x.element_size())
+    assert not cfg.vec
+    cs.compare("gemm_bias", fused.gemm_bias, ref.matmul_bias_ref, (x, w, b),
+               dtype)
+
+
+def test_gemm_launcher_refuses_an_unbuilt_tile(card):
+    a = torch.zeros(64, 64, device=card)
+    c = torch.empty(64, 64, device=card)
+    with pytest.raises(RuntimeError, match="gemm_bias"):
+        build.launch("gemm_bias", a.data_ptr(), a.data_ptr(), None,
+                     c.data_ptr(), None, 64, 64, 64, 64, 1, 64, 1,
+                     32, 32, 1, 64, 1, 0, 1, 0, build.current_stream(a))
+
+
 def test_fused_ops_gradients_match_plain_on_card(card):
     g = torch.Generator(device=card).manual_seed(2)
     x = torch.randn(2, 64, 128, generator=g, device=card)
@@ -155,6 +200,42 @@ def test_flash_kernels_match_plain(card, B, S, H, KV, D, window, dtype):
     assert torch.equal(flash.flash_bwd_dkdv(q, k, v, dout, plse, delta,
                                             window)[0], dk)
     assert torch.equal(flash.flash_fwd(q, k, v, window)[0], out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 2048, 16, 16, 64, 0), (2, 300, 8, 2, 32, 0), (1, 200, 8, 2, 128, 0),
+    (2, 257, 10, 2, 64, 96), (1, 130, 4, 1, 128, 40)],
+    ids=["flash-path", "gqa-d32", "gqa-d128", "window-d64", "window-d128"])
+def test_flash_bwd_dkdv_matches_plain(card, shape, dtype):
+    """The tensor-core dk/dv kernel against its plain version with
+    chip_smoke.py's condition-aware tolerances, at head dims 32, 64 and
+    128, with grouped query heads and a sliding window; bitwise equal
+    across two runs."""
+    cs = _chip_smoke()
+    kern, plain, _ = cs.kernel_table(card)["flash_bwd_dkdv"]
+    args = cs.make_inputs("flash_bwd_dkdv", shape, dtype, card, seed=8)
+    cs.compare("flash_bwd_dkdv", kern, plain, args, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_dkdv_unaligned_rows_match_plain(card, dtype):
+    """Operands one element off a 16-byte boundary take the kernel's
+    element copies instead of its 16-byte cp.async ones."""
+    cs = _chip_smoke()
+    kern, plain, _ = cs.kernel_table(card)["flash_bwd_dkdv"]
+    q, k, v, dout, lse, delta, window = cs.make_inputs(
+        "flash_bwd_dkdv", (1, 130, 4, 2, 64, 0), dtype, card, seed=9)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    args = (shifted(q), shifted(k), shifted(v), shifted(dout), lse, delta,
+            window)
+    assert args[0].data_ptr() % 16 != 0
+    cs.compare("flash_bwd_dkdv", kern, plain, args, dtype)
 
 
 def test_flash_wrappers_refuse_other_head_dims(card):
