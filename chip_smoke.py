@@ -14,8 +14,8 @@ Phases, each fatal on failure:
      operand layouts, and twice on the same inputs (bitwise equal);
   4. each kernel's time at each path's shape (CUDA events, and the
      device time of the kernel's own events under torch.profiler), its
-     bound (and, for the GEMM and dk/dv, the bound of their 3xTF32
-     tensor-core design), its plain version's time and the one-call
+     bound (and, for the GEMM and the flash kernels, the bound of their
+     3xTF32 tensor-core design), its plain version's time and the one-call
      library equivalent where there is one;
   5. small models with the kernels against the same models on plain
      PyTorch ops (loss and gradients): fused vs unfused epilogues, flash
@@ -61,11 +61,11 @@ SRC = os.path.join(ROOT, "src")
 # kernel is the larger of bytes / memory rate and operations / peak.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
-# The tensor-core designs of gemm_bias and flash_bwd_dkdv: fp32 runs three
-# TF32 products per multiply-add (3xTF32) at the 495 TFLOP/s TF32 peak,
-# bf16 one product at 989.  Printed beside the bound above, which stays
-# the kernels line's bound_ms.
-TENSOR_CORE = ("gemm_bias", "flash_bwd_dkdv")
+# The tensor-core designs of gemm_bias and the three flash kernels: fp32
+# runs three TF32 products per multiply-add (3xTF32) at the 495 TFLOP/s
+# TF32 peak, bf16 one product at 989.  Printed beside the bound above,
+# which stays the kernels line's bound_ms.
+TENSOR_CORE = ("gemm_bias", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
 TC_PEAK_FLOPS = {"torch.float32": 495e12 / 3, "torch.bfloat16": 989e12}
 
 PATHS = {   # phase -> (label, argv on the card, argv of the CPU rehearsal)

@@ -7,25 +7,37 @@
 // (batch, seq, head) strides, with the head dim dense: no transpose or
 // pad copies.  Query head h reads kv head h / G, G = H / KV.  Outputs are
 // written contiguous.  Scores are scaled by 1/sqrt(D) and every product
-// is accumulated in fp32; the forward and dq convert bf16 inputs to fp32
-// when a tile is loaded, dk/dv feeds them to the tensor cores as bf16.
+// is accumulated in fp32.
 //
 // Bound on the H100: operations.  At the flash path's shape (B 2, S
 // 2048, H 16, D 64) a 64x64 score tile costs 2*64*64*64 flops per
 // product for 2*64*64*4 bytes of tile, and the causal mask halves the
 // work, so the tiles come from L2 and the kernels are limited by the
-// arithmetic rate.  The forward and dq (simple first version): 64-row q
-// and kv tiles in shared memory, 256 threads as a 16x16 grid, each
-// thread holding a 4x4 patch of the score tile and 4 rows x D/16
-// columns of its fp32 accumulators in registers; operands of products
-// that reduce over D are stored transposed ([D][64], padded), so a
-// thread reads its 4 rows and 4 columns as two float4 loads per step;
-// CUDA cores only.  The dk/dv kernel runs its four products on the
-// tensor cores (tensor_core.cuh: 3xTF32 for fp32, bf16 m16n8k16), fed
-// by a cp.async ring; see its own note below.  mma.sync and not wgmma:
-// wgmma's .tf32 operands must be K-major in shared memory, and the
-// products here read Q and dO both ways; a wgmma/TMA design would
-// transpose them in shared memory first.
+// arithmetic rate: 67 TFLOP/s of fp32 on the CUDA cores, or 495 TFLOP/s
+// of TF32 on the tensor cores, which run three TF32 products for each
+// fp32 one (3xTF32).  Each kernel's note gives its numbers.
+//
+// Design, shared by the three kernels: every product runs on the tensor
+// cores (tensor_core.cuh: 3xTF32 mma.sync for fp32, m16n8k16 for bf16),
+// a warp per 16 rows of a 64-row tile.  Shared tiles keep the global
+// row-major layout at TileGeom's pitch and are filled by cp.async
+// (fetch_rows), so every operand is read row-major, never transposed:
+// rows_dot forms a warp's 16 x 64 tile of A.B^T over D (S = Q.K^T, dP =
+// dO.V^T, or their transposes in dk/dv), and rows_acc adds x.B where x
+// is such a tile still in the mma's C fragments (P or dS, or their
+// transposes), fed straight back as the A operand.  A C fragment holds
+// columns (2t, 2t+1) where an A fragment wants (t, t + 4), so the index
+// inside each k-step of 8 is permuted (slot t <-> 2t, slot t + 4 <-> 2t
+// + 1) on both operands, which leaves the sum unchanged and needs
+// neither a shuffle nor a trip through shared memory (bf16: the m16n8k16
+// A layout matches two C fragments as they are).  The tensor core's own
+// additions round toward zero, so rows_acc sums one 64-wide block into a
+// zeroed accumulator and promotes it into fp32 registers once per block.
+// The softmax, p and ds are formed on the C fragments in registers; a
+// row's max and sum are reduced over the 4 lanes that hold it, in a
+// fixed order.  mma.sync and not wgmma: wgmma's .tf32 operands must be
+// K-major in shared memory, and these products read Q, dO, K and V both
+// ways; a wgmma/TMA design would transpose them in shared memory first.
 //
 // Plain C interface (extern "C"), loaded with ctypes by kernels/build.py.
 // Every launcher takes the stream it must launch on, allocates nothing,
@@ -42,8 +54,6 @@ namespace {
 constexpr int BQ = 64;          // rows of a q tile
 constexpr int BK = 64;          // rows of a kv tile (== BQ: the diagonal
                                 // q block is the last kv block it reads)
-constexpr int TP = BQ + 4;      // row of a transposed tile, float4-aligned
-constexpr int NT = 256;         // threads per block, a 16 x 16 grid
 constexpr float NEG_INF = -1e30f;  // the reference's mask value, not -inf
 
 struct Strides {
@@ -66,7 +76,7 @@ struct FlashArgs {
   int B, S, H, KV, window;
   float scale;
   Strides qs, ks, vs, gs;
-  bool vec;                     // dk/dv: rows 16-byte aligned (cp.async 16)
+  bool vec;                     // rows 16-byte aligned (cp.async 16)
 };
 
 // (q position, k position) takes part: causal, inside the sequence, and
@@ -75,312 +85,45 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int S, int window) {
   return kpos <= qpos && qpos < S && (window <= 0 || kpos > qpos - window);
 }
 
-// Max / sum over the 16 threads that share a score row (one half warp),
-// in a fixed butterfly order.
-__device__ __forceinline__ float row_max(float v) {
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// Max / sum over the 4 lanes that hold one row of a C fragment (lanes
+// 4g .. 4g + 3), in a fixed butterfly order.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
-__device__ __forceinline__ float row_sum(float v) {
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Rows [row0, row0 + 64) of one head, transposed into dst[d * TP + r] in
-// fp32; rows at or past S read as 0.  Reads are coalesced along d.
+// A warp owns 16 rows of a 64-row tile and at most 64 columns of the
+// fp32 output: at D 128 two warps share each 16 rows (8 warps), each
+// repeating the rows' score products, since 128 output columns beside
+// the score fragments spill registers (forward and dq: 24-32 bytes at
+// D 128 with 4 warps; dk/dv, two outputs: 756).
 template <typename T, int D>
-__device__ void load_t(float* dst, const T* src, long long row_stride, int row0,
-                       int S) {
-  for (int idx = threadIdx.x; idx < BQ * D; idx += NT) {
-    const int r = idx / D, d = idx % D;
-    const int row = row0 + r;
-    dst[d * TP + r] = row < S ? to_f(src[row * row_stride + d]) : 0.f;
-  }
-}
-
-// The same rows kept row-major: dst[r * D + d].
-template <typename T, int D>
-__device__ void load_rows(float* dst, const T* src, long long row_stride,
-                          int row0, int S) {
-  for (int idx = threadIdx.x; idx < BK * D; idx += NT) {
-    const int r = idx / D, d = idx % D;
-    const int row = row0 + r;
-    dst[r * D + d] = row < S ? to_f(src[row * row_stride + d]) : 0.f;
-  }
-}
-
-// acc[i][j] = sum_d At[d][ty*4+i] * Bt[d][tx*4+j] over two transposed
-// tiles: the thread's 4x4 patch of A.B^T.
-template <int D>
-__device__ __forceinline__ void dot_t(const float* At, const float* Bt,
-                                      float acc[4][4], int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    const float4 a4 = *reinterpret_cast<const float4*>(At + d * TP + ty * 4);
-    const float4 b4 = *reinterpret_cast<const float4*>(Bt + d * TP + tx * 4);
-    const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-    const float b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
-  }
-}
-
-// Store the thread's 4x4 patch transposed: dst[(tx*4+j) * TP + ty*4+i].
-__device__ __forceinline__ void store_patch_t(float* dst, const float x[4][4],
-                                              int ty, int tx) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    *reinterpret_cast<float4*>(dst + (tx * 4 + j) * TP + ty * 4) =
-        make_float4(x[0][j], x[1][j], x[2][j], x[3][j]);
-}
-
-template <int D> constexpr int fwd_smem_bytes() {
-  return (2 * D * TP + BK * D + BK * TP) * (int)sizeof(float);
-}
-template <int D> constexpr int dq_smem_bytes() {
-  return (4 * D * TP + BK * TP) * (int)sizeof(float);
-}
-
-// ---------------------------------------------------------------------
-// Forward.  Replaces repro/kernels/flash_attention.py::_flash_kernel.
-// Grid (q block, head, batch).  The block loops over the kv blocks
-// [lo, hi) of the reference's _kv_bounds with an online softmax (m, l,
-// acc) in fp32, writes O in the input dtype and lse = m + log(l) for the
-// rows below S.
-// ---------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(const FlashArgs a) {
-  extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);   // [D][TP]
-  float* Kt = Qt + D * TP;                       // [D][TP]
-  float* Vs = Kt + D * TP;                       // [BK][D]
-  float* Pt = Vs + BK * D;                       // [BK][TP]: p transposed
-  constexpr int NC = D / 16;                     // output columns a thread owns
-  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (a.H / a.KV);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int S = a.S, q0 = iq * BQ;
-  const int nk = (S + BK - 1) / BK;
-  const int lo = a.window > 0 ? max((q0 - a.window + 1) / BK, 0) : 0;
-  const int hi = min(iq + 1, nk);
-  const T* q = static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h;
-  const T* k = static_cast<const T*>(a.k) + b * a.ks.b + kvh * a.ks.h;
-  const T* v = static_cast<const T*>(a.v) + b * a.vs.b + kvh * a.vs.h;
-  load_t<T, D>(Qt, q, a.qs.s, q0, S);
-
-  float acc[4][NC], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-  for (int ik = lo; ik < hi; ++ik) {
-    const int k0 = ik * BK;
-    __syncthreads();              // the previous block is done with Kt, Vs, Pt
-    load_t<T, D>(Kt, k, a.ks.s, k0, S);
-    load_rows<T, D>(Vs, v, a.vs.s, k0, S);
-    __syncthreads();
-    float s[4][4];
-    dot_t<D>(Qt, Kt, s, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = visible(qpos, k0 + tx * 4 + j, S, a.window);
-        s[i][j] = ok ? s[i][j] * a.scale : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = visible(qpos, k0 + tx * 4 + j, S, a.window);
-        s[i][j] = ok ? expf(s[i][j] - m_new) : 0.f;
-        sum += s[i][j];
-      }
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
-    }
-    store_patch_t(Pt, s, ty, tx);
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 p4 = *reinterpret_cast<const float4*>(Pt + kk * TP + ty * 4);
-      const float p[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float vv = Vs[kk * D + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] += p[i] * vv;
-      }
-    }
-  }
-  T* o = static_cast<T*>(a.o);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty * 4 + i;
-    if (qpos >= S) continue;
-    const float li = fmaxf(l[i], 1e-20f);
-    T* orow = o + (((long long)b * S + qpos) * a.H + h) * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) orow[tx + 16 * c] = from_f<T>(acc[i][c] / li);
-    if (tx == 0) a.lse[((long long)b * a.H + h) * S + qpos] = m[i] + logf(li);
-  }
-}
-
-// ---------------------------------------------------------------------
-// dq.  Replaces repro/kernels/flash_attention.py::_flash_bwd_dq_kernel.
-// Grid (q block, head, batch), looping over the same kv blocks as the
-// forward: p = exp(s - lse) rebuilt from the saved lse, dp = dO.V^T,
-// ds = p * (dp - delta) * scale, dq += ds.K.
-// ---------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const FlashArgs a) {
-  extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);   // [D][TP]
-  float* Gt = Qt + D * TP;                       // [D][TP]
-  float* Kt = Gt + D * TP;                       // [D][TP]
-  float* Vt = Kt + D * TP;                       // [D][TP]
-  float* Dst = Vt + D * TP;                      // [BK][TP]: ds transposed
-  constexpr int NC = D / 16;
-  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (a.H / a.KV);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int S = a.S, q0 = iq * BQ;
-  const int nk = (S + BK - 1) / BK;
-  const int lo = a.window > 0 ? max((q0 - a.window + 1) / BK, 0) : 0;
-  const int hi = min(iq + 1, nk);
-  const T* q = static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h;
-  const T* g = static_cast<const T*>(a.g) + b * a.gs.b + h * a.gs.h;
-  const T* k = static_cast<const T*>(a.k) + b * a.ks.b + kvh * a.ks.h;
-  const T* v = static_cast<const T*>(a.v) + b * a.vs.b + kvh * a.vs.h;
-  load_t<T, D>(Qt, q, a.qs.s, q0, S);
-  load_t<T, D>(Gt, g, a.gs.s, q0, S);
-  const long long row_base = ((long long)b * a.H + h) * S;
-  float lse[4], delta[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty * 4 + i;
-    lse[i] = qpos < S ? a.lse_in[row_base + qpos] : 0.f;
-    delta[i] = qpos < S ? a.delta[row_base + qpos] : 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-  for (int ik = lo; ik < hi; ++ik) {
-    const int k0 = ik * BK;
-    __syncthreads();
-    load_t<T, D>(Kt, k, a.ks.s, k0, S);
-    load_t<T, D>(Vt, v, a.vs.s, k0, S);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    dot_t<D>(Qt, Kt, s, ty, tx);
-    dot_t<D>(Gt, Vt, dp, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = visible(qpos, k0 + tx * 4 + j, S, a.window);
-        const float p = ok ? expf(s[i][j] * a.scale - lse[i]) : 0.f;
-        s[i][j] = p * (dp[i][j] - delta[i]) * a.scale;
-      }
-    }
-    store_patch_t(Dst, s, ty, tx);
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 d4 = *reinterpret_cast<const float4*>(Dst + kk * TP + ty * 4);
-      const float ds[4] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float kv = Kt[(tx + 16 * c) * TP + kk];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] += ds[i] * kv;
-      }
-    }
-  }
-  T* dq = static_cast<T*>(a.dq);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty * 4 + i;
-    if (qpos >= S) continue;
-    T* row = dq + (((long long)b * S + qpos) * a.H + h) * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) row[tx + 16 * c] = from_f<T>(acc[i][c]);
-  }
-}
-
-// ---------------------------------------------------------------------
-// dk and dv in one kernel.  Replaces both
-// repro/kernels/flash_attention.py::_flash_bwd_dk_kernel and
-// ::_flash_bwd_dv_kernel, which share p and ds.
-// Grid (KV head, batch, kv block).  The block loops, in a fixed order,
-// over the G query heads of its kv head and, for each, over the q blocks
-// of the reference's _q_bounds; it accumulates dk = sum ds^T.q and
-// dv = sum p^T.dO in fp32 registers and writes both once, at kv-head
-// resolution: no [B, H, S, D] per-query-head buffers, no reshape-sum, no
-// atomics (one writer per output element).
-// Design: tensor cores (tensor_core.cuh), a warp per 16 kv rows of the
-// 64-row tile.  Per q block a warp computes its rows of S^T = K.Q^T and
-// dP^T = V.dO^T
-// over D, forms P^T = exp(S^T.scale - lse) and dS^T = P^T (dP^T -
-// delta).scale on the accumulator fragments, and feeds them straight
-// back as the A operand of dV += P^T.dO and dK += dS^T.Q: a C fragment
-// holds q columns (2t, 2t+1) where an A fragment wants (t, t + 4), so
-// the q index inside each k-step of 8 is permuted (slot t <-> 2t, slot
-// t + 4 <-> 2t + 1) on both operands, which leaves the sum unchanged
-// and needs neither a shuffle nor a trip through shared memory (bf16:
-// the m16n8k16 A layout matches two C fragments as they are).  fp32
-// takes the 3xTF32 split; each q block's dk and dv contributions are
-// summed by the tensor cores into a 4-register block sum per 8 columns
-// and promoted into the fp32 dk and dv registers once per q block.
-// K and V stay in shared memory (their fragments would not fit in
-// registers beside dk and dv); the next q block's Q and dO tiles, lse
-// and delta are fetched by cp.async into the second buffer of a 2-stage
-// ring while the current one computes.  A warp owns 16 kv rows and at
-// most 64 columns of dk and dv: at D = 128 two warps share each 16 rows
-// (8 warps), each repeating the rows' S^T and dP^T products, since 128
-// columns of dk and dv beside them would spill registers.  A warp skips
-// a q block none of whose pairs with its rows is visible and tests
-// visible() per element only where some are not.  Under the causal mask
-// the first kv blocks have the most q blocks, so the kv block is the
-// grid's slowest dimension: those blocks are dispatched first, and the
-// short ones fill the last wave (in launch order the long ones ran last,
-// and the run took ~35 % longer on the H100).
-// ---------------------------------------------------------------------
-template <typename T, int D>
-struct DkdvGeom {
-  static constexpr int cols = D > 64 ? 64 : D;     // dk, dv columns a warp owns
+struct WarpGeom {
+  static constexpr int cols = D > 64 ? 64 : D;
   static constexpr int threads = 4 * 32 * (D / cols);
-  // fp32 rows of D + 4 and bf16 rows of D + 8 keep rows 16-byte aligned
-  // and every fragment read of the kernel on 32 distinct banks
+};
+
+// A 64-row shared tile: fp32 rows of D + 4 and bf16 rows of D + 8 keep
+// rows 16-byte aligned and every fragment read of the kernels on 32
+// distinct banks.
+template <typename T, int D>
+struct TileGeom {
   static constexpr int pitch = D + (sizeof(T) == 4 ? 4 : 8);
   static constexpr int tile = BK * pitch;      // elements of a 64-row tile
-  // K, V, two (Q, dO) buffers, two (lse, delta) buffers
-  static constexpr int bytes =
-      6 * tile * (int)sizeof(T) + 4 * BQ * (int)sizeof(float);
 };
 
 // Rows [row0, row0 + 64) of one head (row stride `rs`, head dim dense)
-// into a tile of pitch P, rows at or past S as 0.  vec: 16-byte
-// cp.async (rows and base 16-byte aligned); else one element per copy.
-template <typename T, int D>
+// into a tile of TileGeom's pitch, rows at or past S as 0, by the block's
+// NT threads.  vec: 16-byte cp.async (rows and base 16-byte aligned);
+// else one element per copy.
+template <typename T, int D, int NT>
 __device__ __forceinline__ void fetch_rows(T* dst, const T* src, long long rs,
                                            int row0, int S, bool vec) {
-  constexpr int P = DkdvGeom<T, D>::pitch, NT = DkdvGeom<T, D>::threads;
+  constexpr int P = TileGeom<T, D>::pitch;
   if (vec) {
     constexpr int W = 16 / (int)sizeof(T), CPR = D / W;
     static_assert(BK * CPR % NT == 0, "chunks must split evenly");
@@ -448,11 +191,12 @@ __device__ __forceinline__ void rows_dot(const __nv_bfloat16* a,
   }
 }
 
-// out += x.B over the block's 64 q positions: x = the warp's 16 x 64
-// accumulator fragments (P^T or dS^T), B = 64 rows of pitch P (dO or
-// Q).  The tensor cores sum the q block into `blk`, NB column tiles of
-// 8 at a time (NB independent accumulators keep the dependent mma
-// chains short), which is then added into `out` (the promotion).
+// out += x.B over one block's 64 positions: x = the warp's 16 x 64
+// accumulator fragments (P, dS or their transposes), B = 64 rows of
+// pitch P (V, K, dO or Q).  The tensor cores sum the block into `blk`,
+// NB column tiles of 8 at a time (NB independent accumulators keep the
+// dependent mma chains short), which is then added into `out` (the
+// promotion).
 template <int D, int P>
 __device__ __forceinline__ void rows_acc(const float x[8][4], const float* b,
                                          float out[D / 8][4], int g, int t) {
@@ -466,7 +210,7 @@ __device__ __forceinline__ void rows_acc(const float x[8][4], const float* b,
       for (int e = 0; e < 4; ++e) blk[n][e] = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      // k slot t <-> q column 8j + 2t, slot t + 4 <-> 8j + 2t + 1
+      // k slot t <-> position 8j + 2t, slot t + 4 <-> 8j + 2t + 1
       uint32_t ab[4], as[4];
       split_tf32(x[j][0], ab[0], as[0]);
       split_tf32(x[j][2], ab[1], as[1]);
@@ -488,18 +232,19 @@ __device__ __forceinline__ void rows_acc(const float x[8][4], const float* b,
   }
 }
 
-// bf16: Q and dO are exact in bf16 but P^T and dS^T are fp32 sums, and
+// bf16: the B rows are exact in bf16 but P and dS are fp32 sums, and
 // rounding them to bf16 alone misses the fp32-computed plain version by
 // up to 2e-3 of an output's cond where few terms cancel (a CPU
-// emulation at S 130 failed the bf16 tolerance of 1e-3 of cond); so x
-// is split as hi + lo, both bf16, and the lo.B and hi.B products are
-// issued in that order (x's representation error is then below 2^-16).
+// emulation of dk/dv at S 130 failed the bf16 tolerance of 1e-3 of
+// cond); so x is split as hi + lo, both bf16, and the lo.B and hi.B
+// products are issued in that order (x's representation error is then
+// below 2^-16).
 template <int D, int P>
 __device__ __forceinline__ void rows_acc(const float x[8][4],
                                          const __nv_bfloat16* b,
                                          float out[D / 8][4], int g, int t) {
   constexpr int NB = D / 8 < 8 ? D / 8 : 8;   // column tiles per chunk
-  // k-step j2 covers q columns 16 j2 .. 16 j2 + 15: two C fragments
+  // k-step j2 covers positions 16 j2 .. 16 j2 + 15: two C fragments
   uint32_t hi[4][4], lo[4][4];
 #pragma unroll
   for (int j2 = 0; j2 < 4; ++j2)
@@ -541,11 +286,313 @@ __device__ __forceinline__ void rows_acc(const float x[8][4],
   }
 }
 
+// ---------------------------------------------------------------------
+// The forward and dq share their walk: one block per (q block, head,
+// batch), warp w owning q rows [16 (w % 4), 16 (w % 4) + 16) of the tile
+// and output columns [64 (w / 4), 64 (w / 4) + 64) (WarpGeom), over the
+// kv blocks [lo, hi) of the reference's _kv_bounds in order.
+// The q-side tiles (Q, and dO in dq) are fetched once and stay in shared
+// memory (their split fragments would not fit in registers beside the
+// fp32 output); K and V go through a 2-stage cp.async ring, the next kv
+// block loading while this one computes.  A warp skips a kv block none
+// of whose pairs with its rows is visible (such a block leaves its rows
+// unchanged), and tests visible() per element only where some are not.
+// Under the causal mask the last q blocks read the most kv blocks, so
+// the q block is the grid's slowest dimension, taken from the last: the
+// longest blocks are dispatched first and the short ones fill the last
+// wave (in launch order the forward took 18 % and dq 14 % longer on the
+// H100).  The launch bounds ask for one block an SM: without the minimum
+// ptxas held both kernels at D 64 to ~166 registers, and the forward ran
+// 13 % and dq 5 % slower; shared memory allows two blocks an SM at D 64
+// either way.
+// ---------------------------------------------------------------------
+struct QWalk {
+  int h, b, kvh, rows, col0, g, t, S, q0, qr, lo, hi;
+
+  __device__ explicit QWalk(const FlashArgs& a) {
+    h = blockIdx.x;
+    b = blockIdx.y;
+    const int iq = (int)(gridDim.z - 1 - blockIdx.z);  // the longest first
+    kvh = h / (a.H / a.KV);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    rows = 16 * (warp & 3);                       // the warp's rows of the tile
+    col0 = 64 * (warp >> 2);                      // and its first output column
+    g = lane >> 2;
+    t = lane & 3;
+    S = a.S;
+    q0 = iq * BQ;
+    qr = q0 + rows;                               // the warp's first q row
+    lo = a.window > 0 ? max((q0 - a.window + 1) / BK, 0) : 0;
+    hi = min(iq + 1, (S + BK - 1) / BK);
+  }
+  // Of the warp's rows [qr, qr + 16) against kv [k0, k0 + 64): no pair
+  // visible, or every pair visible.
+  __device__ bool none(int k0, int window) const {
+    return qr >= S || qr + 15 < k0 ||
+           (window > 0 && qr - (k0 + BK - 1) >= window);
+  }
+  __device__ bool all(int k0, int window) const {
+    return k0 + BK - 1 <= qr && qr + 15 < S &&
+           (window <= 0 || qr + 15 - k0 < window);
+  }
+  // (q, k) of C-fragment element e of column tile j, at kv block k0
+  __device__ int qpos(int e) const { return qr + g + 8 * (e >> 1); }
+  __device__ int kpos(int k0, int j, int e) const {
+    return k0 + 8 * j + 2 * t + (e & 1);
+  }
+};
+
+// ---------------------------------------------------------------------
+// Forward.  Replaces repro/kernels/flash_attention.py::_flash_kernel.
+// Online softmax (m, l, O) in fp32; writes O in the input dtype and lse
+// = m + log(max(l, 1e-20)) for the rows below S.
+// Bound at the flash path's shape: 2 products over the 2.1 M causal
+// (q, k) pairs of each of the 32 (batch, head): 17.2 GFLOP, 0.257 ms at
+// the CUDA cores' fp32 rate, 0.104 ms as 3xTF32 on the tensor cores (its
+// 67 MB of operands: 0.020 ms).
+// Design: per kv block a warp forms its 16 x 64 tile of S = Q.K^T
+// (rows_dot), masks and scales it, takes the row max over the tile and
+// the running m, p = exp(s.scale - m_new) and the row sum on the C
+// fragments, scales its O registers by corr = exp(m - m_new), and adds
+// P.V (rows_acc), promoted once per block.
+// ---------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(WarpGeom<T, D>::threads, 1)
+flash_fwd_kernel(const FlashArgs a) {
+  constexpr int P = TileGeom<T, D>::pitch, TILE = TileGeom<T, D>::tile;
+  constexpr int C = WarpGeom<T, D>::cols, NT = WarpGeom<T, D>::threads;
+  extern __shared__ float4 smem4[];
+  T* Qs = reinterpret_cast<T*>(smem4);           // [BQ][P]
+  T* Ks = Qs + TILE;                             // [2][BK][P]
+  T* Vs = Ks + 2 * TILE;                         // [2][BK][P]
+  const QWalk w(a);
+  const T* k = static_cast<const T*>(a.k) + w.b * a.ks.b + w.kvh * a.ks.h;
+  const T* v = static_cast<const T*>(a.v) + w.b * a.vs.b + w.kvh * a.vs.h;
+  fetch_rows<T, D, NT>(Qs, static_cast<const T*>(a.q) + w.b * a.qs.b +
+                               w.h * a.qs.h,
+                       a.qs.s, w.q0, w.S, a.vec);
+  // kv block ik into ring buffer (ik - lo) & 1
+  auto fetch = [&](int ik) {
+    const int buf = (ik - w.lo) & 1;
+    fetch_rows<T, D, NT>(Ks + buf * TILE, k, a.ks.s, ik * BK, w.S, a.vec);
+    fetch_rows<T, D, NT>(Vs + buf * TILE, v, a.vs.s, ik * BK, w.S, a.vec);
+  };
+  fetch(w.lo);
+  cp_async_commit();
+
+  float o[C / 8][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int ik = w.lo; ik < w.hi; ++ik) {
+    cp_async_wait<0>();
+    __syncthreads();      // block ik is in for every thread; ik-1's buffer is free
+    if (ik + 1 < w.hi) fetch(ik + 1);
+    cp_async_commit();
+    const int k0 = ik * BK, buf = (ik - w.lo) & 1;
+    if (w.none(k0, a.window)) continue;
+    const bool all = w.all(k0, a.window);
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    rows_dot<D, P>(Qs + w.rows * P, Ks + buf * TILE, s, w.g, w.t);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok =
+            all || visible(w.qpos(e), w.kpos(k0, j, e), w.S, a.window);
+        s[j][e] = ok ? s[j][e] * a.scale : NEG_INF;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    mx[0] = quad_max(mx[0]);
+    mx[1] = quad_max(mx[1]);
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok =
+            all || visible(w.qpos(e), w.kpos(k0, j, e), w.S, a.window);
+        s[j][e] = ok ? expf(s[j][e] - mx[e >> 1]) : 0.f;       // p
+        sum[e >> 1] += s[j][e];
+      }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      corr[r] = expf(m[r] - mx[r]);
+      l[r] = l[r] * corr[r] + quad_sum(sum[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
+    rows_acc<C, P>(s, Vs + buf * TILE + w.col0, o, w.g, w.t);
+  }
+  cp_async_wait<0>();
+
+  T* out = static_cast<T*>(a.o);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = w.qpos(2 * r);
+    if (qpos >= w.S) continue;
+    const float li = fmaxf(l[r], 1e-20f);
+    T* row = out + (((long long)w.b * w.S + qpos) * a.H + w.h) * D + w.col0;
+#pragma unroll
+    for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        row[8 * n + 2 * w.t + e] = from_f<T>(o[n][2 * r + e] / li);
+    if (w.t == 0 && w.col0 == 0)
+      a.lse[((long long)w.b * a.H + w.h) * w.S + qpos] = m[r] + logf(li);
+  }
+}
+
+// ---------------------------------------------------------------------
+// dq.  Replaces repro/kernels/flash_attention.py::_flash_bwd_dq_kernel.
+// Over the same kv blocks as the forward: p = exp(s.scale - lse) rebuilt
+// from the saved lse, dp = dO.V^T, ds = p (dp - delta) scale, dq +=
+// ds.K.
+// Bound at the flash path's shape: 3 products over the causal pairs:
+// 25.8 GFLOP, 0.385 ms at the CUDA cores' fp32 rate, 0.156 ms as 3xTF32
+// on the tensor cores (its 84 MB of operands: 0.025 ms).
+// Design: per kv block a warp forms its 16 x 64 tiles of S = Q.K^T and
+// dP = dO.V^T (rows_dot), then p and ds on the C fragments, and adds
+// dS.K (rows_acc) into its fp32 dq registers, promoted once per block.
+// ---------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(WarpGeom<T, D>::threads, 1)
+flash_bwd_dq_kernel(const FlashArgs a) {
+  constexpr int P = TileGeom<T, D>::pitch, TILE = TileGeom<T, D>::tile;
+  constexpr int C = WarpGeom<T, D>::cols, NT = WarpGeom<T, D>::threads;
+  extern __shared__ float4 smem4[];
+  T* Qs = reinterpret_cast<T*>(smem4);           // [BQ][P]
+  T* Gs = Qs + TILE;                             // [BQ][P]
+  T* Ks = Gs + TILE;                             // [2][BK][P]
+  T* Vs = Ks + 2 * TILE;                         // [2][BK][P]
+  const QWalk w(a);
+  const T* k = static_cast<const T*>(a.k) + w.b * a.ks.b + w.kvh * a.ks.h;
+  const T* v = static_cast<const T*>(a.v) + w.b * a.vs.b + w.kvh * a.vs.h;
+  fetch_rows<T, D, NT>(Qs, static_cast<const T*>(a.q) + w.b * a.qs.b +
+                               w.h * a.qs.h,
+                       a.qs.s, w.q0, w.S, a.vec);
+  fetch_rows<T, D, NT>(Gs, static_cast<const T*>(a.g) + w.b * a.gs.b +
+                               w.h * a.gs.h,
+                       a.gs.s, w.q0, w.S, a.vec);
+  auto fetch = [&](int ik) {
+    const int buf = (ik - w.lo) & 1;
+    fetch_rows<T, D, NT>(Ks + buf * TILE, k, a.ks.s, ik * BK, w.S, a.vec);
+    fetch_rows<T, D, NT>(Vs + buf * TILE, v, a.vs.s, ik * BK, w.S, a.vec);
+  };
+  fetch(w.lo);
+  cp_async_commit();
+
+  const long long row_base = ((long long)w.b * a.H + w.h) * w.S;
+  float lse[2], delta[2], dq[C / 8][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = w.qpos(2 * r);
+    lse[r] = qpos < w.S ? a.lse_in[row_base + qpos] : 0.f;
+    delta[r] = qpos < w.S ? a.delta[row_base + qpos] : 0.f;
+  }
+#pragma unroll
+  for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  for (int ik = w.lo; ik < w.hi; ++ik) {
+    cp_async_wait<0>();
+    __syncthreads();      // block ik is in for every thread; ik-1's buffer is free
+    if (ik + 1 < w.hi) fetch(ik + 1);
+    cp_async_commit();
+    const int k0 = ik * BK, buf = (ik - w.lo) & 1;
+    if (w.none(k0, a.window)) continue;
+    const bool all = w.all(k0, a.window);
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    rows_dot<D, P>(Qs + w.rows * P, Ks + buf * TILE, s, w.g, w.t);
+    rows_dot<D, P>(Gs + w.rows * P, Vs + buf * TILE, dp, w.g, w.t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const bool ok =
+            all || visible(w.qpos(e), w.kpos(k0, j, e), w.S, a.window);
+        const float p = ok ? expf(s[j][e] * a.scale - lse[r]) : 0.f;
+        s[j][e] = p * (dp[j][e] - delta[r]) * a.scale;              // ds
+      }
+    rows_acc<C, P>(s, Ks + buf * TILE + w.col0, dq, w.g, w.t);
+  }
+  cp_async_wait<0>();
+
+  T* out = static_cast<T*>(a.dq);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = w.qpos(2 * r);
+    if (qpos >= w.S) continue;
+    T* row = out + (((long long)w.b * w.S + qpos) * a.H + w.h) * D + w.col0;
+#pragma unroll
+    for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        row[8 * n + 2 * w.t + e] = from_f<T>(dq[n][2 * r + e]);
+  }
+}
+
+// ---------------------------------------------------------------------
+// dk and dv in one kernel.  Replaces both
+// repro/kernels/flash_attention.py::_flash_bwd_dk_kernel and
+// ::_flash_bwd_dv_kernel, which share p and ds.
+// Grid (KV head, batch, kv block).  The block loops, in a fixed order,
+// over the G query heads of its kv head and, for each, over the q blocks
+// of the reference's _q_bounds; it accumulates dk = sum ds^T.q and
+// dv = sum p^T.dO in fp32 registers and writes both once, at kv-head
+// resolution: no [B, H, S, D] per-query-head buffers, no reshape-sum, no
+// atomics (one writer per output element).
+// Bound at the flash path's shape: 4 products over the causal pairs:
+// 34.4 GFLOP, 0.513 ms at the CUDA cores' fp32 rate, 0.208 ms as 3xTF32.
+// Design: a warp per 16 kv rows of the 64-row tile.  Per q block a warp
+// computes its rows of S^T = K.Q^T and dP^T = V.dO^T over D (rows_dot),
+// forms P^T = exp(S^T.scale - lse) and dS^T = P^T (dP^T - delta).scale
+// on the accumulator fragments, and adds dV += P^T.dO and dK += dS^T.Q
+// (rows_acc), promoted once per q block.  K and V stay in shared memory
+// (their fragments would not fit in registers beside dk and dv); the
+// next q block's Q and dO tiles, lse and delta are fetched by cp.async
+// into the second buffer of a 2-stage ring while the current one
+// computes.  A warp owns 16 kv rows and at most 64 columns of dk and dv:
+// at D = 128 two warps share each 16 rows (8 warps), each repeating the
+// rows' S^T and dP^T products (WarpGeom).  A warp skips a q block none of whose
+// pairs with its rows is visible and tests visible() per element only
+// where some are not.  Under the causal mask the first kv blocks have
+// the most q blocks, so the kv block is the grid's slowest dimension:
+// those blocks are dispatched first, and the short ones fill the last
+// wave (in launch order the long ones ran last, and the run took ~35 %
+// longer on the H100).
+// ---------------------------------------------------------------------
+template <typename T, int D>
+struct DkdvGeom : WarpGeom<T, D> {
+  static constexpr int pitch = TileGeom<T, D>::pitch;
+  static constexpr int tile = TileGeom<T, D>::tile;
+  // K, V, two (Q, dO) buffers, two (lse, delta) buffers
+  static constexpr int bytes =
+      6 * tile * (int)sizeof(T) + 4 * BQ * (int)sizeof(float);
+};
+
 template <typename T, int D>
 __global__ void __launch_bounds__(DkdvGeom<T, D>::threads)
 flash_bwd_dkdv_kernel(const FlashArgs a) {
   using Geo = DkdvGeom<T, D>;
-  constexpr int P = Geo::pitch, C = Geo::cols, NC = C / 8;
+  constexpr int P = Geo::pitch, C = Geo::cols, NC = C / 8, NT = Geo::threads;
   extern __shared__ float4 smem4[];
   T* Ks = reinterpret_cast<T*>(smem4);           // [BK][P]
   T* Vs = Ks + Geo::tile;                        // [BK][P]
@@ -569,21 +616,21 @@ flash_bwd_dkdv_kernel(const FlashArgs a) {
   const int qhi = a.window > 0 ? min((k0 + BK + a.window - 2) / BQ + 1, nq) : nq;
   const int nqb = qhi - qlo, items = G * nqb;   // (query head, q block) pairs
 
-  fetch_rows<T, D>(Ks, static_cast<const T*>(a.k) + b * a.ks.b + kvh * a.ks.h,
-                   a.ks.s, k0, S, a.vec);
-  fetch_rows<T, D>(Vs, static_cast<const T*>(a.v) + b * a.vs.b + kvh * a.vs.h,
-                   a.vs.s, k0, S, a.vec);
+  fetch_rows<T, D, NT>(Ks, static_cast<const T*>(a.k) + b * a.ks.b + kvh * a.ks.h,
+                       a.ks.s, k0, S, a.vec);
+  fetch_rows<T, D, NT>(Vs, static_cast<const T*>(a.v) + b * a.vs.b + kvh * a.vs.h,
+                       a.vs.s, k0, S, a.vec);
   // Item it = (query head kvh*G + it / nqb, q block qlo + it % nqb) into
   // ring buffer it & 1.
   auto fetch = [&](int it) {
     const int h = kvh * G + it / nqb, q0 = (qlo + it % nqb) * BQ;
     const int buf = it & 1;
-    fetch_rows<T, D>(Qs + buf * Geo::tile,
-                     static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h,
-                     a.qs.s, q0, S, a.vec);
-    fetch_rows<T, D>(Gs + buf * Geo::tile,
-                     static_cast<const T*>(a.g) + b * a.gs.b + h * a.gs.h,
-                     a.gs.s, q0, S, a.vec);
+    fetch_rows<T, D, NT>(Qs + buf * Geo::tile,
+                         static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h,
+                         a.qs.s, q0, S, a.vec);
+    fetch_rows<T, D, NT>(Gs + buf * Geo::tile,
+                         static_cast<const T*>(a.g) + b * a.gs.b + h * a.gs.h,
+                         a.gs.s, q0, S, a.vec);
     if (threadIdx.x < 2 * BQ) {
       const int c = threadIdx.x & (BQ - 1), qpos = q0 + c;
       const float* row = (threadIdx.x < BQ ? a.lse_in : a.delta) +
@@ -684,13 +731,14 @@ enum Kind { kFwd, kDq, kDkdv };
 template <typename T, int D>
 int launch_kind(Kind kind, const FlashArgs& a, cudaStream_t stream) {
   const int nq = (a.S + BQ - 1) / BQ;
+  constexpr int tile_bytes = TileGeom<T, D>::tile * (int)sizeof(T);
   switch (kind) {
-    case kFwd:
-      return launch(flash_fwd_kernel<T, D>, dim3(nq, a.H, a.B), NT,
-                    fwd_smem_bytes<D>(), a, stream);
-    case kDq:
-      return launch(flash_bwd_dq_kernel<T, D>, dim3(nq, a.H, a.B), NT,
-                    dq_smem_bytes<D>(), a, stream);
+    case kFwd:   // Q, two K and two V buffers
+      return launch(flash_fwd_kernel<T, D>, dim3(a.H, a.B, nq),
+                    WarpGeom<T, D>::threads, 5 * tile_bytes, a, stream);
+    case kDq:    // Q, dO, two K and two V buffers
+      return launch(flash_bwd_dq_kernel<T, D>, dim3(a.H, a.B, nq),
+                    WarpGeom<T, D>::threads, 6 * tile_bytes, a, stream);
     default:
       return launch(flash_bwd_dkdv_kernel<T, D>, dim3(a.KV, a.B, nq),
                     DkdvGeom<T, D>::threads, DkdvGeom<T, D>::bytes, a,
@@ -708,10 +756,20 @@ int launch_d(Kind kind, int D, const FlashArgs& a, cudaStream_t stream) {
   }
 }
 
-int dispatch(Kind kind, int D, int dtype, const FlashArgs& a, void* stream) {
+// The rows of one operand are 16-byte aligned: its base and its (batch,
+// seq, head) strides.
+bool rows16(const void* p, const Strides& st, int dtype) {
+  const int w = dtype == kBF16 ? 8 : 4;   // elements per 16 bytes
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % w == 0 &&
+         st.s % w == 0 && st.h % w == 0;
+}
+
+int dispatch(Kind kind, int D, int dtype, FlashArgs& a, void* stream) {
   if (a.B <= 0 || a.S <= 0 || a.H <= 0 || a.KV <= 0 || a.H % a.KV != 0 ||
       a.window < 0)
     return (int)cudaErrorInvalidValue;
+  a.vec = rows16(a.q, a.qs, dtype) && rows16(a.k, a.ks, dtype) &&
+          rows16(a.v, a.vs, dtype) && (a.g == nullptr || rows16(a.g, a.gs, dtype));
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kF32) return launch_d<float>(kind, D, a, s);
   if (dtype == kBF16) return launch_d<__nv_bfloat16>(kind, D, a, s);
@@ -783,13 +841,6 @@ int flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* g,
   a.delta = (const float*)delta;
   a.dk = dk;
   a.dv = dv;
-  const int w = dtype == kBF16 ? 8 : 4;   // elements per 16 bytes
-  auto rows16 = [w](const void* p, const Strides& st) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % w == 0 &&
-           st.s % w == 0 && st.h % w == 0;
-  };
-  a.vec = rows16(q, a.qs) && rows16(k, a.ks) && rows16(v, a.vs) &&
-          rows16(g, a.gs);
   return dispatch(kDkdv, D, dtype, a, stream);
 }
 

@@ -202,40 +202,46 @@ def test_flash_kernels_match_plain(card, B, S, H, KV, D, window, dtype):
     assert torch.equal(flash.flash_fwd(q, k, v, window)[0], out)
 
 
+#: the three flash kernels, all on the tensor cores
+TENSOR_CORE_FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [
     (2, 2048, 16, 16, 64, 0), (2, 300, 8, 2, 32, 0), (1, 200, 8, 2, 128, 0),
     (2, 257, 10, 2, 64, 96), (1, 130, 4, 1, 128, 40)],
     ids=["flash-path", "gqa-d32", "gqa-d128", "window-d64", "window-d128"])
-def test_flash_bwd_dkdv_matches_plain(card, shape, dtype):
-    """The tensor-core dk/dv kernel against its plain version with
+@pytest.mark.parametrize("name", TENSOR_CORE_FLASH)
+def test_flash_tensor_core_kernel_matches_plain(card, name, shape, dtype):
+    """Each tensor-core flash kernel against its plain version with
     chip_smoke.py's condition-aware tolerances, at head dims 32, 64 and
     128, with grouped query heads and a sliding window; bitwise equal
     across two runs."""
     cs = _chip_smoke()
-    kern, plain, _ = cs.kernel_table(card)["flash_bwd_dkdv"]
-    args = cs.make_inputs("flash_bwd_dkdv", shape, dtype, card, seed=8)
-    cs.compare("flash_bwd_dkdv", kern, plain, args, dtype)
+    kern, plain, _ = cs.kernel_table(card)[name]
+    args = cs.make_inputs(name, shape, dtype, card, seed=8)
+    cs.compare(name, kern, plain, args, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_bwd_dkdv_unaligned_rows_match_plain(card, dtype):
-    """Operands one element off a 16-byte boundary take the kernel's
-    element copies instead of its 16-byte cp.async ones."""
+@pytest.mark.parametrize("name", TENSOR_CORE_FLASH)
+def test_flash_tensor_core_kernel_unaligned_rows_match_plain(card, name,
+                                                             dtype):
+    """Operands one element off a 16-byte boundary take the kernels'
+    element copies instead of their 16-byte cp.async ones."""
     cs = _chip_smoke()
-    kern, plain, _ = cs.kernel_table(card)["flash_bwd_dkdv"]
-    q, k, v, dout, lse, delta, window = cs.make_inputs(
-        "flash_bwd_dkdv", (1, 130, 4, 2, 64, 0), dtype, card, seed=9)
+    kern, plain, _ = cs.kernel_table(card)[name]
+    args = cs.make_inputs(name, (1, 130, 4, 2, 64, 0), dtype, card, seed=9)
 
     def shifted(t):
         buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
         out = buf[1:].view(t.shape)
         out.copy_(t)
         return out
-    args = (shifted(q), shifted(k), shifted(v), shifted(dout), lse, delta,
-            window)
+    n = 3 if name == "flash_fwd" else 4      # q, k, v (and dO)
+    args = tuple(shifted(a) if i < n else a for i, a in enumerate(args))
     assert args[0].data_ptr() % 16 != 0
-    cs.compare("flash_bwd_dkdv", kern, plain, args, dtype)
+    cs.compare(name, kern, plain, args, dtype)
 
 
 def test_flash_wrappers_refuse_other_head_dims(card):

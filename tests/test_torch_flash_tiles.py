@@ -1,0 +1,245 @@
+"""The flash forward and dq kernels' arithmetic and grid, on the CPU.
+
+csrc/flash.cu runs every product of ``flash_fwd_kernel`` and
+``flash_bwd_dq_kernel`` on the tensor cores.  A numpy emulation of that
+arithmetic (fp32 inputs) is held against the port's plain versions,
+``ref.flash_fwd_ref`` and ``ref.flash_bwd_ref``, under chip_smoke.py's
+fp32 flash tolerances:
+
+  * each product as 3xTF32 mma steps of 8 (``_emulated_gemm`` of
+    tests/test_torch_gemm_tiles.py: x = big + small, each step's exact
+    sum added to the accumulator with round-toward-zero);
+  * S = Q.K^T (and dP = dO.V^T) summed over D in one zeroed accumulator
+    per kv block, as ``rows_dot`` does;
+  * P.V (dS.K) summed over the block's 64 kv positions into a zeroed
+    accumulator and promoted into the fp32 output once per kv block, as
+    ``rows_acc`` does, with both operands read in the kernel's k-slot
+    order (slot t <-> position 2t, slot t + 4 <-> 2t + 1 inside each step
+    of 8: P and dS stay in the C fragments they were formed in);
+  * the forward's online softmax: per kv block the running max m, p =
+    exp(s.scale - m), corr = exp(m_old - m), l and O scaled by corr
+    before the block's promotion; lse = m + log(max(l, 1e-20)).
+
+The same emulation without the small terms (1xTF32) must fail the
+tolerances, so they would catch a kernel that drops them.  A second test
+mirrors the kernels' grid mapping (grid (H, B, q blocks), the q block
+taken from the last): it covers each (q block, head, batch) once, the
+blocks with the most kv blocks first, over the reference's _kv_bounds.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import _kv_bounds
+from repro_torch.kernels import ref
+from test_torch_gemm_tiles import CS, _emulated_gemm
+
+BLOCK = 64                  # the kernels' BQ = BK
+NEG_INF = np.float32(-1e30)
+#: k-slot s of each mma step of 8 reads position PERM[s] of the step
+PERM = np.array([0, 2, 4, 6, 1, 3, 5, 7])
+
+# (B, S, H, KV, D, window): causal with a ragged last block, grouped
+# query heads, a sliding window
+SHAPES = {"causal": (1, 130, 2, 2, 64, 0), "gqa": (1, 100, 4, 2, 32, 0),
+          "window": (1, 150, 4, 1, 32, 48)}
+
+
+def _inputs(shape, seed=0):
+    B, S, H, KV, D, window = shape
+    rng = np.random.default_rng(seed)
+    q, dout = (rng.standard_normal((B, S, H, D)).astype(np.float32)
+               for _ in range(2))
+    k, v = (rng.standard_normal((B, S, KV, D)).astype(np.float32)
+            for _ in range(2))
+    return q, k, v, dout
+
+
+def _tile(x, row0):
+    """Rows [row0, row0 + 64) of a [S, D] array, rows past S as 0."""
+    out = np.zeros((BLOCK, x.shape[1]), np.float32)
+    rows = x[row0:row0 + BLOCK]
+    out[:len(rows)] = rows
+    return out
+
+
+def _visible(q0, k0, S, window):
+    qpos = q0 + np.arange(BLOCK)[:, None]
+    kpos = k0 + np.arange(BLOCK)[None, :]
+    ok = (kpos <= qpos) & (qpos < S)
+    if window > 0:
+        ok &= kpos > qpos - window
+    return ok
+
+
+def _block_sum(x, b, small_terms):
+    """x.b over one block's 64 positions as rows_acc sums it: both operands
+    in the kernel's k-slot order, one zeroed accumulator."""
+    order = (np.arange(0, BLOCK, 8)[:, None] + PERM[None, :]).ravel()
+    return _emulated_gemm(x[:, order], b[order], small_terms=small_terms,
+                          promote=BLOCK)
+
+
+def _rows_dot(a, b, small_terms):
+    """a.b^T over D in one zeroed accumulator, as rows_dot sums it."""
+    return _emulated_gemm(a, np.ascontiguousarray(b.T),
+                          small_terms=small_terms, promote=a.shape[1])
+
+
+def _heads(shape):
+    B, S, H, KV, D, window = shape
+    nq = -(-S // BLOCK)
+    for b in range(B):
+        for h in range(H):
+            for iq in range(nq):
+                lo, hi = _kv_range(iq, S, window)
+                yield b, h, h // (H // KV), iq, lo, hi
+
+
+def _kv_range(iq, S, window):
+    """[lo, hi) of flash.cu's QWalk (C division; lo is clamped at 0)."""
+    q0 = iq * BLOCK
+    lo = max(int((q0 - window + 1) / BLOCK), 0) if window > 0 else 0
+    return lo, min(iq + 1, -(-S // BLOCK))
+
+
+def emulated_fwd(q, k, v, window, small_terms=True):
+    """(out, lse) of flash_fwd_kernel, emulated."""
+    B, S, H, D = q.shape
+    scale = np.float32(1.0 / math.sqrt(D))
+    out = np.zeros_like(q)
+    lse = np.zeros((B, H, S), np.float32)
+    for b, h, kvh, iq, lo, hi in _heads((B, S, H, k.shape[2], D, window)):
+        q0 = iq * BLOCK
+        qt = _tile(q[b, :, h], q0)
+        o = np.zeros((BLOCK, D), np.float32)
+        m = np.full(BLOCK, NEG_INF, np.float32)
+        l = np.zeros(BLOCK, np.float32)
+        for ik in range(lo, hi):
+            k0 = ik * BLOCK
+            ok = _visible(q0, k0, S, window)
+            s = _rows_dot(qt, _tile(k[b, :, kvh], k0), small_terms)
+            s = np.where(ok, s * scale, NEG_INF).astype(np.float32)
+            mx = np.maximum(m, s.max(1))
+            p = np.where(ok, np.exp(s - mx[:, None]), 0).astype(np.float32)
+            corr = np.exp(m - mx).astype(np.float32)
+            l = (l * corr + p.sum(1, dtype=np.float32)).astype(np.float32)
+            m = mx
+            o = o * corr[:, None] + _block_sum(p, _tile(v[b, :, kvh], k0),
+                                               small_terms)
+        rows = min(BLOCK, S - q0)
+        li = np.maximum(l, np.float32(1e-20))
+        out[b, q0:q0 + rows, h] = (o / li[:, None])[:rows]
+        lse[b, h, q0:q0 + rows] = (m + np.log(li))[:rows]
+    return out, lse
+
+
+def emulated_dq(q, k, v, dout, lse, delta, window, small_terms=True):
+    """dq of flash_bwd_dq_kernel, emulated."""
+    B, S, H, D = q.shape
+    scale = np.float32(1.0 / math.sqrt(D))
+    dq = np.zeros_like(q)
+    for b, h, kvh, iq, lo, hi in _heads((B, S, H, k.shape[2], D, window)):
+        q0 = iq * BLOCK
+        qt, gt = _tile(q[b, :, h], q0), _tile(dout[b, :, h], q0)
+        rl = _tile(lse[b, h][:, None], q0)
+        rd = _tile(delta[b, h][:, None], q0)
+        acc = np.zeros((BLOCK, D), np.float32)
+        for ik in range(lo, hi):
+            k0 = ik * BLOCK
+            kt, vt = _tile(k[b, :, kvh], k0), _tile(v[b, :, kvh], k0)
+            s = _rows_dot(qt, kt, small_terms)
+            dp = _rows_dot(gt, vt, small_terms)
+            p = np.where(_visible(q0, k0, S, window),
+                         np.exp(s * scale - rl), 0).astype(np.float32)
+            ds = (p * (dp - rd) * scale).astype(np.float32)
+            acc = acc + _block_sum(ds, kt, small_terms)
+        rows = min(BLOCK, S - q0)
+        dq[b, q0:q0 + rows, h] = acc[:rows]
+    return dq
+
+
+def _worst(name, got, want, args):
+    """Largest |emulated - plain| / limit over the outputs, chip_smoke.py's
+    comparison (cond: the sum of the terms' magnitudes)."""
+    worst = 0.0
+    for g, w, cond, tol in zip(got, want, CS._conds(name, args, want),
+                               CS.TOL_FP32[name]):
+        w = w.double()
+        limit = tol["atol"] + tol["rtol"] * w.abs()
+        if cond is not None:
+            limit = limit + tol["ctol"] * cond.double()
+        worst = max(worst, float(((torch.from_numpy(g).double() - w).abs()
+                                  / limit).max()))
+    return worst
+
+
+@pytest.mark.parametrize("small_terms", [True, False],
+                         ids=["3xtf32-holds", "1xtf32-fails"])
+@pytest.mark.parametrize("label", list(SHAPES))
+def test_emulated_forward_against_the_fp32_tolerance(label, small_terms):
+    shape = SHAPES[label]
+    window = shape[-1]
+    q, k, v, _ = _inputs(shape)
+    got = emulated_fwd(q, k, v, window, small_terms=small_terms)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    want = ref.flash_fwd_ref(tq, tk, tv, window=window)
+    worst = _worst("flash_fwd", got, want, (tq, tk, tv, window))
+    if small_terms:
+        assert worst < 0.25, worst
+    else:
+        assert worst > 1.0, worst
+
+
+@pytest.mark.parametrize("small_terms", [True, False],
+                         ids=["3xtf32-holds", "1xtf32-fails"])
+@pytest.mark.parametrize("label", list(SHAPES))
+def test_emulated_dq_against_the_fp32_tolerance(label, small_terms):
+    shape = SHAPES[label]
+    window = shape[-1]
+    q, k, v, dout = (torch.from_numpy(x) for x in _inputs(shape))
+    out, lse = ref.flash_fwd_ref(q, k, v, window=window)
+    delta = ref.flash_delta(out, dout)
+    got = emulated_dq(*(t.numpy() for t in (q, k, v, dout, lse, delta)),
+                      window, small_terms=small_terms)
+    want = ref.flash_bwd_ref(q, k, v, None, lse, dout, window=window,
+                             delta=delta)[:1]
+    worst = _worst("flash_bwd_dq", [got], want,
+                   (q, k, v, dout, lse, delta, window))
+    if small_terms:
+        assert worst < 0.25, worst
+    else:
+        assert worst > 1.0, worst
+
+
+def _grid_order(B, S, H):
+    """(q block, head, batch) of each block of the forward's and dq's grid
+    (H, B, nq) in dispatch order, x fastest: flash.cu's QWalk takes h =
+    blockIdx.x, b = blockIdx.y and q block nq - 1 - blockIdx.z."""
+    nq = -(-S // BLOCK)
+    return [(nq - 1 - z, x, y) for z in range(nq) for y in range(B)
+            for x in range(H)]
+
+
+@pytest.mark.parametrize("shape", [(2, 2048, 16, 16, 64, 0),
+                                   (2, 1000, 16, 2, 128, 0),
+                                   (2, 1000, 20, 4, 64, 256)],
+                         ids=["flash", "gqa", "window"])
+def test_grid_covers_each_q_block_once_longest_first(shape):
+    """chip_smoke.py's card shapes: every (q block, head, batch) once, the
+    kv range of each the reference's _kv_bounds, and the number of kv
+    blocks never growing along the dispatch order."""
+    B, S, H, KV, D, window = shape
+    order = _grid_order(B, S, H)
+    nq = -(-S // BLOCK)
+    assert sorted(order) == [(iq, h, b) for iq in range(nq)
+                             for h in range(H) for b in range(B)]
+    lengths = []
+    for iq, _, _ in order:
+        lo, hi = _kv_range(iq, S, window)
+        rlo, rhi = _kv_bounds(iq * BLOCK, BLOCK, BLOCK, window, nq)
+        assert (lo, hi) == (int(rlo), int(rhi)), iq
+        lengths.append(hi - lo)
+    assert all(a >= b for a, b in zip(lengths, lengths[1:]))
