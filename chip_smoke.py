@@ -8,15 +8,17 @@ Phases, each fatal on failure:
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (time,
      and nvcc's register / spill summary);
   3. every kernel against its plain PyTorch version at the shapes the
-     training paths give it and at ragged ones (flash: also GQA and a
-     sliding window; SSD: hymba's heads at a ragged sequence and the
-     reduced configs' widths), in fp32 and bf16, the GEMM in all three
-     operand layouts, and twice on the same inputs (bitwise equal);
+     training paths give it and at ragged ones (flash: also GQA, a
+     sliding window and GPT-3 2.7B's head dim 80; SSD: hymba's heads at
+     a ragged sequence and the reduced configs' widths), in fp32 and
+     bf16, the GEMM in all three operand layouts, and twice on the same
+     inputs (bitwise equal);
   4. each kernel's time at each path's shape (CUDA events, and the
-     device time of the kernel's own events under torch.profiler), its
-     bound (and, for the GEMM and the flash kernels, the bound of their
-     3xTF32 tensor-core design), its plain version's time and the one-call
-     library equivalent where there is one;
+     device time of the kernel's own events under torch.profiler, per
+     phase for the SSD kernels), its bound (and, for the GEMM, the flash
+     and the SSD kernels, the bound of their 3xTF32 tensor-core design),
+     its plain version's time and the one-call library equivalent where
+     there is one;
   5. small models with the kernels against the same models on plain
      PyTorch ops (loss and gradients): fused vs unfused epilogues, flash
      vs naive attention (gpt3-medium, and GQA qwen2.5-3b with QKV bias
@@ -61,11 +63,13 @@ SRC = os.path.join(ROOT, "src")
 # kernel is the larger of bytes / memory rate and operations / peak.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
-# The tensor-core designs of gemm_bias and the three flash kernels: fp32
-# runs three TF32 products per multiply-add (3xTF32) at the 495 TFLOP/s
-# TF32 peak, bf16 one product at 989.  Printed beside the bound above,
-# which stays the kernels line's bound_ms.
-TENSOR_CORE = ("gemm_bias", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
+# The tensor-core designs of gemm_bias, the three flash kernels and the
+# two SSD kernels: fp32 runs three TF32 products per multiply-add
+# (3xTF32) at the 495 TFLOP/s TF32 peak, bf16 one product at 989.
+# Printed beside the bound above, which stays the kernels line's
+# bound_ms.
+TENSOR_CORE = ("gemm_bias", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv",
+               "ssd_fwd", "ssd_bwd")
 TC_PEAK_FLOPS = {"torch.float32": 495e12 / 3, "torch.bfloat16": 989e12}
 
 PATHS = {   # phase -> (label, argv on the card, argv of the CPU rehearsal)
@@ -89,7 +93,7 @@ PATHS = {   # phase -> (label, argv on the card, argv of the CPU rehearsal)
 MAMBA_SSD_LAUNCHES = 48 * 16 * 4
 
 FUSED_SOURCE = "src/repro_torch/kernels/csrc/fused.cu"
-FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash.cuh"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd.cu"
 FLASH_TPU = "src/repro/kernels/flash_attention.py"
 KERNELS = {   # name -> (TPU kernel it replaces, CUDA source)
@@ -124,10 +128,12 @@ CARD_SHAPES = {
                   ("ragged", (1000, 999, 3000))],
     # gqa: qwen2.5-3b's heads (16 / kv 2, head dim 128) at a ragged
     # sequence; window: a sliding window of 256 (hymba's 2048 scaled
-    # down) with hymba's group of 5 query heads per kv head
+    # down) with hymba's group of 5 query heads per kv head; d80: GPT-3
+    # 2.7B's 32 heads of 80 at a ragged sequence
     "flash": [("flash", (2, 2048, 16, 16, 64, 0)),
               ("gqa", (2, 1000, 16, 2, 128, 0)),
-              ("window", (2, 1000, 20, 4, 64, 256))],
+              ("window", (2, 1000, 20, 4, 64, 256)),
+              ("d80", (1, 1000, 32, 32, 80, 0))],
     # hymba: its SSD heads (50 x 64, state 16) at a ragged sequence;
     # reduced: the reduced configs' widths, per-head B and C
     "ssd": [("mamba", (1, 2048, 48, 64, 128, True)),
@@ -142,7 +148,7 @@ CPU_SHAPES = {
     "gemm_bias": [("flash", (128, 64, 192)), ("naive", (64, 64, 192)),
                   ("ragged", (33, 47, 95))],
     "flash": [("flash", (1, 64, 2, 2, 32, 0)), ("gqa", (1, 40, 4, 2, 32, 0)),
-              ("window", (1, 40, 4, 1, 32, 16))],
+              ("window", (1, 40, 4, 1, 32, 16)), ("d80", (1, 40, 2, 2, 80, 0))],
     "ssd": [("mamba", (1, 100, 3, 16, 16, True)),
             ("hymba", (1, 70, 3, 16, 8, True)),
             ("reduced", (1, 33, 2, 8, 16, False))],
@@ -466,24 +472,28 @@ def time_ms(fn, args, device, iters):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def device_ms(fn, args, kernel, iters):
-    """Device milliseconds per call of the CUDA function ``kernel``
-    (``<name>_kernel`` in csrc/): its own events under torch.profiler,
-    summed over ``iters`` calls.  None where the profiler records no
-    such event."""
+def device_ms(fn, args, name, iters):
+    """(device milliseconds per call of kernel ``name``, the same per CUDA
+    function): the events of its CUDA functions (``<name>_..kernel..`` in
+    csrc/, e.g. the SSD kernels' three phases, each launched once a call)
+    under torch.profiler over ``iters`` calls, each function's mean over
+    the events recorded (so that an event the profiler drops does not
+    shrink it).  (None, {}) where the profiler records no such event."""
+    import re
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn(*args)
         torch.cuda.synchronize()
-    total_us, count = 0.0, 0
+    per_fn = {}
     for evt in prof.key_averages():
-        if kernel in evt.key:
-            total_us += getattr(evt, "device_time_total",
-                                getattr(evt, "cuda_time_total", 0.0))
-            count += evt.count
-    return total_us / 1e3 / iters if count else None
+        if name + "_" in evt.key and "kernel" in evt.key and evt.count:
+            fn_name = re.search(r"(\w*kernel\w*)", evt.key).group(1)
+            per_fn[fn_name] = per_fn.get(fn_name, 0.0) + getattr(
+                evt, "device_time_total",
+                getattr(evt, "cuda_time_total", 0.0)) / 1e3 / evt.count
+    return (sum(per_fn.values()) if per_fn else None), per_fn
 
 
 def _causal_pairs(S, window):
@@ -588,8 +598,8 @@ def time_kernels(device, table, shapes, iters):
                 continue
             args = make_inputs(name, shape, torch.float32, device, seed=2)
             ms = time_ms(kern, args, device, iters)
-            dev_ms = (device_ms(kern, args, name + "_kernel", iters)
-                      if on_card else None)
+            dev_ms, phases = (device_ms(kern, args, name, iters)
+                              if on_card else (None, {}))
             plain_ms = time_ms(plain, args, device, iters)
             if name in ("flash_bwd_dq", "flash_bwd_dkdv"):
                 lib_ms = sdpa_backward_ms(args, device, iters)
@@ -611,6 +621,9 @@ def time_kernels(device, table, shapes, iters):
                   f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}"
                   f"{' (SDPA fwd+bwd - fwd: dq and dk/dv together)' if name in FLASH[1:] else ''}, "
                   f"bound {bms:.4f} ms ({by}){tc}")
+            if len(phases) > 1:
+                print(f"[time] {name:16s} phases (profiler device ms): "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in phases.items()))
             if name != "gemm_bias":
                 continue
             for layout in ("dx", "dW"):
@@ -619,7 +632,7 @@ def time_kernels(device, table, shapes, iters):
                 sh = ((shape[0], shape[2], shape[1]) if layout == "dx"
                       else (shape[1], shape[0], shape[2]))
                 kms = time_ms(kern, a, device, iters)
-                dms = (device_ms(kern, a, name + "_kernel", iters)
+                dms = (device_ms(kern, a, name, iters)[0]
                        if on_card else None)
                 pms = time_ms(plain, a, device, iters)
                 lms = time_ms(torch.matmul, a[:2], device, iters)
@@ -755,7 +768,9 @@ def run(device="cuda"):
         build.library()
         info = build.build_info()
         print(f"[build] {info.path} in "
-              f"{time.perf_counter() - t0:.1f}s (nvcc {info.seconds:.1f}s)")
+              f"{time.perf_counter() - t0:.1f}s (nvcc {info.seconds:.1f}s; "
+              f"each source's nvcc ended after "
+              f"{ {k: round(v, 1) for k, v in info.compile_seconds.items()} })")
         print(build.ptxas_summary(info.log))
         shapes, iters = CARD_SHAPES, 50
     else:

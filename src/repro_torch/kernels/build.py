@@ -31,13 +31,17 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "fused.cu", CSRC / "flash.cu", CSRC / "ssd.cu")
+#: every source of csrc/, each compiled by its own nvcc (the flash kernels
+#: are split over flash.cu and one flash_<kernel>_<dtype>.cu per
+#: launcher, so that their instances compile side by side)
+SOURCES = tuple(sorted(CSRC.glob("*.cu")))
 ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -59,11 +63,11 @@ SIGNATURES = {
     "flash_fwd": (_vp,) * 5 + _FLASH_SHAPE + (_int, _vp),
     "flash_bwd_dq": (_vp,) * 7 + _FLASH_SHAPE + (_int,) * 3 + (_int, _vp),
     "flash_bwd_dkdv": (_vp,) * 8 + _FLASH_SHAPE + (_int,) * 3 + (_int, _vp),
-    # ssd launchers: pointers, then b, S, H, P, N, the chunk, the (batch,
-    # seq, head) strides of x, dt, B, C (and gy), the dtype code and the
-    # stream
+    # ssd launchers: pointers (the backward's last its fp32 scratch), then
+    # b, S, H, P, N, the chunk, the (batch, seq, head) strides of x, dt,
+    # B, C (and gy), the dtype code and the stream
     "ssd_fwd": (_vp,) * 8 + (_int,) * 6 + (_int,) * 12 + (_int, _vp),
-    "ssd_bwd": (_vp,) * 13 + (_int,) * 6 + (_int,) * 15 + (_int, _vp),
+    "ssd_bwd": (_vp,) * 14 + (_int,) * 6 + (_int,) * 15 + (_int, _vp),
 }
 
 #: launches per kernel since the last ``reset_launches()``
@@ -99,6 +103,8 @@ class BuildInfo:
     path: pathlib.Path
     seconds: float          # 0.0 when the library was already built
     log: str                # nvcc's output (-Xptxas -v: registers, spills)
+    #: source name -> seconds until its nvcc ended (empty when prebuilt)
+    compile_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 def _nvcc() -> str:
@@ -122,13 +128,27 @@ def commands(tmp: str) -> Tuple[List[List[str]], List[str]]:
                           os.path.join(tmp, "libkernels.so"), *objs]
 
 
-def run_all(cmds) -> str:
+def run_all(cmds, seconds: Optional[List[float]] = None) -> str:
     """Run the commands concurrently; their combined output.  Raises
-    with that output if any of them fails."""
+    with that output if any of them fails.  ``seconds``, where given,
+    receives each command's wall time from the common start."""
+    t0 = time.perf_counter()
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
-    outs = [p.communicate()[0] for p in procs]
+    outs, done = [""] * len(procs), [0.0] * len(procs)
+
+    def drain(i):            # one thread a pipe, so none fills and blocks
+        outs[i] = procs[i].communicate()[0]
+        done[i] = time.perf_counter() - t0
+    threads = [threading.Thread(target=drain, args=(i,))
+               for i in range(len(procs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if seconds is not None:
+        seconds[:] = done
     failed = [c for c, p in zip(cmds, procs) if p.returncode != 0]
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(
@@ -152,10 +172,12 @@ def build() -> BuildInfo:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         compile_cmds, link_cmd = commands(tmp)
-        log = run_all(compile_cmds) + run_all([link_cmd])
+        per_source: List[float] = []
+        log = run_all(compile_cmds, per_source) + run_all([link_cmd])
         os.replace(os.path.join(tmp, lib.name), lib)
     log_file.write_text(log)
-    return BuildInfo(lib, time.perf_counter() - t0, log)
+    return BuildInfo(lib, time.perf_counter() - t0, log,
+                     {src.name: sec for src, sec in zip(SOURCES, per_source)})
 
 
 _LIB: Optional[ctypes.CDLL] = None

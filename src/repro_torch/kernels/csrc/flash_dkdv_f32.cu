@@ -1,0 +1,4 @@
+// The fp32 instances of flash.cuh's flash_bwd_dkdv_kernel, one per head dim.
+#include "flash.cuh"
+
+FLASH_LAUNCHER(dkdv, f32, kDkdv, float)

@@ -1,0 +1,4 @@
+// The bf16 instances of flash.cuh's flash_fwd_kernel, one per head dim.
+#include "flash.cuh"
+
+FLASH_LAUNCHER(fwd, bf16, kFwd, __nv_bfloat16)

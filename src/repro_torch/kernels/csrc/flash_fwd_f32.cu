@@ -1,0 +1,4 @@
+// The fp32 instances of flash.cuh's flash_fwd_kernel, one per head dim.
+#include "flash.cuh"
+
+FLASH_LAUNCHER(fwd, f32, kFwd, float)

@@ -1,64 +1,95 @@
 // Mamba2 SSD chunked scan for Hopper (sm_90a): the forward and the
-// reverse-chunk backward.
+// reverse-chunk backward, each chunk-parallel on the tensor cores.
 //
 // Replace repro/kernels/ssd.py::_ssd_kernel and ::_ssd_bwd_kernel.  Per
-// chunk of Q rows the forward computes, in fp32,
+// chunk c of Q rows the forward computes, in fp32,
 //     cum    = cumsum(dt * A)
-//     y      = (tri(C.B^T * e^(cum_i - cum_j)) * dt_j).x + (C * e^cum).S^T
-//     S     <- S * e^cum_Q + (x * e^(cum_Q - cum) * dt)^T.B
-// and the backward walks the chunks in reverse, rebuilding each from the
-// state that entered it (cstates, saved by the forward) and carrying the
-// state cotangent dS, with the reference's nine products.
+//     y      = (tri(C.B^T * e^(cum_i - cum_j)) * dt_j).x + (C * e^cum).S_c^T
+//     S_c+1  = S_c * e^cum_Q + (x * e^(cum_Q - cum) * dt)^T.B
+// and the backward carries the state cotangent dS1 through the chunks in
+// reverse, with the reference's nine products per chunk.
 //
 // Layouts are the JAX package's public ones: x, y, gy, dx [b, S, H, P];
 // dt, ddt [b, S, H] fp32; A [H] fp32; B, C, dB, dC [b, S, H, N]; states
-// [b, H, P, N] fp32; cstates [b, H, nc, P, N] fp32; dA partials
-// [b, H, nc] fp32.  x, dt, B, C and gy are read in place through their
-// (batch, seq, head) strides with the last dim dense, so B and C may be
-// one group expanded over the heads with head stride 0 (no per-head
-// copies).  Rows at or past S read as zero and are never written: no
-// pad copies (the reference's _pad_seq is a TPU layout artefact).
-// Outputs are written contiguous.
+// [b, H, P, N] fp32; cstates [b, H, nc, P, N] fp32 (the state entering
+// each chunk, the backward's residual); dA partials [b, H, nc] fp32.  x,
+// dt, B, C and gy are read in place through their (batch, seq, head)
+// strides with the last dim dense, so B and C may be one group expanded
+// over the heads with head stride 0.  Rows at or past S read as zero and
+// are never written.  Outputs are written contiguous.
 //
-// Bound on the H100: operations.  At the mamba2-780m shape (b 2, S 2048,
-// H 48, P 64, N 128, B and C one group) the forward moves 0.21 GB for
-// 8.9 GFLOP and the backward 0.51 GB for 19.4 GFLOP (the intra-chunk
-// products counted over the causal pairs): 0.13 and 0.29 ms at the fp32
-// rate against 0.06 and 0.15 ms of bytes.
-// Design (simple first version): one block per (head, batch) walks the
-// chunks in order (the TPU grid's sequential chunk axis becomes a loop),
-// keeping the [P, N] fp32 state (forward: in registers, copied to shared
-// memory for the chunk's y) or dS (backward: in shared memory) on chip
-// for the whole sequence: no HBM round trip between chunks.  Q =
-// 64: the chunk's x, B, C (and gy, the entering state and three Q x Q
-// matrices in the backward) fit in shared memory at P 64, N 128 (~133 KB
-// forward, ~219 KB backward; at Q = 128 they would not).  Every tile is
-// fp32 with an odd row pitch, so row and column reads are free of bank
-// conflicts.  256 threads as a 16 x 16 grid; a thread owns the outputs
-// (ty + 16 i, tx + 16 j) of each product and accumulates them in
-// registers on CUDA cores.  mma.sync, wgmma and TMA are later work.
+// Design.  The state entering chunk c is a linear recurrence over the
+// chunks, S_c+1 = S_c e^cum_Q,c + L_c, whose terms L_c depend on chunk c
+// alone; so does the cotangent, dS1_c-1 = e^cum_Q,c dS1_c + L'_c.  Each
+// kernel therefore runs three phases, launched on the caller's stream by
+// one C entry point:
+//   forward  1. ssd_fwd_states_kernel, grid (chunk, head, batch): L_c =
+//               (x * w_last)^T.B into cstates[c + 1] (into the final
+//               state for the last chunk);
+//            2. ssd_fwd_scan_kernel, grid (P.N tile, head, batch): S_0 =
+//               0 and S_c+1 = S_c e^cum_Q + L_c in place, chunk by chunk
+//               (the reference's order); the final state last;
+//            3. ssd_fwd_out_kernel, grid (chunk, head, batch): y.
+//   backward 1. ssd_bwd_states_kernel: L'_c = gy^T.(C e^cum) into an fp32
+//               scratch [b, H, nc, P, N] the wrapper allocates;
+//            2. ssd_bwd_scan_kernel: the scratch's chunk c becomes dS1_c
+//               (from gstate, in reverse chunk order);
+//            3. ssd_bwd_chunk_kernel: dx, ddt, dB, dC and one dA partial
+//               per chunk from S0 = cstates[c] and dS1_c.
+// At the mamba2-780m shape (b 1, S 2048, H 48) phases 1 and 3 run 1536
+// blocks where one block per (head, batch) walking the chunks ran 48.
+// Every product runs on the tensor cores (tensor_core.cuh: 3xTF32
+// mma.sync, one warp per 16 x 8n output tile, the block's 8 warps (16 in
+// the backward's chunk phase) over the tiles; products with a causal
+// factor skip the tiles and k-steps above the diagonal).  Operands are
+// staged in shared memory in fp32 at a pitch of D + 4 floats (cp.async
+// where rows are 16-byte aligned), so bf16 inputs run the same 3xTF32
+// products: the states, ddt and dA stay
+// fp32 in bf16 and keep the fp32 tolerance, which products of fp32
+// intermediates in bf16 would not.  A product whose operands are both
+// read along k row by row permutes k inside each step of 8 (slot t <->
+// 2t, slot t + 4 <-> 2t + 1, which leaves the sum unchanged) so that
+// every fragment read hits 32 distinct banks; the others read k in
+// order.  Decays are masked before the exp (the reference's chunked
+// evaluator masks after it and gives NaN gradients at full width).
+//
+// Bound on the H100 at the mamba2-780m shape (x [1, 2048, 48, 64], N
+// 128, one B/C group): the forward's reference products are 4.4 GFLOP
+// (0.0664 ms at the fp32 rate, 0.0270 ms as 3xTF32) against 105 MB
+// (0.031 ms); the backward's 9.7 GFLOP (0.1450, 0.0589 ms) against 231
+// MB (0.069 ms).  On the tensor cores both are bound by bytes; the
+// phases add a pass over the [P, N] states of every chunk (write,
+// scan, read: 50 MB each way at this shape).  Shared memory per block
+// at (P, N) = (64, 128): states phases 52,496 bytes, forward outputs
+// 103,696 (two blocks an SM), backward chunks 177,504 (one block an SM:
+// x, gy, B, C, the entering state and two Q x Q tiles; the kernel runs
+// 16 warps, which took 11 % less time than 8 on the H100).
 //
 // Plain C interface (extern "C"), loaded with ctypes by kernels/build.py.
-// Every launcher takes the stream it must launch on, allocates nothing,
-// does not synchronise, and returns cudaGetLastError() (or the error of
-// raising the kernel's shared-memory limit).  dtype codes: 0 = float32,
-// 1 = bfloat16 (x, B, C, gy and their gradients; the rest is fp32).  No
-// atomics, and every sum runs in a fixed order: the same inputs give
-// bitwise-equal outputs.
-#include "common.cuh"
+// Every entry point takes the stream it must launch on, allocates
+// nothing, does not synchronise, and returns the first CUDA error of its
+// launches.  dtype codes: 0 = float32, 1 = bfloat16 (x, B, C, gy and
+// their gradients; the rest is fp32).  No atomics, and every sum runs in
+// a fixed order: the same inputs give bitwise-equal outputs.
+#include <cstdint>
+
+#include "tensor_core.cuh"
 
 namespace {
 
 constexpr int Q = 64;           // chunk length
-constexpr int LQ = Q + 1;       // row pitch of a Q x Q tile
-constexpr int NT = 256;         // threads per block, a 16 x 16 grid
+constexpr int LQ = Q + 4;       // row pitch of a Q x Q tile
+constexpr int NT = 256;         // threads per block: 8 warps
+constexpr int WARPS = NT / 32;
+constexpr int CNT = 512;        // the backward chunk kernel's: 16 warps
+constexpr int CWARPS = CNT / 32;
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Strides {
   long long b, s, h;            // elements; the last dim has stride 1
 };
 
-// One argument block for both kernels (unused pointers are null).
+// One argument block for every kernel (unused pointers are null).
 struct SsdArgs {
   const void* x;
   const float* dt;
@@ -71,6 +102,7 @@ struct SsdArgs {
   void* y;
   float* state;
   float* cstates;               // forward: the state entering each chunk
+  float* scratch;               // backward: L'_c, then dS1_c
   void* dx;
   float* ddt;
   void* dB;
@@ -78,70 +110,75 @@ struct SsdArgs {
   float* dA_part;
   int b, S, H, nc;
   Strides xs, dts, Bs, Cs, gs;
+  bool vec;                     // rows of x, B, C (gy) 16-byte aligned
 };
 
-// Rows [row0, row0 + Q) of one head into dst[r * ld + d] in fp32; rows at
-// or past S read as 0.  Reads are coalesced along d.
-template <typename T, int D>
-__device__ void load_rows(float* dst, int ld, const T* src,
-                          long long row_stride, int row0, int S) {
-  for (int idx = threadIdx.x; idx < Q * D; idx += NT) {
-    const int r = idx / D, d = idx % D;
-    const int row = row0 + r;
-    dst[r * ld + d] = row < S ? to_f(src[row * row_stride + d]) : 0.f;
+// Warp tiles of an M x W output: 16 rows by 8 NB columns, NB column
+// tiles of 8 (at most MAXNB), counted row-major.
+template <int M, int W, int MAXNB = 4>
+struct Tiles {
+  static constexpr int nb = W / 8 < MAXNB ? W / 8 : MAXNB;
+  static constexpr int cols = W / (8 * nb);
+  static constexpr int count = (M / 16) * cols;
+  __device__ static int row0(int tile) { return (tile / cols) * 16; }
+  __device__ static int col0(int tile) { return (tile % cols) * 8 * nb; }
+};
+
+// Rows [row0, row0 + Q) of one head (row stride rs, last dim dense) into
+// dst[r * (D + 4) + d] in fp32, rows at or past S as 0, by TH threads.
+// fp32: cp.async, 16 bytes a copy when vec; bf16: loads converted to fp32.
+template <typename T, int D, int TH = NT>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src,
+                                           long long rs, int row0, int S,
+                                           bool vec) {
+  constexpr int LD = D + 4;
+  if constexpr (sizeof(T) == 4) {
+    if (vec) {
+      for (int c = threadIdx.x; c < Q * D / 4; c += TH) {
+        const int r = c / (D / 4), d = (c % (D / 4)) * 4, row = row0 + r;
+        const bool ok = row < S;
+        cp_async16(dst + r * LD + d, ok ? src + row * rs + d : src,
+                   ok ? 16 : 0);
+      }
+    } else {
+      for (int e = threadIdx.x; e < Q * D; e += TH) {
+        const int r = e / D, d = e % D, row = row0 + r;
+        const bool ok = row < S;
+        cp_async4(dst + r * LD + d, ok ? src + row * rs + d : src, ok ? 4 : 0);
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < Q * D; e += TH) {
+      const int r = e / D, d = e % D, row = row0 + r;
+      dst[r * LD + d] = row < S ? to_f(src[row * rs + d]) : 0.f;
+    }
   }
 }
 
-__device__ void load_dt(float* dst, const float* src, long long row_stride,
-                        int row0, int S) {
+// A contiguous [R][D] fp32 matrix into dst at pitch D + 4 (cp.async), by
+// TH threads.
+template <int R, int D, int TH = NT>
+__device__ __forceinline__ void stage_state(float* dst, const float* src) {
+  for (int c = threadIdx.x; c < R * D / 4; c += TH) {
+    const int r = c / (D / 4), d = (c % (D / 4)) * 4;
+    cp_async16(dst + r * (D + 4) + d, src + r * D + d, 16);
+  }
+}
+
+__device__ __forceinline__ void load_dt(float* dst, const float* src,
+                                        long long row_stride, int row0, int S) {
   if (threadIdx.x < Q) {
     const int row = row0 + threadIdx.x;
     dst[threadIdx.x] = row < S ? src[row * row_stride] : 0.f;
   }
 }
 
-// acc[i][j] += sum_k a(ty + 16 i, k) * b(k, tx + 16 j): the thread's
-// patch of one product over shared-memory operands.
-template <int TM, int TN, int K, typename FA, typename FB>
-__device__ __forceinline__ void tile_product(float (&acc)[TM][TN], FA a, FB b) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float av[TM], bv[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) av[i] = a(ty + 16 * i, k);
-#pragma unroll
-    for (int j = 0; j < TN; ++j) bv[j] = b(k, tx + 16 * j);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-template <int TM, int TN>
-__device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-}
-
-// Sum over the 16 threads that share a row (one half warp), in a fixed
-// butterfly order.
-__device__ __forceinline__ float row_sum16(float v) {
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-// Per-chunk decay terms, by warp 0 (lane l owns rows 2l and 2l + 1):
-// cum = cumsum(dt * A) as a warp scan, e^cum, e^(cum_Q - cum) and
-// w_last = e^(cum_Q - cum) * dt; sc[0] = e^cum_Q.
-__device__ void chunk_decay(const float* dtv, float A, float* cum, float* ecum,
-                            float* el, float* wl, float* sc) {
-  if (threadIdx.x >= 32) return;
-  const int l = threadIdx.x;
-  const float a0 = dtv[2 * l] * A, a1 = dtv[2 * l + 1] * A;
+// cum over one chunk as a warp scan: lane l holds a0 = dt_2l A and a1 =
+// dt_2l+1 A; returns cum_2l, cum_2l+1 and (every lane) cum_Q.  Every
+// phase takes cum from here, so all agree bitwise.
+__device__ __forceinline__ float chunk_cum(float a0, float a1, float& c0,
+                                           float& c1) {
+  const int l = threadIdx.x & 31;
   float s = a0 + a1;
   for (int o = 1; o < 32; o <<= 1) {
     const float t = __shfl_up_sync(FULL, s, o);
@@ -149,390 +186,687 @@ __device__ void chunk_decay(const float* dtv, float A, float* cum, float* ecum,
   }
   float excl = __shfl_up_sync(FULL, s, 1);
   if (l == 0) excl = 0.f;
-  const float c0 = excl + a0, c1 = c0 + a1;
-  const float last = __shfl_sync(FULL, c1, 31);
-  cum[2 * l] = c0;
-  cum[2 * l + 1] = c1;
-  ecum[2 * l] = expf(c0);
-  ecum[2 * l + 1] = expf(c1);
-  el[2 * l] = expf(last - c0);
-  el[2 * l + 1] = expf(last - c1);
-  wl[2 * l] = el[2 * l] * dtv[2 * l];
-  wl[2 * l + 1] = el[2 * l + 1] * dtv[2 * l + 1];
+  c0 = excl + a0;
+  c1 = c0 + a1;
+  return __shfl_sync(FULL, c1, 31);
+}
+
+// Per-chunk decay terms, by warp 0 (lane l owns rows 2l and 2l + 1):
+// cum, e^cum, e^(cum_Q - cum) and w_last = e^(cum_Q - cum) * dt; sc[0] =
+// e^cum_Q.
+__device__ void chunk_decay(const float* dtv, float A, float* cum, float* ecum,
+                            float* el, float* wl, float* sc) {
+  if (threadIdx.x >= 32) return;
+  const int l = threadIdx.x;
+  float c[2];
+  const float last = chunk_cum(dtv[2 * l] * A, dtv[2 * l + 1] * A, c[0], c[1]);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int i = 2 * l + k;
+    cum[i] = c[k];
+    ecum[i] = expf(c[k]);
+    el[i] = expf(last - c[k]);
+    wl[i] = el[i] * dtv[i];
+  }
   if (l == 31) sc[0] = expf(last);
 }
 
-// Shared memory of one block, in floats (see the kernels' carve-up).
-template <int P, int N> constexpr int fwd_smem_floats() {
-  return Q * (P + 1) + 2 * Q * (N + 1) + P * (N + 1) + Q * LQ + 5 * Q + 4;
+// e^cum_Q of every chunk of one (batch, head) into eq[nc], warp w taking
+// chunks w, w + 8, ...: the scans' decays, from dt in global memory.
+__device__ void chunk_decays(float* eq, const float* dt, long long rs, float A,
+                             int nc, int S) {
+  const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
+  for (int c = warp; c < nc; c += WARPS) {
+    const int r0 = c * Q + 2 * l;
+    const float d0 = r0 < S ? dt[r0 * rs] : 0.f;
+    const float d1 = r0 + 1 < S ? dt[(r0 + 1) * rs] : 0.f;
+    float c0, c1;
+    const float last = chunk_cum(d0 * A, d1 * A, c0, c1);
+    if (l == 0) eq[c] = expf(last);
+  }
 }
-template <int P, int N> constexpr int bwd_smem_floats() {
-  return 2 * Q * (P + 1) + 2 * Q * (N + 1) + 2 * P * (N + 1) + 3 * Q * LQ +
-         10 * Q + NT + 8;
+
+// acc[n] += the warp's 16 x 8 NB tile of A.B over k in [k0, k1) (steps
+// of 8), as 3xTF32 mma.sync.  a(r, k): row r of the tile (0..15); b(k, n):
+// column n of the tile (0..8 NB - 1).  PERM permutes k inside each step
+// (slot t <-> 2t, t + 4 <-> 2t + 1) for operands read along k row by row.
+template <int NB, bool PERM, typename FA, typename FB>
+__device__ __forceinline__ void warp_mma(float (&acc)[NB][4], int k0, int k1,
+                                         FA a, FB b) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int s0 = PERM ? 2 * t : t, s1 = PERM ? 2 * t + 1 : t + 4;
+  for (int kk = k0; kk < k1; kk += 8) {
+    uint32_t ab[4], as[4], bb[NB][2], bs[NB][2];
+    split_tf32(a(g, kk + s0), ab[0], as[0]);
+    split_tf32(a(g + 8, kk + s0), ab[1], as[1]);
+    split_tf32(a(g, kk + s1), ab[2], as[2]);
+    split_tf32(a(g + 8, kk + s1), ab[3], as[3]);
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      split_tf32(b(kk + s0, 8 * n + g), bb[n][0], bs[n][0]);
+      split_tf32(b(kk + s1, 8 * n + g), bb[n][1], bs[n][1]);
+    }
+    mma_3xtf32<NB>(acc, ab, as, bb, bs);
+  }
+}
+
+template <int NB>
+__device__ __forceinline__ void zero(float (&acc)[NB][4]) {
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+}
+
+// (row, column) within the tile of accumulator element (n, e).
+__device__ __forceinline__ int frag_row(int e) {
+  return ((threadIdx.x & 31) >> 2) + 8 * (e >> 1);
+}
+__device__ __forceinline__ int frag_col(int n, int e) {
+  return 8 * n + 2 * (threadIdx.x & 3) + (e & 1);
+}
+
+// Sums over the lanes of a fragment: a row's 4 lanes (t), a column's 8
+// lanes (g), in a fixed butterfly order.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v + __shfl_xor_sync(FULL, v, 2);
+}
+__device__ __forceinline__ float col_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 4);
+  v += __shfl_xor_sync(FULL, v, 8);
+  return v + __shfl_xor_sync(FULL, v, 16);
+}
+
+// Store the warp's [16 x 8 NB] tile at (row0, col0) of a row-major
+// matrix (ld columns) in T, rows at or past `rows` skipped.
+template <typename T, int NB, typename F>
+__device__ __forceinline__ void store_tile(T* dst, long long ld, int row0,
+                                           int col0, int rows, F value) {
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row0 + frag_row(e), c = col0 + frag_col(n, e);
+      if (r < rows) dst[r * ld + c] = from_f<T>(value(n, e, r, c));
+    }
+}
+
+// Shared memory of each kernel, in floats (see the kernels' carve-up).
+template <int P, int N> constexpr int fwd_states_floats() {
+  return Q * (P + 4) + Q * (N + 4) + 5 * Q + 4;
+}
+template <int P, int N> constexpr int fwd_out_floats() {
+  return Q * (P + 4) + (P > Q ? P : Q) * (N + 4) + Q * (N + 4) + Q * LQ +
+         5 * Q + 4;
+}
+template <int P, int N> constexpr int bwd_states_floats() {
+  return Q * (P + 4) + Q * (N + 4) + 5 * Q + 4;
+}
+// The backward chunk kernel's warp tiles: Q x Q (cb, dW), Q x P (dx) and
+// Q x N (dB, dC), one or two a warp.
+using ChunkTQ = Tiles<Q, Q, 2>;
+template <int P> using ChunkTP = Tiles<Q, P, 2>;
+template <int N> using ChunkTN = Tiles<Q, N, 4>;
+template <int P, int N> constexpr int bwd_chunk_floats() {
+  return 2 * Q * (P + 4) + 2 * Q * (N + 4) + 2 * Q * LQ + P * (N + 4) +
+         9 * Q + ChunkTQ::cols * Q + (Q / 16) * Q +
+         2 * ChunkTN<N>::cols * Q + CWARPS + 8;
+}
+
+// The block's chunk: (chunk, head, batch) from the grid.
+struct Chunk {
+  int c, h, bi, row0;
+  long long bh;
+  __device__ explicit Chunk(const SsdArgs& a) {
+    c = blockIdx.x;
+    h = blockIdx.y;
+    bi = blockIdx.z;
+    row0 = c * Q;
+    bh = (long long)bi * a.H + h;
+  }
+  template <typename T>
+  __device__ const T* at(const void* p, const Strides& s) const {
+    return static_cast<const T*>(p) + bi * s.b + h * s.h;
+  }
+};
+
+// ---------------------------------------------------------------------
+// Forward, phase 1.  L_c = (x * w_last)^T.B, [P, N] over the chunk's Q
+// rows, into cstates[c + 1], or into the final state for the last chunk.
+// ---------------------------------------------------------------------
+template <typename T, int P, int N>
+__global__ void __launch_bounds__(NT, 2)
+ssd_fwd_states_kernel(const SsdArgs a) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);   // [Q][P + 4]
+  float* Bm = xs + Q * (P + 4);                  // [Q][N + 4]
+  float* dtv = Bm + Q * (N + 4);                 // [Q]
+  float* cum = dtv + Q;
+  float* ecum = cum + Q;
+  float* el = ecum + Q;                          // e^(cum_Q - cum)
+  float* wl = el + Q;                            // w_last
+  float* sc = wl + Q;                            // [4]
+  const Chunk k(a);
+  stage_rows<T, P>(xs, k.at<T>(a.x, a.xs), a.xs.s, k.row0, a.S, a.vec);
+  stage_rows<T, N>(Bm, k.at<T>(a.B, a.Bs), a.Bs.s, k.row0, a.S, a.vec);
+  cp_async_commit();
+  load_dt(dtv, a.dt + k.bi * a.dts.b + k.h * a.dts.h, a.dts.s, k.row0, a.S);
+  cp_async_wait<0>();
+  __syncthreads();
+  chunk_decay(dtv, a.A[k.h], cum, ecum, el, wl, sc);
+  __syncthreads();
+  using Til = Tiles<P, N>;
+  float* dst = k.c + 1 < a.nc ? a.cstates + (k.bh * a.nc + k.c + 1) * P * N
+                              : a.state + k.bh * P * N;
+  for (int tile = threadIdx.x >> 5; tile < Til::count; tile += WARPS) {
+    const int p0 = Til::row0(tile), n0 = Til::col0(tile);
+    float acc[Til::nb][4];
+    zero(acc);
+    warp_mma<Til::nb, true>(
+        acc, 0, Q,
+        [&](int r, int j) { return xs[j * (P + 4) + p0 + r] * wl[j]; },
+        [&](int j, int n) { return Bm[j * (N + 4) + n0 + n]; });
+    store_tile<float, Til::nb>(
+        dst, N, p0, n0, P, [&](int n, int e, int, int) { return acc[n][e]; });
+  }
 }
 
 // ---------------------------------------------------------------------
-// Forward.  Replaces repro/kernels/ssd.py::_ssd_kernel.
-// Grid (head, batch); the block walks the chunks in order with the state,
-// from zero, in the registers of the threads that own its (p, n).  Writes
-// y in x's dtype, the final state and the state entering each chunk
-// (cstates, the backward's residual).
+// Forward, phase 2.  Per (batch, head) and 1024 of the P.N state
+// elements (4 a thread): S_0 = 0, S_c+1 = S_c e^cum_Q,c + L_c in place
+// in cstates, chunk by chunk, and the final state S_nc.
+// ---------------------------------------------------------------------
+template <int P, int N>
+__global__ void __launch_bounds__(NT) ssd_fwd_scan_kernel(const SsdArgs a) {
+  extern __shared__ float4 smem4[];
+  float* eq = reinterpret_cast<float*>(smem4);   // [nc]
+  const int h = blockIdx.y, bi = blockIdx.z;
+  const long long bh = (long long)bi * a.H + h;
+  chunk_decays(eq, a.dt + bi * a.dts.b + h * a.dts.h, a.dts.s, a.A[h], a.nc,
+               a.S);
+  __syncthreads();
+  const int e = (blockIdx.x * NT + threadIdx.x) * 4;
+  if (e >= P * N) return;
+  float4* cs = reinterpret_cast<float4*>(a.cstates + bh * a.nc * P * N + e);
+  constexpr int STEP = P * N / 4;                // float4s between chunks
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  cs[0] = s;
+  constexpr int AHEAD = 8;                       // loads in flight
+  for (int c0 = 0; c0 < a.nc; c0 += AHEAD) {
+    float4 L[AHEAD];
+#pragma unroll
+    for (int i = 0; i < AHEAD; ++i) {
+      const int c = c0 + i;
+      if (c + 1 < a.nc) L[i] = cs[(c + 1) * STEP];
+      else if (c + 1 == a.nc)
+        L[i] = *reinterpret_cast<const float4*>(a.state + bh * P * N + e);
+    }
+#pragma unroll
+    for (int i = 0; i < AHEAD; ++i) {
+      const int c = c0 + i;
+      if (c >= a.nc) break;
+      const float d = eq[c];
+      s = make_float4(fmaf(s.x, d, L[i].x), fmaf(s.y, d, L[i].y),
+                      fmaf(s.z, d, L[i].z), fmaf(s.w, d, L[i].w));
+      if (c + 1 < a.nc) cs[(c + 1) * STEP] = s;
+      else *reinterpret_cast<float4*>(a.state + bh * P * N + e) = s;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// Forward, phase 3.  y = W.x + e^cum * (C.S_c^T), W = tri(C.B^T *
+// e^(cum_i - cum_j)) * dt_j, with S_c = cstates[c] loaded into B's
+// buffer once W is formed (so two blocks fit an SM at P 64, N 128).
 // ---------------------------------------------------------------------
 template <typename T, int P, int N>
-__global__ void __launch_bounds__(NT) ssd_fwd_kernel(const SsdArgs a) {
-  constexpr int LP = P + 1, LN = N + 1;
-  constexpr int TP = P / 16, TN = N / 16;
+__global__ void __launch_bounds__(NT, 2) ssd_fwd_out_kernel(const SsdArgs a) {
+  constexpr int LP = P + 4, LN = N + 4;
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);   // [Q][LP]
-  float* Bm = xs + Q * LP;                       // [Q][LN]
-  float* Cm = Bm + Q * LN;                       // [Q][LN]
-  float* st = Cm + Q * LN;                       // [P][LN]: state copy
-  float* Wm = st + P * LN;                       // [Q][LQ]
+  float* BS = xs + Q * LP;                       // [Q][LN] B, then [P][LN] S
+  float* Cm = BS + (P > Q ? P : Q) * LN;         // [Q][LN]
+  float* Wm = Cm + Q * LN;                       // [Q][LQ]
   float* dtv = Wm + Q * LQ;                      // [Q]
   float* cum = dtv + Q;
   float* ecum = cum + Q;
   float* el = ecum + Q;
   float* wl = el + Q;
-  float* sc = wl + Q;                            // [4]: e^cum_Q
-  const int h = blockIdx.x, bi = blockIdx.y;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int S = a.S, H = a.H;
-  const float A = a.A[h];
-  const T* x = static_cast<const T*>(a.x) + bi * a.xs.b + h * a.xs.h;
-  const T* B = static_cast<const T*>(a.B) + bi * a.Bs.b + h * a.Bs.h;
-  const T* C = static_cast<const T*>(a.C) + bi * a.Cs.b + h * a.Cs.h;
-  const float* dt = a.dt + bi * a.dts.b + h * a.dts.h;
-  const long long bh = (long long)bi * H + h;
-
-  float acc[TP][TN];
-  zero(acc);                                     // the state, owned (p, n)
-  for (int c = 0; c < a.nc; ++c) {
-    const int row0 = c * Q;
-    __syncthreads();              // the previous chunk is done with the tiles
+  float* sc = wl + Q;                            // [4]
+  const Chunk k(a);
+  const int warp = threadIdx.x >> 5;
+  stage_rows<T, P>(xs, k.at<T>(a.x, a.xs), a.xs.s, k.row0, a.S, a.vec);
+  stage_rows<T, N>(BS, k.at<T>(a.B, a.Bs), a.Bs.s, k.row0, a.S, a.vec);
+  stage_rows<T, N>(Cm, k.at<T>(a.C, a.Cs), a.Cs.s, k.row0, a.S, a.vec);
+  cp_async_commit();
+  load_dt(dtv, a.dt + k.bi * a.dts.b + k.h * a.dts.h, a.dts.s, k.row0, a.S);
+  cp_async_wait<0>();
+  __syncthreads();
+  chunk_decay(dtv, a.A[k.h], cum, ecum, el, wl, sc);
+  __syncthreads();
+  {  // W, one 16 x 32 tile a warp; tiles above the diagonal are zero
+    using Til = Tiles<Q, Q>;
+    static_assert(Til::count == WARPS, "one W tile a warp");
+    const int i0 = Til::row0(warp), j0 = Til::col0(warp);
+    float cb[Til::nb][4];
+    zero(cb);
+    if (j0 <= i0 + 15)
+      warp_mma<Til::nb, false>(
+          cb, 0, N, [&](int r, int n) { return Cm[(i0 + r) * LN + n]; },
+          [&](int n, int j) { return BS[(j0 + j) * LN + n]; });
 #pragma unroll
-    for (int i = 0; i < TP; ++i)
+    for (int n = 0; n < Til::nb; ++n)
 #pragma unroll
-      for (int j = 0; j < TN; ++j)
-        st[(ty + 16 * i) * LN + tx + 16 * j] = acc[i][j];
-    load_rows<T, P>(xs, LP, x, a.xs.s, row0, S);
-    load_rows<T, N>(Bm, LN, B, a.Bs.s, row0, S);
-    load_rows<T, N>(Cm, LN, C, a.Cs.s, row0, S);
-    load_dt(dtv, dt, a.dts.s, row0, S);
-    float* cs = a.cstates + (bh * a.nc + c) * P * N;
-#pragma unroll
-    for (int i = 0; i < TP; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        cs[(ty + 16 * i) * N + tx + 16 * j] = acc[i][j];
-    __syncthreads();
-    chunk_decay(dtv, A, cum, ecum, el, wl, sc);
-    __syncthreads();
-    {  // W = tri(C.B^T * e^(cum_i - cum_j)) * dt_j
-      float cb[4][4];
-      zero(cb);
-      tile_product<4, 4, N>(cb, [&](int i, int n) { return Cm[i * LN + n]; },
-                            [&](int n, int j) { return Bm[j * LN + n]; });
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int i = ty + 16 * ii, j = tx + 16 * jj;
-          Wm[i * LQ + j] =
-              i >= j ? cb[ii][jj] * expf(cum[i] - cum[j]) * dtv[j] : 0.f;
-        }
-    }
-    __syncthreads();
-    {  // y = W.x + e^cum * (C.S^T)
-      float yi[4][TP], ys[4][TP];
-      zero(yi);
-      zero(ys);
-      tile_product<4, TP, Q>(yi, [&](int i, int j) { return Wm[i * LQ + j]; },
-                             [&](int j, int p) { return xs[j * LP + p]; });
-      tile_product<4, TP, N>(ys, [&](int i, int n) { return Cm[i * LN + n]; },
-                             [&](int n, int p) { return st[p * LN + n]; });
-      T* y = static_cast<T*>(a.y);
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const int i = ty + 16 * ii, row = row0 + i;
-        if (row >= S) continue;
-        T* yrow = y + (((long long)bi * S + row) * H + h) * P;
-#pragma unroll
-        for (int pp = 0; pp < TP; ++pp)
-          yrow[tx + 16 * pp] = from_f<T>(yi[ii][pp] + ecum[i] * ys[ii][pp]);
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + frag_row(e), j = j0 + frag_col(n, e);
+        Wm[i * LQ + j] =
+            i >= j ? cb[n][e] * expf(cum[i] - cum[j]) * dtv[j] : 0.f;
       }
-    }
-    // S <- S * e^cum_Q + (x * w_last)^T.B, on the thread's own (p, n)
-    const float eQ = sc[0];
-#pragma unroll
-    for (int i = 0; i < TP; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] *= eQ;
-    tile_product<TP, TN, Q>(
-        acc, [&](int p, int j) { return xs[j * LP + p] * wl[j]; },
-        [&](int j, int n) { return Bm[j * LN + n]; });
   }
-  float* state = a.state + bh * P * N;
-#pragma unroll
-  for (int i = 0; i < TP; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-      state[(ty + 16 * i) * N + tx + 16 * j] = acc[i][j];
+  __syncthreads();                               // B is free, W is in
+  stage_state<P, N>(BS, a.cstates + (k.bh * a.nc + k.c) * P * N);
+  cp_async_commit();
+  using Til = Tiles<Q, P>;
+  static_assert(Til::count <= WARPS, "one y tile a warp at most");
+  const bool mine = warp < Til::count;
+  const int i0 = mine ? Til::row0(warp) : 0, p0 = mine ? Til::col0(warp) : 0;
+  float yi[Til::nb][4], ys[Til::nb][4];
+  zero(yi);
+  zero(ys);
+  if (mine)      // W.x over the causal k range
+    warp_mma<Til::nb, false>(
+        yi, 0, i0 + 16, [&](int r, int j) { return Wm[(i0 + r) * LQ + j]; },
+        [&](int j, int p) { return xs[j * LP + p0 + p]; });
+  cp_async_wait<0>();
+  __syncthreads();                               // S_c is in
+  if (!mine) return;
+  warp_mma<Til::nb, false>(
+      ys, 0, N, [&](int r, int n) { return Cm[(i0 + r) * LN + n]; },
+      [&](int n, int p) { return BS[(p0 + p) * LN + n]; });
+  T* y = static_cast<T*>(a.y) +
+         (((long long)k.bi * a.S + k.row0) * a.H + k.h) * P;
+  store_tile<T, Til::nb>(y, (long long)a.H * P, i0, p0, a.S - k.row0,
+                         [&](int n, int e, int i, int) {
+                           return yi[n][e] + ecum[i] * ys[n][e];
+                         });
 }
 
 // ---------------------------------------------------------------------
-// Backward.  Replaces repro/kernels/ssd.py::_ssd_bwd_kernel.
-// Grid (head, batch); the block walks the chunks in reverse, carrying dS
-// (from gstate) in shared memory.  Per chunk: dx, ddt, dB and dC for its
-// rows, and one dA partial (the wrapper sums them in a fixed order).
+// Backward, phase 1.  L'_c = gy^T.(C e^cum), [P, N] over the chunk's Q
+// rows, into the scratch's chunk c.
 // ---------------------------------------------------------------------
 template <typename T, int P, int N>
-__global__ void __launch_bounds__(NT) ssd_bwd_kernel(const SsdArgs a) {
-  constexpr int LP = P + 1, LN = N + 1;
-  constexpr int TP = P / 16, TN = N / 16;
+__global__ void __launch_bounds__(NT, 2)
+ssd_bwd_states_kernel(const SsdArgs a) {
+  extern __shared__ float4 smem4[];
+  float* Gs = reinterpret_cast<float*>(smem4);   // [Q][P + 4]: gy
+  float* Cm = Gs + Q * (P + 4);                  // [Q][N + 4]
+  float* dtv = Cm + Q * (N + 4);                 // [Q]
+  float* cum = dtv + Q;
+  float* ecum = cum + Q;
+  float* el = ecum + Q;
+  float* wl = el + Q;
+  float* sc = wl + Q;                            // [4]
+  const Chunk k(a);
+  stage_rows<T, P>(Gs, k.at<T>(a.gy, a.gs), a.gs.s, k.row0, a.S, a.vec);
+  stage_rows<T, N>(Cm, k.at<T>(a.C, a.Cs), a.Cs.s, k.row0, a.S, a.vec);
+  cp_async_commit();
+  load_dt(dtv, a.dt + k.bi * a.dts.b + k.h * a.dts.h, a.dts.s, k.row0, a.S);
+  cp_async_wait<0>();
+  __syncthreads();
+  chunk_decay(dtv, a.A[k.h], cum, ecum, el, wl, sc);
+  __syncthreads();
+  using Til = Tiles<P, N>;
+  float* dst = a.scratch + (k.bh * a.nc + k.c) * P * N;
+  for (int tile = threadIdx.x >> 5; tile < Til::count; tile += WARPS) {
+    const int p0 = Til::row0(tile), n0 = Til::col0(tile);
+    float acc[Til::nb][4];
+    zero(acc);
+    warp_mma<Til::nb, true>(
+        acc, 0, Q, [&](int r, int i) { return Gs[i * (P + 4) + p0 + r]; },
+        [&](int i, int n) { return Cm[i * (N + 4) + n0 + n] * ecum[i]; });
+    store_tile<float, Til::nb>(
+        dst, N, p0, n0, P, [&](int n, int e, int, int) { return acc[n][e]; });
+  }
+}
+
+// ---------------------------------------------------------------------
+// Backward, phase 2.  Per (batch, head) and 1024 of the P.N elements:
+// dS1_nc-1 = gstate, dS1_c-1 = e^cum_Q,c dS1_c + L'_c (the reference's
+// recurrence), the scratch's chunk c turning from L'_c into dS1_c.
+// ---------------------------------------------------------------------
+template <int P, int N>
+__global__ void __launch_bounds__(NT) ssd_bwd_scan_kernel(const SsdArgs a) {
+  extern __shared__ float4 smem4[];
+  float* eq = reinterpret_cast<float*>(smem4);   // [nc]
+  const int h = blockIdx.y, bi = blockIdx.z;
+  const long long bh = (long long)bi * a.H + h;
+  chunk_decays(eq, a.dt + bi * a.dts.b + h * a.dts.h, a.dts.s, a.A[h], a.nc,
+               a.S);
+  __syncthreads();
+  const int e = (blockIdx.x * NT + threadIdx.x) * 4;
+  if (e >= P * N) return;
+  float4* sc = reinterpret_cast<float4*>(a.scratch + bh * a.nc * P * N + e);
+  constexpr int STEP = P * N / 4;
+  float4 s = *reinterpret_cast<const float4*>(a.gstate + bh * P * N + e);
+  constexpr int AHEAD = 8;
+  for (int c0 = a.nc - 1; c0 >= 0; c0 -= AHEAD) {
+    float4 L[AHEAD];
+#pragma unroll
+    for (int i = 0; i < AHEAD; ++i)
+      if (c0 - i >= 1) L[i] = sc[(c0 - i) * STEP];
+#pragma unroll
+    for (int i = 0; i < AHEAD; ++i) {
+      const int c = c0 - i;
+      if (c < 0) break;
+      sc[c * STEP] = s;
+      if (c == 0) break;                         // dS1_-1 is not needed
+      const float d = eq[c];
+      s = make_float4(fmaf(d, s.x, L[i].x), fmaf(d, s.y, L[i].y),
+                      fmaf(d, s.z, L[i].z), fmaf(d, s.w, L[i].w));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// Backward, phase 3.  Per chunk, from S0 = cstates[c] and dS1_c:
+//   cb = C.B^T, dW = gy.x^T; W = tri(cb e^..) dt_j, D = tri(dW e^..) dt_j,
+//   X = tri(dW e^..) cb (kept only as its row and column sums);
+//   dx = W^T.gy + w_last (B.dS1^T);  dB = D^T.C + w_last (x.dS1);
+//   dC = D.B + e^cum (gy.S0);
+// then cum's cotangent, ddt and the chunk's dA partial (warp 0).  dS1
+// and S0 share one buffer: S0 replaces dS1 once dx and dB are done, and
+// sum(dS1 * S0) is taken as it arrives.
+// ---------------------------------------------------------------------
+template <typename T, int P, int N>
+__global__ void __launch_bounds__(CNT, 1)
+ssd_bwd_chunk_kernel(const SsdArgs a) {
+  constexpr int LP = P + 4, LN = N + 4;
+  using TQ = ChunkTQ;
+  using TP = ChunkTP<P>;
+  using TN = ChunkTN<N>;
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);   // [Q][LP]
   float* Gs = xs + Q * LP;                       // [Q][LP]: gy
   float* Bm = Gs + Q * LP;                       // [Q][LN]
   float* Cm = Bm + Q * LN;                       // [Q][LN]
-  float* S0 = Cm + Q * LN;                       // [P][LN]: entering state
-  float* dS = S0 + P * LN;                       // [P][LN]: dS carry
-  float* Wm = dS + P * LN;                       // [Q][LQ]: W
-  float* Dm = Wm + Q * LQ;                       // [Q][LQ]: d(C.B^T)
-  float* Xm = Dm + Q * LQ;                       // [Q][LQ]: tri(dW e^..) C.B^T
-  float* dtv = Xm + Q * LQ;                      // [Q] vectors
+  float* Wm = Cm + Q * LN;                       // [Q][LQ]
+  float* Dm = Wm + Q * LQ;                       // [Q][LQ]
+  float* St = Dm + Q * LQ;                       // [P][LN]: dS1, then S0
+  float* dtv = St + P * LN;                      // [Q] vectors
   float* cum = dtv + Q;
   float* ecum = cum + Q;
   float* el = ecum + Q;
   float* wl = el + Q;
-  float* rsg = wl + Q;                           // rowsum(GS0 * C e^cum)
+  float* rsg = wl + Q;                           // rowsum(gy.S0 * C) e^cum
   float* dwv = rsg + Q;                          // d(w_last)
-  float* rX = dwv + Q;                           // sum_j Xm[i][j] dt_j
-  float* cX = rX + Q;                            // sum_i Xm[i][j]
-  float* part = cX + Q;                          // [NT]: sum(dS * S0) partials
-  float* sc = part + NT;                         // [8]: e^cum_Q, sum(dS*S0)
-  const int h = blockIdx.x, bi = blockIdx.y;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int S = a.S, H = a.H;
-  const float A = a.A[h];
-  const T* x = static_cast<const T*>(a.x) + bi * a.xs.b + h * a.xs.h;
-  const T* B = static_cast<const T*>(a.B) + bi * a.Bs.b + h * a.Bs.h;
-  const T* C = static_cast<const T*>(a.C) + bi * a.Cs.b + h * a.Cs.h;
-  const T* gy = static_cast<const T*>(a.gy) + bi * a.gs.b + h * a.gs.h;
-  const float* dt = a.dt + bi * a.dts.b + h * a.dts.h;
-  const long long bh = (long long)bi * H + h;
-  for (int idx = threadIdx.x; idx < P * N; idx += NT)
-    dS[(idx / N) * LN + idx % N] = a.gstate[bh * P * N + idx];
-
-  for (int c = a.nc - 1; c >= 0; --c) {
-    const int row0 = c * Q;
-    __syncthreads();              // the previous chunk is done with the tiles
-    load_rows<T, P>(xs, LP, x, a.xs.s, row0, S);
-    load_rows<T, P>(Gs, LP, gy, a.gs.s, row0, S);
-    load_rows<T, N>(Bm, LN, B, a.Bs.s, row0, S);
-    load_rows<T, N>(Cm, LN, C, a.Cs.s, row0, S);
-    load_dt(dtv, dt, a.dts.s, row0, S);
-    const float* s0 = a.cstates_in + (bh * a.nc + c) * P * N;
-    for (int idx = threadIdx.x; idx < P * N; idx += NT)
-      S0[(idx / N) * LN + idx % N] = s0[idx];
-    __syncthreads();
-    chunk_decay(dtv, A, cum, ecum, el, wl, sc);
-    __syncthreads();
-    {  // C.B^T and dW = gy.x^T; from them W, d(C.B^T) and Xm
-      float cb[4][4], dW[4][4];
-      zero(cb);
-      zero(dW);
-      tile_product<4, 4, N>(cb, [&](int i, int n) { return Cm[i * LN + n]; },
-                            [&](int n, int j) { return Bm[j * LN + n]; });
-      tile_product<4, 4, P>(dW, [&](int i, int p) { return Gs[i * LP + p]; },
-                            [&](int p, int j) { return xs[j * LP + p]; });
+  float* rX = dwv + Q;                           // sum_j X[i][j] dt_j
+  float* cX = rX + Q;                            // sum_i X[i][j]
+  float* rXp = cX + Q;                           // [TQ::cols][Q] partials
+  float* cXp = rXp + TQ::cols * Q;               // [Q / 16][Q]
+  float* rsgp = cXp + (Q / 16) * Q;              // [TN::cols][Q]
+  float* dwp = rsgp + TN::cols * Q;              // [TN::cols][Q]
+  float* wsum = dwp + TN::cols * Q;              // [CWARPS]
+  float* sc = wsum + CWARPS;                     // [8]: e^cum_Q, sum(dS1 S0)
+  const Chunk k(a);
+  const int warp = threadIdx.x >> 5;
+  const int S = a.S, c = k.c;
+  stage_rows<T, P, CNT>(xs, k.at<T>(a.x, a.xs), a.xs.s, k.row0, S, a.vec);
+  stage_rows<T, P, CNT>(Gs, k.at<T>(a.gy, a.gs), a.gs.s, k.row0, S, a.vec);
+  stage_rows<T, N, CNT>(Bm, k.at<T>(a.B, a.Bs), a.Bs.s, k.row0, S, a.vec);
+  stage_rows<T, N, CNT>(Cm, k.at<T>(a.C, a.Cs), a.Cs.s, k.row0, S, a.vec);
+  stage_state<P, N, CNT>(St, a.scratch + (k.bh * a.nc + c) * P * N);
+  cp_async_commit();
+  load_dt(dtv, a.dt + k.bi * a.dts.b + k.h * a.dts.h, a.dts.s, k.row0, S);
+  cp_async_wait<0>();
+  __syncthreads();
+  const float A = a.A[k.h];
+  chunk_decay(dtv, A, cum, ecum, el, wl, sc);
+  __syncthreads();
+  {  // cb and dW, one 16 x 16 tile a warp: W, D, and X's sums
+    static_assert(TQ::count == CWARPS, "one Q x Q tile a warp");
+    const int i0 = TQ::row0(warp), j0 = TQ::col0(warp);
+    float cb[TQ::nb][4], dW[TQ::nb][4];
+    zero(cb);
+    zero(dW);
+    if (j0 <= i0 + 15) {         // tiles above the diagonal are zero
+      warp_mma<TQ::nb, false>(
+          cb, 0, N, [&](int r, int n) { return Cm[(i0 + r) * LN + n]; },
+          [&](int n, int j) { return Bm[(j0 + j) * LN + n]; });
+      warp_mma<TQ::nb, false>(
+          dW, 0, P, [&](int r, int p) { return Gs[(i0 + r) * LP + p]; },
+          [&](int p, int j) { return xs[(j0 + j) * LP + p]; });
+    }
+    float rs[2] = {0.f, 0.f}, cs[TQ::nb][2];
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
+    for (int n = 0; n < TQ::nb; ++n) {
+      cs[n][0] = cs[n][1] = 0.f;
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int i = ty + 16 * ii, j = tx + 16 * jj;
-          float w = 0.f, d = 0.f, xm = 0.f;
-          if (i >= j) {           // the decay overflows above the diagonal
-            const float decay = expf(cum[i] - cum[j]);
-            const float dwd = dW[ii][jj] * decay;
-            w = cb[ii][jj] * decay * dtv[j];
-            d = dwd * dtv[j];
-            xm = dwd * cb[ii][jj];
-          }
-          Wm[i * LQ + j] = w;
-          Dm[i * LQ + j] = d;
-          Xm[i * LQ + j] = xm;
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + frag_row(e), j = j0 + frag_col(n, e);
+        float w = 0.f, d = 0.f, xm = 0.f;
+        if (i >= j) {            // the decay overflows above the diagonal
+          const float decay = expf(cum[i] - cum[j]);
+          const float dwd = dW[n][e] * decay;
+          w = cb[n][e] * decay * dtv[j];
+          d = dwd * dtv[j];
+          xm = dwd * cb[n][e];
         }
-    }
-    __syncthreads();
-    {  // dx = W^T.gy + w_last * (B.dS^T)
-      float g1[4][TP], g2[4][TP];
-      zero(g1);
-      zero(g2);
-      tile_product<4, TP, Q>(g1, [&](int j, int i) { return Wm[i * LQ + j]; },
-                             [&](int i, int p) { return Gs[i * LP + p]; });
-      tile_product<4, TP, N>(g2, [&](int j, int n) { return Bm[j * LN + n]; },
-                             [&](int n, int p) { return dS[p * LN + n]; });
-      T* dx = static_cast<T*>(a.dx);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int j = ty + 16 * jj, row = row0 + j;
-        if (row >= S) continue;
-        T* r = dx + (((long long)bi * S + row) * H + h) * P;
-#pragma unroll
-        for (int pp = 0; pp < TP; ++pp)
-          r[tx + 16 * pp] = from_f<T>(g1[jj][pp] + g2[jj][pp] * wl[j]);
+        Wm[i * LQ + j] = w;
+        Dm[i * LQ + j] = d;
+        rs[e >> 1] += xm * dtv[j];
+        cs[n][e & 1] += xm;
       }
     }
-    {  // dC = d(C.B^T).B + e^cum * (gy.S0); rowsum(gy.S0 * C e^cum)
-      float g1[4][TN], g2[4][TN];
-      zero(g1);
-      zero(g2);
-      tile_product<4, TN, Q>(g1, [&](int i, int j) { return Dm[i * LQ + j]; },
-                             [&](int j, int n) { return Bm[j * LN + n]; });
-      tile_product<4, TN, P>(g2, [&](int i, int p) { return Gs[i * LP + p]; },
-                             [&](int p, int n) { return S0[p * LN + n]; });
-      T* dC = static_cast<T*>(a.dC);
+    const int lane = threadIdx.x & 31;
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const int i = ty + 16 * ii, row = row0 + i;
-        float r = 0.f;
-#pragma unroll
-        for (int nn = 0; nn < TN; ++nn)
-          r += g2[ii][nn] * Cm[i * LN + tx + 16 * nn];
-        r = row_sum16(r);
-        if (tx == 0) rsg[i] = r * ecum[i];
-        if (row >= S) continue;
-        T* out = dC + (((long long)bi * S + row) * H + h) * N;
-#pragma unroll
-        for (int nn = 0; nn < TN; ++nn)
-          out[tx + 16 * nn] = from_f<T>(g1[ii][nn] + g2[ii][nn] * ecum[i]);
-      }
+    for (int h = 0; h < 2; ++h) {
+      const float r = quad_sum(rs[h]);
+      if ((lane & 3) == 0)
+        rXp[(j0 / (8 * TQ::nb)) * Q + i0 + frag_row(2 * h)] = r;
     }
-    {  // dB = d(C.B^T)^T.C + w_last * (x.dS); d(w_last) = rowsum(x.dS * B)
-      float g1[4][TN], g2[4][TN];
-      zero(g1);
-      zero(g2);
-      tile_product<4, TN, Q>(g1, [&](int j, int i) { return Dm[i * LQ + j]; },
-                             [&](int i, int n) { return Cm[i * LN + n]; });
-      tile_product<4, TN, P>(g2, [&](int j, int p) { return xs[j * LP + p]; },
-                             [&](int p, int n) { return dS[p * LN + n]; });
-      T* dB = static_cast<T*>(a.dB);
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int j = ty + 16 * jj, row = row0 + j;
-        float r = 0.f;
+    for (int n = 0; n < TQ::nb; ++n)
 #pragma unroll
-        for (int nn = 0; nn < TN; ++nn)
-          r += g2[jj][nn] * Bm[j * LN + tx + 16 * nn];
-        r = row_sum16(r);
-        if (tx == 0) dwv[j] = r;
-        if (row >= S) continue;
-        T* out = dB + (((long long)bi * S + row) * H + h) * N;
-#pragma unroll
-        for (int nn = 0; nn < TN; ++nn)
-          out[tx + 16 * nn] = from_f<T>(g1[jj][nn] + g2[jj][nn] * wl[j]);
+      for (int e = 0; e < 2; ++e) {
+        const float v = col_sum(cs[n][e]);
+        if (lane < 4) cXp[(i0 / 16) * Q + j0 + frag_col(n, e)] = v;
       }
+  }
+  __syncthreads();
+  const long long row_off = ((long long)k.bi * S + k.row0) * a.H + k.h;
+  const int rows = S - k.row0;
+  // dx = W^T.gy + w_last (B.dS1^T)
+  for (int tile = warp; tile < TP::count; tile += CWARPS) {
+    const int j0 = TP::row0(tile), p0 = TP::col0(tile);
+    float g1[TP::nb][4], g2[TP::nb][4];
+    zero(g1);
+    zero(g2);
+    warp_mma<TP::nb, true>(
+        g1, j0, Q, [&](int r, int i) { return Wm[i * LQ + j0 + r]; },
+        [&](int i, int p) { return Gs[i * LP + p0 + p]; });
+    warp_mma<TP::nb, false>(
+        g2, 0, N, [&](int r, int n) { return Bm[(j0 + r) * LN + n]; },
+        [&](int n, int p) { return St[(p0 + p) * LN + n]; });
+    store_tile<T, TP::nb>(static_cast<T*>(a.dx) + row_off * P,
+                          (long long)a.H * P, j0, p0, rows,
+                          [&](int n, int e, int j, int) {
+                            return g1[n][e] + g2[n][e] * wl[j];
+                          });
+  }
+  // dB = D^T.C + w_last (x.dS1); d(w_last) = rowsum(x.dS1 * B)
+  for (int tile = warp; tile < TN::count; tile += CWARPS) {
+    const int j0 = TN::row0(tile), n0 = TN::col0(tile);
+    float g1[TN::nb][4], g2[TN::nb][4];
+    zero(g1);
+    zero(g2);
+    warp_mma<TN::nb, true>(
+        g1, j0, Q, [&](int r, int i) { return Dm[i * LQ + j0 + r]; },
+        [&](int i, int n) { return Cm[i * LN + n0 + n]; });
+    warp_mma<TN::nb, false>(
+        g2, 0, P, [&](int r, int p) { return xs[(j0 + r) * LP + p]; },
+        [&](int p, int n) { return St[p * LN + n0 + n]; });
+    store_tile<T, TN::nb>(static_cast<T*>(a.dB) + row_off * N,
+                          (long long)a.H * N, j0, n0, rows,
+                          [&](int n, int e, int j, int) {
+                            return g1[n][e] + g2[n][e] * wl[j];
+                          });
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < TN::nb; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        rs[e >> 1] +=
+            g2[n][e] * Bm[(j0 + frag_row(e)) * LN + n0 + frag_col(n, e)];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float r = quad_sum(rs[h]);
+      if ((threadIdx.x & 3) == 0)
+        dwp[(n0 / (8 * TN::nb)) * Q + j0 + frag_row(2 * h)] = r;
     }
-    // dS for the preceding chunk: e^cum_Q * dS + gy^T.(C e^cum), held in
-    // registers until every read of this chunk's dS is done
-    float nd[TP][TN];
-    zero(nd);
-    tile_product<TP, TN, Q>(
-        nd, [&](int p, int i) { return Gs[i * LP + p]; },
-        [&](int i, int n) { return Cm[i * LN + n] * ecum[i]; });
-    {
-      const float eQ = sc[0];
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < TP; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const int o = (ty + 16 * i) * LN + tx + 16 * j;
-          s += dS[o] * S0[o];
-          nd[i][j] += eQ * dS[o];
-        }
-      part[threadIdx.x] = s;
+  }
+  __syncthreads();               // every read of dS1 is done
+  {  // S0 into dS1's buffer, sum(dS1 * S0) on the way
+    const float* s0 = a.cstates_in + (k.bh * a.nc + c) * P * N;
+    float part = 0.f;
+#pragma unroll 8
+    for (int e = threadIdx.x; e < P * N; e += CNT) {
+      const int o = (e / N) * LN + e % N;
+      const float v = s0[e];
+      part += St[o] * v;
+      St[o] = v;
     }
-    __syncthreads();
+    for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(FULL, part, o);
+    if ((threadIdx.x & 31) == 0) wsum[warp] = part;
+  }
+  __syncthreads();
+  // dC = D.B + e^cum (gy.S0); rowsum(gy.S0 * C)
+  for (int tile = warp; tile < TN::count; tile += CWARPS) {
+    const int i0 = TN::row0(tile), n0 = TN::col0(tile);
+    float g1[TN::nb][4], g2[TN::nb][4];
+    zero(g1);
+    zero(g2);
+    warp_mma<TN::nb, false>(
+        g1, 0, i0 + 16, [&](int r, int j) { return Dm[(i0 + r) * LQ + j]; },
+        [&](int j, int n) { return Bm[j * LN + n0 + n]; });
+    warp_mma<TN::nb, false>(
+        g2, 0, P, [&](int r, int p) { return Gs[(i0 + r) * LP + p]; },
+        [&](int p, int n) { return St[p * LN + n0 + n]; });
+    store_tile<T, TN::nb>(static_cast<T*>(a.dC) + row_off * N,
+                          (long long)a.H * N, i0, n0, rows,
+                          [&](int n, int e, int i, int) {
+                            return g1[n][e] + g2[n][e] * ecum[i];
+                          });
+    float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < TP; ++i)
+    for (int n = 0; n < TN::nb; ++n)
 #pragma unroll
-      for (int j = 0; j < TN; ++j)
-        dS[(ty + 16 * i) * LN + tx + 16 * j] = nd[i][j];
-    if (threadIdx.x < Q) {        // row sums of Xm, weighted by dt_j
-      const int i = threadIdx.x;
-      float s = 0.f;
-      for (int j = 0; j < Q; ++j) s += Xm[i * LQ + j] * dtv[j];
-      rX[i] = s;
-    } else if (threadIdx.x < 2 * Q) {   // column sums of Xm
-      const int j = threadIdx.x - Q;
-      float s = 0.f;
-      for (int i = 0; i < Q; ++i) s += Xm[i * LQ + j];
-      cX[j] = s;
-    } else if (threadIdx.x < 2 * Q + 32) {  // sum(dS * S0) over the block
-      const int l = threadIdx.x - 2 * Q;
-      float s = 0.f;
-      for (int k = 0; k < NT / 32; ++k) s += part[l * (NT / 32) + k];
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
-      if (l == 0) sc[1] = s;
+      for (int e = 0; e < 4; ++e)
+        rs[e >> 1] +=
+            g2[n][e] * Cm[(i0 + frag_row(e)) * LN + n0 + frag_col(n, e)];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float r = quad_sum(rs[h]);
+      if ((threadIdx.x & 3) == 0)
+        rsgp[(n0 / (8 * TN::nb)) * Q + i0 + frag_row(2 * h)] = r;
     }
-    __syncthreads();
-    if (threadIdx.x < 32) {       // the cum cotangent, ddt and dA (warp 0)
-      const int l = threadIdx.x;
-      float dc[2], v[2], vs = 0.f;
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int i = 2 * l + k;
-        v[k] = dwv[i] * wl[i];
-        dc[k] = rX[i] - dtv[i] * cX[i] + rsg[i] - v[k];
-        vs += v[k];
-      }
-      for (int o = 16; o > 0; o >>= 1) vs += __shfl_xor_sync(FULL, vs, o);
-      if (l == 31) dc[1] += sc[1] * sc[0] + vs;   // cum_Q's own terms
-      // da_i = sum_{i' >= i} dcum_i': a suffix scan over the lanes
-      float s = dc[0] + dc[1];
-      for (int o = 1; o < 32; o <<= 1) {
-        const float t = __shfl_down_sync(FULL, s, o);
-        if (l + o < 32) s += t;
-      }
-      float after = __shfl_down_sync(FULL, s, 1);
-      if (l == 31) after = 0.f;
-      float da[2];
-      da[1] = after + dc[1];
-      da[0] = da[1] + dc[0];
-      float dap = 0.f;
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int i = 2 * l + k, row = row0 + i;
-        dap += da[k] * dtv[i];
-        if (row < S)
-          a.ddt[((long long)bi * S + row) * H + h] =
-              cX[i] + dwv[i] * el[i] + da[k] * A;
-      }
-      for (int o = 16; o > 0; o >>= 1) dap += __shfl_xor_sync(FULL, dap, o);
-      if (l == 0) a.dA_part[bh * a.nc + c] = dap;
+  }
+  __syncthreads();
+  if (threadIdx.x < Q) {         // the partial sums, in a fixed order
+    const int i = threadIdx.x;
+    float r = 0.f, d = 0.f, g = 0.f;
+    for (int t = 0; t < TQ::cols; ++t) r += rXp[t * Q + i];
+    for (int t = 0; t < TN::cols; ++t) {
+      d += dwp[t * Q + i];
+      g += rsgp[t * Q + i];
     }
+    rX[i] = r;
+    dwv[i] = d;
+    rsg[i] = g * ecum[i];
+  } else if (threadIdx.x < 2 * Q) {
+    const int j = threadIdx.x - Q;
+    float s = 0.f;
+    for (int t = 0; t < Q / 16; ++t) s += cXp[t * Q + j];
+    cX[j] = s;
+  } else if (threadIdx.x == 2 * Q) {
+    float s = 0.f;
+    for (int w = 0; w < CWARPS; ++w) s += wsum[w];
+    sc[1] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {        // the cum cotangent, ddt and dA (warp 0)
+    const int l = threadIdx.x;
+    float dc[2], v[2], vs = 0.f;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int i = 2 * l + q;
+      v[q] = dwv[i] * wl[i];
+      dc[q] = rX[i] - dtv[i] * cX[i] + rsg[i] - v[q];
+      vs += v[q];
+    }
+    for (int o = 16; o > 0; o >>= 1) vs += __shfl_xor_sync(FULL, vs, o);
+    if (l == 31) dc[1] += sc[1] * sc[0] + vs;   // cum_Q's own terms
+    // da_i = sum_{i' >= i} dcum_i': a suffix scan over the lanes
+    float s = dc[0] + dc[1];
+    for (int o = 1; o < 32; o <<= 1) {
+      const float t = __shfl_down_sync(FULL, s, o);
+      if (l + o < 32) s += t;
+    }
+    float after = __shfl_down_sync(FULL, s, 1);
+    if (l == 31) after = 0.f;
+    float da[2];
+    da[1] = after + dc[1];
+    da[0] = da[1] + dc[0];
+    float dap = 0.f;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int i = 2 * l + q, row = k.row0 + i;
+      dap += da[q] * dtv[i];
+      if (row < S)
+        a.ddt[((long long)k.bi * S + row) * a.H + k.h] =
+            cX[i] + dwv[i] * el[i] + da[q] * A;
+    }
+    for (int o = 16; o > 0; o >>= 1) dap += __shfl_xor_sync(FULL, dap, o);
+    if (l == 0) a.dA_part[k.bh * a.nc + c] = dap;
   }
 }
 
 // Raise the kernel's dynamic shared-memory limit (above 48 KB a launch
 // is refused without it), then launch.
 template <typename Kernel>
-int launch(Kernel kernel, int smem_floats, const SsdArgs& a,
-           cudaStream_t stream) {
+int launch(Kernel kernel, dim3 grid, int smem_floats, const SsdArgs& a,
+           cudaStream_t stream, int threads = NT) {
   const int smem = smem_floats * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(a.H, a.b), NT, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+// The three phases of one direction, in order; the first error stops.
 template <typename T, int P, int N>
 int launch_pn(bool bwd, const SsdArgs& a, cudaStream_t stream) {
-  if (bwd)
-    return launch(ssd_bwd_kernel<T, P, N>, bwd_smem_floats<P, N>(), a, stream);
-  return launch(ssd_fwd_kernel<T, P, N>, fwd_smem_floats<P, N>(), a, stream);
+  const dim3 chunks(a.nc, a.H, a.b);
+  const dim3 tiles((P * N + 4 * NT - 1) / (4 * NT), a.H, a.b);
+  int err;
+  if (!bwd) {
+    if ((err = launch(ssd_fwd_states_kernel<T, P, N>, chunks,
+                      fwd_states_floats<P, N>(), a, stream)))
+      return err;
+    if ((err = launch(ssd_fwd_scan_kernel<P, N>, tiles, a.nc, a, stream)))
+      return err;
+    return launch(ssd_fwd_out_kernel<T, P, N>, chunks, fwd_out_floats<P, N>(),
+                  a, stream);
+  }
+  if ((err = launch(ssd_bwd_states_kernel<T, P, N>, chunks,
+                    bwd_states_floats<P, N>(), a, stream)))
+    return err;
+  if ((err = launch(ssd_bwd_scan_kernel<P, N>, tiles, a.nc, a, stream)))
+    return err;
+  return launch(ssd_bwd_chunk_kernel<T, P, N>, chunks, bwd_chunk_floats<P, N>(),
+                a, stream, CNT);
 }
 
 // (P, N) instances: mamba2-780m (64, 128), hymba-1.5b (64, 16), the
@@ -545,12 +879,21 @@ int launch_t(bool bwd, int P, int N, const SsdArgs& a, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue;
 }
 
-// ``chunk`` is the caller's idea of Q, which sizes cstates and the dA
-// partials: a launch that disagrees is refused.
-int dispatch(bool bwd, int P, int N, int chunk, int dtype, const SsdArgs& a,
+// The rows of one fp32 operand are 16-byte aligned: its base and its
+// (batch, seq, head) strides.
+bool rows16(const void* p, const Strides& st) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % 4 == 0 &&
+         st.s % 4 == 0 && st.h % 4 == 0;
+}
+
+// ``chunk`` is the caller's idea of Q, which sizes cstates, the scratch
+// and the dA partials: a launch that disagrees is refused.
+int dispatch(bool bwd, int P, int N, int chunk, int dtype, SsdArgs& a,
              void* stream) {
   if (chunk != Q || a.b <= 0 || a.S <= 0 || a.H <= 0)
     return (int)cudaErrorInvalidValue;
+  a.vec = rows16(a.x, a.xs) && rows16(a.B, a.Bs) && rows16(a.C, a.Cs) &&
+          (a.gy == nullptr || rows16(a.gy, a.gs));
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kF32) return launch_t<float>(bwd, P, N, a, s);
   if (dtype == kBF16) return launch_t<__nv_bfloat16>(bwd, P, N, a, s);
@@ -595,13 +938,15 @@ int ssd_fwd(const void* x, const void* dt, const void* A, const void* B,
   return dispatch(false, P, N, chunk, dtype, a, stream);
 }
 
+// scratch: fp32 [b, H, nc, P, N], the wrapper's (its contents on return
+// are dS1 per chunk).
 int ssd_bwd(const void* x, const void* dt, const void* A, const void* B,
             const void* C, const void* cstates, const void* gy,
             const void* gstate, void* dx, void* ddt, void* dB, void* dC,
-            void* dA_part, int b, int S, int H, int P, int N, int chunk,
-            int x_sb, int x_ss, int x_sh, int dt_sb, int dt_ss, int dt_sh,
-            int B_sb, int B_ss, int B_sh, int C_sb, int C_ss, int C_sh,
-            int g_sb, int g_ss, int g_sh, int dtype, void* stream) {
+            void* dA_part, void* scratch, int b, int S, int H, int P, int N,
+            int chunk, int x_sb, int x_ss, int x_sh, int dt_sb, int dt_ss,
+            int dt_sh, int B_sb, int B_ss, int B_sh, int C_sb, int C_ss,
+            int C_sh, int g_sb, int g_ss, int g_sh, int dtype, void* stream) {
   SsdArgs a = make_args(x, dt, A, B, C, b, S, H, x_sb, x_ss, x_sh, dt_sb,
                         dt_ss, dt_sh, B_sb, B_ss, B_sh, C_sb, C_ss, C_sh);
   a.cstates_in = (const float*)cstates;
@@ -613,6 +958,7 @@ int ssd_bwd(const void* x, const void* dt, const void* A, const void* B,
   a.dB = dB;
   a.dC = dC;
   a.dA_part = (float*)dA_part;
+  a.scratch = (float*)scratch;
   return dispatch(true, P, N, chunk, dtype, a, stream);
 }
 

@@ -1,6 +1,6 @@
 """Causal GQA flash attention on the card: wrappers around the CUDA
-kernels of ``csrc/flash.cu`` (``ops.FlashAttention`` is their
-``torch.autograd.Function``).
+kernels of ``csrc/flash.cuh`` (entry points in ``csrc/flash.cu``;
+``ops.FlashAttention`` is their ``torch.autograd.Function``).
 
   * ``flash_fwd``: (out, lse) in one kernel; the [S, S] scores never
     reach device memory.
@@ -30,8 +30,10 @@ import torch
 
 from repro_torch.kernels.build import check_tensors, current_stream, launch
 
-#: head dims with a template instance in csrc/flash.cu
-HEAD_DIMS = (32, 64, 128)
+#: head dims with a template instance in csrc/flash.cuh: the reduced
+#: configs at d_model 64 (16), 32, gpt3-medium (64), GPT-3 2.7B (80),
+#: phi3-vision (96), qwen2.5-3b (128)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 
 
 def _strides(t: torch.Tensor) -> Tuple[int, int, int]:

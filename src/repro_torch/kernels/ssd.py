@@ -1,13 +1,16 @@
 """Mamba2 SSD chunked scan on the card: wrappers around the CUDA kernels
 of ``csrc/ssd.cu`` (``ops.SSD`` is their ``torch.autograd.Function``).
 
-  * ``ssd_fwd``: (y, final state, cstates) in one kernel; one block per
-    (head, batch) walks the chunks in order with the [P, N] fp32 state
-    in shared memory.
-  * ``ssd_bwd``: (dx, ddt, dA, dB, dC) in one kernel walking the chunks in
-    reverse from the saved cstates, carrying dS.  dA comes out as one fp32
-    partial per (batch, head, chunk), summed here in a fixed order: no
-    atomics, so two runs are bitwise equal.
+  * ``ssd_fwd``: (y, final state, cstates) in three chunk-parallel
+    phases launched by one entry point: each chunk's local state, a scan
+    over the chunks of the [P, N] states (in place in cstates), each
+    chunk's y; every product on the tensor cores.
+  * ``ssd_bwd``: (dx, ddt, dA, dB, dC) in the same three phases from the
+    saved cstates: each chunk's local state cotangent into an fp32
+    scratch [b, H, nc, P, N] allocated here, the reverse scan that turns
+    it into the carried dS1, each chunk's gradients.  dA comes out as one
+    fp32 partial per (batch, head, chunk), summed here in a fixed order:
+    no atomics, so two runs are bitwise equal.
 
 x, y, gy and dx are [b, S, H, P]; dt and ddt [b, S, H] fp32; A [H] fp32;
 B, C, dB and dC [b, S, H, N]; states [b, H, P, N] fp32 and cstates
@@ -115,10 +118,14 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dB = torch.empty((b, S, H, N), dtype=B.dtype, device=x.device)
     dC = torch.empty((b, S, H, N), dtype=C.dtype, device=x.device)
     dA_part = torch.empty((b, H, nc), dtype=torch.float32, device=x.device)
+    # the chunks' local state cotangents, then the carried ones (dS1)
+    scratch = torch.empty((b, H, nc, P, N), dtype=torch.float32,
+                          device=x.device)
     launch("ssd_bwd", x.data_ptr(), dt.data_ptr(), A.data_ptr(),
            B.data_ptr(), C.data_ptr(), cstates.data_ptr(), gy.data_ptr(),
            gstate.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
-           dC.data_ptr(), dA_part.data_ptr(), b, S, H, P, N, CHUNK,
+           dC.data_ptr(), dA_part.data_ptr(), scratch.data_ptr(), b, S, H, P,
+           N, CHUNK,
            *_strides(x), *_strides(dt), *_strides(B), *_strides(C),
            *_strides(gy), code, current_stream(x))
     dA = dA_part.sum((0, 2))

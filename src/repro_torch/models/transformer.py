@@ -151,10 +151,13 @@ class Model:
 
     def loss(self, params: Dict, batch: Dict) -> Tuple[torch.Tensor, Dict]:
         # labels are PRE-SHIFTED next-token targets; the final position
-        # is excluded from the mean (the reference's S-1 reduction)
+        # is excluded from the mean (the reference's S-1 reduction); a 0/1
+        # ``mask`` excludes positions from it
         labels = batch["labels"]
         logits, aux = self.forward(params, batch["tokens"])
-        nll = cross_entropy(logits[:, :-1], labels[:, :-1])
+        mask = batch.get("mask")
+        nll = cross_entropy(logits[:, :-1], labels[:, :-1],
+                            mask[:, :-1] if mask is not None else None)
         return nll, {"nll": nll, "aux": aux}
 
     def decode_step(self, *a, **k):

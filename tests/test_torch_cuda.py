@@ -209,14 +209,18 @@ TENSOR_CORE_FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [
     (2, 2048, 16, 16, 64, 0), (2, 300, 8, 2, 32, 0), (1, 200, 8, 2, 128, 0),
-    (2, 257, 10, 2, 64, 96), (1, 130, 4, 1, 128, 40)],
-    ids=["flash-path", "gqa-d32", "gqa-d128", "window-d64", "window-d128"])
+    (2, 257, 10, 2, 64, 96), (1, 130, 4, 1, 128, 40),
+    (2, 300, 4, 4, 16, 0), (1, 1000, 32, 32, 80, 0), (2, 257, 8, 2, 80, 96),
+    (1, 300, 8, 2, 96, 0), (2, 130, 4, 1, 96, 40), (1, 130, 6, 2, 16, 50)],
+    ids=["flash-path", "gqa-d32", "gqa-d128", "window-d64", "window-d128",
+         "d16", "d80-gpt3-2.7b", "window-d80", "gqa-d96", "window-d96",
+         "window-d16"])
 @pytest.mark.parametrize("name", TENSOR_CORE_FLASH)
 def test_flash_tensor_core_kernel_matches_plain(card, name, shape, dtype):
     """Each tensor-core flash kernel against its plain version with
-    chip_smoke.py's condition-aware tolerances, at head dims 32, 64 and
-    128, with grouped query heads and a sliding window; bitwise equal
-    across two runs."""
+    chip_smoke.py's condition-aware tolerances, at head dims 16, 32, 64,
+    80, 96 and 128, with grouped query heads and a sliding window; bitwise
+    equal across two runs."""
     cs = _chip_smoke()
     kern, plain, _ = cs.kernel_table(card)[name]
     args = cs.make_inputs(name, shape, dtype, card, seed=8)
@@ -245,7 +249,7 @@ def test_flash_tensor_core_kernel_unaligned_rows_match_plain(card, name,
 
 
 def test_flash_wrappers_refuse_other_head_dims(card):
-    q, k, v, _ = _flash_inputs(card, 1, 64, 2, 2, 16, torch.float32)
+    q, k, v, _ = _flash_inputs(card, 1, 64, 2, 2, 48, torch.float32)
     with pytest.raises(ValueError):
         flash.flash_fwd(q, k, v)
 
@@ -267,7 +271,7 @@ def test_flash_model_matches_naive_on_card(card, arch_name):
     from repro_torch.configs import get_arch, reduced
     from repro_torch.models import Model
     from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
-    arch = reduced(get_arch(arch_name), layers=2, d_model=128)   # head dim 32
+    arch = reduced(get_arch(arch_name), layers=2)   # d_model 64: head dim 16
     g = torch.Generator(device=card).manual_seed(4)
     batch = {key: torch.randint(0, arch.vocab_size, (2, 200), generator=g,
                                 device=card) for key in ("tokens", "labels")}
@@ -302,8 +306,11 @@ def _chip_smoke():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [
     (1, 1000, 6, 64, 128, True), (2, 1000, 50, 64, 16, True),
-    (2, 300, 8, 16, 16, False), (1, 7, 2, 16, 16, False)],
-    ids=["mamba-heads", "hymba", "reduced", "short"])
+    (2, 300, 8, 16, 16, False), (1, 7, 2, 16, 16, False),
+    (1, 4000, 3, 64, 128, True), (2, 2500, 2, 64, 16, False),
+    (2, 1000, 4, 16, 16, True)],
+    ids=["mamba-heads", "hymba", "reduced", "short", "many-chunks-b1",
+         "many-chunks-b2", "many-chunks-reduced-b2"])
 def test_ssd_kernels_match_plain(card, shape, dtype):
     """Both SSD kernels against their plain versions with chip_smoke.py's
     condition-aware tolerances (fp32: rtol 1e-4 plus 1e-5 of the sum of
@@ -315,6 +322,47 @@ def test_ssd_kernels_match_plain(card, shape, dtype):
         kern, plain, _ = table[name]
         args = cs.make_inputs(name, shape, dtype, card, seed=5)
         cs.compare(name, kern, plain, args, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernels_rerun_bitwise_and_count_one_launch(card, dtype):
+    """At chip_smoke.py's mamba shape (32 chunks, 48 heads, B and C one
+    group): three calls of each SSD wrapper give bitwise-equal outputs,
+    and each call counts one launch (its three phases are one entry
+    point)."""
+    cs = _chip_smoke()
+    table = cs.kernel_table(card)
+    shape = dict(cs.CARD_SHAPES["ssd"])["mamba"]
+    for name in ("ssd_fwd", "ssd_bwd"):
+        kern = table[name][0]
+        args = cs.make_inputs(name, shape, dtype, card, seed=10)
+        build.reset_launches()
+        runs = [kern(*args) for _ in range(3)]
+        assert build.LAUNCHES[name] == 3, build.LAUNCHES
+        for again in runs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(runs[0], again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernels_unaligned_rows_match_plain(card, dtype):
+    """x, B, C (and gy) one element off a 16-byte boundary take the
+    kernels' element copies instead of their 16-byte cp.async ones."""
+    cs = _chip_smoke()
+    table = cs.kernel_table(card)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    for name in ("ssd_fwd", "ssd_bwd"):
+        kern, plain, _ = table[name]
+        args = list(cs.make_inputs(name, (2, 300, 3, 64, 16, False), dtype,
+                                   card, seed=11))
+        for i in (0, 3, 4) + ((6,) if name == "ssd_bwd" else ()):
+            args[i] = shifted(args[i])
+        assert args[0].data_ptr() % 16 != 0
+        cs.compare(name, kern, plain, tuple(args), dtype)
 
 
 def test_ssd_wrappers_refuse_other_shapes(card):

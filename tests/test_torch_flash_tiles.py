@@ -1,6 +1,6 @@
 """The flash forward and dq kernels' arithmetic and grid, on the CPU.
 
-csrc/flash.cu runs every product of ``flash_fwd_kernel`` and
+csrc/flash.cuh runs every product of ``flash_fwd_kernel`` and
 ``flash_bwd_dq_kernel`` on the tensor cores.  A numpy emulation of that
 arithmetic (fp32 inputs) is held against the port's plain versions,
 ``ref.flash_fwd_ref`` and ``ref.flash_bwd_ref``, under chip_smoke.py's
@@ -42,9 +42,10 @@ NEG_INF = np.float32(-1e30)
 PERM = np.array([0, 2, 4, 6, 1, 3, 5, 7])
 
 # (B, S, H, KV, D, window): causal with a ragged last block, grouped
-# query heads, a sliding window
+# query heads, a sliding window, and head dims 16, 80 and 96
 SHAPES = {"causal": (1, 130, 2, 2, 64, 0), "gqa": (1, 100, 4, 2, 32, 0),
-          "window": (1, 150, 4, 1, 32, 48)}
+          "window": (1, 150, 4, 1, 32, 48), "d16": (1, 100, 2, 2, 16, 0),
+          "d80": (1, 130, 2, 1, 80, 0), "d96": (1, 130, 2, 2, 96, 40)}
 
 
 def _inputs(shape, seed=0):
@@ -99,7 +100,7 @@ def _heads(shape):
 
 
 def _kv_range(iq, S, window):
-    """[lo, hi) of flash.cu's QWalk (C division; lo is clamped at 0)."""
+    """[lo, hi) of flash.cuh's QWalk (C division; lo is clamped at 0)."""
     q0 = iq * BLOCK
     lo = max(int((q0 - window + 1) / BLOCK), 0) if window > 0 else 0
     return lo, min(iq + 1, -(-S // BLOCK))
@@ -216,7 +217,7 @@ def test_emulated_dq_against_the_fp32_tolerance(label, small_terms):
 
 def _grid_order(B, S, H):
     """(q block, head, batch) of each block of the forward's and dq's grid
-    (H, B, nq) in dispatch order, x fastest: flash.cu's QWalk takes h =
+    (H, B, nq) in dispatch order, x fastest: flash.cuh's QWalk takes h =
     blockIdx.x, b = blockIdx.y and q block nq - 1 - blockIdx.z."""
     nq = -(-S // BLOCK)
     return [(nq - 1 - z, x, y) for z in range(nq) for y in range(B)

@@ -213,6 +213,8 @@ def test_ctypes_signatures_match_the_cuda_source():
     decls = {}
     for path in build.SOURCES:
         src = path.read_text()
+        if 'extern "C" {' not in src:      # a source of kernel instances
+            continue
         block = src[src.index('extern "C" {'):]
         decls.update(re.findall(r"^int (\w+)\(([^)]*)\)", block, re.M | re.S))
     assert set(decls) == set(build.SIGNATURES) == set(build.LAUNCHES)

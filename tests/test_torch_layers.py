@@ -198,3 +198,26 @@ def test_unported_families_and_paths_raise():
                  attn_impl="auto").attn_impl == "kernel"
     with pytest.raises(NotImplementedError):
         Model(reduced(get_arch("gpt3_medium"))).decode_step()
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["mask", "no-mask"])
+def test_model_loss_honours_the_mask(masked):
+    """Model.loss of reduced gpt3-medium against the JAX package's with a
+    0/1 mask that drops about 30 % of the positions (sliced [:, :-1] as
+    the reference slices it), and without one; the same weights through
+    convert.py; test_executor.py's fp32 tolerance (atol 5e-7, rtol
+    5e-4)."""
+    jm, tm, jp, tp = _models("gpt3_medium", "naive", "fused")
+    rng = np.random.default_rng(10)
+    arr = rng.integers(0, 512, (2, 33)).astype(np.int32)
+    batch = {"tokens": arr[:, :-1], "labels": arr[:, 1:]}
+    if masked:
+        batch["mask"] = (rng.random((2, 32)) >= 0.3).astype(np.float32)
+    jloss, _ = jm.loss(jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    tloss, _ = tm.loss(tp, {k: torch.from_numpy(v.copy())
+                            for k, v in batch.items()})
+    np.testing.assert_allclose(_np(tloss), _np(jloss), atol=5e-7, rtol=5e-4)
+    if masked:      # the mask changes the loss: it was not dropped
+        unmasked, _ = tm.loss(tp, {k: torch.from_numpy(v.copy())
+                                   for k, v in batch.items() if k != "mask"})
+        assert abs(float(unmasked) - float(tloss)) > 1e-4

@@ -1,0 +1,231 @@
+"""The SSD kernels' three-phase arithmetic, on the CPU.
+
+csrc/ssd.cu runs each direction as three phases: every chunk's local
+state (forward L_c = (x * w_last)^T.B; backward L'_c = gy^T.(C e^cum)),
+a scan over the chunks of the [P, N] states (S_c+1 = S_c e^cum_Q + L_c;
+dS1_c-1 = e^cum_Q dS1_c + L'_c), and every chunk's outputs from its
+entering state (and state cotangent), with each product on the tensor
+cores as 3xTF32.  A numpy emulation of that arithmetic (fp32 inputs),
+each product as ``_emulated_gemm`` of tests/test_torch_gemm_tiles.py (x
+= big + small, every mma step of 8 added to one zeroed accumulator per
+product with round-toward-zero, as the kernels accumulate a product's
+whole K), is held against the port's plain versions ``ref.ssd_fwd_ref``
+and ``ref.ssd_bwd_ref`` under chip_smoke.py's SSD tolerance (rtol 1e-4
+plus 1e-5 of each output's cond, the sum of its terms' magnitudes), at
+the three (P, N) the kernels are built for, with a ragged last chunk and
+B and C one group over the heads.  The same emulation without the small
+terms (1xTF32) must fail the tolerance, so it would catch a kernel that
+drops them.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ref
+from test_torch_gemm_tiles import CS, _emulated_gemm
+
+Q = ref.SSD_CHUNK
+f32 = np.float32
+
+# (b, S, H, P, N, B/C one group): the kernels' three (P, N), ragged S
+SHAPES = {"mamba": (1, 100, 2, 64, 128, True),
+          "hymba": (1, 130, 2, 64, 16, True),
+          "reduced": (2, 70, 2, 16, 16, False)}
+
+
+def _inputs(shape, seed=0):
+    """x, dt, A, B, C as chip_smoke.py's make_inputs draws them (dt and A
+    in the Mamba2 block's ranges), and the backward's cotangents."""
+    b, S, H, P, N, grouped = shape
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, S, H, P)).astype(f32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, S, H)) - 3.0)).astype(f32)
+    A = (-np.exp(rng.standard_normal(H) * 0.5)).astype(f32)
+    BC = [np.broadcast_to(rng.standard_normal((b, S, 1, N)), (b, S, H, N))
+          if grouped else rng.standard_normal((b, S, H, N))
+          for _ in range(2)]
+    B, C = (np.ascontiguousarray(t).astype(f32) for t in BC)
+    gy = rng.standard_normal((b, S, H, P)).astype(f32)
+    gstate = rng.standard_normal((b, H, P, N)).astype(f32)
+    return x, dt, A, B, C, gy, gstate
+
+
+def _chunk(t, bi, h, c):
+    """Rows [cQ, cQ + Q) of t[bi, :, h], rows past S as 0."""
+    rows = t[bi, c * Q:(c + 1) * Q, h]
+    out = np.zeros((Q, *rows.shape[1:]), f32)
+    out[:len(rows)] = rows
+    return out
+
+
+def _mm(a, b, small):
+    return _emulated_gemm(np.ascontiguousarray(a, f32),
+                          np.ascontiguousarray(b, f32), small_terms=small,
+                          promote=a.shape[1])
+
+
+def _decay(dtq, A):
+    """cum, e^cum, e^(cum_Q - cum), w_last, e^cum_Q and the masked
+    [Q, Q] decay (zero above the diagonal, masked before the exp)."""
+    cum = np.cumsum(dtq * A, dtype=f32)
+    tri = np.tril(np.ones((Q, Q), bool))
+    decay = np.where(tri, np.exp(np.where(tri, cum[:, None] - cum[None, :],
+                                          0)), 0).astype(f32)
+    el = np.exp(cum[-1] - cum).astype(f32)
+    return cum, np.exp(cum).astype(f32), el, (el * dtq).astype(f32), \
+        f32(np.exp(cum[-1])), decay
+
+
+def emulated_fwd(x, dt, A, B, C, small=True):
+    """(y, final state, cstates) of the three forward phases."""
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    nc = -(-S // Q)
+    y = np.zeros_like(x)
+    state = np.zeros((b, H, P, N), f32)
+    cstates = np.zeros((b, H, nc, P, N), f32)
+    for bi in range(b):
+        for h in range(H):
+            terms = []
+            for c in range(nc):      # phase 1: each chunk's local state
+                dtq = _chunk(dt[..., None], bi, h, c)[:, 0]
+                *_, wl, eq, _ = _decay(dtq, A[h])
+                xw = _chunk(x, bi, h, c) * wl[:, None]
+                terms.append((eq, _mm(xw.T, _chunk(B, bi, h, c), small)))
+            s = np.zeros((P, N), f32)
+            for c, (eq, L) in enumerate(terms):   # phase 2: the scan
+                cstates[bi, h, c] = s
+                s = (s * eq + L).astype(f32)
+            state[bi, h] = s
+            for c in range(nc):      # phase 3: each chunk's y
+                dtq = _chunk(dt[..., None], bi, h, c)[:, 0]
+                cum, ecum, _, _, _, decay = _decay(dtq, A[h])
+                xq, Bq, Cq = (_chunk(t, bi, h, c) for t in (x, B, C))
+                W = _mm(Cq, Bq.T, small) * decay * dtq[None, :]
+                yq = (_mm(W, xq, small)
+                      + ecum[:, None] * _mm(Cq, cstates[bi, h, c].T, small))
+                rows = min(Q, S - c * Q)
+                y[bi, c * Q:c * Q + rows, h] = yq[:rows]
+    return y, state, cstates
+
+
+def emulated_bwd(x, dt, A, B, C, cstates, gy, gstate, small=True):
+    """(dx, ddt, dA, dB, dC) of the three backward phases."""
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    nc = -(-S // Q)
+    dx, dB, dC = np.zeros_like(x), np.zeros_like(B), np.zeros_like(C)
+    ddt = np.zeros_like(dt)
+    dA = np.zeros(H, f32)
+    for bi in range(b):
+        for h in range(H):
+            dS1 = [None] * nc
+            locs, eqs = [], []
+            for c in range(nc):      # phase 1: local state cotangents
+                dtq = _chunk(dt[..., None], bi, h, c)[:, 0]
+                _, ecum, _, _, eq, _ = _decay(dtq, A[h])
+                Ce = _chunk(C, bi, h, c) * ecum[:, None]
+                locs.append(_mm(_chunk(gy, bi, h, c).T, Ce, small))
+                eqs.append(eq)
+            s = gstate[bi, h]
+            for c in reversed(range(nc)):         # phase 2: reverse scan
+                dS1[c] = s
+                s = (eqs[c] * s + locs[c]).astype(f32)
+            parts = []
+            for c in range(nc):      # phase 3: each chunk's gradients
+                dtq = _chunk(dt[..., None], bi, h, c)[:, 0]
+                cum, ecum, el, wl, eq, decay = _decay(dtq, A[h])
+                xq, Bq, Cq, G = (_chunk(t, bi, h, c) for t in (x, B, C, gy))
+                S0, dS = cstates[bi, h, c], dS1[c]
+                cb, dW = _mm(Cq, Bq.T, small), _mm(G, xq.T, small)
+                W = cb * decay * dtq[None, :]
+                D = dW * decay * dtq[None, :]
+                X = dW * decay * cb
+                xdS = _mm(xq, dS, small)
+                GS0 = _mm(G, S0, small)
+                dxq = _mm(W.T, G, small) + _mm(Bq, dS.T, small) * wl[:, None]
+                dBq = _mm(D.T, Cq, small) + xdS * wl[:, None]
+                dCq = _mm(D, Bq, small) + GS0 * ecum[:, None]
+                dw = (xdS * Bq).sum(1, dtype=f32)
+                v = dw * wl
+                dc = ((X * dtq[None, :]).sum(1) - dtq * X.sum(0)
+                      + (GS0 * Cq).sum(1) * ecum - v).astype(f32)
+                dc[-1] += f32((dS * S0).sum()) * eq + v.sum()
+                da = np.cumsum(dc[::-1])[::-1].astype(f32)
+                rows = min(Q, S - c * Q)
+                sl = slice(c * Q, c * Q + rows)
+                ddt[bi, sl, h] = (X.sum(0) + dw * el + da * A[h])[:rows]
+                dx[bi, sl, h], dB[bi, sl, h], dC[bi, sl, h] = (
+                    t[:rows] for t in (dxq, dBq, dCq))
+                parts.append(f32((da * dtq).sum()))
+            dA[h] += f32(sum(parts))
+    return dx, ddt, dA, dB, dC
+
+
+def _worst(name, got, want, args):
+    """Largest |emulated - plain| / limit over the outputs (chip_smoke.py's
+    comparison)."""
+    worst = 0.0
+    for g, w, cond, tol in zip(got, want, CS._conds(name, args, want),
+                               CS.TOL_FP32[name]):
+        w = w.double()
+        limit = tol["atol"] + tol["rtol"] * w.abs() + tol["ctol"] * cond.double()
+        worst = max(worst, float(((torch.from_numpy(np.asarray(g)).double()
+                                   - w).abs() / limit).max()))
+    return worst
+
+
+@pytest.mark.parametrize("small", [True, False],
+                         ids=["3xtf32-holds", "1xtf32-fails"])
+@pytest.mark.parametrize("label", list(SHAPES))
+def test_emulated_forward_against_the_fp32_tolerance(label, small):
+    x, dt, A, B, C, _, _ = _inputs(SHAPES[label])
+    got = emulated_fwd(x, dt, A, B, C, small=small)
+    args = tuple(torch.from_numpy(t) for t in (x, dt, A, B, C))
+    worst = _worst("ssd_fwd", got, ref.ssd_fwd_ref(*args), args)
+    if small:
+        assert worst < 0.25, worst
+    else:
+        assert worst > 1.0, worst
+
+
+@pytest.mark.parametrize("small", [True, False],
+                         ids=["3xtf32-holds", "1xtf32-fails"])
+@pytest.mark.parametrize("label", list(SHAPES))
+def test_emulated_backward_against_the_fp32_tolerance(label, small):
+    x, dt, A, B, C, gy, gstate = _inputs(SHAPES[label], seed=1)
+    prim = tuple(torch.from_numpy(t) for t in (x, dt, A, B, C))
+    cstates = ref.ssd_fwd_ref(*prim)[2]
+    args = (*prim, cstates, torch.from_numpy(gy), torch.from_numpy(gstate))
+    got = emulated_bwd(x, dt, A, B, C, cstates.numpy(), gy, gstate,
+                       small=small)
+    worst = _worst("ssd_bwd", got, ref.ssd_bwd_ref(*args), args)
+    if small:
+        assert worst < 0.25, worst
+    else:
+        assert worst > 1.0, worst
+
+
+def test_scan_phases_match_the_sequential_recurrence():
+    """The scan in place (phase 1 writes L_c where S_c+1 lands, phase 2
+    turns it into S_c+1) gives what the reference's sequential loop
+    gives: cstates and the final state bitwise, from the same L_c."""
+    rng = np.random.default_rng(2)
+    nc, P, N = 5, 4, 3
+    L = rng.standard_normal((nc, P, N)).astype(f32)
+    eq = rng.uniform(0.3, 1.0, nc).astype(f32)
+    buf = np.zeros((nc, P, N), f32)
+    buf[1:] = L[:-1]
+    final = L[-1].copy()
+    s = np.zeros((P, N), f32)
+    buf[0] = s
+    for c in range(nc):
+        s = (s * eq[c] + (buf[c + 1] if c + 1 < nc else final)).astype(f32)
+        if c + 1 < nc:
+            buf[c + 1] = s
+    want, w = [], np.zeros((P, N), f32)
+    for c in range(nc):
+        want.append(w)
+        w = (w * eq[c] + L[c]).astype(f32)
+    np.testing.assert_array_equal(buf, np.stack(want))
+    np.testing.assert_array_equal(s, w)

@@ -13,7 +13,8 @@ label written ``<tree>+prof`` first runs one ``torch.profiler`` session
 (CUDA activity) in the same process, as chip_smoke.py's timing phase
 does before its training phases.  Prints one JSON line per run: the
 step seconds (host clock around a step that ends in a synchronize) and
-the mean of the steps after the first.
+the mean of the steps after the first, and the losses (so that two trees
+can be held to the same trajectory).
 """
 from __future__ import annotations
 
@@ -33,11 +34,12 @@ if {prof}:
         (torch.ones(1 << 20, device="cuda") * 2).sum().item()
 from repro_torch.launch import train
 out = train.main(sys.argv[1:])
-print("AB_STEPS " + json.dumps(out["step_seconds"]))
+print("AB_STEPS " + json.dumps({{"steps": out["step_seconds"],
+                                 "losses": out["losses"]}}))
 """
 
 
-def run_one(tree: str, prof: bool, argv) -> list:
+def run_one(tree: str, prof: bool, argv) -> dict:
     src = os.path.join(os.path.abspath(tree), "src")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
@@ -61,10 +63,11 @@ def main(args=None) -> int:
     trees = dict(t.split("=", 1) for t in args.trees)
     for label in args.order.split(","):
         tree, _, mode = label.partition("+")
-        steps = run_one(trees[tree], mode == "prof", train_argv)
+        out = run_one(trees[tree], mode == "prof", train_argv)
+        steps = out["steps"]
         print(json.dumps({"run": label, "step_seconds": steps,
-                          "mean_after_first": sum(steps[1:]) / len(steps[1:])}),
-              flush=True)
+                          "mean_after_first": sum(steps[1:]) / len(steps[1:]),
+                          "losses": out["losses"]}), flush=True)
     return 0
 
 

@@ -27,7 +27,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
 
 #: (group, substrings of the kernel name), first match wins
 GROUPS = (
-    ("ssd kernels", ("ssd_fwd_kernel", "ssd_bwd_kernel")),
+    ("ssd kernels", ("ssd_fwd_", "ssd_bwd_")),     # every phase
     ("flash kernels", ("flash_fwd_kernel", "flash_bwd")),
     ("epilogue kernels", ("add_rmsnorm", "gemm_bias_kernel")),
     ("cuBLAS products", ("gemm", "xmma", "cutlass", "sgemm")),
