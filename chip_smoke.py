@@ -472,28 +472,39 @@ def time_ms(fn, args, device, iters):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def device_ms(fn, args, name, iters):
+def device_ms(fn, args, name, iters, tries=3):
     """(device milliseconds per call of kernel ``name``, the same per CUDA
     function): the events of its CUDA functions (``<name>_..kernel..`` in
-    csrc/, e.g. the SSD kernels' three phases, each launched once a call)
-    under torch.profiler over ``iters`` calls, each function's mean over
-    the events recorded (so that an event the profiler drops does not
-    shrink it).  (None, {}) where the profiler records no such event."""
+    csrc/, e.g. the SSD kernels' three phases or the norm backward's row
+    and dw kernels, each launched once a call) under torch.profiler over
+    ``iters`` calls.  A session counts only if it recorded every such
+    function exactly ``iters`` times: the profiler at times delivers a
+    session's events late, in the next session, or not at all, so each
+    try first runs an empty session that takes whatever an earlier one
+    left behind, and a session short of events or holding others is run
+    again, up to ``tries`` times.  (None, {}) where no session counts."""
     import re
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn(*args)
+    for _ in range(tries):
         torch.cuda.synchronize()
-    per_fn = {}
-    for evt in prof.key_averages():
-        if name + "_" in evt.key and "kernel" in evt.key and evt.count:
-            fn_name = re.search(r"(\w*kernel\w*)", evt.key).group(1)
-            per_fn[fn_name] = per_fn.get(fn_name, 0.0) + getattr(
-                evt, "device_time_total",
-                getattr(evt, "cuda_time_total", 0.0)) / 1e3 / evt.count
-    return (sum(per_fn.values()) if per_fn else None), per_fn
+        with profile(activities=[ProfilerActivity.CUDA]):
+            pass
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn(*args)
+            torch.cuda.synchronize()
+        per_fn, counts = {}, {}
+        for evt in prof.key_averages():
+            if name + "_" in evt.key and "kernel" in evt.key and evt.count:
+                fn_name = re.search(r"(\w*kernel\w*)", evt.key).group(1)
+                per_fn[fn_name] = per_fn.get(fn_name, 0.0) + getattr(
+                    evt, "device_time_total",
+                    getattr(evt, "cuda_time_total", 0.0)) / 1e3 / iters
+                counts[fn_name] = counts.get(fn_name, 0) + evt.count
+        if per_fn and all(c == iters for c in counts.values()):
+            return sum(per_fn.values()), per_fn
+    return None, {}
 
 
 def _causal_pairs(S, window):

@@ -55,8 +55,10 @@ _FLASH_SHAPE = (_int,) * 6 + (_float,) + (_int,) * 9
 #: extern "C" launchers of csrc/*.cu and their argument types
 SIGNATURES = {
     "add_rmsnorm_fwd": (_vp, _vp, _vp, _vp, _vp, _int, _int, _float, _int, _vp),
-    "add_rmsnorm_bwd": (_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
-                        _float, _int, _vp),
+    # add_rmsnorm_bwd: res, w, gres, gh, dres, dw, the fp32 partial rows,
+    # M, d, then fused.norm_bwd_config's rows per block, rows per round,
+    # warps per row, chunks and copies, eps, the dtype and the stream
+    "add_rmsnorm_bwd": (_vp,) * 7 + (_int,) * 7 + (_float, _int, _vp),
     # gemm_bias: A, B, bias, C, the split's fp32 workspace, M, N, K, the
     # strides of A and B, then fused.gemm_config's tile, split and copies
     "gemm_bias": (_vp,) * 5 + (_int,) * 7 + (_int,) * 7 + (_int, _vp),
@@ -225,8 +227,10 @@ def check_tensors(name: str, *tensors: torch.Tensor) -> int:
 
 
 def current_stream(t: torch.Tensor) -> int:
-    """The handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of PyTorch's current stream on ``t``'s device, taken
+    raw: going through a ``torch.cuda.Stream`` object adds microseconds
+    of host time to every launch (``tools/host_cost.py``)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def reset_launches() -> None:

@@ -76,51 +76,316 @@ __global__ void add_rmsnorm_fwd_kernel(const T* __restrict__ x,
 // ---------------------------------------------------------------------
 // Kernel 2: residual-add + RMSNorm backward.
 // Replaces repro/kernels/fused.py::_add_norm_bwd_kernel.
-// Bound on the H100: device memory (reads res, gres, gh, writes dres:
-// about 16 bytes per element in fp32).  Design: one block per
-// `rows_per_block` rows; each row's two reductions (sum res^2 and
-// sum dn*res) are block reductions on chip.  The weight gradient is
-// summed over the block's rows into the block's OWN fp32 partial row
-// (each column owned by one thread, so no atomics), and the wrapper
-// sums the partials, as the reference does outside its kernel.
+// Bound on the H100: device memory.  Per element it reads res, gres and
+// gh and writes dres (16 bytes in fp32) for about a dozen operations.
+// Design: one pass over device memory, each row held in registers.  A
+// row belongs to G warps, G = d / 256 rounded up (4 at d 1024), each
+// thread holding 8 of its elements, or where that takes more than 16
+// warps (d > 4096), G = d / 512 rounded up at 16 elements a thread
+// (where single-element copies cannot hold them, the looped variant):
+// CH chunks of E (16-byte loads, E = 16 / sizeof(T), where the width
+// and the addresses allow it, else E = 1) of res, gh and gres, each
+// read once and all loaded together, so a row waits on device memory
+// once.
+// Few elements a thread make many short rows in flight at few
+// registers: that beat a warp a row holding 32 elements a thread (168
+// registers, three 4-warp blocks an SM) at the flash path's shape
+// (PERF.md §6; tools/norm_sweep.py times other partitions).  The row's two sums, sum res^2 and sum
+// (gh.w).res, come from the same registers and are reduced together:
+// warp shuffles, then a shared exchange between the row's G warps (one
+// barrier).  dres is formed from the registers.  A block runs R rows
+// side by side (R.G warps, R = 4 / G where G < 4) and walks its
+// `rows_per_block` rows in rounds of R; w is read once per block into
+// shared memory.  The weight gradient gh.n sums in fp32 registers over
+// each thread's rows (a column of a row slot belongs to one thread),
+// the block's R slots are folded through shared memory in slot order,
+// and the block writes its partial row once; add_rmsnorm_bwd_dw_kernel
+// then sums the partial rows per column in a fixed order.  No atomics:
+// the same inputs give the same bits.  Rows too wide for 16 warps'
+// registers (d > 8192) take the looped variant (LOOPED): one block of
+// G warps a row, the row read twice in strides of the block, the
+// block's partial row summed in device memory, each of its columns by
+// one thread.
+// kernels/fused.py::norm_bwd_config picks E, CH, G, R and the rows of a
+// block from (M, d), the dtype and the addresses.
 // ---------------------------------------------------------------------
-template <typename T>
-__global__ void add_rmsnorm_bwd_kernel(const T* __restrict__ res,
-                                       const T* __restrict__ w,
-                                       const T* __restrict__ gres,
-                                       const T* __restrict__ gh,
-                                       T* __restrict__ dres,
-                                       float* __restrict__ dw_partial,
-                                       int M, int d, int rows_per_block,
-                                       float eps) {
-  __shared__ float shm[32];
-  float* dwp = dw_partial + (long long)blockIdx.x * d;
-  const int row0 = blockIdx.x * rows_per_block;
-  const int row1 = min(row0 + rows_per_block, M);
-  for (int j = threadIdx.x; j < d; j += blockDim.x) dwp[j] = 0.f;
+constexpr int kNormMaxWarps = 16;  // warps of a block (R.G) at most
+constexpr int kNormElems = 16;     // elements of a row a thread holds at most
+
+struct NormBwdArgs {
+  const void* res;
+  const void* w;
+  const void* gres;
+  const void* gh;
+  void* dres;
+  float* partial;              // [blocks, d] fp32: a block's dw partial row
+  int M, d, rows_per_block, warps_per_row;
+  float eps;
+};
+
+// E elements at p (16-byte aligned when E > 1) to fp32, and back
+// (rounded to nearest even for bf16).
+template <typename T, int E>
+__device__ __forceinline__ void load_vec(const T* p, float (&v)[E]) {
+  static_assert(E == 1 || E * sizeof(T) == 16, "one element or 16 bytes");
+  if constexpr (E == 1) {
+    v[0] = to_f(*p);
+  } else if constexpr (sizeof(T) == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    const uint32_t u[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {   // element 2i in the low half
+      v[2 * i] = __uint_as_float(u[i] << 16);
+      v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    }
+  }
+}
+
+template <typename T, int E>
+__device__ __forceinline__ void store_vec(T* p, const float (&v)[E]) {
+  if constexpr (E == 1) {
+    *p = from_f<T>(v[0]);
+  } else if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    uint32_t u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      u[i] = (uint32_t)__bfloat16_as_ushort(from_f<T>(v[2 * i])) |
+             ((uint32_t)__bfloat16_as_ushort(from_f<T>(v[2 * i + 1])) << 16);
+    *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+  }
+}
+
+// The row sums (a, b) over the G warps of the calling thread's row, in a
+// fixed order (warp butterfly, then the row's warps in order), returned
+// to every thread of the row.  Every thread of the block calls it once a
+// round: for G > 1 it holds one barrier, and `xch` alternates between
+// two halves by round, so a round's writes never meet the previous
+// round's reads.
+__device__ __forceinline__ float2 row_sums(float a, float b, int G,
+                                           int round,
+                                           float (*xch)[kNormMaxWarps][2]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+  if (G == 1) return make_float2(a, b);
+  const int warp = threadIdx.x >> 5, first = warp - warp % G;
+  float(*x)[2] = xch[round & 1];
+  if ((threadIdx.x & 31) == 0) x[warp][0] = a, x[warp][1] = b;
+  __syncthreads();
+  a = x[first][0], b = x[first][1];
+  for (int g = 1; g < G; ++g) a += x[first + g][0], b += x[first + g][1];
+  return make_float2(a, b);
+}
+
+// E fp32 values at p in shared memory (16-byte aligned when E > 1).
+template <int E>
+__device__ __forceinline__ void load_shared(const float* p, float (&v)[E]) {
+#pragma unroll
+  for (int i = 0; i < E; i += 4) {
+    if constexpr (E == 1) {
+      v[0] = p[0];
+    } else {
+      const float4 q = *reinterpret_cast<const float4*>(p + i);
+      v[i] = q.x, v[i + 1] = q.y, v[i + 2] = q.z, v[i + 3] = q.w;
+    }
+  }
+}
+
+// The register-resident rows: thread t of a row slot holds the vectors
+// v = k.(32 G) + t, k < CH, of res, gh and gres of each of its rows, all
+// loaded before the row's reduction, so a round waits on device memory
+// once.  w sits in shared memory as fp32 (`wsh`, d floats), which then
+// holds the fold of the slots' dw sums.
+template <typename T, int E, int CH>
+__device__ __forceinline__ void norm_bwd_resident(
+    const NormBwdArgs& p, float (*xch)[kNormMaxWarps][2], float* wsh) {
+  const T* res = static_cast<const T*>(p.res);
+  const T* gh = static_cast<const T*>(p.gh);
+  const T* gres = static_cast<const T*>(p.gres);
+  T* dres = static_cast<T*>(p.dres);
+  const int d = p.d, tpr = 32 * p.warps_per_row, nvec = d / E;
+  const int slot = threadIdx.x / tpr, t = threadIdx.x - slot * tpr;
+  const int R = blockDim.x / tpr;
+  const int row0 = blockIdx.x * p.rows_per_block;
+  const int row1 = min(row0 + p.rows_per_block, p.M);
+  for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
+    float wv[E];
+    load_vec<T, E>(static_cast<const T*>(p.w) + v * E, wv);
+#pragma unroll
+    for (int e = 0; e < E; ++e) wsh[v * E + e] = wv[e];
+  }
+  __syncthreads();
+  float dw[CH][E];
+#pragma unroll
+  for (int k = 0; k < CH; ++k) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) dw[k][e] = 0.f;
+  }
+  for (int round = 0; row0 + round * R < row1; ++round) {  // block-uniform
+    const int row = row0 + round * R + slot;
+    const bool live = row < row1;
+    const long long off = (long long)row * d;
+    float s[CH][E], g[CH][E], gr[CH][E];
+#pragma unroll
+    for (int k = 0; k < CH; ++k) {
+      const int v = k * tpr + t;
+      if (live && v < nvec) {
+        load_vec<T, E>(res + off + v * E, s[k]);
+        load_vec<T, E>(gh + off + v * E, g[k]);
+        load_vec<T, E>(gres + off + v * E, gr[k]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) s[k][e] = g[k][e] = gr[k][e] = 0.f;
+      }
+    }
+    float sq = 0.f, dot = 0.f;
+#pragma unroll
+    for (int k = 0; k < CH; ++k) {
+      const int v = k * tpr + t;
+      float wv[E];
+      load_shared<E>(wsh + min(v, nvec - 1) * E, wv);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        sq += s[k][e] * s[k][e];
+        dot += g[k][e] * wv[e] * s[k][e];
+      }
+    }
+    const float2 sums = row_sums(sq, dot, p.warps_per_row, round, xch);
+    if (!live) continue;
+    const float var = sums.x / (float)d;
+    const float rs = 1.f / sqrtf(var + p.eps);
+    const float proj = sums.y / ((float)d * (var + p.eps));
+#pragma unroll
+    for (int k = 0; k < CH; ++k) {
+      const int v = k * tpr + t;
+      if (v >= nvec) continue;
+      float wv[E], out[E];
+      load_shared<E>(wsh + v * E, wv);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float n = to_f(from_f<T>(s[k][e] * rs));  // the forward's rounded n
+        dw[k][e] += g[k][e] * n;
+        out[e] = rs * (g[k][e] * wv[e] - s[k][e] * proj) + gr[k][e];
+      }
+      store_vec<T, E>(dres + off + v * E, out);
+    }
+  }
+  // The block's partial row: its R slots' sums added in slot order, in
+  // wsh once every slot is done with w.
+  float* part = p.partial + (long long)blockIdx.x * d;
+  if (R > 1) __syncthreads();
+  for (int q = 0; q < R; ++q) {
+    if (slot == q) {
+#pragma unroll
+      for (int k = 0; k < CH; ++k) {
+        const int v = k * tpr + t;
+        if (v >= nvec) continue;
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const int col = v * E + e;
+          const float acc = q == 0 ? dw[k][e] : wsh[col] + dw[k][e];
+          if (q == R - 1) part[col] = acc; else wsh[col] = acc;
+        }
+      }
+    }
+    if (q < R - 1) __syncthreads();
+  }
+}
+
+// The looped variant for rows wider than the registers hold: one row
+// slot (R = 1) of G warps, the row read in strides of the block, twice.
+template <typename T, int E>
+__device__ __forceinline__ void norm_bwd_looped(
+    const NormBwdArgs& p, float (*xch)[kNormMaxWarps][2]) {
+  const T* res = static_cast<const T*>(p.res);
+  const T* w = static_cast<const T*>(p.w);
+  const T* gh = static_cast<const T*>(p.gh);
+  const T* gres = static_cast<const T*>(p.gres);
+  T* dres = static_cast<T*>(p.dres);
+  const int d = p.d, tpr = blockDim.x, nvec = d / E;
+  const int row0 = blockIdx.x * p.rows_per_block;
+  const int row1 = min(row0 + p.rows_per_block, p.M);
+  float* part = p.partial + (long long)blockIdx.x * d;
+  for (int v = threadIdx.x; v < nvec; v += tpr) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) part[v * E + e] = 0.f;
+  }
   for (int row = row0; row < row1; ++row) {
     const long long off = (long long)row * d;
-    float sq = 0.f;
-    for (int j = threadIdx.x; j < d; j += blockDim.x) {
-      const float s = to_f(res[off + j]);
-      sq += s * s;
+    float sq = 0.f, dot = 0.f;
+    for (int v = threadIdx.x; v < nvec; v += tpr) {
+      float s[E], g[E], wv[E];
+      load_vec<T, E>(res + off + v * E, s);
+      load_vec<T, E>(gh + off + v * E, g);
+      load_vec<T, E>(w + v * E, wv);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        sq += s[e] * s[e];
+        dot += g[e] * wv[e] * s[e];
+      }
     }
-    const float var = block_sum(sq, shm) / (float)d;
-    const float rs = 1.f / sqrtf(var + eps);
-    float dot = 0.f;
-    for (int j = threadIdx.x; j < d; j += blockDim.x) {
-      const float s = to_f(res[off + j]);
-      const float n = to_f(from_f<T>(s * rs));  // the forward's rounded n
-      const float g = to_f(gh[off + j]);
-      dwp[j] += g * n;
-      dot += g * to_f(w[j]) * s;
+    const float2 sums = row_sums(sq, dot, p.warps_per_row, row - row0, xch);
+    const float var = sums.x / (float)d;
+    const float rs = 1.f / sqrtf(var + p.eps);
+    const float proj = sums.y / ((float)d * (var + p.eps));
+    for (int v = threadIdx.x; v < nvec; v += tpr) {
+      float s[E], g[E], wv[E], out[E];
+      load_vec<T, E>(res + off + v * E, s);
+      load_vec<T, E>(gh + off + v * E, g);
+      load_vec<T, E>(w + v * E, wv);
+      load_vec<T, E>(gres + off + v * E, out);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        part[v * E + e] += g[e] * to_f(from_f<T>(s[e] * rs));
+        out[e] += rs * (g[e] * wv[e] - s[e] * proj);
+      }
+      store_vec<T, E>(dres + off + v * E, out);
     }
-    const float proj = block_sum(dot, shm) / ((float)d * (var + eps));
-    for (int j = threadIdx.x; j < d; j += blockDim.x) {
-      const float s = to_f(res[off + j]);
-      const float dn = to_f(gh[off + j]) * to_f(w[j]);
-      dres[off + j] = from_f<T>(rs * (dn - s * proj) + to_f(gres[off + j]));
-    }
+  }
+}
+
+template <typename T, int E, int CH, bool LOOPED>
+__global__ void __launch_bounds__(32 * kNormMaxWarps)
+add_rmsnorm_bwd_kernel(NormBwdArgs p) {
+  __shared__ float xch[2][kNormMaxWarps][2];
+  extern __shared__ float4 wsh[];   // d floats (resident variant)
+  if constexpr (LOOPED)
+    norm_bwd_looped<T, E>(p, xch);
+  else
+    norm_bwd_resident<T, E, CH>(p, xch, reinterpret_cast<float*>(wsh));
+}
+
+// Kernel 2b: dw[j] = the sum of column j over the P partial rows, in a
+// fixed order, cast to w's dtype.  A block takes 32 columns; each of its
+// 32 warps sums a contiguous 32nd of the partial rows in row order (so
+// each warp has its few loads in flight at once), and warp 0 adds the
+// 32 warp sums in warp order.
+template <typename T>
+__global__ void __launch_bounds__(1024)
+add_rmsnorm_bwd_dw_kernel(const float* __restrict__ partial,
+                          T* __restrict__ dw, int P, int d) {
+  __shared__ float sums[32][33];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int col = blockIdx.x * 32 + lane;
+  const int per = (P + 31) / 32, p0 = warp * per, p1 = min(P, p0 + per);
+  float s = 0.f;
+  if (col < d) {
+#pragma unroll 8
+    for (int q = p0; q < p1; ++q) s += partial[(long long)q * d + col];
+  }
+  sums[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && col < d) {
+    float t = sums[0][lane];
+    for (int i = 1; i < 32; ++i) t += sums[i][lane];
+    dw[col] = from_f<T>(t);
   }
 }
 
@@ -467,6 +732,62 @@ int norm_threads(int d) {
   return t;
 }
 
+// One backward norm call: the row kernel, then the dw kernel over its
+// partial rows; the first error.
+template <typename T, int E, int CH, bool LOOPED>
+int launch_norm_bwd(const NormBwdArgs& a, void* dw, int R, cudaStream_t s) {
+  const int blocks = (a.M + a.rows_per_block - 1) / a.rows_per_block;
+  const size_t wsh = LOOPED ? 0 : (size_t)a.d * sizeof(float);
+  add_rmsnorm_bwd_kernel<T, E, CH, LOOPED>
+      <<<blocks, R * a.warps_per_row * 32, wsh, s>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  add_rmsnorm_bwd_dw_kernel<T><<<(a.d + 31) / 32, 1024, 0, s>>>(
+      a.partial, (T*)dw, blocks, a.d);
+  return (int)cudaGetLastError();
+}
+
+// The register-resident instances with CH chunks of E elements, CH =
+// kNormElems / E (16-byte chunks) or kNormElems / 2 (single elements,
+// each with an address of its own: 16 of them spill) down to 1 by
+// halves.
+template <typename T, int E, int CH = E == 1 ? kNormElems / 2 : kNormElems / E>
+int norm_bwd_chunks(const NormBwdArgs& a, void* dw, int R, int chunks,
+                    cudaStream_t s) {
+  if (chunks == CH) return launch_norm_bwd<T, E, CH, false>(a, dw, R, s);
+  if constexpr (CH > 1)
+    return norm_bwd_chunks<T, E, CH / 2>(a, dw, R, chunks, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The built instances: E = 16 / sizeof(T) (vec) or 1, CH chunks of E up
+// to kNormElems elements a thread; chunks = 0 is the looped variant (R =
+// 1).
+template <typename T>
+int norm_bwd(const NormBwdArgs& a, void* dw, int R, int chunks, int vec,
+             cudaStream_t s) {
+  constexpr int EV = 16 / sizeof(T);
+  const int G = a.warps_per_row;
+  if (a.M <= 0 || a.d <= 0 || a.rows_per_block <= 0 || G <= 0 || R <= 0 ||
+      R * G > kNormMaxWarps)
+    return (int)cudaErrorInvalidValue;
+  if (vec && (a.d % EV != 0 ||
+              !rows_aligned(a.res, 1, a.d, sizeof(T)) ||
+              !rows_aligned(a.w, 1, 0, sizeof(T)) ||
+              !rows_aligned(a.gres, 1, a.d, sizeof(T)) ||
+              !rows_aligned(a.gh, 1, a.d, sizeof(T)) ||
+              !rows_aligned(a.dres, 1, a.d, sizeof(T))))
+    return (int)cudaErrorInvalidValue;
+  if (chunks == 0) {
+    if (R != 1) return (int)cudaErrorInvalidValue;
+    return vec ? launch_norm_bwd<T, EV, 1, true>(a, dw, R, s)
+               : launch_norm_bwd<T, 1, 1, true>(a, dw, R, s);
+  }
+  if (a.d > 32 * G * chunks * (vec ? EV : 1)) return (int)cudaErrorInvalidValue;
+  return vec ? norm_bwd_chunks<T, EV>(a, dw, R, chunks, s)
+             : norm_bwd_chunks<T, 1>(a, dw, R, chunks, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -493,27 +814,17 @@ int add_rmsnorm_fwd(const void* x, const void* r, const void* w, void* res,
 }
 
 int add_rmsnorm_bwd(const void* res, const void* w, const void* gres,
-                    const void* gh, void* dres, void* dw_partial, int M,
-                    int d, int rows_per_block, float eps, int dtype,
-                    void* stream) {
-  if (M <= 0 || d <= 0 || rows_per_block <= 0) return (int)cudaErrorInvalidValue;
+                    const void* gh, void* dres, void* dw, void* partial, int M,
+                    int d, int rows_per_block, int rows_per_round,
+                    int warps_per_row, int chunks, int vec, float eps,
+                    int dtype, void* stream) {
+  NormBwdArgs a{res, w, gres, gh, dres, (float*)partial, M, d,
+                rows_per_block, warps_per_row, eps};
   cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = (M + rows_per_block - 1) / rows_per_block;
-  const int threads = norm_threads(d);
-  if (dtype == kF32) {
-    add_rmsnorm_bwd_kernel<float><<<blocks, threads, 0, s>>>(
-        (const float*)res, (const float*)w, (const float*)gres,
-        (const float*)gh, (float*)dres, (float*)dw_partial, M, d,
-        rows_per_block, eps);
-  } else if (dtype == kBF16) {
-    add_rmsnorm_bwd_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        (const __nv_bfloat16*)res, (const __nv_bfloat16*)w,
-        (const __nv_bfloat16*)gres, (const __nv_bfloat16*)gh,
-        (__nv_bfloat16*)dres, (float*)dw_partial, M, d, rows_per_block, eps);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == kF32) return norm_bwd<float>(a, dw, rows_per_round, chunks, vec, s);
+  if (dtype == kBF16)
+    return norm_bwd<__nv_bfloat16>(a, dw, rows_per_round, chunks, vec, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 int gemm_bias(const void* A, const void* B, const void* bias, void* C,

@@ -3,8 +3,10 @@
 
   * ``AddRMSNorm``: residual-add + RMSNorm as one kernel returning both
     the new residual stream and the normed branch input; its backward
-    is the second kernel (fp32 ``dw`` partial per row block, summed
-    here, as ``repro/kernels/fused.py`` sums them outside its kernel).
+    is the second kernel (one pass over each row held in registers, an
+    fp32 ``dw`` partial row per block) followed by a kernel that sums
+    the partial rows in a fixed order.  ``norm_bwd_config`` picks the
+    row partition, the copy width and the registers a thread holds.
   * ``MatmulBias``: one tiled GEMM with a bias epilogue over the
     concatenated QKV weight; its backward runs the SAME kernel for
     ``dx = g.W^T`` and ``dW = x^T.g``, with strides instead of
@@ -20,16 +22,12 @@ tensor to ``kernels/ref.py``).  Launches are counted in
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels.build import check_tensors, current_stream, launch
-
-#: rows per block of the backward norm kernel: M / 8 blocks (128 at the
-#: naive path's M = 1024, 512 at the flash path's 4096) fill the card's
-#: 132 SMs and keep the dw partials small
-NORM_BWD_ROWS = 8
 
 # ----------------------------------------------------------------------
 # GEMM launch configuration (pure functions of shapes, strides and
@@ -135,6 +133,89 @@ def gemm_config(M: int, N: int, K: int, a_strides: Sequence[int],
 
 
 # ----------------------------------------------------------------------
+# Backward norm launch configuration (a pure function of the shape, the
+# element size and the addresses)
+# ----------------------------------------------------------------------
+#: elements of a row that one thread of the backward norm holds in
+#: registers (CH chunks of E: 2 x 4 fp32, 1 x 8 bf16 or 8 x 1), twice
+#: as many in 16-byte chunks where a row would take more than
+#: NORM_MAX_WARPS warps (csrc/fused.cu kNormElems)
+NORM_ELEMS = 8
+#: warps that share a row at most (csrc/fused.cu kNormMaxWarps): rows
+#: wider than 16 x 32 x 16 = 8192 take the looped variant
+NORM_MAX_WARPS = 16
+#: warps per SM the backward norm's grid aims at: four 4-warp blocks
+#: (tools/norm_sweep.py times other choices of these three)
+NORM_WARPS_PER_SM = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class NormBwdConfig:
+    """One launch of ``add_rmsnorm_bwd_kernel``: ``blocks`` blocks of
+    ``rows_per_block`` rows each (the last may have fewer), each block
+    running ``rows_per_round`` rows side by side with ``warps_per_row``
+    warps a row; a thread holds ``chunks`` chunks of 16 bytes (``vec``)
+    or of one element, ``chunks = 0`` being the looped variant.  The
+    kernel writes one fp32 dw partial row per block."""
+    rows_per_block: int
+    rows_per_round: int
+    warps_per_row: int
+    blocks: int
+    chunks: int
+    vec: bool
+
+
+def norm_bwd_rows(M: int, d: int) -> Tuple[int, int, int, int]:
+    """(rows_per_block, rows_per_round R, warps_per_row G, blocks): the
+    backward norm's row partition, a function of (M, d) alone.  G warps
+    hold a row of d elements at ``NORM_ELEMS`` a thread, or at twice
+    that where it would take more than ``NORM_MAX_WARPS`` (which the
+    looped variant takes, beyond); R rows run side by side in 4-warp
+    blocks where G <= 2; the rows of a block are whole rounds of R, as
+    few as let the grid reach ``NORM_WARPS_PER_SM`` warps (rounded up to
+    whole blocks) on each of ``GEMM_SMS`` SMs, so one wave of blocks
+    covers M and the partial rows stay few."""
+    G = -(-d // (32 * NORM_ELEMS))
+    if G > NORM_MAX_WARPS:
+        G = min(-(-d // (64 * NORM_ELEMS)), NORM_MAX_WARPS)
+    R = max(1, 4 // G)
+    per_sm = -(-NORM_WARPS_PER_SM // (R * G))
+    rows = R * -(-M // (R * GEMM_SMS * per_sm))
+    return rows, R, G, -(-M // rows)
+
+
+def norm_bwd_config(M: int, d: int, itemsize: int,
+                    addrs: Sequence[int]) -> NormBwdConfig:
+    """The backward norm's launch for [M, d] rows of ``itemsize``-byte
+    elements at base addresses ``addrs`` (res, w, gres, gh, dres).
+    16-byte copies (E = 16 / itemsize elements) where d is a multiple of
+    E and every base is 16-byte aligned, else one element each; a thread
+    holds ``chunks`` = the power of two of E-chunks that covers its share
+    of the row (at most 2 ``NORM_ELEMS`` elements in 16-byte chunks,
+    ``NORM_ELEMS`` single ones), or 0 (looped) where the row is wider
+    than ``NORM_MAX_WARPS`` warps hold so."""
+    return _norm_bwd_config(M, d, itemsize,
+                            all(a % 16 == 0 for a in addrs))
+
+
+@functools.lru_cache(maxsize=None)
+def _norm_bwd_config(M: int, d: int, itemsize: int,
+                     aligned: bool) -> NormBwdConfig:
+    # cached: the wrapper's host time is the call's time at small M
+    rows, R, G, blocks = norm_bwd_rows(M, d)
+    E = 16 // itemsize
+    vec = d % E == 0 and aligned
+    E = E if vec else 1
+    if d > (64 if vec else 32) * NORM_ELEMS * NORM_MAX_WARPS:
+        chunks = 0
+    else:
+        chunks = 1
+        while chunks * E * 32 * G < d:
+            chunks *= 2
+    return NormBwdConfig(rows, R, G, blocks, chunks, vec)
+
+
+# ----------------------------------------------------------------------
 # Raw kernel wrappers
 # ----------------------------------------------------------------------
 def add_rmsnorm_fwd(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
@@ -156,20 +237,24 @@ def add_rmsnorm_bwd(res: torch.Tensor, w: torch.Tensor, gres: torch.Tensor,
                     gh: torch.Tensor, eps: float
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (dres, dw): dres is the cotangent of both addends; dw is
-    the fp32 sum of the per-block partials, cast to w's dtype."""
+    the fp32 sum over rows, cast to w's dtype (the row kernel's partial
+    rows summed by the dw kernel, in one launch)."""
     code = check_tensors("add_rmsnorm_bwd", res, w, gres, gh)
     M, d = res.shape
     if gres.shape != (M, d) or gh.shape != (M, d) or w.shape != (d,):
         raise ValueError("add_rmsnorm_bwd: shape mismatch")
     res, w = res.contiguous(), w.contiguous()
     gres, gh = gres.contiguous(), gh.contiguous()
-    blocks = -(-M // NORM_BWD_ROWS)
-    dres = torch.empty_like(res)
-    partials = torch.empty((blocks, d), dtype=torch.float32, device=res.device)
+    dres, dw = torch.empty_like(res), torch.empty_like(w)
+    cfg = norm_bwd_config(M, d, res.element_size(),
+                          [t.data_ptr() for t in (res, w, gres, gh, dres)])
+    partials = torch.empty((cfg.blocks, d), dtype=torch.float32,
+                           device=res.device)
     launch("add_rmsnorm_bwd", res.data_ptr(), w.data_ptr(), gres.data_ptr(),
-           gh.data_ptr(), dres.data_ptr(), partials.data_ptr(), M, d,
-           NORM_BWD_ROWS, float(eps), code, current_stream(res))
-    return dres, partials.sum(0).to(w.dtype)
+           gh.data_ptr(), dres.data_ptr(), dw.data_ptr(), partials.data_ptr(),
+           M, d, cfg.rows_per_block, cfg.rows_per_round, cfg.warps_per_row,
+           cfg.chunks, int(cfg.vec), float(eps), code, current_stream(res))
+    return dres, dw
 
 
 def gemm_bias(a: torch.Tensor, b: torch.Tensor,

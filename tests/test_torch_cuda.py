@@ -53,7 +53,15 @@ def _sum_close(got, want, cond, fp32_ctol, fp32_atol):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,d", [(256, 1024), (1000, 999), (7, 40)])
+@pytest.mark.parametrize("M,d", [
+    (256, 1024), (1000, 999), (7, 40),
+    # the backward's rows: fewer than a block's (4 a round where d <=
+    # 256) and not a multiple of them; the widths 64, 1600 (7 warps a
+    # row), qwen2.5-32b's 5120 (10 warps a row, 16 elements a thread),
+    # 130 (not a multiple of 4: one element a copy), 10000 and 5001 (the
+    # looped variant: past 16 warps' registers; one element a copy past
+    # 4096)
+    (3, 64), (37, 1600), (9, 5120), (5, 130), (6, 10000), (4, 5001)])
 def test_add_rmsnorm_kernels_match_plain(card, M, d, dtype):
     g = torch.Generator(device=card).manual_seed(0)
     x, r, gres, gh = (torch.randn(M, d, generator=g, device=card).to(dtype)
@@ -63,13 +71,36 @@ def test_add_rmsnorm_kernels_match_plain(card, M, d, dtype):
                     ref.add_rmsnorm_ref(x, r, w)):
         torch.testing.assert_close(a, b, **_tol(dtype))
     res = x + r
+    build.reset_launches()
     dres, dw = fused.add_rmsnorm_bwd(res, w, gres, gh, 1e-6)
+    assert build.LAUNCHES["add_rmsnorm_bwd"] == 1, build.LAUNCHES
     pres, pdw = ref.add_rmsnorm_bwd_ref(res, w, gres, gh)
     torch.testing.assert_close(dres, pres, **_tol(dtype))
     n = res.float() * (res.float().square().mean(-1, keepdim=True)
                        + 1e-6).rsqrt()
     _sum_close(dw, pdw, (gh.float().abs() * n.abs()).sum(0), 1e-5, 1e-6)
-    assert torch.equal(fused.add_rmsnorm_bwd(res, w, gres, gh, 1e-6)[0], dres)
+    again = fused.add_rmsnorm_bwd(res, w, gres, gh, 1e-6)
+    assert torch.equal(again[0], dres) and torch.equal(again[1], dw)
+    assert build.LAUNCHES["add_rmsnorm_bwd"] == 2, build.LAUNCHES
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add_rmsnorm_bwd_unaligned_rows_match_plain(card, dtype):
+    """res, gres and gh one element off a 16-byte boundary (views into
+    a buffer, so the wrapper makes no copy) take the element copies
+    instead of the 16-byte ones; chip_smoke.py's comparison, reruns
+    bitwise equal."""
+    cs = _chip_smoke()
+    kern, plain, _ = cs.kernel_table(card)["add_rmsnorm_bwd"]
+    args = list(cs.make_inputs("add_rmsnorm_bwd", (300, 1024), dtype, card,
+                               seed=12))
+    for i in (0, 2, 3):
+        buf = torch.empty(args[i].numel() + 1, dtype=dtype, device=card)
+        args[i] = buf[1:].view(args[i].shape).copy_(args[i])
+    cfg = fused.norm_bwd_config(300, 1024, args[0].element_size(),
+                                [t.data_ptr() for t in args])
+    assert not cfg.vec and args[0].is_contiguous()
+    cs.compare("add_rmsnorm_bwd", kern, plain, tuple(args), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -10,15 +10,20 @@ of ``kernels/build.py``, one nvcc per source of that tree) into
 ``build/kernel_ab/<label>/libkernels.so`` and swapped in for this
 checkout's library, so the trees' ``extern "C"`` launchers must take the
 arguments this checkout's wrappers pass (a tree that changes a kernel's
-body, not its interface), with one exception: a tree whose ``ssd_bwd``
+body, not its interface), with two exceptions: a tree whose ``ssd_bwd``
 takes no scratch pointer (before the three-phase SSD kernels) is called
-with the wrapper's scratch argument dropped.  Per tree, each
-kernel is first held against its plain version in fp32 (chip_smoke.py's
-comparison), then timed with CUDA events at the shape of the path the
-kernels line reports (the GEMM in its three layouts).  Prints the
-card, each build's register / spill lines for the named kernels, and
-one JSON line per turn: label, kernel, layout, milliseconds (and, with
-``--phases``, each CUDA function's profiler device milliseconds).
+with the wrapper's scratch argument dropped, and a tree whose
+``add_rmsnorm_bwd`` takes no ``dw`` pointer (before the one-pass norm
+backward) runs under that tree's own wrapper: 8 rows a block and the
+partial rows summed by ``torch.sum``.  Per tree, each kernel is first
+held against its plain version (chip_smoke.py's comparison), then timed
+with CUDA events, at the shape of the path the kernels line reports
+(``--labels`` names others of chip_smoke.py's shapes; the GEMM in its
+three layouts) in fp32 (``--dtypes`` adds bfloat16).  Prints the card,
+each build's register / spill lines for the named kernels, and one JSON
+line per turn: label, kernel, layout, shape label, dtype, milliseconds
+(and, with ``--phases``, each CUDA function's profiler device
+milliseconds).
 """
 from __future__ import annotations
 
@@ -74,16 +79,52 @@ class _NoScratch:
         return lambda *args: fn(*args[:13], *args[14:])
 
 
-def load(lib: pathlib.Path, scratch: bool) -> None:
+def one_pass_norm(tree: str) -> bool:
+    """Whether the tree's add_rmsnorm_bwd launcher takes the dw pointer."""
+    src = (pathlib.Path(tree).resolve()
+           / "src/repro_torch/kernels/csrc/fused.cu").read_text()
+    head = src[src.index("int add_rmsnorm_bwd("):]
+    return "void* dw," in head[:head.index(")")]
+
+
+#: the add_rmsnorm_bwd launcher before the one-pass kernel: res, w, gres,
+#: gh, dres, the partial rows, M, d, rows per block, eps, dtype, stream
+_TWO_PASS_NORM = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 3
+                  + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+
+
+def two_pass_norm_bwd(res, w, gres, gh, eps):
+    """The wrapper of a tree whose norm backward writes one partial row
+    per 8 rows and leaves their sum to PyTorch."""
+    import torch
     from repro_torch.kernels import build
+    code = build.check_tensors("add_rmsnorm_bwd", res, w, gres, gh)
+    M, d = res.shape
+    dres = torch.empty_like(res)
+    partials = torch.empty((-(-M // 8), d), dtype=torch.float32,
+                           device=res.device)
+    build.launch("add_rmsnorm_bwd", res.data_ptr(), w.data_ptr(),
+                 gres.data_ptr(), gh.data_ptr(), dres.data_ptr(),
+                 partials.data_ptr(), M, d, 8, float(eps), code,
+                 build.current_stream(res))
+    return dres, partials.sum(0).to(w.dtype)
+
+
+def load(lib: pathlib.Path, scratch: bool, norm_bwd) -> None:
+    """Swap in ``lib``; ``norm_bwd`` becomes ``fused.add_rmsnorm_bwd``
+    (this checkout's wrapper, or ``two_pass_norm_bwd``)."""
+    from repro_torch.kernels import build, fused
     cdll = ctypes.CDLL(str(lib))
     for name, argtypes in build.SIGNATURES.items():
         fn = getattr(cdll, name)
         if name == "ssd_bwd" and not scratch:
             argtypes = argtypes[:13] + argtypes[14:]
+        if name == "add_rmsnorm_bwd" and norm_bwd is two_pass_norm_bwd:
+            argtypes = _TWO_PASS_NORM
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     build._LIB = cdll if scratch else _NoScratch(cdll)
+    fused.add_rmsnorm_bwd = norm_bwd
 
 
 def main(argv=None) -> int:
@@ -94,11 +135,17 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--phases", action="store_true",
                     help="also each CUDA function's profiler device time")
+    ap.add_argument("--labels", default=None,
+                    help="comma-separated shape labels of chip_smoke.py "
+                         "(default: the reported path's)")
+    ap.add_argument("--dtypes", default="float32",
+                    help="comma-separated: float32, bfloat16")
     args = ap.parse_args(argv)
     import torch
     import chip_smoke as cs
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, fused
     from repro_torch.utils.device import strict_fp32_numerics
+    one_pass_norm_bwd = fused.add_rmsnorm_bwd
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
@@ -120,19 +167,29 @@ def main(argv=None) -> int:
     table = cs.kernel_table(dev)
     cases = []
     for name in kernels:
-        shape = dict(cs._shapes(cs.CARD_SHAPES, name))[cs.reported_path(name)]
-        for layout in (("fwd", "dx", "dW") if name == "gemm_bias" else ("fwd",)):
-            cases.append((name, layout, cs.make_inputs(
-                name, shape, torch.float32, dev, seed=2, layout=layout)))
+        shapes = dict(cs._shapes(cs.CARD_SHAPES, name))
+        for shape_label in (args.labels.split(",") if args.labels
+                            else [cs.reported_path(name)]):
+            for dtype in args.dtypes.split(","):
+                dt = getattr(torch, dtype)
+                for layout in (("fwd", "dx", "dW") if name == "gemm_bias"
+                               else ("fwd",)):
+                    cases.append((name, layout, shape_label, dt,
+                                  cs.make_inputs(name, shapes[shape_label],
+                                                 dt, dev, seed=2,
+                                                 layout=layout)))
     checked = set()
     for label in args.order.split(","):
-        load(libs[label], takes_scratch(trees[label]))
-        for name, layout, inputs in cases:
+        load(libs[label], takes_scratch(trees[label]),
+             one_pass_norm_bwd if one_pass_norm(trees[label])
+             else two_pass_norm_bwd)
+        for name, layout, shape_label, dtype, inputs in cases:
             kern, plain, _ = table[name]
             if label not in checked:
-                cs.compare(name, kern, plain, inputs, torch.float32)
+                cs.compare(name, kern, plain, inputs, dtype)
             ms = cs.time_ms(kern, inputs, dev, args.iters)
-            row = {"run": label, "kernel": name, "layout": layout, "ms": ms}
+            row = {"run": label, "kernel": name, "layout": layout,
+                   "shape": shape_label, "dtype": str(dtype)[6:], "ms": ms}
             if args.phases:
                 row["device_ms"] = cs.device_ms(kern, inputs, name,
                                                 args.iters)[1]
