@@ -36,7 +36,22 @@ Phases, each fatal on failure:
      layers, d 1536, SSD heads 48 x 64, state 128, vocab 50280) at
      sequence 2048 with ``--ssd-impl kernel`` and microbatch 1,
      asserting the same and that each SSD kernel launched once per layer
-     and microbatch.
+     and microbatch;
+  9. the lifecycle: gpt3-medium as in phase 7 (full width and depth,
+     sequence 2048, flash kernels, 5 nodes, f 1, n0 2) on trainer A,
+     warmed: a step; a node killed, recovery from the replicas, a step;
+     a fresh node joined, a step; a snapshot saved asynchronously to a
+     temporary directory while a step runs.  Trainer B restores that
+     checkpoint onto the card with the data cursor and runs the same
+     step: its loss and its state's content hashes must equal A's
+     bitwise.  An eager (1F1B walker) trainer restored from it runs the
+     step too, held to A's loss at the fp32 tolerance of
+     tests/test_executor.py.  Asserts finite losses, zero divergence
+     after every step, no build across fail -> recover -> join -> step,
+     and that every fused and flash kernel launched; prints recovery and
+     join seconds with the bytes copied, snapshot, save, wait and
+     restore seconds with the bytes written, step times and the eager
+     step's time and memory.
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line
 (each kernel's launches counted on the path that reports it: phase 7
 for the six, phase 8 for the SSD pair; error, times and bound at the
@@ -753,6 +768,201 @@ def run_path(device, phase, kernels, exact=None):
     return launches
 
 
+#: phase 9's training setup (phase 7's: gpt3-medium at sequence 2048)
+LIFECYCLE = dict(nodes=5, f=1, n0=2, global_batch=16, microbatch=2,
+                 seq_len=2048, cpu_seq_len=32, cpu_layers=2)
+#: tests/test_executor.py's fp32 tolerance (tree_allclose_ulp)
+EXECUTOR_TOL = dict(atol=5e-7, rtol=5e-4)
+
+
+def _alloc_retries():
+    """cudaMalloc retries after freeing the allocator's cache (0 off
+    the card)."""
+    import torch
+    if not torch.cuda.is_available():
+        return 0
+    return torch.cuda.memory_stats().get("num_alloc_retries", 0)
+
+
+def run_lifecycle(device):
+    """Phase 9: train -> fail -> recover -> join -> snapshot -> save
+    (async, under a step) -> restore -> continue, compiled and eager, at
+    phase 7's configuration.  Returns the phase's launch counts."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core import EngineConfig, OobleckEngine, build_profile
+    from repro_torch.data import ByteCorpus, GlobalBatchDispenser
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import _TEXT, microbatches
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import HeteroTrainer, track_compiles
+    from repro_torch.runtime.executor import avals_of
+    on_card = device.type == "cuda"
+    cfg = LIFECYCLE
+    arch = get_arch("gpt3-medium")
+    seq = cfg["seq_len"]
+    if not on_card:
+        arch, seq = reduced(arch, layers=cfg["cpu_layers"]), cfg["cpu_seq_len"]
+    mb = cfg["microbatch"]
+    model = Model(arch, dtype=torch.float32, attn_impl="kernel")
+    engine = OobleckEngine(
+        build_profile(arch, microbatch=mb, seq_len=seq),
+        [f"node{i}" for i in range(cfg["nodes"])],
+        EngineConfig(fault_tolerance=cfg["f"],
+                     global_batch=cfg["global_batch"], microbatch=mb,
+                     gpus_per_node=1, n0_override=cfg["n0"]))
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=0, weight_decay=0.0)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def step(trainer, disp, label):
+        """One step; (loss, seconds to its synchronize, bytes of device
+        memory the step took above what was allocated before it)."""
+        batches = disp.next_step(engine.batch.minibatch_sizes())
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss = float(trainer.step([microbatches(b, mb) for b in batches])
+                     ["loss"])
+        sync()
+        secs = time.perf_counter() - t0
+        div = trainer.replica_divergence()
+        check(math.isfinite(loss), f"lifecycle {label}: loss {loss}")
+        check(div == 0.0, f"lifecycle {label}: replica divergence {div}")
+        extra = (torch.cuda.max_memory_allocated() - base) if on_card else 0
+        print(f"[lifecycle] {label}: loss {loss!r}, {secs:.4f}s, "
+              f"divergence 0, pipelines "
+              f"{[i.template.num_nodes for i in engine.instances]}")
+        return loss, secs, extra
+
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    a = HeteroTrainer(model, engine, params, opt_cfg)
+    del params
+    a.warm_templates()
+    disp = GlobalBatchDispenser(ByteCorpus(_TEXT * 50, seq_len=seq))
+    build.reset_launches()
+    step(a, disp, "A step 0")
+    builds = a.cache.stats.compiles
+    with track_compiles() as log:
+        victim = engine.instances[0].nodes[-1]
+        t0 = time.perf_counter()
+        info = a.recover({victim})
+        sync()
+        rec_s = time.perf_counter() - t0
+        step(a, disp, f"A step 1 (after killing {victim})")
+        t0 = time.perf_counter()
+        jinfo = a.join(["fresh0"])
+        sync()
+        join_s = time.perf_counter() - t0
+        step(a, disp, "A step 2 (after a join)")
+    check(log.backend_compiles == 0 and a.cache.stats.compiles == builds,
+          f"lifecycle: {log.backend_compiles} builds across fail -> recover "
+          f"-> join -> step")
+    print(f"[lifecycle] replica recovery {rec_s:.4f}s copying "
+          f"{info['copied_bytes']} B; join {join_s:.4f}s copying "
+          f"{jinfo['copied_bytes']} B; builds {builds} -> "
+          f"{a.cache.stats.compiles}")
+
+    ckdir = tempfile.mkdtemp(prefix="oobleck_chip_ckpt_")
+    try:
+        mgr = CheckpointManager(ckdir, num_layers=arch.num_layers)
+        data_state = disp.state()
+        t0 = time.perf_counter()
+        snap = a.snapshot(data_state, 0)
+        sync()
+        snap_s = time.perf_counter() - t0
+        template = avals_of(snap.params)
+        template_opt = adamw.AdamWState(avals_of(snap.opt_state.step),
+                                        avals_of(snap.opt_state.m),
+                                        avals_of(snap.opt_state.v))
+        t0 = time.perf_counter()
+        mgr.save(snap)
+        save_s = time.perf_counter() - t0
+        del snap
+        loss_a, secs_a, _ = step(a, disp, "A step 3 (under the async write)")
+        t0 = time.perf_counter()
+        mgr.wait()
+        wait_s = time.perf_counter() - t0
+        written = sum(os.path.getsize(os.path.join(mgr.shard_dir, f))
+                      for f in os.listdir(mgr.shard_dir))
+        sec = mgr.seconds
+        print(f"[lifecycle] checkpoint: snapshot {snap_s:.4f}s (assembled "
+              f"on the device), save() blocked {save_s:.4f}s (device -> "
+              f"host copy {sec['host_copy']:.4f}s, hashes "
+              f"{sec['hash']:.4f}s), writer {sec['write']:.4f}s, wait "
+              f"{wait_s:.4f}s after the step, {written} B written in "
+              f"{mgr.stats['saved_shards']} shards, "
+              f"{mgr.stats['skipped_shards']} skipped")
+        hashes_a = mgr.hashes(a.snapshot(disp.state(), 0))
+        engine.attach_executor(None)
+        del a
+        gc.collect()
+
+        t0 = time.perf_counter()
+        restored = mgr.restore(template, template_opt, device=device)
+        sync()
+        restore_s = time.perf_counter() - t0
+        check(restored.step == 3 and restored.data_state == data_state,
+              f"lifecycle: restored step {restored.step}, data "
+              f"{restored.data_state}")
+        print(f"[lifecycle] restore {restore_s:.4f}s onto {device}; "
+              f"replica recovery {rec_s:.4f}s against checkpoint "
+              f"save + wait + restore {save_s + wait_s + restore_s:.4f}s")
+
+        def restored_trainer(mode):
+            tr = HeteroTrainer(model, engine, restored.params, opt_cfg,
+                               mode=mode, opt_state=restored.opt_state)
+            d = GlobalBatchDispenser(ByteCorpus(_TEXT * 50, seq_len=seq))
+            d.restore(restored.data_state)
+            return tr, d
+        b, disp_b = restored_trainer("compiled")
+        loss_b, _, extra_b = step(b, disp_b, "B step 3 (restored)")
+        check(loss_b == loss_a, f"lifecycle: B's step-3 loss {loss_b!r} "
+              f"!= A's {loss_a!r}")
+        check(mgr.hashes(b.snapshot(disp_b.state(), 0)) == hashes_a,
+              "lifecycle: B's state after step 3 differs from A's")
+        engine.attach_executor(None)
+        del b
+        gc.collect()
+        e, disp_e = restored_trainer("eager")
+        del restored
+        retries = _alloc_retries()
+        loss_e, secs_e, extra_e = step(e, disp_e, "eager step 3 (restored)")
+        retries = _alloc_retries() - retries
+        tol = EXECUTOR_TOL["atol"] + EXECUTOR_TOL["rtol"] * abs(loss_a)
+        check(abs(loss_e - loss_a) <= tol,
+              f"lifecycle: eager loss {loss_e!r} vs A's {loss_a!r}")
+        # the first eager step also grows the allocator's pool for the
+        # walker's larger working set; the next one is the steady time
+        _, secs_e4, _ = step(e, disp_e, "eager step 4")
+        engine.attach_executor(None)
+        del e
+        gc.collect()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    launches = dict(build.LAUNCHES)
+    if on_card:
+        check(all(launches[k] > 0 for k in FUSED + FLASH),
+              f"a kernel never launched in the lifecycle: {launches}")
+    print(f"[lifecycle] B's step-3 loss and state hashes equal A's bitwise; "
+          f"eager step 3 {secs_e:.4f}s ({retries} allocator retries), step 4 "
+          f"{secs_e4:.4f}s, against compiled {secs_a:.4f}s; loss "
+          f"{'bitwise equal' if loss_e == loss_a else 'within tolerance'}"
+          f" ({loss_e!r} vs {loss_a!r}); memory above the state: eager "
+          f"{extra_e / 2**30:.2f} GiB, compiled {extra_b / 2**30:.2f} GiB; "
+          f"launches {launches}")
+    return launches
+
+
 def card_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"],
@@ -796,6 +1006,7 @@ def run(device="cuda"):
     launches = run_path(device, 7, FUSED + FLASH)
     mamba = run_path(device, 8, SSD, exact=MAMBA_SSD_LAUNCHES)
     launches.update({k: mamba[k] for k in SSD})
+    run_lifecycle(device)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errors[name],

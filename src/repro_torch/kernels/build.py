@@ -33,7 +33,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -74,6 +74,17 @@ SIGNATURES = {
 
 #: launches per kernel since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = dict.fromkeys(SIGNATURES, 0)
+
+#: called with ``"library"`` after every compile of the kernel library
+#: and with ``"program"`` after every ProgramCache build
+#: (``runtime/executor.py``): the port's counterpart of the reference's
+#: compile events, read by ``track_compiles`` and ``CompileCounter``
+BUILD_LISTENERS: List[Callable[[str], None]] = []
+
+
+def notify_build(kind: str) -> None:
+    for listener in list(BUILD_LISTENERS):
+        listener(kind)
 
 
 def build_inputs() -> Tuple[pathlib.Path, ...]:
@@ -178,6 +189,7 @@ def build() -> BuildInfo:
         log = run_all(compile_cmds, per_source) + run_all([link_cmd])
         os.replace(os.path.join(tmp, lib.name), lib)
     log_file.write_text(log)
+    notify_build("library")
     return BuildInfo(lib, time.perf_counter() - t0, log,
                      {src.name: sec for src, sec in zip(SOURCES, per_source)})
 

@@ -15,7 +15,11 @@ continued from the surviving replicas.
 
 Runs on the card by default; ``--device cpu`` runs the plain versions of
 the kernels on the CPU.  Without ``--full`` the architecture is reduced
-to a few narrow layers.
+to a few narrow layers.  ``--eager`` walks the 1F1B schedule stage by
+stage instead of the per-template step programs; ``--ckpt-dir`` (with
+``--ckpt-every N``) checkpoints through ``HeteroTrainer.snapshot``, and
+on a failure that leaves fewer than (f+1)·n0 nodes the engine saves
+before it gives up (paper §3.4).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import time
 
 import torch
 
+from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import get_arch, reduced
 from repro_torch.core import EngineConfig, OobleckEngine, build_profile
 from repro_torch.data import ByteCorpus, GlobalBatchDispenser
@@ -76,7 +81,9 @@ def _parser() -> argparse.ArgumentParser:
                     choices=["none", "bf16", "int8"],
                     help="wire codec for cross-replica gradient sync")
     ap.add_argument("--eager", action="store_true",
-                    help="the eager 1F1B reference path (later slice)")
+                    help="walk the 1F1B schedule stage by stage (the "
+                         "reference path) instead of the per-template "
+                         "step programs")
     ap.add_argument("--no-warm", action="store_true",
                     help="skip building the programs of the template set")
     ap.add_argument("--attn-impl", default="naive",
@@ -110,15 +117,12 @@ def main(argv=None) -> dict:
     if args.procs > 0:
         raise NotImplementedError("--procs: the multi-process backend is "
                                   "ROADMAP queue 1, item 18")
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir: checkpoints are ROADMAP "
-                                  "queue 1, item 13")
-    if args.eager:
-        raise NotImplementedError("--eager: the eager 1F1B reference is "
-                                  "ROADMAP queue 1, item 10")
-    if args.join_at >= 0:
-        raise NotImplementedError("--join-at: elastic join is ROADMAP "
-                                  "queue 1, item 10")
+    if args.eager and args.codec != "none":
+        # the eager walker syncs on the per-layer path, which has no wire
+        # codec; keep the engine's pricing and the [sync] line truthful
+        print(f"[sync] --eager ignores --codec {args.codec}: the per-layer "
+              f"reference path syncs uncompressed")
+        args.codec = "none"
     device = resolve_device(args.device)
     if device.type == "cuda":
         strict_fp32_numerics()
@@ -150,8 +154,10 @@ def main(argv=None) -> dict:
           f"on target hw")
 
     opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=0, weight_decay=0.0)
-    trainer = HeteroTrainer(model, engine, params, opt_cfg, codec=args.codec)
-    if not args.no_warm:
+    trainer = HeteroTrainer(model, engine, params, opt_cfg,
+                            mode="eager" if args.eager else "compiled",
+                            codec=args.codec)
+    if not args.eager and not args.no_warm:
         t0 = time.perf_counter()
         stats = trainer.warm_templates()
         print(f"[warm] {stats['compiles']} programs compiled for "
@@ -160,6 +166,13 @@ def main(argv=None) -> dict:
               f"swaps programs by lookup")
     source = ByteCorpus(_TEXT * 50, seq_len=args.seq_len)
     disp = GlobalBatchDispenser(source)
+    mgr = None
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir, num_layers=arch.num_layers)
+        # the engine checkpoints through the trainer's snapshot on an
+        # unrecoverable shrink (< (f+1)*n0 nodes), paper §3.4
+        engine.on_checkpoint = lambda: mgr.save(
+            trainer.snapshot(disp.state(), args.seed), block=True)
 
     losses, divergences, step_seconds, builds = [], [], [], []
     recovery = None
@@ -192,6 +205,10 @@ def main(argv=None) -> dict:
                       f"transfer {xfer['seconds'] * 1e3:.1f}ms on target hw, "
                       f"program cache: {info['cache']}), "
                       f"pipelines={[i.template.num_nodes for i in engine.instances]}")
+        if step == args.join_at:
+            raise SystemExit("--join-at: a join needs nodes to join; call "
+                             "HeteroTrainer.join (repro_torch.runtime) as "
+                             "chip_smoke.py's lifecycle phase does")
         batches = disp.next_step(engine.batch.minibatch_sizes())
         _sync(device)
         t0 = time.perf_counter()
@@ -204,12 +221,17 @@ def main(argv=None) -> dict:
         print(f"[step {step}] loss={losses[-1]:.4f} "
               f"pipelines={out['num_pipelines']} "
               f"divergence={divergences[-1]:.2e}")
+        if mgr and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
+            mgr.save(trainer.snapshot(disp.state(), args.seed))
+    if mgr:
+        mgr.wait()
     assert losses[-1] < losses[0], "training must reduce the loss"
     print(f"[done] loss {losses[0]:.4f} -> {losses[-1]:.4f} "
           f"(cache: {trainer.cache.stats.as_dict()})")
     return {"losses": losses, "divergences": divergences,
             "step_seconds": step_seconds, "builds_after_step": builds,
-            "recovery": recovery, "cache": trainer.cache.stats.as_dict()}
+            "recovery": recovery, "cache": trainer.cache.stats.as_dict(),
+            "checkpoints": mgr.list_steps() if mgr else []}
 
 
 if __name__ == "__main__":

@@ -9,16 +9,23 @@ backend signature), and counts builds and hits, so tests and the chip
 run assert that a failure -> recover -> step cycle builds nothing.
 
 A "program" in this slice is a Python callable built once per key;
-CUDA graphs of those callables come later.
+CUDA graphs of those callables come later.  ``track_compiles`` and
+``CompileCounter`` count every build process-wide — ProgramCache builds
+and compiles of the kernel library — and ``track_host_transfers`` counts
+the device->host reads inside a block (on the card it also runs the
+block under ``torch.cuda.set_sync_debug_mode("error")``), so the
+no-build and no-host-sync contracts are asserted, not trusted.
 """
 from __future__ import annotations
 
 import abc
+import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Hashable, List, Optional, Set, Tuple
+from typing import Any, Callable, Dict, Hashable, Iterator, List, Optional, Set, Tuple
 
 import torch
 
+from repro_torch.kernels import build as _build
 from repro_torch.utils.tree import tree_leaves_with_path, tree_map
 
 
@@ -72,7 +79,126 @@ class ProgramCache:
         prog = builder()
         self._programs[key] = prog
         self.stats.compiles += 1
+        _build.notify_build("program")
         return prog
+
+
+# ----------------------------------------------------------------------
+# Build-count instrumentation (tests + benchmarks)
+# ----------------------------------------------------------------------
+@dataclasses.dataclass
+class CompileLog:
+    backend_compiles: int = 0       # builds of any kind inside the block
+    _active: bool = True
+
+
+@contextlib.contextmanager
+def track_compiles() -> Iterator[CompileLog]:
+    """Count builds inside the block — in ANY ProgramCache and of the
+    kernel library — not just the ones of one trainer's cache::
+
+        with track_compiles() as log:
+            trainer.recover({victim}); trainer.train_step(batches)
+        assert log.backend_compiles == 0
+    """
+    log = CompileLog()
+
+    def listener(kind: str) -> None:
+        if log._active:
+            log.backend_compiles += 1
+
+    _build.BUILD_LISTENERS.append(listener)
+    try:
+        yield log
+    finally:
+        log._active = False
+        _build.BUILD_LISTENERS.remove(listener)
+
+
+class CompileCounter:
+    """Persistent build counter (the long-lived sibling of
+    ``track_compiles``): registered once, never unregistered, so a
+    process can report builds-since-mark at any point of its life."""
+
+    def __init__(self) -> None:
+        self.count = 0
+        self._mark = 0
+
+        def listener(kind: str) -> None:
+            self.count += 1
+
+        _build.BUILD_LISTENERS.append(listener)
+
+    def mark(self) -> None:
+        self._mark = self.count
+
+    def since_mark(self) -> int:
+        return self.count - self._mark
+
+
+# ----------------------------------------------------------------------
+# Host-transfer instrumentation (tests)
+# ----------------------------------------------------------------------
+@dataclasses.dataclass
+class TransferLog:
+    device_to_host: int = 0
+
+
+#: Tensor methods that read a tensor's values back to the host
+_READS = ("item", "tolist", "numpy", "__float__", "__int__", "__bool__")
+
+
+def _to_cpu(args, kwargs) -> bool:
+    """Whether ``Tensor.to(*args, **kwargs)`` targets the CPU."""
+    for a in (*args, kwargs.get("device")):
+        if isinstance(a, (str, torch.device)) and torch.device(a).type == "cpu":
+            return True
+        if isinstance(a, torch.Tensor) and a.device.type == "cpu":
+            return True
+    return False
+
+
+@contextlib.contextmanager
+def track_host_transfers(device=None) -> Iterator[TransferLog]:
+    """Count device->host reads inside the block: ``item``, ``tolist``,
+    ``numpy``, ``float()``/``int()``/``bool()`` of a tensor, and
+    ``.cpu()``/``.to("cpu")`` of a CUDA tensor.  The methods are patched
+    on ``torch.Tensor`` for the block's duration, so calls from every
+    thread count.  Where ``device`` is a CUDA device the block also runs
+    under ``torch.cuda.set_sync_debug_mode("error")``: any synchronizing
+    CUDA call raises, a read these spies cannot see included; the
+    previous mode is restored on exit."""
+    log = TransferLog()
+    saved = {name: torch.Tensor.__dict__.get(name)
+             for name in (*_READS, "cpu", "to")}
+
+    def spy(orig, counts):
+        def read(self, *args, **kwargs):
+            if counts(self, args, kwargs):
+                log.device_to_host += 1
+            return orig(self, *args, **kwargs)
+        return read
+
+    for name in _READS:
+        setattr(torch.Tensor, name, spy(getattr(torch.Tensor, name),
+                                        lambda t, a, kw: True))
+    torch.Tensor.cpu = spy(torch.Tensor.cpu, lambda t, a, kw: t.is_cuda)
+    torch.Tensor.to = spy(torch.Tensor.to,
+                          lambda t, a, kw: t.is_cuda and _to_cpu(a, kw))
+    on_card = device is not None and torch.device(device).type == "cuda"
+    previous = torch.cuda.get_sync_debug_mode() if on_card else None
+    try:
+        if on_card:
+            torch.cuda.set_sync_debug_mode("error")
+        yield log
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode(previous)
+        for name, orig in saved.items():
+            if orig is None:
+                delattr(torch.Tensor, name)
+            else:
+                setattr(torch.Tensor, name, orig)
 
 
 class ExecutorUnsupported(RuntimeError):

@@ -11,7 +11,10 @@ the paper's unit of state).  A training step:
      gradients and returns them with the per-microbatch NLL as a device
      tensor (no host sync inside the schedule).  ``warm_templates``
      builds the programs of the whole template set up front, so a
-     reconfiguration swaps programs by lookup;
+     reconfiguration swaps programs by lookup.  ``mode="eager"`` walks
+     the explicit 1F1B schedule instead (``_run_eager``), stage by stage
+     with per-stage autograd: the readable spec of what the program
+     computes, with the same gradients;
   2. cross-pipeline sync at LAYER granularity: the engine's bucket plan
      through the bucketed data plane (``runtime/sync_exec.py``), a
      weighted average whose weights are minibatch sizes;
@@ -20,12 +23,14 @@ the paper's unit of state).  A training step:
   4. on failure: the engine replans from the templates and emits a copy
      plan; layer states (params AND moments) are copied from the
      scheduled surviving replicas — recovery without a checkpoint — and
-     the new pipeline set's programs come straight from the cache.
+     the new pipeline set's programs come straight from the cache.  A
+     join takes the same copy path (``handle_join``); ``snapshot``
+     reassembles the canonical tree for ``ckpt/checkpoint.py``, and a
+     restored ``opt_state`` seeds a new trainer's moments.
 
 Every block of a stage runs the fused QKV GEMM and the fused residual-add
-+ RMSNorm (``kernels/ops.py``): CUDA kernels when the state lies on the
-card, their plain versions on the CPU.  The eager 1F1B reference walker,
-elastic join and snapshots come in a later slice (ROADMAP queue 1).
++ RMSNorm (``kernels/ops.py``) in both modes: CUDA kernels when the state
+lies on the card, their plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Set,
 import numpy as np
 import torch
 
+from repro_torch.ckpt import TrainState
 from repro_torch.core.adapt import AdaptationError
 from repro_torch.core.engine import OobleckEngine
 from repro_torch.core.reconfigure import PipelineInstance
@@ -44,13 +50,12 @@ from repro_torch.models.layers import cross_entropy, embed, unembed
 from repro_torch.optim import adamw
 from repro_torch.runtime.executor import (Executor, ProgramCache, avals_of,
                                           template_signature, tree_spec)
+from repro_torch.runtime.schedule import flat_schedule
 from repro_torch.runtime.sync_exec import (BucketedSync, perlayer_global_sumsq,
                                            perlayer_sync)
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
 
 LayerState = Dict[str, Any]     # {"p": params, "m": moment1, "v": moment2}
-
-_LATER = "comes with a later slice of the port (ROADMAP queue 1)"
 
 
 # ----------------------------------------------------------------------
@@ -124,11 +129,23 @@ class HeteroTrainer(Executor):
     """Drives N heterogeneous pipeline replicas through train steps and
     failure recovery, with the engine for all planning and a
     template-keyed ProgramCache for all execution.  The device is the
-    one ``params`` lie on."""
+    one ``params`` lie on.  ``opt_state`` (an ``adamw.AdamWState`` in
+    the stacked-block layout, as ``CheckpointManager.restore`` returns
+    it) seeds every replica's moments and the step count; without it
+    both start at zero."""
 
     def __init__(self, model: Model, engine: OobleckEngine,
                  params: Dict, opt_cfg: adamw.AdamWConfig,
-                 codec: str = "none", sync_mode: str = "bucketed"):
+                 mode: str = "compiled", codec: str = "none",
+                 sync_mode: Optional[str] = None,
+                 opt_state: Optional[adamw.AdamWState] = None):
+        if mode not in ("compiled", "eager"):
+            raise ValueError(f"unknown mode {mode!r}")
+        # the eager reference syncs on the per-layer path, as the JAX
+        # package's does; the bucketed plane adds the same terms, but sums
+        # the clip's global norm per bucket first
+        sync_mode = sync_mode or ("bucketed" if mode == "compiled"
+                                  else "perlayer")
         if sync_mode not in ("bucketed", "perlayer"):
             raise ValueError(f"unknown sync_mode {sync_mode!r}")
         if codec != "none" and sync_mode != "bucketed":
@@ -136,12 +153,19 @@ class HeteroTrainer(Executor):
         self.model = model
         self.engine = engine
         self.opt_cfg = opt_cfg
+        self.mode = mode
         self.cache = ProgramCache()
         self.sync_mode = sync_mode
         self.codec = codec
         layers = split_into_layers(model, params)
+        moments = None
+        if opt_state is not None:
+            moments = (split_into_layers(model, opt_state.m),
+                       split_into_layers(model, opt_state.v))
         self.device = tree_leaves(layers[0])[0].device
-        self.opt_step = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.opt_step = (torch.zeros((), dtype=torch.int32, device=self.device)
+                         if opt_state is None else
+                         opt_state.step.to(self.device, torch.int32).clone())
         self.num_layers = len(layers)
         self._kind = (["embed"] + ["block"] * model.arch.num_layers
                       + ["head"])
@@ -152,13 +176,15 @@ class HeteroTrainer(Executor):
                                    codec=codec)
         self._bucket_plan_cache = None
         self.runs: List[PipelineRun] = [
-            self._bind_run(inst, layers) for inst in self.engine.instances]
+            self._bind_run(inst, layers, moments=moments)
+            for inst in self.engine.instances]
         engine.attach_executor(self)
         self.bind()
 
     # ------------------------------------------------------------------
     def _bind_run(self, inst: PipelineInstance, layers: Optional[List[Dict]],
-                  state_fn: Optional[Callable[[str, int], LayerState]] = None
+                  state_fn: Optional[Callable[[str, int], LayerState]] = None,
+                  moments: Optional[Tuple[List[Dict], List[Dict]]] = None
                   ) -> PipelineRun:
         stage_layers = [list(range(st.layer_start, st.layer_end))
                         for st in inst.template.stages]
@@ -171,6 +197,10 @@ class HeteroTrainer(Executor):
                     # replica the transfer plan scheduled as its source
                     src = state_fn(inst.layer_owners(l)[0], l)
                     states[l] = tree_map(torch.clone, src)
+                elif moments is not None:
+                    states[l] = tree_map(torch.clone, {
+                        "p": layers[l], "m": moments[0][l],
+                        "v": moments[1][l]})
                 else:
                     p = layers[l]
                     states[l] = {"p": tree_map(torch.clone, p),
@@ -257,10 +287,11 @@ class HeteroTrainer(Executor):
         """Ensure programs for the CURRENT pipeline set + batch plan are
         cached (pure lookups after warm_templates())."""
         self._bucket_plan_cache = None
-        mb_of = {id(inst): M for inst, M in zip(
-            self.engine.instances, self.engine.batch.num_microbatches)}
-        for run in self.runs:
-            self._grads_program(run.signature, mb_of[id(run.instance)])
+        if self.mode == "compiled":
+            mb_of = {id(inst): M for inst, M in zip(
+                self.engine.instances, self.engine.batch.num_microbatches)}
+            for run in self.runs:
+                self._grads_program(run.signature, mb_of[id(run.instance)])
         if self.sync_mode == "bucketed":
             plan = self._bucket_plan()
             self._bsync.bind_plan(plan)
@@ -276,7 +307,10 @@ class HeteroTrainer(Executor):
         """Build step programs for EVERY template x every reachable
         microbatch count (1..total_mb by default), and the bucket
         programs of every reachable layout, so any reconfiguration swaps
-        programs by lookup with zero builds."""
+        programs by lookup with zero builds.  The eager walker has no step
+        programs to build."""
+        if self.mode != "compiled":
+            return self.cache.stats.as_dict()
         if mb_counts is None:
             total_mb = (self.engine.config.global_batch
                         // self.engine.config.microbatch)
@@ -296,12 +330,22 @@ class HeteroTrainer(Executor):
     # ------------------------------------------------------------------
     # One pipeline's iteration -> per-layer grad means + per-mb NLL
     # ------------------------------------------------------------------
-    def _run_pipeline(self, run: PipelineRun, microbatches: List[Dict]
-                      ) -> Tuple[Dict[int, Any], torch.Tensor]:
+    def _batch(self, microbatches: List[Dict]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Stacked [M, b, s] int32 tokens and labels on the device.  On
+        the card the copy leaves a pinned host buffer without blocking
+        the host: no step synchronizes with the device."""
         def stack(key):
             arr = np.stack([np.asarray(b[key]) for b in microbatches])
-            return torch.from_numpy(arr.astype(np.int32)).to(self.device)
-        tokens, labels = stack("tokens"), stack("labels")
+            host = torch.from_numpy(arr.astype(np.int32))
+            if self.device.type == "cuda":
+                return host.pin_memory().to(self.device, non_blocking=True)
+            return host
+        return stack("tokens"), stack("labels")
+
+    def _run_compiled(self, run: PipelineRun, microbatches: List[Dict]
+                      ) -> Tuple[Dict[int, Any], torch.Tensor]:
+        tokens, labels = self._batch(microbatches)
         prog = self._grads_program(run.signature, len(microbatches))
         gstages, nll = prog(run.all_stage_params(), tokens, labels)
         grads: Dict[int, Any] = {}
@@ -309,6 +353,74 @@ class HeteroTrainer(Executor):
             for j, l in enumerate(lids):
                 grads[l] = gstages[s][j]
         return grads, nll
+
+    def _run_eager(self, run: PipelineRun, microbatches: List[Dict]
+                   ) -> Tuple[Dict[int, Any], torch.Tensor]:
+        """Reference path: walks the explicit 1F1B schedule, one stage at
+        a time with per-stage autograd.  An F op runs stage ``s`` on its
+        predecessor's output, detached, and keeps the (outputs, input)
+        pair; the matching B op takes the gradient of those outputs
+        against the stage's parameters and that input, and hands the
+        latter to stage ``s - 1`` as its cotangent.  Each stage's
+        gradients are summed over microbatches in ascending order and
+        divided by M, the step program's order.  Losses stay on the
+        device: nothing here reads back to the host."""
+        S, M = run.num_stages, len(microbatches)
+        tokens, labels = self._batch(microbatches)
+        fns = [make_stage_fn(self.model, [self._kind[l] for l in lids])
+               for lids in run.stage_layers]
+        stage_params = run.all_stage_params()
+        leaves = [[t.detach().requires_grad_(True) for t in tree_leaves(sp)]
+                  for sp in stage_params]
+        params = [tree_unflatten_like(sp, lv)
+                  for sp, lv in zip(stage_params, leaves)]
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        saved: Dict[Tuple[int, int], Tuple[Any, Optional[torch.Tensor]]] = {}
+        cots: Dict[Tuple[int, int], torch.Tensor] = {}
+        gsum: List[Optional[List[torch.Tensor]]] = [None] * S
+        nlls: List[torch.Tensor] = []
+
+        for s, op, mb in flat_schedule(S, M):
+            if op == "F":
+                if s == 0:
+                    x_in, carry = None, (tokens[mb], zero)
+                else:
+                    x, aux = saved[(s - 1, mb)][0]
+                    x_in = x.detach().requires_grad_(True)
+                    carry = (x_in, aux.detach())
+                out = fns[s](params[s], carry, labels[mb])
+                saved[(s, mb)] = (out, x_in)
+                if s == S - 1:
+                    nlls.append(out[1].detach())
+                    cots[(s, mb)] = torch.ones_like(out[0])
+                continue
+            (y, aux), x_in = saved.pop((s, mb))
+            outputs, cot = [y], [cots.pop((s, mb))]
+            if s < S - 1 and aux.requires_grad:
+                outputs.append(aux)             # the aux gets a zero
+                cot.append(torch.zeros_like(aux))   # cotangent
+            wrt = leaves[s] + ([x_in] if x_in is not None else [])
+            g = torch.autograd.grad(outputs, wrt, grad_outputs=cot,
+                                    allow_unused=True)
+            g = [torch.zeros_like(w) if gi is None else gi
+                 for gi, w in zip(g, wrt)]
+            if x_in is not None:
+                cots[(s - 1, mb)] = g.pop()
+            gsum[s] = g if gsum[s] is None else [a + b
+                                                 for a, b in zip(gsum[s], g)]
+
+        grads: Dict[int, Any] = {}
+        for s, lids in enumerate(run.stage_layers):
+            gs = tree_unflatten_like(stage_params[s], [a / M for a in gsum[s]])
+            for j, l in enumerate(lids):
+                grads[l] = gs[j]
+        return grads, torch.stack(nlls)
+
+    def _run_pipeline(self, run: PipelineRun, microbatches: List[Dict]
+                      ) -> Tuple[Dict[int, Any], torch.Tensor]:
+        if self.mode == "compiled":
+            return self._run_compiled(run, microbatches)
+        return self._run_eager(run, microbatches)
 
     def train_step(self, per_pipeline_batches: List[List[Dict]]) -> Dict:
         """per_pipeline_batches[i] = list of N_b,i microbatch dicts.
@@ -477,13 +589,15 @@ class HeteroTrainer(Executor):
         return self.handle_failure(set(dead), drained=drained)
 
     def handle_join(self, new_nodes: list) -> Dict:
-        raise NotImplementedError(f"elastic join {_LATER}")
+        """Elastic scale-up: replan over the larger cluster and seed every
+        new pipeline's layer states from existing replicas (the same copy
+        path as failure recovery: paper §5 applies to joins)."""
+        by_node = self._states_by_node()
+        result = self.engine.handle_join(list(new_nodes))
+        return self._apply_transfer_plan(result, by_node, set())
 
     def join(self, nodes: List[str]) -> Dict:
         return self.handle_join(list(nodes))
-
-    def snapshot(self, data_state: Optional[Dict] = None, rng_seed: int = 0):
-        raise NotImplementedError(f"snapshots and checkpoints {_LATER}")
 
     # ------------------------------------------------------------------
     def replica_divergence(self) -> float:
@@ -497,18 +611,34 @@ class HeteroTrainer(Executor):
                         worst, torch.max(torch.abs(a.float() - b.float())))
         return float(worst)
 
-    def full_params(self) -> Dict:
-        """Canonical full param tree (stacked blocks) from the first
-        replica holding each layer; leaves are copies."""
+    def _assemble(self, field: str) -> Dict:
+        """Canonical full tree of ``field`` ('p', 'm' or 'v'; stacked
+        blocks) from the first replica holding each layer.  Leaves are
+        copies: later steps must not change what is handed out."""
         states: Dict[int, LayerState] = {}
         for run in self.runs:
             for l, st in run.states.items():
                 states.setdefault(l, st)
-        blocks = [states[1 + i]["p"] for i in range(self.model.arch.num_layers)]
-        tail = states[self.num_layers - 1]["p"]
-        tree = {"embed": tree_map(torch.clone, states[0]["p"]["embed"]),
+        blocks = [states[1 + i][field]
+                  for i in range(self.model.arch.num_layers)]
+        tail = states[self.num_layers - 1][field]
+        tree = {"embed": tree_map(torch.clone, states[0][field]["embed"]),
                 "blocks": tree_map(lambda *xs: torch.stack(xs), *blocks),
-                "final_norm": tail["final_norm"].clone()}
+                "final_norm": tree_map(torch.clone, tail["final_norm"])}
         if "head" in tail:
             tree["head"] = tree_map(torch.clone, tail["head"])
         return tree
+
+    def full_params(self) -> Dict:
+        """Canonical full param tree (for checkpoints and evaluation)."""
+        return self._assemble("p")
+
+    def snapshot(self, data_state: Optional[Dict] = None, rng_seed: int = 0):
+        """TrainState (``ckpt/checkpoint.py``) of params and both Adam
+        moments in the canonical stacked-block layout, on the device;
+        ``CheckpointManager.save`` takes it to the host."""
+        opt = adamw.AdamWState(self.opt_step.clone(), self._assemble("m"),
+                               self._assemble("v"))
+        return TrainState(step=int(self.opt_step), params=self._assemble("p"),
+                          opt_state=opt, data_state=data_state or {},
+                          rng_seed=rng_seed)

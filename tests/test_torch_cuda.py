@@ -459,3 +459,105 @@ def test_ssm_models_match_plain_on_card(card):
                                rtol=1e-5, atol=1e-6)
     for a, b in zip(out["kernel"][1], out["chunked"][1]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# ----------------------------------------------------------------------
+# The lifecycle on the card: checkpoints, the eager walker, no host reads
+# ----------------------------------------------------------------------
+def _card_trainer(card, mode="compiled", params=None, opt_state=None):
+    """Reduced gpt3-medium (2 layers, head dim 16) through the flash and
+    fused kernels on a 5-node engine, f 1, n0 2."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core import EngineConfig, OobleckEngine, build_profile
+    from repro_torch.data import GlobalBatchDispenser, SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import HeteroTrainer
+    arch = reduced(get_arch("gpt3_medium"), layers=2)
+    model = Model(arch, dtype=torch.float32, attn_impl="kernel")
+    if params is None:
+        params = model.init(torch.Generator(device=card).manual_seed(0))
+    engine = OobleckEngine(
+        build_profile(arch, microbatch=2, seq_len=64),
+        [f"n{i}" for i in range(5)],
+        EngineConfig(fault_tolerance=1, global_batch=16, microbatch=2,
+                     gpus_per_node=1, n0_override=2))
+    tr = HeteroTrainer(model, engine, params, adamw.AdamWConfig(
+        lr=1e-3, warmup_steps=0, clip_norm=1.0, weight_decay=0.0),
+        mode=mode, opt_state=opt_state)
+    disp = GlobalBatchDispenser(SyntheticLM(arch.vocab_size, 64, seed=5))
+    return arch, tr, disp
+
+
+def _drive(tr, disp):
+    batches = disp.next_step(tr.engine.batch.minibatch_sizes())
+    return tr.train_step([[{k: v[i:i + 2] for k, v in b.items()
+                            if not k.startswith("_")}
+                           for i in range(0, b["tokens"].shape[0], 2)]
+                          for b in batches])
+
+
+def test_checkpoint_roundtrip_of_cuda_state_is_bitwise(card, tmp_path):
+    """A trained state on the card, saved asynchronously while the next
+    step runs, restores onto the card bit for bit: params, both moments
+    and the step; a trainer built from it has the same content hashes."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.utils.tree import tree_leaves
+    arch, tr, disp = _card_trainer(card)
+    for _ in range(2):
+        _drive(tr, disp)
+    snap = tr.snapshot(disp.state(), 3)
+    mgr = CheckpointManager(str(tmp_path), num_layers=arch.num_layers)
+    mgr.save(snap)
+    _drive(tr, disp)                        # the next step overlaps the write
+    mgr.wait()
+    got = mgr.restore(snap.params, snap.opt_state, device=card)
+    assert got.step == 2 and got.data_state == snap.data_state
+    for a, b in zip(tree_leaves((snap.params, snap.opt_state)),
+                    tree_leaves((got.params, got.opt_state))):
+        assert b.device.type == "cuda" and torch.equal(a, b)
+    _, tr2, _ = _card_trainer(card, params=got.params,
+                              opt_state=got.opt_state)
+    assert mgr.hashes(tr2.snapshot(snap.data_state, 3)) == mgr.hashes(snap)
+
+
+def test_eager_walker_matches_compiled_on_card(card):
+    """The 1F1B walker against the step programs through a failure, with
+    every flash and fused kernel in both: per-microbatch NLL, losses and
+    parameters bitwise equal (the kernels use fixed summation orders and
+    no atomics, and the walker keeps the programs' order)."""
+    from repro_torch.utils.tree import tree_leaves
+    _, tc, dc = _card_trainer(card)
+    _, te, de = _card_trainer(card, mode="eager")
+    build.reset_launches()
+    for step in range(3):
+        if step == 2:
+            victim = tc.engine.instances[0].nodes[0]
+            tc.recover({victim})
+            te.recover({victim})
+        assert torch.equal(_drive(tc, dc)["loss"], _drive(te, de)["loss"])
+    assert all(build.LAUNCHES[k] > 0 for k in build.LAUNCHES
+               if not k.startswith("ssd")), build.LAUNCHES
+    for a, b in zip(tree_leaves(tc.full_params()),
+                    tree_leaves(te.full_params())):
+        assert torch.equal(a, b)
+    assert tc.replica_divergence() == te.replica_divergence() == 0.0
+
+
+@pytest.mark.parametrize("mode", ["compiled", "eager"])
+def test_train_step_reads_nothing_back_on_card(card, mode):
+    """Under set_sync_debug_mode("error") (which turns any synchronizing
+    CUDA call into an error) a train step runs through and the spies
+    count no device->host read; the control shows both guards fire."""
+    from repro_torch.runtime import track_host_transfers
+    _, tr, disp = _card_trainer(card, mode=mode)
+    _drive(tr, disp)
+    with pytest.raises(RuntimeError):
+        with track_host_transfers(card) as ctl:
+            (torch.ones((), device=card) + 1).item()
+    assert ctl.device_to_host == 1
+    assert torch.cuda.get_sync_debug_mode() == 0      # restored
+    with track_host_transfers(card) as log:
+        out = _drive(tr, disp)
+    assert log.device_to_host == 0, log
+    assert float(out["loss"]) > 0

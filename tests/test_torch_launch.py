@@ -62,11 +62,51 @@ def test_train_cli_on_cpu_trains_mamba2_through_the_ssd_kernels(capsys,
     assert set(out["builds_after_step"]) == {out["recovery"]["builds_before"]}
 
 
-@pytest.mark.parametrize("flag", [["--procs", "2"], ["--eager"],
-                                  ["--ckpt-dir", "x"], ["--join-at", "1"]])
+@pytest.mark.parametrize("flag", [["--procs", "2"]])
 def test_later_slice_flags_raise(flag):
     with pytest.raises(NotImplementedError):
         train.main(["--steps", "1", "--device", "cpu", *flag])
+
+
+def test_train_cli_eager_walks_1f1b_through_a_failure(capsys):
+    """--eager: the 1F1B walker trains through the failure; no step
+    programs are warmed, and a codec is refused as the reference
+    refuses it (the per-layer path syncs uncompressed)."""
+    out = train.main(["--steps", "4", "--kill-at", "2", "--layers", "2",
+                      "--eager", "--codec", "bf16", "--device", "cpu"])
+    text = capsys.readouterr().out
+    assert "--eager ignores --codec bf16" in text and "[warm]" not in text
+    assert out["losses"][-1] < out["losses"][0]
+    assert all(d == 0.0 for d in out["divergences"])
+    assert set(out["builds_after_step"]) == {out["recovery"]["builds_before"]}
+
+
+def test_train_cli_checkpoints_restore(tmp_path):
+    """--ckpt-dir --ckpt-every 1: a manifest per step (the last two kept),
+    each restoring to a state of the run's shape and step."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.optim import adamw
+    out = train.main(["--steps", "3", "--kill-at", "1", "--layers", "2",
+                      "--ckpt-dir", str(tmp_path), "--ckpt-every", "1",
+                      "--device", "cpu"])
+    assert out["checkpoints"] == [2, 3]
+    arch = reduced(get_arch("gpt3-medium"), layers=2)
+    template = Model(arch).init(torch.Generator().manual_seed(0))
+    mgr = CheckpointManager(str(tmp_path), num_layers=arch.num_layers)
+    for step in out["checkpoints"]:
+        assert mgr.verify(step)
+        got = mgr.restore(template, adamw.init(template), step=step,
+                          device="cpu")
+        assert got.step == step and int(got.opt_state.step) == step
+        assert got.data_state == {"next_index": 16 * step}
+        assert got.params["blocks"]["attn"]["wq"].shape == \
+            template["blocks"]["attn"]["wq"].shape
+
+
+def test_train_cli_join_at_exits_as_the_reference_does():
+    with pytest.raises(SystemExit, match="HeteroTrainer.join"):
+        train.main(["--steps", "2", "--join-at", "1", "--layers", "2",
+                    "--device", "cpu"])
 
 
 def _no_card(monkeypatch):
@@ -129,6 +169,10 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     assert any(ln.startswith("[model] hymba") for ln in lines)
     for path in ("naive", "flash", "mamba"):
         assert any(ln.startswith(f"[{path}]") for ln in lines), path
+    for tag in ("A step 3", "B step 3", "eager step 3", "checkpoint:",
+                "replica recovery", "equal A's bitwise"):
+        assert any(ln.startswith("[lifecycle]") and tag in ln
+                   for ln in lines), tag
 
 
 def _zero(i):

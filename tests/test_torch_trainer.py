@@ -163,9 +163,55 @@ def test_monitor_failure_routes_through_the_port_executor():
     assert issubclass(ExecutorUnsupported, RuntimeError)
 
 
-def test_later_slices_raise():
-    _, eng, tr = _port_trainer("replan")
-    with pytest.raises(NotImplementedError):
-        tr.join(["n99"])
-    with pytest.raises(NotImplementedError):
-        tr.snapshot()
+def _drive(tr, disp):
+    b = disp.next_step(tr.engine.batch.minibatch_sizes())
+    return tr.train_step([microbatches(x, MB) for x in b])
+
+
+def test_snapshot_and_join_on_the_trainer():
+    """snapshot(): params and both moments in the canonical stacked
+    layout, copies that later steps leave alone; join(): the engine
+    replans over the larger cluster and the trainer binds every
+    instance, its replicas identical."""
+    arch, eng, tr = _port_trainer("replan")
+    disp = GlobalBatchDispenser(SyntheticLM(arch.vocab_size, SEQ, seed=5))
+    _drive(tr, disp)
+    snap = tr.snapshot(disp.state(), rng_seed=7)
+    assert (snap.step, int(snap.opt_state.step)) == (1, 1)
+    assert snap.data_state == disp.state() and snap.rng_seed == 7
+    for a, b in zip(tree_leaves(snap.params), tree_leaves(tr.full_params())):
+        assert torch.equal(a, b)
+    assert snap.params["blocks"]["attn"]["wq"].shape[0] == arch.num_layers
+    assert all(float(m.abs().max()) > 0 for m in tree_leaves(snap.opt_state.m))
+    state = (snap.params, snap.opt_state)
+    kept = [t.clone() for t in tree_leaves(state)]
+    _drive(tr, disp)
+    assert all(torch.equal(a, b) for a, b in zip(kept, tree_leaves(state)))
+
+    n_before = len(eng.nodes)
+    info = tr.join(["n99"])
+    assert len(eng.nodes) + len(eng.spare_nodes) == n_before + 1
+    assert info["num_pipelines"] == len(tr.runs) == len(eng.instances)
+    assert tr.replica_divergence() == 0.0
+    _drive(tr, disp)
+    assert tr.replica_divergence() == 0.0
+
+
+def test_trainer_built_from_a_snapshot_continues_bitwise():
+    """A trainer built from a snapshot's params and opt_state (moments
+    and step count) takes the next step exactly as the original does."""
+    arch, _, tr = _port_trainer("replan")
+    disp = GlobalBatchDispenser(SyntheticLM(arch.vocab_size, SEQ, seed=5))
+    for _ in range(2):
+        _drive(tr, disp)
+    snap = tr.snapshot(disp.state())
+    _, eng2, fresh = _port_trainer("replan")
+    tr2 = HeteroTrainer(fresh.model, eng2, snap.params,
+                        adamw.AdamWConfig(**OPT), opt_state=snap.opt_state)
+    disp2 = GlobalBatchDispenser(SyntheticLM(arch.vocab_size, SEQ, seed=5))
+    disp2.restore(snap.data_state)
+    assert torch.equal(_drive(tr, disp)["loss"], _drive(tr2, disp2)["loss"])
+    s1, s2 = tr.snapshot(), tr2.snapshot()
+    for a, b in zip(tree_leaves((s1.params, s1.opt_state)),
+                    tree_leaves((s2.params, s2.opt_state))):
+        assert torch.equal(a, b)
