@@ -23,7 +23,12 @@ Phases, each fatal on failure:
      PyTorch ops (loss and gradients): fused vs unfused epilogues, flash
      vs naive attention (gpt3-medium, and GQA qwen2.5-3b with QKV bias
      at a sequence that is not a multiple of 64), the SSD kernels vs the
-     chunked scan (mamba2), and all kernels vs plain ops (hymba);
+     chunked scan (mamba2), and all kernels vs plain ops (hymba, and the
+     MoE models granite-moe and qwen2-moe with its shared expert and
+     QKV bias); with the kernels inside, remat (full and dots) vs none
+     and the chunked CE vs the whole CE; and token-by-token decode vs
+     the kernels' full forward (granite-moe, and hymba with a window
+     the decode's ring buffer wraps);
   6. the naive-attention path: ``repro_torch.launch.train`` at
      gpt3-medium's full width and depth (24 layers, d 1024, vocab
      50257), sequence 512, 4 steps with a node killed before step 2,
@@ -52,6 +57,13 @@ Phases, each fatal on failure:
      join seconds with the bytes copied, snapshot, save, wait and
      restore seconds with the bytes written, step times and the eager
      step's time and memory.
+ 10. the MoE path: ``--arch granite-moe-1b-a400m`` at full width and
+     depth (24 layers, d 1024, 16 heads / 8 kv of 64, 32 experts of
+     d_ff 512 top-8 in dense dispatch, vocab 49155) at sequence 2048,
+     microbatch 1, with ``--attn-impl kernel``, 4 steps through a
+     failure, asserting what phases 6-8 assert and that each fused and
+     flash kernel launched once per layer and microbatch (gemm_bias
+     three times: the fused QKV's forward, dx and dW).
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line
 (each kernel's launches counted on the path that reports it: phase 7
 for the six, phase 8 for the SSD pair; error, times and bound at the
@@ -102,10 +114,24 @@ PATHS = {   # phase -> (label, argv on the card, argv of the CPU rehearsal)
                   "--kill-at", "2", "--device", "cuda"],
         ["--arch", "mamba2-780m", "--steps", "3", "--kill-at", "1",
          "--ssd-impl", "kernel", "--device", "cpu"]),
+    # microbatch 1 and dense dispatch: the reference driver's Model
+    # (src/repro/launch/train.py builds it with the default moe_impl)
+    10: ("moe", ["--arch", "granite-moe-1b-a400m", "--full", "--seq-len",
+                 "2048", "--microbatch", "1", "--attn-impl", "kernel",
+                 "--steps", "4", "--kill-at", "2", "--device", "cuda"],
+         ["--arch", "granite-moe-1b-a400m", "--steps", "3", "--kill-at", "1",
+          "--attn-impl", "kernel", "--device", "cpu"]),
 }
 #: launches of each SSD kernel on the mamba path's card run: one per
 #: layer and microbatch, 48 layers x 16 microbatches x 4 steps
 MAMBA_SSD_LAUNCHES = 48 * 16 * 4
+#: launches on the moe path's card run: each norm and flash kernel once
+#: per layer and microbatch, 24 layers x 16 microbatches x 4 steps;
+#: gemm_bias three times (the fused QKV's forward, dx and dW)
+MOE_LAUNCHES = {k: 24 * 16 * 4 for k in ("add_rmsnorm_fwd", "add_rmsnorm_bwd",
+                                         "flash_fwd", "flash_bwd_dq",
+                                         "flash_bwd_dkdv")}
+MOE_LAUNCHES["gemm_bias"] = 3 * 24 * 16 * 4
 
 FUSED_SOURCE = "src/repro_torch/kernels/csrc/fused.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash.cuh"
@@ -129,23 +155,27 @@ SSD = ("ssd_fwd", "ssd_bwd")
 # x[M,K].W[K,N]; flash (B, S, H, KV, D, window).  A label that names a
 # path (PATHS) is the shape that path gives the kernel: gpt3-medium with
 # microbatch 2, so M = 4096 rows at phase 7's sequence 2048 and 1024 at
-# phase 6's 512; mamba2-780m's SSD with phase 8's microbatch 1.  SSD
+# phase 6's 512; mamba2-780m's SSD with phase 8's microbatch 1;
+# granite-moe with phase 10's microbatch 1 (2048 rows, a fused QKV of
+# 16 + 2 x 8 heads of 64 = 2048 columns, GQA with 2 query heads a kv
+# head).  SSD
 # (b, S, H, P, N, expanded): expanded B and C are one group viewed over
 # the heads with head stride 0, as the Mamba2 block hands them over.
 # Those shapes are checked and timed; the kernels line reports the shape
 # of the path whose launches it counts (reported_path).
 CARD_SHAPES = {
     "add_rmsnorm_fwd": [("flash", (4096, 1024)), ("naive", (1024, 1024)),
-                        ("ragged", (1000, 999))],
+                        ("moe", (2048, 1024)), ("ragged", (1000, 999))],
     "add_rmsnorm_bwd": [("flash", (4096, 1024)), ("naive", (1024, 1024)),
-                        ("ragged", (1000, 999))],
+                        ("moe", (2048, 1024)), ("ragged", (1000, 999))],
     "gemm_bias": [("flash", (4096, 1024, 3072)), ("naive", (1024, 1024, 3072)),
-                  ("ragged", (1000, 999, 3000))],
+                  ("moe", (2048, 1024, 2048)), ("ragged", (1000, 999, 3000))],
     # gqa: qwen2.5-3b's heads (16 / kv 2, head dim 128) at a ragged
     # sequence; window: a sliding window of 256 (hymba's 2048 scaled
     # down) with hymba's group of 5 query heads per kv head; d80: GPT-3
     # 2.7B's 32 heads of 80 at a ragged sequence
     "flash": [("flash", (2, 2048, 16, 16, 64, 0)),
+              ("moe", (1, 2048, 16, 8, 64, 0)),
               ("gqa", (2, 1000, 16, 2, 128, 0)),
               ("window", (2, 1000, 20, 4, 64, 256)),
               ("d80", (1, 1000, 32, 32, 80, 0))],
@@ -157,12 +187,13 @@ CARD_SHAPES = {
 }
 CPU_SHAPES = {
     "add_rmsnorm_fwd": [("flash", (128, 64)), ("naive", (64, 64)),
-                        ("ragged", (33, 47))],
+                        ("moe", (64, 64)), ("ragged", (33, 47))],
     "add_rmsnorm_bwd": [("flash", (128, 64)), ("naive", (64, 64)),
-                        ("ragged", (33, 47))],
+                        ("moe", (64, 64)), ("ragged", (33, 47))],
     "gemm_bias": [("flash", (128, 64, 192)), ("naive", (64, 64, 192)),
-                  ("ragged", (33, 47, 95))],
-    "flash": [("flash", (1, 64, 2, 2, 32, 0)), ("gqa", (1, 40, 4, 2, 32, 0)),
+                  ("moe", (64, 64, 128)), ("ragged", (33, 47, 95))],
+    "flash": [("flash", (1, 64, 2, 2, 32, 0)), ("moe", (1, 64, 4, 2, 32, 0)),
+              ("gqa", (1, 40, 4, 2, 32, 0)),
               ("window", (1, 40, 4, 1, 32, 16)), ("d80", (1, 40, 2, 2, 80, 0))],
     "ssd": [("mamba", (1, 100, 3, 16, 16, True)),
             ("hymba", (1, 70, 3, 16, 8, True)),
@@ -234,14 +265,14 @@ def kernel_table(device):
 
 def sdpa_forward(q, k, v, window):
     """The library yardstick of the flash forward: one causal
-    scaled_dot_product_attention call on [B, H, S, D] views (timed only;
-    the port never calls it)."""
+    scaled_dot_product_attention call on [B, H, S, D] views, grouped
+    query heads where there are fewer kv heads (timed only; the port
+    never calls it)."""
     import torch
-    check(window == 0 and q.shape[2] == k.shape[2],
-          "the SDPA yardstick is timed at the main shape only")
+    check(window == 0, "the SDPA yardstick is timed without a window")
     return torch.nn.functional.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True)
+        is_causal=True, enable_gqa=q.shape[2] != k.shape[2])
 
 
 def make_inputs(name, shape, dtype, device, seed, layout="fwd"):
@@ -676,15 +707,16 @@ def time_kernels(device, table, shapes, iters):
 # ----------------------------------------------------------------------
 # End-to-end agreement on small models, then the three paths
 # ----------------------------------------------------------------------
-def _loss_and_grads(device, arch, seq, attn_impl, fuse, ssd_impl="chunked"):
+def _loss_and_grads(device, arch, seq, **model_kw):
     import torch
     from repro_torch.models import Model
     from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
     g = torch.Generator(device="cpu").manual_seed(3)
     batch = {key: torch.randint(0, arch.vocab_size, (2, seq), generator=g
                                 ).to(device) for key in ("tokens", "labels")}
-    model = Model(arch, dtype=torch.float32, attn_impl=attn_impl, fuse=fuse,
-                  ssd_impl=ssd_impl)
+    batch["mask"] = (torch.rand((2, seq), generator=g) >= 0.3).float().to(
+        device)
+    model = Model(arch, dtype=torch.float32, **model_kw)
     params = model.init(torch.Generator(device=device).manual_seed(0))
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     loss, _ = model.loss(tree_unflatten_like(params, leaves), batch)
@@ -692,31 +724,50 @@ def _loss_and_grads(device, arch, seq, attn_impl, fuse, ssd_impl="chunked"):
 
 
 def check_small_model(device):
-    """Phase 5: the same small models, weights and batches through the
-    kernels and through plain ops.  Loss to 1e-5 relative, gradients to
-    1e-4."""
+    """Phase 5: the same small models, weights and batches (a 0/1 mask
+    over about 30 % of the positions) through the kernels and through
+    plain ops; remat and the chunked CE with the kernels inside against
+    their absence.  Loss to 1e-5 relative, gradients to 1e-4; then
+    decode against the kernels' forward (check_decode)."""
     from repro_torch.configs import get_arch, reduced
-    gpt = reduced(get_arch("gpt3_medium"), layers=2, d_model=128, vocab=512)
-    qwen = reduced(get_arch("qwen2_5_3b"), layers=2, d_model=128, vocab=512)
-    mamba = reduced(get_arch("mamba2_780m"), layers=2, d_model=128, vocab=512)
-    hymba = reduced(get_arch("hymba_1_5b"), layers=2, d_model=128, vocab=512)
-    cases = [  # (label, arch, seq, (attn, fuse[, ssd]) through kernels, plain)
+
+    def small(name):
+        return reduced(get_arch(name), layers=2, d_model=128, vocab=512)
+    gpt, qwen, mamba, hymba, granite, qmoe = (small(n) for n in (
+        "gpt3_medium", "qwen2_5_3b", "mamba2_780m", "hymba_1_5b",
+        "granite_moe_1b_a400m", "qwen2_moe_a2_7b"))
+    kern = dict(attn_impl="kernel", fuse="fused", ssd_impl="kernel")
+    plain = dict(attn_impl="naive", fuse="none", ssd_impl="chunked")
+    cases = [  # (label, arch, seq, Model kwargs through kernels, plain)
         ("gpt3-medium fused vs unfused", gpt, 64,
-         ("naive", "fused"), ("naive", "none")),
+         dict(attn_impl="naive", fuse="fused"),
+         dict(attn_impl="naive", fuse="none")),
         ("gpt3-medium flash vs naive", gpt, 64,
-         ("kernel", "fused"), ("naive", "fused")),
+         dict(attn_impl="kernel", fuse="fused"),
+         dict(attn_impl="naive", fuse="fused")),
         ("qwen2.5-3b (GQA 4/2, QKV bias) S=200 flash vs naive", qwen, 200,
-         ("kernel", "fused"), ("naive", "fused")),
+         dict(attn_impl="kernel", fuse="fused"),
+         dict(attn_impl="naive", fuse="fused")),
         ("mamba2 (16 SSD heads, P 16, N 16) S=200 SSD kernels vs chunked",
-         mamba, 200, ("naive", "fused", "kernel"),
-         ("naive", "fused", "chunked")),
+         mamba, 200, dict(attn_impl="naive", fuse="fused", ssd_impl="kernel"),
+         dict(attn_impl="naive", fuse="fused", ssd_impl="chunked")),
         ("hymba (attention + Mamba heads) S=200 all kernels vs plain ops",
-         hymba, 200, ("kernel", "fused", "kernel"),
-         ("naive", "none", "chunked")),
+         hymba, 200, kern, plain),
+        ("granite-moe (4 experts top-2) S=200 all kernels vs plain ops",
+         granite, 200, kern, plain),
+        ("qwen2-moe (shared expert, QKV bias) S=200 all kernels vs plain "
+         "ops", qmoe, 200, kern, plain),
+        ("granite-moe remat full vs none, kernels in both", granite, 200,
+         dict(kern, remat=True), dict(kern, remat=False)),
+        ("hymba remat dots vs none, kernels in both", hymba, 200,
+         dict(kern, remat=True, remat_policy="dots"),
+         dict(kern, remat=False)),
+        ("granite-moe chunked CE (chunks of 64) vs whole CE, kernels in "
+         "both", granite, 200, dict(kern, loss_chunk=64), kern),
     ]
-    for label, arch, seq, through, plain in cases:
-        lk, gk = _loss_and_grads(device, arch, seq, *through)
-        ln, gn = _loss_and_grads(device, arch, seq, *plain)
+    for label, arch, seq, through, ref_kw in cases:
+        lk, gk = _loss_and_grads(device, arch, seq, **through)
+        ln, gn = _loss_and_grads(device, arch, seq, **ref_kw)
         check(math.isfinite(float(lk)), f"small model {label}: non-finite loss")
         check(abs(float(lk) - float(ln)) <= 1e-5 * abs(float(ln)) + 1e-6,
               f"small model {label}: loss {float(lk)} vs {float(ln)}")
@@ -725,21 +776,64 @@ def check_small_model(device):
               f"small model {label}: gradient max abs diff {worst:.3e}")
         print(f"[model] {label}: loss {float(lk):.6f} vs {float(ln):.6f}, "
               f"gradient max abs diff {worst:.3e}")
+    check_decode(device, granite, hymba)
+
+
+def decode_gap(device, arch, S=40):
+    """Max abs difference between the logits of token-by-token decode
+    (plain products, the KV cache; the Mamba conv and SSM states) and
+    those of the full forward through the kernels, over S positions."""
+    import torch
+    from repro_torch.models import Model
+    model = Model(arch, dtype=torch.float32, attn_impl="kernel",
+                  ssd_impl="kernel")
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    g = torch.Generator(device="cpu").manual_seed(4)
+    tokens = torch.randint(0, arch.vocab_size, (2, S), generator=g).to(device)
+    with torch.no_grad():
+        full, _ = model.forward(params, tokens)
+        cache = model.init_cache(2, S, device=device)
+        steps = []
+        for t in range(S):
+            logits, cache = model.decode_step(params, tokens[:, t:t + 1],
+                                              cache, t)
+            steps.append(logits)
+    return float((torch.cat(steps, 1) - full).abs().max())
+
+
+def check_decode(device, granite, hymba):
+    """Decode against the kernels' forward at every one of 40 positions:
+    granite-moe, and hymba with its window cut to 16, so that the ring
+    buffer wraps twice.  Logits to 1e-5."""
+    import dataclasses
+    for label, arch in (("granite-moe", granite),
+                        ("hymba window 16", dataclasses.replace(
+                            hymba, sliding_window=16))):
+        worst = decode_gap(device, arch)
+        check(worst <= 1e-5, f"decode {label}: logits max abs diff "
+              f"{worst:.3e} against the forward")
+        print(f"[decode] {label}: 40 positions one at a time vs the "
+              f"kernels' forward, logits max abs diff {worst:.3e}")
 
 
 def run_path(device, phase, kernels, exact=None):
-    """Phases 6-8: one training run through a failure, with every launch
-    count set to 0 just before it.  Returns the run's launch counts; on
-    the card every kernel in ``kernels`` must have launched (``exact``
-    times, where given)."""
+    """Phases 6-8 and 10: one training run through a failure, with every
+    launch count set to 0 just before it.  Returns the run's launch
+    counts; on the card every kernel in ``kernels`` must have launched
+    (``exact[name]`` times, where given)."""
+    import gc
     import torch
     from repro_torch.kernels import build
     from repro_torch.launch import train
     label, card_argv, cpu_argv = PATHS[phase]
+    gc.collect()
     if device.type == "cuda":
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
+    t0 = time.perf_counter()
     out = train.main(card_argv if device.type == "cuda" else cpu_argv)
+    phase_s = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     losses = out["losses"]
     check(all(math.isfinite(l) for l in losses), f"non-finite loss {losses}")
@@ -754,9 +848,8 @@ def run_path(device, phase, kernels, exact=None):
     if device.type == "cuda":
         check(all(launches[k] > 0 for k in kernels),
               f"a kernel never launched on the {label} path: {launches}")
-        check(exact is None or all(launches[k] == exact for k in kernels),
-              f"{label} path: {launches}, expected {exact} of each of "
-              f"{kernels}")
+        check(exact is None or all(launches[k] == n for k, n in exact.items()),
+              f"{label} path: {launches}, expected {exact}")
         mem = torch.cuda.max_memory_allocated() / 2**30
     else:
         mem = float("nan")
@@ -764,7 +857,9 @@ def run_path(device, phase, kernels, exact=None):
           f"{[round(s, 4) for s in out['step_seconds']]}")
     print(f"[{label}] recovery {rec['seconds']:.3f}s, builds "
           f"{rec['builds_before']} -> {out['builds_after_step'][-1]}, "
-          f"max_memory_allocated {mem:.2f} GiB, launches {launches}")
+          f"max_memory_allocated {mem:.2f} GiB, phase {phase_s:.1f}s "
+          f"(plan, build, warm, {len(losses)} steps), losses "
+          f"{[round(l, 4) for l in losses]}, launches {launches}")
     return launches
 
 
@@ -1004,9 +1099,11 @@ def run(device="cuda"):
     check_small_model(device)
     run_path(device, 6, FUSED)
     launches = run_path(device, 7, FUSED + FLASH)
-    mamba = run_path(device, 8, SSD, exact=MAMBA_SSD_LAUNCHES)
+    mamba = run_path(device, 8, SSD,
+                     exact={k: MAMBA_SSD_LAUNCHES for k in SSD})
     launches.update({k: mamba[k] for k in SSD})
     run_lifecycle(device)
+    run_path(device, 10, FUSED + FLASH, exact=MOE_LAUNCHES)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errors[name],

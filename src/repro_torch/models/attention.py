@@ -1,12 +1,12 @@
-"""GQA attention, training path: ``naive`` (materialised [S, S] scores),
-``blocked`` (online softmax over KV blocks) and ``kernel`` (flash
-attention through ``ops.flash_attention``: the CUDA kernels on a CUDA
-tensor, their plain versions on a CPU tensor), as
-``repro/models/attention.py``.
+"""GQA attention, as ``repro/models/attention.py``: the training and
+prefill path — ``naive`` (materialised [S, S] scores), ``blocked``
+(online softmax over KV blocks) and ``kernel`` (flash attention through
+``ops.flash_attention``: the CUDA kernels on a CUDA tensor, their plain
+versions on a CPU tensor) — and one-token decode against a KV cache.
 
 ``fused=True`` routes the QKV projection through ``ops.fused_qkv`` —
 one GEMM against the concatenated weight with the bias in its epilogue —
-for S > 1.  The decode path comes with the serving slice.
+for S > 1; decode projects with three plain products.
 """
 from __future__ import annotations
 
@@ -152,3 +152,48 @@ def attention(params, arch: ArchConfig, x: torch.Tensor, *,
     else:
         o = _sdpa_naive(q, k, v, causal=True, window=window)
     return o.reshape(B, S, -1) @ params["wo"].to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# Decode path (KV cache)
+# ----------------------------------------------------------------------
+def init_kv_cache(arch: ArchConfig, batch: int, max_len: int, dtype,
+                  device="cpu"):
+    """[batch, L, KV, hd] k and v; with a sliding window L is the window
+    (a ring buffer), else ``max_len``."""
+    KV, hd = arch.num_kv_heads, arch.head_dim
+    L = min(max_len, arch.sliding_window) if arch.sliding_window else max_len
+    return {"k": torch.zeros((batch, L, KV, hd), dtype=dtype, device=device),
+            "v": torch.zeros((batch, L, KV, hd), dtype=dtype, device=device)}
+
+
+def decode_attention(params, arch: ArchConfig, x: torch.Tensor, cache: dict,
+                     pos: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    """One-token decode.  x: [B, 1, d]; pos: a scalar position, or [B]
+    per-row positions (each row writes its own cache slot and masks its
+    own length).  Returns (out [B, 1, d], the new cache); the cache
+    passed in is not changed."""
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, device=x.device)
+    vec = pos.dim() == 1
+    positions = pos[:, None] if vec else pos.expand(B, 1)
+    q, k, v = _project_qkv(params, arch, x, positions)
+    L = cache["k"].shape[1]
+    slot = pos % L if arch.sliding_window else pos
+    rows = torch.arange(B, device=x.device)
+    ck, cv = cache["k"].clone(), cache["v"].clone()
+    ck[rows, slot] = k[:, 0]
+    cv[rows, slot] = v[:, 0]
+    KV, hd, H = arch.num_kv_heads, arch.head_dim, arch.num_heads
+    qg = q.reshape(B, KV, H // KV, hd)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, ck).float() / math.sqrt(hd)
+    idx = torch.arange(L, device=x.device)
+    p = pos[:, None] if vec else pos
+    s = slot[:, None] if vec else slot
+    # a filled ring buffer holds the window's positions in every slot
+    valid = ((idx <= s) | (p >= L)) if arch.sliding_window else idx <= p
+    valid = valid.reshape(-1, 1, 1, L)
+    scores = scores.masked_fill(~valid, float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    o = torch.einsum("bkgs,bskd->bkgd", probs, cv).reshape(B, 1, H * hd)
+    return o @ params["wo"].to(x.dtype), {"k": ck, "v": cv}

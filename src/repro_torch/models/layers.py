@@ -1,4 +1,5 @@
-"""Shared layers: RMSNorm, RoPE, MLPs, embeddings, cross-entropy.
+"""Shared layers: RMSNorm, RoPE, MLPs, embeddings, cross-entropy (whole
+and chunked).
 
 Plain functions on tensors; parameters are plain dicts with the JAX
 package's keys (``repro/models/layers.py``), so weights map 1:1.
@@ -9,6 +10,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def rms_norm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6
@@ -108,3 +110,34 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         mask = mask.float()
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+def fused_cross_entropy(x: torch.Tensor, table: torch.Tensor,
+                        labels: torch.Tensor, chunk: int,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token CE from the hidden states without the [B, S, V] logits:
+    ``chunk`` positions at a time, each chunk's [B, c, V] logits built
+    for its sums and built again in backward (a checkpoint per chunk).
+    x: [B, S, d] after the final norm; labels: [B, S] pre-shifted; the
+    final position is excluded, as in the whole CE."""
+    B, S, d = x.shape
+    xs, ls = x[:, :-1], labels[:, :-1].long()
+    ms = (mask[:, :-1].float() if mask is not None
+          else torch.ones(ls.shape, dtype=torch.float32, device=x.device))
+    n = S - 1
+    c = min(chunk, n)
+    w = table.float()
+
+    def body(xc, lc, mc, w):
+        logits = xc.float() @ w.t()
+        gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+        nll = (torch.logsumexp(logits, -1) - gold) * mc
+        return nll.sum(), mc.sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, n, c):
+        t, k = checkpoint(body, xs[:, i:i + c], ls[:, i:i + c],
+                          ms[:, i:i + c], w, use_reentrant=False)
+        tot, cnt = tot + t, cnt + k
+    return tot / torch.clamp(cnt, min=1.0)

@@ -1,0 +1,161 @@
+"""Mixture-of-Experts MLP: top-k routed experts + optional shared expert,
+as ``repro/models/moe.py``.
+
+Three dispatch formulations with the same routing and the same
+switch-transformer load-balance aux loss:
+
+  * ``moe_mlp`` — dense dispatch: every expert computes on every token
+    and a [b, S, E] routing weight matrix selects the top-k
+    contributions (exact, dropless; FLOPs scale with E);
+  * ``moe_mlp_capacity`` — GShard/Switch capacity dispatch over token
+    groups, each expert taking at most C tokens a group (overflow
+    dropped); ``scan_groups=False`` folds the groups into the batch;
+  * ``moe_mlp_grouped`` — gathers the k selected experts' weights per
+    token (FLOPs scale with k).
+
+The products are ``torch.einsum`` over the stacked [E, ...] expert
+weights, as the JAX package computes them outside any kernel.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import init_mlp, mlp
+
+
+def init_moe(gen: torch.Generator, arch: ArchConfig,
+             dtype=torch.float32) -> Dict:
+    """Same shapes and scales as ``repro/models/moe.py::init_moe``, drawn
+    from ``gen`` on its device; the shared experts are one merged SwiGLU
+    MLP of width ``shared_expert_d_ff``."""
+    m = arch.moe
+    d, ff, E, dev = arch.d_model, arch.d_ff, m.num_experts, gen.device
+    s_in, s_out = d ** -0.5, ff ** -0.5
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+    p = {"router": normal((d, E), s_in),
+         "gate": normal((E, d, ff), s_in).to(dtype),
+         "up": normal((E, d, ff), s_in).to(dtype),
+         "down": normal((E, ff, d), s_out).to(dtype)}
+    if m.shared_expert_d_ff:
+        p["shared"] = init_mlp(gen, d, m.shared_expert_d_ff, "swiglu", dtype)
+    return p
+
+
+def _route(router: torch.Tensor, x: torch.Tensor, top_k: int):
+    """fp32 router softmax and its renormalised top-k: (probs, top_w,
+    top_i).  The gradient reaches the router through probs and top_w."""
+    probs = torch.softmax(x.float() @ router, dim=-1)
+    top_w, top_i = torch.topk(probs, top_k, dim=-1)
+    return probs, top_w / top_w.sum(-1, keepdim=True), top_i
+
+
+def _load_balance(probs: torch.Tensor, chosen: torch.Tensor, m) -> torch.Tensor:
+    """E * sum_e (fraction of top-k slots routed to e) * (mean prob of
+    e); ``chosen`` is the 0/1 [..., E] count of each token's picks."""
+    lead = tuple(range(probs.dim() - 1))
+    frac = chosen.mean(lead) / m.top_k
+    return m.num_experts * torch.sum(frac * probs.mean(lead))
+
+
+def _shared(params, x, y):
+    return y + mlp(params["shared"], x, "swiglu") if "shared" in params else y
+
+
+def moe_mlp(params, arch: ArchConfig, x: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense dispatch.  x: [b, S, d] -> (y, aux loss)."""
+    m = arch.moe
+    probs, top_w, top_i = _route(params["router"], x, m.top_k)
+    # the scatter's gradient reaches top_w only
+    route = torch.zeros_like(probs).scatter(-1, top_i, top_w).to(x.dtype)
+    h = F.silu(torch.einsum("bsd,edf->bsef", x, params["gate"].to(x.dtype)))
+    h = h * torch.einsum("bsd,edf->bsef", x, params["up"].to(x.dtype))
+    y = torch.einsum("bsef,efd->bsed", h, params["down"].to(x.dtype))
+    y = torch.einsum("bsed,bse->bsd", y, route)
+    chosen = torch.zeros_like(probs).scatter(-1, top_i, 1.0).detach()
+    return _shared(params, x, y), _load_balance(probs, chosen, m)
+
+
+def moe_mlp_capacity(params, arch: ArchConfig, x: torch.Tensor, *,
+                     capacity_factor: float = 1.25, group_size: int = 1024,
+                     scan_groups: bool = True
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity dispatch over groups of ``group_size`` positions per
+    batch row: an expert takes at most C = ceil(top_k * G / E *
+    capacity_factor) tokens a group, in token order; the rest of its
+    picks are dropped.  ``scan_groups`` runs the groups one after the
+    other and averages their aux losses; ``False`` runs them as one
+    batch, with one aux loss over all of them (the reference's
+    vectorized form)."""
+    m = arch.moe
+    b, S, d = x.shape
+    gs = min(group_size, S)
+    pad = (-S) % gs
+    x_in = F.pad(x, (0, 0, 0, pad)) if pad else x
+    ng = (S + pad) // gs
+    C = max(1, int(math.ceil(m.top_k * gs / m.num_experts * capacity_factor)))
+    wg, wu, wd = (params[k].to(x.dtype) for k in ("gate", "up", "down"))
+    slots = torch.arange(C, device=x.device, dtype=torch.float32)
+
+    def group(xg):                                  # [B, gs, d]
+        probs, top_w, top_i = _route(params["router"], xg, m.top_k)
+        onehot = F.one_hot(top_i, m.num_experts).float()     # [B, gs, k, E]
+        flat = onehot.reshape(-1, gs * m.top_k, m.num_experts)
+        # each pick's place in its expert's queue; -1 where not picked
+        pos = (torch.cumsum(flat, 1) * flat - 1.0).reshape(
+            -1, gs, m.top_k, m.num_experts)
+        # one-hot over C of a place outside [0, C) is all zeros (a drop)
+        pos_c = (pos[..., None] == slots).to(x.dtype)        # [B,gs,k,E,C]
+        dispatch = pos_c.sum(2)
+        combine = torch.einsum("bgkec,bgk->bgec", pos_c, top_w.to(x.dtype))
+        xe = torch.einsum("bgd,bgec->becd", xg, dispatch)    # [B, E, C, d]
+        h = F.silu(torch.einsum("becd,edf->becf", xe, wg))
+        h = h * torch.einsum("becd,edf->becf", xe, wu)
+        ye = torch.einsum("becf,efd->becd", h, wd)
+        yg = torch.einsum("becd,bgec->bgd", ye, combine)
+        return yg, _load_balance(probs, onehot.sum(2), m)
+
+    if scan_groups:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        ys = []
+        for i in range(ng):
+            yg, aux_g = group(x_in[:, i * gs:(i + 1) * gs])
+            aux = aux + aux_g
+            ys.append(yg)
+        y = torch.cat(ys, 1)[:, :S]
+        aux = aux / ng
+    else:
+        y, aux = group(x_in.reshape(b * ng, gs, d))
+        y = y.reshape(b, S + pad, d)[:, :S]
+    return _shared(params, x, y), aux
+
+
+def moe_mlp_grouped(params, arch: ArchConfig, x: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k gather: each token's k experts' weights gathered by a
+    one-hot product, so the FLOPs scale with k, not E."""
+    m = arch.moe
+    probs, top_w, top_i = _route(params["router"], x, m.top_k)
+    onehot = F.one_hot(top_i, m.num_experts).to(x.dtype)   # [b, S, k, E]
+    wg = torch.einsum("bske,edf->bskdf", onehot, params["gate"].to(x.dtype))
+    wu = torch.einsum("bske,edf->bskdf", onehot, params["up"].to(x.dtype))
+    wd = torch.einsum("bske,efd->bskfd", onehot, params["down"].to(x.dtype))
+    h = F.silu(torch.einsum("bsd,bskdf->bskf", x, wg))
+    h = h * torch.einsum("bsd,bskdf->bskf", x, wu)
+    y = torch.einsum("bskf,bskfd->bskd", h, wd)
+    y = torch.einsum("bskd,bsk->bsd", y, top_w.to(x.dtype))
+    chosen = F.one_hot(top_i, m.num_experts).float().sum(2)
+    return _shared(params, x, y), _load_balance(probs, chosen, m)
+
+
+IMPLS = {"dense": moe_mlp, "grouped": moe_mlp_grouped,
+         "capacity": moe_mlp_capacity,
+         "capacity_vec": lambda p, a, x: moe_mlp_capacity(p, a, x,
+                                                          scan_groups=False)}

@@ -8,8 +8,10 @@ Three numerically equivalent SSD evaluators for ``mamba``:
   * ``"kernel"``    — ``kernels/ops.ssd``: the CUDA kernels on a CUDA
     tensor, their plain versions on a CPU tensor.
 
-State layout is [batch, heads, head_dim (P), state (N)] throughout.  The
-decode step and its caches come with the serving slice.
+``ssd_step``, ``conv_step`` and ``mamba_decode`` are the one-token
+decode against carried conv and SSM states (``init_mamba_cache``).
+
+State layout is [batch, heads, head_dim (P), state (N)] throughout.
 """
 from __future__ import annotations
 
@@ -95,6 +97,15 @@ def ssd_chunked(x, dt, A, B, C, chunk: int,
     return torch.cat(ys, 1)[:, :S], state
 
 
+def ssd_step(xt, dtt, A, Bt, Ct, state):
+    """One decode step. xt: [b,H,P], dtt: [b,H], Bt/Ct: [b,H,N]; state
+    [b,H,P,N] fp32.  Returns (yt [b,H,P], the new state)."""
+    upd = torch.einsum("bh,bhp,bhn->bhpn", dtt.float(), xt.float(),
+                       Bt.float())
+    state = state * torch.exp(dtt * A)[..., None, None] + upd
+    return torch.einsum("bhpn,bhn->bhp", state.to(xt.dtype), Ct), state
+
+
 # ----------------------------------------------------------------------
 # Causal depthwise conv1d
 # ----------------------------------------------------------------------
@@ -108,6 +119,15 @@ def causal_conv1d(x, weight, bias):
     out = F.conv1d(xp, weight.t()[:, None, :].to(x.dtype),
                    groups=x.shape[-1]).transpose(1, 2).contiguous()
     return F.silu(out + bias.to(x.dtype))
+
+
+def conv_step(xt, conv_state, weight, bias):
+    """xt: [b,dim]; conv_state: [b,width-1,dim] (the previous inputs).
+    Returns (out [b,dim], the new conv state)."""
+    window = torch.cat([conv_state, xt[:, None, :]], dim=1)
+    out = torch.einsum("bwd,wd->bd", window.float(),
+                       weight.float()).to(xt.dtype)
+    return F.silu(out + bias.to(xt.dtype)), window[:, 1:]
 
 
 # ----------------------------------------------------------------------
@@ -154,11 +174,11 @@ def _split_proj(arch: ArchConfig, proj):
 
 
 def _expand_groups(t, n_heads: int, n_groups: int):
-    """[b, S, G, N] -> [b, S, H, N] by repeating each group: a stride-0
+    """[..., G, N] -> [..., H, N] by repeating each group: a stride-0
     view when n_groups = 1 (a copy otherwise)."""
-    b, S, G, N = t.shape
+    *lead, G, N = t.shape
     reps = n_heads // n_groups
-    return t.unsqueeze(3).expand(b, S, G, reps, N).reshape(b, S, n_heads, N)
+    return t.unsqueeze(-2).expand(*lead, G, reps, N).reshape(*lead, n_heads, N)
 
 
 def mamba(params, arch: ArchConfig, x: torch.Tensor, *,
@@ -191,3 +211,37 @@ def mamba(params, arch: ArchConfig, x: torch.Tensor, *,
     y = rms_norm(params["norm_w"].to(x.dtype), y * F.silu(z),
                  arch.rms_norm_eps)
     return y @ params["out_proj"].to(x.dtype)
+
+
+def init_mamba_cache(arch: ArchConfig, batch: int, dtype, device="cpu"):
+    c, d_inner, n_heads, conv_dim = _dims(arch)
+    return {"conv": torch.zeros((batch, c.conv_width - 1, conv_dim),
+                                dtype=dtype, device=device),
+            "ssm": torch.zeros((batch, n_heads, c.head_dim, c.state_size),
+                               dtype=torch.float32, device=device)}
+
+
+def mamba_decode(params, arch: ArchConfig, x: torch.Tensor, cache: Dict):
+    """One-token decode. x: [b,1,d_model] -> (out [b,1,d_model], the new
+    cache)."""
+    c, d_inner, n_heads, _ = _dims(arch)
+    b = x.shape[0]
+    proj = x[:, 0] @ params["in_proj"].to(x.dtype)
+    z, xbc, dt_raw = _split_proj(arch, proj)
+    xbc, conv_state = conv_step(xbc, cache["conv"], params["conv_w"],
+                                params["conv_b"])
+    gn = c.n_groups * c.state_size
+    xin, B, C = torch.split(xbc, [d_inner, gn, gn], dim=-1)
+    xh = xin.reshape(b, n_heads, c.head_dim)
+    Bh = _expand_groups(B.reshape(b, c.n_groups, c.state_size), n_heads,
+                        c.n_groups)
+    Ch = _expand_groups(C.reshape(b, c.n_groups, c.state_size), n_heads,
+                        c.n_groups)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"].float())
+    A = -torch.exp(params["A_log"].float())
+    y, ssm_state = ssd_step(xh, dt, A, Bh, Ch, cache["ssm"])
+    y = y + params["D"].to(y.dtype)[None, :, None] * xh
+    y = rms_norm(params["norm_w"].to(x.dtype), y.reshape(b, d_inner)
+                 * F.silu(z), arch.rms_norm_eps)
+    out = (y @ params["out_proj"].to(x.dtype))[:, None, :]
+    return out, {"conv": conv_state, "ssm": ssm_state}

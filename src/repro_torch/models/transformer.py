@@ -1,4 +1,5 @@
-"""Decoder LM, dense family, with the layer-granular API of
+"""Decoder LM covering every assigned family (dense, MoE, SSM, hybrid,
+vision and audio frontends) with the layer-granular API of
 ``repro/models/transformer.py``.
 
 Parameters are plain dicts with blocks STACKED on a leading [L, ...]
@@ -12,26 +13,47 @@ and the residual-add + RMSNorm block epilogue through
 to) routes attention through ``ops.flash_attention``, and
 ``ssd_impl="kernel"`` (what ``"auto"`` resolves to) the Mamba2 SSD scan
 through ``ops.ssd``: the CUDA kernels on a CUDA tensor, the plain
-versions on a CPU tensor, so none needs a probe.  The dense, SSM
-(mamba2) and hybrid (hymba: attention and Mamba heads in parallel)
-families are ported; the MoE, multimodal and decode paths come with
-later slices and raise until then.
+versions on a CPU tensor, so none needs a probe.  ``moe_impl`` picks the
+MoE dispatch (``models/moe.py``).
+
+The vision and audio frontends are stubs, as in the JAX package:
+``frontend_embeds`` [b, F, d] are concatenated ahead of the token
+embeddings and the loss drops their F positions.  ``remat`` recomputes
+each block's activations in backward (``remat_policy="dots"`` keeps the
+matrix products' outputs); ``loss_chunk > 0`` computes the loss with
+the chunked CE, never building the [b, S, V] logits.  ``init_cache``,
+``decode_step`` and ``prefill`` are the serving path's model half.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (cross_entropy, embed, init_embedding,
+from repro_torch.models.layers import (cross_entropy, embed,
+                                       fused_cross_entropy, init_embedding,
                                        init_mlp, init_rms_norm, mlp, rms_norm,
                                        unembed)
+from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_leaves, tree_map
+
+#: the products whose outputs ``remat_policy="dots"`` keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 @dataclasses.dataclass
@@ -41,15 +63,12 @@ class Model:
     attn_impl: str = "blocked"          # blocked | naive | kernel | auto
     ssd_impl: str = "chunked"           # chunked | scan | kernel | auto
     fuse: str = "auto"                  # auto | fused | none
+    moe_impl: str = "dense"             # dense | grouped | capacity | capacity_vec
+    remat: bool = True                  # recompute blocks in backward
+    remat_policy: str = "full"          # full | dots
+    loss_chunk: int = 0                 # > 0: the chunked CE
 
     def __post_init__(self):
-        a = self.arch
-        if a.moe is not None:
-            raise NotImplementedError("MoE blocks are ported in the MoE "
-                                      "slice (ROADMAP queue 1)")
-        if a.frontend is not None:
-            raise NotImplementedError("multimodal frontends are not ported "
-                                      "yet (ROADMAP queue 1)")
         if self.attn_impl == "auto":
             self.attn_impl = "kernel"
         if self.attn_impl not in ("naive", "blocked", "kernel"):
@@ -62,6 +81,10 @@ class Model:
             self.fuse = "fused"
         if self.fuse not in ("fused", "none"):
             raise ValueError(f"unknown fuse {self.fuse!r}")
+        if self.moe_impl not in moe_lib.IMPLS:
+            raise ValueError(f"unknown moe_impl {self.moe_impl!r}")
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
 
     # ------------------------------------------------------------------
     # Init
@@ -89,7 +112,9 @@ class Model:
         if a.hybrid_parallel_heads:
             p["mamba"] = ssm_lib.init_mamba(gen, a, pd)
         p["ln2"] = init_rms_norm(a.d_model, pd, gen.device)
-        if a.d_ff:
+        if a.moe is not None:
+            p["moe"] = moe_lib.init_moe(gen, a, pd)
+        elif a.d_ff:
             p["mlp"] = init_mlp(gen, a.d_model, a.d_ff, a.mlp_variant, pd)
         return p
 
@@ -116,6 +141,15 @@ class Model:
         else:
             x = x + branch
             h = self._norm(bp["ln2"], x)
+        return self._ffn(bp, x, h, aux)
+
+    def _ffn(self, bp: Dict, x, h, aux):
+        """The block's MLP or MoE on h, added to the residual x; the MoE's
+        load-balance loss is added to aux."""
+        a = self.arch
+        if a.moe is not None:
+            y, a_loss = moe_lib.IMPLS[self.moe_impl](bp["moe"], a, h)
+            return x + y, aux + a_loss
         if a.d_ff:
             x = x + mlp(bp["mlp"], h, a.mlp_variant)
         return x, aux
@@ -125,43 +159,122 @@ class Model:
 
     def run_blocks(self, blocks: Dict, x: torch.Tensor, aux: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Apply a stacked slice of blocks (full model or one stage)."""
+        """Apply a stacked slice of blocks (the full model), each under a
+        checkpoint when ``remat``."""
+        kw = {}
+        if self.remat_policy == "dots":
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _save_dots)
         n = tree_leaves(blocks)[0].shape[0]
         for i in range(n):
-            x, aux = self.block(tree_map(lambda t: t[i], blocks), x, aux)
+            bp = tree_map(lambda t: t[i], blocks)
+            if self.remat:
+                x, aux = checkpoint(self.block, bp, x, aux,
+                                    use_reentrant=False, **kw)
+            else:
+                x, aux = self.block(bp, x, aux)
         return x, aux
 
     # ------------------------------------------------------------------
     # Full forward / loss
     # ------------------------------------------------------------------
-    def hidden_states(self, params: Dict, tokens: torch.Tensor
+    def hidden_states(self, params: Dict, tokens: torch.Tensor,
+                      frontend_embeds: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Forward up to (and including) the final norm; no head."""
         x = embed(params["embed"], tokens, self.dtype)
+        if frontend_embeds is not None:
+            x = torch.cat([frontend_embeds.to(self.dtype), x], dim=1)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         x, aux = self.run_blocks(params["blocks"], x, aux)
         return self._norm(params["final_norm"], x), aux
 
-    def forward(self, params: Dict, tokens: torch.Tensor
+    def forward(self, params: Dict, tokens: torch.Tensor,
+                frontend_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens: [b, S] -> logits [b, S, V], aux loss."""
-        x, aux = self.hidden_states(params, tokens)
+        """tokens: [b, S] -> logits [b, F + S, V], aux loss."""
+        x, aux = self.hidden_states(params, tokens, frontend_embeds)
         head = params.get("head", params["embed"])
         return unembed(head, x), aux
 
     def loss(self, params: Dict, batch: Dict) -> Tuple[torch.Tensor, Dict]:
-        # labels are PRE-SHIFTED next-token targets; the final position
-        # is excluded from the mean (the reference's S-1 reduction); a 0/1
-        # ``mask`` excludes positions from it
-        labels = batch["labels"]
-        logits, aux = self.forward(params, batch["tokens"])
-        mask = batch.get("mask")
-        nll = cross_entropy(logits[:, :-1], labels[:, :-1],
-                            mask[:, :-1] if mask is not None else None)
-        return nll, {"nll": nll, "aux": aux}
+        """nll + router_aux_loss_coef * aux, with {"nll", "aux"}.  Labels
+        are PRE-SHIFTED next-token targets; the final position is
+        excluded from the mean (the reference's S-1 reduction), and so
+        are the frontend positions; a 0/1 ``mask`` excludes more."""
+        labels, mask = batch["labels"], batch.get("mask")
+        coef = (self.arch.moe.router_aux_loss_coef
+                if self.arch.moe is not None else 0.0)
+        fe = batch.get("frontend_embeds")
+        if self.loss_chunk:
+            x, aux = self.hidden_states(params, batch["tokens"], fe)
+            x = x[:, x.shape[1] - labels.shape[1]:]
+            head = params.get("head", params["embed"])
+            nll = fused_cross_entropy(x, head["table"], labels,
+                                      self.loss_chunk, mask)
+        else:
+            logits, aux = self.forward(params, batch["tokens"], fe)
+            logits = logits[:, logits.shape[1] - labels.shape[1]:]
+            nll = cross_entropy(logits[:, :-1], labels[:, :-1],
+                                mask[:, :-1] if mask is not None else None)
+        return nll + coef * aux, {"nll": nll, "aux": aux}
 
-    def decode_step(self, *a, **k):
-        raise NotImplementedError("the decode path is ported in the serving "
-                                  "slice (ROADMAP queue 1)")
+    # ------------------------------------------------------------------
+    # Serving: prefill + one-token decode against per-layer caches
+    # ------------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int, device="cuda") -> Dict:
+        """Per-layer caches stacked on a leading [L] axis: the attention
+        KV cache (a ring buffer of the window's length with a sliding
+        window) and the Mamba conv and SSM states."""
+        a, dev = self.arch, resolve_device(device)
+        c: Dict = {}
+        if a.family == "ssm" or a.hybrid_parallel_heads:
+            c["mamba"] = ssm_lib.init_mamba_cache(a, batch, self.dtype, dev)
+        if a.num_heads:
+            c["attn"] = attn_lib.init_kv_cache(a, batch, max_len, self.dtype,
+                                               dev)
+        return tree_map(lambda t: t.expand(a.num_layers, *t.shape).clone(), c)
 
-    prefill = init_cache = decode_step
+    def decode_block(self, bp: Dict, cache: Dict, x: torch.Tensor,
+                     pos: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+        a = self.arch
+        h = self._norm(bp["ln1"], x)
+        new_cache: Dict = {}
+        if a.family == "ssm":
+            y, new_cache["mamba"] = ssm_lib.mamba_decode(bp["mamba"], a, h,
+                                                         cache["mamba"])
+            return x + y, new_cache
+        y, new_cache["attn"] = attn_lib.decode_attention(
+            bp["attn"], a, h, cache["attn"], pos)
+        if a.hybrid_parallel_heads:
+            ym, new_cache["mamba"] = ssm_lib.mamba_decode(bp["mamba"], a, h,
+                                                          cache["mamba"])
+            y = 0.5 * (y + ym)
+        x = x + y
+        x, _ = self._ffn(bp, x, self._norm(bp["ln2"], x), 0.0)
+        return x, new_cache
+
+    def decode_step(self, params: Dict, token: torch.Tensor, cache: Dict,
+                    pos) -> Tuple[torch.Tensor, Dict]:
+        """token: [b, 1]; pos: the scalar current position, or [b] per-row
+        positions.  Returns (logits [b, 1, V], the new stacked cache)."""
+        x = embed(params["embed"], token, self.dtype)
+        pos = torch.as_tensor(pos, device=x.device)
+        caches = []
+        for i in range(self.arch.num_layers):
+            x, c = self.decode_block(tree_map(lambda t: t[i], params["blocks"]),
+                                     tree_map(lambda t: t[i], cache), x, pos)
+            caches.append(c)
+        x = self._norm(params["final_norm"], x)
+        head = params.get("head", params["embed"])
+        return (unembed(head, x),
+                tree_map(lambda *xs: torch.stack(xs), *caches))
+
+    def prefill(self, params: Dict, tokens: torch.Tensor,
+                frontend_embeds: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """Last-position logits [b, 1, V] only: the hidden states are
+        sliced before the head, so the [b, S, V] logits are never built."""
+        x, _ = self.hidden_states(params, tokens, frontend_embeds)
+        head = params.get("head", params["embed"])
+        return unembed(head, x[:, -1:])

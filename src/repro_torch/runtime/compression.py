@@ -11,6 +11,10 @@ into ONE fp32 buffer before encoding, so the wire format is
     (4x smaller), so the encoded size is exactly
     ``core.sync.flat_wire_bytes``.
 
+The tree codecs ``compress`` / ``decompress`` encode a tree leaf by leaf
+(int8: one scale per leaf) for unbucketed use; ``wire_bytes`` counts
+their bytes and ``encoded_nbytes`` what an encoding really holds.
+
 Lossy codecs run with error feedback: the residual (what the codec lost)
 is carried into the next step's contribution, keyed per (bucket
 signature, replica) and dropped on reconfiguration.
@@ -22,6 +26,43 @@ from typing import Any, Dict, Hashable, Iterable, Optional
 import torch
 
 from repro_torch.core.sync import CODEC_WIRE, flat_wire_bytes  # noqa: F401 (re-export)
+from repro_torch.utils.tree import tree_leaves, tree_map
+
+
+def _is_int8(x: Any) -> bool:
+    return isinstance(x, dict) and "q" in x
+
+
+def _int8_leaves(enc: Any) -> list:
+    """The {"q", "scale"} encodings of an int8 tree, in leaf order."""
+    if _is_int8(enc):
+        return [enc]
+    if isinstance(enc, dict):
+        return [d for k in sorted(enc) for d in _int8_leaves(enc[k])]
+    if isinstance(enc, (list, tuple)):
+        return [d for e in enc for d in _int8_leaves(e)]
+    return []
+
+
+def compress(tree: Any, codec: str) -> Any:
+    """Encode every leaf of ``tree`` (int8: one scale per leaf)."""
+    if codec not in ("none", "bf16", "int8"):
+        raise ValueError(f"unknown codec {codec!r}")
+    return tree if codec == "none" else tree_map(
+        lambda g: encode_flat(g, codec), tree)
+
+
+def decompress(tree: Any, codec: str) -> Any:
+    """Decode what ``compress`` gave, back to fp32 leaves."""
+    if isinstance(tree, dict) and not _is_int8(tree):
+        return {k: decompress(tree[k], codec) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(decompress(t, codec) for t in tree)
+    return decode_flat(tree, codec)
+
+
+def roundtrip(tree: Any, codec: str) -> Any:
+    return decompress(compress(tree, codec), codec)
 
 
 def encode_flat(flat: torch.Tensor, codec: str) -> Any:
@@ -44,6 +85,27 @@ def decode_flat(enc: Any, codec: str) -> torch.Tensor:
     if codec == "int8":
         return enc["q"].float() * enc["scale"]
     raise ValueError(f"unknown codec {codec!r}")
+
+
+def roundtrip_flat(flat: torch.Tensor, codec: str) -> torch.Tensor:
+    return decode_flat(encode_flat(flat, codec), codec)
+
+
+def encoded_nbytes(enc: Any, codec: str) -> int:
+    """Bytes an encoded bucket or tree really holds (int8: each leaf's
+    int8 values and its fp32 scale)."""
+    if codec == "int8":
+        return sum(d["q"].numel() * d["q"].element_size()
+                   + d["scale"].element_size() for d in _int8_leaves(enc))
+    return sum(t.numel() * t.element_size() for t in tree_leaves(enc))
+
+
+def wire_bytes(tree: Any, codec: str) -> int:
+    """Bytes on the wire for a TREE-shaped payload (one scale per leaf
+    under int8); a flattened bucket counts ``flat_wire_bytes``."""
+    leaves = tree_leaves(tree)
+    n = sum(t.numel() for t in leaves)
+    return {"none": 4 * n, "bf16": 2 * n, "int8": n + 4 * len(leaves)}[codec]
 
 
 class ErrorFeedback:

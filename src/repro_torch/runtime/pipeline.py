@@ -84,21 +84,30 @@ def zeros_like_tree(tree):
 # ----------------------------------------------------------------------
 def make_stage_fn(model: Model, kinds: Sequence[str]) -> Callable:
     """Stage function over its layer list:
-    fn(layer_params, carry, labels) -> carry' | (loss, nll),
-    carry = (x, aux) with x = tokens for the first stage."""
-    def fn(layer_params: List[Dict], carry, labels):
+    fn(layer_params, carry, labels, fe) -> carry' | (loss, nll),
+    carry = (x, aux) with x = tokens for the first stage; ``fe``, the
+    microbatch's frontend embeddings or None, goes ahead of the first
+    stage's token embeddings.  The loss is nll + router_aux_loss_coef *
+    aux (the coefficient is 0 outside the MoE family)."""
+    arch = model.arch
+    coef = arch.moe.router_aux_loss_coef if arch.moe is not None else 0.0
+
+    def fn(layer_params: List[Dict], carry, labels, fe=None):
         x, aux = carry
         for kind, lp in zip(kinds, layer_params):
             if kind == "embed":
                 x = embed(lp["embed"], x, model.dtype)
+                if fe is not None:
+                    x = torch.cat([fe.to(model.dtype), x], dim=1)
             elif kind == "block":
                 x, aux = model.block(lp, x, aux)
             else:  # head
                 x = model._norm(lp["final_norm"], x)
                 logits = unembed(lp["head"], x)
+                logits = logits[:, logits.shape[1] - labels.shape[1]:]
                 # pre-shifted labels; the final position is excluded
                 nll = cross_entropy(logits[:, :-1], labels[:, :-1])
-                return nll, nll
+                return nll + coef * aux, nll
         return x, aux
     return fn
 
@@ -211,25 +220,35 @@ class HeteroTrainer(Executor):
     # ------------------------------------------------------------------
     # Program cache plumbing
     # ------------------------------------------------------------------
-    def _batch_spec(self, M: int) -> Tuple:
-        """Shape and dtype of the stacked tokens (and labels)."""
+    def _batch_spec(self, M: int, fe: Optional[torch.Tensor] = None) -> Tuple:
+        """Shape and dtype of the stacked tokens (and labels), and of the
+        stacked frontend embeddings where the microbatches carry them.
+        Without ``fe``, a frontend architecture's default: [M, b,
+        frontend_tokens, d_model] fp32."""
         b = self.engine.config.microbatch
         s = self.engine.profile.seq_len
-        return ((M, b, s), "int32")
+        a = self.model.arch
+        if fe is not None:
+            fe_spec = (tuple(fe.shape), str(fe.dtype))
+        elif a.frontend is not None:
+            fe_spec = ((M, b, a.frontend_tokens, a.d_model), str(torch.float32))
+        else:
+            fe_spec = None
+        return ((M, b, s), "int32", fe_spec)
 
-    def _grads_program(self, sig: Tuple[Tuple[int, int], ...], M: int
-                       ) -> Callable:
-        """Per-(template signature, microbatch count) step program: every
+    def _grads_program(self, sig: Tuple[Tuple[int, int], ...], M: int,
+                       fe: Optional[torch.Tensor] = None) -> Callable:
+        """Per-(template signature, batch spec) step program: every
         microbatch through the stage functions, per-layer gradients
         accumulated, the mean returned with the per-microbatch NLL."""
         key = ("grads", kops.backend_signature(self.device), sig,
-               self._batch_spec(M))
+               self._batch_spec(M, fe))
 
         def build() -> Callable:
             kinds = [[self._kind[l] for l in range(u, v)] for (u, v) in sig]
             fns = [make_stage_fn(self.model, k) for k in kinds]
 
-            def grads_fn(stage_params, tokens, labels):
+            def grads_fn(stage_params, tokens, labels, fes=None):
                 flat = tree_leaves(stage_params)
                 leaves = [t.detach().requires_grad_(True) for t in flat]
                 params = tree_unflatten_like(stage_params, leaves)
@@ -237,8 +256,9 @@ class HeteroTrainer(Executor):
                 zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
                 for i in range(M):
                     carry = (tokens[i], zero)
+                    fe_i = fes[i] if fes is not None else None
                     for fn, sp in zip(fns, params):
-                        carry = fn(sp, carry, labels[i])
+                        carry = fn(sp, carry, labels[i], fe_i)
                     loss, nll = carry
                     g = torch.autograd.grad(loss, leaves)
                     gsum = (list(g) if gsum is None
@@ -331,23 +351,30 @@ class HeteroTrainer(Executor):
     # One pipeline's iteration -> per-layer grad means + per-mb NLL
     # ------------------------------------------------------------------
     def _batch(self, microbatches: List[Dict]
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Stacked [M, b, s] int32 tokens and labels on the device.  On
-        the card the copy leaves a pinned host buffer without blocking
-        the host: no step synchronizes with the device."""
-        def stack(key):
-            arr = np.stack([np.asarray(b[key]) for b in microbatches])
-            host = torch.from_numpy(arr.astype(np.int32))
+               ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+        """Stacked [M, b, s] int32 tokens and labels on the device, and the
+        stacked [M, b, F, d] frontend embeddings where the microbatches
+        carry them (else None).  On the card the copy leaves a pinned
+        host buffer without blocking the host: no step synchronizes with
+        the device."""
+        def to_device(host):
             if self.device.type == "cuda":
                 return host.pin_memory().to(self.device, non_blocking=True)
             return host
-        return stack("tokens"), stack("labels")
+
+        def stack(key, dtype):
+            arr = np.stack([np.asarray(b[key]) for b in microbatches])
+            return to_device(torch.from_numpy(arr.astype(dtype)))
+        fe = None
+        if microbatches[0].get("frontend_embeds") is not None:
+            fe = stack("frontend_embeds", np.float32)
+        return stack("tokens", np.int32), stack("labels", np.int32), fe
 
     def _run_compiled(self, run: PipelineRun, microbatches: List[Dict]
                       ) -> Tuple[Dict[int, Any], torch.Tensor]:
-        tokens, labels = self._batch(microbatches)
-        prog = self._grads_program(run.signature, len(microbatches))
-        gstages, nll = prog(run.all_stage_params(), tokens, labels)
+        tokens, labels, fe = self._batch(microbatches)
+        prog = self._grads_program(run.signature, len(microbatches), fe)
+        gstages, nll = prog(run.all_stage_params(), tokens, labels, fe)
         grads: Dict[int, Any] = {}
         for s, lids in enumerate(run.stage_layers):
             for j, l in enumerate(lids):
@@ -358,15 +385,16 @@ class HeteroTrainer(Executor):
                    ) -> Tuple[Dict[int, Any], torch.Tensor]:
         """Reference path: walks the explicit 1F1B schedule, one stage at
         a time with per-stage autograd.  An F op runs stage ``s`` on its
-        predecessor's output, detached, and keeps the (outputs, input)
-        pair; the matching B op takes the gradient of those outputs
-        against the stage's parameters and that input, and hands the
-        latter to stage ``s - 1`` as its cotangent.  Each stage's
-        gradients are summed over microbatches in ascending order and
-        divided by M, the step program's order.  Losses stay on the
-        device: nothing here reads back to the host."""
+        predecessor's (x, aux), detached into leaves that require grad,
+        and keeps the (outputs, inputs) pair; the matching B op takes the
+        gradient of those outputs against the stage's parameters and both
+        inputs, and hands (dx, daux) to stage ``s - 1`` as the cotangents
+        of its (x, aux).  The last stage seeds (1, 0) for (loss, nll).
+        Each stage's gradients are summed over microbatches in ascending
+        order and divided by M, the step program's order.  Losses stay
+        on the device: nothing here reads back to the host."""
         S, M = run.num_stages, len(microbatches)
-        tokens, labels = self._batch(microbatches)
+        tokens, labels, fes = self._batch(microbatches)
         fns = [make_stage_fn(self.model, [self._kind[l] for l in lids])
                for lids in run.stage_layers]
         stage_params = run.all_stage_params()
@@ -375,37 +403,39 @@ class HeteroTrainer(Executor):
         params = [tree_unflatten_like(sp, lv)
                   for sp, lv in zip(stage_params, leaves)]
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
-        saved: Dict[Tuple[int, int], Tuple[Any, Optional[torch.Tensor]]] = {}
-        cots: Dict[Tuple[int, int], torch.Tensor] = {}
+        saved: Dict[Tuple[int, int], Tuple[Any, List[torch.Tensor]]] = {}
+        cots: Dict[Tuple[int, int], List[torch.Tensor]] = {}
         gsum: List[Optional[List[torch.Tensor]]] = [None] * S
         nlls: List[torch.Tensor] = []
 
         for s, op, mb in flat_schedule(S, M):
             if op == "F":
                 if s == 0:
-                    x_in, carry = None, (tokens[mb], zero)
+                    inputs, carry = [], (tokens[mb], zero)
                 else:
-                    x, aux = saved[(s - 1, mb)][0]
-                    x_in = x.detach().requires_grad_(True)
-                    carry = (x_in, aux.detach())
-                out = fns[s](params[s], carry, labels[mb])
-                saved[(s, mb)] = (out, x_in)
+                    inputs = [t.detach().requires_grad_(True)
+                              for t in saved[(s - 1, mb)][0]]
+                    carry = tuple(inputs)
+                fe = fes[mb] if fes is not None and s == 0 else None
+                out = fns[s](params[s], carry, labels[mb], fe)
+                saved[(s, mb)] = (out, inputs)
                 if s == S - 1:
                     nlls.append(out[1].detach())
-                    cots[(s, mb)] = torch.ones_like(out[0])
+                    cots[(s, mb)] = [torch.ones_like(out[0]),
+                                     torch.zeros_like(out[1])]
                 continue
-            (y, aux), x_in = saved.pop((s, mb))
-            outputs, cot = [y], [cots.pop((s, mb))]
-            if s < S - 1 and aux.requires_grad:
-                outputs.append(aux)             # the aux gets a zero
-                cot.append(torch.zeros_like(aux))   # cotangent
-            wrt = leaves[s] + ([x_in] if x_in is not None else [])
-            g = torch.autograd.grad(outputs, wrt, grad_outputs=cot,
+            out, inputs = saved.pop((s, mb))
+            pairs = [(o, c) for o, c in zip(out, cots.pop((s, mb)))
+                     if o.requires_grad]
+            wrt = leaves[s] + inputs
+            g = torch.autograd.grad([o for o, _ in pairs], wrt,
+                                    grad_outputs=[c for _, c in pairs],
                                     allow_unused=True)
             g = [torch.zeros_like(w) if gi is None else gi
                  for gi, w in zip(g, wrt)]
-            if x_in is not None:
-                cots[(s - 1, mb)] = g.pop()
+            if inputs:
+                cots[(s - 1, mb)] = g[len(leaves[s]):]
+                g = g[:len(leaves[s])]
             gsum[s] = g if gsum[s] is None else [a + b
                                                  for a, b in zip(gsum[s], g)]
 

@@ -313,7 +313,8 @@ def test_flash_model_matches_naive_on_card(card, arch_name):
     for impl in ("kernel", "naive"):
         leaves = [t.detach().clone().requires_grad_(True)
                   for t in tree_leaves(params)]
-        model = Model(arch, dtype=torch.float32, attn_impl=impl)
+        # no remat: each kernel launches once per layer in forward
+        model = Model(arch, dtype=torch.float32, attn_impl=impl, remat=False)
         loss, _ = model.loss(tree_unflatten_like(params, leaves), batch)
         out[impl] = (loss, torch.autograd.grad(loss, leaves))
     assert all(build.LAUNCHES[k] == 2 for k in
@@ -451,7 +452,7 @@ def test_ssm_models_match_plain_on_card(card):
     for impl in ("kernel", "chunked"):
         leaves = [t.detach().clone().requires_grad_(True)
                   for t in tree_leaves(params)]
-        model = Model(arch, dtype=torch.float32, ssd_impl=impl)
+        model = Model(arch, dtype=torch.float32, ssd_impl=impl, remat=False)
         loss, _ = model.loss(tree_unflatten_like(params, leaves), batch)
         out[impl] = (loss, torch.autograd.grad(loss, leaves))
     assert build.LAUNCHES["ssd_fwd"] == build.LAUNCHES["ssd_bwd"] == 2
@@ -561,3 +562,113 @@ def test_train_step_reads_nothing_back_on_card(card, mode):
         out = _drive(tr, disp)
     assert log.device_to_host == 0, log
     assert float(out["loss"]) > 0
+
+
+# ----------------------------------------------------------------------
+# MoE, remat, the chunked CE and decode with the kernels inside
+# ----------------------------------------------------------------------
+def _small(name):
+    from repro_torch.configs import get_arch, reduced
+    return reduced(get_arch(name), layers=2, d_model=128, vocab=512)
+
+
+KERN = dict(attn_impl="kernel", fuse="fused", ssd_impl="kernel")
+PLAIN = dict(attn_impl="naive", fuse="none", ssd_impl="chunked")
+
+
+def _assert_same_training(card, arch, through, plain, seq=200):
+    """chip_smoke.py phase 5's comparison: loss to 1e-5 relative,
+    gradients to 1e-4 absolute."""
+    cs = _chip_smoke()
+    lk, gk = cs._loss_and_grads(card, arch, seq, **through)
+    ln, gn = cs._loss_and_grads(card, arch, seq, **plain)
+    torch.testing.assert_close(lk, ln, rtol=1e-5, atol=1e-6)
+    for a, b in zip(gk, gn):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch_name", ["granite_moe_1b_a400m",
+                                       "qwen2_moe_a2_7b"])
+def test_moe_models_match_plain_on_card(card, arch_name):
+    """Reduced granite-moe and qwen2-moe (shared expert, QKV bias)
+    through every kernel (no remat: each launches once per layer)
+    against plain ops."""
+    build.reset_launches()
+    _assert_same_training(card, _small(arch_name), dict(KERN, remat=False),
+                          dict(PLAIN, remat=False))
+    assert all(build.LAUNCHES[k] == 2 for k in
+               ("add_rmsnorm_fwd", "add_rmsnorm_bwd", "flash_fwd",
+                "flash_bwd_dq", "flash_bwd_dkdv")), build.LAUNCHES
+    assert build.LAUNCHES["gemm_bias"] == 6, build.LAUNCHES
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+@pytest.mark.parametrize("arch_name", ["granite_moe_1b_a400m", "hymba_1_5b"])
+def test_remat_recomputes_the_kernels_correctly_on_card(card, arch_name,
+                                                        policy):
+    """Under remat the kernels' autograd Functions run again in backward:
+    the forward kernels launch twice a layer, the backward ones once,
+    and loss and gradients match no remat."""
+    build.reset_launches()
+    _assert_same_training(card, _small(arch_name),
+                          dict(KERN, remat=True, remat_policy=policy),
+                          dict(KERN, remat=False))
+    assert build.LAUNCHES["add_rmsnorm_fwd"] == 2 + 2 * 2, build.LAUNCHES
+    assert build.LAUNCHES["add_rmsnorm_bwd"] == 2 + 2, build.LAUNCHES
+
+
+def test_loss_chunk_with_kernels_matches_whole_ce_on_card(card):
+    _assert_same_training(card, _small("granite_moe_1b_a400m"),
+                          dict(KERN, loss_chunk=64), KERN)
+
+
+@pytest.mark.parametrize("arch_name", ["granite_moe_1b_a400m", "hymba_1_5b"])
+def test_decode_matches_the_kernels_forward_on_card(card, arch_name):
+    """chip_smoke.py's decode check: 40 positions one at a time against
+    the forward through the kernels (hymba's window cut to 16, so the
+    ring buffer wraps), logits to 1e-5."""
+    import dataclasses
+    arch = _small(arch_name)
+    if arch.sliding_window:
+        arch = dataclasses.replace(arch, sliding_window=16)
+    assert _chip_smoke().decode_gap(card, arch) <= 1e-5
+
+
+def test_eager_walker_carries_the_aux_gradient_on_card(card):
+    """Reduced granite-moe on the card: the 1F1B walker hands each
+    router's aux cotangent across stage boundaries; its per-layer
+    gradients match the step program's at the executor's fp32 tolerance
+    (atol 5e-7, rtol 5e-4)."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core import EngineConfig, OobleckEngine, build_profile
+    from repro_torch.data import GlobalBatchDispenser, SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import HeteroTrainer
+    from repro_torch.utils.tree import tree_leaves
+    arch = reduced(get_arch("granite_moe_1b_a400m"), layers=4)
+    model = Model(arch, dtype=torch.float32, attn_impl="kernel")
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    trainers = []
+    for mode in ("compiled", "eager"):
+        engine = OobleckEngine(
+            build_profile(arch, microbatch=2, seq_len=64),
+            [f"n{i}" for i in range(5)],
+            EngineConfig(fault_tolerance=1, global_batch=16, microbatch=2,
+                         gpus_per_node=1, n0_override=2))
+        trainers.append(HeteroTrainer(
+            model, engine, params, adamw.AdamWConfig(lr=1e-3, warmup_steps=0),
+            mode=mode, sync_mode="perlayer"))
+    tc, te = trainers
+    assert max(r.num_stages for r in te.runs) >= 2
+    disp = GlobalBatchDispenser(SyntheticLM(arch.vocab_size, 64, seed=5))
+    batches = disp.next_step(tc.engine.batch.minibatch_sizes())
+    for rc, re_, b in zip(tc.runs, te.runs, batches):
+        mbs = [{k: v[i:i + 2] for k, v in b.items() if not k.startswith("_")}
+               for i in range(0, b["tokens"].shape[0], 2)]
+        gc, nc = tc._run_pipeline(rc, mbs)
+        ge, ne = te._run_pipeline(re_, mbs)
+        torch.testing.assert_close(ne, nc, rtol=5e-4, atol=5e-7)
+        for l in gc:
+            for a, b_ in zip(tree_leaves(gc[l]), tree_leaves(ge[l])):
+                torch.testing.assert_close(b_, a, rtol=5e-4, atol=5e-7)

@@ -284,3 +284,32 @@ def test_compile_trackers_count_every_cache_and_library_builds():
     assert counter.count == 3
     ProgramCache().get_or_build("b", lambda: len)   # outside the block
     assert log.backend_compiles == 3 and counter.since_mark() == 4
+
+
+def test_eager_walker_carries_the_aux_gradient_across_stages():
+    """Reduced granite-moe (4 MoE blocks) on pipelines of 2 or more
+    stages: every router's load-balance loss is part of the loss, so a
+    router in a stage before the last gets its aux gradient only
+    through the (x, aux) cotangent the walker hands back across the
+    boundary.  Per pipeline and microbatch set, the walker's gradients
+    (routers included) match the step program's at the executor's fp32
+    tolerance (tests/test_executor.py: atol 5e-7, rtol 5e-4) and its
+    NLL is bitwise the program's."""
+    trainer, dispenser = _setup("granite_moe_1b_a400m", layers=4)
+    tc, te = trainer("compiled", "perlayer"), trainer("eager")
+    assert max(r.num_stages for r in te.runs) >= 2
+    early = [l for r in te.runs for lids in r.stage_layers[:-1]
+             for l in lids if "moe" in r.states[l]["p"]]
+    assert early, "no router sits in a stage before the last"
+    dc, de = dispenser(), dispenser()
+    for rc, re_, mc, me in zip(tc.runs, te.runs, _batches(tc, dc),
+                               _batches(te, de)):
+        gc, nc = tc._run_pipeline(rc, mc)
+        ge, ne = te._run_pipeline(re_, me)
+        assert torch.equal(nc, ne)
+        assert sorted(gc) == sorted(ge)
+        for l in gc:
+            for (path, a), (_, b) in zip(tree_leaves_with_path(gc[l]),
+                                         tree_leaves_with_path(ge[l])):
+                np.testing.assert_allclose(b.numpy(), a.numpy(), atol=5e-7,
+                                           rtol=5e-4, err_msg=f"{l}{path}")

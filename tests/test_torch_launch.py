@@ -165,9 +165,16 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
                        and dtype in ln for ln in lines), (kind, dtype)
     assert any(ln.split()[:4] == ["[time]", "ssd_bwd", "fwd", "mamba"]
                for ln in lines)
-    assert any(ln.startswith("[model] mamba2") for ln in lines)
-    assert any(ln.startswith("[model] hymba") for ln in lines)
-    for path in ("naive", "flash", "mamba"):
+    for model in ("mamba2", "hymba", "granite-moe (4", "qwen2-moe",
+                  "granite-moe remat", "hymba remat dots",
+                  "granite-moe chunked CE"):
+        assert any(ln.startswith(f"[model] {model}") for ln in lines), model
+    for model in ("granite-moe", "hymba window"):
+        assert any(ln.startswith(f"[decode] {model}") for ln in lines), model
+    for name in ("add_rmsnorm_bwd", "gemm_bias", "flash_bwd_dkdv"):
+        assert any(ln.startswith(f"[check] {name}") and " moe " in ln
+                   for ln in lines), name
+    for path in ("naive", "flash", "mamba", "moe"):
         assert any(ln.startswith(f"[{path}]") for ln in lines), path
     for tag in ("A step 3", "B step 3", "eager step 3", "checkpoint:",
                 "replica recovery", "equal A's bitwise"):

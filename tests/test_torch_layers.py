@@ -190,14 +190,22 @@ def test_model_init_matches_reference_shapes():
 
 
 def test_unported_families_and_paths_raise():
-    with pytest.raises(NotImplementedError):
-        Model(reduced(get_arch("granite_moe_1b_a400m")))
+    """Every family is ported: each of the 10 assigned architectures
+    constructs (MoE, SSM, hybrid and the frontends included), with the
+    reference's defaults; an unknown implementation name still raises."""
+    from repro_torch.configs import ARCH_IDS
+    for name in ARCH_IDS:
+        m = Model(reduced(get_arch(name)))
+        assert (m.moe_impl, m.remat, m.remat_policy, m.loss_chunk) == (
+            "dense", True, "full", 0), name
     for name in ("mamba2_780m", "hymba_1_5b"):     # ported with the SSD
         assert Model(reduced(get_arch(name))).ssd_impl == "chunked"
     assert Model(reduced(get_arch("gpt3_medium")),
                  attn_impl="auto").attn_impl == "kernel"
-    with pytest.raises(NotImplementedError):
-        Model(reduced(get_arch("gpt3_medium"))).decode_step()
+    for bad in (dict(moe_impl="sparse"), dict(remat_policy="none"),
+                dict(attn_impl="flash"), dict(ssd_impl="fast")):
+        with pytest.raises(ValueError):
+            Model(reduced(get_arch("granite_moe_1b_a400m")), **bad)
 
 
 @pytest.mark.parametrize("masked", [True, False], ids=["mask", "no-mask"])

@@ -1,8 +1,10 @@
 """The port's HeteroTrainer against the JAX package's on the same engine
 inputs, weights and batches: 3 steps with a node killed before step 2,
-with naive attention, with the flash path, and for reduced mamba2 with
-the SSD kernels (the JAX package's Pallas kernels interpreted, the
-port's plain versions of its kernels).
+with naive attention, with the flash path, for reduced mamba2 with the
+SSD kernels (the JAX package's Pallas kernels interpreted, the port's
+plain versions of its kernels), for reduced granite-moe (the routers'
+aux loss in the loss) and for reduced phi3-vision with frontend
+embeddings in every microbatch.
 Losses match at rtol 1e-4, parameters track by the reference's own rule
 (tests/test_executor.py::assert_params_track), replicas never diverge,
 and recovery builds nothing after warm_templates().  Inside the port,
@@ -65,11 +67,31 @@ def _engine_args(n_nodes, gb, policy="replan"):
             [f"n{i}" for i in range(n_nodes)])
 
 
+def _with_frontend(arch, mbs, seed):
+    """Each microbatch gets frontend embeddings [MB, F, d] (numpy, from
+    ``seed`` and its place in the step), as a vision or audio stub
+    hands them over; other architectures' microbatches stay as they
+    are."""
+    if not arch.frontend:
+        return mbs
+    rng = np.random.default_rng(seed)
+    return [[dict(mb, frontend_embeds=(rng.standard_normal(
+        (MB, arch.frontend_tokens, arch.d_model)) * 0.02).astype(np.float32))
+        for mb in pipe] for pipe in mbs]
+
+
 @pytest.mark.parametrize("arch_name,attn_impl,ssd_impl", [
     pytest.param("gpt3_medium", "naive", "chunked", id="naive"),
     pytest.param("gpt3_medium", "kernel", "chunked", id="kernel"),
-    pytest.param("mamba2_780m", "naive", "kernel", id="mamba2-ssd-kernel")])
+    pytest.param("mamba2_780m", "naive", "kernel", id="mamba2-ssd-kernel"),
+    pytest.param("granite_moe_1b_a400m", "kernel", "chunked",
+                 id="granite-moe"),
+    pytest.param("phi3_vision_4_2b", "kernel", "chunked",
+                 id="phi3-vision-frontend")])
 def test_trainer_tracks_jax_through_failure(arch_name, attn_impl, ssd_impl):
+    """granite-moe: the aux loss is in the last stage's loss and its
+    gradient reaches every router.  phi3-vision: each microbatch carries
+    frontend embeddings through the stage programs."""
     jarch = jreduced(jget_arch(arch_name), layers=2)
     arch = reduced(get_arch(arch_name), layers=2)
     jmodel = JModel(jarch, dtype=jnp.float32, remat=False,
@@ -101,8 +123,10 @@ def test_trainer_tracks_jax_through_failure(arch_name, attn_impl, ssd_impl):
             assert eng.plan_fingerprint() == jeng.plan_fingerprint()
         jb = jdisp.next_step(jeng.batch.minibatch_sizes())
         tb = disp.next_step(eng.batch.minibatch_sizes())
-        jout = jtr.train_step([microbatches(b, MB) for b in jb])
-        out = tr.train_step([microbatches(b, MB) for b in tb])
+        jout = jtr.train_step(_with_frontend(
+            arch, [microbatches(b, MB) for b in jb], step))
+        out = tr.train_step(_with_frontend(
+            arch, [microbatches(b, MB) for b in tb], step))
         np.testing.assert_allclose(float(out["loss"]), float(jout["loss"]),
                                    rtol=1e-4)
         assert tr.replica_divergence() == 0.0
