@@ -64,6 +64,20 @@ Phases, each fatal on failure:
      failure, asserting what phases 6-8 assert and that each fused and
      flash kernel launched once per layer and microbatch (gemm_bias
      three times: the fused QKV's forward, dx and dW).
+ 11. serving: qwen3-1.7b at full width and depth (28 layers, d 2048, 16
+     query / 8 kv heads of 128, vocab 151936), fp32, behind
+     ``repro_torch.launch.serve``'s engine (6 nodes, f 1, n0 2), 4 slots
+     a replica, 16 requests of 64 prompt and 32 new tokens at
+     temperature 0.8, unfailed and with a node killed after 8 ticks;
+     asserts every request completes in both legs with bitwise-equal
+     streams, no build across fail -> recover -> drain, at least one
+     request replayed or migrated, no device->host read in two pure
+     decode ticks (sync debug mode "error"), a greedy request's stream
+     equal to a plain loop of ``Model.decode_step`` at the same batch,
+     and no launch of the nine kernels (decode runs none, as in the
+     reference); prints warm seconds, tokens/s, ms/token, TTFT p50/p99,
+     recovery downtime, replayed / migrated counts, copy bytes, peak
+     memory and the phase's seconds.
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line
 (each kernel's launches counted on the path that reports it: phase 7
 for the six, phase 8 for the SSD pair; error, times and bound at the
@@ -1058,6 +1072,154 @@ def run_lifecycle(device):
     return launches
 
 
+#: phase 11's serving setup (``repro_torch.launch.serve``'s engine: 6
+#: nodes, f 1, n0 2); the CPU rehearsal cuts the lengths and the depth
+SERVING = dict(arch="qwen3-1.7b", nodes=6, slots=4, prompt_len=64,
+               decode_steps=32, requests=16, temperature=0.8, fail_at=8,
+               cpu_prompt_len=8, cpu_decode_steps=8, cpu_layers=2)
+
+
+def run_serving(device):
+    """Phase 11: serve through a node failure; returns the phase's
+    launch counts."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.runtime import (ProgramCache, track_compiles,
+                                     track_host_transfers)
+    from repro_torch.runtime.serve_exec import SamplingParams, ServeExecutor
+    from repro_torch.utils import prng
+    on_card = device.type == "cuda"
+    cfg = SERVING
+    arch = get_arch(cfg["arch"])
+    P, N = cfg["prompt_len"], cfg["decode_steps"]
+    if not on_card:
+        arch = reduced(arch, layers=cfg["cpu_layers"])
+        P, N = cfg["cpu_prompt_len"], cfg["cpu_decode_steps"]
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t_phase = time.perf_counter()
+    model = Model(arch, dtype=torch.float32, remat=False)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    sample_key = prng.fold_in(prng.prng_key(0, device), 2)
+    if on_card:
+        # init stacks the blocks from per-block tensors: its peak holds
+        # two copies of them, so serving's own peak is taken after it
+        init_mem = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+    else:
+        init_mem = float("nan")
+    prompts = serve.make_prompts(arch.vocab_size, cfg["requests"], P, 0)
+    cache = ProgramCache()
+
+    def executor(temperature):
+        engine = serve.build_serving_engine(
+            arch, nodes=[f"node{i}" for i in range(cfg["nodes"])])
+        return ServeExecutor(
+            model, params, engine, num_slots=cfg["slots"], max_len=P + N,
+            max_new_cap=N, sampling=SamplingParams(temperature),
+            sample_key=sample_key, cache=cache)
+
+    def leg(fail_at):
+        t0 = time.perf_counter()
+        ex = executor(cfg["temperature"])
+        warm_s = time.perf_counter() - t0
+        with track_compiles() as log:
+            wall_s = serve.serve_trace(ex, prompts, N, fail_at)
+        check(len(ex.completed) == len(prompts),
+              f"serving: {len(ex.completed)}/{len(prompts)} requests "
+              f"completed (fail_at {fail_at})")
+        tokens = sum(r.max_new for r in ex.completed)
+        ttft = [r.first_token_s - r.arrival_s for r in ex.completed]
+        label = f"failed at tick {fail_at}" if fail_at >= 0 else "unfailed"
+        print(f"[serve] {label}: replicas {len(ex.replicas)}, warm "
+              f"{warm_s:.3f}s, "
+              f"{tokens} tokens in {wall_s:.3f}s ({tokens / wall_s:.1f} "
+              f"tok/s, {wall_s / tokens * 1e3:.2f} ms/token), ttft p50 "
+              f"{serve.percentile(ttft, 50) * 1e3:.1f} ms p99 "
+              f"{serve.percentile(ttft, 99) * 1e3:.1f} ms, ticks "
+              f"{ex.ticks}, builds in the trace {log.backend_compiles}")
+        return ex, {r.rid: r.tokens for r in ex.completed}, log
+
+    ex_a, streams_a, _ = leg(-1)
+    replicas_a = len(ex_a.replicas)
+    del ex_a
+    ex_b, streams_b, log = leg(cfg["fail_at"])
+    check(log.backend_compiles == 0,
+          f"serving: {log.backend_compiles} builds across fail -> recover "
+          f"-> drain")
+    check(all(np.array_equal(streams_b[rid], toks)
+              for rid, toks in streams_a.items()),
+          "serving: a stream differs between the unfailed and failed legs")
+    rec = ex_b.last_recovery
+    check(rec is not None and rec["replayed"] + rec["migrated"] >= 1,
+          f"serving: the failure moved no request: {rec}")
+    print(f"[serve] recovery: downtime {rec['downtime_s'] * 1e3:.3f} ms, "
+          f"replicas {replicas_a} -> {rec['replicas']}, replayed "
+          f"{rec['replayed']}, migrated {rec['migrated']}, copy bytes "
+          f"{rec['copy_bytes']} (modeled transfer "
+          f"{rec['transfer_makespan_s'] * 1e3:.3f} ms); {len(streams_a)} "
+          f"streams bitwise equal to the unfailed leg's")
+    del ex_b
+
+    # two pure decode ticks: no admission, no request finishing
+    ex = executor(cfg["temperature"])
+    for p in prompts[:2]:
+        ex.submit(p, max_new=N)
+    ex.tick()
+    ex.synchronize()
+    with track_host_transfers(device) as hlog:
+        ex.tick()
+        ex.tick()
+    ex.synchronize()
+    check(hlog.device_to_host == 0,
+          f"serving: {hlog.device_to_host} device->host reads in two pure "
+          f"decode ticks")
+    del ex
+
+    # greedy: the executor's stream against a plain loop of decode_step
+    # at the executor's batch (the request in row 0, the others idle)
+    ex = executor(0.0)
+    ex.submit(prompts[0], max_new=N)
+    ex.drain()
+    got = ex.completed[0].tokens
+    B = cfg["slots"]
+    plain = model.init_cache(B, P + N, device=device)
+    toks = [int(t) for t in prompts[0]]
+    want = []
+    with torch.no_grad():
+        for t in range(P + N - 1):
+            col = torch.zeros((B, 1), dtype=torch.int32, device=device)
+            col[0, 0] = toks[t]
+            logits, plain = model.decode_step(params, col, plain, t)
+            if t >= P - 1:
+                want.append(int(torch.argmax(logits[0, 0])))
+                toks.append(want[-1])
+    check(np.array_equal(got, np.asarray(want[:N], np.int32)),
+          f"serving: greedy stream {got.tolist()} != plain decode "
+          f"{want[:N]}")
+    del ex
+    launches = dict(build.LAUNCHES)
+    check(all(n == 0 for n in launches.values()),
+          f"serving launched a kernel: {launches}")
+    mem = (torch.cuda.max_memory_allocated() / 2**30 if on_card
+           else float("nan"))
+    print(f"[serve] greedy stream equals a plain decode_step loop "
+          f"({N} tokens); two pure decode ticks read nothing back "
+          f"(sync debug mode \"error\" on the card); kernel launches "
+          f"{launches}; max_memory_allocated {mem:.2f} GiB serving, "
+          f"{init_mem:.2f} GiB during init, phase "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def card_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"],
@@ -1104,6 +1266,7 @@ def run(device="cuda"):
     launches.update({k: mamba[k] for k in SSD})
     run_lifecycle(device)
     run_path(device, 10, FUSED + FLASH, exact=MOE_LAUNCHES)
+    run_serving(device)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errors[name],

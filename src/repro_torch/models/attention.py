@@ -2,7 +2,8 @@
 prefill path — ``naive`` (materialised [S, S] scores), ``blocked``
 (online softmax over KV blocks) and ``kernel`` (flash attention through
 ``ops.flash_attention``: the CUDA kernels on a CUDA tensor, their plain
-versions on a CPU tensor) — and one-token decode against a KV cache.
+versions on a CPU tensor) — and one-token decode against a KV cache,
+written in place.
 
 ``fused=True`` routes the QKV projection through ``ops.fused_qkv`` —
 one GEMM against the concatenated weight with the bias in its epilogue —
@@ -167,23 +168,34 @@ def init_kv_cache(arch: ArchConfig, batch: int, max_len: int, dtype,
             "v": torch.zeros((batch, L, KV, hd), dtype=dtype, device=device)}
 
 
-def decode_attention(params, arch: ArchConfig, x: torch.Tensor, cache: dict,
-                     pos: torch.Tensor) -> Tuple[torch.Tensor, dict]:
-    """One-token decode.  x: [B, 1, d]; pos: a scalar position, or [B]
-    per-row positions (each row writes its own cache slot and masks its
-    own length).  Returns (out [B, 1, d], the new cache); the cache
-    passed in is not changed."""
+def decode_attention_(params, arch: ArchConfig, x: torch.Tensor, cache: dict,
+                      pos: torch.Tensor, write=None) -> torch.Tensor:
+    """One-token decode, writing the new K/V rows into ``cache`` in place
+    (the reference's ``decode_attention`` returns a new cache, donated
+    under jit; this is its torch form).  x: [B, 1, d]; pos: a scalar
+    position, or [B] per-row positions (each row writes its own cache
+    slot and masks its own length).  ``write`` ([B] bool) keeps the cache
+    of the rows where it is False; those rows' outputs are then
+    meaningless.  A position at or past a full-length cache writes its
+    last slot (the reference drops such a write; only rows whose output
+    is discarded reach one).  Returns out [B, 1, d]."""
     B = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device)
     vec = pos.dim() == 1
     positions = pos[:, None] if vec else pos.expand(B, 1)
     q, k, v = _project_qkv(params, arch, x, positions)
-    L = cache["k"].shape[1]
+    ck, cv = cache["k"], cache["v"]
+    L = ck.shape[1]
     slot = pos % L if arch.sliding_window else pos
     rows = torch.arange(B, device=x.device)
-    ck, cv = cache["k"].clone(), cache["v"].clone()
-    ck[rows, slot] = k[:, 0]
-    cv[rows, slot] = v[:, 0]
+    at = (rows, slot.clamp(max=L - 1))
+    if write is None:
+        ck[at] = k[:, 0]
+        cv[at] = v[:, 0]
+    else:
+        keep = ~write[:, None, None]
+        ck[at] = torch.where(keep, ck[at], k[:, 0])
+        cv[at] = torch.where(keep, cv[at], v[:, 0])
     KV, hd, H = arch.num_kv_heads, arch.head_dim, arch.num_heads
     qg = q.reshape(B, KV, H // KV, hd)
     scores = torch.einsum("bkgd,bskd->bkgs", qg, ck).float() / math.sqrt(hd)
@@ -196,4 +208,4 @@ def decode_attention(params, arch: ArchConfig, x: torch.Tensor, cache: dict,
     scores = scores.masked_fill(~valid, float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     o = torch.einsum("bkgs,bskd->bkgd", probs, cv).reshape(B, 1, H * hd)
-    return o @ params["wo"].to(x.dtype), {"k": ck, "v": cv}
+    return o @ params["wo"].to(x.dtype)

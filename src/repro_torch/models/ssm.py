@@ -9,7 +9,8 @@ Three numerically equivalent SSD evaluators for ``mamba``:
     tensor, their plain versions on a CPU tensor.
 
 ``ssd_step``, ``conv_step`` and ``mamba_decode`` are the one-token
-decode against carried conv and SSM states (``init_mamba_cache``).
+decode against carried conv and SSM states (``init_mamba_cache``);
+``mamba_decode_`` writes the new states into the cache in place.
 
 State layout is [batch, heads, head_dim (P), state (N)] throughout.
 """
@@ -245,3 +246,17 @@ def mamba_decode(params, arch: ArchConfig, x: torch.Tensor, cache: Dict):
                  * F.silu(z), arch.rms_norm_eps)
     out = (y @ params["out_proj"].to(x.dtype))[:, None, :]
     return out, {"conv": conv_state, "ssm": ssm_state}
+
+
+def mamba_decode_(params, arch: ArchConfig, x: torch.Tensor, cache: Dict,
+                  write=None) -> torch.Tensor:
+    """``mamba_decode`` writing the new conv and SSM states into ``cache``
+    in place; ``write`` ([B] bool) keeps the states of the rows where it
+    is False.  Returns out [b, 1, d_model]."""
+    out, new = mamba_decode(params, arch, x, cache)
+    for name, t in new.items():
+        if write is not None:
+            t = torch.where(write.reshape(-1, *(1,) * (t.dim() - 1)), t,
+                            cache[name])
+        cache[name].copy_(t)
+    return out

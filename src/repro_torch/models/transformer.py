@@ -22,7 +22,8 @@ embeddings and the loss drops their F positions.  ``remat`` recomputes
 each block's activations in backward (``remat_policy="dots"`` keeps the
 matrix products' outputs); ``loss_chunk > 0`` computes the loss with
 the chunked CE, never building the [b, S, V] logits.  ``init_cache``,
-``decode_step`` and ``prefill`` are the serving path's model half.
+``decode_step`` (``decode_step_`` in place) and ``prefill`` are the
+serving path's model half.
 """
 from __future__ import annotations
 
@@ -235,40 +236,50 @@ class Model:
                                                dev)
         return tree_map(lambda t: t.expand(a.num_layers, *t.shape).clone(), c)
 
-    def decode_block(self, bp: Dict, cache: Dict, x: torch.Tensor,
-                     pos: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    def decode_block_(self, bp: Dict, cache: Dict, x: torch.Tensor,
+                      pos: torch.Tensor, write=None) -> torch.Tensor:
+        """One block's decode, writing its new K/V rows and Mamba states
+        into ``cache`` (this layer's views) in place; ``write`` ([b] bool)
+        keeps the cache of the rows where it is False."""
         a = self.arch
         h = self._norm(bp["ln1"], x)
-        new_cache: Dict = {}
         if a.family == "ssm":
-            y, new_cache["mamba"] = ssm_lib.mamba_decode(bp["mamba"], a, h,
-                                                         cache["mamba"])
-            return x + y, new_cache
-        y, new_cache["attn"] = attn_lib.decode_attention(
-            bp["attn"], a, h, cache["attn"], pos)
+            return x + ssm_lib.mamba_decode_(bp["mamba"], a, h,
+                                             cache["mamba"], write)
+        y = attn_lib.decode_attention_(bp["attn"], a, h, cache["attn"], pos,
+                                       write)
         if a.hybrid_parallel_heads:
-            ym, new_cache["mamba"] = ssm_lib.mamba_decode(bp["mamba"], a, h,
-                                                          cache["mamba"])
+            ym = ssm_lib.mamba_decode_(bp["mamba"], a, h, cache["mamba"],
+                                       write)
             y = 0.5 * (y + ym)
         x = x + y
         x, _ = self._ffn(bp, x, self._norm(bp["ln2"], x), 0.0)
-        return x, new_cache
+        return x
+
+    def decode_step_(self, params: Dict, token: torch.Tensor, cache: Dict,
+                     pos, write=None) -> torch.Tensor:
+        """``decode_step`` writing the new cache entries into the stacked
+        ``cache`` in place, the serving plane's decode tick (the torch
+        form of the reference's donated cache).  ``write`` ([b] bool)
+        keeps the cache of the rows where it is False.  Returns logits
+        [b, 1, V]."""
+        x = embed(params["embed"], token, self.dtype)
+        pos = torch.as_tensor(pos, device=x.device)
+        for i in range(self.arch.num_layers):
+            x = self.decode_block_(tree_map(lambda t: t[i], params["blocks"]),
+                                   tree_map(lambda t: t[i], cache), x, pos,
+                                   write)
+        x = self._norm(params["final_norm"], x)
+        head = params.get("head", params["embed"])
+        return unembed(head, x)
 
     def decode_step(self, params: Dict, token: torch.Tensor, cache: Dict,
                     pos) -> Tuple[torch.Tensor, Dict]:
         """token: [b, 1]; pos: the scalar current position, or [b] per-row
-        positions.  Returns (logits [b, 1, V], the new stacked cache)."""
-        x = embed(params["embed"], token, self.dtype)
-        pos = torch.as_tensor(pos, device=x.device)
-        caches = []
-        for i in range(self.arch.num_layers):
-            x, c = self.decode_block(tree_map(lambda t: t[i], params["blocks"]),
-                                     tree_map(lambda t: t[i], cache), x, pos)
-            caches.append(c)
-        x = self._norm(params["final_norm"], x)
-        head = params.get("head", params["embed"])
-        return (unembed(head, x),
-                tree_map(lambda *xs: torch.stack(xs), *caches))
+        positions.  Returns (logits [b, 1, V], the new stacked cache); the
+        cache passed in is not changed."""
+        new = tree_map(torch.clone, cache)
+        return self.decode_step_(params, token, new, pos), new
 
     def prefill(self, params: Dict, tokens: torch.Tensor,
                 frontend_embeds: Optional[torch.Tensor] = None

@@ -672,3 +672,109 @@ def test_eager_walker_carries_the_aux_gradient_on_card(card):
         for l in gc:
             for a, b_ in zip(tree_leaves(gc[l]), tree_leaves(ge[l])):
                 torch.testing.assert_close(b_, a, rtol=5e-4, atol=5e-7)
+
+
+# ----------------------------------------------------------------------
+# Serving (runtime/serve_exec.py): no kernel on the path
+# ----------------------------------------------------------------------
+def _serve_executor(card, arch_name, temperature, params=None):
+    from repro_torch.launch.serve import build_serving_engine
+    from repro_torch.models import Model
+    from repro_torch.runtime.serve_exec import SamplingParams, ServeExecutor
+    from repro_torch.utils import prng
+    arch = _small(arch_name)
+    model = Model(arch, dtype=torch.float32, remat=False)
+    if params is None:
+        params = model.init(torch.Generator(device=card).manual_seed(0))
+    engine = build_serving_engine(arch, nodes=[f"node{i}" for i in range(6)])
+    return ServeExecutor(model, params, engine, num_slots=2, max_len=24,
+                         max_new_cap=8,
+                         sampling=SamplingParams(temperature=temperature),
+                         sample_key=prng.prng_key(42, card))
+
+
+def _serve_prompts(n, vocab=512):
+    import numpy as np
+    rng = np.random.default_rng(11)
+    return [rng.integers(0, vocab, 9).astype(np.int32) for _ in range(n)]
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("arch_name", ["qwen3_1_7b", "mamba2_780m"])
+def test_serving_through_a_failure_is_bitwise_on_card(card, arch_name,
+                                                      temperature):
+    """Reduced qwen3 and mamba2 on the card: a node killed after two
+    ticks builds nothing, moves at least one request, launches no kernel
+    and leaves every stream bitwise equal to the unfailed run's."""
+    import numpy as np
+    from repro_torch.runtime import track_compiles
+    streams = []
+    for fail in (False, True):
+        ex = _serve_executor(card, arch_name, temperature)
+        for p in _serve_prompts(6):
+            ex.submit(p, max_new=6)
+        ex.tick()
+        ex.tick()
+        build.reset_launches()
+        with track_compiles() as log:
+            if fail:
+                victim = ex.engine.instances[0].nodes[0]
+                ex.engine.monitor.inject("fail", [victim])
+                ex.engine.monitor.poll(0.0)
+            ex.drain()
+        assert log.backend_compiles == 0
+        assert not any(build.LAUNCHES.values()), build.LAUNCHES
+        assert len(ex.completed) == 6
+        if fail:
+            rec = ex.last_recovery
+            assert rec["replayed"] + rec["migrated"] >= 1, rec
+        streams.append({r.rid: r.tokens for r in ex.completed})
+    for rid, toks in streams[0].items():
+        np.testing.assert_array_equal(streams[1][rid], toks)
+
+
+@pytest.mark.parametrize("arch_name", ["qwen3_1_7b", "mamba2_780m",
+                                       "hymba_1_5b"])
+def test_serving_decode_ticks_read_nothing_back_on_card(card, arch_name):
+    """Two pure decode ticks (no admission, no request finishing) under
+    set_sync_debug_mode("error"): no synchronizing CUDA call, no read."""
+    from repro_torch.runtime import track_host_transfers
+    ex = _serve_executor(card, arch_name, 0.8)
+    for p in _serve_prompts(4):
+        ex.submit(p, max_new=8)
+    ex.tick()
+    ex.synchronize()
+    with track_host_transfers(card) as log:
+        ex.tick()
+        ex.tick()
+    assert log.device_to_host == 0, log
+    ex.drain()
+    assert all(len(r.tokens) == 8 for r in ex.completed)
+
+
+def test_serving_on_card_equals_serving_on_cpu(card):
+    """The same weights, prompts and key on the card and on the CPU give
+    the same streams at T 0.8: the sampler's keys and bits are integer
+    arithmetic, bitwise equal on both; the noise and logits differ by
+    rounding only, far below the gap between the two largest perturbed
+    logits (the top two of a Gumbel sample lie an Exp(1) apart)."""
+    import numpy as np
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_map
+    ex = _serve_executor(card, "qwen3_1_7b", 0.8)
+    cpu = _serve_executor(torch.device("cpu"), "qwen3_1_7b", 0.8,
+                          params=tree_map(lambda t: t.cpu(), ex.params))
+    out = []
+    for e in (ex, cpu):
+        for p in _serve_prompts(4):
+            e.submit(p, max_new=6)
+        e.drain()
+        out.append({r.rid: r.tokens for r in e.completed})
+    keys = torch.stack([cpu._base_key(rid) for rid in sorted(out[1])])
+    assert torch.equal(
+        torch.stack([ex._base_key(rid) for rid in sorted(out[0])]).cpu(),
+        keys)
+    bits = prng.random_bits(keys.to(card), 512)
+    assert torch.equal(bits.cpu(), prng.random_bits(keys, 512))
+    for rid, toks in out[1].items():
+        np.testing.assert_array_equal(out[0][rid], toks)

@@ -171,6 +171,11 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
         assert any(ln.startswith(f"[model] {model}") for ln in lines), model
     for model in ("granite-moe", "hymba window"):
         assert any(ln.startswith(f"[decode] {model}") for ln in lines), model
+    for tag in ("[serve] unfailed:", "[serve] failed at tick 8:",
+                "[serve] recovery: downtime", "[serve] greedy stream"):
+        assert any(ln.startswith(tag) for ln in lines), tag
+    assert any(ln.startswith("[serve] failed at tick") and
+               "builds in the trace 0" in ln for ln in lines)
     for name in ("add_rmsnorm_bwd", "gemm_bias", "flash_bwd_dkdv"):
         assert any(ln.startswith(f"[check] {name}") and " moe " in ln
                    for ln in lines), name
