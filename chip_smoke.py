@@ -78,6 +78,21 @@ Phases, each fatal on failure:
      reference); prints warm seconds, tokens/s, ms/token, TTFT p50/p99,
      recovery downtime, replayed / migrated counts, copy bytes, peak
      memory and the phase's seconds.
+ 12. multi-process: gpt3-medium as in phase 7 at microbatch 1 (full
+     width and depth, sequence 2048, flash kernels, 5 nodes, f 1, n0
+     2).  Leg 1, the single-process trainer: 2 steps, a node recovered,
+     2 steps.  Leg 2, ``MultiHostExecutor`` with 3 worker processes on
+     the card (rank 1 hosts that node alone): the same plan; each step's
+     loss and grad norm bitwise leg 1's; rank 1 SIGKILLed, its death
+     detected from the coordination channel within 30 s; the two-phase
+     recovery pulling layer state across processes (bytes fetched > 0),
+     to leg 1's instances; 0 builds on the survivors, divergence 0, the
+     snapshot's params bitwise leg 1's, and the kernels launched by the
+     workers (none by the coordinator) as phase 10 counts them.  Prints
+     spawn, setup and warm seconds, each step's split into the grads
+     phase, the wire and the commit with the bytes each way, kill ->
+     detect seconds, the recovery breakdown, each surviving worker's
+     peak memory, nvidia-smi's peak memory used and the phase's seconds.
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line
 (each kernel's launches counted on the path that reports it: phase 7
 for the six, phase 8 for the SSD pair; error, times and bound at the
@@ -1220,6 +1235,227 @@ def run_serving(device):
     return launches
 
 
+#: phase 12's multi-process setup: phase 7's gpt3-medium (full width and
+#: depth, sequence 2048, flash kernels, 5 nodes, f 1, n0 2, global batch
+#: 16) at microbatch 1, in 3 worker processes with the reference test's
+#: hosting: rank 1 hosts n2 alone, a non-lead member of replica (n0, n1,
+#: n2), so killing it shrinks the replica rank 0 leads and the rebind
+#: pulls layer state from rank 2.  Microbatch 1: the two lead workers
+#: run their replicas' pipelines at the same time on the one card.
+MULTIPROC = dict(nodes=5, f=1, n0=2, global_batch=16, microbatch=1,
+                 seq_len=2048, cpu_seq_len=32, cpu_layers=2, cpu_microbatch=2,
+                 hosting={"n0": 0, "n1": 0, "n2": 1, "n3": 2, "n4": 2})
+#: launches summed over phase 12's workers: each norm and flash kernel
+#: once per layer and microbatch, 24 layers x 16 microbatches x 4 steps;
+#: gemm_bias three times (the fused QKV's forward, dx and dW)
+MULTIPROC_LAUNCHES = dict(MOE_LAUNCHES)
+
+
+def _tree_hashes(tree):
+    """sha256 of each leaf's bytes, in flatten order."""
+    import hashlib
+    from repro_torch.runtime.coordination import leaf_bytes
+    from repro_torch.utils.tree import tree_leaves
+    return [hashlib.sha256(leaf_bytes(t)).hexdigest() for t in tree_leaves(tree)]
+
+
+class _MemoryPeak:
+    """Polls ``nvidia-smi``'s memory.used (MiB) on a thread: the card's
+    peak across every process on it."""
+
+    def __init__(self, on_card):
+        import threading
+        self.peak, self._stop = 0, threading.Event()
+        self._thread = (threading.Thread(target=self._poll, daemon=True)
+                        if on_card else None)
+        if self._thread:
+            self._thread.start()
+
+    def _poll(self):
+        while not self._stop.wait(0.5):
+            r = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                                "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True)
+            if r.returncode == 0:
+                self.peak = max(self.peak,
+                                int(r.stdout.strip().splitlines()[0]))
+
+    def stop(self):
+        self._stop.set()
+        if self._thread:
+            self._thread.join()
+        return self.peak
+
+
+def run_multiprocess(device):
+    """Phase 12: Oobleck's multi-process lifecycle.  Leg 1, the
+    single-process HeteroTrainer: 2 steps, recover({n2}), 2 steps.  Leg
+    2, MultiHostExecutor with 3 workers: the same plan, 2 steps bitwise
+    equal to leg 1's, SIGKILL of rank 1 detected from the channel, the
+    two-phase recovery pulling layer state across processes, 2 steps
+    bitwise equal, 0 builds on the survivors, divergence 0, the
+    snapshot's params bitwise leg 1's.  Returns the workers' launch
+    counts, summed."""
+    import gc
+    import torch
+    from repro_torch.data import ByteCorpus, GlobalBatchDispenser
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import _TEXT, microbatches
+    from repro_torch.runtime import HeteroTrainer
+    from repro_torch.runtime.multihost import (MultiHostExecutor, build_setup,
+                                               make_job_spec)
+    on_card = device.type == "cuda"
+    cfg = MULTIPROC
+    seq, mb = cfg["seq_len"], cfg["microbatch"]
+    if not on_card:
+        seq, mb = cfg["cpu_seq_len"], cfg["cpu_microbatch"]
+    nodes = [f"n{i}" for i in range(cfg["nodes"])]
+    spec = make_job_spec(
+        arch="gpt3-medium", layers=cfg["cpu_layers"], seq_len=seq,
+        microbatch=mb, global_batch=cfg["global_batch"], f=cfg["f"],
+        n0=cfg["n0"], nodes=nodes, hosting=cfg["hosting"], procs=3, seed=0,
+        opt={"lr": 3e-3, "warmup_steps": 0, "weight_decay": 0.0},
+        device=device.type, attn_impl="kernel", full=on_card)
+    t_phase = time.perf_counter()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def feed(disp, engine):
+        return [microbatches(b, mb)
+                for b in disp.next_step(engine.batch.minibatch_sizes())]
+
+    # ---- leg 1: the single-process trainer on the same spec ----------
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model, params, _, opt_cfg, engine = build_setup(spec)
+    ref = HeteroTrainer(model, engine, params, opt_cfg)
+    del params
+    ref.warm_templates()
+    fp0 = engine.plan_fingerprint()
+    disp = GlobalBatchDispenser(ByteCorpus(_TEXT * 50, seq_len=seq))
+    want, secs1 = [], []
+    for step in range(4):
+        if step == 2:
+            ref.recover({"n2"})
+            nodes_after = [list(i.nodes) for i in engine.instances]
+        batches = feed(disp, engine)
+        sync()
+        t0 = time.perf_counter()
+        out = ref.step(batches)
+        want.append((float(out["loss"]), float(out["grad_norm"])))
+        secs1.append(time.perf_counter() - t0)
+    hashes1 = _tree_hashes(ref.full_params())
+    mem1 = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    print(f"[multiproc] leg 1 (one process): losses, grad norms "
+          f"{want}; step seconds {[round(s, 4) for s in secs1]}; "
+          f"max_memory_allocated {mem1:.2f} GiB")
+    engine.attach_executor(None)
+    del ref, engine, model
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- leg 2: the coordinator here, 3 worker processes -------------
+    build.reset_launches()
+    peak = _MemoryPeak(on_card)
+    disp = GlobalBatchDispenser(ByteCorpus(_TEXT * 50, seq_len=seq))
+    try:
+        with MultiHostExecutor(spec, rpc_timeout=600.0) as mh:
+            tm = mh.timing
+            check(mh.engine.plan_fingerprint() == fp0,
+                  "multiproc: the coordinator's plan differs from leg 1's")
+            mh.warm_templates()
+            print(f"[multiproc] 3 workers spawned and connected in "
+                  f"{tm['spawn_s']:.2f}s; setup (params on {device.type}, "
+                  f"shard trainer) {_rounded(tm['setup_s'])} s; warm "
+                  f"{_rounded(tm['warm_s'])} s")
+            got, secs2 = [], []
+
+            def step(i):
+                batches = feed(disp, mh.engine)
+                t0 = time.perf_counter()
+                out = mh.step(batches)
+                got.append((float(out["loss"]), float(out["grad_norm"])))
+                secs2.append(time.perf_counter() - t0)
+                si = mh.last_step_info
+                check(got[-1] == want[i], f"multiproc step {i}: {got[-1]!r} "
+                      f"!= leg 1's {want[i]!r}")
+                print(f"[multiproc] step {i}: loss, grad norm {got[-1]} "
+                      f"bitwise leg 1's; {secs2[-1]:.4f}s = grads phase "
+                      f"{si['grads_s']:.4f}s (workers' compute "
+                      f"{si['grads_compute_s']:.4f}s, device->host + bytes "
+                      f"{si['grads_pack_s']:.4f}s; {si['up_bytes']} B up) + "
+                      f"commit {si['commit_s']:.4f}s (workers' unpack, "
+                      f"upload, combine, update {si['commit_compute_s']:.4f}s;"
+                      f" {si['down_bytes']} B down)")
+            step(0)
+            step(1)
+            check(mh.replica_divergence() == 0, "multiproc: divergence")
+            mh.mark_compiles()
+            t0 = time.perf_counter()
+            mh.kill_worker(1)
+            dead, ranks = mh.detected_dead(timeout=30.0)
+            detect_s = time.perf_counter() - t0
+            check(dead == {"n2"} and ranks == {1},
+                  f"multiproc: detected {dead}, {ranks}")
+            t0 = time.perf_counter()
+            info = mh.recover(dead)
+            rec_s = time.perf_counter() - t0
+            check(info["fetched_bytes"] > 0, f"multiproc: {info}")
+            check([list(i.nodes) for i in mh.engine.instances] == nodes_after,
+                  "multiproc: the recovered plan differs from leg 1's")
+            bd = info["breakdown"]
+            print(f"[multiproc] SIGKILL rank 1 -> detected {sorted(dead)} "
+                  f"dead in {detect_s:.4f}s; recovery {rec_s:.4f}s (replan "
+                  f"{bd['replan']:.4f}, transfer {bd['transfer']:.4f}, commit "
+                  f"{bd['commit']:.4f}, barrier {bd['barrier']:.4f}), "
+                  f"{info['fetched_bytes']} B fetched across processes in "
+                  f"{info['fetches']} fetches, epoch {info['epoch']}")
+            step(2)
+            step(3)
+            counts = mh.worker_counts()
+            builds = {r: c["since_mark"] for r, c in counts.items()}
+            check(sorted(builds) == [0, 2] and set(builds.values()) == {0},
+                  f"multiproc: builds on the survivors {builds}")
+            check(mh.replica_divergence() == 0, "multiproc: divergence")
+            t0 = time.perf_counter()
+            snap = mh.snapshot()
+            snap_s = time.perf_counter() - t0
+            check(_tree_hashes(snap.params) == hashes1,
+                  "multiproc: snapshot params differ from leg 1's")
+            del snap
+            frames = {r: (round(s, 4), b)
+                      for r, (s, b) in mh.server.slowest_frame.items()}
+    finally:
+        peak_mib = peak.stop()
+    launches = {k: sum(c["launches"][k] for c in counts.values())
+                for k in build.LAUNCHES}
+    mine = dict(build.LAUNCHES)
+    check(not any(mine.values()),
+          f"multiproc: the coordinator launched kernels {mine}")
+    if on_card:
+        check(all(launches[k] == n for k, n in MULTIPROC_LAUNCHES.items()),
+              f"multiproc: worker launches {launches}, expected "
+              f"{MULTIPROC_LAUNCHES}")
+    mem = {r: round(c["max_memory_allocated"] / 2**30, 2)
+           for r, c in counts.items()}
+    print(f"[multiproc] snapshot {snap_s:.4f}s, params bitwise leg 1's; "
+          f"builds on the survivors {builds}; slowest reply frame per rank "
+          f"(s, B) {frames}; max_memory_allocated per surviving worker "
+          f"{mem} GiB; nvidia-smi memory.used peak {peak_mib} MiB")
+    print(f"[multiproc] phase {time.perf_counter() - t_phase:.1f}s; worker "
+          f"launches {launches}")
+    return launches
+
+
+def _rounded(d):
+    return {k: round(v, 2) for k, v in d.items()}
+
+
 def card_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"],
@@ -1267,6 +1503,7 @@ def run(device="cuda"):
     run_lifecycle(device)
     run_path(device, 10, FUSED + FLASH, exact=MOE_LAUNCHES)
     run_serving(device)
+    run_multiprocess(device)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errors[name],

@@ -13,6 +13,14 @@ continued from the surviving replicas.
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \
         --full --seq-len 2048 --ssd-impl kernel --steps 4 --kill-at 2
 
+``--procs N`` runs the same loop through the multi-process backend
+(``runtime/multihost.py``): this process coordinates, N spawned workers
+execute (on the card they share it), and ``--kill-at`` SIGKILLs a worker
+whose death the heartbeat channel detects::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --procs 3 \
+        --steps 4 --kill-at 2 --device cpu
+
 Runs on the card by default; ``--device cpu`` runs the plain versions of
 the kernels on the CPU.  Without ``--full`` the architecture is reduced
 to a few narrow layers.  ``--eager`` walks the 1F1B schedule stage by
@@ -48,6 +56,79 @@ def microbatches(batch, mb_size):
     n = batch["tokens"].shape[0] // mb_size
     return [{k: v[i * mb_size:(i + 1) * mb_size] for k, v in batch.items()
              if not k.startswith("_")} for i in range(n)]
+
+
+def _multiproc_hosting(nodes, procs):
+    """node -> worker rank.  The LAST rank hosts exactly one node, so
+    killing it (--kill-at) drops one node — the smallest failure a
+    process death can model — and leaves the survivors above the
+    (f+1)*n0 floor in the default 5-node/f=1 setup."""
+    ranks = list(range(procs))
+    host = {nodes[-1]: ranks[-1]}
+    rest = nodes[:-1]
+    per = -(-len(rest) // max(1, procs - 1)) if procs > 1 else len(rest)
+    for i, n in enumerate(rest):
+        host[n] = min(i // per, procs - 2) if procs > 1 else 0
+    return host
+
+
+def run_multiproc(args) -> dict:
+    """--procs N: the same training loop through the multi-process
+    backend — coordinator here, N spawned worker processes execute;
+    --kill-at SIGKILLs a worker and recovery runs from heartbeat
+    detection, not an injected event."""
+    from repro_torch.runtime.multihost import MultiHostExecutor, make_job_spec
+
+    nodes = [f"node{i}" for i in range(args.nodes)]
+    spec = make_job_spec(
+        arch=args.arch, layers=args.layers, seq_len=args.seq_len,
+        microbatch=args.microbatch, global_batch=args.global_batch,
+        f=args.f, n0=args.n0, nodes=nodes, nodes_per_pod=args.pods,
+        hosting=_multiproc_hosting(nodes, args.procs), procs=args.procs,
+        seed=args.seed,
+        opt={"lr": 3e-3, "warmup_steps": 0, "weight_decay": 0.0},
+        device=args.device, attn_impl=args.attn_impl, full=args.full)
+    source = ByteCorpus(_TEXT * 50, seq_len=args.seq_len)
+    disp = GlobalBatchDispenser(source)
+    losses, divergences = [], []
+    recovery = None
+    with MultiHostExecutor(spec) as mh:
+        engine = mh.engine
+        print(f"[plan] procs={args.procs} hosting={mh.hosting} "
+              f"pipelines={[i.template.num_nodes for i in engine.instances]}")
+        t0 = time.perf_counter()
+        mh.warm_templates()
+        print(f"[warm] all workers warm in {time.perf_counter() - t0:.1f}s")
+        for step in range(args.steps):
+            if step == args.kill_at:
+                victim = max(mh.procs)
+                mh.kill_worker(victim)
+                dead, ranks = mh.detected_dead(timeout=30.0)
+                t0 = time.perf_counter()
+                recovery = mh.recover(dead)
+                bd = recovery["breakdown"]
+                print(f"[fail] SIGKILL rank {victim} -> heartbeat detected "
+                      f"{sorted(dead)} dead; recovered in "
+                      f"{time.perf_counter() - t0:.2f}s (epoch "
+                      f"{recovery['epoch']}, "
+                      f"{recovery['fetched_bytes'] / 1e6:.1f}MB pulled "
+                      f"cross-process in {recovery['fetches']} fetches, "
+                      f"replan {bd['replan'] * 1e3:.0f}ms, commit "
+                      f"{bd['commit'] * 1e3:.0f}ms)")
+            batches = disp.next_step(engine.batch.minibatch_sizes())
+            out = mh.step(
+                [microbatches(b, args.microbatch) for b in batches])
+            losses.append(float(out["loss"]))
+            divergences.append(mh.replica_divergence())
+            print(f"[step {step}] loss={losses[-1]:.4f} "
+                  f"pipelines={out['num_pipelines']} "
+                  f"divergence={divergences[-1]}")
+        compiles = mh.compile_counts()
+        print(f"[done] loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+              f"worker builds since warm: {compiles}")
+    assert losses[-1] < losses[0], "training must reduce the loss"
+    return {"losses": losses, "divergences": divergences,
+            "recovery": recovery, "compiles": compiles}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -102,7 +183,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--procs", type=int, default=0,
-                    help="multi-process backend (later slice)")
+                    help="train through N worker processes (the "
+                         "multi-process backend)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
 
@@ -115,8 +197,7 @@ def _sync(device: torch.device) -> None:
 def main(argv=None) -> dict:
     args = _parser().parse_args(argv)
     if args.procs > 0:
-        raise NotImplementedError("--procs: the multi-process backend is "
-                                  "ROADMAP queue 1, item 18")
+        return run_multiproc(args)
     if args.eager and args.codec != "none":
         # the eager walker syncs on the per-layer path, which has no wire
         # codec; keep the engine's pricing and the [sync] line truthful

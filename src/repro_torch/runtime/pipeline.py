@@ -186,9 +186,16 @@ class HeteroTrainer(Executor):
         self._bucket_plan_cache = None
         self.runs: List[PipelineRun] = [
             self._bind_run(inst, layers, moments=moments)
-            for inst in self.engine.instances]
+            for inst in self._bound_instances()]
         engine.attach_executor(self)
         self.bind()
+
+    def _bound_instances(self) -> List[PipelineInstance]:
+        """Which pipeline instances THIS process binds full state for.
+        The single-process trainer binds all of them; the multi-process
+        shard trainer (runtime/multihost.py) overrides this to bind only
+        the replicas its process leads."""
+        return list(self.engine.instances)
 
     # ------------------------------------------------------------------
     def _bind_run(self, inst: PipelineInstance, layers: Optional[List[Dict]],
@@ -549,7 +556,7 @@ class HeteroTrainer(Executor):
             return fallback[layer]
 
         self.runs = [self._bind_run(inst, layers=None, state_fn=state_for)
-                     for inst in self.engine.instances]
+                     for inst in self._bound_instances()]
         self.bind()        # swap programs by lookup (zero builds if warm)
         stats = plan.stats()
         return {"copied_bytes": result.copy_bytes(),

@@ -778,3 +778,64 @@ def test_serving_on_card_equals_serving_on_cpu(card):
     assert torch.equal(bits.cpu(), prng.random_bits(keys, 512))
     for rid, toks in out[1].items():
         np.testing.assert_array_equal(out[0][rid], toks)
+
+
+def test_multihost_workers_on_card_are_bitwise_through_a_sigkill(card):
+    """Two worker processes on the card (reduced gpt3-medium, the flash
+    and fused kernels): each step's loss and grad norm bitwise equal to
+    the single-process trainer's on the card, through a SIGKILL of the
+    rank that leads replica 1 (the mid-step kill of
+    tests/test_multihost.py's conformance run) and the recovery; no
+    build on the survivor, every flash and fused kernel launched by the
+    workers and none by the coordinator."""
+    from repro_torch.data import GlobalBatchDispenser, SyntheticLM
+    from repro_torch.runtime import HeteroTrainer, WorkerLost
+    from repro_torch.runtime.multihost import (MultiHostExecutor,
+                                               build_setup, make_job_spec)
+    mb = 2
+    # 6 nodes: three 2-node replicas, rank 1 leads the third; killing it
+    # leaves 4 nodes, the (f+1)*n0 floor
+    spec = make_job_spec(arch="gpt3_medium", layers=4, seq_len=64,
+                         microbatch=mb, global_batch=16, f=1, n0=2,
+                         nodes=[f"n{i}" for i in range(6)],
+                         hosting={"n0": 0, "n1": 0, "n2": 0, "n3": 0,
+                                  "n4": 1, "n5": 1},
+                         procs=2, seed=3, device="cuda", attn_impl="kernel")
+    model, params, _, opt_cfg, engine = build_setup(spec)
+    ref = HeteroTrainer(model, engine, params, opt_cfg)
+    src = SyntheticLM(model.arch.vocab_size, 64, seed=5)
+    d_ref, d_mh = GlobalBatchDispenser(src), GlobalBatchDispenser(src)
+
+    def feed(disp, eng):
+        out = []
+        for b in disp.next_step(eng.batch.minibatch_sizes()):
+            n = b["tokens"].shape[0] // mb
+            out.append([{k: v[i * mb:(i + 1) * mb] for k, v in b.items()
+                         if not k.startswith("_")} for i in range(n)])
+        return out
+    build.reset_launches()
+    with MultiHostExecutor(spec, rpc_timeout=300.0) as mh:
+        mh.warm_templates()
+        for step in range(4):
+            if step == 2:
+                batches = feed(d_mh, mh.engine)
+                feed(d_ref, ref.engine)
+                mh.kill_worker(1)
+                with pytest.raises(WorkerLost):
+                    mh.step(batches)            # the iteration is lost
+                dead, _ = mh.detected_dead(timeout=30.0)
+                assert dead == {"n4", "n5"}
+                mh.recover(dead)
+                ref.recover(dead)
+            o_ref = ref.step(feed(d_ref, ref.engine))
+            before = dict(build.LAUNCHES)
+            o_mh = mh.step(feed(d_mh, mh.engine))
+            assert build.LAUNCHES == before     # the coordinator launches none
+            for key in ("loss", "grad_norm"):
+                assert torch.equal(o_ref[key], o_mh[key]), (step, key)
+        counts = mh.worker_counts()
+        assert {r: c["since_mark"] for r, c in counts.items()} == {0: 0}
+        assert mh.replica_divergence() == 0
+    launched = counts[0]["launches"]
+    assert all(launched[k] > 0 for k in launched
+               if not k.startswith("ssd")), launched

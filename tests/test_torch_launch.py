@@ -62,10 +62,22 @@ def test_train_cli_on_cpu_trains_mamba2_through_the_ssd_kernels(capsys,
     assert set(out["builds_after_step"]) == {out["recovery"]["builds_before"]}
 
 
-@pytest.mark.parametrize("flag", [["--procs", "2"]])
-def test_later_slice_flags_raise(flag):
-    with pytest.raises(NotImplementedError):
-        train.main(["--steps", "1", "--device", "cpu", *flag])
+def test_train_cli_procs_trains_through_a_sigkill(capsys):
+    """--procs 3: the coordinator here, three spawned workers; the last
+    rank is SIGKILLed before step 2, its death detected from the
+    channel, and training continues with falling losses, no replica
+    divergence and no build on the survivors since warm."""
+    out = train.main(["--procs", "3", "--steps", "4", "--kill-at", "2",
+                      "--device", "cpu"])
+    text = capsys.readouterr().out
+    for tag in ("[plan] procs=3", "[warm]", "[fail] SIGKILL rank 2",
+                "[step 3]", "[done]"):
+        assert tag in text, tag
+    assert out["losses"][-1] < out["losses"][0]
+    assert all(l1 < l0 for l0, l1 in zip(out["losses"], out["losses"][1:]))
+    assert out["divergences"] == [0, 0, 0, 0]
+    assert out["recovery"]["fetched_bytes"] > 0
+    assert out["compiles"] == {0: 0, 1: 0}
 
 
 def test_train_cli_eager_walks_1f1b_through_a_failure(capsys):
@@ -121,6 +133,11 @@ def test_cuda_without_a_card_raises_and_never_falls_back(monkeypatch):
         train.main(["--steps", "1"])                 # default device: cuda
     with pytest.raises(RuntimeError):
         params_from_numpy({"w": [1.0]})              # default device: cuda
+    with pytest.raises(RuntimeError):                # the coordinator
+        train.main(["--procs", "2", "--steps", "1"])
+    from repro_torch.runtime.multihost import build_setup, make_job_spec
+    with pytest.raises(RuntimeError):                # a worker's setup
+        build_setup(make_job_spec())
     with pytest.raises(ValueError):
         resolve_device("meta")
 
@@ -184,6 +201,11 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     for tag in ("A step 3", "B step 3", "eager step 3", "checkpoint:",
                 "replica recovery", "equal A's bitwise"):
         assert any(ln.startswith("[lifecycle]") and tag in ln
+                   for ln in lines), tag
+    for tag in ("leg 1 (one process)", "3 workers spawned", "step 0:",
+                "step 3:", "SIGKILL rank 1 -> detected ['n2']",
+                "params bitwise leg 1's", "phase"):
+        assert any(ln.startswith("[multiproc]") and tag in ln
                    for ln in lines), tag
 
 
