@@ -93,6 +93,24 @@ Phases, each fatal on failure:
      phase, the wire and the commit with the bytes each way, kill ->
      detect seconds, the recovery breakdown, each surviving worker's
      peak memory, nvidia-smi's peak memory used and the phase's seconds.
+ 13. the single-program fast path: ``SPMDExecutor`` trains gpt3-medium
+     at full width and depth (fp32, sequence 2048, the global batch 16
+     as one program, remat full, the chunked CE at 512, the flash and
+     epilogue kernels) on phase 7's weights and corpus.  Asserts: the
+     executor's state (params, moments, step) equals the dry-run's
+     args for the same model and batch on a 1 x 1 mesh, less the batch,
+     within 0.1 %; the first step's loss equals a HeteroTrainer step's on
+     the same weights and global batch (tests/test_executor.py's fp32
+     tolerance); 4 steps with finite, falling losses, one program, no
+     build after bind; each of the six kernels launched exactly as remat
+     full derives (``spmd_launches``); a node killed through the
+     engine's monitor: ``recover`` raises ExecutorUnsupported, the plan
+     still covers every replica, a HeteroTrainer rebinds from the
+     snapshot with bitwise params and divergence 0 and runs a warmed
+     step with a finite loss and no build.  Prints each step's seconds,
+     the peak memory beside the dry-run's predicted peak, the achieved
+     TFLOP/s (the dry-run's FLOPs over the step) beside the fp32 peak,
+     the rebind seconds and the rebound trainer's step.
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line
 (each kernel's launches counted on the path that reports it: phase 7
 for the six, phase 8 for the SSD pair; error, times and bound at the
@@ -1452,6 +1470,231 @@ def run_multiprocess(device):
     return launches
 
 
+#: phase 13's fast path: phase 7's gpt3-medium (full width and depth,
+#: fp32, sequence 2048, launch/train.py's global batch 16, the same weights
+#: and byte corpus; 5 nodes, f 1, n0 2) as ONE program over the global
+#: batch, with the reference dry-run's memory settings: remat full and
+#: the chunked CE (512 positions a chunk); the batch does not fit
+#: without remat
+SPMD = dict(nodes=5, f=1, n0=2, global_batch=16, microbatch=2, seq_len=2048,
+            loss_chunk=512, steps=4, cpu_seq_len=32, cpu_layers=2)
+#: fp32 FLOP/s outside the tensor cores (the H100 SXM data sheet)
+FP32_PEAK = PEAK_FLOPS["torch.float32"]
+
+
+def spmd_launches(layers, steps):
+    """Each kernel's launches over ``steps`` SPMD steps of ``layers``
+    blocks under remat full: a block's forward runs twice a step (once
+    forward, once recomputed in backward), its backward once.  Per block
+    forward: one fused residual-add + RMSNorm (ln2), one flash forward,
+    one fused-QKV GEMM; per block backward: one norm backward, one dq,
+    one dk/dv, and the QKV GEMM's dx and dW (two gemm_bias launches)."""
+    fwd, bwd = 2 * layers * steps, layers * steps
+    return {"add_rmsnorm_fwd": fwd, "flash_fwd": fwd,
+            "add_rmsnorm_bwd": bwd, "flash_bwd_dq": bwd,
+            "flash_bwd_dkdv": bwd, "gemm_bias": fwd + 2 * bwd}
+
+
+def run_spmd(device):
+    """Phase 13: the single-program fast path (``SPMDExecutor``) at
+    gpt3-medium's full width and depth, with the six flash and epilogue
+    kernels inside, and its degradation through a node failure to a
+    ``HeteroTrainer`` rebind.  Returns the SPMD steps' launch counts."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeConfig, get_arch, reduced
+    from repro_torch.core import (EngineConfig, OobleckEngine, build_profile,
+                                  verify_replica_coverage)
+    from repro_torch.core.monitor import NodeChangeMonitor
+    from repro_torch.data import ByteCorpus, GlobalBatchDispenser
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import _TEXT, microbatches
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import (ExecutorUnsupported, HeteroTrainer,
+                                     ShardingStrategy, SPMDExecutor,
+                                     track_compiles)
+    from repro_torch.utils.tree import tree_leaves
+    on_card = device.type == "cuda"
+    cfg = SPMD
+    arch, seq = get_arch("gpt3-medium"), cfg["seq_len"]
+    if not on_card:
+        arch, seq = reduced(arch, layers=cfg["cpu_layers"]), cfg["cpu_seq_len"]
+    mb, gb = cfg["microbatch"], cfg["global_batch"]
+    model = Model(arch, dtype=torch.float32, attn_impl="kernel", fuse="fused",
+                  remat=True, remat_policy="full", loss_chunk=cfg["loss_chunk"])
+    shape = ShapeConfig("phase13", seq, gb, "train")
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, weight_decay=0.0)
+
+    def mk_engine():
+        return OobleckEngine(
+            build_profile(arch, microbatch=mb, seq_len=seq),
+            [f"node{i}" for i in range(cfg["nodes"])],
+            EngineConfig(fault_tolerance=cfg["f"], global_batch=gb,
+                         microbatch=mb, gpus_per_node=1, n0_override=cfg["n0"]))
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    # the dry-run's terms for this model and batch on a 1 x 1 mesh, with
+    # fp32 activations (derived on the host: FakeTensor traces)
+    t0 = time.perf_counter()
+    pred = dryrun.analyze(arch, shape, make_mesh((1, 1), ("data", "model")),
+                          ShardingStrategy(), dtype=torch.float32,
+                          loss_chunk=cfg["loss_chunk"], moe_impl="dense")
+    pred_s = time.perf_counter() - t0
+    nb = pred["bytes"]
+    pred_peak = nb["args"] + nb["temps"] + nb["outputs"] - nb["alias"]
+    flops = pred["roofline"]["flops_global"]
+
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    engine_t = mk_engine()
+    batches = GlobalBatchDispenser(ByteCorpus(_TEXT * 50, seq_len=seq)
+                                   ).next_step(engine_t.batch.minibatch_sizes())
+    batch = {k: np.concatenate([b[k] for b in batches])
+             for k in ("tokens", "labels")}
+    check(batch["tokens"].shape == (gb, seq), f"spmd batch {batch['tokens'].shape}")
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+
+    # 2. the trainer's first step on the same weights and global batch
+    trainer = HeteroTrainer(model, engine_t, params, opt_cfg)
+    loss_h = float(trainer.step([microbatches(b, mb) for b in batches])["loss"])
+    engine_t.attach_executor(None)
+    del trainer
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 1. the executor's state against the dry-run's args less the batch
+    base = torch.cuda.memory_allocated() if on_card else 0
+    engine = mk_engine()
+    t0 = time.perf_counter()
+    ex = SPMDExecutor(model, params, opt_cfg, shape=shape, engine=engine)
+    sync()
+    bind_s = time.perf_counter() - t0
+    held = (torch.cuda.memory_allocated() - base if on_card else
+            sum(t.numel() * t.element_size()
+                for t in tree_leaves((ex.params, ex.opt_state))))
+    del params
+    want = nb["args"] - dryrun.spec_bytes(arch, shape, make_mesh(
+        (1, 1), ("data", "model")), ShardingStrategy(), model=model)["batch"]
+    check(abs(held - want) <= 1e-3 * want,
+          f"spmd state {held} B against the dry-run's args less the batch "
+          f"{want} B")
+    builds = ex.cache.stats.compiles
+    check(builds == 1, f"spmd: bind built {builds} programs")
+
+    # 3. steady state on the fixed batch, counting the kernels
+    gc.collect()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    losses, secs = [], []
+    with track_compiles() as log:
+        for _ in range(cfg["steps"]):
+            sync()
+            t0 = time.perf_counter()
+            loss = float(ex.step(batch)["loss"])
+            sync()
+            secs.append(time.perf_counter() - t0)
+            losses.append(loss)
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    check(all(math.isfinite(l) for l in losses), f"spmd losses {losses}")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"spmd losses do not fall: {losses}")
+    check(ex.cache.stats.compiles == 1 and log.backend_compiles == 0,
+          f"spmd: {ex.cache.stats.compiles} programs, "
+          f"{log.backend_compiles} builds after bind")
+    tol = EXECUTOR_TOL["atol"] + EXECUTOR_TOL["rtol"] * abs(loss_h)
+    check(abs(losses[0] - loss_h) <= tol,
+          f"spmd first loss {losses[0]!r} vs the trainer's {loss_h!r}")
+    if on_card:
+        # 5. every kernel exactly as the remat schedule derives
+        want_l = spmd_launches(arch.num_layers, cfg["steps"])
+        check({k: launches[k] for k in want_l} == want_l,
+              f"spmd launches {launches}, expected {want_l}")
+        check(pred["fits_hbm"] and peak <= 80 * 10**9,
+              f"spmd peak {peak} B; the dry-run's fits {pred['fits_hbm']}")
+    print(f"[spmd] bind {bind_s:.4f}s, state {held} B = dry-run args less "
+          f"the batch {want} B; first loss {losses[0]!r} vs the trainer's "
+          f"{loss_h!r}")
+    print(f"[spmd] step seconds {[round(t, 4) for t in secs]}, losses "
+          f"{[round(l, 4) for l in losses]}, programs 1, builds after bind "
+          f"0, launches {launches}")
+    steady = secs[-1]
+    if not on_card:
+        print(f"[spmd] peak memory and TFLOP/s: not measured (cpu "
+              f"rehearsal); the dry-run's terms traced in {pred_s:.1f}s")
+    else:
+        print(f"[spmd] peak max_memory_allocated {peak / 2**30:.2f} GiB; the "
+              f"dry-run's predicted peak {pred_peak / 2**30:.2f} GiB (args "
+              f"{nb['args'] / 2**30:.2f} + temps {nb['temps'] / 2**30:.2f}; "
+              f"traced {pred['traced']['attn_impl']} attention, {pred_s:.1f}s "
+              f"on the host), measured/predicted "
+              f"{peak / pred_peak:.3f}; {flops / 1e12:.2f} TFLOP a step (the "
+              f"dry-run's products) over {steady:.4f}s = "
+              f"{flops / steady / 1e12:.2f} TFLOP/s against the "
+              f"{FP32_PEAK / 1e12:.0f} TFLOP/s fp32 peak")
+
+    # 4. a node failure: the fast path refuses, the plan still changes,
+    # a HeteroTrainer rebinds from the snapshot
+    victim = engine.instances[0].nodes[-1]
+    refused = False
+    try:
+        ex.recover({victim})
+    except ExecutorUnsupported:
+        refused = True
+    check(refused, "spmd: recover did not raise ExecutorUnsupported")
+    engine.monitor.inject(NodeChangeMonitor.FAIL, [victim])
+    engine.monitor.poll(now=0.0)
+    check(victim not in engine.nodes and
+          verify_replica_coverage(engine.instances),
+          f"spmd: the plan after killing {victim}: {engine.nodes}")
+    snap = ex.snapshot()
+    engine.attach_executor(None)
+    del ex
+    gc.collect()
+    t0 = time.perf_counter()
+    rebound = HeteroTrainer(model, engine, snap.params, opt_cfg,
+                            opt_state=snap.opt_state)
+    rebound.warm_templates()
+    sync()
+    rebind_s = time.perf_counter() - t0
+    check(all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(rebound.full_params()), tree_leaves(snap.params))),
+          "spmd: the rebound trainer's params differ from the snapshot's")
+    check(rebound.replica_divergence() == 0.0, "spmd: rebound divergence")
+    pbatches = GlobalBatchDispenser(ByteCorpus(_TEXT * 50, seq_len=seq)
+                                    ).next_step(engine.batch.minibatch_sizes())
+    with track_compiles() as log:
+        sync()
+        t0 = time.perf_counter()
+        loss_r = float(rebound.step([microbatches(b, mb) for b in pbatches])
+                       ["loss"])
+        sync()
+        step_r = time.perf_counter() - t0
+    check(math.isfinite(loss_r) and log.backend_compiles == 0,
+          f"spmd rebound step: loss {loss_r}, {log.backend_compiles} builds")
+    engine.attach_executor(None)
+    del rebound, snap
+    gc.collect()
+    print(f"[spmd] killed {victim}: recover raised ExecutorUnsupported, the "
+          f"plan covers every replica ({[i.template.num_nodes for i in engine.instances]}); "
+          f"HeteroTrainer rebound from the snapshot in {rebind_s:.4f}s "
+          f"(params bitwise, divergence 0), its warmed step {step_r:.4f}s, "
+          f"loss {loss_r!r}, 0 builds; phase "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def _rounded(d):
     return {k: round(v, 2) for k, v in d.items()}
 
@@ -1504,6 +1747,7 @@ def run(device="cuda"):
     run_path(device, 10, FUSED + FLASH, exact=MOE_LAUNCHES)
     run_serving(device)
     run_multiprocess(device)
+    run_spmd(device)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errors[name],

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -57,6 +57,14 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def _identity_constrain(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x
+
+
+def _identity_unshard(tree: Dict) -> Dict:
+    return tree
+
+
 @dataclasses.dataclass
 class Model:
     arch: ArchConfig
@@ -68,6 +76,11 @@ class Model:
     remat: bool = True                  # recompute blocks in backward
     remat_policy: str = "full"          # full | dots
     loss_chunk: int = 0                 # > 0: the chunked CE
+    #: sharding hooks (``runtime/sharding.py``): ``constrain(x, name)``
+    #: on the residual stream ("act") and the logits, ``unshard`` on a
+    #: block's params at entry; the identity unless a strategy sets them
+    constrain: Callable[[torch.Tensor, str], torch.Tensor] = _identity_constrain
+    unshard: Callable[[Dict], Dict] = _identity_unshard
 
     def __post_init__(self):
         if self.attn_impl == "auto":
@@ -125,10 +138,11 @@ class Model:
     def block(self, bp: Dict, x: torch.Tensor, aux: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         a = self.arch
+        bp = self.unshard(bp)
         h = self._norm(bp["ln1"], x)
         if a.family == "ssm":
             x = x + ssm_lib.mamba(bp["mamba"], a, h, evaluator=self.ssd_impl)
-            return x, aux
+            return self.constrain(x, "act"), aux
         fused = self.fuse == "fused"
         branch = attn_lib.attention(bp["attn"], a, h, impl=self.attn_impl,
                                     fused=fused)
@@ -139,10 +153,12 @@ class Model:
             # one pass over the residual: (x + branch) and its RMSNorm
             x, h = kops.fused_add_rmsnorm(x, branch, bp["ln2"].to(x.dtype),
                                           eps=a.rms_norm_eps)
+            x = self.constrain(x, "act")
         else:
-            x = x + branch
+            x = self.constrain(x + branch, "act")
             h = self._norm(bp["ln2"], x)
-        return self._ffn(bp, x, h, aux)
+        x, aux = self._ffn(bp, x, h, aux)
+        return self.constrain(x, "act"), aux
 
     def _ffn(self, bp: Dict, x, h, aux):
         """The block's MLP or MoE on h, added to the residual x; the MoE's
@@ -186,6 +202,7 @@ class Model:
         x = embed(params["embed"], tokens, self.dtype)
         if frontend_embeds is not None:
             x = torch.cat([frontend_embeds.to(self.dtype), x], dim=1)
+        x = self.constrain(x, "act")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         x, aux = self.run_blocks(params["blocks"], x, aux)
         return self._norm(params["final_norm"], x), aux
@@ -196,7 +213,7 @@ class Model:
         """tokens: [b, S] -> logits [b, F + S, V], aux loss."""
         x, aux = self.hidden_states(params, tokens, frontend_embeds)
         head = params.get("head", params["embed"])
-        return unembed(head, x), aux
+        return self.constrain(unembed(head, x), "logits"), aux
 
     def loss(self, params: Dict, batch: Dict) -> Tuple[torch.Tensor, Dict]:
         """nll + router_aux_loss_coef * aux, with {"nll", "aux"}.  Labels
@@ -242,6 +259,7 @@ class Model:
         into ``cache`` (this layer's views) in place; ``write`` ([b] bool)
         keeps the cache of the rows where it is False."""
         a = self.arch
+        bp = self.unshard(bp)
         h = self._norm(bp["ln1"], x)
         if a.family == "ssm":
             return x + ssm_lib.mamba_decode_(bp["mamba"], a, h,
@@ -254,7 +272,7 @@ class Model:
             y = 0.5 * (y + ym)
         x = x + y
         x, _ = self._ffn(bp, x, self._norm(bp["ln2"], x), 0.0)
-        return x
+        return self.constrain(x, "act")
 
     def decode_step_(self, params: Dict, token: torch.Tensor, cache: Dict,
                      pos, write=None) -> torch.Tensor:
@@ -263,7 +281,7 @@ class Model:
         form of the reference's donated cache).  ``write`` ([b] bool)
         keeps the cache of the rows where it is False.  Returns logits
         [b, 1, V]."""
-        x = embed(params["embed"], token, self.dtype)
+        x = self.constrain(embed(params["embed"], token, self.dtype), "act")
         pos = torch.as_tensor(pos, device=x.device)
         for i in range(self.arch.num_layers):
             x = self.decode_block_(tree_map(lambda t: t[i], params["blocks"]),
@@ -271,7 +289,7 @@ class Model:
                                    write)
         x = self._norm(params["final_norm"], x)
         head = params.get("head", params["embed"])
-        return unembed(head, x)
+        return self.constrain(unembed(head, x), "logits")
 
     def decode_step(self, params: Dict, token: torch.Tensor, cache: Dict,
                     pos) -> Tuple[torch.Tensor, Dict]:
@@ -288,4 +306,4 @@ class Model:
         sliced before the head, so the [b, S, V] logits are never built."""
         x, _ = self.hidden_states(params, tokens, frontend_embeds)
         head = params.get("head", params["embed"])
-        return unembed(head, x[:, -1:])
+        return self.constrain(unembed(head, x[:, -1:]), "logits")

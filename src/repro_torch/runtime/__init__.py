@@ -1,8 +1,9 @@
 """The port's runtime: executor interface and program cache, the
 heterogeneous pipeline trainer, the bucketed sync plane, the
 multi-process backend (coordination channel, coordinator and shard
-trainers), and copies of the framework-free schedule and transfer
-planners."""
+trainers), the sharding specs and the single-program fast path
+(``spmd``, ``SPMDExecutor``), and copies of the framework-free schedule
+and transfer planners."""
 from repro_torch.runtime.coordination import (CoordinatorServer, DataServer,
                                               EpochMismatch, WorkerChannel,
                                               WorkerLost, data_call,
@@ -17,6 +18,9 @@ from repro_torch.runtime.pipeline import HeteroTrainer, split_into_layers
 from repro_torch.runtime.multihost import (MultiHostExecutor, ShardTrainer,
                                            build_setup, layer_state_hash,
                                            make_job_spec)
+from repro_torch.runtime import spmd
+from repro_torch.runtime.sharding import ShardingStrategy
+from repro_torch.runtime.spmd import SPMDExecutor
 from repro_torch.runtime.sync_exec import (BucketedSync, BucketExec,
                                            perlayer_global_sumsq,
                                            perlayer_sync)
@@ -34,6 +38,7 @@ __all__ = ["CoordinatorServer", "DataServer", "EpochMismatch",
            "HeteroTrainer", "split_into_layers",
            "MultiHostExecutor", "ShardTrainer", "build_setup",
            "layer_state_hash", "make_job_spec",
+           "ShardingStrategy", "SPMDExecutor", "spmd",
            "BucketedSync", "BucketExec", "perlayer_global_sumsq",
            "perlayer_sync",
            "Topology", "TransferPlan", "TransferPlanError",

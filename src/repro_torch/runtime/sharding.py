@@ -1,0 +1,270 @@
+"""Sharding strategies: parameter, optimizer, batch and cache specs
+(``repro/runtime/sharding.py``).
+
+FSDP shards every >= 2-D parameter's largest dimension over the
+``model`` axis and gathers it at use (ZeRO-3); ``tp`` is Megatron-style
+tensor parallelism (column/row-parallel projections, expert parallelism
+over the MoE's experts, a vocab-sharded embedding); either adds ZeRO-1
+sharding of the Adam moments over the data axes.  A dimension is only
+sharded where the mesh axis divides it.
+
+Specs are plain tuples, one entry per tensor dimension: an axis name, a
+tuple of axis names or ``None`` (replicated), entry for entry what the
+reference's ``PartitionSpec`` holds on the same tree paths
+(``blocks/attn/wq``, ``embed/table``, ...).  A mesh is anything with a
+``.shape`` dict of axis sizes (``launch/mesh.py``'s ``AbstractMesh``);
+nothing here needs ``torch.distributed`` or a device.
+
+``act_constrainer`` and ``unshard_blocks`` are the model's ``constrain``
+and ``unshard`` hooks.  On a run they are the identity (FSDP's
+``gather_dtype`` cast aside): with one card there is nothing to gather
+or constrain.  Handed a ``recorder`` (``launch/opcount.py``), they
+record the collectives the strategy's layout implies where the
+reference's GSPMD program would run them: the dry-run's trace.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch.utils.tree import flatten_with_path, tree_unflatten_like
+
+Spec = Tuple[Any, ...]
+
+
+def _identity_constrain(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x
+
+
+def _identity_tree(tree):
+    return tree
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingStrategy:
+    """How to lay a model out on a ("pod",)? + ("data", "model") mesh."""
+
+    strategy: str = "fsdp"        # fsdp | tp
+    zero1: bool = True            # shard optimizer moments over data axes
+    data_axes: Tuple[str, ...] = ("data",)
+    model_axis: str = "model"
+    #: gather FSDP weights in this dtype (None keeps the storage dtype):
+    #: bf16 halves the all-gather bytes and the gathered buffers
+    gather_dtype: Optional[str] = None
+
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        """Axes the batch shards over: every axis under FSDP (compute is
+        data-parallel on every card; ``model`` only shards storage), the
+        data axes under TP."""
+        if self.strategy == "fsdp":
+            return self.data_axes + (self.model_axis,)
+        return self.data_axes
+
+    # ------------------------------------------------------------------
+    def _axis_size(self, mesh, axis) -> int:
+        if isinstance(axis, tuple):
+            out = 1
+            for a in axis:
+                out *= mesh.shape[a]
+            return out
+        return mesh.shape[axis]
+
+    def _maybe(self, mesh, dim_size: int, axis):
+        """``axis`` if it divides ``dim_size``, else None (replicate)."""
+        return axis if dim_size % self._axis_size(mesh, axis) == 0 else None
+
+    # ------------------------------------------------------------------
+    def param_spec(self, mesh, path: str, shape: Tuple[int, ...]) -> Spec:
+        """Spec of one parameter.  ``path`` like 'blocks/attn/wq' (a
+        leading 'blocks' means a stacked [L, ...] dimension)."""
+        m = self.model_axis
+        stacked = path.startswith("blocks/")
+        lead = (None,) if stacked else ()
+        body = tuple(shape[1:] if stacked else shape)
+
+        def col(i):  # shard dimension i of the body
+            specs = [None] * len(body)
+            specs[i] = self._maybe(mesh, body[i], m)
+            return (*lead, *specs)
+
+        name = path.split("/")[-1]
+        parent = path.split("/")[-2] if "/" in path else ""
+
+        if self.strategy == "fsdp":
+            if len(body) >= 2:
+                # the largest dimension (the first of equals)
+                return col(max(range(len(body)), key=lambda i: (body[i], -i)))
+            return (*lead, *([None] * len(body)))
+
+        # ---- Megatron TP ------------------------------------------------
+        if parent == "moe" and name in ("gate", "up", "down"):
+            return col(0)                       # expert parallelism over E
+        if name in ("wq", "wk", "wv", "gate", "up", "in_proj"):
+            return col(len(body) - 1)           # column parallel
+        if name in ("wo", "down", "out_proj"):
+            return col(len(body) - 2) if len(body) >= 2 else col(0)
+        if name in ("bq", "bk", "bv"):
+            return col(0)
+        if name == "table":
+            return col(0)                       # vocab-sharded embedding
+        if name == "router":
+            return (*lead, None, None)
+        if name in ("conv_w", "conv_b"):
+            return col(len(body) - 1)
+        if name in ("A_log", "dt_bias", "D", "norm_w"):
+            return col(0)
+        return (*lead, *([None] * len(body)))
+
+    def param_shardings(self, mesh, params: Any) -> Any:
+        """Tree of specs, one per parameter leaf."""
+        return _map_with_path(
+            lambda p, leaf: self.param_spec(mesh, p, tuple(leaf.shape)),
+            params)
+
+    def _zero1(self, mesh, spec: Spec, shape) -> Spec:
+        """ZeRO-1: additionally shard the first unsharded dimension the
+        data axes divide (and that holds at least two shards)."""
+        if not self.zero1:
+            return spec
+        spec = list(spec) + [None] * (len(shape) - len(spec))
+        daxis = (self.data_axes if len(self.data_axes) > 1
+                 else self.data_axes[0])
+        n = self._axis_size(mesh, daxis)
+        for i, (s, dim) in enumerate(zip(spec, shape)):
+            if s is None and dim % n == 0 and dim >= 2 * n:
+                spec[i] = daxis
+                return tuple(spec)
+        return tuple(spec)
+
+    def opt_shardings(self, mesh, opt_state: Any, params: Any) -> Any:
+        """Specs of an ``adamw.AdamWState``: the moments like the params,
+        plus ZeRO-1; the step replicated."""
+        def moment(p, leaf):
+            return self._zero1(mesh, self.param_spec(mesh, p, leaf.shape),
+                               tuple(leaf.shape))
+        return type(opt_state)(step=(), m=_map_with_path(moment, params),
+                               v=_map_with_path(moment, params))
+
+    # ------------------------------------------------------------------
+    def batch_spec(self, mesh, global_batch: int) -> Spec:
+        """Shard the batch over the longest prefix of ``batch_axes`` that
+        divides it (small serving batches drop the model axis first,
+        then pods; batch 1 replicates)."""
+        axes = list(self.batch_axes)
+        while axes:
+            axis = tuple(axes) if len(axes) > 1 else axes[0]
+            if global_batch % self._axis_size(mesh, axis) == 0:
+                return (axis,)
+            axes.pop()
+        return ()
+
+    def seq_axis(self, mesh, global_batch: int):
+        """The axes activations' sequence dimension shards over: the
+        batch axes the (small) batch could not cover, or None."""
+        bspec = self.batch_spec(mesh, global_batch)
+        used = set()
+        if bspec:
+            used = set(bspec[0]) if isinstance(bspec[0], tuple) else {bspec[0]}
+        leftover = tuple(a for a in self.batch_axes if a not in used)
+        if not leftover:
+            return None
+        return leftover if len(leftover) > 1 else leftover[0]
+
+    def act_constrainer(self, mesh, global_batch: int, recorder=None):
+        """The model's ``constrain(x, name)`` hook: the identity, or with
+        a ``recorder`` the TP collectives at each residual-stream site
+        (``launch/opcount.py``)."""
+        if recorder is None:
+            return _identity_constrain
+        return recorder.constrainer(self, mesh)
+
+    def unshard_blocks(self, mesh, recorder=None):
+        """The model's ``unshard(block_params)`` hook.  FSDP with a
+        ``gather_dtype`` casts fp32 weights to it (what the gathered
+        buffers hold); with a ``recorder`` FSDP's all-gather at use and
+        its gradient reduce-scatter are recorded.  TP: the identity."""
+        if self.strategy != "fsdp":
+            return _identity_tree
+        cast = getattr(torch, self.gather_dtype) if self.gather_dtype else None
+        gather = (recorder.gatherer(self, mesh) if recorder is not None
+                  else None)
+        if cast is None and gather is None:
+            return _identity_tree
+
+        def one(path, t):
+            if cast is not None and t.dtype == torch.float32:
+                t = t.to(cast)
+            return gather("blocks/" + path, t) if gather is not None else t
+        return lambda tree: _map_with_path(one, tree)
+
+    def cache_shardings(self, mesh, cache: Any, batch: int) -> Any:
+        """KV/SSM caches: the batch dimension over the batch axes where
+        they divide it, else head_dim (attention) or heads (SSM) over
+        ``model``.  Layouts: attn k/v [L, B, S, KV, D]; mamba conv
+        [L, B, W, dim]; mamba ssm [L, B, H, P, N]."""
+        bspec = self.batch_spec(mesh, batch)
+        batch_axis = bspec[0] if bspec else None
+        used = (set(batch_axis) if isinstance(batch_axis, tuple)
+                else {batch_axis} if batch_axis else set())
+        model_free = self.model_axis not in used
+
+        def spec_for(pstr, leaf):
+            shape = tuple(leaf.shape)
+            dims = [None] * len(shape)
+            if len(shape) >= 2:
+                dims[1] = batch_axis
+            if model_free:
+                if "attn" in pstr and len(shape) == 5:
+                    dims[4] = self._maybe(mesh, shape[4], self.model_axis)
+                    if dims[4] is None:
+                        dims[3] = self._maybe(mesh, shape[3], self.model_axis)
+                elif "ssm" in pstr and len(shape) == 5:
+                    dims[2] = self._maybe(mesh, shape[2], self.model_axis)
+                    if dims[2] is None:
+                        dims[3] = self._maybe(mesh, shape[3], self.model_axis)
+                elif "conv" in pstr and len(shape) == 4:
+                    dims[3] = self._maybe(mesh, shape[3], self.model_axis)
+            return tuple(dims)
+        return _map_with_path(spec_for, cache)
+
+
+def _key_name(k) -> str:
+    for attr in ("key", "idx", "name"):
+        if hasattr(k, attr):
+            return str(getattr(k, attr))
+    return str(k)
+
+
+def path_str(path) -> str:
+    """A key path as the reference's specs see it: 'blocks/attn/wq'."""
+    return "/".join(_key_name(k) for k in path)
+
+
+def _map_with_path(fn, tree):
+    """``fn(path string, leaf)`` over ``tree``'s leaves, in its structure.
+    A spec tree's leaves are tuples, which the tree utilities would walk
+    into: read one with ``spec_leaves``."""
+    pairs = list(flatten_with_path(tree))
+    return tree_unflatten_like(tree, [fn(path_str(p), leaf)
+                                      for p, leaf in pairs])
+
+
+def spec_leaves(specs: Any, like: Any):
+    """(path string, spec, leaf of ``like``) for every leaf of ``like``,
+    the tree ``specs`` was built from."""
+    out = []
+    for path, leaf in flatten_with_path(like):
+        node = specs
+        for k in path:
+            node = (node[k.key] if hasattr(k, "key") else
+                    node[k.idx] if hasattr(k, "idx") else getattr(node, k.name))
+        out.append((path_str(path), node, leaf))
+    return out
+
+
+def strategy_for(arch, name: str = "fsdp",
+                 data_axes: Tuple[str, ...] = ("data",)) -> ShardingStrategy:
+    return ShardingStrategy(strategy=name, data_axes=data_axes)

@@ -839,3 +839,45 @@ def test_multihost_workers_on_card_are_bitwise_through_a_sigkill(card):
     launched = counts[0]["launches"]
     assert all(launched[k] > 0 for k in launched
                if not k.startswith("ssd")), launched
+
+
+def test_spmd_executor_with_kernels_tracks_plain_cpu(card):
+    """SPMDExecutor on reduced gpt3-medium (2 layers) through the flash
+    and fused kernels, remat full and the chunked CE, against the same
+    executor on the CPU's plain versions: three steps' losses and the
+    parameters at tests/test_executor.py's fp32 tolerance (atol 5e-7,
+    rtol 5e-4; parameters by its tracking rule), one build, every
+    kernel launched, and recover raising ExecutorUnsupported."""
+    import numpy as np
+    from repro_torch.configs import ShapeConfig, get_arch, reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import ExecutorUnsupported, SPMDExecutor
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    arch = reduced(get_arch("gpt3_medium"), layers=2)
+    model = Model(arch, dtype=torch.float32, attn_impl="kernel",
+                  fuse="fused", remat=True, loss_chunk=16)
+    lr = 1e-3
+    opt = adamw.AdamWConfig(lr=lr, warmup_steps=0, clip_norm=1.0,
+                            weight_decay=0.0)
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    shape = ShapeConfig("t", 64, 8, "train")
+    gpu = SPMDExecutor(model, params, opt, shape=shape)
+    cpu = SPMDExecutor(model, tree_map(lambda t: t.cpu(), params), opt,
+                       shape=shape)
+    src = SyntheticLM(arch.vocab_size, 64, seed=5)
+    build.reset_launches()
+    for step in range(3):
+        batch = src.batch(np.arange(8 * step, 8 * step + 8))
+        lg, lc = gpu.step(batch)["loss"], cpu.step(batch)["loss"]
+        torch.testing.assert_close(lg.cpu(), lc, rtol=5e-4, atol=5e-7)
+    assert all(build.LAUNCHES[k] > 0 for k in build.LAUNCHES
+               if not k.startswith("ssd")), build.LAUNCHES
+    for a, b in zip(tree_leaves(gpu.params), tree_leaves(cpu.params)):
+        diff = (a.cpu() - b).abs()
+        assert diff.max() <= 2.5 * lr, diff.max()
+        assert (diff > lr / 10).float().mean() < 1e-3
+    assert gpu.cache.stats.compiles == 1
+    with pytest.raises(ExecutorUnsupported):
+        gpu.recover({"n0"})

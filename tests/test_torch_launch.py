@@ -207,6 +207,12 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
                 "params bitwise leg 1's", "phase"):
         assert any(ln.startswith("[multiproc]") and tag in ln
                    for ln in lines), tag
+    for tag in ("= dry-run args less the batch", "vs the trainer's",
+                "programs 1, builds after bind 0", "not measured",
+                "recover raised ExecutorUnsupported",
+                "rebound from the snapshot"):
+        assert any(ln.startswith("[spmd]") and tag in ln
+                   for ln in lines), tag
 
 
 def _zero(i):

@@ -1,0 +1,70 @@
+#!/usr/bin/env python3
+"""One ``chip_smoke.py`` training phase across source trees, each run in
+a fresh process on the card, in the order given: ``parent,change,
+change,parent`` compares two commits on one machine.
+
+    python3 tools/ab_phase.py parent=/path/to/parent change=. \
+        --order parent,change,change,parent --phase multiprocess
+
+``--phase`` names a phase of the tree's own ``chip_smoke.py``: ``naive``
+(6), ``flash`` (7), ``mamba`` (8), ``moe`` (10), ``lifecycle`` (9),
+``serving`` (11) or ``multiprocess`` (12).  Each run builds the tree's
+kernels (once per tree: the library is cached under its ``build/``),
+runs the phase with that tree's ``src`` first on the path and prints
+the phase's own lines, each prefixed with the run's label.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+
+SNIPPET = """
+import sys
+sys.path.insert(0, {src!r}); sys.path.insert(0, {tree!r})
+import torch
+import chip_smoke as cs
+from repro_torch.kernels import build
+from repro_torch.utils.device import strict_fp32_numerics
+strict_fp32_numerics()
+build.library()
+dev = torch.device("cuda")
+phase = {phase!r}
+paths = {{"naive": (6, cs.FUSED), "flash": (7, cs.FUSED + cs.FLASH),
+          "mamba": (8, cs.SSD), "moe": (10, cs.FUSED + cs.FLASH)}}
+if phase in paths:
+    cs.run_path(dev, *paths[phase])
+else:
+    getattr(cs, "run_" + phase)(dev)
+"""
+
+
+def main(args=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="+", help="label=path of a checkout")
+    ap.add_argument("--order", required=True,
+                    help="comma-separated labels")
+    ap.add_argument("--phase", required=True,
+                    choices=["naive", "flash", "mamba", "moe", "lifecycle",
+                             "serving", "multiprocess"])
+    ns = ap.parse_args(args)
+    trees = dict(t.split("=", 1) for t in ns.trees)
+    for label in ns.order.split(","):
+        tree = os.path.abspath(trees[label])
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        proc = subprocess.run(
+            [sys.executable, "-c", SNIPPET.format(
+                src=os.path.join(tree, "src"), tree=tree, phase=ns.phase)],
+            cwd=tree, env=env, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise SystemExit(f"run in {tree} failed:\n{proc.stdout[-4000:]}"
+                             f"\n{proc.stderr[-4000:]}")
+        for line in proc.stdout.splitlines():
+            if line.startswith("["):
+                print(f"{label}: {line}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
