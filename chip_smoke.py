@@ -111,6 +111,29 @@ Phases, each fatal on failure:
      the peak memory beside the dry-run's predicted peak, the achieved
      TFLOP/s (the dry-run's FLOPs over the step) beside the fp32 peak,
      the rebind seconds and the rebound trainer's step.
+ 14. the SPMD data plane: ``SPMDExecutor`` over a data 2 x model 2
+     ``ProcessMesh`` of 4 fresh rank processes sharing the card (gloo:
+     NCCL puts one rank on a card), FSDP with ZeRO-1, on phase 13's
+     model, weights, global batch (4 sequences a rank) and optimizer.
+     Asserts: each rank's state bytes equal the dry-run's per-card args
+     for this mesh less the batch; the first step's loss on every rank
+     equals phase 13's first step and the params gathered after it track
+     phase 13's (tests/test_executor.py's fp32 tolerance); 3 steps with
+     finite, falling losses, bitwise equal across ranks; one program and
+     no build after bind; each rank's launches ``spmd_launches(24, 3)``;
+     the snapshot gathered to rank 0 rebinds a HeteroTrainer bitwise
+     with divergence 0.  Prints each step's seconds, the bytes gathered,
+     reduced, scattered and sent a step, each rank's peak memory and
+     ``nvidia-smi``'s peak memory used.
+ 15. the pipeline across stage ranks: ``runtime/spmd_pipeline.py`` over
+     4 stage processes of 6 blocks, M 4 microbatches of 2 (phase 13's
+     first 8 sequences), no remat; the loss and the params after one
+     ``make_pipeline_train_step`` held to one process's plain
+     full-model step on the same sequences (the same tolerance); 3
+     steps with falling losses, bitwise on every stage; each stage's
+     launches 6 blocks x M x steps of each norm and flash kernel and
+     three times that of ``gemm_bias``.  Prints the step times, the
+     bytes each stage sent and reduced, and each stage's peak memory.
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line
 (each kernel's launches counted on the path that reports it: phase 7
 for the six, phase 8 for the SSD pair; error, times and bound at the
@@ -1482,6 +1505,42 @@ SPMD = dict(nodes=5, f=1, n0=2, global_batch=16, microbatch=2, seq_len=2048,
 FP32_PEAK = PEAK_FLOPS["torch.float32"]
 
 
+#: phase 13's optimizer (phases 14 and 15 too)
+SPMD_OPT = dict(lr=1e-3, warmup_steps=0, weight_decay=0.0)
+
+
+def spmd_model(on_card, layers=None, **kw):
+    """(arch, sequence, model) of phases 13-15: gpt3-medium at full width
+    and depth on the card (reduced to ``layers``, default
+    SPMD["cpu_layers"], in the CPU rehearsal), fp32, the flash and
+    epilogue kernels, remat full and the chunked CE unless ``kw`` says
+    otherwise."""
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import Model
+    arch, seq = get_arch("gpt3-medium"), SPMD["seq_len"]
+    if not on_card:
+        arch = reduced(arch, layers=layers or SPMD["cpu_layers"])
+        seq = SPMD["cpu_seq_len"]
+    opts = dict(dtype=torch.float32, attn_impl="kernel", fuse="fused",
+                remat=True, remat_policy="full", loss_chunk=SPMD["loss_chunk"])
+    opts.update(kw)
+    return arch, seq, Model(arch, **opts)
+
+
+def spmd_engine(arch, seq):
+    """Phase 13's engine: 5 nodes, f 1, n0 2, the global batch 16 in
+    microbatches of 2."""
+    from repro_torch.core import EngineConfig, OobleckEngine, build_profile
+    cfg = SPMD
+    return OobleckEngine(
+        build_profile(arch, microbatch=cfg["microbatch"], seq_len=seq),
+        [f"node{i}" for i in range(cfg["nodes"])],
+        EngineConfig(fault_tolerance=cfg["f"], global_batch=cfg["global_batch"],
+                     microbatch=cfg["microbatch"], gpus_per_node=1,
+                     n0_override=cfg["n0"]))
+
+
 def spmd_launches(layers, steps):
     """Each kernel's launches over ``steps`` SPMD steps of ``layers``
     blocks under remat full: a block's forward runs twice a step (once
@@ -1499,42 +1558,34 @@ def run_spmd(device):
     """Phase 13: the single-program fast path (``SPMDExecutor``) at
     gpt3-medium's full width and depth, with the six flash and epilogue
     kernels inside, and its degradation through a node failure to a
-    ``HeteroTrainer`` rebind.  Returns the SPMD steps' launch counts."""
+    ``HeteroTrainer`` rebind.  Returns the SPMD steps' launch counts and,
+    for phases 14 and 15, the global batch, the first step's loss and
+    the params after it (on the host)."""
     import gc
     import numpy as np
     import torch
-    from repro_torch.configs import ShapeConfig, get_arch, reduced
-    from repro_torch.core import (EngineConfig, OobleckEngine, build_profile,
-                                  verify_replica_coverage)
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import verify_replica_coverage
     from repro_torch.core.monitor import NodeChangeMonitor
     from repro_torch.data import ByteCorpus, GlobalBatchDispenser
     from repro_torch.kernels import build
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import _TEXT, microbatches
-    from repro_torch.models import Model
     from repro_torch.optim import adamw
     from repro_torch.runtime import (ExecutorUnsupported, HeteroTrainer,
                                      ShardingStrategy, SPMDExecutor,
                                      track_compiles)
-    from repro_torch.utils.tree import tree_leaves
+    from repro_torch.utils.tree import tree_leaves, tree_map
     on_card = device.type == "cuda"
     cfg = SPMD
-    arch, seq = get_arch("gpt3-medium"), cfg["seq_len"]
-    if not on_card:
-        arch, seq = reduced(arch, layers=cfg["cpu_layers"]), cfg["cpu_seq_len"]
+    arch, seq, model = spmd_model(on_card)
     mb, gb = cfg["microbatch"], cfg["global_batch"]
-    model = Model(arch, dtype=torch.float32, attn_impl="kernel", fuse="fused",
-                  remat=True, remat_policy="full", loss_chunk=cfg["loss_chunk"])
     shape = ShapeConfig("phase13", seq, gb, "train")
-    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, weight_decay=0.0)
+    opt_cfg = adamw.AdamWConfig(**SPMD_OPT)
 
     def mk_engine():
-        return OobleckEngine(
-            build_profile(arch, microbatch=mb, seq_len=seq),
-            [f"node{i}" for i in range(cfg["nodes"])],
-            EngineConfig(fault_tolerance=cfg["f"], global_batch=gb,
-                         microbatch=mb, gpus_per_node=1, n0_override=cfg["n0"]))
+        return spmd_engine(arch, seq)
 
     def sync():
         if on_card:
@@ -1598,13 +1649,16 @@ def run_spmd(device):
     build.reset_launches()
     losses, secs = [], []
     with track_compiles() as log:
-        for _ in range(cfg["steps"]):
+        for i in range(cfg["steps"]):
             sync()
             t0 = time.perf_counter()
             loss = float(ex.step(batch)["loss"])
             sync()
             secs.append(time.perf_counter() - t0)
             losses.append(loss)
+            if i == 0:      # phase 14 holds its first step to this one
+                params1 = tree_map(lambda t: t.to("cpu", copy=True),
+                                   ex.params)
     launches = dict(build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     check(all(math.isfinite(l) for l in losses), f"spmd losses {losses}")
@@ -1692,7 +1746,372 @@ def run_spmd(device):
           f"(params bitwise, divergence 0), its warmed step {step_r:.4f}s, "
           f"loss {loss_r!r}, 0 builds; phase "
           f"{time.perf_counter() - t_phase:.1f}s")
-    return launches
+    return launches, {"batch": batch, "loss1": losses[0], "params1": params1}
+
+
+#: phase 14: phase 13's model, weights, global batch and optimizer over
+#: 4 rank processes sharing the card, a data 2 x model 2 mesh, FSDP with
+#: ZeRO-1 (4 sequences a rank)
+MESH = dict(shape=(2, 2), steps=3)
+#: phase 15: 4 stage ranks of 6 blocks, M 4 microbatches of 2 (the first
+#: 8 sequences of phase 13's batch), no remat, the chunked CE
+PIPE = dict(stages=4, microbatches=4, microbatch=2, steps=3, cpu_layers=8)
+
+
+def _sync(on_card):
+    import torch
+    if on_card:
+        torch.cuda.synchronize()
+
+
+def _world_device(on_card):
+    from repro_torch.launch.mesh import init_world
+    from repro_torch.utils.device import strict_fp32_numerics
+    dev = init_world("cuda" if on_card else "cpu")
+    if on_card:
+        strict_fp32_numerics()
+    return dev
+
+
+def _params_track(a_leaves, b_leaves, lr):
+    """tests/test_executor.py::assert_params_track: (max |a - b|, the
+    fraction above lr / 10) over all leaves, and whether both hold."""
+    worst, frac = 0.0, 0.0
+    for a, b in zip(a_leaves, b_leaves):
+        d = (a.float() - b.float()).abs()
+        worst = max(worst, float(d.max()))
+        frac = max(frac, float((d > lr / 10).float().mean()))
+    return worst, frac, worst <= 2.5 * lr and frac < 1e-3
+
+
+def mesh_rank(on_card, batch):
+    """Phase 14, one rank's part (run by ``spawn_world``)."""
+    import gc
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import ProcessMesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import (HeteroTrainer, ShardingStrategy,
+                                     SPMDExecutor, track_compiles)
+    from repro_torch.runtime.sharding import gather_tree
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    dev = _world_device(on_card)
+    mesh = ProcessMesh(("data", "model"), MESH["shape"])
+    arch, seq, model = spmd_model(on_card)
+    shape = ShapeConfig("phase14", seq, SPMD["global_batch"], "train")
+    opt_cfg = adamw.AdamWConfig(**SPMD_OPT)
+    strategy = ShardingStrategy()
+    base = torch.cuda.memory_allocated() if on_card else 0
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    ex = SPMDExecutor(model, params, opt_cfg, mesh=mesh, strategy=strategy,
+                      shape=shape)
+    del params
+    gc.collect()
+    _sync(on_card)
+    bind_s = time.perf_counter() - t0
+    held = sum(t.numel() * t.element_size()
+               for t in tree_leaves((ex.params, ex.opt_state)))
+    alloc = torch.cuda.memory_allocated() - base if on_card else held
+    b = dryrun.spec_bytes(arch, shape, mesh, strategy, model=model)
+    out = {"rank": mesh.rank, "coords": mesh.coords, "backend": mesh.backend,
+           "held": held, "alloc": alloc, "want": b["args"] - b["batch"],
+           "bind_s": bind_s, "builds_at_bind": ex.cache.stats.compiles}
+    tr = mesh.transport
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    losses, secs, moved, comm_s = [], [], [], []
+    with track_compiles() as log:
+        for i in range(MESH["steps"]):
+            tr.reset()
+            _sync(on_card)
+            t0 = time.perf_counter()
+            losses.append(float(ex.step(batch)["loss"]))
+            _sync(on_card)
+            secs.append(time.perf_counter() - t0)
+            moved.append(dict(tr.bytes))
+            comm_s.append(tr.seconds)
+            if i == 0:
+                full = gather_tree(ex.pspecs, ex.params, mesh, to_root=True)
+                out["params1"] = (tree_map(lambda t: t.cpu(), full)
+                                  if full is not None else None)
+                del full
+    out.update(losses=losses, secs=secs, moved=moved, comm_s=comm_s,
+               launches=dict(build.LAUNCHES),
+               builds=ex.cache.stats.compiles + log.backend_compiles,
+               peak=torch.cuda.max_memory_allocated() if on_card else 0,
+               reserved=torch.cuda.max_memory_reserved() if on_card else 0)
+    t0 = time.perf_counter()
+    snap = ex.snapshot()
+    out["snapshot_s"] = time.perf_counter() - t0
+    del ex
+    gc.collect()
+    if snap is not None:
+        engine = spmd_engine(arch, seq)
+        t0 = time.perf_counter()
+        rebound = HeteroTrainer(model, engine, snap.params, opt_cfg,
+                                opt_state=snap.opt_state)
+        _sync(on_card)
+        out["rebind_s"] = time.perf_counter() - t0
+        out["rebound_bitwise"] = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(rebound.full_params()), tree_leaves(snap.params)))
+        out["divergence"] = rebound.replica_divergence()
+        out["snapshot_step"] = snap.step
+        engine.attach_executor(None)
+    return out
+
+
+def run_mesh(device, p13):
+    """Phase 14: ``SPMDExecutor`` over a data 2 x model 2 ``ProcessMesh``
+    of 4 fresh rank processes (FSDP with ZeRO-1), held to phase 13's
+    single program on the same weights and batch."""
+    import gc
+    import torch
+    from repro_torch.launch.mesh import spawn_world, world_backend
+    from repro_torch.runtime.collectives import GLOO_CUDA_OPS
+    from repro_torch.utils.tree import tree_leaves
+    on_card = device.type == "cuda"
+    arch, _, _ = spmd_model(on_card)
+    ranks_n = MESH["shape"][0] * MESH["shape"][1]
+    t_phase = time.perf_counter()
+    gc.collect()
+    if on_card:         # the card's memory for the ranks
+        torch.cuda.empty_cache()
+    poller = _MemoryPeak(on_card)
+    try:
+        ranks = spawn_world("chip_smoke:mesh_rank", ranks_n,
+                            {"on_card": on_card, "batch": p13["batch"]},
+                            device=device, paths=[ROOT], timeout=600)
+    finally:
+        smi = poller.stop()
+    r0 = ranks[0]
+    print(f"[mesh] {ranks_n} rank processes, backend {r0['backend']} "
+          f"(world_backend: {world_backend(device, ranks_n)}; the ranks "
+          f"share one card; gloo takes CUDA tensors for "
+          f"{sorted(GLOO_CUDA_OPS)}, send and recv stage through the host), "
+          f"mesh data {MESH['shape'][0]} x model {MESH['shape'][1]}, "
+          f"FSDP + ZeRO-1, bind {[round(r['bind_s'], 2) for r in ranks]}s")
+    for r in ranks:
+        check(r["held"] == r["want"],
+              f"mesh rank {r['rank']}: state {r['held']} B, the dry-run's "
+              f"per-card args less the batch {r['want']} B")
+        check(abs(r["alloc"] - r["want"]) <= 1e-3 * r["want"],
+              f"mesh rank {r['rank']}: memory_allocated {r['alloc']} B vs "
+              f"{r['want']} B")
+        check(r["losses"] == r0["losses"],
+              f"mesh rank {r['rank']} losses {r['losses']} vs rank 0's "
+              f"{r0['losses']}")
+        check(r["builds_at_bind"] == 1 and r["builds"] == 1,
+              f"mesh rank {r['rank']}: {r['builds_at_bind']} programs at "
+              f"bind, {r['builds']} after")
+        if on_card:
+            want_l = spmd_launches(arch.num_layers, MESH["steps"])
+            got = {k: r["launches"][k] for k in want_l}
+            check(got == want_l, f"mesh rank {r['rank']} launches {got}, "
+                  f"expected {want_l}")
+    losses = r0["losses"]
+    check(all(math.isfinite(x) for x in losses) and
+          all(b < a for a, b in zip(losses, losses[1:])),
+          f"mesh losses {losses}")
+    tol = EXECUTOR_TOL["atol"] + EXECUTOR_TOL["rtol"] * abs(p13["loss1"])
+    check(abs(losses[0] - p13["loss1"]) <= tol,
+          f"mesh first loss {losses[0]!r} vs phase 13's {p13['loss1']!r}")
+    worst, frac, ok = _params_track(tree_leaves(r0["params1"]),
+                                    tree_leaves(p13["params1"]),
+                                    SPMD_OPT["lr"])
+    check(ok, f"mesh params after step 1 vs phase 13's: max {worst}, "
+          f"fraction above lr/10 {frac}")
+    check(r0["rebound_bitwise"] and r0["divergence"] == 0.0,
+          f"mesh rebind: bitwise {r0['rebound_bitwise']}, divergence "
+          f"{r0['divergence']}")
+    print(f"[mesh] state {r0['held']} B a rank = the dry-run's per-card "
+          f"args less the batch; memory_allocated "
+          f"{[r['alloc'] for r in ranks]} B")
+    print(f"[mesh] first loss {losses[0]!r} vs phase 13's {p13['loss1']!r}; "
+          f"params after step 1 track phase 13's (max |diff| {worst:.3g}, "
+          f"fraction above lr/10 {frac:.3g})")
+    print(f"[mesh] step seconds {[round(t, 4) for t in r0['secs']]} (rank "
+          f"0; slowest rank {[round(max(r['secs'][i] for r in ranks), 4) for i in range(MESH['steps'])]}), "
+          f"losses {[round(x, 4) for x in losses]} bitwise on every rank, "
+          f"programs 1, builds after bind 0")
+    print(f"[mesh] bytes a step on rank 0 {r0['moved'][-1]}; host seconds "
+          f"inside the collectives a step, rank 0 "
+          f"{[round(x, 4) for x in r0['comm_s']]}")
+    print(f"[mesh] launches a rank {r0['launches']}")
+    if on_card:
+        print(f"[mesh] peak max_memory_allocated a rank "
+              f"{[round(r['peak'] / 2**30, 2) for r in ranks]} GiB "
+              f"(max_memory_reserved "
+              f"{[round(r['reserved'] / 2**30, 2) for r in ranks]}); "
+              f"nvidia-smi memory.used peak {smi} MiB (4 ranks and this "
+              f"process)")
+    else:
+        print("[mesh] peak memory: not measured (cpu rehearsal)")
+    print(f"[mesh] snapshot gathered to rank 0 in {r0['snapshot_s']:.4f}s "
+          f"(step {r0['snapshot_step']}), HeteroTrainer rebound in "
+          f"{r0['rebind_s']:.4f}s: params bitwise, divergence 0; phase "
+          f"{time.perf_counter() - t_phase:.1f}s")
+
+
+def _pipe_batch(batch):
+    """[M, b, S] tokens and labels: the first M x b sequences."""
+    cfg = PIPE
+    n = cfg["microbatches"] * cfg["microbatch"]
+    return tuple(batch[k][:n].reshape(cfg["microbatches"], cfg["microbatch"],
+                                      -1) for k in ("tokens", "labels"))
+
+
+def pipe_rank(on_card, tokens, labels):
+    """Phase 15, one stage's part (run by ``spawn_world``)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import ProcessMesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import track_compiles
+    from repro_torch.runtime.spmd_pipeline import (make_pipeline_train_step,
+                                                   stage_params)
+    from repro_torch.utils.tree import tree_map
+    dev = _world_device(on_card)
+    mesh = ProcessMesh(("stage",), (PIPE["stages"],))
+    _, _, model = spmd_model(on_card, layers=PIPE["cpu_layers"], remat=False)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    local = stage_params(params, mesh)
+    del params
+    tok = torch.from_numpy(tokens).to(dev)
+    lab = torch.from_numpy(labels).to(dev)
+    step = make_pipeline_train_step(model, adamw.AdamWConfig(**SPMD_OPT),
+                                    mesh)
+    opt = adamw.init(local)
+    tr = mesh.transport
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    out = {"stage": mesh.axis_index("stage")}
+    losses, secs, moved, comm_s = [], [], [], []
+    with track_compiles() as log:
+        for i in range(PIPE["steps"]):
+            tr.reset()
+            _sync(on_card)
+            t0 = time.perf_counter()
+            local, opt, stats = step(local, opt, tok, lab)
+            losses.append(float(stats["loss"]))
+            _sync(on_card)
+            secs.append(time.perf_counter() - t0)
+            moved.append(dict(tr.bytes))
+            comm_s.append(tr.seconds)
+            if i == 0:
+                keep = local if mesh.rank == 0 else {"blocks": local["blocks"]}
+                out["params1"] = tree_map(
+                    lambda t: t.to("cpu", copy=True), keep)
+    out.update(losses=losses, secs=secs, moved=moved, comm_s=comm_s,
+               launches=dict(build.LAUNCHES), builds=log.backend_compiles,
+               peak=torch.cuda.max_memory_allocated() if on_card else 0,
+               reserved=torch.cuda.max_memory_reserved() if on_card else 0)
+    return out
+
+
+def run_pipeline(device, batch):
+    """Phase 15: ``runtime/spmd_pipeline.py`` over 4 stage ranks, held
+    to one process's plain full-model step on the same sequences."""
+    import gc
+    import torch
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.optim import adamw
+    from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
+    on_card = device.type == "cuda"
+    cfg = PIPE
+    t_phase = time.perf_counter()
+    tokens, labels = _pipe_batch(batch)
+    # one process's plain step on the same sequences: the microbatches'
+    # mean losses averaged, their gradients accumulated, AdamW
+    arch, _, model = spmd_model(on_card, layers=cfg["cpu_layers"], remat=False)
+    check(arch.num_layers % cfg["stages"] == 0, f"{arch.num_layers} layers")
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    total = torch.zeros((), device=device)
+    _sync(on_card)
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        for j in range(cfg["microbatches"]):
+            mb = {"tokens": torch.from_numpy(tokens[j]).to(device),
+                  "labels": torch.from_numpy(labels[j]).to(device)}
+            loss, _ = model.loss(tree_unflatten_like(params, leaves), mb)
+            (loss / cfg["microbatches"]).backward()
+            total = total + loss.detach()
+    loss_ref = float(total / cfg["microbatches"])
+    grads = tree_unflatten_like(params, [p.grad for p in leaves])
+    p_ref, _, _ = adamw.apply(adamw.AdamWConfig(**SPMD_OPT), params, grads,
+                              adamw.init(params))
+    _sync(on_card)
+    plain_s = time.perf_counter() - t0
+    p_ref = tree_map(lambda t: t.cpu(), p_ref)
+    del params, leaves, grads, loss, total
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    poller = _MemoryPeak(on_card)
+    try:
+        stages = spawn_world("chip_smoke:pipe_rank", cfg["stages"],
+                             {"on_card": on_card, "tokens": tokens,
+                              "labels": labels},
+                             device=device, paths=[ROOT], timeout=600)
+    finally:
+        smi = poller.stop()
+    r0 = stages[0]
+    losses = r0["losses"]
+    for r in stages:
+        check(r["losses"] == losses, f"pipeline stage {r['stage']} losses "
+              f"{r['losses']} vs stage 0's {losses}")
+        check(r["builds"] == 0, f"pipeline stage {r['stage']}: "
+              f"{r['builds']} builds")
+        if on_card:
+            n = (arch.num_layers // cfg["stages"]) * cfg["microbatches"] \
+                * cfg["steps"]
+            want_l = {k: n for k in FUSED + FLASH}
+            want_l["gemm_bias"] = 3 * n
+            got = {k: r["launches"][k] for k in want_l}
+            check(got == want_l, f"pipeline stage {r['stage']} launches "
+                  f"{got}, expected {want_l}")
+    check(all(math.isfinite(x) for x in losses) and
+          all(b < a for a, b in zip(losses, losses[1:])),
+          f"pipeline losses {losses}")
+    tol = EXECUTOR_TOL["atol"] + EXECUTOR_TOL["rtol"] * abs(loss_ref)
+    check(abs(losses[0] - loss_ref) <= tol,
+          f"pipeline loss {losses[0]!r} vs the plain step's {loss_ref!r}")
+    full = dict(r0["params1"])
+    full["blocks"] = tree_map(lambda *xs: torch.cat(xs),
+                              *[r["params1"]["blocks"] for r in stages])
+    worst, frac, ok = _params_track(tree_leaves(full), tree_leaves(p_ref),
+                                    SPMD_OPT["lr"])
+    check(ok, f"pipeline params after one step vs the plain step's: max "
+          f"{worst}, fraction above lr/10 {frac}")
+    print(f"[pipeline] {cfg['stages']} stage ranks x "
+          f"{arch.num_layers // cfg['stages']} blocks, M {cfg['microbatches']}"
+          f" microbatches of {cfg['microbatch']}: loss {losses[0]!r} vs one "
+          f"process's plain step {loss_ref!r} ({plain_s:.4f}s); params after "
+          f"the step track it (max |diff| {worst:.3g}, fraction above lr/10 "
+          f"{frac:.3g})")
+    print(f"[pipeline] step seconds {[round(t, 4) for t in r0['secs']]} "
+          f"(stage 0), losses {[round(x, 4) for x in losses]} bitwise on "
+          f"every stage, builds 0; bytes a step on each stage "
+          f"(point-to-point / reduced): "
+          f"{[(r['moved'][-1]['p2p'], r['moved'][-1]['reduced']) for r in stages]}"
+          f"; host seconds inside them, stage 0 "
+          f"{[round(x, 4) for x in r0['comm_s']]}")
+    print(f"[pipeline] launches a stage {r0['launches']}")
+    if on_card:
+        print(f"[pipeline] peak max_memory_allocated a stage "
+              f"{[round(r['peak'] / 2**30, 2) for r in stages]} GiB "
+              f"(max_memory_reserved "
+              f"{[round(r['reserved'] / 2**30, 2) for r in stages]}); "
+              f"nvidia-smi memory.used peak {smi} MiB (4 stages and this "
+              f"process); phase {time.perf_counter() - t_phase:.1f}s")
+    else:
+        print(f"[pipeline] peak memory: not measured (cpu rehearsal); phase "
+              f"{time.perf_counter() - t_phase:.1f}s")
 
 
 def _rounded(d):
@@ -1747,7 +2166,9 @@ def run(device="cuda"):
     run_path(device, 10, FUSED + FLASH, exact=MOE_LAUNCHES)
     run_serving(device)
     run_multiprocess(device)
-    run_spmd(device)
+    _, p13 = run_spmd(device)
+    run_mesh(device, p13)
+    run_pipeline(device, p13["batch"])
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errors[name],

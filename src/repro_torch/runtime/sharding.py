@@ -12,15 +12,20 @@ Specs are plain tuples, one entry per tensor dimension: an axis name, a
 tuple of axis names or ``None`` (replicated), entry for entry what the
 reference's ``PartitionSpec`` holds on the same tree paths
 (``blocks/attn/wq``, ``embed/table``, ...).  A mesh is anything with a
-``.shape`` dict of axis sizes (``launch/mesh.py``'s ``AbstractMesh``);
-nothing here needs ``torch.distributed`` or a device.
+``.shape`` dict of axis sizes (``launch/mesh.py``'s ``AbstractMesh`` or
+``ProcessMesh``); the specs need no process group and no device.
 
 ``act_constrainer`` and ``unshard_blocks`` are the model's ``constrain``
-and ``unshard`` hooks.  On a run they are the identity (FSDP's
-``gather_dtype`` cast aside): with one card there is nothing to gather
-or constrain.  Handed a ``recorder`` (``launch/opcount.py``), they
-record the collectives the strategy's layout implies where the
+and ``unshard`` hooks.  On one card, or on an ``AbstractMesh``, they are
+the identity (FSDP's ``gather_dtype`` cast aside).  On a ``ProcessMesh``
+(``launch/mesh.py``) ``unshard_blocks`` is FSDP's real gather at use
+over ``torch.distributed`` (``runtime/collectives.py``);
+``act_constrainer`` stays the identity, since each rank already holds
+its rows of the batch.  Handed a ``recorder`` (``launch/opcount.py``),
+they record the collectives the strategy's layout implies where the
 reference's GSPMD program would run them: the dry-run's trace.
+``shard_tree`` / ``gather_tree`` cut a full tree into this rank's
+shards and put it back together.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch.runtime.collectives import gather_at_use
 from repro_torch.utils.tree import flatten_with_path, tree_unflatten_like
 
 Spec = Tuple[Any, ...]
@@ -181,16 +187,33 @@ class ShardingStrategy:
             return _identity_constrain
         return recorder.constrainer(self, mesh)
 
-    def unshard_blocks(self, mesh, recorder=None):
+    def unshard_blocks(self, mesh, recorder=None, like=None):
         """The model's ``unshard(block_params)`` hook.  FSDP with a
         ``gather_dtype`` casts fp32 weights to it (what the gathered
-        buffers hold); with a ``recorder`` FSDP's all-gather at use and
-        its gradient reduce-scatter are recorded.  TP: the identity."""
+        buffers hold); on a ``ProcessMesh`` it then gathers each weight's
+        shards at use (``collectives.gather_at_use``, whose backward is
+        the gradient's reduce-scatter), reading each block weight's spec
+        from ``like``, the full parameter tree (a shard's shape does not
+        name the dimension it was cut along); with a ``recorder`` FSDP's
+        all-gather at use and its gradient reduce-scatter are recorded.
+        TP: the identity."""
         if self.strategy != "fsdp":
             return _identity_tree
         cast = getattr(torch, self.gather_dtype) if self.gather_dtype else None
         gather = (recorder.gatherer(self, mesh) if recorder is not None
                   else None)
+        if on_ranks(mesh):
+            if like is None:
+                raise ValueError("unshard_blocks on a ProcessMesh needs "
+                                 "like=, the full parameter tree")
+            body = {p[len("blocks/"):]: spec[1:] for p, spec, _ in
+                    spec_leaves(self.param_shardings(mesh, like), like)
+                    if p.startswith("blocks/")}
+
+            def gather(path, t):
+                for dim, axis in sharded_dims(body[path[len("blocks/"):]]):
+                    t = gather_at_use(t, mesh, axis, dim)
+                return t
         if cast is None and gather is None:
             return _identity_tree
 
@@ -263,6 +286,95 @@ def spec_leaves(specs: Any, like: Any):
                     node[k.idx] if hasattr(k, "idx") else getattr(node, k.name))
         out.append((path_str(path), node, leaf))
     return out
+
+
+# ----------------------------------------------------------------------
+# A tree's shards on a ProcessMesh
+# ----------------------------------------------------------------------
+def on_ranks(mesh) -> bool:
+    """Whether ``mesh`` places its axes on ranks (a ``ProcessMesh``,
+    which carries the ``transport`` its collectives move bytes with)
+    rather than only describing a layout."""
+    return getattr(mesh, "transport", None) is not None
+
+
+def sharded_dims(spec: Spec):
+    """(dimension, axis) for every sharded dimension of ``spec``."""
+    return [(d, a) for d, a in enumerate(spec) if a is not None]
+
+
+def spec_axes(mesh, spec: Spec) -> Tuple[str, ...]:
+    """Every axis ``spec`` shards over, in mesh order (none for a
+    replicated spec, whatever ``mesh`` is)."""
+    used = set()
+    for _, a in sharded_dims(spec):
+        used.update(a if isinstance(a, tuple) else (a,))
+    return tuple(a for a in mesh.shape if a in used) if used else ()
+
+
+def shard_shape(spec: Spec, shape, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's shard of a ``shape`` tensor."""
+    out = list(shape)
+    for dim, axis in sharded_dims(spec):
+        out[dim] //= mesh.size(axis)
+    return tuple(out)
+
+
+def shard_leaf(spec: Spec, t: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's slice of the full tensor ``t`` under ``spec`` (a
+    contiguous copy)."""
+    for dim, axis in sharded_dims(spec):
+        n = mesh.size(axis)
+        t = t.narrow(dim, mesh.axis_index(axis) * (t.shape[dim] // n),
+                     t.shape[dim] // n)
+    return t.contiguous().clone()
+
+
+def gather_leaf(spec: Spec, t: torch.Tensor, mesh, to_root: bool = False
+                ) -> Optional[torch.Tensor]:
+    """The full tensor from every rank's shard ``t`` under ``spec``: on
+    every rank, or with ``to_root`` on global rank 0 alone (None
+    elsewhere).  The shards come over the group of every axis the spec
+    names and are placed by each member's coordinates."""
+    axes = spec_axes(mesh, spec)
+    if not axes:
+        return (t.clone() if not to_root or mesh.rank == 0 else None)
+    pg, ranks = mesh.group(axes)
+    tr = mesh.transport
+    if to_root:
+        parts = tr.gather(t, pg, len(ranks), ranks[0])
+        if parts is None or mesh.rank != 0:
+            return None
+    else:
+        parts = tr.all_gather(t, pg, len(ranks), 0).chunk(len(ranks), 0)
+    full_shape = list(t.shape)
+    for dim, axis in sharded_dims(spec):
+        full_shape[dim] *= mesh.size(axis)
+    full = torch.empty(full_shape, dtype=t.dtype, device=t.device)
+    for member, part in zip(ranks, parts):
+        view = full
+        for dim, axis in sharded_dims(spec):
+            n = t.shape[dim]
+            view = view.narrow(dim, mesh.index_of(member, axis) * n, n)
+        view.copy_(part)
+    return full
+
+
+def shard_tree(specs: Any, tree: Any, mesh) -> Any:
+    """This rank's slices of the full ``tree`` under ``specs``."""
+    leaves = [shard_leaf(spec, t, mesh)
+              for _, spec, t in spec_leaves(specs, tree)]
+    return tree_unflatten_like(tree, leaves)
+
+
+def gather_tree(specs: Any, tree: Any, mesh, to_root: bool = False) -> Any:
+    """The inverse of ``shard_tree``: the full tree from every rank's
+    shards, on every rank or (``to_root``) on global rank 0 alone."""
+    leaves = [gather_leaf(spec, t, mesh, to_root)
+              for _, spec, t in spec_leaves(specs, tree)]
+    if to_root and mesh.rank != 0:
+        return None
+    return tree_unflatten_like(tree, leaves)
 
 
 def strategy_for(arch, name: str = "fsdp",

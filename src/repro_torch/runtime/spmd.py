@@ -9,13 +9,22 @@ each with the sharding specs of its inputs and outputs
 prices without running anything.
 
 ``SPMDExecutor`` runs the train program behind the ``Executor``
-interface.  This slice runs it on one card: a ``mesh`` is accepted only
-when every axis has size 1 (the identity layout); the data plane that
-runs the specs over ``torch.distributed`` across cards is ROADMAP item
-17b.  Its ``recover``/``join`` raise ``ExecutorUnsupported`` by design:
-one SPMD program cannot express a heterogeneous survivor set, so the
-engine keeps the plan consistent and the caller rebinds a
-``HeteroTrainer`` (``runtime/pipeline.py``) from ``snapshot()``.
+interface: on one card (no mesh, or a mesh whose axes all have size 1),
+or over a ``ProcessMesh`` (``launch/mesh.py``) with ``strategy="fsdp"``,
+with or without ZeRO-1.  On a process mesh each rank holds only its
+shards of the params and the moments, takes its rows of the global
+batch, gathers each weight at use and reduce-scatters its gradient
+(``runtime/collectives.py``), sums the gradients over the batch axes a
+leaf is not sharded over, clips by the global norm with each element
+counted once, and steps AdamW on its shard (then, under ZeRO-1,
+all-gathers the updated slice over the data axes): the function the
+reference's one GSPMD program computes.  TP, MoE over several batch
+ranks and a batch that leaves a batch axis uncovered raise
+``NotImplementedError`` (ROADMAP item 17c).  ``recover``/``join`` raise
+``ExecutorUnsupported`` by design: one SPMD program cannot express a
+heterogeneous survivor set, so the engine keeps the plan consistent and
+the caller rebinds a ``HeteroTrainer`` (``runtime/pipeline.py``) from
+``snapshot()``.
 """
 from __future__ import annotations
 
@@ -27,11 +36,16 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import axes_of, group_size
 from repro_torch.models import Model
 from repro_torch.optim import adamw
+from repro_torch.runtime.collectives import all_reduce_sum, gather_at_use
 from repro_torch.runtime.executor import (Executor, ExecutorUnsupported,
                                           ProgramCache)
-from repro_torch.runtime.sharding import ShardingStrategy
+from repro_torch.runtime.sharding import (ShardingStrategy, gather_tree,
+                                          on_ranks, shard_shape, shard_tree,
+                                          sharded_dims, spec_axes,
+                                          spec_leaves)
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
 
 
@@ -58,16 +72,57 @@ def loss_and_grads(model: Model, params, batch) -> Tuple[Any, Any, Dict]:
     return loss.detach(), tree_unflatten_like(params, list(grads)), metrics
 
 
-def apply_donated(cfg: adamw.AdamWConfig, params, grads: List,
-                  state: adamw.AdamWState):
-    """``adamw.apply`` written into ``params`` and the moments in place,
-    leaf by leaf, with each gradient dropped from ``grads`` (a list in
-    ``tree_leaves(params)`` order) once used: the update holds one
-    leaf's temporaries at a time, as the reference's donated program
-    does, not a second copy of the state.  The arithmetic is
-    ``adamw.apply``'s, element for element.  Returns (the new state,
-    {"lr", "grad_norm"})."""
-    gnorm = adamw.global_norm(grads)
+def build_train_step(model: Model, opt_cfg: adamw.AdamWConfig) -> Callable:
+    """(params, opt_state, batch) -> (params, opt_state, stats); params
+    and moments are updated in place (``apply_sharded`` with every leaf
+    replicated and no mesh)."""
+    def train_step(params, opt_state, batch):
+        loss, grads, metrics = loss_and_grads(model, params, batch)
+        grads = tree_leaves(grads)
+        whole = [()] * len(grads)
+        opt2, stats = apply_sharded(opt_cfg, None, params, grads, opt_state,
+                                    whole, whole)
+        return params, opt2, {"loss": loss,
+                              **{k: v.detach() for k, v in metrics.items()},
+                              **stats}
+    return train_step
+
+
+def _zero1_dim(pspec, ospec):
+    """(dimension, axis) ZeRO-1 adds to a moment's spec, or None."""
+    pspec = tuple(pspec) + (None,) * (len(ospec) - len(pspec))
+    for d, (a, b) in enumerate(zip(pspec, ospec)):
+        if a != b:
+            return d, b
+    return None
+
+
+def apply_sharded(cfg: adamw.AdamWConfig, mesh, params, grads: List,
+                  state: adamw.AdamWState, pspecs: List, ospecs: List):
+    """``adamw.apply`` on this rank's shards, written into ``params``
+    and the moments in place, leaf by leaf, with each gradient dropped
+    from ``grads`` (a list in ``tree_leaves(params)`` order) once used:
+    the update holds one leaf's temporaries at a time, as the
+    reference's donated program does, not a second copy of the state.
+    ``pspecs``/``ospecs`` are the leaves' param and moment specs; with
+    every leaf replicated ``mesh`` may be None (one card) and the
+    arithmetic is ``adamw.apply``'s, element for element.
+
+    The global norm counts each element once: the squares of the leaves
+    sharded over the same axes are summed over those axes, a replicated
+    leaf's once.  A moment ZeRO-1 shards further is stepped on its slice
+    of the parameter, whose update is then all-gathered over the data
+    axes.  Returns (the new state, {"lr", "grad_norm"})."""
+    parts: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for g, spec in zip(grads, pspecs):
+        axes = spec_axes(mesh, spec)
+        sq = torch.sum(torch.square(g.float()))
+        parts[axes] = parts[axes] + sq if axes in parts else sq
+    total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    for axes, sq in parts.items():
+        total = total + (mesh.transport.all_reduce(sq, mesh.group(axes)[0])
+                         if group_size(mesh, axes) > 1 else sq)
+    gnorm = torch.sqrt(total)
     scale = (torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                          max=1.0) if cfg.clip_norm else None)
     lr = adamw.schedule(cfg, state.step + 1)
@@ -77,25 +132,74 @@ def apply_donated(cfg: adamw.AdamWConfig, params, grads: List,
         g, grads[i] = grads[i].float(), None
         if scale is not None:
             g = g * scale.to(g.dtype)
-        (p2,), st, _ = adamw.update(cfg, [p], [g],
+        z = _zero1_dim(pspecs[i], ospecs[i])
+        p_sl = p
+        if z is not None:
+            dim, axis = z
+            n = p.shape[dim] // group_size(mesh, axis)
+            p_sl = p.narrow(dim, mesh.axis_index(axis) * n, n)
+            g = g.narrow(dim, mesh.axis_index(axis) * n, n)
+        (p2,), st, _ = adamw.update(cfg, [p_sl], [g],
                                     adamw.AdamWState(state.step, [m], [v]))
-        p.copy_(p2)
         m.copy_(st.m[0])
         v.copy_(st.v[0])
+        if z is None:
+            p.copy_(p2)
+        else:
+            p.copy_(mesh.transport.all_gather(
+                p2, mesh.group(axis)[0], group_size(mesh, axis), dim))
     return (adamw.AdamWState(state.step + 1, state.m, state.v),
             {"lr": lr, "grad_norm": gnorm})
 
 
-def build_train_step(model: Model, opt_cfg: adamw.AdamWConfig) -> Callable:
-    """(params, opt_state, batch) -> (params, opt_state, stats); params
-    and moments are updated in place (``apply_donated``)."""
+def build_mesh_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
+                          mesh, pspecs: Any, ospecs: Any,
+                          batch_axis) -> Callable:
+    """The train program on one rank of ``mesh``: (this rank's param
+    shards, its AdamW shards, its rows of the batch) -> (params, state,
+    stats), updated in place.  ``model``'s ``unshard`` hook gathers the
+    block weights (``strategy.unshard_blocks``); the embedding, final
+    norm and head are gathered here.  The loss is the global masked
+    mean: each rank's objective is its NLL sum over the global token
+    count, and the ranks' objectives sum to the reference's loss, so
+    their gradients sum to its gradient."""
+    tr = mesh.transport
+    batch_set = set(mesh.axes(batch_axis))
+
     def train_step(params, opt_state, batch):
-        loss, grads, metrics = loss_and_grads(model, params, batch)
-        grads = tree_leaves(grads)
-        opt2, stats = apply_donated(opt_cfg, params, grads, opt_state)
-        return params, opt2, {"loss": loss,
-                              **{k: v.detach() for k, v in metrics.items()},
-                              **stats}
+        entries = spec_leaves(pspecs, params)
+        specs = [spec for _, spec, _ in entries]
+        leaves = [t.detach().requires_grad_(True) for _, _, t in entries]
+        labels, mask = batch["labels"], batch.get("mask")
+        cnt = (mask[:, :-1].float().sum() if mask is not None else
+               torch.tensor(float(labels[:, :-1].numel()),
+                            device=labels.device))
+        total = all_reduce_sum(cnt, mesh, batch_axis)
+        with torch.enable_grad():
+            used = []
+            for (path, spec, _), t in zip(entries, leaves):
+                if not path.startswith("blocks/"):
+                    for dim, axis in sharded_dims(spec):
+                        t = gather_at_use(t, mesh, axis, dim)
+                used.append(t)
+            loss, metrics = model.loss(tree_unflatten_like(params, used),
+                                       batch)
+            obj = loss * (cnt / torch.clamp(total, min=1.0))
+            grads = list(torch.autograd.grad(obj, leaves))
+        for i, spec in enumerate(specs):
+            rest = tuple(a for a in mesh.shape if a in batch_set
+                         and a not in spec_axes(mesh, spec))
+            if mesh.size(rest) > 1:
+                grads[i] = tr.all_reduce(grads[i], mesh.group(rest)[0])
+        sums = all_reduce_sum(torch.stack([
+            obj.detach(),
+            metrics["nll"].detach() * (cnt / torch.clamp(total, min=1.0))]),
+            mesh, batch_axis)
+        opt2, stats = apply_sharded(
+            opt_cfg, mesh, params, grads, opt_state, specs,
+            [spec for _, spec, _ in spec_leaves(ospecs.m, params)])
+        return params, opt2, {"loss": sums[0], "nll": sums[1],
+                              "aux": metrics["aux"].detach(), **stats}
     return train_step
 
 
@@ -173,9 +277,10 @@ class SPMDExecutor(Executor):
     """Zero-failure homogeneous fast path: the whole job is ONE train
     program over the global batch (DESIGN.md §8), built once into a
     ``ProgramCache`` under ("spmd-train", backend signature, batch
-    shapes), so steady stepping is a cache hit and tests assert one
-    build.  The device is the one ``params`` lie on; the executor keeps
-    its own copy of them."""
+    shapes, mesh shape, strategy, rank), so steady stepping is a cache
+    hit and tests assert one build.  The device is the one ``params``
+    lie on; the executor keeps its own copy of them: on one card all of
+    them, on a ``ProcessMesh`` this rank's shards (module docstring)."""
 
     def __init__(self, model: Model, params: Dict,
                  opt_cfg: adamw.AdamWConfig, mesh: Optional[Any] = None,
@@ -183,11 +288,16 @@ class SPMDExecutor(Executor):
                  shape: Optional[ShapeConfig] = None,
                  engine: Optional[Any] = None,
                  cache: Optional[ProgramCache] = None):
-        if mesh is not None and any(n != 1 for n in mesh.shape.values()):
-            raise NotImplementedError(
-                f"SPMDExecutor over a mesh of {dict(mesh.shape)}: running "
-                f"the sharding specs across cards is ROADMAP item 17b; this "
-                f"slice accepts only a mesh whose axes all have size 1")
+        if mesh is not None:
+            strategy = strategy or ShardingStrategy()
+            check_layout(model.arch, mesh, strategy,
+                         shape.global_batch if shape is not None else None)
+            if not on_ranks(mesh) and \
+                    any(n != 1 for n in mesh.shape.values()):
+                raise TypeError(
+                    f"SPMDExecutor over {dict(mesh.shape)}: an AbstractMesh "
+                    f"only describes a layout; run over a ProcessMesh "
+                    f"(launch/mesh.py) to place it on ranks")
         self.model = model
         self.opt_cfg = opt_cfg
         self.mesh = mesh
@@ -195,9 +305,30 @@ class SPMDExecutor(Executor):
         self.shape = shape
         self.engine = engine
         self.cache = cache or ProgramCache()
-        # sole ownership: every step updates these leaves in place
-        self.params = tree_map(lambda t: t.detach().clone(), params)
-        self.opt_state = adamw.init(self.params)
+        self.distributed = on_ranks(mesh)
+        if self.distributed:
+            self.pspecs = strategy.param_shardings(mesh, params)
+            self.ospecs = strategy.opt_shardings(
+                mesh, adamw.AdamWState(None, None, None), params)
+            self._model = dataclasses.replace(
+                model, unshard=strategy.unshard_blocks(mesh, like=params),
+                constrain=strategy.act_constrainer(
+                    mesh, shape.global_batch if shape is not None else 1))
+            self.params = shard_tree(self.pspecs, params, mesh)
+            dev = tree_leaves(self.params)[0].device
+
+            def zeros(specs):
+                return tree_unflatten_like(params, [
+                    torch.zeros(shard_shape(spec, t.shape, mesh),
+                                dtype=torch.float32, device=dev)
+                    for _, spec, t in spec_leaves(specs, params)])
+            self.opt_state = adamw.AdamWState(
+                torch.zeros((), dtype=torch.int32, device=dev),
+                zeros(self.ospecs.m), zeros(self.ospecs.v))
+        else:
+            # sole ownership: every step updates these leaves in place
+            self.params = tree_map(lambda t: t.detach().clone(), params)
+            self.opt_state = adamw.init(self.params)
         self.device = tree_leaves(self.params)[0].device
         if engine is not None and hasattr(engine, "attach_executor"):
             engine.attach_executor(self)
@@ -205,14 +336,23 @@ class SPMDExecutor(Executor):
 
     # ------------------------------------------------------------------
     def _program(self, batch: Dict) -> Callable:
-        """The train program for ``batch``'s shapes.  On a mesh whose
-        axes all have size 1 every spec is the identity layout, so the
-        program is ``build_train_step``'s with or without one."""
+        """The train program for ``batch``'s (global) shapes.  Without a
+        process mesh every spec is the identity layout, so the program
+        is ``build_train_step``'s with or without a mesh of size one."""
+        mesh = self.mesh
         key = ("spmd-train", kops.backend_signature(self.device),
                tuple(sorted((k, tuple(v.shape), str(v.dtype))
-                            for k, v in batch.items())))
-        return self.cache.get_or_build(
-            key, lambda: build_train_step(self.model, self.opt_cfg))
+                            for k, v in batch.items())),
+               tuple(mesh.shape.items()) if mesh is not None else (),
+               self.strategy, mesh.rank if self.distributed else 0)
+        if not self.distributed:
+            return self.cache.get_or_build(
+                key, lambda: build_train_step(self.model, self.opt_cfg))
+        gb = batch["tokens"].shape[0]
+        check_layout(self.model.arch, mesh, self.strategy, gb)
+        return self.cache.get_or_build(key, lambda: build_mesh_train_step(
+            self._model, self.opt_cfg, mesh, self.pspecs, self.ospecs,
+            self.strategy.batch_spec(mesh, gb)[0]))
 
     # Executor interface ------------------------------------------------
     def bind(self) -> None:
@@ -227,11 +367,26 @@ class SPMDExecutor(Executor):
             np.ascontiguousarray(v))
         return t.to(self.device)
 
+    def _rows(self, v, gb: int):
+        """This rank's rows of a global-batch array (``batch_spec``)."""
+        axis = self.strategy.batch_spec(self.mesh, gb)[0]
+        n = gb // self.mesh.size(axis)
+        i = self.mesh.axis_index(axis)
+        return v[i * n:(i + 1) * n]
+
     def step(self, batch: Dict) -> Dict:
-        batch = {k: (self._to_device(v).to(torch.int32)
-                     if k in ("tokens", "labels") else self._to_device(v))
-                 for k, v in batch.items() if not k.startswith("_")}
-        prog = self._program(batch)
+        shapes = {k: np.shape(v) for k, v in batch.items()
+                  if not k.startswith("_")}
+        if self.distributed:
+            gb = shapes["tokens"][0]
+            batch = {k: self._rows(batch[k], gb) for k in shapes}
+        batch = {k: (self._to_device(batch[k]).to(torch.int32)
+                     if k in ("tokens", "labels") else
+                     self._to_device(batch[k])) for k in shapes}
+        # keyed by the global batch's shapes, as bind() builds it
+        prog = self._program({k: torch.empty(shapes[k], dtype=v.dtype,
+                                             device="meta")
+                              for k, v in batch.items()})
         self.params, self.opt_state, stats = prog(self.params,
                                                   self.opt_state, batch)
         return stats
@@ -247,12 +402,52 @@ class SPMDExecutor(Executor):
 
     def snapshot(self, data_state: Optional[Dict] = None,
                  rng_seed: int = 0):
-        """TrainState of copies: later steps do not change it."""
+        """TrainState of copies: later steps do not change it.  On a
+        ``ProcessMesh`` every rank takes part and the full state is
+        gathered to global rank 0; the other ranks get None."""
         from repro_torch.ckpt import TrainState
         o = self.opt_state
-        return TrainState(step=int(o.step),
-                          params=tree_map(torch.clone, self.params),
-                          opt_state=adamw.AdamWState(
-                              o.step.clone(), tree_map(torch.clone, o.m),
-                              tree_map(torch.clone, o.v)),
+        if self.distributed:
+            mesh = self.mesh
+            params = gather_tree(self.pspecs, self.params, mesh, to_root=True)
+            m = gather_tree(self.ospecs.m, o.m, mesh, to_root=True)
+            v = gather_tree(self.ospecs.v, o.v, mesh, to_root=True)
+            if mesh.rank != 0:
+                return None
+        else:
+            params, m, v = (tree_map(torch.clone, t)
+                            for t in (self.params, o.m, o.v))
+        return TrainState(step=int(o.step), params=params,
+                          opt_state=adamw.AdamWState(o.step.clone(), m, v),
                           data_state=data_state or {}, rng_seed=rng_seed)
+
+
+def check_layout(arch: ArchConfig, mesh, strategy: ShardingStrategy,
+                 global_batch: Optional[int]) -> None:
+    """Raise ``NotImplementedError`` (ROADMAP item 17c) for a layout this
+    data plane does not run: TP, a global batch that leaves a batch axis
+    of size > 1 uncovered (the reference shards the sequence over it),
+    or MoE over several batch ranks (its load-balance loss is a product
+    of batch-wide fractions, which each rank sees only a part of)."""
+    if all(n == 1 for n in mesh.shape.values()):
+        return
+    if strategy.strategy != "fsdp":
+        raise NotImplementedError(
+            f"strategy={strategy.strategy!r} over {dict(mesh.shape)}: "
+            f"Megatron TP and expert parallelism are ROADMAP item 17c")
+    if global_batch is None:
+        return
+    bspec = strategy.batch_spec(mesh, global_batch)
+    covered = set(axes_of(bspec[0])) if bspec else set()
+    left = [a for a in strategy.batch_axes
+            if mesh.shape[a] > 1 and a not in covered]
+    if left:
+        raise NotImplementedError(
+            f"global batch {global_batch} over {dict(mesh.shape)} leaves "
+            f"batch axes {left} uncovered: sequence parallelism over them is "
+            f"ROADMAP item 17c")
+    ranks = group_size(mesh, bspec[0])
+    if arch.moe is not None and ranks > 1:
+        raise NotImplementedError(
+            f"{arch.name} over {ranks} batch ranks: the MoE load-balance "
+            f"loss over a sharded batch is ROADMAP item 17c")

@@ -881,3 +881,77 @@ def test_spmd_executor_with_kernels_tracks_plain_cpu(card):
     assert gpu.cache.stats.compiles == 1
     with pytest.raises(ExecutorUnsupported):
         gpu.recover({"n0"})
+
+
+def mesh_rank_on_card(params_np, batches):
+    """A rank of the card's 2 x 2 mesh (run by ``spawn_world``)."""
+    from repro_torch.configs import ShapeConfig, get_arch, reduced
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch.mesh import ProcessMesh, init_world
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import ShardingStrategy, SPMDExecutor
+    from repro_torch.runtime.sharding import gather_tree
+    from repro_torch.utils.device import strict_fp32_numerics
+    from repro_torch.utils.tree import tree_map
+    dev = init_world("cuda")
+    strict_fp32_numerics()
+    mesh = ProcessMesh(("data", "model"), (2, 2))
+    model = Model(reduced(get_arch("gpt3_medium"), layers=2),
+                  dtype=torch.float32, attn_impl="kernel", fuse="fused",
+                  remat=True, loss_chunk=16)
+    ex = SPMDExecutor(model, params_from_numpy(params_np, dev),
+                      adamw.AdamWConfig(lr=1e-3, warmup_steps=0,
+                                        clip_norm=1.0, weight_decay=0.0),
+                      mesh=mesh, strategy=ShardingStrategy(),
+                      shape=ShapeConfig("t", 64, 8, "train"))
+    build.reset_launches()
+    losses = [float(ex.step(b)["loss"]) for b in batches]
+    full = gather_tree(ex.pspecs, ex.params, mesh)
+    return {"losses": losses, "launches": dict(build.LAUNCHES),
+            "params": tree_map(lambda t: t.cpu(), full),
+            "backend": mesh.backend, "compiles": ex.cache.stats.compiles}
+
+
+def test_spmd_executor_over_a_process_mesh_on_card_tracks_plain_cpu(card):
+    """SPMDExecutor over a data 2 x model 2 ProcessMesh of 4 rank
+    processes sharing the card (gloo), reduced gpt3-medium through the
+    flash and fused kernels with remat and the chunked CE, against the
+    one-process executor on the CPU's plain versions: three steps'
+    losses at tests/test_executor.py's fp32 tolerance on every rank
+    (bitwise equal across ranks), the parameters by its tracking rule,
+    one build and every kernel launched in every rank."""
+    import numpy as np
+    from repro_torch.configs import ShapeConfig, get_arch, reduced
+    from repro_torch.convert import to_numpy
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import SPMDExecutor
+    from repro_torch.utils.tree import tree_leaves
+    arch = reduced(get_arch("gpt3_medium"), layers=2)
+    model = Model(arch, dtype=torch.float32, attn_impl="kernel",
+                  fuse="fused", remat=True, loss_chunk=16)
+    lr = 1e-3
+    params = model.init(torch.Generator().manual_seed(0))
+    cpu = SPMDExecutor(model, params, adamw.AdamWConfig(
+        lr=lr, warmup_steps=0, clip_norm=1.0, weight_decay=0.0),
+        shape=ShapeConfig("t", 64, 8, "train"))
+    src = SyntheticLM(arch.vocab_size, 64, seed=5)
+    batches = [src.batch(np.arange(8 * i, 8 * i + 8)) for i in range(3)]
+    want = [float(cpu.step(b)["loss"]) for b in batches]
+    ranks = spawn_world(f"{__name__}:mesh_rank_on_card", 4,
+                        {"params_np": to_numpy(params), "batches": batches},
+                        device="cuda", timeout=600,
+                        paths=[__file__.rsplit("/", 1)[0]])
+    for r in ranks:
+        assert r["backend"] == "gloo" and r["compiles"] == 1
+        assert r["losses"] == ranks[0]["losses"]
+        np.testing.assert_allclose(r["losses"], want, rtol=5e-4, atol=5e-7)
+        assert all(r["launches"][k] > 0 for k in r["launches"]
+                   if not k.startswith("ssd")), r["launches"]
+    for a, b in zip(tree_leaves(ranks[0]["params"]), tree_leaves(cpu.params)):
+        diff = (a - b).abs()
+        assert diff.max() <= 2.5 * lr, diff.max()
+        assert (diff > lr / 10).float().mean() < 1e-3

@@ -213,6 +213,15 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
                 "rebound from the snapshot"):
         assert any(ln.startswith("[spmd]") and tag in ln
                    for ln in lines), tag
+    for tag in ("4 rank processes, backend gloo", "= the dry-run's per-card",
+                "vs phase 13's", "bitwise on every rank",
+                "bytes a step on rank 0", "divergence 0"):
+        assert any(ln.startswith("[mesh]") and tag in ln
+                   for ln in lines), tag
+    for tag in ("4 stage ranks x 2 blocks", "vs one process's plain step",
+                "bitwise on every stage", "not measured"):
+        assert any(ln.startswith("[pipeline]") and tag in ln
+                   for ln in lines), tag
 
 
 def _zero(i):

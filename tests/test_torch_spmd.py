@@ -210,10 +210,17 @@ def test_mesh_of_size_one_is_accepted_and_larger_raises_item_17b():
     b = SPMDExecutor(model, params, opt_cfg)
     assert torch.equal(a.step(batch)["loss"], b.step(batch)["loss"])
     assert_trees_equal(a.params, b.params)
-    with pytest.raises(NotImplementedError, match="17b"):
+    # a larger mesh runs over a ProcessMesh (tests/test_torch_spmd_mesh.py);
+    # TP and a batch that leaves a batch axis uncovered are item 17c
+    with pytest.raises(NotImplementedError, match="17c"):
         SPMDExecutor(model, params, opt_cfg,
-                     mesh=make_mesh((2, 1), ("data", "model")),
-                     strategy=ShardingStrategy(), shape=shape)
+                     mesh=make_mesh((1, 2), ("data", "model")),
+                     strategy=ShardingStrategy(strategy="tp"), shape=shape)
+    with pytest.raises(NotImplementedError, match="17c"):
+        SPMDExecutor(model, params, opt_cfg,
+                     mesh=make_mesh((2, 2), ("data", "model")),
+                     strategy=ShardingStrategy(),
+                     shape=ShapeConfig("t", SEQ, 2, "train"))
 
 
 def test_state_bytes_equal_the_dry_run_args_less_the_batch():

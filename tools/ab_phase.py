@@ -8,7 +8,7 @@ change,parent`` compares two commits on one machine.
 
 ``--phase`` names a phase of the tree's own ``chip_smoke.py``: ``naive``
 (6), ``flash`` (7), ``mamba`` (8), ``moe`` (10), ``lifecycle`` (9),
-``serving`` (11) or ``multiprocess`` (12).  Each run builds the tree's
+``serving`` (11), ``multiprocess`` (12) or ``spmd`` (13).  Each run builds the tree's
 kernels (once per tree: the library is cached under its ``build/``),
 runs the phase with that tree's ``src`` first on the path and prints
 the phase's own lines, each prefixed with the run's label.
@@ -47,7 +47,7 @@ def main(args=None) -> int:
                     help="comma-separated labels")
     ap.add_argument("--phase", required=True,
                     choices=["naive", "flash", "mamba", "moe", "lifecycle",
-                             "serving", "multiprocess"])
+                             "serving", "multiprocess", "spmd"])
     ns = ap.parse_args(args)
     trees = dict(t.split("=", 1) for t in ns.trees)
     for label in ns.order.split(","):
