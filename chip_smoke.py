@@ -12,7 +12,10 @@ Phases, each fatal on failure:
      sliding window and GPT-3 2.7B's head dim 80; SSD: hymba's heads at
      a ragged sequence and the reduced configs' widths), in fp32 and
      bf16, the GEMM in all three operand layouts, and twice on the same
-     inputs (bitwise equal);
+     inputs (bitwise equal); each in every built variant: each flash
+     tile (bitwise equal to each other), each SSD chunk, each GEMM tile
+     x split, each norm backward row partition (``*`` marks the one the
+     autotuner resolves);
   4. each kernel's time at each path's shape (CUDA events, and the
      device time of the kernel's own events under torch.profiler, per
      phase for the SSD kernels), its bound (and, for the GEMM, the flash
@@ -134,10 +137,19 @@ Phases, each fatal on failure:
      launches 6 blocks x M x steps of each norm and flash kernel and
      three times that of ``gemm_bias``.  Prints the step times, the
      bytes each stage sent and reduced, and each stage's peak memory.
+ 16. the autotuner: each kernel tuned at the paths' shapes
+     (``autotune.PATH_SHAPES``) into a scratch cache, printing each
+     candidate's time, the winner and the packaged entry; asserts that
+     with tuning off every path key resolves to the packaged table's
+     entry, and that two fresh interpreters resolve the same.
+The autotuner reads an empty persisted table in a temporary directory
+and never tunes in phases 1-15: they run the packaged table's
+configurations.
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line
 (each kernel's launches counted on the path that reports it: phase 7
-for the six, phase 8 for the SSD pair; error, times and bound at the
-shapes that path gives it) and ``{"ok": true, "device": {...}}``.
+for the six, phase 8 for the SSD pair; error, times, bound and the
+resolved ``config`` at the shapes that path gives it) and ``{"ok":
+true, "device": {...}}``.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
 
@@ -310,8 +322,11 @@ def kernel_table(device):
             q, k, v, None, lse, g, window=win, delta=delta)[0],
         "flash_bwd_dkdv": lambda q, k, v, g, lse, delta, win: ref.flash_bwd_ref(
             q, k, v, None, lse, g, window=win, delta=delta)[1:],
-        "ssd_fwd": ref.ssd_fwd_ref,
-        "ssd_bwd": ref.ssd_bwd_ref,
+        "ssd_fwd": lambda x, dt, A, B, C, chunk=None: ref.ssd_fwd_ref(
+            x, dt, A, B, C, chunk=ssd_chunk(x, B, chunk)),
+        "ssd_bwd": lambda x, dt, A, B, C, cst, gy, gs, chunk=None: (
+            ref.ssd_bwd_ref(x, dt, A, B, C, cst, gy, gs,
+                            chunk=ssd_chunk(x, B, chunk))),
     }
     library = {"gemm_bias": lambda a, b, bias: torch.addmm(bias, a, b),
                "flash_fwd": sdpa_forward}
@@ -333,6 +348,13 @@ def kernel_table(device):
     return {k: (kern[k], plain[k], library.get(k)) for k in KERNELS}
 
 
+def ssd_chunk(x, B, chunk=None):
+    """The SSD chunk of a call on x, B: ``chunk``, else the autotuner's
+    (the kernels' on the card, the plain version's on the CPU)."""
+    from repro_torch.kernels import ssd
+    return ssd.resolve_chunk(x, B, chunk)
+
+
 def sdpa_forward(q, k, v, window):
     """The library yardstick of the flash forward: one causal
     scaled_dot_product_attention call on [B, H, S, D] views, grouped
@@ -345,7 +367,7 @@ def sdpa_forward(q, k, v, window):
         is_causal=True, enable_gqa=q.shape[2] != k.shape[2])
 
 
-def make_inputs(name, shape, dtype, device, seed, layout="fwd"):
+def make_inputs(name, shape, dtype, device, seed, layout="fwd", chunk=None):
     """Inputs for one kernel call.  Norms: shape = (M, d).  GEMM: shape =
     (M, K, N) of the forward x[M,K].W[K,N]; ``layout`` picks the product
     the fused QKV runs: fwd x.W+b, dx g.W^T (W read transposed), dW
@@ -353,8 +375,9 @@ def make_inputs(name, shape, dtype, device, seed, layout="fwd"):
     the backward kernels get the plain forward's lse and delta.  SSD:
     shape = (b, S, H, P, N, expanded), dt and A of the Mamba2 block's
     ranges (per-step decays e^(dt.A) of 0.3-1, so the state carries
-    across chunks); the backward gets the plain forward's cstates and a
-    nonzero state cotangent."""
+    across chunks); the backward gets the plain forward's cstates at
+    ``chunk`` (default: the call's, ``ssd_chunk``) and a nonzero state
+    cotangent."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(seed)
 
@@ -377,7 +400,8 @@ def make_inputs(name, shape, dtype, device, seed, layout="fwd"):
               else randn(b, S, H, N) for _ in range(2)]
         if name == "ssd_fwd":
             return (x, dt, A, *BC)
-        cstates = ref.ssd_fwd_ref(x, dt, A, *BC)[2]
+        cstates = ref.ssd_fwd_ref(x, dt, A, *BC,
+                                  chunk=ssd_chunk(x, BC[0], chunk))[2]
         gstate = torch.randn((b, H, P, N), generator=g).to(device)
         return (x, dt, A, *BC, cstates, randn(b, S, H, P), gstate)
     if name in FLASH:
@@ -402,7 +426,7 @@ def _flat(out):
     return list(out) if isinstance(out, (tuple, list)) else [out]
 
 
-def _conds(name, args, want):
+def _conds(name, args, want, chunk=None):
     """Per output, its condition-aware scale, or None.  An output that
     is a sum of many terms (the norm's weight gradient over M rows; the
     GEMM's over K; the flash out and dq over kv positions; dk and dv over
@@ -411,20 +435,22 @@ def _conds(name, args, want):
     proportion to the sum of its terms' magnitudes, not to the (often
     much smaller) result: that sum is its scale.  The SSD scales are the
     plain versions run on the inputs' magnitudes (all terms then
-    positive; the backward with ``magnitudes=True``)."""
+    positive; the backward with ``magnitudes=True``), at the call's
+    chunk."""
     import torch
     scales = [None] * len(want)
     if name in SSD:
         from repro_torch.kernels import ref
         x, dt, A, B, C = args[:5]
+        chunk = ssd_chunk(x, B, chunk)
         ax, aB, aC = (t.float().abs() for t in (x, B, C))
-        fwd = ref.ssd_fwd_ref(ax, dt, A, aB, aC)
+        fwd = ref.ssd_fwd_ref(ax, dt, A, aB, aC, chunk=chunk)
         if name == "ssd_fwd":
             return list(fwd)
         gy, gstate = args[6:]
         return list(ref.ssd_bwd_ref(ax, dt, A, aB, aC, fwd[2],
                                     gy.float().abs(), gstate.abs(),
-                                    magnitudes=True))
+                                    chunk=chunk, magnitudes=True))
     if name == "gemm_bias":
         a, b, _ = args
         scales[0] = a.float().abs() @ b.float().abs()
@@ -511,14 +537,16 @@ def tolerances(name, dtype):
     return (TOL_BF16 if dtype == torch.bfloat16 else TOL_FP32)[name]
 
 
-def compare(name, kern, plain, args, dtype):
-    """Hold kern against plain on ``args``; returns (max abs error, max of
-    error / limit over the outputs' elements)."""
+def compare(name, kern, plain, args, dtype, chunk=None):
+    """Hold kern against plain on ``args`` (SSD: at ``chunk``, default
+    the call's); returns (max abs error, max of error / limit over the
+    outputs' elements)."""
     import torch
     got, want = _flat(kern(*args)), _flat(plain(*args))
     err = ratio = 0.0
     for i, (a, b, cond, tol) in enumerate(zip(
-            got, want, _conds(name, args, want), tolerances(name, dtype))):
+            got, want, _conds(name, args, want, chunk),
+            tolerances(name, dtype))):
         check(a.shape == b.shape and a.dtype == b.dtype,
               f"{name}[{i}]: {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
         for side, t in (("kernel", a), ("plain", b)):
@@ -540,26 +568,94 @@ def compare(name, kern, plain, args, dtype):
     return err, ratio
 
 
+_FLASH_KERNEL = {"flash_fwd": "fwd", "flash_bwd_dq": "dq",
+                 "flash_bwd_dkdv": "dkdv"}
+
+
+def variants(name, args, dtype, device):
+    """Every built variant of kernel ``name`` for the call ``args``:
+    [(label, kernel, chunk, resolved)], ``resolved`` marking the one the
+    autotuner resolves (what the wrapper runs by default).  Flash: each
+    built tile; SSD: each built chunk; the GEMM: each legal (tile,
+    split); the norm backward: each candidate row partition.  On the CPU
+    (rehearsal) only the resolved one, the plain version standing in."""
+    import functools
+    kern = kernel_table(device)[name][0]
+    if device.type == "cpu":
+        return [("resolved", kern, None, True)]
+    from repro_torch.kernels import autotune, flash, fused, ssd
+    if name in FLASH:
+        q = args[0]
+        k = _FLASH_KERNEL[name]
+        kw = "block_k" if k == "dkdv" else "block_q"
+        want = dict(zip(("block_q", "block_k"), flash.resolve_tiles(q)))[kw]
+        return [(f"{kw}={t}", functools.partial(kern, **{kw: t}), None,
+                 t == want)
+                for t in flash.tiles(k, q.shape[-1], dtype)]
+    if name in SSD:
+        want = ssd_chunk(args[0], args[3])
+        return [(f"chunk={c}", functools.partial(kern, chunk=c), c, c == want)
+                for c in ssd.CHUNKS]
+    if name == "gemm_bias":
+        a, b = args[:2]
+        cfg = fused.gemm_config(a.shape[0], b.shape[1], a.shape[1],
+                                a.stride(), b.stride(), a.data_ptr(),
+                                b.data_ptr(), a.element_size(),
+                                autotune.backend_of(a.device))
+        legal = (fused.gemm_candidates(a.shape[1], a.element_size())
+                 if cfg.vec else [(64, 64, 1)])
+        return [(f"{bm}x{bn}/split{sp}",
+                 functools.partial(fused.gemm_bias, choice=(bm, bn, sp)), None,
+                 (bm, bn, sp) == (cfg.bm, cfg.bn, cfg.splits))
+                for bm, bn, sp in legal]
+    if name == "add_rmsnorm_bwd":
+        res = args[0]
+        want = fused.norm_bwd_config(
+            *res.shape, res.element_size(), [t.data_ptr() for t in args],
+            autotune.backend_of(res.device)).rows_per_block
+        return [(f"rows={n}", lambda *a, n=n: fused.add_rmsnorm_bwd(
+                    *a, 1e-6, rows_per_block=n), None, n == want)
+                for n in fused.norm_rows_candidates(*res.shape)]
+    return [("rows=1", kern, None, True)]
+
+
 def check_kernels(device, table, shapes):
-    """Phase 3.  Returns name -> max abs error at the reported path's
-    shape in fp32."""
+    """Phase 3: every built variant of every kernel (``variants``)
+    against the plain version, and rerun bitwise; the flash tiles also
+    bitwise equal to each other.  Returns name -> max abs error of the
+    resolved variant at the reported path's shape in fp32."""
     import torch
     errors = {}
-    for name, (kern, plain, _) in table.items():
+    for name, (_, plain, _) in table.items():
         layouts = ("fwd", "dx", "dW") if name == "gemm_bias" else ("fwd",)
         for dtype in (torch.float32, torch.bfloat16):
             for label, shape in _shapes(shapes, name):
                 for layout in layouts:
-                    args = make_inputs(name, shape, dtype, device, seed=1,
-                                       layout=layout)
-                    err, ratio = compare(name, kern, plain, args, dtype)
-                    print(f"[check] {name:16s} {layout:3s} {label:6s} "
-                          f"{str(dtype)[6:]:8s} shape={shape} "
-                          f"max_abs_err={err:.3e} err/tol={ratio:.4f} "
-                          f"deterministic=yes")
-                    if (dtype == torch.float32
-                            and label == reported_path(name)):
-                        errors[name] = max(errors.get(name, 0.0), err)
+                    first = None
+                    for vlabel, kern, chunk, resolved in variants(
+                            name, make_inputs(name, shape, dtype, device,
+                                              seed=1, layout=layout),
+                            dtype, device):
+                        args = make_inputs(name, shape, dtype, device, seed=1,
+                                           layout=layout, chunk=chunk)
+                        run_plain = (plain if chunk is None else
+                                     lambda *a, c=chunk: plain(*a, chunk=c))
+                        err, ratio = compare(name, kern, run_plain, args,
+                                             dtype, chunk)
+                        if name in FLASH and device.type == "cuda":
+                            out = _flat(kern(*args))
+                            first = first or out
+                            check(all(torch.equal(a, b)
+                                      for a, b in zip(first, out)),
+                                  f"{name} {vlabel} {label}: tiles differ")
+                        print(f"[check] {name:16s} {layout:3s} {label:6s} "
+                              f"{str(dtype)[6:]:8s} {vlabel:16s} "
+                              f"{'*' if resolved else ' '} shape={shape} "
+                              f"max_abs_err={err:.3e} err/tol={ratio:.4f} "
+                              f"deterministic=yes")
+                        if (resolved and dtype == torch.float32
+                                and label == reported_path(name)):
+                            errors[name] = max(errors.get(name, 0.0), err)
     return errors
 
 
@@ -628,7 +724,7 @@ def _causal_pairs(S, window):
     return sum(min(i + 1, window) if window > 0 else i + 1 for i in range(S))
 
 
-def _ssd_work(name, shape, s):
+def _ssd_work(name, shape, s, Q):
     """(bytes, flops) of one SSD kernel call.  Flops: the products of the
     reference's kernels, the intra-chunk [Q, Q] ones over the T =
     q(q+1)/2 causal pairs of a chunk's q rows, per (batch, head, chunk):
@@ -636,8 +732,7 @@ def _ssd_work(name, shape, s):
     (one group when expanded), gy in ``s`` bytes, dt, A and the states
     in fp32; the forward writes y, the final state and cstates (the
     variant the training path runs), the backward dx, dB and dC per
-    head, ddt and the dA partials."""
-    from repro_torch.kernels.ref import SSD_CHUNK as Q
+    head, ddt and the dA partials; Q is the chunk."""
     b, S, H, P, N, expanded = shape
     nc = -(-S // Q)
     rows = [min(Q, S - c * Q) for c in range(nc)]
@@ -655,30 +750,30 @@ def _ssd_work(name, shape, s):
     return nbytes, flops * b * H
 
 
-def bound(name, shape, dtype):
+def bound(name, shape, dtype, chunk=64):
     """(ms, 'bytes' | 'operations'): each input read once, each output
     written once, over 3.35 TB/s; operations over the type's peak."""
-    nbytes, ops = work(name, shape, dtype)
+    nbytes, ops = work(name, shape, dtype, chunk)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS[str(dtype)] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def tensor_core_bound(name, shape, dtype):
+def tensor_core_bound(name, shape, dtype, chunk=64):
     """ms of a TENSOR_CORE kernel's operations at its design's
     tensor-core rate (fp32: 3 x ops / 495 TFLOP/s; bf16: ops / 989)."""
-    return work(name, shape, dtype)[1] / TC_PEAK_FLOPS[str(dtype)] * 1e3
+    return work(name, shape, dtype, chunk)[1] / TC_PEAK_FLOPS[str(dtype)] * 1e3
 
 
-def work(name, shape, dtype):
+def work(name, shape, dtype, chunk=64):
     """(bytes, flops) of one call.  The flash kernels count their matrix
     products (2 flops per multiply-add) over the (q, k) pairs the causal
     mask keeps: 2 products in the forward, 3 in dq, 4 in dk/dv; the SSD
-    kernels as ``_ssd_work``."""
+    kernels as ``_ssd_work`` at ``chunk``."""
     import torch
     s = torch.tensor([], dtype=dtype).element_size()
     if name in SSD:
-        nbytes, ops = _ssd_work(name, shape, s)
+        nbytes, ops = _ssd_work(name, shape, s, chunk)
     elif name == "add_rmsnorm_fwd":
         M, d = shape
         nbytes, ops = (4 * M * d + d) * s, 6 * M * d        # x, r in; res, h out
@@ -724,6 +819,7 @@ def time_kernels(device, table, shapes, iters):
             if label not in PATH_LABELS:
                 continue
             args = make_inputs(name, shape, torch.float32, device, seed=2)
+            chunk = ssd_chunk(args[0], args[3]) if name in SSD else 64
             ms = time_ms(kern, args, device, iters)
             dev_ms, phases = (device_ms(kern, args, name, iters)
                               if on_card else (None, {}))
@@ -733,10 +829,10 @@ def time_kernels(device, table, shapes, iters):
             else:
                 lib_ms = (time_ms(lib, args, device, iters)
                           if lib is not None else None)
-            bms, by = bound(name, shape, torch.float32)
+            bms, by = bound(name, shape, torch.float32, chunk)
             tc = (f", tensor-core bound "
-                  f"{tensor_core_bound(name, shape, torch.float32):.4f} ms "
-                  f"(3xTF32)" if name in TENSOR_CORE else "")
+                  f"{tensor_core_bound(name, shape, torch.float32, chunk):.4f}"
+                  f" ms (3xTF32)" if name in TENSOR_CORE else "")
             if label == reported_path(name):
                 rows[name] = {"ms": ms, "plain_ms": plain_ms,
                               "library_ms": lib_ms, "bound_ms": bms,
@@ -2118,6 +2214,93 @@ def _rounded(d):
     return {k: round(v, 2) for k, v in d.items()}
 
 
+# ----------------------------------------------------------------------
+# Phase 16: the autotuner
+# ----------------------------------------------------------------------
+def kernel_configs(device, shapes):
+    """name -> the configuration the autotuner resolves for the kernel at
+    its reported path's shape (the GEMM: its three products)."""
+    import torch
+    from repro_torch.kernels import autotune
+    backend = autotune.backend_of(device)
+    f32 = torch.float32
+    at = {name: dict(_shapes(shapes, name))[reported_path(name)]
+          for name in KERNELS}
+    B, S, H, KV, D, _ = at["flash_fwd"]
+    fl = autotune.flash_config(backend, f32, S, D)
+    b, S2, H2, P, N, _ = at["ssd_fwd"]
+    M, K, Nq = at["gemm_bias"]
+    gemm = {lay: autotune.gemm_config_of(backend, f32, m, n, k, layout)
+            for lay, (m, n, k, layout) in (
+                ("fwd", (M, Nq, K, "kn")), ("dx", (M, K, Nq, "kk")),
+                ("dW", (K, Nq, M, "mn")))}
+    return {"add_rmsnorm_fwd": {"rows_per_block": 1},
+            "add_rmsnorm_bwd": autotune.norm_config(
+                backend, f32, *at["add_rmsnorm_bwd"]),
+            "gemm_bias": gemm,
+            "flash_fwd": {"block_q": fl["block_q"]},
+            "flash_bwd_dq": {"block_q": fl["block_q"]},
+            "flash_bwd_dkdv": {"block_k": fl["block_k"]},
+            "ssd_fwd": autotune.ssd_config(backend, f32, S2, P, N),
+            "ssd_bwd": autotune.ssd_config(backend, f32, S2, P, N)}
+
+
+#: run by fresh interpreters in phase 16: the configurations they resolve
+_RESOLVE = ("import json, sys; sys.path.insert(0, {src!r}); "
+            "from repro_torch.kernels import autotune; "
+            "print(json.dumps(autotune.resolve_paths({backend!r}), "
+            "sort_keys=True))")
+
+
+def run_autotune(device):
+    """Phase 16.  On the card: every kernel tuned at the paths' shapes
+    (``autotune.PATH_SHAPES``) into a scratch cache, each candidate's
+    time, the winner and the packaged entry printed.  Asserts that with
+    tuning off each path key resolves to the packaged entry (to the
+    heuristic for a card the table has no entry for), and that two fresh
+    interpreters, spawned as the job's processes are (``child_env``),
+    resolve exactly this process's configurations."""
+    from repro_torch.kernels import autotune
+    t_phase = time.perf_counter()
+    backend = autotune.backend_of(device)
+    if device.type == "cuda":
+        scratch = autotune.AutotuneCache(os.devnull)
+        winners = autotune.tune_paths(backend, cache=scratch)
+        for key, cfg in winners.items():
+            times = autotune.LAST_TIMES[key]
+            print(f"[autotune] {key}: " + ", ".join(
+                f"{c} {ms:.4f} ms" for c, ms in times.items())
+                + f"; winner {cfg}, packaged "
+                f"{autotune._packaged().get(key)}")
+    else:
+        print("[autotune] tuning: not measured (cpu rehearsal; it times "
+              "the CUDA kernels)")
+    resolved = autotune.resolve_paths(backend)
+    ours = {k: v for k, v in autotune._packaged().items()
+            if k.split("|")[1] == backend}
+    for key, cfg in resolved.items():
+        kind, _, _, shape = key.split("|")
+        want = ours.get(key)
+        if want is None:
+            check(device.type == "cpu" or not ours, f"the packaged table "
+                  f"has {backend} entries but none for {key}")
+            want = autotune._heuristic(kind, backend, "float32",
+                                       tuple(shape.split("x")))
+        check(cfg == want, f"{key} resolves {cfg}, the table says {want}")
+    env = autotune.child_env()
+    code = _RESOLVE.format(src=SRC, backend=backend)
+    outs = [subprocess.run([sys.executable, "-c", code], env=env,
+                           capture_output=True, text=True, check=True,
+                           timeout=300).stdout for _ in range(2)]
+    mine = json.dumps(resolved, sort_keys=True)
+    check(all(o.strip() == mine for o in outs),
+          f"fresh interpreters resolve otherwise: {outs} vs {mine}")
+    print(f"[autotune] {len(resolved)} path keys on {backend} resolve to "
+          f"{'the packaged table' if ours and device.type == 'cuda' else 'the heuristic'} with "
+          f"tuning off; two fresh interpreters resolve the same; phase "
+          f"{time.perf_counter() - t_phase:.1f}s")
+
+
 def card_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"],
@@ -2127,10 +2310,38 @@ def card_line():
 
 def run(device="cuda"):
     """All phases; returns the kernels record.  ``device="cpu"`` is the
-    rehearsal: small shapes, the plain versions, the reduced model."""
-    import torch
+    rehearsal: small shapes, the plain versions, the reduced model.  The
+    autotuner reads an empty persisted table in a temporary directory and
+    never tunes, whatever the machine has cached, so the training phases
+    run the packaged table's configurations (or the heuristic's)."""
+    import shutil
+    import tempfile
     if SRC not in sys.path:
         sys.path.insert(0, SRC)
+    from repro_torch.kernels import autotune
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    path = os.path.join(tmp, "autotune.json")
+    with open(path, "w") as f:
+        f.write("{}")
+    saved = {k: os.environ.get(k) for k in ("REPRO_AUTOTUNE",
+                                            "REPRO_AUTOTUNE_CACHE")}
+    os.environ.pop("REPRO_AUTOTUNE", None)
+    os.environ["REPRO_AUTOTUNE_CACHE"] = path
+    old = autotune.reset_cache(path)
+    try:
+        return _run(device)
+    finally:
+        autotune.reset_cache(old)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _run(device):
+    import torch
     from repro_torch.utils.device import resolve_device, strict_fp32_numerics
     device = resolve_device(device)
     on_card = device.type == "cuda"
@@ -2169,10 +2380,12 @@ def run(device="cuda"):
     _, p13 = run_spmd(device)
     run_mesh(device, p13)
     run_pipeline(device, p13["batch"])
+    run_autotune(device)
+    configs = kernel_configs(device, shapes)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errors[name],
-         **timing[name]}
+         **timing[name], "config": configs[name]}
         for name, (replaces, source) in KERNELS.items()]}
     if on_card:
         print(card)

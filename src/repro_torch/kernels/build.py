@@ -50,7 +50,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # flash launchers: B, S, H, KV, D, window, scale, then (batch, seq, head)
-# strides of q, k and v
+# strides of q, k and v (and dO); the tile, the dtype code and the stream
 _FLASH_SHAPE = (_int,) * 6 + (_float,) + (_int,) * 9
 #: extern "C" launchers of csrc/*.cu and their argument types
 SIGNATURES = {
@@ -62,9 +62,11 @@ SIGNATURES = {
     # gemm_bias: A, B, bias, C, the split's fp32 workspace, M, N, K, the
     # strides of A and B, then fused.gemm_config's tile, split and copies
     "gemm_bias": (_vp,) * 5 + (_int,) * 7 + (_int,) * 7 + (_int, _vp),
-    "flash_fwd": (_vp,) * 5 + _FLASH_SHAPE + (_int, _vp),
-    "flash_bwd_dq": (_vp,) * 7 + _FLASH_SHAPE + (_int,) * 3 + (_int, _vp),
-    "flash_bwd_dkdv": (_vp,) * 8 + _FLASH_SHAPE + (_int,) * 3 + (_int, _vp),
+    "flash_fwd": (_vp,) * 5 + _FLASH_SHAPE + (_int, _int, _vp),
+    "flash_bwd_dq": (_vp,) * 7 + _FLASH_SHAPE + (_int,) * 3 + (_int, _int,
+                                                               _vp),
+    "flash_bwd_dkdv": (_vp,) * 8 + _FLASH_SHAPE + (_int,) * 3 + (_int, _int,
+                                                                 _vp),
     # ssd launchers: pointers (the backward's last its fp32 scratch), then
     # b, S, H, P, N, the chunk, the (batch, seq, head) strides of x, dt,
     # B, C (and gy), the dtype code and the stream

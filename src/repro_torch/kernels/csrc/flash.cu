@@ -1,7 +1,9 @@
 // Causal GQA flash attention: the C entry points (see flash.cuh for the
 // kernels' design).  Each validates its arguments, picks the 16-byte
 // copies where every operand's rows allow them, and calls the launcher
-// of its kernel and dtype.
+// of its kernel and dtype with the caller's tile (the rows of the block
+// of the kernel's grid: BQ of the forward and dq, BK of dk/dv); an
+// unbuilt (head dim, tile) is refused.
 #include "flash.cuh"
 
 namespace {
@@ -16,7 +18,8 @@ bool rows16(const void* p, const Strides& st, int dtype) {
          st.s % w == 0 && st.h % w == 0;
 }
 
-int dispatch(Kind kind, int D, int dtype, FlashArgs& a, void* stream) {
+int dispatch(Kind kind, int D, int tile, int dtype, FlashArgs& a,
+             void* stream) {
   if (a.B <= 0 || a.S <= 0 || a.H <= 0 || a.KV <= 0 || a.H % a.KV != 0 ||
       a.window < 0)
     return (int)cudaErrorInvalidValue;
@@ -29,7 +32,7 @@ int dispatch(Kind kind, int D, int dtype, FlashArgs& a, void* stream) {
       {launch_fwd_f32, launch_fwd_bf16},
       {launch_dq_f32, launch_dq_bf16},
       {launch_dkdv_f32, launch_dkdv_bf16}};
-  return launchers[kind][f32 ? 0 : 1](D, a, s);
+  return launchers[kind][f32 ? 0 : 1](D, tile, a, s);
 }
 
 FlashArgs make_args(const void* q, const void* k, const void* v, int B, int S,
@@ -59,20 +62,21 @@ extern "C" {
 int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
               int B, int S, int H, int KV, int D, int window, float scale,
               int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh,
-              int v_sb, int v_ss, int v_sh, int dtype, void* stream) {
+              int v_sb, int v_ss, int v_sh, int tile, int dtype,
+              void* stream) {
   FlashArgs a = make_args(q, k, v, B, S, H, KV, window, scale, q_sb, q_ss,
                           q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh);
   a.o = o;
   a.lse = (float*)lse;
-  return dispatch(kFwd, D, dtype, a, stream);
+  return dispatch(kFwd, D, tile, dtype, a, stream);
 }
 
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* g,
                  const void* lse, const void* delta, void* dq, int B, int S,
                  int H, int KV, int D, int window, float scale, int q_sb,
                  int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb,
-                 int v_ss, int v_sh, int g_sb, int g_ss, int g_sh, int dtype,
-                 void* stream) {
+                 int v_ss, int v_sh, int g_sb, int g_ss, int g_sh, int tile,
+                 int dtype, void* stream) {
   FlashArgs a = make_args(q, k, v, B, S, H, KV, window, scale, q_sb, q_ss,
                           q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh);
   a.g = g;
@@ -80,7 +84,7 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* g,
   a.lse_in = (const float*)lse;
   a.delta = (const float*)delta;
   a.dq = dq;
-  return dispatch(kDq, D, dtype, a, stream);
+  return dispatch(kDq, D, tile, dtype, a, stream);
 }
 
 int flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* g,
@@ -88,7 +92,7 @@ int flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* g,
                    int B, int S, int H, int KV, int D, int window, float scale,
                    int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh,
                    int v_sb, int v_ss, int v_sh, int g_sb, int g_ss, int g_sh,
-                   int dtype, void* stream) {
+                   int tile, int dtype, void* stream) {
   FlashArgs a = make_args(q, k, v, B, S, H, KV, window, scale, q_sb, q_ss,
                           q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh);
   a.g = g;
@@ -97,7 +101,7 @@ int flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* g,
   a.delta = (const float*)delta;
   a.dk = dk;
   a.dv = dv;
-  return dispatch(kDkdv, D, dtype, a, stream);
+  return dispatch(kDkdv, D, tile, dtype, a, stream);
 }
 
 }  // extern "C"

@@ -19,7 +19,8 @@
 //
 // Design, shared by the three kernels: every product runs on the tensor
 // cores (tensor_core.cuh: 3xTF32 mma.sync for fp32, m16n8k16 for bf16),
-// a warp per 16 rows of a 64-row tile.  Shared tiles keep the global
+// a warp per 16 rows of the block's tile against 64 rows of the other
+// operand (the warp's 16 x 64 score tile).  Shared tiles keep the global
 // row-major layout at TileGeom's pitch and are filled by cp.async
 // (fetch_rows), so every operand is read row-major, never transposed:
 // rows_dot forms a warp's 16 x 64 tile of A.B^T over D (S = Q.K^T, dP =
@@ -46,6 +47,15 @@
 // 1 = bfloat16.  No kernel uses atomics and every loop runs in a fixed
 // order: the same inputs give bitwise-equal outputs.
 //
+// Tiles.  The forward and dq walk a grid of q blocks of BQ rows against
+// kv blocks of 64; dk/dv walks kv blocks of BK rows against q blocks of
+// 64.  BQ (BK) is a template parameter, 64 or 128: the block runs BQ / 16
+// (BK / 16) warps of rows, each warp's arithmetic and order of sums is
+// the same whatever the tile, and a warp skips the blocks none of whose
+// pairs with its rows is visible, so every tile gives bitwise-equal
+// outputs.  kernels/autotune.py picks the tile per (sequence bucket, head
+// dim, dtype); kernels/flash.py lists the built instances.
+//
 // This header holds the kernels as templates; flash.cu holds the C entry
 // points and each flash_<kernel>_<dtype>.cu one launcher's instances.
 #pragma once
@@ -58,9 +68,9 @@
 namespace flash_impl {
 
 
-constexpr int BQ = 64;          // rows of a q tile
-constexpr int BK = 64;          // rows of a kv tile (== BQ: the diagonal
-                                // q block is the last kv block it reads)
+constexpr int TW = 64;          // rows of the other operand's tile: the
+                                // width of a warp's 16 x 64 score tile
+constexpr int SMEM_MAX = 232448;   // opt-in shared memory a block (227 KB)
 constexpr float NEG_INF = -1e30f;  // the reference's mask value, not -inf
 
 struct Strides {
@@ -90,14 +100,25 @@ enum Kind { kFwd, kDq, kDkdv };
 
 // One launcher per (kernel, dtype), each defined in its own source
 // (flash_<kernel>_<dtype>.cu) so that nvcc compiles the instances side
-// by side; D picks the instance, another D is refused.
-using Launcher = int (*)(int D, const FlashArgs& a, cudaStream_t stream);
-int launch_fwd_f32(int D, const FlashArgs& a, cudaStream_t stream);
-int launch_fwd_bf16(int D, const FlashArgs& a, cudaStream_t stream);
-int launch_dq_f32(int D, const FlashArgs& a, cudaStream_t stream);
-int launch_dq_bf16(int D, const FlashArgs& a, cudaStream_t stream);
-int launch_dkdv_f32(int D, const FlashArgs& a, cudaStream_t stream);
-int launch_dkdv_bf16(int D, const FlashArgs& a, cudaStream_t stream);
+// by side; (D, tile) picks the instance, tile being BQ for the forward
+// and dq and BK for dk/dv; an unbuilt pair is refused.
+using Launcher = int (*)(int D, int tile, const FlashArgs& a,
+                         cudaStream_t stream);
+int launch_fwd_f32(int D, int tile, const FlashArgs& a, cudaStream_t stream);
+int launch_fwd_bf16(int D, int tile, const FlashArgs& a, cudaStream_t stream);
+int launch_dq_f32(int D, int tile, const FlashArgs& a, cudaStream_t stream);
+int launch_dq_bf16(int D, int tile, const FlashArgs& a, cudaStream_t stream);
+int launch_dkdv_f32(int D, int tile, const FlashArgs& a, cudaStream_t stream);
+int launch_dkdv_bf16(int D, int tile, const FlashArgs& a, cudaStream_t stream);
+
+// The 128-row tile is built at head dims 64 and 128 (gpt3-medium and
+// granite-moe, qwen3), where it fits the opt-in shared memory: the
+// forward in both dtypes, dq and dk/dv at D 128 in bf16 only (fp32 would
+// need 270,336 bytes).  kernels/flash.py::built mirrors this.
+template <Kind K, typename T>
+constexpr bool wide_built(int D) {
+  return D == 64 || (D == 128 && (K == kFwd || sizeof(T) == 2));
+}
 
 }  // namespace flash_impl
 
@@ -122,39 +143,42 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// A warp owns 16 rows of a 64-row tile and at most 64 columns of the
-// fp32 output: above D 64 two warps share each 16 rows (8 warps), each
-// taking half the columns (D 80: 40, D 96: 48, D 128: 64) and repeating
-// the rows' score products, since more output columns beside the score
-// fragments spill registers (forward and dq: 24-32 bytes at D 128 with 4
-// warps; dk/dv, two outputs: 756).
-template <typename T, int D>
+// A warp owns 16 rows of the block's ROWS-row tile and at most 64
+// columns of the fp32 output: above D 64 two warps share each 16 rows,
+// each taking half the columns (D 80: 40, D 96: 48, D 128: 64) and
+// repeating the rows' score products, since more output columns beside
+// the score fragments spill registers (forward and dq: 24-32 bytes at D
+// 128 with 4 warps; dk/dv, two outputs: 756).  A 64-row tile runs 4 or 8
+// warps, a 128-row tile 8 or 16.
+template <typename T, int D, int ROWS>
 struct WarpGeom {
   static_assert(D % 16 == 0, "m16n8k16 steps over D");
+  static_assert(ROWS % 16 == 0, "a warp per 16 rows");
+  static constexpr int row_warps = ROWS / 16;
   static constexpr int cols = D > 64 ? D / 2 : D;
-  static constexpr int threads = 4 * 32 * (D / cols);
+  static constexpr int threads = row_warps * 32 * (D / cols);
 };
 
-// A 64-row shared tile: fp32 rows of D + 4 and bf16 rows of D + 8 keep
-// rows 16-byte aligned and every fragment read of the kernels on 32
-// distinct banks.
+// Shared tiles: fp32 rows of D + 4 and bf16 rows of D + 8 keep rows
+// 16-byte aligned and every fragment read of the kernels on 32 distinct
+// banks.
 template <typename T, int D>
 struct TileGeom {
   static constexpr int pitch = D + (sizeof(T) == 4 ? 4 : 8);
-  static constexpr int tile = BK * pitch;      // elements of a 64-row tile
+  static constexpr int bytes(int rows) { return rows * pitch * (int)sizeof(T); }
 };
 
-// Rows [row0, row0 + 64) of one head (row stride `rs`, head dim dense)
+// Rows [row0, row0 + ROWS) of one head (row stride `rs`, head dim dense)
 // into a tile of TileGeom's pitch, rows at or past S as 0, by the block's
 // NT threads.  vec: 16-byte cp.async (rows and base 16-byte aligned);
 // else one element per copy.
-template <typename T, int D, int NT>
+template <typename T, int D, int NT, int ROWS>
 __device__ __forceinline__ void fetch_rows(T* dst, const T* src, long long rs,
                                            int row0, int S, bool vec) {
   constexpr int P = TileGeom<T, D>::pitch;
   if (vec) {
     constexpr int W = 16 / (int)sizeof(T), CPR = D / W;
-    constexpr int CHUNKS = BK * CPR;   // 16-byte copies of the tile
+    constexpr int CHUNKS = ROWS * CPR;   // 16-byte copies of the tile
 #pragma unroll
     for (int i = 0; i < (CHUNKS + NT - 1) / NT; ++i) {
       const int c = threadIdx.x + i * NT;
@@ -165,7 +189,7 @@ __device__ __forceinline__ void fetch_rows(T* dst, const T* src, long long rs,
                  ok ? 16 : 0);
     }
   } else {
-    for (int e = threadIdx.x; e < BK * D; e += NT) {
+    for (int e = threadIdx.x; e < ROWS * D; e += NT) {
       const int r = e / D, col = e % D, row = row0 + r;
       const bool ok = row < S;
       if constexpr (sizeof(T) == 4)
@@ -316,10 +340,11 @@ __device__ __forceinline__ void rows_acc(const float x[8][4],
 }
 
 // ---------------------------------------------------------------------
-// The forward and dq share their walk: one block per (q block, head,
-// batch), warp w owning q rows [16 (w % 4), 16 (w % 4) + 16) of the tile
-// and output columns [C (w / 4), C (w / 4) + C) (WarpGeom), over the
-// kv blocks [lo, hi) of the reference's _kv_bounds in order.
+// The forward and dq share their walk: one block per (q block of BQ
+// rows, head, batch), warp w owning q rows [16 (w % R), 16 (w % R) + 16)
+// of the tile, R = BQ / 16, and output columns [C (w / R), C (w / R) + C)
+// (WarpGeom), over the kv blocks of 64, [lo, hi) of the reference's
+// _kv_bounds, in order.
 // The q-side tiles (Q, and dO in dq) are fetched once and stay in shared
 // memory (their split fragments would not fit in registers beside the
 // fp32 output); K and V go through a 2-stage cp.async ring, the next kv
@@ -332,27 +357,30 @@ __device__ __forceinline__ void rows_acc(const float x[8][4],
 // wave (in launch order the forward took 18 % and dq 14 % longer on the
 // H100).  The launch bounds ask for one block an SM: without the minimum
 // ptxas held both kernels at D 64 to ~166 registers, and the forward ran
-// 13 % and dq 5 % slower; shared memory allows two blocks an SM at D 64
-// either way.
+// 13 % and dq 5 % slower; shared memory allows two 64-row blocks an SM at
+// D 64 either way.
 // ---------------------------------------------------------------------
+template <int BQ>
 struct QWalk {
+  static constexpr int BK = TW;
   int h, b, kvh, rows, col0, g, t, S, q0, qr, lo, hi;
 
   __device__ QWalk(const FlashArgs& a, int cols) {
+    constexpr int R = BQ / 16;                    // warps of rows
     h = blockIdx.x;
     b = blockIdx.y;
     const int iq = (int)(gridDim.z - 1 - blockIdx.z);  // the longest first
     kvh = h / (a.H / a.KV);
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    rows = 16 * (warp & 3);                       // the warp's rows of the tile
-    col0 = cols * (warp >> 2);                    // and its first output column
+    rows = 16 * (warp % R);                       // the warp's rows of the tile
+    col0 = cols * (warp / R);                     // and its first output column
     g = lane >> 2;
     t = lane & 3;
     S = a.S;
     q0 = iq * BQ;
     qr = q0 + rows;                               // the warp's first q row
     lo = a.window > 0 ? max((q0 - a.window + 1) / BK, 0) : 0;
-    hi = min(iq + 1, (S + BK - 1) / BK);
+    hi = min((q0 + BQ - 1) / BK + 1, (S + BK - 1) / BK);
   }
   // Of the warp's rows [qr, qr + 16) against kv [k0, k0 + 64): no pair
   // visible, or every pair visible.
@@ -385,26 +413,27 @@ struct QWalk {
 // fragments, scales its O registers by corr = exp(m - m_new), and adds
 // P.V (rows_acc), promoted once per block.
 // ---------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(WarpGeom<T, D>::threads, 1)
+template <typename T, int D, int BQ>
+__global__ void __launch_bounds__(WarpGeom<T, D, BQ>::threads, 1)
 flash_fwd_kernel(const FlashArgs a) {
-  constexpr int P = TileGeom<T, D>::pitch, TILE = TileGeom<T, D>::tile;
-  constexpr int C = WarpGeom<T, D>::cols, NT = WarpGeom<T, D>::threads;
+  constexpr int BK = TW;
+  constexpr int P = TileGeom<T, D>::pitch, TILE = BK * P;
+  constexpr int C = WarpGeom<T, D, BQ>::cols, NT = WarpGeom<T, D, BQ>::threads;
   extern __shared__ float4 smem4[];
   T* Qs = reinterpret_cast<T*>(smem4);           // [BQ][P]
-  T* Ks = Qs + TILE;                             // [2][BK][P]
+  T* Ks = Qs + BQ * P;                           // [2][BK][P]
   T* Vs = Ks + 2 * TILE;                         // [2][BK][P]
-  const QWalk w(a, C);
+  const QWalk<BQ> w(a, C);
   const T* k = static_cast<const T*>(a.k) + w.b * a.ks.b + w.kvh * a.ks.h;
   const T* v = static_cast<const T*>(a.v) + w.b * a.vs.b + w.kvh * a.vs.h;
-  fetch_rows<T, D, NT>(Qs, static_cast<const T*>(a.q) + w.b * a.qs.b +
-                               w.h * a.qs.h,
-                       a.qs.s, w.q0, w.S, a.vec);
+  fetch_rows<T, D, NT, BQ>(Qs, static_cast<const T*>(a.q) + w.b * a.qs.b +
+                                   w.h * a.qs.h,
+                           a.qs.s, w.q0, w.S, a.vec);
   // kv block ik into ring buffer (ik - lo) & 1
   auto fetch = [&](int ik) {
     const int buf = (ik - w.lo) & 1;
-    fetch_rows<T, D, NT>(Ks + buf * TILE, k, a.ks.s, ik * BK, w.S, a.vec);
-    fetch_rows<T, D, NT>(Vs + buf * TILE, v, a.vs.s, ik * BK, w.S, a.vec);
+    fetch_rows<T, D, NT, BK>(Ks + buf * TILE, k, a.ks.s, ik * BK, w.S, a.vec);
+    fetch_rows<T, D, NT, BK>(Vs + buf * TILE, v, a.vs.s, ik * BK, w.S, a.vec);
   };
   fetch(w.lo);
   cp_async_commit();
@@ -495,29 +524,30 @@ flash_fwd_kernel(const FlashArgs a) {
 // dP = dO.V^T (rows_dot), then p and ds on the C fragments, and adds
 // dS.K (rows_acc) into its fp32 dq registers, promoted once per block.
 // ---------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(WarpGeom<T, D>::threads, 1)
+template <typename T, int D, int BQ>
+__global__ void __launch_bounds__(WarpGeom<T, D, BQ>::threads, 1)
 flash_bwd_dq_kernel(const FlashArgs a) {
-  constexpr int P = TileGeom<T, D>::pitch, TILE = TileGeom<T, D>::tile;
-  constexpr int C = WarpGeom<T, D>::cols, NT = WarpGeom<T, D>::threads;
+  constexpr int BK = TW;
+  constexpr int P = TileGeom<T, D>::pitch, TILE = BK * P;
+  constexpr int C = WarpGeom<T, D, BQ>::cols, NT = WarpGeom<T, D, BQ>::threads;
   extern __shared__ float4 smem4[];
   T* Qs = reinterpret_cast<T*>(smem4);           // [BQ][P]
-  T* Gs = Qs + TILE;                             // [BQ][P]
-  T* Ks = Gs + TILE;                             // [2][BK][P]
+  T* Gs = Qs + BQ * P;                           // [BQ][P]
+  T* Ks = Gs + BQ * P;                           // [2][BK][P]
   T* Vs = Ks + 2 * TILE;                         // [2][BK][P]
-  const QWalk w(a, C);
+  const QWalk<BQ> w(a, C);
   const T* k = static_cast<const T*>(a.k) + w.b * a.ks.b + w.kvh * a.ks.h;
   const T* v = static_cast<const T*>(a.v) + w.b * a.vs.b + w.kvh * a.vs.h;
-  fetch_rows<T, D, NT>(Qs, static_cast<const T*>(a.q) + w.b * a.qs.b +
-                               w.h * a.qs.h,
-                       a.qs.s, w.q0, w.S, a.vec);
-  fetch_rows<T, D, NT>(Gs, static_cast<const T*>(a.g) + w.b * a.gs.b +
-                               w.h * a.gs.h,
-                       a.gs.s, w.q0, w.S, a.vec);
+  fetch_rows<T, D, NT, BQ>(Qs, static_cast<const T*>(a.q) + w.b * a.qs.b +
+                                   w.h * a.qs.h,
+                           a.qs.s, w.q0, w.S, a.vec);
+  fetch_rows<T, D, NT, BQ>(Gs, static_cast<const T*>(a.g) + w.b * a.gs.b +
+                                   w.h * a.gs.h,
+                           a.gs.s, w.q0, w.S, a.vec);
   auto fetch = [&](int ik) {
     const int buf = (ik - w.lo) & 1;
-    fetch_rows<T, D, NT>(Ks + buf * TILE, k, a.ks.s, ik * BK, w.S, a.vec);
-    fetch_rows<T, D, NT>(Vs + buf * TILE, v, a.vs.s, ik * BK, w.S, a.vec);
+    fetch_rows<T, D, NT, BK>(Ks + buf * TILE, k, a.ks.s, ik * BK, w.S, a.vec);
+    fetch_rows<T, D, NT, BK>(Vs + buf * TILE, v, a.vs.s, ik * BK, w.S, a.vec);
   };
   fetch(w.lo);
   cp_async_commit();
@@ -590,7 +620,7 @@ flash_bwd_dq_kernel(const FlashArgs a) {
 // atomics (one writer per output element).
 // Bound at the flash path's shape: 4 products over the causal pairs:
 // 34.4 GFLOP, 0.513 ms at the CUDA cores' fp32 rate, 0.208 ms as 3xTF32.
-// Design: a warp per 16 kv rows of the 64-row tile.  Per q block a warp
+// Design: a warp per 16 kv rows of the BK-row tile.  Per q block a warp
 // computes its rows of S^T = K.Q^T and dP^T = V.dO^T over D (rows_dot),
 // forms P^T = exp(S^T.scale - lse) and dS^T = P^T (dP^T - delta).scale
 // on the accumulator fragments, and adds dV += P^T.dO and dK += dS^T.Q
@@ -608,27 +638,29 @@ flash_bwd_dq_kernel(const FlashArgs a) {
 // wave (in launch order the long ones ran last, and the run took ~35 %
 // longer on the H100).
 // ---------------------------------------------------------------------
-template <typename T, int D>
-struct DkdvGeom : WarpGeom<T, D> {
+template <typename T, int D, int BK>
+struct DkdvGeom : WarpGeom<T, D, BK> {
+  static constexpr int BQ = TW;
   static constexpr int pitch = TileGeom<T, D>::pitch;
-  static constexpr int tile = TileGeom<T, D>::tile;
   // K, V, two (Q, dO) buffers, two (lse, delta) buffers
-  static constexpr int bytes =
-      6 * tile * (int)sizeof(T) + 4 * BQ * (int)sizeof(float);
+  static constexpr int bytes = TileGeom<T, D>::bytes(2 * BK + 4 * BQ) +
+                               4 * BQ * (int)sizeof(float);
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(DkdvGeom<T, D>::threads)
+template <typename T, int D, int BK>
+__global__ void __launch_bounds__(DkdvGeom<T, D, BK>::threads)
 flash_bwd_dkdv_kernel(const FlashArgs a) {
-  using Geo = DkdvGeom<T, D>;
+  using Geo = DkdvGeom<T, D, BK>;
+  constexpr int BQ = Geo::BQ, R = Geo::row_warps;
   constexpr int P = Geo::pitch, C = Geo::cols, NC = C / 8, NT = Geo::threads;
+  constexpr int QT = BQ * P;                     // elements of a q-side tile
   extern __shared__ float4 smem4[];
   T* Ks = reinterpret_cast<T*>(smem4);           // [BK][P]
-  T* Vs = Ks + Geo::tile;                        // [BK][P]
-  T* Qs = Vs + Geo::tile;                        // [2][BQ][P]
-  T* Gs = Qs + 2 * Geo::tile;                    // [2][BQ][P]
-  float* lse_s = reinterpret_cast<float*>(Gs + 2 * Geo::tile);  // [2][BQ]
-  float* dlt_s = lse_s + 2 * BQ;                                // [2][BQ]
+  T* Vs = Ks + BK * P;                           // [BK][P]
+  T* Qs = Vs + BK * P;                           // [2][BQ][P]
+  T* Gs = Qs + 2 * QT;                           // [2][BQ][P]
+  float* lse_s = reinterpret_cast<float*>(Gs + 2 * QT);  // [2][BQ]
+  float* dlt_s = lse_s + 2 * BQ;                         // [2][BQ]
   // kv blocks are the grid's slowest dimension, so the blocks with the
   // most q blocks (the first kv blocks) are dispatched first
   const int kvh = blockIdx.x, b = blockIdx.y, ik = blockIdx.z;
@@ -638,28 +670,30 @@ flash_bwd_dkdv_kernel(const FlashArgs a) {
   const int S = a.S, k0 = ik * BK;
   // the warp's share: kv rows [kr, kr + 16) of the tile, columns
   // [col0, col0 + C) of dk and dv
-  const int kr = (warp % 4) * 16;
-  const int col0 = (warp / 4) * C;
+  const int kr = (warp % R) * 16;
+  const int col0 = (warp / R) * C;
   const int nq = (S + BQ - 1) / BQ;
-  const int qlo = ik;
+  const int qlo = k0 / BQ;
   const int qhi = a.window > 0 ? min((k0 + BK + a.window - 2) / BQ + 1, nq) : nq;
   const int nqb = qhi - qlo, items = G * nqb;   // (query head, q block) pairs
 
-  fetch_rows<T, D, NT>(Ks, static_cast<const T*>(a.k) + b * a.ks.b + kvh * a.ks.h,
-                       a.ks.s, k0, S, a.vec);
-  fetch_rows<T, D, NT>(Vs, static_cast<const T*>(a.v) + b * a.vs.b + kvh * a.vs.h,
-                       a.vs.s, k0, S, a.vec);
+  fetch_rows<T, D, NT, BK>(Ks, static_cast<const T*>(a.k) + b * a.ks.b +
+                                   kvh * a.ks.h,
+                           a.ks.s, k0, S, a.vec);
+  fetch_rows<T, D, NT, BK>(Vs, static_cast<const T*>(a.v) + b * a.vs.b +
+                                   kvh * a.vs.h,
+                           a.vs.s, k0, S, a.vec);
   // Item it = (query head kvh*G + it / nqb, q block qlo + it % nqb) into
   // ring buffer it & 1.
   auto fetch = [&](int it) {
     const int h = kvh * G + it / nqb, q0 = (qlo + it % nqb) * BQ;
     const int buf = it & 1;
-    fetch_rows<T, D, NT>(Qs + buf * Geo::tile,
-                         static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h,
-                         a.qs.s, q0, S, a.vec);
-    fetch_rows<T, D, NT>(Gs + buf * Geo::tile,
-                         static_cast<const T*>(a.g) + b * a.gs.b + h * a.gs.h,
-                         a.gs.s, q0, S, a.vec);
+    fetch_rows<T, D, NT, BQ>(Qs + buf * QT,
+                             static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h,
+                             a.qs.s, q0, S, a.vec);
+    fetch_rows<T, D, NT, BQ>(Gs + buf * QT,
+                             static_cast<const T*>(a.g) + b * a.gs.b + h * a.gs.h,
+                             a.gs.s, q0, S, a.vec);
     if (threadIdx.x < 2 * BQ) {
       const int c = threadIdx.x & (BQ - 1), qpos = q0 + c;
       const float* row = (threadIdx.x < BQ ? a.lse_in : a.delta) +
@@ -683,8 +717,8 @@ flash_bwd_dkdv_kernel(const FlashArgs a) {
     if (it + 1 < items) fetch(it + 1);
     cp_async_commit();
     const int buf = it & 1, q0 = (qlo + it % nqb) * BQ;
-    const T* qs = Qs + buf * Geo::tile;
-    const T* gs = Gs + buf * Geo::tile;
+    const T* qs = Qs + buf * QT;
+    const T* gs = Gs + buf * QT;
     const float* lse = lse_s + buf * BQ;
     const float* delta = dlt_s + buf * BQ;
     // The warp's kv rows [kmin, kmin + 16) against q columns [q0, q0 + 64):
@@ -755,38 +789,62 @@ int launch(Kernel kernel, dim3 grid, int threads, int smem,
   return (int)cudaGetLastError();
 }
 
-// One kernel's launch; K is a template argument so that a source of
-// instances compiles its own kernel only.
-template <Kind K, typename T, int D>
+// One kernel's launch at tile ROWS (BQ of the forward and dq, BK of
+// dk/dv); K is a template argument so that a source of instances
+// compiles its own kernel only.
+template <Kind K, typename T, int D, int ROWS>
 int launch_kind(const FlashArgs& a, cudaStream_t stream) {
-  const int nq = (a.S + BQ - 1) / BQ;
-  constexpr int tile_bytes = TileGeom<T, D>::tile * (int)sizeof(T);
-  if constexpr (K == kFwd)      // Q, two K and two V buffers
-    return launch(flash_fwd_kernel<T, D>, dim3(a.H, a.B, nq),
-                  WarpGeom<T, D>::threads, 5 * tile_bytes, a, stream);
-  else if constexpr (K == kDq)  // Q, dO, two K and two V buffers
-    return launch(flash_bwd_dq_kernel<T, D>, dim3(a.H, a.B, nq),
-                  WarpGeom<T, D>::threads, 6 * tile_bytes, a, stream);
+  const int nb = (a.S + ROWS - 1) / ROWS;       // blocks of the tile's rows
+  constexpr int threads = WarpGeom<T, D, ROWS>::threads;
+  if constexpr (K == kFwd) {    // Q, two K and two V buffers
+    constexpr int smem = TileGeom<T, D>::bytes(ROWS + 4 * TW);
+    static_assert(smem <= SMEM_MAX, "forward tile exceeds shared memory");
+    return launch(flash_fwd_kernel<T, D, ROWS>, dim3(a.H, a.B, nb), threads,
+                  smem, a, stream);
+  } else if constexpr (K == kDq) {  // Q, dO, two K and two V buffers
+    constexpr int smem = TileGeom<T, D>::bytes(2 * ROWS + 4 * TW);
+    static_assert(smem <= SMEM_MAX, "dq tile exceeds shared memory");
+    return launch(flash_bwd_dq_kernel<T, D, ROWS>, dim3(a.H, a.B, nb),
+                  threads, smem, a, stream);
+  } else {
+    constexpr int smem = DkdvGeom<T, D, ROWS>::bytes;
+    static_assert(smem <= SMEM_MAX, "dk/dv tile exceeds shared memory");
+    return launch(flash_bwd_dkdv_kernel<T, D, ROWS>, dim3(a.KV, a.B, nb),
+                  threads, smem, a, stream);
+  }
+}
+
+// The 128-row tile where wide_built says it is built, else a refusal.
+template <Kind K, typename T, int D>
+int launch_wide(const FlashArgs& a, cudaStream_t stream) {
+  if constexpr (wide_built<K, T>(D))
+    return launch_kind<K, T, D, 128>(a, stream);
   else
-    return launch(flash_bwd_dkdv_kernel<T, D>, dim3(a.KV, a.B, nq),
-                  DkdvGeom<T, D>::threads, DkdvGeom<T, D>::bytes, a, stream);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Defines flash_impl::launch_<K>_<TN>, one source's instances: head dims
-// 16 (the reduced configs at d_model 64), 32, 64 (gpt3-medium), 80
-// (GPT-3 2.7B), 96 (phi3-vision) and 128 (qwen2.5-3b).
+// Defines flash_impl::launch_<K>_<TN>, one source's instances: the 64-row
+// tile at head dims 16 (the reduced configs at d_model 64), 32, 64
+// (gpt3-medium), 80 (GPT-3 2.7B), 96 (phi3-vision) and 128 (qwen2.5-3b),
+// the 128-row tile where wide_built says.
 #define FLASH_LAUNCHER(K, TN, KIND, T)                                     \
-  int flash_impl::launch_##K##_##TN(int D, const FlashArgs& a,             \
+  int flash_impl::launch_##K##_##TN(int D, int tile, const FlashArgs& a,   \
                                     cudaStream_t stream) {                 \
+    if (tile == 128) {                                                     \
+      if (D == 64) return launch_wide<KIND, T, 64>(a, stream);             \
+      if (D == 128) return launch_wide<KIND, T, 128>(a, stream);           \
+      return (int)cudaErrorInvalidValue;                                   \
+    }                                                                      \
+    if (tile != 64) return (int)cudaErrorInvalidValue;                     \
     switch (D) {                                                           \
-      case 16: return launch_kind<KIND, T, 16>(a, stream);                 \
-      case 32: return launch_kind<KIND, T, 32>(a, stream);                 \
-      case 64: return launch_kind<KIND, T, 64>(a, stream);                 \
-      case 80: return launch_kind<KIND, T, 80>(a, stream);                 \
-      case 96: return launch_kind<KIND, T, 96>(a, stream);                 \
-      case 128: return launch_kind<KIND, T, 128>(a, stream);               \
+      case 16: return launch_kind<KIND, T, 16, 64>(a, stream);             \
+      case 32: return launch_kind<KIND, T, 32, 64>(a, stream);             \
+      case 64: return launch_kind<KIND, T, 64, 64>(a, stream);             \
+      case 80: return launch_kind<KIND, T, 80, 64>(a, stream);             \
+      case 96: return launch_kind<KIND, T, 96, 64>(a, stream);             \
+      case 128: return launch_kind<KIND, T, 128, 64>(a, stream);           \
       default: return (int)cudaErrorInvalidValue;                          \
     }                                                                      \
   }

@@ -1,5 +1,15 @@
 // Mamba2 SSD chunked scan for Hopper (sm_90a): the forward and the
 // reverse-chunk backward, each chunk-parallel on the tensor cores.
+// The chunk length Q is a template parameter of every phase: 64 and 32
+// are built for each (P, N) (kernels/ssd.py::CHUNKS; kernels/autotune.py
+// picks one per (sequence bucket, P, N, dtype)).  A chunk of 128 is not
+// built: its backward chunk phase would need 390,752 bytes of shared
+// memory at (P, N) = (64, 128) and 244,320 at (64, 16), beyond the
+// 232,448 a block may opt into; at the reduced configs' (16, 16) it
+// would fit (191,328), but its Q x Q tiles outnumber the warps, which the
+// W, cb and dW steps (one tile a warp) do not handle, and no training
+// path runs that shape.  SSD is chunk-invariant in exact arithmetic; two
+// chunks sum in another order.
 //
 // Replace repro/kernels/ssd.py::_ssd_kernel and ::_ssd_bwd_kernel.  Per
 // chunk c of Q rows the forward computes, in fp32,
@@ -63,7 +73,8 @@
 // at (P, N) = (64, 128): states phases 52,496 bytes, forward outputs
 // 103,696 (two blocks an SM), backward chunks 177,504 (one block an SM:
 // x, gy, B, C, the entering state and two Q x Q tiles; the kernel runs
-// 16 warps, which took 11 % less time than 8 on the H100).
+// 16 warps, which took 11 % less time than 8 on the H100).  At chunk 32
+// the backward chunks take 96,960 bytes and 8 warps: two blocks an SM.
 //
 // Plain C interface (extern "C"), loaded with ctypes by kernels/build.py.
 // Every entry point takes the stream it must launch on, allocates
@@ -77,13 +88,22 @@
 
 namespace {
 
-constexpr int Q = 64;           // chunk length
-constexpr int LQ = Q + 4;       // row pitch of a Q x Q tile
 constexpr int NT = 256;         // threads per block: 8 warps
 constexpr int WARPS = NT / 32;
-constexpr int CNT = 512;        // the backward chunk kernel's: 16 warps
-constexpr int CWARPS = CNT / 32;
 constexpr unsigned FULL = 0xffffffffu;
+
+// Chunk geometry: Q rows a chunk, rows per lane of a chunk-wide warp
+// scan, the row pitch of a Q x Q tile, and the backward chunk kernel's
+// threads (16 warps at chunk 64, 8 at chunk 32) and blocks an SM.
+template <int Q>
+struct Geom {
+  static_assert(Q == 32 || Q == 64, "chunks of 32 or 64 rows are built");
+  static constexpr int RL = Q / 32;
+  static constexpr int LQ = Q + 4;
+  static constexpr int CNT = Q == 64 ? 512 : 256;
+  static constexpr int CWARPS = CNT / 32;
+  static constexpr int CBLOCKS = Q == 64 ? 1 : 2;
+};
 
 struct Strides {
   long long b, s, h;            // elements; the last dim has stride 1
@@ -127,7 +147,7 @@ struct Tiles {
 // Rows [row0, row0 + Q) of one head (row stride rs, last dim dense) into
 // dst[r * (D + 4) + d] in fp32, rows at or past S as 0, by TH threads.
 // fp32: cp.async, 16 bytes a copy when vec; bf16: loads converted to fp32.
-template <typename T, int D, int TH = NT>
+template <typename T, int D, int Q, int TH = NT>
 __device__ __forceinline__ void stage_rows(float* dst, const T* src,
                                            long long rs, int row0, int S,
                                            bool vec) {
@@ -165,6 +185,7 @@ __device__ __forceinline__ void stage_state(float* dst, const float* src) {
   }
 }
 
+template <int Q>
 __device__ __forceinline__ void load_dt(float* dst, const float* src,
                                         long long row_stride, int row0, int S) {
   if (threadIdx.x < Q) {
@@ -173,36 +194,44 @@ __device__ __forceinline__ void load_dt(float* dst, const float* src,
   }
 }
 
-// cum over one chunk as a warp scan: lane l holds a0 = dt_2l A and a1 =
-// dt_2l+1 A; returns cum_2l, cum_2l+1 and (every lane) cum_Q.  Every
-// phase takes cum from here, so all agree bitwise.
-__device__ __forceinline__ float chunk_cum(float a0, float a1, float& c0,
-                                           float& c1) {
+// cum over one chunk as a warp scan: lane l holds a[k] = dt_i A for its
+// RL rows i = RL l + k (RL = Q / 32); returns their cum in c and (every
+// lane) cum_Q.  Every phase takes cum from here, so all agree bitwise.
+template <int RL>
+__device__ __forceinline__ float chunk_cum(const float (&a)[RL],
+                                           float (&c)[RL]) {
   const int l = threadIdx.x & 31;
-  float s = a0 + a1;
+  float s = a[0];
+#pragma unroll
+  for (int k = 1; k < RL; ++k) s += a[k];
   for (int o = 1; o < 32; o <<= 1) {
     const float t = __shfl_up_sync(FULL, s, o);
     if (l >= o) s += t;
   }
   float excl = __shfl_up_sync(FULL, s, 1);
   if (l == 0) excl = 0.f;
-  c0 = excl + a0;
-  c1 = c0 + a1;
-  return __shfl_sync(FULL, c1, 31);
+  c[0] = excl + a[0];
+#pragma unroll
+  for (int k = 1; k < RL; ++k) c[k] = c[k - 1] + a[k];
+  return __shfl_sync(FULL, c[RL - 1], 31);
 }
 
-// Per-chunk decay terms, by warp 0 (lane l owns rows 2l and 2l + 1):
-// cum, e^cum, e^(cum_Q - cum) and w_last = e^(cum_Q - cum) * dt; sc[0] =
-// e^cum_Q.
+// Per-chunk decay terms, by warp 0 (lane l owns rows RL l .. RL l + RL -
+// 1): cum, e^cum, e^(cum_Q - cum) and w_last = e^(cum_Q - cum) * dt;
+// sc[0] = e^cum_Q.
+template <int Q>
 __device__ void chunk_decay(const float* dtv, float A, float* cum, float* ecum,
                             float* el, float* wl, float* sc) {
+  constexpr int RL = Geom<Q>::RL;
   if (threadIdx.x >= 32) return;
   const int l = threadIdx.x;
-  float c[2];
-  const float last = chunk_cum(dtv[2 * l] * A, dtv[2 * l + 1] * A, c[0], c[1]);
+  float a[RL], c[RL];
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int i = 2 * l + k;
+  for (int k = 0; k < RL; ++k) a[k] = dtv[RL * l + k] * A;
+  const float last = chunk_cum<RL>(a, c);
+#pragma unroll
+  for (int k = 0; k < RL; ++k) {
+    const int i = RL * l + k;
     cum[i] = c[k];
     ecum[i] = expf(c[k]);
     el[i] = expf(last - c[k]);
@@ -213,15 +242,17 @@ __device__ void chunk_decay(const float* dtv, float A, float* cum, float* ecum,
 
 // e^cum_Q of every chunk of one (batch, head) into eq[nc], warp w taking
 // chunks w, w + 8, ...: the scans' decays, from dt in global memory.
+template <int Q>
 __device__ void chunk_decays(float* eq, const float* dt, long long rs, float A,
                              int nc, int S) {
+  constexpr int RL = Geom<Q>::RL;
   const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
   for (int c = warp; c < nc; c += WARPS) {
-    const int r0 = c * Q + 2 * l;
-    const float d0 = r0 < S ? dt[r0 * rs] : 0.f;
-    const float d1 = r0 + 1 < S ? dt[(r0 + 1) * rs] : 0.f;
-    float c0, c1;
-    const float last = chunk_cum(d0 * A, d1 * A, c0, c1);
+    const int r0 = c * Q + RL * l;
+    float a[RL], cum[RL];
+#pragma unroll
+    for (int k = 0; k < RL; ++k) a[k] = (r0 + k < S ? dt[(r0 + k) * rs] : 0.f) * A;
+    const float last = chunk_cum<RL>(a, cum);
     if (l == 0) eq[c] = expf(last);
   }
 }
@@ -293,28 +324,29 @@ __device__ __forceinline__ void store_tile(T* dst, long long ld, int row0,
 }
 
 // Shared memory of each kernel, in floats (see the kernels' carve-up).
-template <int P, int N> constexpr int fwd_states_floats() {
+template <int P, int N, int Q> constexpr int fwd_states_floats() {
   return Q * (P + 4) + Q * (N + 4) + 5 * Q + 4;
 }
-template <int P, int N> constexpr int fwd_out_floats() {
-  return Q * (P + 4) + (P > Q ? P : Q) * (N + 4) + Q * (N + 4) + Q * LQ +
-         5 * Q + 4;
+template <int P, int N, int Q> constexpr int fwd_out_floats() {
+  return Q * (P + 4) + (P > Q ? P : Q) * (N + 4) + Q * (N + 4) +
+         Q * Geom<Q>::LQ + 5 * Q + 4;
 }
-template <int P, int N> constexpr int bwd_states_floats() {
+template <int P, int N, int Q> constexpr int bwd_states_floats() {
   return Q * (P + 4) + Q * (N + 4) + 5 * Q + 4;
 }
 // The backward chunk kernel's warp tiles: Q x Q (cb, dW), Q x P (dx) and
 // Q x N (dB, dC), one or two a warp.
-using ChunkTQ = Tiles<Q, Q, 2>;
-template <int P> using ChunkTP = Tiles<Q, P, 2>;
-template <int N> using ChunkTN = Tiles<Q, N, 4>;
-template <int P, int N> constexpr int bwd_chunk_floats() {
-  return 2 * Q * (P + 4) + 2 * Q * (N + 4) + 2 * Q * LQ + P * (N + 4) +
-         9 * Q + ChunkTQ::cols * Q + (Q / 16) * Q +
-         2 * ChunkTN<N>::cols * Q + CWARPS + 8;
+template <int Q> using ChunkTQ = Tiles<Q, Q, 2>;
+template <int P, int Q> using ChunkTP = Tiles<Q, P, 2>;
+template <int N, int Q> using ChunkTN = Tiles<Q, N, 4>;
+template <int P, int N, int Q> constexpr int bwd_chunk_floats() {
+  return 2 * Q * (P + 4) + 2 * Q * (N + 4) + 2 * Q * Geom<Q>::LQ +
+         P * (N + 4) + 9 * Q + ChunkTQ<Q>::cols * Q + (Q / 16) * Q +
+         2 * ChunkTN<N, Q>::cols * Q + Geom<Q>::CWARPS + 8;
 }
 
 // The block's chunk: (chunk, head, batch) from the grid.
+template <int Q>
 struct Chunk {
   int c, h, bi, row0;
   long long bh;
@@ -335,7 +367,7 @@ struct Chunk {
 // Forward, phase 1.  L_c = (x * w_last)^T.B, [P, N] over the chunk's Q
 // rows, into cstates[c + 1], or into the final state for the last chunk.
 // ---------------------------------------------------------------------
-template <typename T, int P, int N>
+template <typename T, int P, int N, int Q>
 __global__ void __launch_bounds__(NT, 2)
 ssd_fwd_states_kernel(const SsdArgs a) {
   extern __shared__ float4 smem4[];
@@ -347,14 +379,17 @@ ssd_fwd_states_kernel(const SsdArgs a) {
   float* el = ecum + Q;                          // e^(cum_Q - cum)
   float* wl = el + Q;                            // w_last
   float* sc = wl + Q;                            // [4]
-  const Chunk k(a);
-  stage_rows<T, P>(xs, k.at<T>(a.x, a.xs), a.xs.s, k.row0, a.S, a.vec);
-  stage_rows<T, N>(Bm, k.at<T>(a.B, a.Bs), a.Bs.s, k.row0, a.S, a.vec);
+  const Chunk<Q> k(a);
+  stage_rows<T, P, Q>(xs, k.template at<T>(a.x, a.xs), a.xs.s, k.row0, a.S,
+                      a.vec);
+  stage_rows<T, N, Q>(Bm, k.template at<T>(a.B, a.Bs), a.Bs.s, k.row0, a.S,
+                      a.vec);
   cp_async_commit();
-  load_dt(dtv, a.dt + k.bi * a.dts.b + k.h * a.dts.h, a.dts.s, k.row0, a.S);
+  load_dt<Q>(dtv, a.dt + k.bi * a.dts.b + k.h * a.dts.h, a.dts.s, k.row0,
+             a.S);
   cp_async_wait<0>();
   __syncthreads();
-  chunk_decay(dtv, a.A[k.h], cum, ecum, el, wl, sc);
+  chunk_decay<Q>(dtv, a.A[k.h], cum, ecum, el, wl, sc);
   __syncthreads();
   using Til = Tiles<P, N>;
   float* dst = k.c + 1 < a.nc ? a.cstates + (k.bh * a.nc + k.c + 1) * P * N
@@ -377,13 +412,13 @@ ssd_fwd_states_kernel(const SsdArgs a) {
 // elements (4 a thread): S_0 = 0, S_c+1 = S_c e^cum_Q,c + L_c in place
 // in cstates, chunk by chunk, and the final state S_nc.
 // ---------------------------------------------------------------------
-template <int P, int N>
+template <int P, int N, int Q>
 __global__ void __launch_bounds__(NT) ssd_fwd_scan_kernel(const SsdArgs a) {
   extern __shared__ float4 smem4[];
   float* eq = reinterpret_cast<float*>(smem4);   // [nc]
   const int h = blockIdx.y, bi = blockIdx.z;
   const long long bh = (long long)bi * a.H + h;
-  chunk_decays(eq, a.dt + bi * a.dts.b + h * a.dts.h, a.dts.s, a.A[h], a.nc,
+  chunk_decays<Q>(eq, a.dt + bi * a.dts.b + h * a.dts.h, a.dts.s, a.A[h], a.nc,
                a.S);
   __syncthreads();
   const int e = (blockIdx.x * NT + threadIdx.x) * 4;
@@ -420,9 +455,9 @@ __global__ void __launch_bounds__(NT) ssd_fwd_scan_kernel(const SsdArgs a) {
 // e^(cum_i - cum_j)) * dt_j, with S_c = cstates[c] loaded into B's
 // buffer once W is formed (so two blocks fit an SM at P 64, N 128).
 // ---------------------------------------------------------------------
-template <typename T, int P, int N>
+template <typename T, int P, int N, int Q>
 __global__ void __launch_bounds__(NT, 2) ssd_fwd_out_kernel(const SsdArgs a) {
-  constexpr int LP = P + 4, LN = N + 4;
+  constexpr int LP = P + 4, LN = N + 4, LQ = Geom<Q>::LQ;
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);   // [Q][LP]
   float* BS = xs + Q * LP;                       // [Q][LN] B, then [P][LN] S
@@ -434,20 +469,25 @@ __global__ void __launch_bounds__(NT, 2) ssd_fwd_out_kernel(const SsdArgs a) {
   float* el = ecum + Q;
   float* wl = el + Q;
   float* sc = wl + Q;                            // [4]
-  const Chunk k(a);
+  const Chunk<Q> k(a);
   const int warp = threadIdx.x >> 5;
-  stage_rows<T, P>(xs, k.at<T>(a.x, a.xs), a.xs.s, k.row0, a.S, a.vec);
-  stage_rows<T, N>(BS, k.at<T>(a.B, a.Bs), a.Bs.s, k.row0, a.S, a.vec);
-  stage_rows<T, N>(Cm, k.at<T>(a.C, a.Cs), a.Cs.s, k.row0, a.S, a.vec);
+  stage_rows<T, P, Q>(xs, k.template at<T>(a.x, a.xs), a.xs.s, k.row0, a.S,
+                      a.vec);
+  stage_rows<T, N, Q>(BS, k.template at<T>(a.B, a.Bs), a.Bs.s, k.row0, a.S,
+                      a.vec);
+  stage_rows<T, N, Q>(Cm, k.template at<T>(a.C, a.Cs), a.Cs.s, k.row0, a.S,
+                      a.vec);
   cp_async_commit();
-  load_dt(dtv, a.dt + k.bi * a.dts.b + k.h * a.dts.h, a.dts.s, k.row0, a.S);
+  load_dt<Q>(dtv, a.dt + k.bi * a.dts.b + k.h * a.dts.h, a.dts.s, k.row0,
+             a.S);
   cp_async_wait<0>();
   __syncthreads();
-  chunk_decay(dtv, a.A[k.h], cum, ecum, el, wl, sc);
+  chunk_decay<Q>(dtv, a.A[k.h], cum, ecum, el, wl, sc);
   __syncthreads();
-  {  // W, one 16 x 32 tile a warp; tiles above the diagonal are zero
-    using Til = Tiles<Q, Q>;
-    static_assert(Til::count == WARPS, "one W tile a warp");
+  using TWm = Tiles<Q, Q>;
+  static_assert(TWm::count <= WARPS, "one W tile a warp at most");
+  if (warp < TWm::count) {  // W, one 16 x 32 tile a warp; zero above the diagonal
+    using Til = TWm;
     const int i0 = Til::row0(warp), j0 = Til::col0(warp);
     float cb[Til::nb][4];
     zero(cb);
@@ -496,7 +536,7 @@ __global__ void __launch_bounds__(NT, 2) ssd_fwd_out_kernel(const SsdArgs a) {
 // Backward, phase 1.  L'_c = gy^T.(C e^cum), [P, N] over the chunk's Q
 // rows, into the scratch's chunk c.
 // ---------------------------------------------------------------------
-template <typename T, int P, int N>
+template <typename T, int P, int N, int Q>
 __global__ void __launch_bounds__(NT, 2)
 ssd_bwd_states_kernel(const SsdArgs a) {
   extern __shared__ float4 smem4[];
@@ -508,14 +548,17 @@ ssd_bwd_states_kernel(const SsdArgs a) {
   float* el = ecum + Q;
   float* wl = el + Q;
   float* sc = wl + Q;                            // [4]
-  const Chunk k(a);
-  stage_rows<T, P>(Gs, k.at<T>(a.gy, a.gs), a.gs.s, k.row0, a.S, a.vec);
-  stage_rows<T, N>(Cm, k.at<T>(a.C, a.Cs), a.Cs.s, k.row0, a.S, a.vec);
+  const Chunk<Q> k(a);
+  stage_rows<T, P, Q>(Gs, k.template at<T>(a.gy, a.gs), a.gs.s, k.row0, a.S,
+                      a.vec);
+  stage_rows<T, N, Q>(Cm, k.template at<T>(a.C, a.Cs), a.Cs.s, k.row0, a.S,
+                      a.vec);
   cp_async_commit();
-  load_dt(dtv, a.dt + k.bi * a.dts.b + k.h * a.dts.h, a.dts.s, k.row0, a.S);
+  load_dt<Q>(dtv, a.dt + k.bi * a.dts.b + k.h * a.dts.h, a.dts.s, k.row0,
+             a.S);
   cp_async_wait<0>();
   __syncthreads();
-  chunk_decay(dtv, a.A[k.h], cum, ecum, el, wl, sc);
+  chunk_decay<Q>(dtv, a.A[k.h], cum, ecum, el, wl, sc);
   __syncthreads();
   using Til = Tiles<P, N>;
   float* dst = a.scratch + (k.bh * a.nc + k.c) * P * N;
@@ -536,13 +579,13 @@ ssd_bwd_states_kernel(const SsdArgs a) {
 // dS1_nc-1 = gstate, dS1_c-1 = e^cum_Q,c dS1_c + L'_c (the reference's
 // recurrence), the scratch's chunk c turning from L'_c into dS1_c.
 // ---------------------------------------------------------------------
-template <int P, int N>
+template <int P, int N, int Q>
 __global__ void __launch_bounds__(NT) ssd_bwd_scan_kernel(const SsdArgs a) {
   extern __shared__ float4 smem4[];
   float* eq = reinterpret_cast<float*>(smem4);   // [nc]
   const int h = blockIdx.y, bi = blockIdx.z;
   const long long bh = (long long)bi * a.H + h;
-  chunk_decays(eq, a.dt + bi * a.dts.b + h * a.dts.h, a.dts.s, a.A[h], a.nc,
+  chunk_decays<Q>(eq, a.dt + bi * a.dts.b + h * a.dts.h, a.dts.s, a.A[h], a.nc,
                a.S);
   __syncthreads();
   const int e = (blockIdx.x * NT + threadIdx.x) * 4;
@@ -579,13 +622,14 @@ __global__ void __launch_bounds__(NT) ssd_bwd_scan_kernel(const SsdArgs a) {
 // and S0 share one buffer: S0 replaces dS1 once dx and dB are done, and
 // sum(dS1 * S0) is taken as it arrives.
 // ---------------------------------------------------------------------
-template <typename T, int P, int N>
-__global__ void __launch_bounds__(CNT, 1)
+template <typename T, int P, int N, int Q>
+__global__ void __launch_bounds__(Geom<Q>::CNT, Geom<Q>::CBLOCKS)
 ssd_bwd_chunk_kernel(const SsdArgs a) {
-  constexpr int LP = P + 4, LN = N + 4;
-  using TQ = ChunkTQ;
-  using TP = ChunkTP<P>;
-  using TN = ChunkTN<N>;
+  constexpr int LP = P + 4, LN = N + 4, LQ = Geom<Q>::LQ, RL = Geom<Q>::RL;
+  constexpr int CNT = Geom<Q>::CNT, CWARPS = Geom<Q>::CWARPS;
+  using TQ = ChunkTQ<Q>;
+  using TP = ChunkTP<P, Q>;
+  using TN = ChunkTN<N, Q>;
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);   // [Q][LP]
   float* Gs = xs + Q * LP;                       // [Q][LP]: gy
@@ -609,23 +653,28 @@ ssd_bwd_chunk_kernel(const SsdArgs a) {
   float* dwp = rsgp + TN::cols * Q;              // [TN::cols][Q]
   float* wsum = dwp + TN::cols * Q;              // [CWARPS]
   float* sc = wsum + CWARPS;                     // [8]: e^cum_Q, sum(dS1 S0)
-  const Chunk k(a);
+  const Chunk<Q> k(a);
   const int warp = threadIdx.x >> 5;
   const int S = a.S, c = k.c;
-  stage_rows<T, P, CNT>(xs, k.at<T>(a.x, a.xs), a.xs.s, k.row0, S, a.vec);
-  stage_rows<T, P, CNT>(Gs, k.at<T>(a.gy, a.gs), a.gs.s, k.row0, S, a.vec);
-  stage_rows<T, N, CNT>(Bm, k.at<T>(a.B, a.Bs), a.Bs.s, k.row0, S, a.vec);
-  stage_rows<T, N, CNT>(Cm, k.at<T>(a.C, a.Cs), a.Cs.s, k.row0, S, a.vec);
+  stage_rows<T, P, Q, CNT>(xs, k.template at<T>(a.x, a.xs), a.xs.s, k.row0, S,
+                           a.vec);
+  stage_rows<T, P, Q, CNT>(Gs, k.template at<T>(a.gy, a.gs), a.gs.s, k.row0,
+                           S, a.vec);
+  stage_rows<T, N, Q, CNT>(Bm, k.template at<T>(a.B, a.Bs), a.Bs.s, k.row0, S,
+                           a.vec);
+  stage_rows<T, N, Q, CNT>(Cm, k.template at<T>(a.C, a.Cs), a.Cs.s, k.row0, S,
+                           a.vec);
   stage_state<P, N, CNT>(St, a.scratch + (k.bh * a.nc + c) * P * N);
   cp_async_commit();
-  load_dt(dtv, a.dt + k.bi * a.dts.b + k.h * a.dts.h, a.dts.s, k.row0, S);
+  load_dt<Q>(dtv, a.dt + k.bi * a.dts.b + k.h * a.dts.h, a.dts.s, k.row0, S);
   cp_async_wait<0>();
   __syncthreads();
   const float A = a.A[k.h];
-  chunk_decay(dtv, A, cum, ecum, el, wl, sc);
+  chunk_decay<Q>(dtv, A, cum, ecum, el, wl, sc);
   __syncthreads();
-  {  // cb and dW, one 16 x 16 tile a warp: W, D, and X's sums
-    static_assert(TQ::count == CWARPS, "one Q x Q tile a warp");
+  static_assert(TQ::count <= CWARPS, "one Q x Q tile a warp at most");
+  static_assert(2 * Q < CNT, "the partial sums' threads");
+  if (warp < TQ::count) {  // cb and dW, one 16 x 16 tile a warp: W, D, X's sums
     const int i0 = TQ::row0(warp), j0 = TQ::col0(warp);
     float cb[TQ::nb][4], dW[TQ::nb][4];
     zero(cb);
@@ -796,32 +845,35 @@ ssd_bwd_chunk_kernel(const SsdArgs a) {
   }
   __syncthreads();
   if (threadIdx.x < 32) {        // the cum cotangent, ddt and dA (warp 0)
-    const int l = threadIdx.x;
-    float dc[2], v[2], vs = 0.f;
+    const int l = threadIdx.x;   // rows RL l .. RL l + RL - 1
+    float dc[RL], v[RL], vs = 0.f;
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int i = 2 * l + q;
+    for (int q = 0; q < RL; ++q) {
+      const int i = RL * l + q;
       v[q] = dwv[i] * wl[i];
       dc[q] = rX[i] - dtv[i] * cX[i] + rsg[i] - v[q];
       vs += v[q];
     }
     for (int o = 16; o > 0; o >>= 1) vs += __shfl_xor_sync(FULL, vs, o);
-    if (l == 31) dc[1] += sc[1] * sc[0] + vs;   // cum_Q's own terms
+    if (l == 31) dc[RL - 1] += sc[1] * sc[0] + vs;   // cum_Q's own terms
     // da_i = sum_{i' >= i} dcum_i': a suffix scan over the lanes
-    float s = dc[0] + dc[1];
+    float s = dc[0];
+#pragma unroll
+    for (int q = 1; q < RL; ++q) s += dc[q];
     for (int o = 1; o < 32; o <<= 1) {
       const float t = __shfl_down_sync(FULL, s, o);
       if (l + o < 32) s += t;
     }
     float after = __shfl_down_sync(FULL, s, 1);
     if (l == 31) after = 0.f;
-    float da[2];
-    da[1] = after + dc[1];
-    da[0] = da[1] + dc[0];
+    float da[RL];
+    da[RL - 1] = after + dc[RL - 1];
+#pragma unroll
+    for (int q = RL - 2; q >= 0; --q) da[q] = da[q + 1] + dc[q];
     float dap = 0.f;
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int i = 2 * l + q, row = k.row0 + i;
+    for (int q = 0; q < RL; ++q) {
+      const int i = RL * l + q, row = k.row0 + i;
       dap += da[q] * dtv[i];
       if (row < S)
         a.ddt[((long long)k.bi * S + row) * a.H + k.h] =
@@ -846,36 +898,46 @@ int launch(Kernel kernel, dim3 grid, int smem_floats, const SsdArgs& a,
 }
 
 // The three phases of one direction, in order; the first error stops.
-template <typename T, int P, int N>
+template <typename T, int P, int N, int Q>
 int launch_pn(bool bwd, const SsdArgs& a, cudaStream_t stream) {
+  static_assert(bwd_chunk_floats<P, N, Q>() * 4 <= 232448,
+                "the backward chunk phase exceeds shared memory");
   const dim3 chunks(a.nc, a.H, a.b);
   const dim3 tiles((P * N + 4 * NT - 1) / (4 * NT), a.H, a.b);
   int err;
   if (!bwd) {
-    if ((err = launch(ssd_fwd_states_kernel<T, P, N>, chunks,
-                      fwd_states_floats<P, N>(), a, stream)))
+    if ((err = launch(ssd_fwd_states_kernel<T, P, N, Q>, chunks,
+                      fwd_states_floats<P, N, Q>(), a, stream)))
       return err;
-    if ((err = launch(ssd_fwd_scan_kernel<P, N>, tiles, a.nc, a, stream)))
+    if ((err = launch(ssd_fwd_scan_kernel<P, N, Q>, tiles, a.nc, a, stream)))
       return err;
-    return launch(ssd_fwd_out_kernel<T, P, N>, chunks, fwd_out_floats<P, N>(),
-                  a, stream);
+    return launch(ssd_fwd_out_kernel<T, P, N, Q>, chunks,
+                  fwd_out_floats<P, N, Q>(), a, stream);
   }
-  if ((err = launch(ssd_bwd_states_kernel<T, P, N>, chunks,
-                    bwd_states_floats<P, N>(), a, stream)))
+  if ((err = launch(ssd_bwd_states_kernel<T, P, N, Q>, chunks,
+                    bwd_states_floats<P, N, Q>(), a, stream)))
     return err;
-  if ((err = launch(ssd_bwd_scan_kernel<P, N>, tiles, a.nc, a, stream)))
+  if ((err = launch(ssd_bwd_scan_kernel<P, N, Q>, tiles, a.nc, a, stream)))
     return err;
-  return launch(ssd_bwd_chunk_kernel<T, P, N>, chunks, bwd_chunk_floats<P, N>(),
-                a, stream, CNT);
+  return launch(ssd_bwd_chunk_kernel<T, P, N, Q>, chunks,
+                bwd_chunk_floats<P, N, Q>(), a, stream, Geom<Q>::CNT);
+}
+
+template <typename T, int Q>
+int launch_q(bool bwd, int P, int N, const SsdArgs& a, cudaStream_t stream) {
+  if (P == 64 && N == 128) return launch_pn<T, 64, 128, Q>(bwd, a, stream);
+  if (P == 64 && N == 16) return launch_pn<T, 64, 16, Q>(bwd, a, stream);
+  if (P == 16 && N == 16) return launch_pn<T, 16, 16, Q>(bwd, a, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // (P, N) instances: mamba2-780m (64, 128), hymba-1.5b (64, 16), the
-// reduced test configs (16, 16).
+// reduced test configs (16, 16); each at chunks 64 and 32.
 template <typename T>
-int launch_t(bool bwd, int P, int N, const SsdArgs& a, cudaStream_t stream) {
-  if (P == 64 && N == 128) return launch_pn<T, 64, 128>(bwd, a, stream);
-  if (P == 64 && N == 16) return launch_pn<T, 64, 16>(bwd, a, stream);
-  if (P == 16 && N == 16) return launch_pn<T, 16, 16>(bwd, a, stream);
+int launch_t(bool bwd, int P, int N, int chunk, const SsdArgs& a,
+             cudaStream_t stream) {
+  if (chunk == 64) return launch_q<T, 64>(bwd, P, N, a, stream);
+  if (chunk == 32) return launch_q<T, 32>(bwd, P, N, a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -886,24 +948,24 @@ bool rows16(const void* p, const Strides& st) {
          st.s % 4 == 0 && st.h % 4 == 0;
 }
 
-// ``chunk`` is the caller's idea of Q, which sizes cstates, the scratch
-// and the dA partials: a launch that disagrees is refused.
+// ``chunk`` is Q, which sizes cstates, the scratch and the dA partials
+// (nc = ceil(S / chunk) each); a chunk that is not built is refused.
 int dispatch(bool bwd, int P, int N, int chunk, int dtype, SsdArgs& a,
              void* stream) {
-  if (chunk != Q || a.b <= 0 || a.S <= 0 || a.H <= 0)
-    return (int)cudaErrorInvalidValue;
+  if (a.b <= 0 || a.S <= 0 || a.H <= 0) return (int)cudaErrorInvalidValue;
   a.vec = rows16(a.x, a.xs) && rows16(a.B, a.Bs) && rows16(a.C, a.Cs) &&
           (a.gy == nullptr || rows16(a.gy, a.gs));
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kF32) return launch_t<float>(bwd, P, N, a, s);
-  if (dtype == kBF16) return launch_t<__nv_bfloat16>(bwd, P, N, a, s);
+  if (dtype == kF32) return launch_t<float>(bwd, P, N, chunk, a, s);
+  if (dtype == kBF16) return launch_t<__nv_bfloat16>(bwd, P, N, chunk, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
 SsdArgs make_args(const void* x, const void* dt, const void* A, const void* B,
-                  const void* C, int b, int S, int H, int x_sb, int x_ss,
-                  int x_sh, int dt_sb, int dt_ss, int dt_sh, int B_sb,
-                  int B_ss, int B_sh, int C_sb, int C_ss, int C_sh) {
+                  const void* C, int b, int S, int H, int chunk, int x_sb,
+                  int x_ss, int x_sh, int dt_sb, int dt_ss, int dt_sh,
+                  int B_sb, int B_ss, int B_sh, int C_sb, int C_ss,
+                  int C_sh) {
   SsdArgs a = {};
   a.x = x;
   a.dt = (const float*)dt;
@@ -913,7 +975,7 @@ SsdArgs make_args(const void* x, const void* dt, const void* A, const void* B,
   a.b = b;
   a.S = S;
   a.H = H;
-  a.nc = (S + Q - 1) / Q;
+  a.nc = chunk > 0 ? (S + chunk - 1) / chunk : 0;
   a.xs = {x_sb, x_ss, x_sh};
   a.dts = {dt_sb, dt_ss, dt_sh};
   a.Bs = {B_sb, B_ss, B_sh};
@@ -930,8 +992,9 @@ int ssd_fwd(const void* x, const void* dt, const void* A, const void* B,
             int H, int P, int N, int chunk, int x_sb, int x_ss, int x_sh,
             int dt_sb, int dt_ss, int dt_sh, int B_sb, int B_ss, int B_sh,
             int C_sb, int C_ss, int C_sh, int dtype, void* stream) {
-  SsdArgs a = make_args(x, dt, A, B, C, b, S, H, x_sb, x_ss, x_sh, dt_sb,
-                        dt_ss, dt_sh, B_sb, B_ss, B_sh, C_sb, C_ss, C_sh);
+  SsdArgs a = make_args(x, dt, A, B, C, b, S, H, chunk, x_sb, x_ss, x_sh,
+                        dt_sb, dt_ss, dt_sh, B_sb, B_ss, B_sh, C_sb, C_ss,
+                        C_sh);
   a.y = y;
   a.state = (float*)state;
   a.cstates = (float*)cstates;
@@ -947,8 +1010,9 @@ int ssd_bwd(const void* x, const void* dt, const void* A, const void* B,
             int chunk, int x_sb, int x_ss, int x_sh, int dt_sb, int dt_ss,
             int dt_sh, int B_sb, int B_ss, int B_sh, int C_sb, int C_ss,
             int C_sh, int g_sb, int g_ss, int g_sh, int dtype, void* stream) {
-  SsdArgs a = make_args(x, dt, A, B, C, b, S, H, x_sb, x_ss, x_sh, dt_sb,
-                        dt_ss, dt_sh, B_sb, B_ss, B_sh, C_sb, C_ss, C_sh);
+  SsdArgs a = make_args(x, dt, A, B, C, b, S, H, chunk, x_sb, x_ss, x_sh,
+                        dt_sb, dt_ss, dt_sh, B_sb, B_ss, B_sh, C_sb, C_ss,
+                        C_sh);
   a.cstates_in = (const float*)cstates;
   a.gy = gy;
   a.gs = {g_sb, g_ss, g_sh};

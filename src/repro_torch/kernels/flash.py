@@ -16,24 +16,55 @@ q and out are [B, S, H, D]; k and v [B, S, KV, D]; lse and delta
 [B, H, S] fp32.  q, k, v and dO are read through their strides (the
 head dim must be dense); outputs are new contiguous tensors.  Every
 wrapper takes CUDA tensors only and raises on anything else, including
-a head dim the kernels are not built for; the CPU path never reaches
-this module (``kernels/ops.py`` routes a CPU tensor to the plain
+a head dim or tile the kernels are not built for; the CPU path never
+reaches this module (``kernels/ops.py`` routes a CPU tensor to the plain
 versions in ``kernels/ref.py``).  Launches are counted in
 ``build.LAUNCHES``.
+
+Tiles: the forward and dq take ``block_q``, the rows of their q blocks
+(kv blocks are 64 rows), dk/dv ``block_k``, the rows of its kv blocks
+(q blocks are 64 rows); each defaults to the autotuner's
+(``autotune.flash_config``).  Every tile gives bitwise-equal outputs.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels.build import check_tensors, current_stream, launch
 
 #: head dims with a template instance in csrc/flash.cuh: the reduced
 #: configs at d_model 64 (16), 32, gpt3-medium (64), GPT-3 2.7B (80),
 #: phi3-vision (96), qwen2.5-3b (128)
 HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+#: the kernels of csrc/flash.cuh, by their launchers' names
+KERNELS = ("fwd", "dq", "dkdv")
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def built(kernel: str, D: int, dtype: torch.dtype, tile: int) -> bool:
+    """Whether ``kernel`` ("fwd", "dq", "dkdv") has an instance at head
+    dim D, dtype and tile rows (csrc/flash.cuh's ``wide_built``): the
+    64-row tile at every ``HEAD_DIMS``; the 128-row one at D 64, and at
+    D 128 for the forward and in bf16 (fp32 dq and dk/dv would need
+    270,336 bytes of shared memory, past the 232,448 a block may take)."""
+    if tile == 64:
+        return D in HEAD_DIMS
+    return tile == 128 and (D == 64 or (D == 128 and (
+        kernel == "fwd" or dtype == torch.bfloat16)))
+
+
+def tiles(kernel: str, D: int, dtype: torch.dtype) -> List[int]:
+    """The built tiles of one kernel at (D, dtype)."""
+    return [t for t in (64, 128) if built(kernel, D, dtype, t)]
+
+
+#: every built (kernel, head dim, dtype, tile): the autotuner's candidates
+INSTANCES = tuple((k, D, dt, t) for k in KERNELS for D in HEAD_DIMS
+                  for dt in _DTYPES for t in tiles(k, D, dt))
 
 
 def _strides(t: torch.Tensor) -> Tuple[int, int, int]:
@@ -76,46 +107,75 @@ def _check_rows(name: str, lse: torch.Tensor, delta: torch.Tensor,
                              f"{tuple(t.shape)} {t.dtype} {t.device}")
 
 
+def resolve_tiles(q: torch.Tensor, block_q: Optional[int] = None,
+                  block_k: Optional[int] = None) -> Tuple[int, int]:
+    """(block_q, block_k) for attention over q [B, S, H, D]: the given
+    ones, the autotuner's for the rest."""
+    if block_q is None or block_k is None:
+        cfg = autotune.flash_config(autotune.backend_of(q.device), q.dtype,
+                                    q.shape[1], q.shape[-1])
+        block_q = cfg["block_q"] if block_q is None else block_q
+        block_k = cfg["block_k"] if block_k is None else block_k
+    return int(block_q), int(block_k)
+
+
+def check_tile(name: str, kernel: str, D: int, dtype: torch.dtype,
+               tile: int) -> None:
+    if not built(kernel, D, dtype, tile):
+        raise ValueError(f"{name}: tile {tile} is not built at head dim {D} "
+                         f"in {dtype} (built: {tiles(kernel, D, dtype)})")
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+              window: int = 0, block_q: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (out [B,S,H,D] in q's dtype, lse [B,H,S] fp32)."""
     code, B, S, H, KV, D = _check("flash_fwd", q, k, v, window=window)
+    block_q = resolve_tiles(q, block_q, 0)[0]
+    check_tile("flash_fwd", "fwd", D, q.dtype, block_q)
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
            out.data_ptr(), lse.data_ptr(), B, S, H, KV, D, window,
            1.0 / math.sqrt(D), *_strides(q), *_strides(k), *_strides(v),
-           code, current_stream(q))
+           block_q, code, current_stream(q))
     return out, lse
 
 
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
-                 window: int = 0) -> torch.Tensor:
+                 window: int = 0, block_q: Optional[int] = None
+                 ) -> torch.Tensor:
     """dq [B,S,H,D] from dO = g, the forward's lse and delta."""
     code, B, S, H, KV, D = _check("flash_bwd_dq", q, k, v, g, window=window)
     _check_rows("flash_bwd_dq", lse, delta, B, H, S)
+    block_q = resolve_tiles(q, block_q, 0)[0]
+    check_tile("flash_bwd_dq", "dq", D, q.dtype, block_q)
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     launch("flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
            B, S, H, KV, D, window, 1.0 / math.sqrt(D), *_strides(q),
-           *_strides(k), *_strides(v), *_strides(g), code, current_stream(q))
+           *_strides(k), *_strides(v), *_strides(g), block_q, code,
+           current_stream(q))
     return dq
 
 
 def flash_bwd_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
-                   window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                   window: int = 0, block_k: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv), each [B,S,KV,D], summed over the group in fp32."""
     code, B, S, H, KV, D = _check("flash_bwd_dkdv", q, k, v, g,
                                   window=window)
     _check_rows("flash_bwd_dkdv", lse, delta, B, H, S)
+    block_k = resolve_tiles(q, 0, block_k)[1]
+    check_tile("flash_bwd_dkdv", "dkdv", D, q.dtype, block_k)
     dk = torch.empty((B, S, KV, D), dtype=k.dtype, device=k.device)
     dv = torch.empty((B, S, KV, D), dtype=v.dtype, device=v.device)
     launch("flash_bwd_dkdv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
            dv.data_ptr(), B, S, H, KV, D, window, 1.0 / math.sqrt(D),
-           *_strides(q), *_strides(k), *_strides(v), *_strides(g), code,
-           current_stream(q))
+           *_strides(q), *_strides(k), *_strides(v), *_strides(g), block_k,
+           code, current_stream(q))
     return dk, dv
 

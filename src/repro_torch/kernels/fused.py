@@ -6,13 +6,16 @@
     is the second kernel (one pass over each row held in registers, an
     fp32 ``dw`` partial row per block) followed by a kernel that sums
     the partial rows in a fixed order.  ``norm_bwd_config`` picks the
-    row partition, the copy width and the registers a thread holds.
+    copy width and the registers a thread holds, and takes the rows per
+    block from the autotuner (a measured entry, else ``norm_bwd_rows``).
   * ``MatmulBias``: one tiled GEMM with a bias epilogue over the
     concatenated QKV weight; its backward runs the SAME kernel for
     ``dx = g.W^T`` and ``dW = x^T.g``, with strides instead of
     transpose copies, and sums ``db`` in fp32.  ``gemm_config`` picks
-    each call's tile, split over K and copy width from the shapes,
-    strides and addresses alone (no measurement at run time).
+    each call's operand layouts and copy width from the strides and
+    addresses, and its tile and split over K through the autotuner
+    (``kernels/autotune.py``: a measured table entry, else the planning
+    model ``gemm_plan``; never a clock at run time).
 
 Every wrapper takes CUDA tensors only and raises on anything else; the
 CPU path never reaches this module (``kernels/ops.py`` routes a CPU
@@ -23,15 +26,19 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels.build import check_tensors, current_stream, launch
 
+_DTYPE_OF_SIZE = {4: "float32", 2: "bfloat16"}
+
 # ----------------------------------------------------------------------
-# GEMM launch configuration (pure functions of shapes, strides and
-# addresses: the same call always gets the same configuration)
+# GEMM launch configuration (functions of shapes, strides, addresses and
+# the autotuner's tables: the same call always gets the same
+# configuration)
 # ----------------------------------------------------------------------
 #: SMs of the H100 SXM, over which a grid's blocks are spread in waves
 GEMM_SMS = 132
@@ -93,19 +100,47 @@ def _gemm_seconds(M: int, N: int, K: int, bm: int, bn: int,
     return waves * block_s + reduce_s
 
 
+@functools.lru_cache(maxsize=None)
+def gemm_candidates(K: int, itemsize: int) -> Tuple[Tuple[int, int, int], ...]:
+    """The legal (bm, bn, splits) of a call with 16-byte copies: the
+    built tiles (128 x 128 for fp32 only) and 1-4 splits that each cover
+    a nonempty range of K (the element-copy instance takes 64 x 64 and
+    one split alone)."""
+    out = []
+    for bm, bn in GEMM_TILES:
+        if (bm, bn) == (128, 128) and itemsize != 4:
+            continue
+        for splits in range(1, _MAX_SPLITS + 1):
+            if gemm_kchunk(K, splits) * (splits - 1) >= K:
+                break
+            out.append((bm, bn, splits))
+    return tuple(out)
+
+
+def gemm_plan(M: int, N: int, K: int, itemsize: int) -> Tuple[int, int, int]:
+    """The planning model's (bm, bn, splits): the candidate that
+    minimises ``_gemm_seconds``; ties go to the larger tile and the fewer
+    splits.  The autotuner's heuristic for a key with no measured
+    entry."""
+    return min(gemm_candidates(K, itemsize),
+               key=lambda c: (_gemm_seconds(M, N, K, *c), -c[0] * c[1], c[2]))
+
+
 def gemm_config(M: int, N: int, K: int, a_strides: Sequence[int],
                 b_strides: Sequence[int], a_addr: int, b_addr: int,
-                itemsize: int) -> GemmConfig:
+                itemsize: int, backend: Optional[str] = None,
+                choice: Optional[Tuple[int, int, int]] = None) -> GemmConfig:
     """The launch of C[M, N] = A[M, K].B[K, N]: A and B's strides (as the
     [M, K] and [K, N] views), base addresses and element size.
 
     Layouts: A is K-major when its K stride is 1 (else M-major), B when
     its K stride is 1 and its N stride is not (else N-major).  Copies
     are 16-byte where both operands allow it (``_vec_ok``), else one
-    element each (the 64 x 64 tile, no split).  The tile and split
-    minimise ``_gemm_seconds`` over the built tiles (128 x 128 for fp32
-    only) and 1-4 splits that each cover a nonempty range of K; ties go
-    to the larger tile and the fewer splits."""
+    element each (the 64 x 64 tile, no split).  With 16-byte copies the
+    (tile, split) is ``choice`` where given, else the autotuner's entry
+    for ``backend`` (``autotune.gemm_config_of``), else, with no backend,
+    the planning model ``gemm_plan``; one that is not among
+    ``gemm_candidates`` raises."""
     sam, sak = a_strides
     sbk, sbn = b_strides
     a_kmajor = sak == 1
@@ -114,22 +149,23 @@ def gemm_config(M: int, N: int, K: int, a_strides: Sequence[int],
                    a_addr, itemsize)
            and _vec_ok(sbk if b_kmajor else sbn, sbn if b_kmajor else sbk,
                        b_addr, itemsize))
-    if not vec:
-        return GemmConfig(64, 64, 1, gemm_kchunk(K, 1), a_kmajor, b_kmajor,
-                          False)
-    best = None
-    for bm, bn in GEMM_TILES:
-        if (bm, bn) == (128, 128) and itemsize != 4:
-            continue
-        for splits in range(1, _MAX_SPLITS + 1):
-            kchunk = gemm_kchunk(K, splits)
-            if kchunk * (splits - 1) >= K:
-                break
-            key = (_gemm_seconds(M, N, K, bm, bn, splits), -bm * bn, splits)
-            if best is None or key < best[0]:
-                best = (key, GemmConfig(bm, bn, splits, kchunk, a_kmajor,
-                                        b_kmajor, True))
-    return best[1]
+    legal = gemm_candidates(K, itemsize) if vec else ((64, 64, 1),)
+    if choice is None and not vec:
+        choice = (64, 64, 1)
+    elif choice is None and backend is None:
+        choice = gemm_plan(M, N, K, itemsize)
+    elif choice is None:
+        cfg = autotune.gemm_config_of(backend, _DTYPE_OF_SIZE[itemsize], M, N,
+                                      K, autotune.gemm_layout(a_kmajor,
+                                                              b_kmajor))
+        choice = (cfg["block_rows"], cfg["block_cols"], cfg["splits"])
+    choice = tuple(int(c) for c in choice)
+    if choice not in legal:
+        raise ValueError(f"gemm_bias: (tile, split) {choice} is not built "
+                         f"for this call (one of {legal})")
+    bm, bn, splits = choice
+    return GemmConfig(bm, bn, splits, gemm_kchunk(K, splits), a_kmajor,
+                      b_kmajor, vec)
 
 
 # ----------------------------------------------------------------------
@@ -165,44 +201,75 @@ class NormBwdConfig:
     vec: bool
 
 
-def norm_bwd_rows(M: int, d: int) -> Tuple[int, int, int, int]:
-    """(rows_per_block, rows_per_round R, warps_per_row G, blocks): the
-    backward norm's row partition, a function of (M, d) alone.  G warps
-    hold a row of d elements at ``NORM_ELEMS`` a thread, or at twice
-    that where it would take more than ``NORM_MAX_WARPS`` (which the
-    looped variant takes, beyond); R rows run side by side in 4-warp
-    blocks where G <= 2; the rows of a block are whole rounds of R, as
-    few as let the grid reach ``NORM_WARPS_PER_SM`` warps (rounded up to
-    whole blocks) on each of ``GEMM_SMS`` SMs, so one wave of blocks
-    covers M and the partial rows stay few."""
+def _norm_row_warps(d: int) -> Tuple[int, int]:
+    """(R, G): G warps hold a row of d elements at ``NORM_ELEMS`` a
+    thread, or at twice that where it would take more than
+    ``NORM_MAX_WARPS`` (which the looped variant takes, beyond); R rows
+    run side by side in 4-warp blocks where G <= 2."""
     G = -(-d // (32 * NORM_ELEMS))
     if G > NORM_MAX_WARPS:
         G = min(-(-d // (64 * NORM_ELEMS)), NORM_MAX_WARPS)
-    R = max(1, 4 // G)
-    per_sm = -(-NORM_WARPS_PER_SM // (R * G))
+    return max(1, 4 // G), G
+
+
+def norm_bwd_rows(M: int, d: int, warps_per_sm: Optional[int] = None
+                  ) -> Tuple[int, int, int, int]:
+    """(rows_per_block, rows_per_round R, warps_per_row G, blocks): the
+    backward norm's row partition, a function of (M, d) alone (the
+    autotuner's heuristic).  The rows of a block are whole rounds of R
+    (``_norm_row_warps``), as few as let the grid reach ``warps_per_sm``
+    (default ``NORM_WARPS_PER_SM``) warps (rounded up to whole blocks) on
+    each of ``GEMM_SMS`` SMs, so one wave of blocks covers M and the
+    partial rows stay few."""
+    R, G = _norm_row_warps(d)
+    per_sm = -(-(warps_per_sm or NORM_WARPS_PER_SM) // (R * G))
     rows = R * -(-M // (R * GEMM_SMS * per_sm))
     return rows, R, G, -(-M // rows)
 
 
-def norm_bwd_config(M: int, d: int, itemsize: int,
-                    addrs: Sequence[int]) -> NormBwdConfig:
+#: warps per SM whose partitions the autotuner times (tune_norm)
+NORM_TUNE_WARPS = (4, 8, 16, 32, 64)
+
+
+def norm_rows_candidates(M: int, d: int) -> List[int]:
+    """The rows per block ``tune_norm`` times: ``norm_bwd_rows``'s at
+    each of ``NORM_TUNE_WARPS`` warps per SM, without repeats."""
+    return sorted({norm_bwd_rows(M, d, w)[0] for w in NORM_TUNE_WARPS})
+
+
+def norm_bwd_config(M: int, d: int, itemsize: int, addrs: Sequence[int],
+                    backend: Optional[str] = None,
+                    rows_per_block: Optional[int] = None) -> NormBwdConfig:
     """The backward norm's launch for [M, d] rows of ``itemsize``-byte
-    elements at base addresses ``addrs`` (res, w, gres, gh, dres).
-    16-byte copies (E = 16 / itemsize elements) where d is a multiple of
-    E and every base is 16-byte aligned, else one element each; a thread
-    holds ``chunks`` = the power of two of E-chunks that covers its share
-    of the row (at most 2 ``NORM_ELEMS`` elements in 16-byte chunks,
-    ``NORM_ELEMS`` single ones), or 0 (looped) where the row is wider
-    than ``NORM_MAX_WARPS`` warps hold so."""
-    return _norm_bwd_config(M, d, itemsize,
-                            all(a % 16 == 0 for a in addrs))
+    elements at base addresses ``addrs`` (res, w, gres, gh, dres).  Rows
+    per block: ``rows_per_block`` where given, else the autotuner's
+    entry for ``backend`` (``autotune.norm_config``), else, with no
+    backend, ``norm_bwd_rows``; it must be a positive multiple of the
+    rows a round runs.  16-byte copies (E = 16 / itemsize elements)
+    where d is a multiple of E and every base is 16-byte aligned, else
+    one element each; a thread holds ``chunks`` = the power of two of
+    E-chunks that covers its share of the row (at most 2 ``NORM_ELEMS``
+    elements in 16-byte chunks, ``NORM_ELEMS`` single ones), or 0
+    (looped) where the row is wider than ``NORM_MAX_WARPS`` warps hold
+    so."""
+    if rows_per_block is None and backend is None:
+        rows_per_block = norm_bwd_rows(M, d)[0]
+    elif rows_per_block is None:
+        rows_per_block = autotune.norm_config(
+            backend, _DTYPE_OF_SIZE[itemsize], M, d)["rows_per_block"]
+    return _norm_bwd_config(M, d, itemsize, all(a % 16 == 0 for a in addrs),
+                            int(rows_per_block))
 
 
 @functools.lru_cache(maxsize=None)
-def _norm_bwd_config(M: int, d: int, itemsize: int,
-                     aligned: bool) -> NormBwdConfig:
+def _norm_bwd_config(M: int, d: int, itemsize: int, aligned: bool,
+                     rows: int) -> NormBwdConfig:
     # cached: the wrapper's host time is the call's time at small M
-    rows, R, G, blocks = norm_bwd_rows(M, d)
+    R, G = _norm_row_warps(d)
+    if rows <= 0 or rows % R:
+        raise ValueError(f"add_rmsnorm_bwd: {rows} rows per block is not a "
+                         f"positive multiple of the {R} rows a round runs")
+    blocks = -(-M // rows)
     E = 16 // itemsize
     vec = d % E == 0 and aligned
     E = E if vec else 1
@@ -234,11 +301,13 @@ def add_rmsnorm_fwd(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
 
 
 def add_rmsnorm_bwd(res: torch.Tensor, w: torch.Tensor, gres: torch.Tensor,
-                    gh: torch.Tensor, eps: float
+                    gh: torch.Tensor, eps: float,
+                    rows_per_block: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (dres, dw): dres is the cotangent of both addends; dw is
     the fp32 sum over rows, cast to w's dtype (the row kernel's partial
-    rows summed by the dw kernel, in one launch)."""
+    rows summed by the dw kernel, in one launch).  ``rows_per_block``
+    defaults to the autotuner's (``norm_bwd_config``)."""
     code = check_tensors("add_rmsnorm_bwd", res, w, gres, gh)
     M, d = res.shape
     if gres.shape != (M, d) or gh.shape != (M, d) or w.shape != (d,):
@@ -247,7 +316,8 @@ def add_rmsnorm_bwd(res: torch.Tensor, w: torch.Tensor, gres: torch.Tensor,
     gres, gh = gres.contiguous(), gh.contiguous()
     dres, dw = torch.empty_like(res), torch.empty_like(w)
     cfg = norm_bwd_config(M, d, res.element_size(),
-                          [t.data_ptr() for t in (res, w, gres, gh, dres)])
+                          [t.data_ptr() for t in (res, w, gres, gh, dres)],
+                          autotune.backend_of(res.device), rows_per_block)
     partials = torch.empty((cfg.blocks, d), dtype=torch.float32,
                            device=res.device)
     launch("add_rmsnorm_bwd", res.data_ptr(), w.data_ptr(), gres.data_ptr(),
@@ -258,10 +328,12 @@ def add_rmsnorm_bwd(res: torch.Tensor, w: torch.Tensor, gres: torch.Tensor,
 
 
 def gemm_bias(a: torch.Tensor, b: torch.Tensor,
-              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+              bias: Optional[torch.Tensor] = None,
+              choice: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """C = a.b (+ bias) with an fp32 accumulator, cast to a's dtype.
     a: [M, K], b: [K, N], any strides (a transposed view costs no copy);
-    bias: [N] or None.  C is a new contiguous [M, N] tensor."""
+    bias: [N] or None.  C is a new contiguous [M, N] tensor.  ``choice``
+    (bm, bn, splits) defaults to the autotuner's (``gemm_config``)."""
     tensors = (a, b) if bias is None else (a, b, bias)
     code = check_tensors("gemm_bias", *tensors)
     (M, K), (K2, N) = a.shape, b.shape
@@ -271,7 +343,8 @@ def gemm_bias(a: torch.Tensor, b: torch.Tensor,
     if bias is not None:
         bias = bias.contiguous()
     cfg = gemm_config(M, N, K, a.stride(), b.stride(), a.data_ptr(),
-                      b.data_ptr(), a.element_size())
+                      b.data_ptr(), a.element_size(),
+                      autotune.backend_of(a.device), choice)
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
     ws = (torch.empty((cfg.splits, M, N), dtype=torch.float32,
                       device=a.device) if cfg.splits > 1 else None)

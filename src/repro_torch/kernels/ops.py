@@ -7,10 +7,13 @@
   * anything else raises.
 
 There is no capability probe and no fallback: a CUDA tensor never runs
-a plain version.  ``backend_signature(device)`` is part of every
-program-cache key over stage programs (``runtime/pipeline.py``), so a
-program built for one device, card or kernel build is never served to
-another.
+a plain version, nor another tile than the one resolved.  Tiles and
+chunks default to the autotuner's (``kernels/autotune.py``), resolved
+once per call; on a CPU tensor flash's are resolved and unused (the
+plain version has no tiles) and the SSD chunk is the plain version's.
+``backend_signature(device)`` is part of every program-cache key over
+stage programs (``runtime/pipeline.py``), so a program built for one
+device, card or kernel build is never served to another.
 """
 from __future__ import annotations
 
@@ -85,19 +88,24 @@ def fused_qkv(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
 
 class FlashAttention(torch.autograd.Function):
     """Causal GQA attention whose backward rebuilds p from the saved lse:
-    the three CUDA kernels of ``kernels/flash.py`` on a CUDA tensor, their
-    plain versions on a CPU tensor (one structure, so the CPU tests run
-    the custom backward's math and a CPU tensor never reaches
-    ``kernels/flash.py``)."""
+    the three CUDA kernels of ``kernels/flash.py`` on a CUDA tensor (the
+    forward's and dq's q tile ``block_q``, dk/dv's kv tile ``block_k``,
+    checked built before the forward runs), their plain versions on a CPU
+    tensor (one structure, so the CPU tests run the custom backward's
+    math and a CPU tensor never reaches ``kernels/flash.py``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window: int):
+    def forward(ctx, q, k, v, window: int, block_q: int, block_k: int):
         if q.device.type == "cpu":
             out, lse = _ref.flash_fwd_ref(q, k, v, window=window)
         else:
-            out, lse = _flash.flash_fwd(q, k, v, window)
+            D = q.shape[-1]
+            for name, kernel, tile in (("flash_bwd_dq", "dq", block_q),
+                                       ("flash_bwd_dkdv", "dkdv", block_k)):
+                _flash.check_tile(name, kernel, D, q.dtype, tile)
+            out, lse = _flash.flash_fwd(q, k, v, window, block_q)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.window = window
+        ctx.window, ctx.block_q, ctx.block_k = window, block_q, block_k
         return out
 
     @staticmethod
@@ -109,34 +117,41 @@ class FlashAttention(torch.autograd.Function):
             dq, dk, dv = _ref.flash_bwd_ref(q, k, v, out, lse, g,
                                             window=ctx.window, delta=delta)
         else:
-            dq = _flash.flash_bwd_dq(q, k, v, g, lse, delta, ctx.window)
-            dk, dv = _flash.flash_bwd_dkdv(q, k, v, g, lse, delta, ctx.window)
-        return dq, dk, dv, None
+            dq = _flash.flash_bwd_dq(q, k, v, g, lse, delta, ctx.window,
+                                     ctx.block_q)
+            dk, dv = _flash.flash_bwd_dkdv(q, k, v, g, lse, delta, ctx.window,
+                                           ctx.block_k)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0, block_q: Optional[int] = None,
+                    block_k: Optional[int] = None) -> torch.Tensor:
     """Causal GQA attention with the flash backward.  q: [B, S, H, D];
     k/v: [B, S, KV, D]; ``window > 0`` adds a sliding window.  Returns
-    [B, S, H, D] in q's dtype."""
+    [B, S, H, D] in q's dtype.  ``block_q`` / ``block_k`` default to the
+    autotuner's choice for (backend, dtype, S bucket, D), one resolution
+    that the forward and the backward share."""
     _route("flash_attention", q)
-    return FlashAttention.apply(q, k, v, int(window))
+    block_q, block_k = _flash.resolve_tiles(q, block_q, block_k)
+    return FlashAttention.apply(q, k, v, int(window), block_q, block_k)
 
 
 class SSD(torch.autograd.Function):
     """The Mamba2 SSD chunked scan with the reverse-chunk backward: the
-    two CUDA kernels of ``kernels/ssd.py`` on a CUDA tensor (chunk
-    ``ssd.CHUNK``), their plain versions on a CPU tensor (one structure,
-    so the CPU tests run the custom backward's math and a CPU tensor
-    never reaches ``kernels/ssd.py``).  The forward saves only the
-    chunk-boundary states."""
+    two CUDA kernels of ``kernels/ssd.py`` on a CUDA tensor, their plain
+    versions on a CPU tensor (one structure, so the CPU tests run the
+    custom backward's math and a CPU tensor never reaches
+    ``kernels/ssd.py``), both at the chunk of the call.  The forward saves
+    only the chunk-boundary states, ceil(S / chunk) of them, and its
+    chunk for the backward."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk: int):
         if x.device.type == "cpu":
             y, state, cstates = _ref.ssd_fwd_ref(x, dt, A, B, C, chunk=chunk)
         else:
-            y, state, cstates = _ssd.ssd_fwd(x, dt, A, B, C)
+            y, state, cstates = _ssd.ssd_fwd(x, dt, A, B, C, chunk)
         ctx.save_for_backward(x, dt, A, B, C, cstates)
         ctx.chunk = chunk
         return y, state
@@ -154,7 +169,8 @@ class SSD(torch.autograd.Function):
             grads = _ref.ssd_bwd_ref(x, dt, A, B, C, cstates, gy, gstate,
                                      chunk=ctx.chunk)
         else:
-            grads = _ssd.ssd_bwd(x, dt, A, B, C, cstates, gy, gstate)
+            grads = _ssd.ssd_bwd(x, dt, A, B, C, cstates, gy, gstate,
+                                 ctx.chunk)
         return (*grads, None)
 
 
@@ -164,11 +180,12 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Chunked SSD with the kernels' forward AND backward.  x: [b,S,H,P];
     dt: [b,S,H] fp32 (post-softplus); A: [H] fp32; B/C: [b,S,H,N] (may be
     stride-0 views over the heads).  Returns (y in x's dtype, final state
-    [b,H,P,N] fp32).  ``chunk`` picks the plain version's chunk on the
-    CPU; the kernels take ``ssd.CHUNK`` (SSD is chunk-invariant)."""
+    [b,H,P,N] fp32).  ``chunk`` defaults to the autotuner's choice for
+    (backend, dtype, S bucket, P, N); on a CUDA tensor a chunk the
+    kernels are not built for (``ssd.CHUNKS``) raises.  SSD is
+    chunk-invariant up to the order of its sums."""
     kind = _route("ssd", x)
-    chunk = chunk or _ssd.CHUNK
-    if kind == "cuda" and chunk != _ssd.CHUNK:
-        raise ValueError(f"ssd: the kernels' chunk is {_ssd.CHUNK}, not "
-                         f"{chunk}")
-    return SSD.apply(x, dt, A, B, C, int(chunk))
+    chunk = _ssd.resolve_chunk(x, B, chunk)
+    if kind == "cuda":
+        _ssd.check_chunk("ssd", chunk)
+    return SSD.apply(x, dt, A, B, C, chunk)

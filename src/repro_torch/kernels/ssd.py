@@ -14,27 +14,49 @@ of ``csrc/ssd.cu`` (``ops.SSD`` is their ``torch.autograd.Function``).
 
 x, y, gy and dx are [b, S, H, P]; dt and ddt [b, S, H] fp32; A [H] fp32;
 B, C, dB and dC [b, S, H, N]; states [b, H, P, N] fp32 and cstates
-[b, H, nc, P, N] fp32, nc = ceil(S / CHUNK).  x, dt, B, C and gy are read
+[b, H, nc, P, N] fp32, nc = ceil(S / chunk).  The chunk is one of
+``CHUNKS``, by default the autotuner's (``autotune.ssd_config``); the
+backward must take its forward's.  x, dt, B, C and gy are read
 through their strides (the last dim must be dense; B and C may be one
 group expanded over the heads with head stride 0); outputs are new
 contiguous tensors.  Every wrapper takes CUDA tensors only and raises on
-anything else, including a (P, N) the kernels are not built for; the
-CPU path never reaches this module (``kernels/ops.py`` routes a CPU
-tensor to the plain versions in ``kernels/ref.py``).  Launches are
-counted in ``build.LAUNCHES``.
+anything else, including a (P, N) or chunk the kernels are not built
+for; the CPU path never reaches this module (``kernels/ops.py`` routes
+a CPU tensor to the plain versions in ``kernels/ref.py``).  Launches
+are counted in ``build.LAUNCHES``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels.build import check_tensors, current_stream, launch
 from repro_torch.kernels.ref import SSD_CHUNK as CHUNK
 
 #: (head dim P, state size N) pairs with a template instance in
 #: csrc/ssd.cu: mamba2-780m, hymba-1.5b, the reduced configs
 SHAPES = ((64, 128), (64, 16), (16, 16))
+#: chunk lengths built for each of SHAPES (CHUNK, 64, is the autotuner's
+#: heuristic; 128 does not fit the backward chunk phase, csrc/ssd.cu)
+CHUNKS = (32, 64)
+
+
+def resolve_chunk(x: torch.Tensor, B: torch.Tensor,
+                  chunk: Optional[int] = None) -> int:
+    """``chunk``, or the autotuner's for x [b, S, H, P], B [.., N]."""
+    if chunk is None:
+        chunk = autotune.ssd_config(autotune.backend_of(x.device), x.dtype,
+                                    x.shape[1], x.shape[-1],
+                                    B.shape[-1])["chunk"]
+    return int(chunk)
+
+
+def check_chunk(name: str, chunk: int) -> None:
+    if chunk not in CHUNKS:
+        raise ValueError(f"{name}: chunk {chunk} is not built (one of "
+                         f"{CHUNKS})")
 
 
 def _strides(t: torch.Tensor) -> Tuple[int, int, int]:
@@ -84,19 +106,21 @@ def _check_states(name: str, like: torch.Tensor, *states: torch.Tensor
 
 
 def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-            B: torch.Tensor, C: torch.Tensor
+            B: torch.Tensor, C: torch.Tensor, chunk: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (y [b,S,H,P] in x's dtype, final state [b,H,P,N] fp32,
     cstates [b,H,nc,P,N] fp32)."""
     code, b, S, H, P, N = _check("ssd_fwd", x, dt, A, B, C)
-    nc = -(-S // CHUNK)
+    chunk = resolve_chunk(x, B, chunk)
+    check_chunk("ssd_fwd", chunk)
+    nc = -(-S // chunk)
     y = torch.empty((b, S, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
     cstates = torch.empty((b, H, nc, P, N), dtype=torch.float32,
                           device=x.device)
     launch("ssd_fwd", x.data_ptr(), dt.data_ptr(), A.data_ptr(),
            B.data_ptr(), C.data_ptr(), y.data_ptr(), state.data_ptr(),
-           cstates.data_ptr(), b, S, H, P, N, CHUNK, *_strides(x),
+           cstates.data_ptr(), b, S, H, P, N, chunk, *_strides(x),
            *_strides(dt), *_strides(B), *_strides(C), code,
            current_stream(x))
     return y, state, cstates
@@ -104,13 +128,15 @@ def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             B: torch.Tensor, C: torch.Tensor, cstates: torch.Tensor,
-            gy: torch.Tensor, gstate: torch.Tensor
-            ) -> Tuple[torch.Tensor, ...]:
+            gy: torch.Tensor, gstate: torch.Tensor,
+            chunk: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """(dx, ddt, dA, dB, dC) in the primals' dtypes from the cotangents
     gy (of y) and gstate (of the final state, fp32) and the forward's
-    cstates."""
+    cstates, made at the same chunk."""
     code, b, S, H, P, N = _check("ssd_bwd", x, dt, A, B, C, gy)
-    nc = -(-S // CHUNK)
+    chunk = resolve_chunk(x, B, chunk)
+    check_chunk("ssd_bwd", chunk)
+    nc = -(-S // chunk)
     _check_states("ssd_bwd", x, (cstates, (b, H, nc, P, N)),
                   (gstate, (b, H, P, N)))
     dx = torch.empty((b, S, H, P), dtype=x.dtype, device=x.device)
@@ -125,7 +151,7 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
            B.data_ptr(), C.data_ptr(), cstates.data_ptr(), gy.data_ptr(),
            gstate.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
            dC.data_ptr(), dA_part.data_ptr(), scratch.data_ptr(), b, S, H, P,
-           N, CHUNK,
+           N, chunk,
            *_strides(x), *_strides(dt), *_strides(B), *_strides(C),
            *_strides(gy), code, current_stream(x))
     dA = dA_part.sum((0, 2))

@@ -264,6 +264,7 @@ def spawn_world(fn: str, world: int, kwargs: Dict[str, Any], *,
     import time
     import torch
     import repro_torch
+    from repro_torch.kernels import autotune
     if torch.device(device).type == "cuda":
         from repro_torch.kernels import build
         build.library()
@@ -278,7 +279,8 @@ def spawn_world(fn: str, world: int, kwargs: Dict[str, Any], *,
     try:
         torch.save(kwargs, os.path.join(tmp, "kwargs.pt"))
         for r in range(world):
-            env = dict(os.environ)
+            # no tuning, this process's table: every rank resolves alike
+            env = autotune.child_env()
             env["PYTHONPATH"] = os.pathsep.join(
                 [src, *paths, env.get("PYTHONPATH", "")])
             env[_WORLD_ENV] = json.dumps({

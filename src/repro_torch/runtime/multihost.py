@@ -676,11 +676,14 @@ class MultiHostExecutor(Executor):
     def _spawn_workers(self, ranks: List[int],
                        python: Optional[str]) -> None:
         import repro_torch
+        from repro_torch.kernels import autotune
         src = os.path.dirname(os.path.dirname(
             os.path.abspath(repro_torch.__file__)))
         host, port = self.server.addr
         for r in ranks:
-            env = dict(os.environ)
+            # no tuning and this process's table: the workers resolve the
+            # coordinator's tiles and splits, so their sums match its run
+            env = autotune.child_env()
             env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
             env["REPRO_PROC_COUNT"] = str(len(ranks))
             env["REPRO_PROC_INDEX"] = str(r)

@@ -955,3 +955,143 @@ def test_spmd_executor_over_a_process_mesh_on_card_tracks_plain_cpu(card):
         diff = (a - b).abs()
         assert diff.max() <= 2.5 * lr, diff.max()
         assert (diff > lr / 10).float().mean() < 1e-3
+
+
+# ----------------------------------------------------------------------
+# The autotuner's variants: every built tile and chunk, no fallback
+# ----------------------------------------------------------------------
+WIDE_FLASH = [(k, D, dt) for k, D, dt, t in flash.INSTANCES if t == 128]
+_FLASH_NAME = {"fwd": "flash_fwd", "dq": "flash_bwd_dq",
+               "dkdv": "flash_bwd_dkdv"}
+
+
+@pytest.mark.parametrize("shape", [(1, 300, 4, 2, 0), (2, 257, 4, 1, 96)],
+                         ids=["gqa", "window"])
+@pytest.mark.parametrize("kernel,D,dtype", WIDE_FLASH,
+                         ids=[f"{k}-d{D}-{str(dt)[6:]}"
+                              for k, D, dt in WIDE_FLASH])
+def test_flash_wide_tile_matches_plain_and_the_64_tile(card, kernel, D,
+                                                       dtype, shape):
+    """Each 128-row flash instance against its plain version (chip_smoke's
+    condition-aware tolerances, a bitwise rerun) and bitwise equal to the
+    64-row tile on the same inputs, with diagonals across two 64-row
+    blocks and a sliding window."""
+    import functools
+    cs = _chip_smoke()
+    name = _FLASH_NAME[kernel]
+    B, S, H, KV, window = shape
+    kern, plain, _ = cs.kernel_table(card)[name]
+    args = cs.make_inputs(name, (B, S, H, KV, D, window), dtype, card, seed=12)
+    kw = "block_k" if kernel == "dkdv" else "block_q"
+    wide = functools.partial(kern, **{kw: 128})
+    cs.compare(name, wide, plain, args, dtype)
+    narrow = cs._flat(functools.partial(kern, **{kw: 64})(*args))
+    assert all(torch.equal(a, b) for a, b in zip(cs._flat(wide(*args)),
+                                                 narrow))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P,N", ssd.SHAPES)
+def test_ssd_chunk_32_matches_plain(card, P, N, dtype):
+    """Both SSD kernels at chunk 32 against the plain versions at chunk
+    32, with a ragged last chunk; bitwise reruns."""
+    import functools
+    cs = _chip_smoke()
+    table = cs.kernel_table(card)
+    for name in ("ssd_fwd", "ssd_bwd"):
+        kern, plain, _ = table[name]
+        args = cs.make_inputs(name, (2, 1000, 6, P, N, True), dtype, card,
+                              seed=13, chunk=32)
+        cs.compare(name, functools.partial(kern, chunk=32),
+                   functools.partial(plain, chunk=32), args, dtype, 32)
+
+
+def test_ops_ssd_takes_chunk_32_through_autograd_on_card(card):
+    """ops.ssd(chunk=32): the forward's chunk reaches the backward (its
+    cstates have ceil(S / 32) entries), one launch each, gradients as
+    the CPU route's at the same chunk (2e-4 of each output's largest
+    entry, as test_ssd_gradients_match_autograd_on_card)."""
+    g = torch.Generator().manual_seed(14)
+    b, S, H, P, N = 1, 300, 4, 64, 16
+    x, gy = (torch.randn(b, S, H, P, generator=g) for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.randn(b, S, H, generator=g) - 3)
+    A = -torch.exp(torch.randn(H, generator=g) * 0.5)
+    B, C = (torch.randn(b, S, H, N, generator=g) for _ in range(2))
+    outs = {}
+    for dev in ("cpu", card):
+        leaves = [t.clone().to(dev).requires_grad_(True)
+                  for t in (x, dt, A, B, C)]
+        build.reset_launches()
+        y, _ = ops.ssd(*leaves, chunk=32)
+        grads = torch.autograd.grad(y, leaves, gy.to(dev))
+        outs[str(dev)] = [t.cpu() for t in (y, *grads)]
+    assert build.LAUNCHES["ssd_fwd"] == build.LAUNCHES["ssd_bwd"] == 1
+    for a, c in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(a, c, rtol=0,
+                                   atol=2e-4 * float(c.abs().max()))
+
+
+def test_unbuilt_tiles_and_chunks_raise_on_card(card):
+    """No fallback: a tile or chunk with no instance raises before any
+    launch, in the wrappers and in ops; the C launchers refuse too."""
+    q, k, v, dout = _flash_inputs(card, 1, 200, 4, 2, 128, torch.float32)
+    lse = torch.zeros(1, 4, 200, device=card)
+    with pytest.raises(ValueError, match="not built"):
+        flash.flash_bwd_dq(q, k, v, dout, lse, lse, 0, block_q=128)
+    with pytest.raises(ValueError, match="not built"):
+        flash.flash_bwd_dkdv(q, k, v, dout, lse, lse, 0, block_k=128)
+    with pytest.raises(ValueError, match="not built"):
+        ops.flash_attention(q, k, v, block_q=128)      # dq at fp32 D 128
+    q32, k32, v32, _ = _flash_inputs(card, 1, 200, 4, 2, 32, torch.float32)
+    with pytest.raises(ValueError, match="not built"):
+        flash.flash_fwd(q32, k32, v32, 0, block_q=128)
+    with pytest.raises(ValueError, match="not built"):
+        ops.flash_attention(q32, k32, v32, block_k=96)
+    out = torch.empty_like(q32)
+    build.reset_launches()
+    with pytest.raises(RuntimeError, match="flash_fwd"):
+        build.launch("flash_fwd", q32.data_ptr(), k32.data_ptr(),
+                     v32.data_ptr(), out.data_ptr(), lse.data_ptr(), 1, 200,
+                     4, 2, 32, 0, 1.0, *q32.stride()[:3], *k32.stride()[:3],
+                     *v32.stride()[:3], 128, 0, build.current_stream(q32))
+    x = torch.zeros(1, 100, 2, 64, device=card)
+    dt = torch.zeros(1, 100, 2, device=card)
+    A = torch.zeros(2, device=card)
+    B = torch.zeros(1, 100, 2, 16, device=card)
+    for chunk in (16, 128):
+        with pytest.raises(ValueError, match="not built"):
+            ssd.ssd_fwd(x, dt, A, B, B, chunk=chunk)
+        with pytest.raises(ValueError, match="not built"):
+            ops.ssd(x, dt, A, B, B, chunk=chunk)
+    assert sum(build.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("layout", ["fwd", "dx", "dW"])
+def test_gemm_every_tile_and_split_matches_plain(card, layout):
+    """Each legal (tile, split) of the GEMM against the plain product in
+    each operand layout at a path-like shape, bitwise reruns."""
+    import functools
+    cs = _chip_smoke()
+    plain = cs.kernel_table(card)["gemm_bias"][1]
+    for dtype in (torch.float32, torch.bfloat16):
+        args = cs.make_inputs("gemm_bias", (512, 1024, 3072), dtype, card,
+                              seed=15, layout=layout)
+        cands = fused.gemm_candidates(args[0].shape[1], args[0].element_size())
+        assert len(cands) == (8 if dtype == torch.float32 else 4)
+        for choice in cands:
+            cs.compare("gemm_bias", functools.partial(fused.gemm_bias,
+                                                      choice=choice),
+                       plain, args, dtype)
+
+
+def test_norm_every_row_partition_matches_plain(card):
+    cs = _chip_smoke()
+    plain = cs.kernel_table(card)["add_rmsnorm_bwd"][1]
+    for dtype in (torch.float32, torch.bfloat16):
+        for M, d in ((2048, 1024), (1000, 999)):
+            args = cs.make_inputs("add_rmsnorm_bwd", (M, d), dtype, card,
+                                  seed=16)
+            for n in fused.norm_rows_candidates(M, d):
+                cs.compare("add_rmsnorm_bwd",
+                           lambda *a, n=n: fused.add_rmsnorm_bwd(
+                               *a, 1e-6, rows_per_block=n), plain, args, dtype)

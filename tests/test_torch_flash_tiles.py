@@ -21,10 +21,14 @@ fp32 flash tolerances:
     before the block's promotion; lse = m + log(max(l, 1e-20)).
 
 The same emulation without the small terms (1xTF32) must fail the
-tolerances, so they would catch a kernel that drops them.  A second test
-mirrors the kernels' grid mapping (grid (H, B, q blocks), the q block
-taken from the last): it covers each (q block, head, batch) once, the
-blocks with the most kv blocks first, over the reference's _kv_bounds.
+tolerances, so they would catch a kernel that drops them.  It runs at
+each built q tile (64, and 128 rows at head dims 64 and 128: the
+``-bq128`` cases, whose diagonal q blocks span two kv blocks of 64),
+and a 128-row tile gives outputs bitwise equal to the 64-row one.  The
+grid tests mirror the kernels' grid mapping (forward and dq: grid (H,
+B, q blocks), the q block taken from the last; dk/dv: kv blocks in
+order): each block once, the blocks with the most work first, over the
+reference's _kv_bounds and _q_bounds, at each tile.
 """
 import math
 
@@ -32,11 +36,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro.kernels.flash_attention import _kv_bounds
+from repro.kernels.flash_attention import _kv_bounds, _q_bounds
 from repro_torch.kernels import ref
 from test_torch_gemm_tiles import CS, _emulated_gemm
 
-BLOCK = 64                  # the kernels' BQ = BK
+BLOCK = 64                  # the kv tile of the forward and dq
 NEG_INF = np.float32(-1e30)
 #: k-slot s of each mma step of 8 reads position PERM[s] of the step
 PERM = np.array([0, 2, 4, 6, 1, 3, 5, 7])
@@ -46,6 +50,12 @@ PERM = np.array([0, 2, 4, 6, 1, 3, 5, 7])
 SHAPES = {"causal": (1, 130, 2, 2, 64, 0), "gqa": (1, 100, 4, 2, 32, 0),
           "window": (1, 150, 4, 1, 32, 48), "d16": (1, 100, 2, 2, 16, 0),
           "d80": (1, 130, 2, 1, 80, 0), "d96": (1, 130, 2, 2, 96, 40)}
+#: label -> (shape, q tile): the shapes above at 64, and the 128-row q
+#: tile at head dims 64 (causal, a window) and 128 (grouped heads)
+CASES = {**{k: (v, 64) for k, v in SHAPES.items()},
+         "causal-bq128": ((1, 130, 2, 2, 64, 0), 128),
+         "window-bq128": ((1, 200, 4, 1, 64, 48), 128),
+         "gqa-d128-bq128": ((1, 150, 4, 2, 128, 0), 128)}
 
 
 def _inputs(shape, seed=0):
@@ -58,16 +68,16 @@ def _inputs(shape, seed=0):
     return q, k, v, dout
 
 
-def _tile(x, row0):
-    """Rows [row0, row0 + 64) of a [S, D] array, rows past S as 0."""
-    out = np.zeros((BLOCK, x.shape[1]), np.float32)
-    rows = x[row0:row0 + BLOCK]
+def _tile(x, row0, n=BLOCK):
+    """Rows [row0, row0 + n) of a [S, D] array, rows past S as 0."""
+    out = np.zeros((n, x.shape[1]), np.float32)
+    rows = x[row0:row0 + n]
     out[:len(rows)] = rows
     return out
 
 
-def _visible(q0, k0, S, window):
-    qpos = q0 + np.arange(BLOCK)[:, None]
+def _visible(q0, k0, S, window, bq=BLOCK):
+    qpos = q0 + np.arange(bq)[:, None]
     kpos = k0 + np.arange(BLOCK)[None, :]
     ok = (kpos <= qpos) & (qpos < S)
     if window > 0:
@@ -89,38 +99,48 @@ def _rows_dot(a, b, small_terms):
                           small_terms=small_terms, promote=a.shape[1])
 
 
-def _heads(shape):
+def _heads(shape, bq=BLOCK):
     B, S, H, KV, D, window = shape
-    nq = -(-S // BLOCK)
+    nq = -(-S // bq)
     for b in range(B):
         for h in range(H):
             for iq in range(nq):
-                lo, hi = _kv_range(iq, S, window)
+                lo, hi = _kv_range(iq, S, window, bq)
                 yield b, h, h // (H // KV), iq, lo, hi
 
 
-def _kv_range(iq, S, window):
-    """[lo, hi) of flash.cuh's QWalk (C division; lo is clamped at 0)."""
-    q0 = iq * BLOCK
+def _kv_range(iq, S, window, bq=BLOCK):
+    """[lo, hi) of flash.cuh's QWalk at q tile bq (C division; lo is
+    clamped at 0)."""
+    q0 = iq * bq
     lo = max(int((q0 - window + 1) / BLOCK), 0) if window > 0 else 0
-    return lo, min(iq + 1, -(-S // BLOCK))
+    return lo, min((q0 + bq - 1) // BLOCK + 1, -(-S // BLOCK))
 
 
-def emulated_fwd(q, k, v, window, small_terms=True):
-    """(out, lse) of flash_fwd_kernel, emulated."""
+def _q_range(ik, S, window, bk):
+    """[qlo, qhi) of flash.cuh's dk/dv kernel at kv tile bk (q tiles of
+    64)."""
+    k0, nq = ik * bk, -(-S // BLOCK)
+    qhi = (min((k0 + bk + window - 2) // BLOCK + 1, nq) if window > 0
+           else nq)
+    return k0 // BLOCK, qhi
+
+
+def emulated_fwd(q, k, v, window, small_terms=True, bq=BLOCK):
+    """(out, lse) of flash_fwd_kernel at q tile bq, emulated."""
     B, S, H, D = q.shape
     scale = np.float32(1.0 / math.sqrt(D))
     out = np.zeros_like(q)
     lse = np.zeros((B, H, S), np.float32)
-    for b, h, kvh, iq, lo, hi in _heads((B, S, H, k.shape[2], D, window)):
-        q0 = iq * BLOCK
-        qt = _tile(q[b, :, h], q0)
-        o = np.zeros((BLOCK, D), np.float32)
-        m = np.full(BLOCK, NEG_INF, np.float32)
-        l = np.zeros(BLOCK, np.float32)
+    for b, h, kvh, iq, lo, hi in _heads((B, S, H, k.shape[2], D, window), bq):
+        q0 = iq * bq
+        qt = _tile(q[b, :, h], q0, bq)
+        o = np.zeros((bq, D), np.float32)
+        m = np.full(bq, NEG_INF, np.float32)
+        l = np.zeros(bq, np.float32)
         for ik in range(lo, hi):
             k0 = ik * BLOCK
-            ok = _visible(q0, k0, S, window)
+            ok = _visible(q0, k0, S, window, bq)
             s = _rows_dot(qt, _tile(k[b, :, kvh], k0), small_terms)
             s = np.where(ok, s * scale, NEG_INF).astype(np.float32)
             mx = np.maximum(m, s.max(1))
@@ -130,34 +150,35 @@ def emulated_fwd(q, k, v, window, small_terms=True):
             m = mx
             o = o * corr[:, None] + _block_sum(p, _tile(v[b, :, kvh], k0),
                                                small_terms)
-        rows = min(BLOCK, S - q0)
+        rows = min(bq, S - q0)
         li = np.maximum(l, np.float32(1e-20))
         out[b, q0:q0 + rows, h] = (o / li[:, None])[:rows]
         lse[b, h, q0:q0 + rows] = (m + np.log(li))[:rows]
     return out, lse
 
 
-def emulated_dq(q, k, v, dout, lse, delta, window, small_terms=True):
-    """dq of flash_bwd_dq_kernel, emulated."""
+def emulated_dq(q, k, v, dout, lse, delta, window, small_terms=True,
+                bq=BLOCK):
+    """dq of flash_bwd_dq_kernel at q tile bq, emulated."""
     B, S, H, D = q.shape
     scale = np.float32(1.0 / math.sqrt(D))
     dq = np.zeros_like(q)
-    for b, h, kvh, iq, lo, hi in _heads((B, S, H, k.shape[2], D, window)):
-        q0 = iq * BLOCK
-        qt, gt = _tile(q[b, :, h], q0), _tile(dout[b, :, h], q0)
-        rl = _tile(lse[b, h][:, None], q0)
-        rd = _tile(delta[b, h][:, None], q0)
-        acc = np.zeros((BLOCK, D), np.float32)
+    for b, h, kvh, iq, lo, hi in _heads((B, S, H, k.shape[2], D, window), bq):
+        q0 = iq * bq
+        qt, gt = _tile(q[b, :, h], q0, bq), _tile(dout[b, :, h], q0, bq)
+        rl = _tile(lse[b, h][:, None], q0, bq)
+        rd = _tile(delta[b, h][:, None], q0, bq)
+        acc = np.zeros((bq, D), np.float32)
         for ik in range(lo, hi):
             k0 = ik * BLOCK
             kt, vt = _tile(k[b, :, kvh], k0), _tile(v[b, :, kvh], k0)
             s = _rows_dot(qt, kt, small_terms)
             dp = _rows_dot(gt, vt, small_terms)
-            p = np.where(_visible(q0, k0, S, window),
+            p = np.where(_visible(q0, k0, S, window, bq),
                          np.exp(s * scale - rl), 0).astype(np.float32)
             ds = (p * (dp - rd) * scale).astype(np.float32)
             acc = acc + _block_sum(ds, kt, small_terms)
-        rows = min(BLOCK, S - q0)
+        rows = min(bq, S - q0)
         dq[b, q0:q0 + rows, h] = acc[:rows]
     return dq
 
@@ -179,12 +200,15 @@ def _worst(name, got, want, args):
 
 @pytest.mark.parametrize("small_terms", [True, False],
                          ids=["3xtf32-holds", "1xtf32-fails"])
-@pytest.mark.parametrize("label", list(SHAPES))
+@pytest.mark.parametrize("label", list(CASES))
 def test_emulated_forward_against_the_fp32_tolerance(label, small_terms):
-    shape = SHAPES[label]
+    shape, bq = CASES[label]
     window = shape[-1]
     q, k, v, _ = _inputs(shape)
-    got = emulated_fwd(q, k, v, window, small_terms=small_terms)
+    got = emulated_fwd(q, k, v, window, small_terms=small_terms, bq=bq)
+    if bq != BLOCK:        # every tile gives the 64-row tile's outputs
+        for a, b in zip(got, emulated_fwd(q, k, v, window, small_terms)):
+            np.testing.assert_array_equal(a, b)
     tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
     want = ref.flash_fwd_ref(tq, tk, tv, window=window)
     worst = _worst("flash_fwd", got, want, (tq, tk, tv, window))
@@ -196,15 +220,18 @@ def test_emulated_forward_against_the_fp32_tolerance(label, small_terms):
 
 @pytest.mark.parametrize("small_terms", [True, False],
                          ids=["3xtf32-holds", "1xtf32-fails"])
-@pytest.mark.parametrize("label", list(SHAPES))
+@pytest.mark.parametrize("label", list(CASES))
 def test_emulated_dq_against_the_fp32_tolerance(label, small_terms):
-    shape = SHAPES[label]
+    shape, bq = CASES[label]
     window = shape[-1]
     q, k, v, dout = (torch.from_numpy(x) for x in _inputs(shape))
     out, lse = ref.flash_fwd_ref(q, k, v, window=window)
     delta = ref.flash_delta(out, dout)
-    got = emulated_dq(*(t.numpy() for t in (q, k, v, dout, lse, delta)),
-                      window, small_terms=small_terms)
+    operands = [t.numpy() for t in (q, k, v, dout, lse, delta)]
+    got = emulated_dq(*operands, window, small_terms=small_terms, bq=bq)
+    if bq != BLOCK:
+        np.testing.assert_array_equal(
+            got, emulated_dq(*operands, window, small_terms=small_terms))
     want = ref.flash_bwd_ref(q, k, v, None, lse, dout, window=window,
                              delta=delta)[:1]
     worst = _worst("flash_bwd_dq", [got], want,
@@ -244,3 +271,45 @@ def test_grid_covers_each_q_block_once_longest_first(shape):
         assert (lo, hi) == (int(rlo), int(rhi)), iq
         lengths.append(hi - lo)
     assert all(a >= b for a, b in zip(lengths, lengths[1:]))
+
+
+@pytest.mark.parametrize("shape", [(2, 2048, 16, 16, 64, 0),
+                                   (2, 1000, 16, 2, 128, 0),
+                                   (2, 1000, 20, 4, 64, 256),
+                                   (1, 130, 2, 2, 64, 48)],
+                         ids=["flash", "gqa", "window", "short-window"])
+@pytest.mark.parametrize("tile", [64, 128])
+def test_grids_cover_each_block_once_at_every_tile(shape, tile):
+    """The forward's and dq's grid at q tile ``tile`` (kv tiles of 64) and
+    dk/dv's at kv tile ``tile`` (q tiles of 64): each block once, its
+    range the reference's _kv_bounds / _q_bounds for those tiles, the
+    longest blocks first; and every (q, k) pair the mask keeps lies in
+    exactly one (q block, kv block) of each walk."""
+    B, S, H, KV, D, window = shape
+    nq, nk = -(-S // tile), -(-S // BLOCK)
+    lengths = []
+    for z in range(nq):           # q blocks from the last
+        iq = nq - 1 - z
+        lo, hi = _kv_range(iq, S, window, tile)
+        rlo, rhi = _kv_bounds(iq * tile, tile, BLOCK, window, nk)
+        assert (lo, hi) == (int(rlo), int(rhi)), iq
+        lengths.append(hi - lo)
+    assert all(a >= b for a, b in zip(lengths, lengths[1:]))
+    lengths = []
+    for ik in range(-(-S // tile)):          # kv blocks in order
+        qlo, qhi = _q_range(ik, S, window, tile)
+        rlo, rhi = _q_bounds(ik * tile, BLOCK, tile, window, -(-S // BLOCK))
+        assert (qlo, qhi) == (int(rlo), int(rhi)), ik
+        lengths.append(qhi - qlo)
+    assert all(a >= b for a, b in zip(lengths, lengths[1:]))
+    qpos, kpos = np.tril_indices(S)
+    keep = (kpos > qpos - window) if window > 0 else np.ones_like(qpos, bool)
+    qpos, kpos = qpos[keep], kpos[keep]
+    for ranges, qblk, kblk in (
+            ([_kv_range(i, S, window, tile) for i in range(nq)],
+             qpos // tile, kpos // BLOCK),
+            ([_q_range(i, S, window, tile) for i in range(-(-S // tile))],
+             kpos // tile, qpos // BLOCK)):
+        lo = np.array([r[0] for r in ranges])[qblk]
+        hi = np.array([r[1] for r in ranges])[qblk]
+        assert ((lo <= kblk) & (kblk < hi)).all()

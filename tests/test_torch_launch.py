@@ -155,7 +155,7 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1]) == record
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "config"}
     assert [k["name"] for k in record["kernels"]] == [
         "add_rmsnorm_fwd", "add_rmsnorm_bwd", "gemm_bias", "flash_fwd",
         "flash_bwd_dq", "flash_bwd_dkdv", "ssd_fwd", "ssd_bwd"]
@@ -167,6 +167,11 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
             src_line = (ROOT / path).read_text().splitlines()[int(line) - 1]
             assert src_line.startswith("def _"), src_line
     assert any("[check] gemm_bias        dW" in ln for ln in lines)
+    assert any(ln.startswith("[autotune]") and "fresh interpreters resolve "
+               "the same" in ln for ln in lines)
+    configs = {k["name"]: k["config"] for k in record["kernels"]}
+    assert set(configs["gemm_bias"]) == {"fwd", "dx", "dW"}
+    assert set(configs["ssd_fwd"]) == {"chunk"}
     for kind in ("flash", "gqa", "window"):
         assert any(ln.startswith("[check] flash_bwd_dkdv") and kind in ln
                    for ln in lines), kind

@@ -13,24 +13,29 @@ whole K), is held against the port's plain versions ``ref.ssd_fwd_ref``
 and ``ref.ssd_bwd_ref`` under chip_smoke.py's SSD tolerance (rtol 1e-4
 plus 1e-5 of each output's cond, the sum of its terms' magnitudes), at
 the three (P, N) the kernels are built for, with a ragged last chunk and
-B and C one group over the heads.  The same emulation without the small
-terms (1xTF32) must fail the tolerance, so it would catch a kernel that
-drops them.
+B and C one group over the heads, at each built chunk (64 and 32,
+``ssd.CHUNKS``; the ``-q32`` cases, their ragged last chunks at other
+rows).  The same emulation without the small terms (1xTF32) must fail
+the tolerance, so it would catch a kernel that drops them.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, ssd
 from test_torch_gemm_tiles import CS, _emulated_gemm
 
-Q = ref.SSD_CHUNK
 f32 = np.float32
 
 # (b, S, H, P, N, B/C one group): the kernels' three (P, N), ragged S
 SHAPES = {"mamba": (1, 100, 2, 64, 128, True),
           "hymba": (1, 130, 2, 64, 16, True),
           "reduced": (2, 70, 2, 16, 16, False)}
+#: label -> (shape, chunk): the shapes above at the chunk of 64, and at
+#: every other built chunk under "<label>-q<chunk>"
+CASES = {**{k: (v, 64) for k, v in SHAPES.items()},
+         **{f"{k}-q{c}": (v, c) for c in ssd.CHUNKS if c != 64
+            for k, v in SHAPES.items()}}
 
 
 def _inputs(shape, seed=0):
@@ -50,7 +55,7 @@ def _inputs(shape, seed=0):
     return x, dt, A, B, C, gy, gstate
 
 
-def _chunk(t, bi, h, c):
+def _chunk(t, bi, h, c, Q):
     """Rows [cQ, cQ + Q) of t[bi, :, h], rows past S as 0."""
     rows = t[bi, c * Q:(c + 1) * Q, h]
     out = np.zeros((Q, *rows.shape[1:]), f32)
@@ -68,6 +73,7 @@ def _decay(dtq, A):
     """cum, e^cum, e^(cum_Q - cum), w_last, e^cum_Q and the masked
     [Q, Q] decay (zero above the diagonal, masked before the exp)."""
     cum = np.cumsum(dtq * A, dtype=f32)
+    Q = len(dtq)
     tri = np.tril(np.ones((Q, Q), bool))
     decay = np.where(tri, np.exp(np.where(tri, cum[:, None] - cum[None, :],
                                           0)), 0).astype(f32)
@@ -76,8 +82,8 @@ def _decay(dtq, A):
         f32(np.exp(cum[-1])), decay
 
 
-def emulated_fwd(x, dt, A, B, C, small=True):
-    """(y, final state, cstates) of the three forward phases."""
+def emulated_fwd(x, dt, A, B, C, small=True, Q=64):
+    """(y, final state, cstates) of the three forward phases at chunk Q."""
     b, S, H, P = x.shape
     N = B.shape[-1]
     nc = -(-S // Q)
@@ -88,19 +94,19 @@ def emulated_fwd(x, dt, A, B, C, small=True):
         for h in range(H):
             terms = []
             for c in range(nc):      # phase 1: each chunk's local state
-                dtq = _chunk(dt[..., None], bi, h, c)[:, 0]
+                dtq = _chunk(dt[..., None], bi, h, c, Q)[:, 0]
                 *_, wl, eq, _ = _decay(dtq, A[h])
-                xw = _chunk(x, bi, h, c) * wl[:, None]
-                terms.append((eq, _mm(xw.T, _chunk(B, bi, h, c), small)))
+                xw = _chunk(x, bi, h, c, Q) * wl[:, None]
+                terms.append((eq, _mm(xw.T, _chunk(B, bi, h, c, Q), small)))
             s = np.zeros((P, N), f32)
             for c, (eq, L) in enumerate(terms):   # phase 2: the scan
                 cstates[bi, h, c] = s
                 s = (s * eq + L).astype(f32)
             state[bi, h] = s
             for c in range(nc):      # phase 3: each chunk's y
-                dtq = _chunk(dt[..., None], bi, h, c)[:, 0]
+                dtq = _chunk(dt[..., None], bi, h, c, Q)[:, 0]
                 cum, ecum, _, _, _, decay = _decay(dtq, A[h])
-                xq, Bq, Cq = (_chunk(t, bi, h, c) for t in (x, B, C))
+                xq, Bq, Cq = (_chunk(t, bi, h, c, Q) for t in (x, B, C))
                 W = _mm(Cq, Bq.T, small) * decay * dtq[None, :]
                 yq = (_mm(W, xq, small)
                       + ecum[:, None] * _mm(Cq, cstates[bi, h, c].T, small))
@@ -109,8 +115,8 @@ def emulated_fwd(x, dt, A, B, C, small=True):
     return y, state, cstates
 
 
-def emulated_bwd(x, dt, A, B, C, cstates, gy, gstate, small=True):
-    """(dx, ddt, dA, dB, dC) of the three backward phases."""
+def emulated_bwd(x, dt, A, B, C, cstates, gy, gstate, small=True, Q=64):
+    """(dx, ddt, dA, dB, dC) of the three backward phases at chunk Q."""
     b, S, H, P = x.shape
     N = B.shape[-1]
     nc = -(-S // Q)
@@ -122,10 +128,10 @@ def emulated_bwd(x, dt, A, B, C, cstates, gy, gstate, small=True):
             dS1 = [None] * nc
             locs, eqs = [], []
             for c in range(nc):      # phase 1: local state cotangents
-                dtq = _chunk(dt[..., None], bi, h, c)[:, 0]
+                dtq = _chunk(dt[..., None], bi, h, c, Q)[:, 0]
                 _, ecum, _, _, eq, _ = _decay(dtq, A[h])
-                Ce = _chunk(C, bi, h, c) * ecum[:, None]
-                locs.append(_mm(_chunk(gy, bi, h, c).T, Ce, small))
+                Ce = _chunk(C, bi, h, c, Q) * ecum[:, None]
+                locs.append(_mm(_chunk(gy, bi, h, c, Q).T, Ce, small))
                 eqs.append(eq)
             s = gstate[bi, h]
             for c in reversed(range(nc)):         # phase 2: reverse scan
@@ -133,9 +139,9 @@ def emulated_bwd(x, dt, A, B, C, cstates, gy, gstate, small=True):
                 s = (eqs[c] * s + locs[c]).astype(f32)
             parts = []
             for c in range(nc):      # phase 3: each chunk's gradients
-                dtq = _chunk(dt[..., None], bi, h, c)[:, 0]
+                dtq = _chunk(dt[..., None], bi, h, c, Q)[:, 0]
                 cum, ecum, el, wl, eq, decay = _decay(dtq, A[h])
-                xq, Bq, Cq, G = (_chunk(t, bi, h, c) for t in (x, B, C, gy))
+                xq, Bq, Cq, G = (_chunk(t, bi, h, c, Q) for t in (x, B, C, gy))
                 S0, dS = cstates[bi, h, c], dS1[c]
                 cb, dW = _mm(Cq, Bq.T, small), _mm(G, xq.T, small)
                 W = cb * decay * dtq[None, :]
@@ -162,11 +168,11 @@ def emulated_bwd(x, dt, A, B, C, cstates, gy, gstate, small=True):
     return dx, ddt, dA, dB, dC
 
 
-def _worst(name, got, want, args):
+def _worst(name, got, want, args, chunk):
     """Largest |emulated - plain| / limit over the outputs (chip_smoke.py's
-    comparison)."""
+    comparison, its conds at ``chunk``)."""
     worst = 0.0
-    for g, w, cond, tol in zip(got, want, CS._conds(name, args, want),
+    for g, w, cond, tol in zip(got, want, CS._conds(name, args, want, chunk),
                                CS.TOL_FP32[name]):
         w = w.double()
         limit = tol["atol"] + tol["rtol"] * w.abs() + tol["ctol"] * cond.double()
@@ -177,12 +183,13 @@ def _worst(name, got, want, args):
 
 @pytest.mark.parametrize("small", [True, False],
                          ids=["3xtf32-holds", "1xtf32-fails"])
-@pytest.mark.parametrize("label", list(SHAPES))
+@pytest.mark.parametrize("label", list(CASES))
 def test_emulated_forward_against_the_fp32_tolerance(label, small):
-    x, dt, A, B, C, _, _ = _inputs(SHAPES[label])
-    got = emulated_fwd(x, dt, A, B, C, small=small)
+    shape, Q = CASES[label]
+    x, dt, A, B, C, _, _ = _inputs(shape)
+    got = emulated_fwd(x, dt, A, B, C, small=small, Q=Q)
     args = tuple(torch.from_numpy(t) for t in (x, dt, A, B, C))
-    worst = _worst("ssd_fwd", got, ref.ssd_fwd_ref(*args), args)
+    worst = _worst("ssd_fwd", got, ref.ssd_fwd_ref(*args, chunk=Q), args, Q)
     if small:
         assert worst < 0.25, worst
     else:
@@ -191,15 +198,16 @@ def test_emulated_forward_against_the_fp32_tolerance(label, small):
 
 @pytest.mark.parametrize("small", [True, False],
                          ids=["3xtf32-holds", "1xtf32-fails"])
-@pytest.mark.parametrize("label", list(SHAPES))
+@pytest.mark.parametrize("label", list(CASES))
 def test_emulated_backward_against_the_fp32_tolerance(label, small):
-    x, dt, A, B, C, gy, gstate = _inputs(SHAPES[label], seed=1)
+    shape, Q = CASES[label]
+    x, dt, A, B, C, gy, gstate = _inputs(shape, seed=1)
     prim = tuple(torch.from_numpy(t) for t in (x, dt, A, B, C))
-    cstates = ref.ssd_fwd_ref(*prim)[2]
+    cstates = ref.ssd_fwd_ref(*prim, chunk=Q)[2]
     args = (*prim, cstates, torch.from_numpy(gy), torch.from_numpy(gstate))
     got = emulated_bwd(x, dt, A, B, C, cstates.numpy(), gy, gstate,
-                       small=small)
-    worst = _worst("ssd_bwd", got, ref.ssd_bwd_ref(*args), args)
+                       small=small, Q=Q)
+    worst = _worst("ssd_bwd", got, ref.ssd_bwd_ref(*args, chunk=Q), args, Q)
     if small:
         assert worst < 0.25, worst
     else:

@@ -12,10 +12,16 @@ change,parent`` compares two commits on one machine.
 kernels (once per tree: the library is cached under its ``build/``),
 runs the phase with that tree's ``src`` first on the path and prints
 the phase's own lines, each prefixed with the run's label.
+
+``--exact`` (phases 6-8 and 10) runs the phase's training command
+itself (``repro_torch.launch.train`` with the tree's ``PATHS`` argv) and
+prints each run's losses at full precision and its step seconds as one
+JSON line, then whether every run's losses are bitwise equal.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import subprocess
 import sys
@@ -33,7 +39,14 @@ dev = torch.device("cuda")
 phase = {phase!r}
 paths = {{"naive": (6, cs.FUSED), "flash": (7, cs.FUSED + cs.FLASH),
           "mamba": (8, cs.SSD), "moe": (10, cs.FUSED + cs.FLASH)}}
-if phase in paths:
+if {exact!r}:
+    import gc, json
+    from repro_torch.launch import train
+    gc.collect()
+    out = train.main(cs.PATHS[paths[phase][0]][1])
+    print("[exact] " + json.dumps({{"losses": out["losses"],
+                                    "step_seconds": out["step_seconds"]}}))
+elif phase in paths:
     cs.run_path(dev, *paths[phase])
 else:
     getattr(cs, "run_" + phase)(dev)
@@ -48,14 +61,18 @@ def main(args=None) -> int:
     ap.add_argument("--phase", required=True,
                     choices=["naive", "flash", "mamba", "moe", "lifecycle",
                              "serving", "multiprocess", "spmd"])
+    ap.add_argument("--exact", action="store_true",
+                    help="the training command's exact losses and steps")
     ns = ap.parse_args(args)
     trees = dict(t.split("=", 1) for t in ns.trees)
+    losses = []
     for label in ns.order.split(","):
         tree = os.path.abspath(trees[label])
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         proc = subprocess.run(
             [sys.executable, "-c", SNIPPET.format(
-                src=os.path.join(tree, "src"), tree=tree, phase=ns.phase)],
+                src=os.path.join(tree, "src"), tree=tree, phase=ns.phase,
+                exact=ns.exact)],
             cwd=tree, env=env, capture_output=True, text=True)
         if proc.returncode != 0:
             raise SystemExit(f"run in {tree} failed:\n{proc.stdout[-4000:]}"
@@ -63,6 +80,11 @@ def main(args=None) -> int:
         for line in proc.stdout.splitlines():
             if line.startswith("["):
                 print(f"{label}: {line}", flush=True)
+            if line.startswith("[exact] "):
+                losses.append(json.loads(line[8:])["losses"])
+    if ns.exact:
+        print(f"[exact] losses bitwise equal across all "
+              f"{len(losses)} runs: {all(l == losses[0] for l in losses)}")
     return 0
 
 

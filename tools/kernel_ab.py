@@ -15,7 +15,9 @@ takes no scratch pointer (before the three-phase SSD kernels) is called
 with the wrapper's scratch argument dropped, and a tree whose
 ``add_rmsnorm_bwd`` takes no ``dw`` pointer (before the one-pass norm
 backward) runs under that tree's own wrapper: 8 rows a block and the
-partial rows summed by ``torch.sum``.  Per tree, each kernel is first
+partial rows summed by ``torch.sum``; and a tree whose flash launchers
+take no tile (before the autotuner) is called with the tile argument
+dropped, its 64-row tile only.  Per tree, each kernel is first
 held against its plain version (chip_smoke.py's comparison), then timed
 with CUDA events, at the shape of the path the kernels line reports
 (``--labels`` names others of chip_smoke.py's shapes; the GEMM in its
@@ -65,18 +67,38 @@ def takes_scratch(tree: str) -> bool:
     return "void* scratch" in src[src.index("int ssd_bwd("):]
 
 
-class _NoScratch:
-    """A library whose ssd_bwd takes no scratch: the wrapper's 14th
-    pointer (the scratch) is dropped from its calls."""
+def takes_tile(tree: str) -> bool:
+    """Whether the tree's flash launchers take the tile."""
+    src = (pathlib.Path(tree).resolve()
+           / "src/repro_torch/kernels/csrc/flash.cu").read_text()
+    head = src[src.index("int flash_fwd("):]
+    return "int tile" in head[:head.index(")")]
 
-    def __init__(self, cdll):
-        self._cdll = cdll
+
+_FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
+
+
+class _Compat:
+    """An older library under this checkout's wrappers: an ssd_bwd with
+    no scratch gets the wrapper's 14th pointer (the scratch) dropped,
+    flash launchers with no tile the argument before the dtype (only the
+    64-row tile, which they had)."""
+
+    def __init__(self, cdll, scratch: bool, tile: bool):
+        self._cdll, self._scratch, self._tile = cdll, scratch, tile
 
     def __getattr__(self, name):
         fn = getattr(self._cdll, name)
-        if name != "ssd_bwd":
-            return fn
-        return lambda *args: fn(*args[:13], *args[14:])
+        if name == "ssd_bwd" and not self._scratch:
+            return lambda *args: fn(*args[:13], *args[14:])
+        if name in _FLASH and not self._tile:
+            def call(*args):
+                if args[-3] != 64:
+                    raise ValueError(f"{name}: this tree has only the "
+                                     f"64-row tile, not {args[-3]}")
+                return fn(*args[:-3], *args[-2:])
+            return call
+        return fn
 
 
 def one_pass_norm(tree: str) -> bool:
@@ -110,7 +132,8 @@ def two_pass_norm_bwd(res, w, gres, gh, eps):
     return dres, partials.sum(0).to(w.dtype)
 
 
-def load(lib: pathlib.Path, scratch: bool, norm_bwd) -> None:
+def load(lib: pathlib.Path, scratch: bool, norm_bwd, tile: bool = True
+         ) -> None:
     """Swap in ``lib``; ``norm_bwd`` becomes ``fused.add_rmsnorm_bwd``
     (this checkout's wrapper, or ``two_pass_norm_bwd``)."""
     from repro_torch.kernels import build, fused
@@ -119,11 +142,13 @@ def load(lib: pathlib.Path, scratch: bool, norm_bwd) -> None:
         fn = getattr(cdll, name)
         if name == "ssd_bwd" and not scratch:
             argtypes = argtypes[:13] + argtypes[14:]
+        if name in _FLASH and not tile:
+            argtypes = argtypes[:-3] + argtypes[-2:]
         if name == "add_rmsnorm_bwd" and norm_bwd is two_pass_norm_bwd:
             argtypes = _TWO_PASS_NORM
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    build._LIB = cdll if scratch else _NoScratch(cdll)
+    build._LIB = cdll if scratch and tile else _Compat(cdll, scratch, tile)
     fused.add_rmsnorm_bwd = norm_bwd
 
 
@@ -182,7 +207,7 @@ def main(argv=None) -> int:
     for label in args.order.split(","):
         load(libs[label], takes_scratch(trees[label]),
              one_pass_norm_bwd if one_pass_norm(trees[label])
-             else two_pass_norm_bwd)
+             else two_pass_norm_bwd, takes_tile(trees[label]))
         for name, layout, shape_label, dtype, inputs in cases:
             kern, plain, _ = table[name]
             if label not in checked:
