@@ -358,21 +358,31 @@ def ssd_chunk(x, B, chunk=None):
 def sdpa_forward(q, k, v, window):
     """The library yardstick of the flash forward: one causal
     scaled_dot_product_attention call on [B, H, S, D] views, grouped
-    query heads where there are fewer kv heads (timed only; the port
-    never calls it)."""
+    query heads where there are fewer kv heads; with fewer queries than
+    keys the causal mask is aligned to the keys' end
+    (``causal_lower_right``, as the kernels align it).  Timed only; the
+    port never calls it."""
     import torch
     check(window == 0, "the SDPA yardstick is timed without a window")
+    Sq, Sk = q.shape[1], k.shape[1]
+    if Sq == Sk:
+        kw = dict(is_causal=True)
+    else:
+        from torch.nn.attention.bias import causal_lower_right
+        kw = dict(attn_mask=causal_lower_right(Sq, Sk))
     return torch.nn.functional.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, enable_gqa=q.shape[2] != k.shape[2])
+        enable_gqa=q.shape[2] != k.shape[2], **kw)
 
 
 def make_inputs(name, shape, dtype, device, seed, layout="fwd", chunk=None):
     """Inputs for one kernel call.  Norms: shape = (M, d).  GEMM: shape =
     (M, K, N) of the forward x[M,K].W[K,N]; ``layout`` picks the product
     the fused QKV runs: fwd x.W+b, dx g.W^T (W read transposed), dW
-    x^T.g (x read transposed).  Flash: shape = (B, S, H, KV, D, window);
-    the backward kernels get the plain forward's lse and delta.  SSD:
+    x^T.g (x read transposed).  Flash: shape = (B, S, H, KV, D, window)
+    or (B, Sq, H, KV, D, window, Sk), the queries the last Sq of Sk
+    positions; the backward kernels get the plain forward's lse and
+    delta.  SSD:
     shape = (b, S, H, P, N, expanded), dt and A of the Mamba2 block's
     ranges (per-step decays e^(dt.A) of 0.3-1, so the state carries
     across chunks); the backward gets the plain forward's cstates at
@@ -406,8 +416,9 @@ def make_inputs(name, shape, dtype, device, seed, layout="fwd", chunk=None):
         return (x, dt, A, *BC, cstates, randn(b, S, H, P), gstate)
     if name in FLASH:
         from repro_torch.kernels import ref
-        B, S, H, KV, D, window = shape
-        q, k, v = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D)
+        B, S, H, KV, D, window, *rest = shape
+        Sk = rest[0] if rest else S
+        q, k, v = randn(B, S, H, D), randn(B, Sk, KV, D), randn(B, Sk, KV, D)
         if name == "flash_fwd":
             return (q, k, v, window)
         dout = randn(B, S, H, D)
@@ -659,6 +670,86 @@ def check_kernels(device, table, shapes):
     return errors
 
 
+#: phase 3's and 4's flash shapes with fewer queries than keys, the
+#: sequence shards of phase 17a: Sk keys and Sk / 2 queries at offsets
+#: 0 (the first shard: Sq = Sk / 2 keys) and Sk / 2 (the last shard);
+#: (head dim, heads, kv heads): gpt3-medium's and granite-moe's 64, a
+#: GQA 128 (qwen2.5-3b's heads); windows 0 and 256 (the CPU rehearsal:
+#: head dim 64 at Sk 64, window 16)
+OFFSET_SK = {"cuda": 2048, "cpu": 64}
+OFFSET_HEADS = ((64, 16, 8), (128, 16, 2))
+
+
+def offset_shapes(device):
+    """(label, shape, offset) of every phase 3 flash case at Sq < Sk."""
+    on_card = device.type == "cuda"
+    Sk = OFFSET_SK[device.type]
+    Sq = Sk // 2
+    win = 256 if on_card else 16
+    return [(f"d{D}-w{window}-o{off}", (1, Sq, H, KV, D, window, Sq + off),
+             off)
+            for D, H, KV in (OFFSET_HEADS if on_card else OFFSET_HEADS[:1])
+            for window in (0, win) for off in (0, Sk // 2)]
+
+
+def _whole(args, off):
+    """The same call over the whole sequence: ``args`` of a call with the
+    queries the last Sq of Sk positions, its q (and dO, lse, delta)
+    preceded by ``off`` rows (dO zero there, so those queries add
+    nothing to dk and dv)."""
+    import torch
+    q, k, v = args[:3]
+    g = torch.Generator(device="cpu").manual_seed(9)
+    head = (torch.randn((q.shape[0], off, *q.shape[2:]), generator=g)
+            .to(device=q.device, dtype=q.dtype))
+    if len(args) == 4:
+        return (torch.cat([head, q], 1), k, v, args[3])
+    from repro_torch.kernels import ref
+    qf = torch.cat([head, q], 1)
+    gf = torch.cat([torch.zeros_like(head), args[3]], 1)
+    lse = torch.cat([ref.flash_fwd_ref(qf, k, v, window=args[-1])[1]
+                     [..., :off], args[4]], -1).contiguous()
+    delta = torch.cat([torch.zeros_like(lse[..., :off]), args[5]],
+                      -1).contiguous()
+    return (qf, k, v, gf, lse, delta, args[-1])
+
+
+def check_offset_flash(device, table):
+    """Phase 3, the flash kernels with fewer queries than keys
+    (``offset_shapes``): every built tile against its plain version in
+    fp32 and bf16, rerun bitwise; on the card each also bitwise equal to
+    the whole-sequence call's rows (``_whole``: out, lse and dq its last
+    Sq rows, dk and dv all of them), which ties the offset path to the
+    Sq == Sk one."""
+    import torch
+    for label, shape, off in offset_shapes(device):
+        for dtype in (torch.float32, torch.bfloat16):
+            for name in FLASH:
+                plain = table[name][1]
+                args = make_inputs(name, shape, dtype, device, seed=4)
+                for vlabel, kern, _, resolved in variants(name, args, dtype,
+                                                          device):
+                    err, ratio = compare(name, kern, plain, args, dtype)
+                    same = "-"
+                    if device.type == "cuda" and off:
+                        got = _flat(kern(*args))
+                        whole = _flat(kern(*_whole(args, off)))
+                        if name != "flash_bwd_dkdv":
+                            whole = [whole[0][:, off:]] + [
+                                t[..., off:] for t in whole[1:]]
+                        check(all(torch.equal(a, b)
+                                  for a, b in zip(got, whole)),
+                              f"{name} {vlabel} {label} {dtype}: the offset "
+                              f"call differs from the whole sequence's rows")
+                        same = "yes"
+                    print(f"[check] {name:16s} offset {label:14s} "
+                          f"{str(dtype)[6:]:8s} {vlabel:16s} "
+                          f"{'*' if resolved else ' '} Sq={shape[1]} "
+                          f"Sk={shape[-1]} max_abs_err={err:.3e} "
+                          f"err/tol={ratio:.4f} deterministic=yes "
+                          f"bitwise_whole={same}")
+
+
 # ----------------------------------------------------------------------
 # Timing and bounds
 # ----------------------------------------------------------------------
@@ -719,9 +810,12 @@ def device_ms(fn, args, name, iters, tries=3):
     return None, {}
 
 
-def _causal_pairs(S, window):
-    """(q, k) pairs a causal (windowed) attention over S positions keeps."""
-    return sum(min(i + 1, window) if window > 0 else i + 1 for i in range(S))
+def _causal_pairs(S, window, Sk=None):
+    """(q, k) pairs a causal (windowed) attention over S positions keeps;
+    with Sk keys, the S queries are the last S of the Sk positions."""
+    off = (Sk or S) - S
+    return sum(min(i + off + 1, window) if window > 0 else i + off + 1
+               for i in range(S))
 
 
 def _ssd_work(name, shape, s, Q):
@@ -781,13 +875,14 @@ def work(name, shape, dtype, chunk=64):
         M, d = shape
         nbytes, ops = (4 * M * d + d) * s + 4 * d, 12 * M * d
     elif name in FLASH:
-        B, S, H, KV, D, window = shape
-        qn, kvn, rows = B * S * H * D, B * S * KV * D, B * H * S * 4
+        B, S, H, KV, D, window, *rest = shape
+        Sk = rest[0] if rest else S
+        qn, kvn, rows = B * S * H * D, B * Sk * KV * D, B * H * S * 4
         nbytes, products = {
             "flash_fwd": ((2 * qn + 2 * kvn) * s + rows, 2),
             "flash_bwd_dq": ((3 * qn + 2 * kvn) * s + 2 * rows, 3),
             "flash_bwd_dkdv": ((2 * qn + 4 * kvn) * s + 2 * rows, 4)}[name]
-        ops = products * 2 * D * B * H * _causal_pairs(S, window)
+        ops = products * 2 * D * B * H * _causal_pairs(S, window, Sk)
     else:
         M, K, N = shape
         nbytes, ops = (M * K + K * N + M * N + N) * s, 2 * M * N * K
@@ -806,6 +901,38 @@ def sdpa_backward_ms(args, device, iters):
         return torch.autograd.grad(out, leaves, dout.transpose(1, 2))
     return (time_ms(fwd_bwd, (), device, iters)
             - time_ms(sdpa_forward, (*leaves, window), device, iters))
+
+
+def time_offset_flash(device, table, iters):
+    """Phase 4, the flash kernels at phase 17a's shard shapes (gpt3-
+    medium's 16 heads of 64, one sequence, Sq = Sk / 2 against Sk = Sk /
+    2 and Sk) beside the whole sequence of Sk, fp32: kernel, plain,
+    library (SDPA with the mask aligned to the keys' end) and the bound
+    over the causal pairs each computes."""
+    import torch
+    Sk = OFFSET_SK[device.type]
+    for shape in ((1, Sk // 2, 16, 16, 64, 0), (1, Sk // 2, 16, 16, 64, 0, Sk),
+                  (1, Sk, 16, 16, 64, 0)):
+        for name in FLASH:
+            kern, plain, _ = table[name]
+            args = make_inputs(name, shape, torch.float32, device, seed=5)
+            ms = time_ms(kern, args, device, iters)
+            plain_ms = time_ms(plain, args, device, iters)
+            lib_ms = (time_ms(sdpa_forward, args, device, iters)
+                      if name == "flash_fwd" else
+                      sdpa_backward_ms(args, device, iters)
+                      if name == "flash_bwd_dq" else None)
+            bms, by = bound(name, shape, torch.float32)
+            tc = tensor_core_bound(name, shape, torch.float32)
+            Sq, Sk = shape[1], shape[-1] if len(shape) > 6 else shape[1]
+            sdpa = (" (SDPA fwd+bwd - fwd: dq and dk/dv together)"
+                    if name == "flash_bwd_dq" else "")
+            print(f"[time] {name:16s} Sq={Sq} Sk={Sk} fp32: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                  f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}{sdpa}, "
+                  f"bound {bms:.4f} ms ({by}, {_causal_pairs(Sq, 0, Sk)} "
+                  f"causal pairs a head), tensor-core bound {tc:.4f} ms "
+                  f"(3xTF32)")
 
 
 def time_kernels(device, table, shapes, iters):
@@ -2210,6 +2337,265 @@ def run_pipeline(device, batch):
               f"{time.perf_counter() - t_phase:.1f}s")
 
 
+# ----------------------------------------------------------------------
+# Phase 17: sequence parallelism and MoE over batch ranks on the mesh
+# ----------------------------------------------------------------------
+#: phase 17's scenarios over one world of 4 rank processes on a data 2 x
+#: model 2 mesh (FSDP + ZeRO-1), each against a one-program SPMDExecutor
+#: on the same weights and sequences: name -> (arch, layers on the card
+#: (None: all), global batch, model options).  17a: gpt3-medium, 2
+#: sequences (rows over data, the sequence over model: 1024 positions a
+#: rank, flash at Sq 1024 against Sk 1024 / 2048); 17b: granite-moe, 4
+#: sequences (one a rank: the router statistics over 4 batch ranks),
+#: depth cut to 8 of 24 blocks; 17c: mamba2-780m, 2 sequences (the
+#: mixer's input gathered over model, the scan on each rank), depth cut
+#: to 16 of 48 blocks.  The cuts keep the phase's gloo traffic (each
+#: rank's gathered weights, through the host) inside its time; the
+#: sequences are phase 13's first.
+SEQ17 = {
+    "17a": ("gpt3-medium", None, 2, dict(attn_impl="kernel")),
+    "17b": ("granite-moe-1b-a400m", 8, 4, dict(attn_impl="kernel")),
+    "17c": ("mamba2-780m", 16, 2, dict(ssd_impl="kernel")),
+}
+SEQ17_STEPS = 2
+
+
+def seq_model(on_card, name):
+    """(arch, sequence, model) of a phase 17 scenario: phase 13's model
+    options (fp32, the kernels, remat full, the chunked CE) at the
+    scenario's width, its depth on the card (2 blocks and phase 13's CPU
+    sequence in the CPU rehearsal)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import Model
+    arch_name, layers, _, opts = SEQ17[name]
+    arch, seq = get_arch(arch_name), SPMD["seq_len"]
+    if not on_card:
+        arch, seq = reduced(arch, layers=2), SPMD["cpu_seq_len"]
+    elif layers is not None:
+        arch = dataclasses.replace(arch, num_layers=layers)
+    model = Model(arch, dtype=torch.float32, fuse="fused", remat=True,
+                  remat_policy="full", loss_chunk=SPMD["loss_chunk"], **opts)
+    return arch, seq, model
+
+
+def seq_launches(arch, steps):
+    """Each kernel's launches a rank over ``steps`` phase 17 steps under
+    remat full: a block's forward twice a step, its backward once
+    (``spmd_launches``); a Mamba2 block launches one SSD forward and
+    backward, each over the whole sequence on every rank, and no
+    epilogue or flash kernel."""
+    if arch.family == "ssm":
+        return {"ssd_fwd": 2 * arch.num_layers * steps,
+                "ssd_bwd": arch.num_layers * steps,
+                **{k: 0 for k in FUSED + FLASH}}
+    return {**spmd_launches(arch.num_layers, steps), "ssd_fwd": 0,
+            "ssd_bwd": 0}
+
+
+def _seq_batch(gb, batch):
+    """The scenario's global batch: phase 13's first ``gb`` sequences."""
+    return {k: batch[k][:gb] for k in ("tokens", "labels")}
+
+
+def seq_rank(on_card, batch):
+    """Phase 17, one rank's part (run by ``spawn_world``): every scenario
+    in turn on this world's data 2 x model 2 mesh."""
+    import gc
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import ProcessMesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import (ShardingStrategy, SPMDExecutor,
+                                     track_compiles)
+    from repro_torch.runtime.sharding import gather_tree
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    dev = _world_device(on_card)
+    mesh = ProcessMesh(("data", "model"), MESH["shape"])
+    strategy = ShardingStrategy()
+    tr = mesh.transport
+    out = {"rank": mesh.rank, "coords": mesh.coords}
+    for name, (_, _, gb, _) in SEQ17.items():
+        arch, seq, model = seq_model(on_card, name)
+        shape = ShapeConfig(f"phase17-{name}", seq, gb, "train")
+        b = _seq_batch(gb, batch)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        ex = SPMDExecutor(model, params, adamw.AdamWConfig(**SPMD_OPT),
+                          mesh=mesh, strategy=strategy, shape=shape)
+        del params
+        held = sum(t.numel() * t.element_size()
+                   for t in tree_leaves((ex.params, ex.opt_state)))
+        want = dryrun.spec_bytes(arch, shape, mesh, strategy, model=model)
+        bspec = strategy.batch_spec(mesh, gb)
+        shard = strategy.seq_context(mesh, gb).shard(seq)
+        r = {"held": held, "want": want["args"] - want["batch"],
+             "rows_over": bspec[0] if bspec else None,
+             "seq_over": shard.ctx.axis if shard.sliced else None,
+             "rows": gb // mesh.size(bspec[0]) if bspec else gb,
+             "positions": shard.stop - shard.start,
+             "builds_at_bind": ex.cache.stats.compiles}
+        build.reset_launches()
+        losses, secs, moved, tagged = [], [], [], []
+        with track_compiles() as log:
+            for i in range(SEQ17_STEPS):
+                tr.reset()
+                _sync(on_card)
+                t0 = time.perf_counter()
+                stats = ex.step(b)
+                losses.append(float(stats["loss"]))
+                _sync(on_card)
+                secs.append(time.perf_counter() - t0)
+                moved.append(dict(tr.bytes))
+                tagged.append({k: dict(v) for k, v in tr.tagged.items()})
+                if i == 0:
+                    r["aux1"] = float(stats["aux"])
+                    full = gather_tree(ex.pspecs, ex.params, mesh,
+                                       to_root=True)
+                    r["params1"] = (tree_map(lambda t: t.cpu(), full)
+                                    if full is not None else None)
+                    del full
+        r.update(losses=losses, secs=secs, moved=moved, tagged=tagged,
+                 launches=dict(build.LAUNCHES),
+                 builds=ex.cache.stats.compiles + log.backend_compiles,
+                 peak=torch.cuda.max_memory_allocated() if on_card else 0)
+        out[name] = r
+        del ex
+    return out
+
+
+def _seq_reference(device, name, batch):
+    """A scenario's one-program SPMDExecutor on this process's device:
+    (first loss, its aux, the params after it on the host, seconds)."""
+    import gc
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import SPMDExecutor
+    from repro_torch.utils.tree import tree_map
+    on_card = device.type == "cuda"
+    _, seq, model = seq_model(on_card, name)
+    gb = SEQ17[name][2]
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    ex = SPMDExecutor(model, params, adamw.AdamWConfig(**SPMD_OPT),
+                      shape=ShapeConfig(f"phase17-{name}", seq, gb, "train"))
+    del params
+    _sync(on_card)
+    t0 = time.perf_counter()
+    stats = ex.step(_seq_batch(gb, batch))
+    _sync(on_card)
+    secs = time.perf_counter() - t0
+    out = (float(stats["loss"]), float(stats["aux"]),
+           tree_map(lambda t: t.to("cpu", copy=True), ex.params), secs)
+    del ex, stats
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tag_bytes(tagged):
+    """{tag: bytes} of one step's tagged traffic, every kind summed."""
+    return {tag: sum(kinds.values()) for tag, kinds in sorted(tagged.items())}
+
+
+def run_seq(device, batch):
+    """Phase 17: MoE over several batch ranks and sequence parallelism
+    over the batch axes a small batch leaves uncovered, one world of 4
+    fresh rank processes sharing the card (gloo), each scenario held to a
+    one-program SPMDExecutor on the same weights and sequences."""
+    import gc
+    import torch
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.utils.tree import tree_leaves
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    refs = {name: _seq_reference(device, name, batch) for name in SEQ17}
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    ranks_n = MESH["shape"][0] * MESH["shape"][1]
+    poller = _MemoryPeak(on_card)
+    try:
+        ranks = spawn_world("chip_smoke:seq_rank", ranks_n,
+                            {"on_card": on_card, "batch": batch},
+                            device=device, paths=[ROOT], timeout=900)
+    finally:
+        smi = poller.stop()
+    for name in SEQ17:
+        arch, seq, _ = seq_model(on_card, name)
+        loss_ref, aux_ref, p_ref, ref_s = refs[name]
+        r0 = ranks[0][name]
+        losses = r0["losses"]
+        for rank in ranks:
+            r = rank[name]
+            check(r["held"] == r["want"],
+                  f"seq {name} rank {rank['rank']}: state {r['held']} B, the "
+                  f"dry-run's per-card args less the batch {r['want']} B")
+            check(r["losses"] == losses,
+                  f"seq {name} rank {rank['rank']} losses {r['losses']} vs "
+                  f"rank 0's {losses}")
+            check(r["builds_at_bind"] == 1 and r["builds"] == 1,
+                  f"seq {name} rank {rank['rank']}: {r['builds_at_bind']} "
+                  f"programs at bind, {r['builds']} after")
+            if on_card:
+                want_l = seq_launches(arch, SEQ17_STEPS)
+                got = {k: r["launches"][k] for k in want_l}
+                check(got == want_l, f"seq {name} rank {rank['rank']} "
+                      f"launches {got}, expected {want_l}")
+        check(all(math.isfinite(x) for x in losses),
+              f"seq {name} losses {losses}")
+        tol = EXECUTOR_TOL["atol"] + EXECUTOR_TOL["rtol"] * abs(loss_ref)
+        check(abs(losses[0] - loss_ref) <= tol,
+              f"seq {name} first loss {losses[0]!r} vs one program's "
+              f"{loss_ref!r}")
+        atol = EXECUTOR_TOL["atol"] + EXECUTOR_TOL["rtol"] * abs(aux_ref)
+        check(abs(r0["aux1"] - aux_ref) <= atol,
+              f"seq {name} first aux {r0['aux1']!r} vs one program's "
+              f"{aux_ref!r}")
+        worst, frac, ok = _params_track(tree_leaves(r0["params1"]),
+                                        tree_leaves(p_ref), SPMD_OPT["lr"])
+        check(ok, f"seq {name} params after step 1 vs one program's: max "
+              f"{worst}, fraction above lr/10 {frac}")
+        print(f"[seq] {name} {arch.name} ({arch.num_layers} blocks, S "
+              f"{seq}, global batch {SEQ17[name][2]}): rows over "
+              f"{r0['rows_over']}, the sequence over {r0['seq_over']}: "
+              f"{r0['rows']} rows of {r0['positions']} positions a rank; "
+              f"first "
+              f"loss {losses[0]!r} vs one program's {loss_ref!r} "
+              f"({ref_s:.4f}s), aux {r0['aux1']!r} vs {aux_ref!r}; params "
+              f"after step 1 track it (max |diff| {worst:.3g}, fraction "
+              f"above lr/10 {frac:.3g})")
+        slowest = [round(max(rk[name]["secs"][i] for rk in ranks), 4)
+                   for i in range(SEQ17_STEPS)]
+        print(f"[seq] {name} step seconds {[round(t, 4) for t in r0['secs']]}"
+              f" (rank 0; slowest rank {slowest}), "
+              f"losses {[round(x, 4) for x in losses]} bitwise on every "
+              f"rank, programs 1, builds after bind 0; state "
+              f"{r0['held']} B a rank = the dry-run's per-card args less "
+              f"the batch")
+        print(f"[seq] {name} bytes a step on rank 0 {r0['moved'][-1]}; of "
+              f"them by what they carry (gathered + reduced + scattered) "
+              f"{_tag_bytes(r0['tagged'][-1])}")
+        print(f"[seq] {name} launches a rank {r0['launches']}")
+        if on_card:
+            print(f"[seq] {name} peak max_memory_allocated a rank "
+                  f"{[round(rk[name]['peak'] / 2**30, 2) for rk in ranks]} "
+                  f"GiB")
+    if on_card:
+        print(f"[seq] nvidia-smi memory.used peak {smi} MiB (4 ranks and "
+              f"this process); phase {time.perf_counter() - t_phase:.1f}s")
+    else:
+        print(f"[seq] peak memory: not measured (cpu rehearsal); phase "
+              f"{time.perf_counter() - t_phase:.1f}s")
+
+
 def _rounded(d):
     return {k: round(v, 2) for k, v in d.items()}
 
@@ -2366,7 +2752,9 @@ def _run(device):
 
     table = kernel_table(device)
     errors = check_kernels(device, table, shapes)
+    check_offset_flash(device, table)
     timing = time_kernels(device, table, shapes, iters)
+    time_offset_flash(device, table, iters)
     check_small_model(device)
     run_path(device, 6, FUSED)
     launches = run_path(device, 7, FUSED + FLASH)
@@ -2381,6 +2769,7 @@ def _run(device):
     run_mesh(device, p13)
     run_pipeline(device, p13["batch"])
     run_autotune(device)
+    run_seq(device, p13["batch"])
     configs = kernel_configs(device, shapes)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

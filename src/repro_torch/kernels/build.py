@@ -49,9 +49,10 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# flash launchers: B, S, H, KV, D, window, scale, then (batch, seq, head)
-# strides of q, k and v (and dO); the tile, the dtype code and the stream
-_FLASH_SHAPE = (_int,) * 6 + (_float,) + (_int,) * 9
+# flash launchers: B, Sq, Sk, H, KV, D, window, scale, then (batch, seq,
+# head) strides of q, k and v (and dO); the tile, the dtype code and the
+# stream
+_FLASH_SHAPE = (_int,) * 7 + (_float,) + (_int,) * 9
 #: extern "C" launchers of csrc/*.cu and their argument types
 SIGNATURES = {
     "add_rmsnorm_fwd": (_vp, _vp, _vp, _vp, _vp, _int, _int, _float, _int, _vp),

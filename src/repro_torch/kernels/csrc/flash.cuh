@@ -2,12 +2,17 @@
 // backward, and one fused dk/dv backward.
 //
 // Layouts are the JAX package's public ones: q, o, g (= dO) and dq are
-// [B, S, H, D]; k, v, dk and dv are [B, S, KV, D]; lse and delta are
-// [B, H, S] fp32.  q, k, v and g are read in place through their
-// (batch, seq, head) strides, with the head dim dense: no transpose or
-// pad copies.  Query head h reads kv head h / G, G = H / KV.  Outputs are
-// written contiguous.  Scores are scaled by 1/sqrt(D) and every product
-// is accumulated in fp32.
+// [B, Sq, H, D]; k, v, dk and dv are [B, Sk, KV, D]; lse and delta are
+// [B, H, Sq] fp32.  Sq <= Sk: the queries are the last Sq of the Sk
+// positions, query row i at key position i + Sk - Sq (a sequence shard's
+// queries against the keys up to the shard's end; Sq == Sk is the whole
+// sequence).  Every mask and block bound is taken in key positions, so
+// at Sq == Sk the arithmetic is that of the plain causal kernels.  q,
+// k, v and g are read in place through their (batch, seq, head)
+// strides, with the head dim dense: no transpose or pad copies.  Query
+// head h reads kv head h / G, G = H / KV.  Outputs are written
+// contiguous.  Scores are scaled by 1/sqrt(D) and every product is
+// accumulated in fp32.
 //
 // Bound on the H100: operations.  At the flash path's shape (B 2, S
 // 2048, H 16, D 64) a 64x64 score tile costs 2*64*64*64 flops per
@@ -90,7 +95,7 @@ struct FlashArgs {
   void* dq;
   void* dk;
   void* dv;
-  int B, S, H, KV, window;
+  int B, Sq, Sk, H, KV, window;
   float scale;
   Strides qs, ks, vs, gs;
   bool vec;                     // rows 16-byte aligned (cp.async 16)
@@ -126,10 +131,12 @@ namespace {
 
 using namespace flash_impl;
 
-// (q position, k position) takes part: causal, inside the sequence, and
-// inside the sliding window when window > 0.
-__device__ __forceinline__ bool visible(int qpos, int kpos, int S, int window) {
-  return kpos <= qpos && qpos < S && (window <= 0 || kpos > qpos - window);
+// (q position, k position), both key positions, takes part: causal,
+// inside the sequence of Sk keys (the query row is below Sq), and inside
+// the sliding window when window > 0.
+__device__ __forceinline__ bool visible(int qpos, int kpos, int Sk,
+                                        int window) {
+  return kpos <= qpos && qpos < Sk && (window <= 0 || kpos > qpos - window);
 }
 
 // Max / sum over the 4 lanes that hold one row of a C fragment (lanes
@@ -344,7 +351,7 @@ __device__ __forceinline__ void rows_acc(const float x[8][4],
 // rows, head, batch), warp w owning q rows [16 (w % R), 16 (w % R) + 16)
 // of the tile, R = BQ / 16, and output columns [C (w / R), C (w / R) + C)
 // (WarpGeom), over the kv blocks of 64, [lo, hi) of the reference's
-// _kv_bounds, in order.
+// _kv_bounds taken at the block's key positions, in order.
 // The q-side tiles (Q, and dO in dq) are fetched once and stay in shared
 // memory (their split fragments would not fit in registers beside the
 // fp32 output); K and V go through a 2-stage cp.async ring, the next kv
@@ -363,7 +370,9 @@ __device__ __forceinline__ void rows_acc(const float x[8][4],
 template <int BQ>
 struct QWalk {
   static constexpr int BK = TW;
-  int h, b, kvh, rows, col0, g, t, S, q0, qr, lo, hi;
+  // q0: the block's first query row; qr: the warp's first query row as a
+  // key position (row + Sk - Sq), the position every mask test takes
+  int h, b, kvh, rows, col0, g, t, Sq, Sk, q0, qr, lo, hi;
 
   __device__ QWalk(const FlashArgs& a, int cols) {
     constexpr int R = BQ / 16;                    // warps of rows
@@ -376,23 +385,28 @@ struct QWalk {
     col0 = cols * (warp / R);                     // and its first output column
     g = lane >> 2;
     t = lane & 3;
-    S = a.S;
+    Sq = a.Sq;
+    Sk = a.Sk;
     q0 = iq * BQ;
-    qr = q0 + rows;                               // the warp's first q row
-    lo = a.window > 0 ? max((q0 - a.window + 1) / BK, 0) : 0;
-    hi = min((q0 + BQ - 1) / BK + 1, (S + BK - 1) / BK);
+    const int p0 = q0 + Sk - Sq;                  // the block's first q pos.
+    qr = p0 + rows;                               // the warp's first q pos.
+    lo = a.window > 0 ? max((p0 - a.window + 1) / BK, 0) : 0;
+    hi = min((p0 + BQ - 1) / BK + 1, (Sk + BK - 1) / BK);
   }
   // Of the warp's rows [qr, qr + 16) against kv [k0, k0 + 64): no pair
   // visible, or every pair visible.
   __device__ bool none(int k0, int window) const {
-    return qr >= S || qr + 15 < k0 ||
+    return qr >= Sk || qr + 15 < k0 ||
            (window > 0 && qr - (k0 + BK - 1) >= window);
   }
   __device__ bool all(int k0, int window) const {
-    return k0 + BK - 1 <= qr && qr + 15 < S &&
+    return k0 + BK - 1 <= qr && qr + 15 < Sk &&
            (window <= 0 || qr + 15 - k0 < window);
   }
-  // (q, k) of C-fragment element e of column tile j, at kv block k0
+  // The query row of key position qpos
+  __device__ int row(int qpos) const { return qpos - (Sk - Sq); }
+  // (q, k) positions of C-fragment element e of column tile j, at kv
+  // block k0
   __device__ int qpos(int e) const { return qr + g + 8 * (e >> 1); }
   __device__ int kpos(int k0, int j, int e) const {
     return k0 + 8 * j + 2 * t + (e & 1);
@@ -428,12 +442,12 @@ flash_fwd_kernel(const FlashArgs a) {
   const T* v = static_cast<const T*>(a.v) + w.b * a.vs.b + w.kvh * a.vs.h;
   fetch_rows<T, D, NT, BQ>(Qs, static_cast<const T*>(a.q) + w.b * a.qs.b +
                                    w.h * a.qs.h,
-                           a.qs.s, w.q0, w.S, a.vec);
+                           a.qs.s, w.q0, w.Sq, a.vec);
   // kv block ik into ring buffer (ik - lo) & 1
   auto fetch = [&](int ik) {
     const int buf = (ik - w.lo) & 1;
-    fetch_rows<T, D, NT, BK>(Ks + buf * TILE, k, a.ks.s, ik * BK, w.S, a.vec);
-    fetch_rows<T, D, NT, BK>(Vs + buf * TILE, v, a.vs.s, ik * BK, w.S, a.vec);
+    fetch_rows<T, D, NT, BK>(Ks + buf * TILE, k, a.ks.s, ik * BK, w.Sk, a.vec);
+    fetch_rows<T, D, NT, BK>(Vs + buf * TILE, v, a.vs.s, ik * BK, w.Sk, a.vec);
   };
   fetch(w.lo);
   cp_async_commit();
@@ -464,7 +478,7 @@ flash_fwd_kernel(const FlashArgs a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool ok =
-            all || visible(w.qpos(e), w.kpos(k0, j, e), w.S, a.window);
+            all || visible(w.qpos(e), w.kpos(k0, j, e), w.Sk, a.window);
         s[j][e] = ok ? s[j][e] * a.scale : NEG_INF;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
       }
@@ -476,7 +490,7 @@ flash_fwd_kernel(const FlashArgs a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool ok =
-            all || visible(w.qpos(e), w.kpos(k0, j, e), w.S, a.window);
+            all || visible(w.qpos(e), w.kpos(k0, j, e), w.Sk, a.window);
         s[j][e] = ok ? expf(s[j][e] - mx[e >> 1]) : 0.f;       // p
         sum[e >> 1] += s[j][e];
       }
@@ -499,16 +513,17 @@ flash_fwd_kernel(const FlashArgs a) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qpos = w.qpos(2 * r);
-    if (qpos >= w.S) continue;
+    if (qpos >= w.Sk) continue;
+    const int qi = w.row(qpos);
     const float li = fmaxf(l[r], 1e-20f);
-    T* row = out + (((long long)w.b * w.S + qpos) * a.H + w.h) * D + w.col0;
+    T* row = out + (((long long)w.b * w.Sq + qi) * a.H + w.h) * D + w.col0;
 #pragma unroll
     for (int n = 0; n < C / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e)
         row[8 * n + 2 * w.t + e] = from_f<T>(o[n][2 * r + e] / li);
     if (w.t == 0 && w.col0 == 0)
-      a.lse[((long long)w.b * a.H + w.h) * w.S + qpos] = m[r] + logf(li);
+      a.lse[((long long)w.b * a.H + w.h) * w.Sq + qi] = m[r] + logf(li);
   }
 }
 
@@ -540,25 +555,25 @@ flash_bwd_dq_kernel(const FlashArgs a) {
   const T* v = static_cast<const T*>(a.v) + w.b * a.vs.b + w.kvh * a.vs.h;
   fetch_rows<T, D, NT, BQ>(Qs, static_cast<const T*>(a.q) + w.b * a.qs.b +
                                    w.h * a.qs.h,
-                           a.qs.s, w.q0, w.S, a.vec);
+                           a.qs.s, w.q0, w.Sq, a.vec);
   fetch_rows<T, D, NT, BQ>(Gs, static_cast<const T*>(a.g) + w.b * a.gs.b +
                                    w.h * a.gs.h,
-                           a.gs.s, w.q0, w.S, a.vec);
+                           a.gs.s, w.q0, w.Sq, a.vec);
   auto fetch = [&](int ik) {
     const int buf = (ik - w.lo) & 1;
-    fetch_rows<T, D, NT, BK>(Ks + buf * TILE, k, a.ks.s, ik * BK, w.S, a.vec);
-    fetch_rows<T, D, NT, BK>(Vs + buf * TILE, v, a.vs.s, ik * BK, w.S, a.vec);
+    fetch_rows<T, D, NT, BK>(Ks + buf * TILE, k, a.ks.s, ik * BK, w.Sk, a.vec);
+    fetch_rows<T, D, NT, BK>(Vs + buf * TILE, v, a.vs.s, ik * BK, w.Sk, a.vec);
   };
   fetch(w.lo);
   cp_async_commit();
 
-  const long long row_base = ((long long)w.b * a.H + w.h) * w.S;
+  const long long row_base = ((long long)w.b * a.H + w.h) * w.Sq;
   float lse[2], delta[2], dq[C / 8][4];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qpos = w.qpos(2 * r);
-    lse[r] = qpos < w.S ? a.lse_in[row_base + qpos] : 0.f;
-    delta[r] = qpos < w.S ? a.delta[row_base + qpos] : 0.f;
+    lse[r] = qpos < w.Sk ? a.lse_in[row_base + w.row(qpos)] : 0.f;
+    delta[r] = qpos < w.Sk ? a.delta[row_base + w.row(qpos)] : 0.f;
   }
 #pragma unroll
   for (int n = 0; n < C / 8; ++n)
@@ -586,7 +601,7 @@ flash_bwd_dq_kernel(const FlashArgs a) {
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
         const bool ok =
-            all || visible(w.qpos(e), w.kpos(k0, j, e), w.S, a.window);
+            all || visible(w.qpos(e), w.kpos(k0, j, e), w.Sk, a.window);
         const float p = ok ? expf(s[j][e] * a.scale - lse[r]) : 0.f;
         s[j][e] = p * (dp[j][e] - delta[r]) * a.scale;              // ds
       }
@@ -598,8 +613,9 @@ flash_bwd_dq_kernel(const FlashArgs a) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qpos = w.qpos(2 * r);
-    if (qpos >= w.S) continue;
-    T* row = out + (((long long)w.b * w.S + qpos) * a.H + w.h) * D + w.col0;
+    if (qpos >= w.Sk) continue;
+    T* row = out + (((long long)w.b * w.Sq + w.row(qpos)) * a.H + w.h) * D +
+             w.col0;
 #pragma unroll
     for (int n = 0; n < C / 8; ++n)
 #pragma unroll
@@ -614,7 +630,11 @@ flash_bwd_dq_kernel(const FlashArgs a) {
 // ::_flash_bwd_dv_kernel, which share p and ds.
 // Grid (KV head, batch, kv block).  The block loops, in a fixed order,
 // over the G query heads of its kv head and, for each, over the q blocks
-// of the reference's _q_bounds; it accumulates dk = sum ds^T.q and
+// of the reference's _q_bounds taken at key positions (the first q block
+// holding the query at the block's first key, and under a window the
+// last one a key of the block is inside the window of; with Sq < Sk a kv
+// block that no query sees has none, and writes zeros); it accumulates
+// dk = sum ds^T.q and
 // dv = sum p^T.dO in fp32 registers and writes both once, at kv-head
 // resolution: no [B, H, S, D] per-query-head buffers, no reshape-sum, no
 // atomics (one writer per output element).
@@ -667,22 +687,25 @@ flash_bwd_dkdv_kernel(const FlashArgs a) {
   const int G = a.H / a.KV;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int S = a.S, k0 = ik * BK;
+  const int Sq = a.Sq, Sk = a.Sk, off = Sk - Sq, k0 = ik * BK;
   // the warp's share: kv rows [kr, kr + 16) of the tile, columns
   // [col0, col0 + C) of dk and dv
   const int kr = (warp % R) * 16;
   const int col0 = (warp / R) * C;
-  const int nq = (S + BQ - 1) / BQ;
-  const int qlo = k0 / BQ;
-  const int qhi = a.window > 0 ? min((k0 + BK + a.window - 2) / BQ + 1, nq) : nq;
-  const int nqb = qhi - qlo, items = G * nqb;   // (query head, q block) pairs
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int qlo = max(k0 - off, 0) / BQ;
+  // under a window, the query row of the last position that sees the block
+  const int last = k0 + BK + a.window - 2 - off;
+  const int qhi = a.window > 0 ? (last < 0 ? 0 : min(last / BQ + 1, nq)) : nq;
+  // (query head, q block) pairs
+  const int nqb = max(qhi - qlo, 0), items = G * nqb;
 
   fetch_rows<T, D, NT, BK>(Ks, static_cast<const T*>(a.k) + b * a.ks.b +
                                    kvh * a.ks.h,
-                           a.ks.s, k0, S, a.vec);
+                           a.ks.s, k0, Sk, a.vec);
   fetch_rows<T, D, NT, BK>(Vs, static_cast<const T*>(a.v) + b * a.vs.b +
                                    kvh * a.vs.h,
-                           a.vs.s, k0, S, a.vec);
+                           a.vs.s, k0, Sk, a.vec);
   // Item it = (query head kvh*G + it / nqb, q block qlo + it % nqb) into
   // ring buffer it & 1.
   auto fetch = [&](int it) {
@@ -690,19 +713,19 @@ flash_bwd_dkdv_kernel(const FlashArgs a) {
     const int buf = it & 1;
     fetch_rows<T, D, NT, BQ>(Qs + buf * QT,
                              static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h,
-                             a.qs.s, q0, S, a.vec);
+                             a.qs.s, q0, Sq, a.vec);
     fetch_rows<T, D, NT, BQ>(Gs + buf * QT,
                              static_cast<const T*>(a.g) + b * a.gs.b + h * a.gs.h,
-                             a.gs.s, q0, S, a.vec);
+                             a.gs.s, q0, Sq, a.vec);
     if (threadIdx.x < 2 * BQ) {
-      const int c = threadIdx.x & (BQ - 1), qpos = q0 + c;
+      const int c = threadIdx.x & (BQ - 1), qi = q0 + c;
       const float* row = (threadIdx.x < BQ ? a.lse_in : a.delta) +
-                         ((long long)b * a.H + h) * S;
+                         ((long long)b * a.H + h) * Sq;
       float* dst = (threadIdx.x < BQ ? lse_s : dlt_s) + buf * BQ + c;
-      cp_async4(dst, qpos < S ? row + qpos : row, qpos < S ? 4 : 0);
+      cp_async4(dst, qi < Sq ? row + qi : row, qi < Sq ? 4 : 0);
     }
   };
-  fetch(0);
+  if (items > 0) fetch(0);
   cp_async_commit();
 
   float dk[NC][4], dv[NC][4];
@@ -721,13 +744,14 @@ flash_bwd_dkdv_kernel(const FlashArgs a) {
     const T* gs = Gs + buf * QT;
     const float* lse = lse_s + buf * BQ;
     const float* delta = dlt_s + buf * BQ;
-    // The warp's kv rows [kmin, kmin + 16) against q columns [q0, q0 + 64):
-    // skip the pair where no (q, k) is visible, test each element only
-    // where some are not.
-    const int kmin = k0 + kr, qmax = q0 + BQ - 1;
-    const bool none = qmax < kmin || (a.window > 0 && q0 - (kmin + 15) >= a.window);
-    const bool all = q0 >= kmin + 15 && qmax < S &&
-                     (a.window <= 0 || qmax - kmin < a.window);
+    // The warp's kv rows [kmin, kmin + 16) against q columns at key
+    // positions [p0, p0 + 64): skip the pair where no (q, k) is visible,
+    // test each element only where some are not.
+    const int kmin = k0 + kr, p0 = q0 + off, pmax = p0 + BQ - 1;
+    const bool none =
+        pmax < kmin || (a.window > 0 && p0 - (kmin + 15) >= a.window);
+    const bool all = p0 >= kmin + 15 && pmax < Sk &&
+                     (a.window <= 0 || pmax - kmin < a.window);
     if (!none) {
       // rows of the transposed score tile: kv rows, q columns
       float s[8][4], dp[8][4];
@@ -743,7 +767,7 @@ flash_bwd_dkdv_kernel(const FlashArgs a) {
         for (int e = 0; e < 4; ++e) {
           const int c = 8 * j + 2 * t + (e & 1);
           const bool ok =
-              all || visible(q0 + c, kmin + g + 8 * (e >> 1), S, a.window);
+              all || visible(p0 + c, kmin + g + 8 * (e >> 1), Sk, a.window);
           s[j][e] = ok ? expf(s[j][e] * a.scale - lse[c]) : 0.f;   // p
         }
       rows_acc<C, P>(s, gs + col0, dv, g, t);
@@ -764,15 +788,15 @@ flash_bwd_dkdv_kernel(const FlashArgs a) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int kpos = k0 + kr + g + 8 * h;
-    if (kpos >= S) continue;
-    const long long off = (((long long)b * S + kpos) * a.KV + kvh) * D;
+    if (kpos >= Sk) continue;
+    const long long at = (((long long)b * Sk + kpos) * a.KV + kvh) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = col0 + c * 8 + 2 * t + e;
-        dkp[off + col] = from_f<T>(dk[c][2 * h + e]);
-        dvp[off + col] = from_f<T>(dv[c][2 * h + e]);
+        dkp[at + col] = from_f<T>(dk[c][2 * h + e]);
+        dvp[at + col] = from_f<T>(dv[c][2 * h + e]);
       }
   }
 }
@@ -794,7 +818,8 @@ int launch(Kernel kernel, dim3 grid, int threads, int smem,
 // compiles its own kernel only.
 template <Kind K, typename T, int D, int ROWS>
 int launch_kind(const FlashArgs& a, cudaStream_t stream) {
-  const int nb = (a.S + ROWS - 1) / ROWS;       // blocks of the tile's rows
+  // blocks of the tile's rows: over the queries, or the keys for dk/dv
+  const int nb = ((K == kDkdv ? a.Sk : a.Sq) + ROWS - 1) / ROWS;
   constexpr int threads = WarpGeom<T, D, ROWS>::threads;
   if constexpr (K == kFwd) {    // Q, two K and two V buffers
     constexpr int smem = TileGeom<T, D>::bytes(ROWS + 4 * TW);

@@ -12,8 +12,11 @@ kernels of ``csrc/flash.cuh`` (entry points in ``csrc/flash.cu``;
     one plain PyTorch reduction (``ref.flash_delta``), as the JAX
     package computes it in plain jnp outside its kernels.
 
-q and out are [B, S, H, D]; k and v [B, S, KV, D]; lse and delta
-[B, H, S] fp32.  q, k, v and dO are read through their strides (the
+q and out are [B, Sq, H, D]; k and v [B, Sk, KV, D] with Sq <= Sk,
+the queries the last Sq of the Sk positions (a sequence shard's queries
+against the keys up to the shard's end: causal means k <= q + Sk - Sq);
+lse and delta [B, H, Sq] fp32; dk and dv [B, Sk, KV, D], zero on the
+rows no query sees.  q, k, v and dO are read through their strides (the
 head dim must be dense); outputs are new contiguous tensors.  Every
 wrapper takes CUDA tensors only and raises on anything else, including
 a head dim or tile the kernels are not built for; the CPU path never
@@ -73,15 +76,15 @@ def _strides(t: torch.Tensor) -> Tuple[int, int, int]:
 
 def _check(name: str, q, k, v, *more, window: int) -> Tuple:
     """Validate the attention operands (``more``: tensors shaped like q);
-    return (code, B, S, H, KV, D)."""
+    return (code, B, Sq, Sk, H, KV, D)."""
     code = check_tensors(name, q, k, v, *more)
     if q.dim() != 4 or k.dim() != 4:
-        raise ValueError(f"{name}: q [B,S,H,D] and k/v [B,S,KV,D] expected, "
-                         f"got {tuple(q.shape)} {tuple(k.shape)}")
-    B, S, H, D = q.shape
-    KV = k.shape[2]
-    if (k.shape != (B, S, KV, D) or v.shape != k.shape or KV == 0
-            or H % KV != 0 or S == 0
+        raise ValueError(f"{name}: q [B,Sq,H,D] and k/v [B,Sk,KV,D] "
+                         f"expected, got {tuple(q.shape)} {tuple(k.shape)}")
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if (k.shape != (B, Sk, KV, D) or v.shape != k.shape or KV == 0
+            or H % KV != 0 or Sq == 0 or Sk < Sq
             or any(t.shape != q.shape for t in more)):
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)} "
@@ -94,7 +97,7 @@ def _check(name: str, q, k, v, *more, window: int) -> Tuple:
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the head dim must be dense "
                              f"(strides {t.stride()})")
-    return code, B, S, H, KV, D
+    return code, B, Sq, Sk, H, KV, D
 
 
 def _check_rows(name: str, lse: torch.Tensor, delta: torch.Tensor,
@@ -103,14 +106,14 @@ def _check_rows(name: str, lse: torch.Tensor, delta: torch.Tensor,
         if (t.shape != (B, H, S) or t.dtype != torch.float32
                 or t.device != lse.device or not t.is_contiguous()):
             raise ValueError(f"{name}: lse and delta must be contiguous "
-                             f"[B,H,S] fp32 on the card, got "
+                             f"[B,H,Sq] fp32 on the card, got "
                              f"{tuple(t.shape)} {t.dtype} {t.device}")
 
 
 def resolve_tiles(q: torch.Tensor, block_q: Optional[int] = None,
                   block_k: Optional[int] = None) -> Tuple[int, int]:
-    """(block_q, block_k) for attention over q [B, S, H, D]: the given
-    ones, the autotuner's for the rest."""
+    """(block_q, block_k) for attention over q [B, Sq, H, D]: the given
+    ones, the autotuner's for the rest (keyed by the queries' Sq)."""
     if block_q is None or block_k is None:
         cfg = autotune.flash_config(autotune.backend_of(q.device), q.dtype,
                                     q.shape[1], q.shape[-1])
@@ -129,14 +132,14 @@ def check_tile(name: str, kernel: str, D: int, dtype: torch.dtype,
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               window: int = 0, block_q: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (out [B,S,H,D] in q's dtype, lse [B,H,S] fp32)."""
-    code, B, S, H, KV, D = _check("flash_fwd", q, k, v, window=window)
+    """Returns (out [B,Sq,H,D] in q's dtype, lse [B,H,Sq] fp32)."""
+    code, B, Sq, Sk, H, KV, D = _check("flash_fwd", q, k, v, window=window)
     block_q = resolve_tiles(q, block_q, 0)[0]
     check_tile("flash_fwd", "fwd", D, q.dtype, block_q)
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-           out.data_ptr(), lse.data_ptr(), B, S, H, KV, D, window,
+           out.data_ptr(), lse.data_ptr(), B, Sq, Sk, H, KV, D, window,
            1.0 / math.sqrt(D), *_strides(q), *_strides(k), *_strides(v),
            block_q, code, current_stream(q))
     return out, lse
@@ -146,15 +149,16 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                  window: int = 0, block_q: Optional[int] = None
                  ) -> torch.Tensor:
-    """dq [B,S,H,D] from dO = g, the forward's lse and delta."""
-    code, B, S, H, KV, D = _check("flash_bwd_dq", q, k, v, g, window=window)
-    _check_rows("flash_bwd_dq", lse, delta, B, H, S)
+    """dq [B,Sq,H,D] from dO = g, the forward's lse and delta."""
+    code, B, Sq, Sk, H, KV, D = _check("flash_bwd_dq", q, k, v, g,
+                                       window=window)
+    _check_rows("flash_bwd_dq", lse, delta, B, H, Sq)
     block_q = resolve_tiles(q, block_q, 0)[0]
     check_tile("flash_bwd_dq", "dq", D, q.dtype, block_q)
-    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     launch("flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-           B, S, H, KV, D, window, 1.0 / math.sqrt(D), *_strides(q),
+           B, Sq, Sk, H, KV, D, window, 1.0 / math.sqrt(D), *_strides(q),
            *_strides(k), *_strides(v), *_strides(g), block_q, code,
            current_stream(q))
     return dq
@@ -164,18 +168,17 @@ def flash_bwd_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                    window: int = 0, block_k: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv), each [B,S,KV,D], summed over the group in fp32."""
-    code, B, S, H, KV, D = _check("flash_bwd_dkdv", q, k, v, g,
-                                  window=window)
-    _check_rows("flash_bwd_dkdv", lse, delta, B, H, S)
+    """(dk, dv), each [B,Sk,KV,D], summed over the group in fp32."""
+    code, B, Sq, Sk, H, KV, D = _check("flash_bwd_dkdv", q, k, v, g,
+                                       window=window)
+    _check_rows("flash_bwd_dkdv", lse, delta, B, H, Sq)
     block_k = resolve_tiles(q, 0, block_k)[1]
     check_tile("flash_bwd_dkdv", "dkdv", D, q.dtype, block_k)
-    dk = torch.empty((B, S, KV, D), dtype=k.dtype, device=k.device)
-    dv = torch.empty((B, S, KV, D), dtype=v.dtype, device=v.device)
+    dk = torch.empty((B, Sk, KV, D), dtype=k.dtype, device=k.device)
+    dv = torch.empty((B, Sk, KV, D), dtype=v.dtype, device=v.device)
     launch("flash_bwd_dkdv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-           dv.data_ptr(), B, S, H, KV, D, window, 1.0 / math.sqrt(D),
+           dv.data_ptr(), B, Sq, Sk, H, KV, D, window, 1.0 / math.sqrt(D),
            *_strides(q), *_strides(k), *_strides(v), *_strides(g), block_k,
            code, current_stream(q))
     return dk, dv
-

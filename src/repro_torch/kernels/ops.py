@@ -127,12 +127,18 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     window: int = 0, block_q: Optional[int] = None,
                     block_k: Optional[int] = None) -> torch.Tensor:
-    """Causal GQA attention with the flash backward.  q: [B, S, H, D];
-    k/v: [B, S, KV, D]; ``window > 0`` adds a sliding window.  Returns
-    [B, S, H, D] in q's dtype.  ``block_q`` / ``block_k`` default to the
-    autotuner's choice for (backend, dtype, S bucket, D), one resolution
-    that the forward and the backward share."""
+    """Causal GQA attention with the flash backward.  q: [B, Sq, H, D];
+    k/v: [B, Sk, KV, D] with Sq <= Sk, the queries the last Sq of the Sk
+    positions (query i sees keys <= i + Sk - Sq: a sequence shard's
+    queries against the keys up to its end); ``window > 0`` adds a
+    sliding window.  Returns [B, Sq, H, D] in q's dtype.  ``block_q`` /
+    ``block_k`` default to the autotuner's choice for (backend, dtype, Sq
+    bucket, D), one resolution that the forward and the backward
+    share."""
     _route("flash_attention", q)
+    if k.shape[1] < q.shape[1]:
+        raise ValueError(f"flash_attention: {q.shape[1]} queries against "
+                         f"{k.shape[1]} keys; Sq <= Sk")
     block_q, block_k = _flash.resolve_tiles(q, block_q, block_k)
     return FlashAttention.apply(q, k, v, int(window), block_q, block_k)
 

@@ -75,32 +75,30 @@ def qkv_ref(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   window: int = 0) -> torch.Tensor:
-    """Causal GQA attention.  q: [B,S,H,D]; k/v: [B,S,KV,D]."""
-    B, S, H, D = q.shape
-    KV = k.shape[2]
+    """Causal GQA attention.  q: [B,Sq,H,D]; k/v: [B,Sk,KV,D], Sq <= Sk,
+    the queries the last Sq of the Sk positions."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
-    qg = q.reshape(B, S, KV, G, D).float()
+    qg = q.reshape(B, Sq, KV, G, D).float()
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(D)
-    qpos = torch.arange(S, device=q.device)[:, None]
-    kpos = torch.arange(S, device=q.device)[None, :]
-    mask = kpos <= qpos
-    if window > 0:
-        mask &= kpos > qpos - window
+    mask = _visible(Sq, Sk, window, q.device)
     scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
-    return out.reshape(B, S, H, D).to(q.dtype)
+    return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
 #: the flash kernels' mask value (``repro/kernels/flash_attention.py``)
 NEG_INF = -1e30
 
 
-def _visible(S: int, window: int, device) -> torch.Tensor:
-    """[S, S] mask of the (q, k) pairs that take part: causal, and inside
-    the sliding window when window > 0."""
-    qpos = torch.arange(S, device=device)[:, None]
-    kpos = torch.arange(S, device=device)[None, :]
+def _visible(Sq: int, Sk: int, window: int, device) -> torch.Tensor:
+    """[Sq, Sk] mask of the (q, k) pairs that take part, the queries the
+    last Sq of the Sk positions: causal, and inside the sliding window
+    when window > 0."""
+    qpos = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=device)[None, :]
     mask = kpos <= qpos
     if window > 0:
         mask &= kpos > qpos - window
@@ -108,28 +106,30 @@ def _visible(S: int, window: int, device) -> torch.Tensor:
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """fp32 scaled scores [B, KV, G, Sq, Sk] of q [B,S,H,D] against
-    k [B,S,KV,D]."""
-    B, S, H, D = q.shape
+    """fp32 scaled scores [B, KV, G, Sq, Sk] of q [B,Sq,H,D] against
+    k [B,Sk,KV,D]."""
+    B, Sq, H, D = q.shape
     KV = k.shape[2]
-    qg = q.float().reshape(B, S, KV, H // KV, D)
+    qg = q.float().reshape(B, Sq, KV, H // KV, D)
     return torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * (1.0 / math.sqrt(D))
 
 
 def flash_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """What the flash forward kernel computes: (out [B,S,H,D] in q's
-    dtype, lse [B,H,S] fp32), in fp32 with the reference's masked value
-    and ``l >= 1e-20`` clamp."""
-    B, S, H, D = q.shape
-    mask = _visible(S, window, q.device)
+    """What the flash forward kernel computes: (out [B,Sq,H,D] in q's
+    dtype, lse [B,H,Sq] fp32), in fp32 with the reference's masked value
+    and ``l >= 1e-20`` clamp.  k/v are [B,Sk,KV,D], Sq <= Sk: the queries
+    are the last Sq of the Sk positions (a sequence shard's queries
+    against the keys up to its end)."""
+    B, Sq, H, D = q.shape
+    mask = _visible(Sq, k.shape[1], window, q.device)
     s = _scores(q, k).masked_fill(~mask, NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m).masked_fill(~mask, 0.0)
     l = p.sum(-1, keepdim=True).clamp_min(1e-20)
     o = torch.einsum("bkgqs,bskd->bkgqd", p, v.float()) / l
-    out = o.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
-    lse = (m + torch.log(l)).reshape(B, H, S)
+    out = o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    lse = (m + torch.log(l)).reshape(B, H, Sq)
     return out, lse
 
 
@@ -145,15 +145,15 @@ def flash_bwd_terms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The terms the flash backward sums, fp32 [B, KV, G, Sq, Sk]:
     p = exp(s - lse), rebuilt from the saved lse and masked, and
     ds = p * (dp - delta) / sqrt(D) with dp = dO.V^T."""
-    B, S, H, D = q.shape
-    KV = k.shape[2]
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
-    mask = _visible(S, window, q.device)
-    p = torch.exp(_scores(q, k) - lse.reshape(B, KV, G, S, 1))
+    mask = _visible(Sq, Sk, window, q.device)
+    p = torch.exp(_scores(q, k) - lse.reshape(B, KV, G, Sq, 1))
     p = p.masked_fill(~mask, 0.0)
-    gg = g.float().reshape(B, S, KV, G, D)
+    gg = g.float().reshape(B, Sq, KV, G, D)
     dp = torch.einsum("bqkgd,bskd->bkgqs", gg, v.float())
-    ds = p * (dp - delta.reshape(B, KV, G, S, 1)) * (1.0 / math.sqrt(D))
+    ds = p * (dp - delta.reshape(B, KV, G, Sq, 1)) * (1.0 / math.sqrt(D))
     return p, ds
 
 
@@ -164,19 +164,20 @@ def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """What the two flash backward kernels compute: (dq, dk, dv) =
     (sum ds.k, sum ds^T.q, sum p^T.dO), dk and dv at KV-head resolution,
-    summed over the group in fp32 before one cast.  ``delta`` is
+    summed over the group in fp32 before one cast; dk and dv have k's
+    Sk rows (zero where no query sees a key).  ``delta`` is
     ``flash_delta(out, g)`` unless given."""
-    B, S, H, D = q.shape
+    B, Sq, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
     if delta is None:
         delta = flash_delta(out, g)
     p, ds = flash_bwd_terms(q, k, v, lse, g, delta, window=window)
-    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()).reshape(B, S, H, D)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()).reshape(B, Sq, H, D)
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds,
-                      q.float().reshape(B, S, KV, G, D))
+                      q.float().reshape(B, Sq, KV, G, D))
     dv = torch.einsum("bkgqs,bqkgd->bskd", p,
-                      g.float().reshape(B, S, KV, G, D))
+                      g.float().reshape(B, Sq, KV, G, D))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

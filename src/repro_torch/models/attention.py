@@ -8,6 +8,12 @@ written in place.
 ``fused=True`` routes the QKV projection through ``ops.fused_qkv`` —
 one GEMM against the concatenated weight with the bias in its epilogue —
 for S > 1; decode projects with three plain products.
+
+Over a sequence shard (``seq``, ``runtime/sharding.py::SeqShard``) a
+rank projects its own positions, with RoPE at their global positions,
+all-gathers K and V over the sequence group and attends its queries
+against the keys up to its shard's end: the queries are the last Sq of
+Sk positions, which every implementation takes (``Sq <= Sk``).
 """
 from __future__ import annotations
 
@@ -73,13 +79,14 @@ def _project_qkv(params, arch: ArchConfig, x: torch.Tensor,
 
 
 def _sdpa_naive(q, k, v, *, causal: bool, window: int):
-    """q: [B,Sq,H,D], k/v: [B,Sk,KV,D] -> [B,Sq,H,D]."""
+    """q: [B,Sq,H,D], k/v: [B,Sk,KV,D] -> [B,Sq,H,D]; Sq <= Sk, the
+    queries the last Sq of the Sk positions."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
     qg = q.reshape(B, Sq, KV, G, D)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k) / math.sqrt(D)
-    qpos = torch.arange(Sq, device=q.device)
+    qpos = torch.arange(Sq, device=q.device) + (Sk - Sq)
     kpos = torch.arange(Sk, device=q.device)
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
@@ -105,7 +112,7 @@ def _sdpa_blocked(q, k, v, *, causal: bool, window: int,
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     qg = q.reshape(B, Sq, KV, G, D)
     scale = 1.0 / math.sqrt(D)
-    qpos = torch.arange(Sq, device=q.device)
+    qpos = torch.arange(Sq, device=q.device) + (Sk - Sq)
     acc = torch.zeros((B, KV, G, Sq, D), dtype=q.dtype, device=q.device)
     m = torch.full((B, KV, G, Sq), float("-inf"), device=q.device)
     l = torch.zeros((B, KV, G, Sq), device=q.device)
@@ -137,19 +144,28 @@ def _sdpa_blocked(q, k, v, *, causal: bool, window: int,
 
 def attention(params, arch: ArchConfig, x: torch.Tensor, *,
               impl: str = "blocked", block_kv: int = 512,
-              fused: bool = False) -> torch.Tensor:
-    """Training attention.  x: [B, S, d_model]."""
+              fused: bool = False, seq=None) -> torch.Tensor:
+    """Training attention.  x: [B, S, d_model], or this rank's positions
+    of the sequence when ``seq`` is a sliced ``SeqShard``."""
     if impl not in ("naive", "blocked", "kernel"):
         raise ValueError(f"unknown attention impl {impl!r}")
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    sliced = seq is not None and seq.sliced
+    start = seq.start if sliced else 0
+    positions = torch.arange(start, start + S, device=x.device).expand(B, S)
     q, k, v = _project_qkv(params, arch, x, positions, fused=fused)
+    if sliced:
+        # K and V of every position up to this shard's end, in one gather
+        KV = k.shape[2]
+        kv = seq.gather(torch.cat([k, v], dim=2), "kv")[:, :seq.stop]
+        k, v = kv[:, :, :KV], kv[:, :, KV:]
+    Sk = k.shape[1]
     window = arch.sliding_window
-    if impl == "kernel" and S > 1:
+    if impl == "kernel" and Sk > 1:
         o = kops.flash_attention(q, k, v, window=window)
-    elif impl == "blocked" and S > 1:
+    elif impl == "blocked" and Sk > 1:
         o = _sdpa_blocked(q, k, v, causal=True, window=window,
-                          block_kv=min(block_kv, S))
+                          block_kv=min(block_kv, Sk))
     else:
         o = _sdpa_naive(q, k, v, causal=True, window=window)
     return o.reshape(B, S, -1) @ params["wo"].to(x.dtype)

@@ -114,17 +114,20 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def fused_cross_entropy(x: torch.Tensor, table: torch.Tensor,
                         labels: torch.Tensor, chunk: int,
-                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        mask: Optional[torch.Tensor] = None,
+                        drop_last: bool = True) -> torch.Tensor:
     """Next-token CE from the hidden states without the [B, S, V] logits:
     ``chunk`` positions at a time, each chunk's [B, c, V] logits built
     for its sums and built again in backward (a checkpoint per chunk).
     x: [B, S, d] after the final norm; labels: [B, S] pre-shifted; the
-    final position is excluded, as in the whole CE."""
+    final position is excluded, as in the whole CE (``drop_last=False``
+    keeps every position: a sequence shard's mask already weighs it)."""
     B, S, d = x.shape
-    xs, ls = x[:, :-1], labels[:, :-1].long()
-    ms = (mask[:, :-1].float() if mask is not None
+    cut = S - 1 if drop_last else S
+    xs, ls = x[:, :cut], labels[:, :cut].long()
+    ms = (mask[:, :cut].float() if mask is not None
           else torch.ones(ls.shape, dtype=torch.float32, device=x.device))
-    n = S - 1
+    n = cut
     c = min(chunk, n)
     w = table.float()
 

@@ -15,6 +15,16 @@ switch-transformer load-balance aux loss:
 
 The products are ``torch.einsum`` over the stacked [E, ...] expert
 weights, as the JAX package computes them outside any kernel.
+
+The load-balance loss is a product of means over the global batch.  On
+a process mesh (``seq``, ``runtime/sharding.py::SeqShard``) a rank holds
+only its tokens: it sums its routing counts, router probabilities and
+token count, all-reduces the sums over every batch axis (the backward
+sums the cotangents, so the global importance's gradient reaches every
+rank's probabilities) and divides, so each rank computes the
+reference's global loss.  Where a sequence stays whole on a group its
+ranks hold the same tokens; they are counted once per rank in both the
+sums and the count, which leaves the means unchanged.
 """
 from __future__ import annotations
 
@@ -56,19 +66,40 @@ def _route(router: torch.Tensor, x: torch.Tensor, top_k: int):
     return probs, top_w / top_w.sum(-1, keepdim=True), top_i
 
 
-def _load_balance(probs: torch.Tensor, chosen: torch.Tensor, m) -> torch.Tensor:
+def _load_balance(probs: torch.Tensor, chosen: torch.Tensor, m,
+                  seq=None) -> torch.Tensor:
     """E * sum_e (fraction of top-k slots routed to e) * (mean prob of
-    e); ``chosen`` is the 0/1 [..., E] count of each token's picks."""
+    e); ``chosen`` is the 0/1 [..., E] count of each token's picks.
+    With ``seq`` the means are over every batch rank's tokens."""
     lead = tuple(range(probs.dim() - 1))
-    frac = chosen.mean(lead) / m.top_k
-    return m.num_experts * torch.sum(frac * probs.mean(lead))
+    if seq is None:
+        frac = chosen.mean(lead) / m.top_k
+        return m.num_experts * torch.sum(frac * probs.mean(lead))
+    return _balance_of(seq.all_reduce(_stat_sums(probs, chosen), "router"),
+                       m)
+
+
+def _stat_sums(probs: torch.Tensor, chosen: torch.Tensor) -> torch.Tensor:
+    """[2E + 1]: the routing counts and the router probabilities summed
+    over the tokens, and the token count."""
+    lead = tuple(range(probs.dim() - 1))
+    count = torch.full((1,), float(chosen[..., 0].numel()),
+                       dtype=probs.dtype, device=probs.device)
+    return torch.cat([chosen.sum(lead), probs.sum(lead), count])
+
+
+def _balance_of(sums: torch.Tensor, m) -> torch.Tensor:
+    """The load-balance loss of ``_stat_sums`` summed over every token."""
+    E = m.num_experts
+    frac = sums[:E] / sums[2 * E] / m.top_k
+    return E * torch.sum(frac * (sums[E:2 * E] / sums[2 * E]))
 
 
 def _shared(params, x, y):
     return y + mlp(params["shared"], x, "swiglu") if "shared" in params else y
 
 
-def moe_mlp(params, arch: ArchConfig, x: torch.Tensor
+def moe_mlp(params, arch: ArchConfig, x: torch.Tensor, seq=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense dispatch.  x: [b, S, d] -> (y, aux loss)."""
     m = arch.moe
@@ -80,11 +111,11 @@ def moe_mlp(params, arch: ArchConfig, x: torch.Tensor
     y = torch.einsum("bsef,efd->bsed", h, params["down"].to(x.dtype))
     y = torch.einsum("bsed,bse->bsd", y, route)
     chosen = torch.zeros_like(probs).scatter(-1, top_i, 1.0).detach()
-    return _shared(params, x, y), _load_balance(probs, chosen, m)
+    return _shared(params, x, y), _load_balance(probs, chosen, m, seq)
 
 
-def moe_mlp_capacity(params, arch: ArchConfig, x: torch.Tensor, *,
-                     capacity_factor: float = 1.25, group_size: int = 1024,
+def moe_mlp_capacity(params, arch: ArchConfig, x: torch.Tensor, seq=None,
+                     *, capacity_factor: float = 1.25, group_size: int = 1024,
                      scan_groups: bool = True
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity dispatch over groups of ``group_size`` positions per
@@ -93,10 +124,19 @@ def moe_mlp_capacity(params, arch: ArchConfig, x: torch.Tensor, *,
     picks are dropped.  ``scan_groups`` runs the groups one after the
     other and averages their aux losses; ``False`` runs them as one
     batch, with one aux loss over all of them (the reference's
-    vectorized form)."""
+    vectorized form).  Over a sliced sequence shard the groups must lie
+    inside the shard (its length a multiple of the group size); each
+    group's statistics are summed over the batch ranks, so group g's
+    loss is the reference's wherever g lies."""
     m = arch.moe
     b, S, d = x.shape
-    gs = min(group_size, S)
+    full = seq.length if seq is not None else S
+    gs = min(group_size, full)
+    if seq is not None and seq.sliced and S % gs:
+        raise ValueError(
+            f"moe_mlp_capacity: groups of {gs} positions straddle the "
+            f"sequence shards of {S} of {full} positions; a shard must "
+            f"hold whole groups")
     pad = (-S) % gs
     x_in = F.pad(x, (0, 0, 0, pad)) if pad else x
     ng = (S + pad) // gs
@@ -120,24 +160,40 @@ def moe_mlp_capacity(params, arch: ArchConfig, x: torch.Tensor, *,
         h = h * torch.einsum("becd,edf->becf", xe, wu)
         ye = torch.einsum("becf,efd->becd", h, wd)
         yg = torch.einsum("becd,bgec->bgd", ye, combine)
+        if seq is not None:
+            return yg, _stat_sums(probs, onehot.sum(2))
         return yg, _load_balance(probs, onehot.sum(2), m)
 
     if scan_groups:
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        ys = []
+        # per group its aux loss, or with ``seq`` its statistics' sums
+        ys, parts = [], []
         for i in range(ng):
-            yg, aux_g = group(x_in[:, i * gs:(i + 1) * gs])
-            aux = aux + aux_g
+            yg, part = group(x_in[:, i * gs:(i + 1) * gs])
             ys.append(yg)
+            parts.append(part)
         y = torch.cat(ys, 1)[:, :S]
+        if seq is not None:
+            # every group's sums at its global index, summed over ranks
+            first, ng = seq.start // gs, -(-full // gs)
+            stats = torch.zeros((ng, parts[0].shape[0]), dtype=torch.float32,
+                                device=x.device).index_add(
+                0, torch.arange(first, first + len(parts), device=x.device),
+                torch.stack(parts))
+            parts = [_balance_of(p, m)
+                     for p in seq.all_reduce(stats, "router")]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for part in parts:
+            aux = aux + part
         aux = aux / ng
     else:
         y, aux = group(x_in.reshape(b * ng, gs, d))
         y = y.reshape(b, S + pad, d)[:, :S]
+        if seq is not None:
+            aux = _balance_of(seq.all_reduce(aux, "router"), m)
     return _shared(params, x, y), aux
 
 
-def moe_mlp_grouped(params, arch: ArchConfig, x: torch.Tensor
+def moe_mlp_grouped(params, arch: ArchConfig, x: torch.Tensor, seq=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k gather: each token's k experts' weights gathered by a
     one-hot product, so the FLOPs scale with k, not E."""
@@ -152,10 +208,10 @@ def moe_mlp_grouped(params, arch: ArchConfig, x: torch.Tensor
     y = torch.einsum("bskf,bskfd->bskd", h, wd)
     y = torch.einsum("bskd,bsk->bsd", y, top_w.to(x.dtype))
     chosen = F.one_hot(top_i, m.num_experts).float().sum(2)
-    return _shared(params, x, y), _load_balance(probs, chosen, m)
+    return _shared(params, x, y), _load_balance(probs, chosen, m, seq)
 
 
 IMPLS = {"dense": moe_mlp, "grouped": moe_mlp_grouped,
          "capacity": moe_mlp_capacity,
-         "capacity_vec": lambda p, a, x: moe_mlp_capacity(p, a, x,
-                                                          scan_groups=False)}
+         "capacity_vec": lambda p, a, x, seq=None: moe_mlp_capacity(
+             p, a, x, seq, scan_groups=False)}

@@ -13,6 +13,13 @@ decode against carried conv and SSM states (``init_mamba_cache``);
 ``mamba_decode_`` writes the new states into the cache in place.
 
 State layout is [batch, heads, head_dim (P), state (N)] throughout.
+
+Over a sequence shard (``seq``, ``runtime/sharding.py::SeqShard``) the
+projections stay token-local: a rank all-gathers the mixer's input (the
+conv input and dt) over the sequence group, runs the conv and the SSD
+scan over the whole sequence, keeps its own rows and gates them with
+its own z.  Every rank of the group so computes the whole mixer (the
+SSD state is not passed between ranks).
 """
 from __future__ import annotations
 
@@ -183,12 +190,20 @@ def _expand_groups(t, n_heads: int, n_groups: int):
 
 
 def mamba(params, arch: ArchConfig, x: torch.Tensor, *,
-          evaluator: str = "chunked") -> torch.Tensor:
-    """Full-sequence Mamba2 block. x: [b,S,d_model]."""
+          evaluator: str = "chunked", seq=None) -> torch.Tensor:
+    """Full-sequence Mamba2 block. x: [b,S,d_model], or this rank's
+    positions of the sequence when ``seq`` is a sliced ``SeqShard``."""
     c, d_inner, n_heads, _ = _dims(arch)
-    b, S, _ = x.shape
     proj = x @ params["in_proj"].to(x.dtype)
-    z, xbc, dt_raw = _split_proj(arch, proj)
+    sliced = seq is not None and seq.sliced
+    if sliced:
+        # the conv and scan inputs of every position, in one gather
+        z, rest = proj[..., :d_inner], proj[..., d_inner:]
+        xbc, dt_raw = torch.split(seq.gather(rest, "mixer"),
+                                  [rest.shape[-1] - n_heads, n_heads], dim=-1)
+    else:
+        z, xbc, dt_raw = _split_proj(arch, proj)
+    b, S = xbc.shape[:2]
     xbc = causal_conv1d(xbc, params["conv_w"], params["conv_b"])
     gn = c.n_groups * c.state_size
     xin, B, C = torch.split(xbc, [d_inner, gn, gn], dim=-1)
@@ -209,6 +224,8 @@ def mamba(params, arch: ArchConfig, x: torch.Tensor, *,
         raise ValueError(f"unknown SSD evaluator {evaluator!r}")
     y = y + params["D"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(b, S, d_inner)
+    if sliced:
+        y = y[:, seq.start:seq.stop]
     y = rms_norm(params["norm_w"].to(x.dtype), y * F.silu(z),
                  arch.rms_norm_eps)
     return y @ params["out_proj"].to(x.dtype)

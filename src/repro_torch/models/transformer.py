@@ -16,6 +16,14 @@ through ``ops.ssd``: the CUDA kernels on a CUDA tensor, the plain
 versions on a CPU tensor, so none needs a probe.  ``moe_impl`` picks the
 MoE dispatch (``models/moe.py``).
 
+``seq`` (``runtime/sharding.py::SeqContext``, None on one card) is the
+layout of a rank on a process mesh: ``hidden_states`` keeps this rank's
+positions of the sequence after the embedding (where the reference's
+first "act" constraint shards it), the blocks attend and scan over the
+sequence group (``models/attention.py``, ``models/ssm.py``), the MoE
+sums its router statistics over every batch rank (``models/moe.py``)
+and ``loss`` averages over this rank's labelled positions.
+
 The vision and audio frontends are stubs, as in the JAX package:
 ``frontend_embeds`` [b, F, d] are concatenated ahead of the token
 embeddings and the loss drops their F positions.  ``remat`` recomputes
@@ -81,6 +89,8 @@ class Model:
     #: block's params at entry; the identity unless a strategy sets them
     constrain: Callable[[torch.Tensor, str], torch.Tensor] = _identity_constrain
     unshard: Callable[[Dict], Dict] = _identity_unshard
+    #: a rank's sequence layout on a process mesh (module docstring)
+    seq: Optional[object] = None
 
     def __post_init__(self):
         if self.attn_impl == "auto":
@@ -135,20 +145,24 @@ class Model:
     # ------------------------------------------------------------------
     # Single block (the pipeline runtime's unit)
     # ------------------------------------------------------------------
-    def block(self, bp: Dict, x: torch.Tensor, aux: torch.Tensor
+    def block(self, bp: Dict, x: torch.Tensor, aux: torch.Tensor, seq=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One block; ``seq`` is this rank's ``SeqShard`` of the sequence
+        (None: the whole sequence, on one card)."""
         a = self.arch
         bp = self.unshard(bp)
         h = self._norm(bp["ln1"], x)
         if a.family == "ssm":
-            x = x + ssm_lib.mamba(bp["mamba"], a, h, evaluator=self.ssd_impl)
+            x = x + ssm_lib.mamba(bp["mamba"], a, h, evaluator=self.ssd_impl,
+                                  seq=seq)
             return self.constrain(x, "act"), aux
         fused = self.fuse == "fused"
         branch = attn_lib.attention(bp["attn"], a, h, impl=self.attn_impl,
-                                    fused=fused)
+                                    fused=fused, seq=seq)
         if a.hybrid_parallel_heads:
             branch = 0.5 * (branch + ssm_lib.mamba(bp["mamba"], a, h,
-                                                   evaluator=self.ssd_impl))
+                                                   evaluator=self.ssd_impl,
+                                                   seq=seq))
         if fused:
             # one pass over the residual: (x + branch) and its RMSNorm
             x, h = kops.fused_add_rmsnorm(x, branch, bp["ln2"].to(x.dtype),
@@ -157,15 +171,15 @@ class Model:
         else:
             x = self.constrain(x + branch, "act")
             h = self._norm(bp["ln2"], x)
-        x, aux = self._ffn(bp, x, h, aux)
+        x, aux = self._ffn(bp, x, h, aux, seq)
         return self.constrain(x, "act"), aux
 
-    def _ffn(self, bp: Dict, x, h, aux):
+    def _ffn(self, bp: Dict, x, h, aux, seq=None):
         """The block's MLP or MoE on h, added to the residual x; the MoE's
         load-balance loss is added to aux."""
         a = self.arch
         if a.moe is not None:
-            y, a_loss = moe_lib.IMPLS[self.moe_impl](bp["moe"], a, h)
+            y, a_loss = moe_lib.IMPLS[self.moe_impl](bp["moe"], a, h, seq)
             return x + y, aux + a_loss
         if a.d_ff:
             x = x + mlp(bp["mlp"], h, a.mlp_variant)
@@ -174,10 +188,10 @@ class Model:
     def _norm(self, w, x):
         return rms_norm(w.to(x.dtype), x, self.arch.rms_norm_eps)
 
-    def run_blocks(self, blocks: Dict, x: torch.Tensor, aux: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def run_blocks(self, blocks: Dict, x: torch.Tensor, aux: torch.Tensor,
+                   seq=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Apply a stacked slice of blocks (the full model), each under a
-        checkpoint when ``remat``."""
+        checkpoint when ``remat``; ``seq`` as ``block``'s."""
         kw = {}
         if self.remat_policy == "dots":
             kw["context_fn"] = functools.partial(
@@ -186,10 +200,10 @@ class Model:
         for i in range(n):
             bp = tree_map(lambda t: t[i], blocks)
             if self.remat:
-                x, aux = checkpoint(self.block, bp, x, aux,
+                x, aux = checkpoint(self.block, bp, x, aux, seq,
                                     use_reentrant=False, **kw)
             else:
-                x, aux = self.block(bp, x, aux)
+                x, aux = self.block(bp, x, aux, seq)
         return x, aux
 
     # ------------------------------------------------------------------
@@ -198,13 +212,17 @@ class Model:
     def hidden_states(self, params: Dict, tokens: torch.Tensor,
                       frontend_embeds: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Forward up to (and including) the final norm; no head."""
+        """Forward up to (and including) the final norm; no head.  Under
+        ``seq``, of this rank's positions only."""
         x = embed(params["embed"], tokens, self.dtype)
         if frontend_embeds is not None:
             x = torch.cat([frontend_embeds.to(self.dtype), x], dim=1)
+        shard = self.seq.shard(x.shape[1]) if self.seq is not None else None
+        if shard is not None and shard.sliced:
+            x = x[:, shard.start:shard.stop]
         x = self.constrain(x, "act")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        x, aux = self.run_blocks(params["blocks"], x, aux)
+        x, aux = self.run_blocks(params["blocks"], x, aux, shard)
         return self._norm(params["final_norm"], x), aux
 
     def forward(self, params: Dict, tokens: torch.Tensor,
@@ -224,6 +242,9 @@ class Model:
         coef = (self.arch.moe.router_aux_loss_coef
                 if self.arch.moe is not None else 0.0)
         fe = batch.get("frontend_embeds")
+        span = self._label_span(batch)
+        if span is not None:
+            return self._shard_loss(params, batch, span, coef)
         if self.loss_chunk:
             x, aux = self.hidden_states(params, batch["tokens"], fe)
             x = x[:, x.shape[1] - labels.shape[1]:]
@@ -235,6 +256,62 @@ class Model:
             logits = logits[:, logits.shape[1] - labels.shape[1]:]
             nll = cross_entropy(logits[:, :-1], labels[:, :-1],
                                 mask[:, :-1] if mask is not None else None)
+        return nll + coef * aux, {"nll": nll, "aux": aux}
+
+    def _label_span(self, batch: Dict):
+        """Under a sliced sequence shard: (this rank's shard, its first
+        labelled row, the labels' first index); None otherwise.  Labels
+        cover the positions after the frontend's F."""
+        if self.seq is None:
+            return None
+        fe = batch.get("frontend_embeds")
+        F_ = fe.shape[1] if fe is not None else 0
+        shard = self.seq.shard(F_ + batch["labels"].shape[1])
+        if not shard.sliced:
+            return None
+        lo = max(shard.start, F_)
+        return shard, lo - shard.start, lo - F_
+
+    def loss_weights(self, batch: Dict) -> Optional[torch.Tensor]:
+        """Under a sliced sequence shard, the 0/1 weight of each labelled
+        position this rank holds ([b, n] fp32): the mask's, and 0 at the
+        sequence's final position (the reference's S-1 reduction), which
+        the last shard holds; None otherwise (``loss`` then averages as
+        on one card)."""
+        span = self._label_span(batch)
+        if span is None:
+            return None
+        shard, _, l0 = span
+        labels, mask = batch["labels"], batch.get("mask")
+        l1 = max(labels.shape[1] - (shard.length - shard.stop), l0)
+        w = (mask[:, l0:l1].float() if mask is not None else
+             torch.ones((labels.shape[0], l1 - l0), dtype=torch.float32,
+                        device=labels.device))
+        if shard.stop == shard.length and w.shape[1]:
+            w = torch.cat([w[:, :-1], torch.zeros_like(w[:, -1:])], 1)
+        return w
+
+    def _shard_loss(self, params: Dict, batch: Dict, span, coef
+                    ) -> Tuple[torch.Tensor, Dict]:
+        """``loss`` on this rank's positions: the weighted mean NLL over
+        ``loss_weights``."""
+        _, r0, l0 = span
+        w = self.loss_weights(batch)
+        labels = batch["labels"][:, l0:l0 + w.shape[1]]
+        x, aux = self.hidden_states(params, batch["tokens"],
+                                    batch.get("frontend_embeds"))
+        x = x[:, r0:]
+        head = params.get("head", params["embed"])
+        if not w.shape[1]:
+            # no labelled position here: a zero that keeps the graph, so
+            # this rank's backward runs the group's collectives too
+            nll = x.float().sum() * 0.0
+        elif self.loss_chunk:
+            nll = fused_cross_entropy(x, head["table"], labels,
+                                      self.loss_chunk, w, drop_last=False)
+        else:
+            logits = self.constrain(unembed(head, x), "logits")
+            nll = cross_entropy(logits, labels, w)
         return nll + coef * aux, {"nll": nll, "aux": aux}
 
     # ------------------------------------------------------------------

@@ -3,7 +3,8 @@
 transposes (the reference's GSPMD program writes them implicitly):
 
 * ``gather_at_use``: FSDP's all-gather of a sharded weight along one
-  dimension; its backward is the gradient's reduce-scatter (sum).
+  dimension (and sequence parallelism's of an activation along the
+  sequence); its backward is the gradient's reduce-scatter (sum).
 * ``all_reduce_sum``: the sum over a group; its backward sums the
   cotangents over the same group (the global objective is the sum of the
   ranks' local objectives).
@@ -55,7 +56,8 @@ class Transport:
     reduce-scatter's full input; ``p2p``: a tensor sent or received)
     and the host seconds spent inside the calls, which include waiting
     for the other ranks and, for a CUDA tensor, for the work queued
-    before it."""
+    before it.  A call given a ``tag`` (what it moves: "kv", "mixer",
+    "router") adds its bytes to ``tagged[tag][kind]`` too."""
 
     def __init__(self, backend: str):
         self.backend = backend
@@ -63,10 +65,16 @@ class Transport:
 
     def reset(self) -> None:
         self.bytes: Dict[str, int] = dict.fromkeys(_KINDS, 0)
+        self.tagged: Dict[str, Dict[str, int]] = {}
         self.seconds = 0.0
 
-    def _count(self, kind: str, t: torch.Tensor, t0: float) -> None:
-        self.bytes[kind] += t.numel() * t.element_size()
+    def _count(self, kind: str, t: torch.Tensor, t0: float,
+               tag: Optional[str] = None) -> None:
+        n = t.numel() * t.element_size()
+        self.bytes[kind] += n
+        if tag is not None:
+            per = self.tagged.setdefault(tag, dict.fromkeys(_KINDS, 0))
+            per[kind] += n
         self.seconds += time.perf_counter() - t0
 
     def _staged(self, op: str, t: torch.Tensor) -> bool:
@@ -79,17 +87,18 @@ class Transport:
         t = t.contiguous()
         return t.cpu() if self._staged(op, t) else t
 
-    def all_reduce(self, t: torch.Tensor, pg) -> torch.Tensor:
+    def all_reduce(self, t: torch.Tensor, pg, tag: Optional[str] = None
+                   ) -> torch.Tensor:
         """The sum over ``pg``, a new tensor on ``t``'s device."""
         t0 = time.perf_counter()
         buf = self._out("all_reduce", t)
         buf = buf.clone() if buf.data_ptr() == t.data_ptr() else buf
         dist.all_reduce(buf, group=pg)
-        self._count("reduced", t, t0)
+        self._count("reduced", t, t0, tag)
         return buf.to(t.device)
 
-    def all_gather(self, t: torch.Tensor, pg, n: int, dim: int
-                   ) -> torch.Tensor:
+    def all_gather(self, t: torch.Tensor, pg, n: int, dim: int,
+                   tag: Optional[str] = None) -> torch.Tensor:
         """The members' ``t`` concatenated along ``dim``, in group order
         (``all_gather_into_tensor`` into one buffer over ``dim`` moved to
         the front)."""
@@ -98,11 +107,11 @@ class Transport:
         full = torch.empty((n * buf.shape[0], *buf.shape[1:]),
                            dtype=buf.dtype, device=buf.device)
         dist.all_gather_into_tensor(full, buf, group=pg)
-        self._count("gathered", full, t0)
+        self._count("gathered", full, t0, tag)
         return full.movedim(0, dim).to(t.device)
 
-    def reduce_scatter(self, t: torch.Tensor, pg, n: int, dim: int
-                       ) -> torch.Tensor:
+    def reduce_scatter(self, t: torch.Tensor, pg, n: int, dim: int,
+                       tag: Optional[str] = None) -> torch.Tensor:
         """This member's chunk along ``dim`` of the sum of the members'
         ``t`` (``reduce_scatter_tensor`` over ``dim`` moved to the
         front)."""
@@ -111,7 +120,7 @@ class Transport:
         out = torch.empty((buf.shape[0] // n, *buf.shape[1:]),
                           dtype=buf.dtype, device=buf.device)
         dist.reduce_scatter_tensor(out, buf, group=pg)
-        self._count("scattered", t, t0)
+        self._count("scattered", t, t0, tag)
         return out.movedim(0, dim).to(t.device)
 
     def gather(self, t: torch.Tensor, pg, n: int, dst: int
@@ -159,44 +168,47 @@ class Transport:
 # ----------------------------------------------------------------------
 class _GatherAtUse(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, mesh, axis, dim):
+    def forward(ctx, t, mesh, axis, dim, tag):
         pg, _ = mesh.group(axis)
-        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
-        return mesh.transport.all_gather(t, pg, mesh.size(axis), dim)
+        ctx.mesh, ctx.axis, ctx.dim, ctx.tag = mesh, axis, dim, tag
+        return mesh.transport.all_gather(t, pg, mesh.size(axis), dim, tag)
 
     @staticmethod
     def backward(ctx, g):
         mesh = ctx.mesh
         pg, _ = mesh.group(ctx.axis)
         return (mesh.transport.reduce_scatter(g, pg, mesh.size(ctx.axis),
-                                              ctx.dim), None, None, None)
+                                              ctx.dim, ctx.tag),
+                None, None, None, None)
 
 
-def gather_at_use(t: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
+def gather_at_use(t: torch.Tensor, mesh, axis, dim: int,
+                  tag: Optional[str] = None) -> torch.Tensor:
     """``t``'s shards over ``axis`` concatenated along ``dim``; the
     gradient reduce-scatters back to this rank's shard."""
     if mesh.size(axis) == 1:
         return t
-    return _GatherAtUse.apply(t, mesh, axis, dim)
+    return _GatherAtUse.apply(t, mesh, axis, dim, tag)
 
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, mesh, axis):
-        ctx.mesh, ctx.axis = mesh, axis
-        return mesh.transport.all_reduce(t, mesh.group(axis)[0])
+    def forward(ctx, t, mesh, axis, tag):
+        ctx.mesh, ctx.axis, ctx.tag = mesh, axis, tag
+        return mesh.transport.all_reduce(t, mesh.group(axis)[0], tag)
 
     @staticmethod
     def backward(ctx, g):
-        return (ctx.mesh.transport.all_reduce(g, ctx.mesh.group(ctx.axis)[0]),
-                None, None)
+        return (ctx.mesh.transport.all_reduce(g, ctx.mesh.group(ctx.axis)[0],
+                                              ctx.tag), None, None, None)
 
 
-def all_reduce_sum(t: torch.Tensor, mesh, axis) -> torch.Tensor:
+def all_reduce_sum(t: torch.Tensor, mesh, axis, tag: Optional[str] = None
+                   ) -> torch.Tensor:
     """The sum of ``t`` over ``axis``, on every member."""
     if mesh.size(axis) == 1:
         return t
-    return _AllReduceSum.apply(t, mesh, axis)
+    return _AllReduceSum.apply(t, mesh, axis, tag)
 
 
 class _SendHop(torch.autograd.Function):

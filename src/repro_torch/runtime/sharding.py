@@ -21,9 +21,14 @@ the identity (FSDP's ``gather_dtype`` cast aside).  On a ``ProcessMesh``
 (``launch/mesh.py``) ``unshard_blocks`` is FSDP's real gather at use
 over ``torch.distributed`` (``runtime/collectives.py``);
 ``act_constrainer`` stays the identity, since each rank already holds
-its rows of the batch.  Handed a ``recorder`` (``launch/opcount.py``),
-they record the collectives the strategy's layout implies where the
-reference's GSPMD program would run them: the dry-run's trace.
+its rows of the batch, and ``seq_context`` gives the model its
+``SeqContext`` (the model's ``seq``): the batch axes a small batch
+leaves uncovered, over which the sequence shards as the reference's
+``P(batch, seq)`` constraint shards it, and every batch axis, over which
+the MoE router's statistics are summed.  Handed a ``recorder``
+(``launch/opcount.py``), they record the collectives the strategy's
+layout implies where the reference's GSPMD program would run them: the
+dry-run's trace.
 ``shard_tree`` / ``gather_tree`` cut a full tree into this rank's
 shards and put it back together.
 """
@@ -34,7 +39,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.runtime.collectives import gather_at_use
+from repro_torch.runtime.collectives import all_reduce_sum, gather_at_use
 from repro_torch.utils.tree import flatten_with_path, tree_unflatten_like
 
 Spec = Tuple[Any, ...]
@@ -179,6 +184,16 @@ class ShardingStrategy:
             return None
         return leftover if len(leftover) > 1 else leftover[0]
 
+    def seq_context(self, mesh, global_batch: int) -> Optional["SeqContext"]:
+        """The model's ``seq`` on a ``ProcessMesh``: the sequence over
+        ``seq_axis`` and the router statistics over every batch axis (a
+        batch that covers them all shards no sequence); None elsewhere."""
+        if not on_ranks(mesh):
+            return None
+        return SeqContext(mesh, self.seq_axis(mesh, global_batch),
+                          tuple(a for a in mesh.shape
+                                if a in self.batch_axes))
+
     def act_constrainer(self, mesh, global_batch: int, recorder=None):
         """The model's ``constrain(x, name)`` hook: the identity, or with
         a ``recorder`` the TP collectives at each residual-stream site
@@ -252,6 +267,57 @@ class ShardingStrategy:
                     dims[3] = self._maybe(mesh, shape[3], self.model_axis)
             return tuple(dims)
         return _map_with_path(spec_for, cache)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SeqContext:
+    """A rank's view of the sequence layout on a ``ProcessMesh``.
+    ``axis``: the batch axes the global batch leaves uncovered (None when
+    it covers all), over which a sequence of length S shards into n
+    contiguous parts, this rank taking [r S/n, (r+1) S/n) for its index r
+    along ``axis``; where n does not divide S, or S is 1, the sequence
+    stays whole on every rank of the group (the reference's rule).
+    ``stat_axis``: every batch axis, the ranks that hold other tokens,
+    over which the MoE router's statistics are summed.  A model gets one
+    from ``ShardingStrategy.seq_context``; it is None on one card."""
+
+    mesh: Any
+    axis: Any
+    stat_axis: Tuple[str, ...]
+
+    def shard(self, length: int) -> "SeqShard":
+        """This rank's positions of a sequence of ``length``."""
+        n = self.mesh.size(self.axis) if self.axis is not None else 1
+        if n == 1 or length == 1 or length % n:
+            return SeqShard(self, 0, length, length)
+        r = self.mesh.axis_index(self.axis)
+        return SeqShard(self, r * (length // n), (r + 1) * (length // n),
+                        length)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SeqShard:
+    """Positions [start, stop) of a sequence of ``length`` on this rank
+    (``SeqContext.shard``): the whole sequence unless ``sliced``."""
+
+    ctx: SeqContext
+    start: int
+    stop: int
+    length: int
+
+    @property
+    def sliced(self) -> bool:
+        return self.stop - self.start < self.length
+
+    def gather(self, t: torch.Tensor, tag: str) -> torch.Tensor:
+        """The whole sequence of ``t`` ([b, stop - start, ...]) from every
+        rank of the sequence group; its backward reduce-scatters."""
+        return gather_at_use(t, self.ctx.mesh, self.ctx.axis, 1, tag)
+
+    def all_reduce(self, t: torch.Tensor, tag: str) -> torch.Tensor:
+        """The sum of ``t`` over every batch axis (the context's
+        ``stat_axis``); its backward sums the cotangents over them."""
+        return all_reduce_sum(t, self.ctx.mesh, self.ctx.stat_axis, tag)
 
 
 def _key_name(k) -> str:

@@ -18,13 +18,16 @@ batch, gathers each weight at use and reduce-scatters its gradient
 leaf is not sharded over, clips by the global norm with each element
 counted once, and steps AdamW on its shard (then, under ZeRO-1,
 all-gathers the updated slice over the data axes): the function the
-reference's one GSPMD program computes.  TP, MoE over several batch
-ranks and a batch that leaves a batch axis uncovered raise
-``NotImplementedError`` (ROADMAP item 17c).  ``recover``/``join`` raise
-``ExecutorUnsupported`` by design: one SPMD program cannot express a
-heterogeneous survivor set, so the engine keeps the plan consistent and
-the caller rebinds a ``HeteroTrainer`` (``runtime/pipeline.py``) from
-``snapshot()``.
+reference's one GSPMD program computes.  A global batch too small to
+cover every batch axis shards the sequence over the rest
+(``ShardingStrategy.seq_context``: each rank takes its rows of the batch
+whole, and the model keeps its positions of the sequence), and an MoE
+sums its router statistics over every batch rank.  TP and expert
+parallelism raise ``NotImplementedError`` (ROADMAP item 17c).
+``recover``/``join`` raise ``ExecutorUnsupported`` by design: one SPMD
+program cannot express a heterogeneous survivor set, so the engine keeps
+the plan consistent and the caller rebinds a ``HeteroTrainer``
+(``runtime/pipeline.py``) from ``snapshot()``.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.launch.mesh import axes_of, group_size
+from repro_torch.launch.mesh import group_size
 from repro_torch.models import Model
 from repro_torch.optim import adamw
 from repro_torch.runtime.collectives import all_reduce_sum, gather_at_use
@@ -162,7 +165,15 @@ def build_mesh_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     norm and head are gathered here.  The loss is the global masked
     mean: each rank's objective is its NLL sum over the global token
     count, and the ranks' objectives sum to the reference's loss, so
-    their gradients sum to its gradient."""
+    their gradients sum to its gradient.  ``batch_axis`` is every batch
+    axis (``model.seq.stat_axis``): the rows cover some, the sequence
+    shards over the rest; a rank counts its labelled positions
+    (``model.loss_weights``) and the global count sums them all.  Where
+    the sequence stays whole on a group, its ranks count the same tokens
+    and the global count n times them: each rank's objective is then
+    1/n of the same sum, and the ranks still sum to the reference's
+    loss.  The MoE aux is the global one on every rank
+    (``models/moe.py``), so in that sum it counts once."""
     tr = mesh.transport
     batch_set = set(mesh.axes(batch_axis))
 
@@ -171,7 +182,9 @@ def build_mesh_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
         specs = [spec for _, spec, _ in entries]
         leaves = [t.detach().requires_grad_(True) for _, _, t in entries]
         labels, mask = batch["labels"], batch.get("mask")
-        cnt = (mask[:, :-1].float().sum() if mask is not None else
+        w = model.loss_weights(batch)
+        cnt = (w.sum() if w is not None else
+               mask[:, :-1].float().sum() if mask is not None else
                torch.tensor(float(labels[:, :-1].numel()),
                             device=labels.device))
         total = all_reduce_sum(cnt, mesh, batch_axis)
@@ -290,8 +303,7 @@ class SPMDExecutor(Executor):
                  cache: Optional[ProgramCache] = None):
         if mesh is not None:
             strategy = strategy or ShardingStrategy()
-            check_layout(model.arch, mesh, strategy,
-                         shape.global_batch if shape is not None else None)
+            check_layout(mesh, strategy)
             if not on_ranks(mesh) and \
                     any(n != 1 for n in mesh.shape.values()):
                 raise TypeError(
@@ -338,7 +350,9 @@ class SPMDExecutor(Executor):
     def _program(self, batch: Dict) -> Callable:
         """The train program for ``batch``'s (global) shapes.  Without a
         process mesh every spec is the identity layout, so the program
-        is ``build_train_step``'s with or without a mesh of size one."""
+        is ``build_train_step``'s with or without a mesh of size one.  On
+        a process mesh the model gets the sequence context of the global
+        batch (``ShardingStrategy.seq_context``)."""
         mesh = self.mesh
         key = ("spmd-train", kops.backend_signature(self.device),
                tuple(sorted((k, tuple(v.shape), str(v.dtype))
@@ -348,11 +362,10 @@ class SPMDExecutor(Executor):
         if not self.distributed:
             return self.cache.get_or_build(
                 key, lambda: build_train_step(self.model, self.opt_cfg))
-        gb = batch["tokens"].shape[0]
-        check_layout(self.model.arch, mesh, self.strategy, gb)
+        seq = self.strategy.seq_context(mesh, batch["tokens"].shape[0])
         return self.cache.get_or_build(key, lambda: build_mesh_train_step(
-            self._model, self.opt_cfg, mesh, self.pspecs, self.ospecs,
-            self.strategy.batch_spec(mesh, gb)[0]))
+            dataclasses.replace(self._model, seq=seq), self.opt_cfg, mesh,
+            self.pspecs, self.ospecs, seq.stat_axis))
 
     # Executor interface ------------------------------------------------
     def bind(self) -> None:
@@ -368,8 +381,13 @@ class SPMDExecutor(Executor):
         return t.to(self.device)
 
     def _rows(self, v, gb: int):
-        """This rank's rows of a global-batch array (``batch_spec``)."""
-        axis = self.strategy.batch_spec(self.mesh, gb)[0]
+        """This rank's rows of a global-batch array (``batch_spec``),
+        whole: where the sequence shards, the model keeps this rank's
+        positions (``Model.hidden_states``, ``Model.loss_weights``)."""
+        bspec = self.strategy.batch_spec(self.mesh, gb)
+        if not bspec:
+            return v
+        axis = bspec[0]
         n = gb // self.mesh.size(axis)
         i = self.mesh.axis_index(axis)
         return v[i * n:(i + 1) * n]
@@ -422,32 +440,12 @@ class SPMDExecutor(Executor):
                           data_state=data_state or {}, rng_seed=rng_seed)
 
 
-def check_layout(arch: ArchConfig, mesh, strategy: ShardingStrategy,
-                 global_batch: Optional[int]) -> None:
+def check_layout(mesh, strategy: ShardingStrategy) -> None:
     """Raise ``NotImplementedError`` (ROADMAP item 17c) for a layout this
-    data plane does not run: TP, a global batch that leaves a batch axis
-    of size > 1 uncovered (the reference shards the sequence over it),
-    or MoE over several batch ranks (its load-balance loss is a product
-    of batch-wide fractions, which each rank sees only a part of)."""
+    data plane does not run: Megatron TP and expert parallelism."""
     if all(n == 1 for n in mesh.shape.values()):
         return
     if strategy.strategy != "fsdp":
         raise NotImplementedError(
             f"strategy={strategy.strategy!r} over {dict(mesh.shape)}: "
             f"Megatron TP and expert parallelism are ROADMAP item 17c")
-    if global_batch is None:
-        return
-    bspec = strategy.batch_spec(mesh, global_batch)
-    covered = set(axes_of(bspec[0])) if bspec else set()
-    left = [a for a in strategy.batch_axes
-            if mesh.shape[a] > 1 and a not in covered]
-    if left:
-        raise NotImplementedError(
-            f"global batch {global_batch} over {dict(mesh.shape)} leaves "
-            f"batch axes {left} uncovered: sequence parallelism over them is "
-            f"ROADMAP item 17c")
-    ranks = group_size(mesh, bspec[0])
-    if arch.moe is not None and ranks > 1:
-        raise NotImplementedError(
-            f"{arch.name} over {ranks} batch ranks: the MoE load-balance "
-            f"loss over a sharded batch is ROADMAP item 17c")

@@ -279,6 +279,33 @@ def test_flash_tensor_core_kernel_unaligned_rows_match_plain(card, name,
     cs.compare(name, kern, plain, args, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 300, 8, 2, 64, 0, 700), (1, 130, 4, 1, 128, 40, 300),
+    (2, 64, 8, 8, 16, 0, 1000), (1, 1, 4, 2, 64, 0, 77),
+    (1, 200, 10, 2, 80, 96, 1000), (1, 257, 8, 2, 32, 0, 257)],
+    ids=["gqa-d64", "window-d128", "d16-far", "one-query", "window-d80-far",
+         "sq-eq-sk"])
+@pytest.mark.parametrize("name", TENSOR_CORE_FLASH)
+def test_flash_kernels_take_fewer_queries_than_keys(card, name, shape,
+                                                    dtype):
+    """Queries the last Sq of Sk positions, at offsets that are not a
+    multiple of the tiles and with windows that leave kv blocks no query
+    sees (dk and dv zero there): each built tile against its plain
+    version with chip_smoke.py's comparison."""
+    cs = _chip_smoke()
+    _, plain, _ = cs.kernel_table(card)[name]
+    args = cs.make_inputs(name, shape, dtype, card, seed=10)
+    for _, kern, _, _ in cs.variants(name, args, dtype, card):
+        cs.compare(name, kern, plain, args, dtype)
+
+
+def test_flash_wrappers_refuse_more_queries_than_keys(card):
+    q, k, v, _ = _flash_inputs(card, 1, 64, 2, 2, 64, torch.float32)
+    with pytest.raises(ValueError):
+        flash.flash_fwd(q, k[:, :32], v[:, :32])
+
+
 def test_flash_wrappers_refuse_other_head_dims(card):
     q, k, v, _ = _flash_inputs(card, 1, 64, 2, 2, 48, torch.float32)
     with pytest.raises(ValueError):
@@ -1052,8 +1079,9 @@ def test_unbuilt_tiles_and_chunks_raise_on_card(card):
     with pytest.raises(RuntimeError, match="flash_fwd"):
         build.launch("flash_fwd", q32.data_ptr(), k32.data_ptr(),
                      v32.data_ptr(), out.data_ptr(), lse.data_ptr(), 1, 200,
-                     4, 2, 32, 0, 1.0, *q32.stride()[:3], *k32.stride()[:3],
-                     *v32.stride()[:3], 128, 0, build.current_stream(q32))
+                     200, 4, 2, 32, 0, 1.0, *q32.stride()[:3],
+                     *k32.stride()[:3], *v32.stride()[:3], 128, 0,
+                     build.current_stream(q32))
     x = torch.zeros(1, 100, 2, 64, device=card)
     dt = torch.zeros(1, 100, 2, device=card)
     A = torch.zeros(2, device=card)

@@ -28,7 +28,12 @@ and a 128-row tile gives outputs bitwise equal to the 64-row one.  The
 grid tests mirror the kernels' grid mapping (forward and dq: grid (H,
 B, q blocks), the q block taken from the last; dk/dv: kv blocks in
 order): each block once, the blocks with the most work first, over the
-reference's _kv_bounds and _q_bounds, at each tile.
+reference's _kv_bounds and _q_bounds, at each tile.  With fewer queries
+than keys (the queries the last Sq of Sk positions, a sequence shard's),
+an emulation of the kernels' walks, their block bounds taken at key
+positions and their per-warp skips, computes every visible (q, k) pair
+exactly once and no other, dk/dv writes each kv row once, and at Sq ==
+Sk every bound is the whole-sequence one.
 """
 import math
 
@@ -313,3 +318,125 @@ def test_grids_cover_each_block_once_at_every_tile(shape, tile):
         lo = np.array([r[0] for r in ranges])[qblk]
         hi = np.array([r[1] for r in ranges])[qblk]
         assert ((lo <= kblk) & (kblk < hi)).all()
+
+
+# ----------------------------------------------------------------------
+# Fewer queries than keys: the queries are the last Sq of Sk positions
+# ----------------------------------------------------------------------
+def _trunc(a, b):
+    """C's integer division (toward zero)."""
+    return int(a / b)
+
+
+def _visible_at(qpos, kpos, Sk, window):
+    """flash.cuh's visible(): positions are key positions."""
+    ok = (kpos <= qpos) & (qpos < Sk)
+    if window > 0:
+        ok &= kpos > qpos - window
+    return ok
+
+
+def _kv_range_at(iq, Sq, Sk, window, bq):
+    """[lo, hi) of flash.cuh's QWalk for q block iq at q tile bq: taken at
+    the block's first key position p0 = iq * bq + Sk - Sq."""
+    p0 = iq * bq + Sk - Sq
+    lo = max(_trunc(p0 - window + 1, BLOCK), 0) if window > 0 else 0
+    return lo, min(_trunc(p0 + bq - 1, BLOCK) + 1, -(-Sk // BLOCK))
+
+
+def _q_range_at(ik, Sq, Sk, window, bk):
+    """[qlo, qhi) of flash.cuh's dk/dv kernel for kv block ik at kv tile
+    bk (q tiles of 64), and the number of q blocks it walks."""
+    off, k0, nq = Sk - Sq, ik * bk, -(-Sq // BLOCK)
+    qlo = _trunc(max(k0 - off, 0), BLOCK)
+    last = k0 + bk + window - 2 - off
+    qhi = ((0 if last < 0 else min(_trunc(last, BLOCK) + 1, nq))
+           if window > 0 else nq)
+    return qlo, qhi, max(qhi - qlo, 0)
+
+
+def _walk_pairs(Sq, Sk, window, tile):
+    """Every (q position, k position) each walk computes, as the kernels
+    compute it: the forward's and dq's (q block, warp of 16 rows, kv
+    block) over [lo, hi), dk/dv's (kv block, warp of 16 kv rows, q block)
+    over [qlo, qhi), each skipping the pairs of rows none of which is
+    visible (``none``), testing visible() per element unless ``all``;
+    and how many times dk/dv writes each kv row."""
+    off = Sk - Sq
+    r16, c64 = np.arange(16)[:, None], np.arange(BLOCK)[None, :]
+    fwd = []
+    for iq in range(-(-Sq // tile)):
+        lo, hi = _kv_range_at(iq, Sq, Sk, window, tile)
+        for w in range(tile // 16):
+            qr = iq * tile + off + 16 * w
+            for ik in range(lo, hi):
+                k0 = ik * BLOCK
+                if (qr >= Sk or qr + 15 < k0 or
+                        (window > 0 and qr - (k0 + BLOCK - 1) >= window)):
+                    continue
+                every = (k0 + BLOCK - 1 <= qr and qr + 15 < Sk and
+                         (window <= 0 or qr + 15 - k0 < window))
+                qp, kp = np.broadcast_arrays(qr + r16, k0 + c64)
+                keep = every | _visible_at(qp, kp, Sk, window)
+                fwd.append(np.stack([qp[keep], kp[keep]], 1))
+    dkdv, written = [], np.zeros(-(-Sk // tile) * tile, int)
+    for ik in range(-(-Sk // tile)):
+        qlo, qhi, _ = _q_range_at(ik, Sq, Sk, window, tile)
+        for w in range(tile // 16):
+            kmin = ik * tile + 16 * w
+            written[kmin:kmin + 16] += 1
+            for iq in range(qlo, qhi):
+                p0 = iq * BLOCK + off
+                pmax = p0 + BLOCK - 1
+                if pmax < kmin or (window > 0 and
+                                   p0 - (kmin + 15) >= window):
+                    continue
+                every = (p0 >= kmin + 15 and pmax < Sk and
+                         (window <= 0 or pmax - kmin < window))
+                kp, qp = np.broadcast_arrays(kmin + r16, p0 + c64)
+                keep = every | _visible_at(qp, kp, Sk, window)
+                dkdv.append(np.stack([qp[keep], kp[keep]], 1))
+    return (np.concatenate(fwd) if fwd else np.zeros((0, 2), int),
+            np.concatenate(dkdv) if dkdv else np.zeros((0, 2), int),
+            written[:Sk])
+
+
+_OFFSET_CASES = [(Sq, Sk, window, tile)
+                 for Sq, Sk in ((1, 1), (1, 70), (37, 37), (37, 100),
+                                (64, 128), (100, 227), (130, 130),
+                                (128, 512), (200, 264))
+                 for window in (0, 6, 48)
+                 for tile in (64, 128)]
+
+
+@pytest.mark.parametrize("Sq,Sk,window,tile", _OFFSET_CASES)
+def test_offset_walks_cover_exactly_the_visible_pairs(Sq, Sk, window, tile):
+    """Queries the last Sq of Sk positions: each walk computes every
+    visible (q, k) pair exactly once and no other, dk/dv's grid writes
+    each of the Sk kv rows exactly once (a row no query sees then holds
+    zeros: its block adds nothing), and at Sq == Sk every range is the
+    whole-sequence kernels' (``_kv_range``, ``_q_range``)."""
+    qp, kp = np.meshgrid(np.arange(Sq) + Sk - Sq, np.arange(Sk),
+                         indexing="ij")
+    keep = _visible_at(qp, kp, Sk, window)
+    want = sorted(zip(qp[keep].tolist(), kp[keep].tolist()))
+    fwd, dkdv, written = _walk_pairs(Sq, Sk, window, tile)
+    for pairs in (fwd, dkdv):
+        assert sorted(map(tuple, pairs.tolist())) == want
+    assert (written == 1).all()
+    if Sq == Sk:
+        for iq in range(-(-Sq // tile)):
+            assert _kv_range_at(iq, Sq, Sk, window, tile) == \
+                _kv_range(iq, Sk, window, tile)
+        for ik in range(-(-Sk // tile)):
+            assert _q_range_at(ik, Sq, Sk, window, tile)[:2] == \
+                _q_range(ik, Sk, window, tile)
+
+
+def test_offset_kv_block_no_query_sees_walks_nothing():
+    """Under a window, a kv block far behind every query has an empty q
+    range (its rows are written as zeros) and never divides by it."""
+    Sq, Sk, window = 64, 512, 6
+    qlo, qhi, nqb = _q_range_at(0, Sq, Sk, window, 64)
+    assert nqb == 0 and qhi == 0
+    assert _q_range_at(7, Sq, Sk, window, 64)[2] == 1

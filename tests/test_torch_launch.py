@@ -227,6 +227,19 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
                 "bitwise on every stage", "not measured"):
         assert any(ln.startswith("[pipeline]") and tag in ln
                    for ln in lines), tag
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
+        for case in ("w0-o0", "w16-o32"):
+            assert any(ln.startswith(f"[check] {name}") and " offset " in ln
+                       and case in ln for ln in lines), (name, case)
+        assert any(ln.startswith(f"[time] {name}") and "Sq=32 Sk=64" in ln
+                   for ln in lines), name
+    for name, tag in (("17a", "the sequence over model: 1 rows of 16"),
+                      ("17b", "the sequence over None: 1 rows of 32"),
+                      ("17c", "the sequence over model: 1 rows of 16")):
+        assert any(ln.startswith(f"[seq] {name}") and tag in ln
+                   for ln in lines), (name, tag)
+        assert any(ln.startswith(f"[seq] {name} step seconds") and
+                   "bitwise on every rank" in ln for ln in lines), name
 
 
 def _zero(i):

@@ -210,13 +210,14 @@ def test_mesh_of_size_one_is_accepted_and_larger_raises_item_17b():
     b = SPMDExecutor(model, params, opt_cfg)
     assert torch.equal(a.step(batch)["loss"], b.step(batch)["loss"])
     assert_trees_equal(a.params, b.params)
-    # a larger mesh runs over a ProcessMesh (tests/test_torch_spmd_mesh.py);
-    # TP and a batch that leaves a batch axis uncovered are item 17c
+    # a larger mesh runs over a ProcessMesh (tests/test_torch_spmd_mesh.py,
+    # and tests/test_torch_spmd_seq.py for a batch that leaves a batch
+    # axis uncovered); TP is item 17c
     with pytest.raises(NotImplementedError, match="17c"):
         SPMDExecutor(model, params, opt_cfg,
                      mesh=make_mesh((1, 2), ("data", "model")),
                      strategy=ShardingStrategy(strategy="tp"), shape=shape)
-    with pytest.raises(NotImplementedError, match="17c"):
+    with pytest.raises(TypeError, match="ProcessMesh"):
         SPMDExecutor(model, params, opt_cfg,
                      mesh=make_mesh((2, 2), ("data", "model")),
                      strategy=ShardingStrategy(),

@@ -17,7 +17,9 @@ with the wrapper's scratch argument dropped, and a tree whose
 backward) runs under that tree's own wrapper: 8 rows a block and the
 partial rows summed by ``torch.sum``; and a tree whose flash launchers
 take no tile (before the autotuner) is called with the tile argument
-dropped, its 64-row tile only.  Per tree, each kernel is first
+dropped, its 64-row tile only; and a tree whose flash launchers take one
+sequence length (before Sq <= Sk) is called with the key length dropped,
+at Sq == Sk only.  Per tree, each kernel is first
 held against its plain version (chip_smoke.py's comparison), then timed
 with CUDA events, at the shape of the path the kernels line reports
 (``--labels`` names others of chip_smoke.py's shapes; the GEMM in its
@@ -25,7 +27,8 @@ three layouts) in fp32 (``--dtypes`` adds bfloat16).  Prints the card,
 each build's register / spill lines for the named kernels, and one JSON
 line per turn: label, kernel, layout, shape label, dtype, milliseconds
 (and, with ``--phases``, each CUDA function's profiler device
-milliseconds).
+milliseconds).  ``--bitwise`` also holds every tree's outputs equal, bit
+for bit, to the first tree's in ``--order`` on the same inputs.
 """
 from __future__ import annotations
 
@@ -75,28 +78,50 @@ def takes_tile(tree: str) -> bool:
     return "int tile" in head[:head.index(")")]
 
 
+def takes_sk(tree: str) -> bool:
+    """Whether the tree's flash launchers take the key length Sk."""
+    src = (pathlib.Path(tree).resolve()
+           / "src/repro_torch/kernels/csrc/flash.cu").read_text()
+    head = src[src.index("int flash_fwd("):]
+    return "int Sk" in head[:head.index(")")]
+
+
 _FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
+#: the index of Sk in each flash launcher's arguments: after its
+#: pointers, B and Sq
+_SK_AT = {"flash_fwd": 7, "flash_bwd_dq": 9, "flash_bwd_dkdv": 10}
 
 
 class _Compat:
     """An older library under this checkout's wrappers: an ssd_bwd with
     no scratch gets the wrapper's 14th pointer (the scratch) dropped,
     flash launchers with no tile the argument before the dtype (only the
-    64-row tile, which they had)."""
+    64-row tile, which they had), flash launchers with one sequence
+    length the key length (only Sq == Sk, which they had)."""
 
-    def __init__(self, cdll, scratch: bool, tile: bool):
+    def __init__(self, cdll, scratch: bool, tile: bool, sk: bool = True):
         self._cdll, self._scratch, self._tile = cdll, scratch, tile
+        self._sk = sk
 
     def __getattr__(self, name):
         fn = getattr(self._cdll, name)
         if name == "ssd_bwd" and not self._scratch:
             return lambda *args: fn(*args[:13], *args[14:])
-        if name in _FLASH and not self._tile:
+        if name in _FLASH and not (self._tile and self._sk):
+            at = _SK_AT[name]
+
             def call(*args):
-                if args[-3] != 64:
-                    raise ValueError(f"{name}: this tree has only the "
-                                     f"64-row tile, not {args[-3]}")
-                return fn(*args[:-3], *args[-2:])
+                if not self._sk:
+                    if args[at] != args[at - 1]:
+                        raise ValueError(f"{name}: this tree takes Sq == "
+                                         f"Sk only")
+                    args = args[:at] + args[at + 1:]
+                if not self._tile:
+                    if args[-3] != 64:
+                        raise ValueError(f"{name}: this tree has only the "
+                                         f"64-row tile, not {args[-3]}")
+                    args = args[:-3] + args[-2:]
+                return fn(*args)
             return call
         return fn
 
@@ -132,8 +157,8 @@ def two_pass_norm_bwd(res, w, gres, gh, eps):
     return dres, partials.sum(0).to(w.dtype)
 
 
-def load(lib: pathlib.Path, scratch: bool, norm_bwd, tile: bool = True
-         ) -> None:
+def load(lib: pathlib.Path, scratch: bool, norm_bwd, tile: bool = True,
+         sk: bool = True) -> None:
     """Swap in ``lib``; ``norm_bwd`` becomes ``fused.add_rmsnorm_bwd``
     (this checkout's wrapper, or ``two_pass_norm_bwd``)."""
     from repro_torch.kernels import build, fused
@@ -142,13 +167,16 @@ def load(lib: pathlib.Path, scratch: bool, norm_bwd, tile: bool = True
         fn = getattr(cdll, name)
         if name == "ssd_bwd" and not scratch:
             argtypes = argtypes[:13] + argtypes[14:]
+        if name in _FLASH and not sk:
+            argtypes = argtypes[:_SK_AT[name]] + argtypes[_SK_AT[name] + 1:]
         if name in _FLASH and not tile:
             argtypes = argtypes[:-3] + argtypes[-2:]
         if name == "add_rmsnorm_bwd" and norm_bwd is two_pass_norm_bwd:
             argtypes = _TWO_PASS_NORM
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    build._LIB = cdll if scratch and tile else _Compat(cdll, scratch, tile)
+    build._LIB = (cdll if scratch and tile and sk
+                  else _Compat(cdll, scratch, tile, sk))
     fused.add_rmsnorm_bwd = norm_bwd
 
 
@@ -165,6 +193,9 @@ def main(argv=None) -> int:
                          "(default: the reported path's)")
     ap.add_argument("--dtypes", default="float32",
                     help="comma-separated: float32, bfloat16")
+    ap.add_argument("--bitwise", action="store_true",
+                    help="hold every tree's outputs bitwise equal to the "
+                         "first's")
     args = ap.parse_args(argv)
     import torch
     import chip_smoke as cs
@@ -203,15 +234,30 @@ def main(argv=None) -> int:
                                   cs.make_inputs(name, shapes[shape_label],
                                                  dt, dev, seed=2,
                                                  layout=layout)))
-    checked = set()
+    checked, first = set(), {}
     for label in args.order.split(","):
         load(libs[label], takes_scratch(trees[label]),
              one_pass_norm_bwd if one_pass_norm(trees[label])
-             else two_pass_norm_bwd, takes_tile(trees[label]))
-        for name, layout, shape_label, dtype, inputs in cases:
+             else two_pass_norm_bwd, takes_tile(trees[label]),
+             takes_sk(trees[label]))
+        for i, (name, layout, shape_label, dtype, inputs) in enumerate(cases):
             kern, plain, _ = table[name]
             if label not in checked:
                 cs.compare(name, kern, plain, inputs, dtype)
+            if args.bitwise:
+                outs = cs._flat(kern(*inputs))
+                first.setdefault(i, (label, outs))
+                same = all(torch.equal(a, b)
+                           for a, b in zip(outs, first[i][1]))
+                print(json.dumps({"run": label, "kernel": name,
+                                  "layout": layout, "shape": shape_label,
+                                  "dtype": str(dtype)[6:],
+                                  "bitwise_as": first[i][0],
+                                  "equal": same}), flush=True)
+                if not same:
+                    raise SystemExit(f"{name} {layout} {shape_label} "
+                                     f"{dtype}: {label} differs from "
+                                     f"{first[i][0]}")
             ms = cs.time_ms(kern, inputs, dev, args.iters)
             row = {"run": label, "kernel": name, "layout": layout,
                    "shape": shape_label, "dtype": str(dtype)[6:], "ms": ms}
