@@ -142,13 +142,39 @@ Phases, each fatal on failure:
      candidate's time, the winner and the packaged entry; asserts that
      with tuning off every path key resolves to the packaged table's
      entry, and that two fresh interpreters resolve the same.
+ 17. sequence parallelism and MoE over batch ranks: one world of 4 rank
+     processes on data 2 x model 2 (FSDP + ZeRO-1, gloo) runs
+     gpt3-medium (the sequence over model), granite-moe (8 blocks, the
+     router statistics over 4 batch ranks) and mamba2-780m (16 blocks),
+     each held to a one-program ``SPMDExecutor`` on the same weights and
+     sequences (``[seq]`` lines).
+ 18. Megatron tensor and expert parallelism (``strategy="tp"``): one
+     world of 4 rank processes on data 2 x model 2 (ZeRO-1, gloo),
+     global batch 2 (one sequence of 2048 a model group), phase 13's
+     model options, 2 steps of 18a gpt3-medium (24 blocks, 8 heads a
+     rank, the table whole), 18b granite-moe (8 of 24 blocks, 16 of 32
+     experts a rank, GQA 8 / 4 heads) and 18c qwen3-1.7b (8 of 28
+     blocks, GQA 8 / 4 heads of 128 with q/k norms, the tied table
+     vocab-parallel), at full width.  Each is held to a one-program
+     ``SPMDExecutor`` on the same weights and sequences: the first loss
+     (and aux) at tests/test_executor.py's fp32 tolerance, the params
+     after step 1 by its tracking rule; every rank's losses bitwise
+     equal; after every step each leaf whose spec does not name the
+     model axis bitwise equal across the model group; each rank's state
+     bytes equal the dry-run's per-card args less the batch; one program;
+     each rank's flash, GEMM and norm launches as remat full derives.
+     Prints (``[tp]`` lines) the step seconds (rank 0's and the slowest
+     rank's), the bytes a rank a step by kind and by tag beside the
+     dry-run's all-reduce bytes for the same layout (a trace run beside
+     the ranks), the launches and each rank's peak memory.
 The autotuner reads an empty persisted table in a temporary directory
-and never tunes in phases 1-15: they run the packaged table's
-configurations.
+and never tunes in phases 1-15, 17 and 18: they run the packaged
+table's configurations.
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line
 (each kernel's launches counted on the path that reports it: phase 7
 for the six, phase 8 for the SSD pair; error, times, bound and the
-resolved ``config`` at the shapes that path gives it) and ``{"ok":
+resolved ``config`` at the shapes that path gives it; ``tp_launches``:
+rank 0's launches over phase 18's three scenarios) and ``{"ok":
 true, "device": {...}}``.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
@@ -247,11 +273,15 @@ SSD = ("ssd_fwd", "ssd_bwd")
 # of the path whose launches it counts (reported_path).
 CARD_SHAPES = {
     "add_rmsnorm_fwd": [("flash", (4096, 1024)), ("naive", (1024, 1024)),
-                        ("moe", (2048, 1024)), ("ragged", (1000, 999))],
+                        ("moe", (2048, 1024)), ("ragged", (1000, 999)),
+                        ("tp-c", (2048, 2048))],
     "add_rmsnorm_bwd": [("flash", (4096, 1024)), ("naive", (1024, 1024)),
-                        ("moe", (2048, 1024)), ("ragged", (1000, 999))],
+                        ("moe", (2048, 1024)), ("ragged", (1000, 999)),
+                        ("tp-c", (2048, 2048))],
     "gemm_bias": [("flash", (4096, 1024, 3072)), ("naive", (1024, 1024, 3072)),
-                  ("moe", (2048, 1024, 2048)), ("ragged", (1000, 999, 3000))],
+                  ("moe", (2048, 1024, 2048)), ("ragged", (1000, 999, 3000)),
+                  ("tp-a", (2048, 1024, 1536)), ("tp-b", (2048, 1024, 1024)),
+                  ("tp-c", (2048, 2048, 2048))],
     # gqa: qwen2.5-3b's heads (16 / kv 2, head dim 128) at a ragged
     # sequence; window: a sliding window of 256 (hymba's 2048 scaled
     # down) with hymba's group of 5 query heads per kv head; d80: GPT-3
@@ -260,7 +290,10 @@ CARD_SHAPES = {
               ("moe", (1, 2048, 16, 8, 64, 0)),
               ("gqa", (2, 1000, 16, 2, 128, 0)),
               ("window", (2, 1000, 20, 4, 64, 256)),
-              ("d80", (1, 1000, 32, 32, 80, 0))],
+              ("d80", (1, 1000, 32, 32, 80, 0)),
+              ("tp-a", (1, 2048, 8, 8, 64, 0)),
+              ("tp-b", (1, 2048, 8, 4, 64, 0)),
+              ("tp-c", (1, 2048, 8, 4, 128, 0))],
     # hymba: its SSD heads (50 x 64, state 16) at a ragged sequence;
     # reduced: the reduced configs' widths, per-head B and C
     "ssd": [("mamba", (1, 2048, 48, 64, 128, True)),
@@ -269,19 +302,31 @@ CARD_SHAPES = {
 }
 CPU_SHAPES = {
     "add_rmsnorm_fwd": [("flash", (128, 64)), ("naive", (64, 64)),
-                        ("moe", (64, 64)), ("ragged", (33, 47))],
+                        ("moe", (64, 64)), ("ragged", (33, 47)),
+                        ("tp-c", (64, 128))],
     "add_rmsnorm_bwd": [("flash", (128, 64)), ("naive", (64, 64)),
-                        ("moe", (64, 64)), ("ragged", (33, 47))],
+                        ("moe", (64, 64)), ("ragged", (33, 47)),
+                        ("tp-c", (64, 128))],
     "gemm_bias": [("flash", (128, 64, 192)), ("naive", (64, 64, 192)),
-                  ("moe", (64, 64, 128)), ("ragged", (33, 47, 95))],
+                  ("moe", (64, 64, 128)), ("ragged", (33, 47, 95)),
+                  ("tp-a", (64, 64, 96)), ("tp-b", (64, 64, 64)),
+                  ("tp-c", (64, 128, 128))],
     "flash": [("flash", (1, 64, 2, 2, 32, 0)), ("moe", (1, 64, 4, 2, 32, 0)),
               ("gqa", (1, 40, 4, 2, 32, 0)),
-              ("window", (1, 40, 4, 1, 32, 16)), ("d80", (1, 40, 2, 2, 80, 0))],
+              ("window", (1, 40, 4, 1, 32, 16)), ("d80", (1, 40, 2, 2, 80, 0)),
+              ("tp-a", (1, 64, 2, 2, 32, 0)), ("tp-b", (1, 64, 2, 1, 32, 0)),
+              ("tp-c", (1, 64, 2, 1, 64, 0))],
     "ssd": [("mamba", (1, 100, 3, 16, 16, True)),
             ("hymba", (1, 70, 3, 16, 8, True)),
             ("reduced", (1, 33, 2, 8, 16, False))],
 }
 PATH_LABELS = tuple(label for label, _, _ in PATHS.values())
+#: the shard shapes of phase 18 (one sequence of 2048 a rank, model 2):
+#: tp-a gpt3-medium (8 heads of 64: a fused QKV of 1536 columns), tp-b
+#: granite-moe (GQA 8 / 4 heads of 64: 1024 columns), tp-c qwen3-1.7b
+#: (GQA 8 / 4 heads of 128: 2048 columns at d 2048, and its norms);
+#: checked in phase 3 and timed in phase 4 as the paths' shapes are
+TP_LABELS = ("tp-a", "tp-b", "tp-c")
 
 
 def reported_path(name):
@@ -943,7 +988,7 @@ def time_kernels(device, table, shapes, iters):
     rows = {}
     for name, (kern, plain, lib) in table.items():
         for label, shape in _shapes(shapes, name):
-            if label not in PATH_LABELS:
+            if label not in PATH_LABELS + TP_LABELS:
                 continue
             args = make_inputs(name, shape, torch.float32, device, seed=2)
             chunk = ssd_chunk(args[0], args[3]) if name in SSD else 64
@@ -2360,16 +2405,21 @@ SEQ17 = {
 SEQ17_STEPS = 2
 
 
+def _scenario(name):
+    """A phase 17 (``SEQ17``) or phase 18 (``TP18``) scenario."""
+    return SEQ17[name] if name in SEQ17 else TP18[name]
+
+
 def seq_model(on_card, name):
-    """(arch, sequence, model) of a phase 17 scenario: phase 13's model
-    options (fp32, the kernels, remat full, the chunked CE) at the
+    """(arch, sequence, model) of a phase 17 or 18 scenario: phase 13's
+    model options (fp32, the kernels, remat full, the chunked CE) at the
     scenario's width, its depth on the card (2 blocks and phase 13's CPU
     sequence in the CPU rehearsal)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch, reduced
     from repro_torch.models import Model
-    arch_name, layers, _, opts = SEQ17[name]
+    arch_name, layers, _, opts = _scenario(name)
     arch, seq = get_arch(arch_name), SPMD["seq_len"]
     if not on_card:
         arch, seq = reduced(arch, layers=2), SPMD["cpu_seq_len"]
@@ -2481,10 +2531,11 @@ def _seq_reference(device, name, batch):
     from repro_torch.utils.tree import tree_map
     on_card = device.type == "cuda"
     _, seq, model = seq_model(on_card, name)
-    gb = SEQ17[name][2]
+    gb = _scenario(name)[2]
     params = model.init(torch.Generator(device=device).manual_seed(0))
     ex = SPMDExecutor(model, params, adamw.AdamWConfig(**SPMD_OPT),
-                      shape=ShapeConfig(f"phase17-{name}", seq, gb, "train"))
+                      shape=ShapeConfig(f"phase{name[:2]}-{name}", seq, gb,
+                                       "train"))
     del params
     _sync(on_card)
     t0 = time.perf_counter()
@@ -2594,6 +2645,274 @@ def run_seq(device, batch):
     else:
         print(f"[seq] peak memory: not measured (cpu rehearsal); phase "
               f"{time.perf_counter() - t_phase:.1f}s")
+
+
+# ----------------------------------------------------------------------
+# Phase 18: Megatron tensor and expert parallelism on the mesh
+# ----------------------------------------------------------------------
+#: phase 18's scenarios over one world of 4 rank processes on a data 2 x
+#: model 2 mesh (strategy "tp", ZeRO-1), each against a one-program
+#: SPMDExecutor on the same weights and sequences: name -> (arch, layers
+#: on the card (None: all), global batch, model options).  Global batch
+#: 2: one sequence of 2048 a data rank, computed by its model group of
+#: 2.  18a: gpt3-medium (8 heads a rank, the table of 50257 rows whole);
+#: 18b: granite-moe, depth cut to 8 of 24 blocks (16 of 32 experts a
+#: rank in the dense dispatch, GQA 8 / 4 heads of 64, the tied table of
+#: 49155 rows whole); 18c: qwen3-1.7b, depth cut to 8 of 28 blocks (GQA
+#: 8 / 4 heads of 128 with q/k norms, the tied table vocab-parallel:
+#: 75968 rows a rank).  The cuts keep the phase's gloo traffic (the
+#: gradients' all-reduce and the moments' gathers through the host)
+#: inside its time; the width is full and the sequences are phase 13's.
+TP18 = {
+    "18a": ("gpt3-medium", None, 2, dict(attn_impl="kernel")),
+    "18b": ("granite-moe-1b-a400m", 8, 2, dict(attn_impl="kernel")),
+    "18c": ("qwen3-1.7b", 8, 2, dict(attn_impl="kernel")),
+}
+TP18_STEPS = 2
+
+
+def _replicated_hashes(ex):
+    """sha256 of each leaf whose spec does not name the model axis."""
+    import hashlib
+    from repro_torch.runtime.coordination import leaf_bytes
+    from repro_torch.runtime.sharding import spec_leaves
+    return {p: hashlib.sha256(leaf_bytes(t)).hexdigest()
+            for p, spec, t in spec_leaves(ex.pspecs, ex.params)
+            if "model" not in spec}
+
+
+def tp_rank(on_card, batch):
+    """Phase 18, one rank's part (run by ``spawn_world``): every scenario
+    in turn on this world's data 2 x model 2 mesh under ``tp``."""
+    import gc
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import ProcessMesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import (ShardingStrategy, SPMDExecutor,
+                                     track_compiles)
+    from repro_torch.runtime.sharding import gather_tree
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    dev = _world_device(on_card)
+    mesh = ProcessMesh(("data", "model"), MESH["shape"])
+    strategy = ShardingStrategy(strategy="tp")
+    tr = mesh.transport
+    out = {"rank": mesh.rank, "coords": mesh.coords}
+    for name, (_, _, gb, _) in TP18.items():
+        arch, seq, model = seq_model(on_card, name)
+        shape = ShapeConfig(f"phase18-{name}", seq, gb, "train")
+        b = _seq_batch(gb, batch)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        ex = SPMDExecutor(model, params, adamw.AdamWConfig(**SPMD_OPT),
+                          mesh=mesh, strategy=strategy, shape=shape)
+        del params
+        held = sum(t.numel() * t.element_size()
+                   for t in tree_leaves((ex.params, ex.opt_state)))
+        want = dryrun.spec_bytes(arch, shape, mesh, strategy, model=model)
+        tp = strategy.tp_context(mesh, arch)
+        r = {"held": held, "want": want["args"] - want["batch"],
+             "heads": tp.heads, "kv_heads": tp.kv_heads,
+             "experts": tp.experts, "vocab": tp.vocab,
+             "builds_at_bind": ex.cache.stats.compiles}
+        build.reset_launches()
+        losses, bits, secs, moved, tagged, hashes = [], [], [], [], [], []
+        with track_compiles() as log:
+            for i in range(TP18_STEPS):
+                tr.reset()
+                _sync(on_card)
+                t0 = time.perf_counter()
+                stats = ex.step(b)
+                losses.append(float(stats["loss"]))
+                _sync(on_card)
+                secs.append(time.perf_counter() - t0)
+                bits.append(stats["loss"].cpu().numpy().tobytes())
+                moved.append(dict(tr.bytes))
+                tagged.append({k: dict(v) for k, v in tr.tagged.items()})
+                hashes.append(_replicated_hashes(ex))
+                if i == 0:
+                    r["aux1"] = float(stats["aux"])
+                    full = gather_tree(ex.pspecs, ex.params, mesh,
+                                       to_root=True)
+                    r["params1"] = (tree_map(lambda t: t.cpu(), full)
+                                    if full is not None else None)
+                    del full
+        r.update(losses=losses, bits=bits, secs=secs, moved=moved,
+                 tagged=tagged, hashes=hashes, comm_s=tr.seconds,
+                 launches=dict(build.LAUNCHES),
+                 builds=ex.cache.stats.compiles + log.backend_compiles,
+                 peak=torch.cuda.max_memory_allocated() if on_card else 0)
+        out[name] = r
+        del ex
+    return out
+
+
+def tp_dryrun(on_card):
+    """The dry-run of each phase 18 scenario on an abstract data 2 x
+    model 2 mesh under ``tp`` (``launch/dryrun.py::analyze``: a trace on
+    fake tensors, no device): {name: its collectives' bytes a device by
+    kind and site}.  Printed as JSON: phase 18 runs it in a process of
+    its own beside the ranks."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import ShardingStrategy
+    out = {}
+    for name, (_, _, gb, _) in TP18.items():
+        arch, seq, model = seq_model(on_card, name)
+        a = dryrun.analyze(arch, ShapeConfig(f"phase18-{name}", seq, gb,
+                                             "train"),
+                           make_mesh(MESH["shape"], ("data", "model")),
+                           ShardingStrategy(strategy="tp"),
+                           dtype=torch.float32, moe_impl=model.moe_impl,
+                           loss_chunk=model.loss_chunk)
+        out[name] = {"by_kind": a["ops"]["collective_bytes_by_kind"],
+                     "by_site": a["ops"]["collective_bytes_by_site"],
+                     "trace_s": a["trace_s"]}
+    print(json.dumps(out))
+
+
+def _start_tp_dryrun(on_card):
+    """``tp_dryrun`` in a fresh interpreter (the CPU, no card)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC, ROOT, os.environ.get("PYTHONPATH", "")]),
+        CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; "
+         f"chip_smoke.tp_dryrun({on_card!r})"], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def run_tp(device, batch):
+    """Phase 18: Megatron tensor and expert parallelism, one world of 4
+    fresh rank processes sharing the card (gloo), each scenario held to
+    a one-program SPMDExecutor on the same weights and sequences.
+    Returns rank 0's launches over the three scenarios."""
+    import gc
+    import torch
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.utils.tree import tree_leaves
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    trace = _start_tp_dryrun(on_card)
+    try:
+        refs = {name: _seq_reference(device, name, batch) for name in TP18}
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        ranks_n = MESH["shape"][0] * MESH["shape"][1]
+        poller = _MemoryPeak(on_card)
+        try:
+            ranks = spawn_world("chip_smoke:tp_rank", ranks_n,
+                                {"on_card": on_card, "batch": batch},
+                                device=device, paths=[ROOT], timeout=900)
+        finally:
+            smi = poller.stop()
+        t_wait = time.perf_counter()
+        stdout, stderr = trace.communicate(timeout=600)
+        wait_s = time.perf_counter() - t_wait
+    finally:
+        if trace.poll() is None:
+            trace.kill()
+            trace.wait()
+    check(trace.returncode == 0, f"tp dry-run exited {trace.returncode}: "
+          f"{stderr[-2000:]}")
+    dry = json.loads(stdout.strip().splitlines()[-1])
+    total = {}
+    for name in TP18:
+        arch, seq, _ = seq_model(on_card, name)
+        loss_ref, aux_ref, p_ref, ref_s = refs[name]
+        r0 = ranks[0][name]
+        losses = r0["losses"]
+        for rank in ranks:
+            r = rank[name]
+            check(r["held"] == r["want"],
+                  f"tp {name} rank {rank['rank']}: state {r['held']} B, the "
+                  f"dry-run's per-card args less the batch {r['want']} B")
+            check(r["bits"] == r0["bits"],
+                  f"tp {name} rank {rank['rank']} losses {r['losses']} vs "
+                  f"rank 0's {losses}: not bitwise")
+            check(r["builds_at_bind"] == 1 and r["builds"] == 1,
+                  f"tp {name} rank {rank['rank']}: {r['builds_at_bind']} "
+                  f"programs at bind, {r['builds']} after")
+            if on_card:
+                want_l = seq_launches(arch, TP18_STEPS)
+                got = {k: r["launches"][k] for k in want_l}
+                check(got == want_l, f"tp {name} rank {rank['rank']} "
+                      f"launches {got}, expected {want_l}")
+        # the TP form of replica_divergence() == 0: every leaf whose spec
+        # does not name the model axis, bitwise across the model group
+        groups = {}
+        for rank in ranks:
+            groups.setdefault(rank["coords"]["data"], []).append(rank[name])
+        n_whole = len(r0["hashes"][0])
+        for members in groups.values():
+            for other in members[1:]:
+                check(other["hashes"] == members[0]["hashes"],
+                      f"tp {name}: a replicated leaf differs across the "
+                      f"model group")
+        check(all(math.isfinite(x) for x in losses),
+              f"tp {name} losses {losses}")
+        tol = EXECUTOR_TOL["atol"] + EXECUTOR_TOL["rtol"] * abs(loss_ref)
+        check(abs(losses[0] - loss_ref) <= tol,
+              f"tp {name} first loss {losses[0]!r} vs one program's "
+              f"{loss_ref!r}")
+        atol = EXECUTOR_TOL["atol"] + EXECUTOR_TOL["rtol"] * abs(aux_ref)
+        check(abs(r0["aux1"] - aux_ref) <= atol,
+              f"tp {name} first aux {r0['aux1']!r} vs one program's "
+              f"{aux_ref!r}")
+        worst, frac, ok = _params_track(tree_leaves(r0["params1"]),
+                                        tree_leaves(p_ref), SPMD_OPT["lr"])
+        check(ok, f"tp {name} params after step 1 vs one program's: max "
+              f"{worst}, fraction above lr/10 {frac}")
+        print(f"[tp] {name} {arch.name} ({arch.num_layers} blocks, S {seq}, "
+              f"global batch {TP18[name][2]}, data 2 x model 2): a rank's "
+              f"query heads {r0['heads']}, kv heads {r0['kv_heads']}, "
+              f"experts {r0['experts']}, vocabulary rows {r0['vocab']} "
+              f"(None: whole); first loss {losses[0]!r} vs one program's "
+              f"{loss_ref!r} ({ref_s:.4f}s), aux {r0['aux1']!r} vs "
+              f"{aux_ref!r}; params after step 1 track it (max |diff| "
+              f"{worst:.3g}, fraction above lr/10 {frac:.3g})")
+        slowest = [round(max(rk[name]["secs"][i] for rk in ranks), 4)
+                   for i in range(TP18_STEPS)]
+        print(f"[tp] {name} step seconds {[round(t, 4) for t in r0['secs']]}"
+              f" (rank 0; slowest rank {slowest}), host seconds inside the "
+              f"collectives on rank 0 {r0['comm_s']:.4f}; losses "
+              f"{[round(x, 4) for x in losses]} bitwise on every rank; "
+              f"{n_whole} leaves not cut over model bitwise across the "
+              f"model group after every step; programs 1, builds after "
+              f"bind 0; state {r0['held']} B a rank = the dry-run's "
+              f"per-card args less the batch")
+        reduced_tags = {tag: kinds["reduced"] for tag, kinds in
+                        sorted(r0["tagged"][-1].items())}
+        d = dry[name]
+        act = {k: round(v) for k, v in sorted(d["by_site"].items())
+               if k.startswith("all-reduce")}
+        print(f"[tp] {name} bytes a step on rank 0 {r0['moved'][-1]}; by "
+              f"what they carry (gathered + reduced + scattered) "
+              f"{_tag_bytes(r0['tagged'][-1])}; all-reduced by tag "
+              f"{reduced_tags}; the dry-run's all-reduce bytes a device for "
+              f"this layout by site {act} (ring bytes: 2 (k-1)/k of the "
+              f"buffer, = the buffer at k 2; trace {d['trace_s']}s)")
+        print(f"[tp] {name} launches a rank {r0['launches']}")
+        for k, v in r0["launches"].items():
+            total[k] = total.get(k, 0) + v
+        if on_card:
+            print(f"[tp] {name} peak max_memory_allocated a rank "
+                  f"{[round(rk[name]['peak'] / 2**30, 2) for rk in ranks]} "
+                  f"GiB")
+    mem = (f"nvidia-smi memory.used peak {smi} MiB (4 ranks and this "
+           f"process)" if on_card else
+           "peak memory: not measured (cpu rehearsal)")
+    print(f"[tp] {mem}; the dry-run's trace ended {wait_s:.1f}s after the "
+          f"ranks; phase {time.perf_counter() - t_phase:.1f}s")
+    return total
 
 
 def _rounded(d):
@@ -2770,11 +3089,13 @@ def _run(device):
     run_pipeline(device, p13["batch"])
     run_autotune(device)
     run_seq(device, p13["batch"])
+    tp_launches = run_tp(device, p13["batch"])
     configs = kernel_configs(device, shapes)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errors[name],
-         **timing[name], "config": configs[name]}
+         **timing[name], "config": configs[name],
+         "tp_launches": tp_launches.get(name, 0)}
         for name, (replaces, source) in KERNELS.items()]}
     if on_card:
         print(card)

@@ -336,6 +336,7 @@ def analyze(arch: ArchConfig, shape: ShapeConfig, mesh,
             "collective_bytes_per_dev": dstats.collective_bytes,
             "collective_counts": dstats.collective_counts,
             "collective_bytes_by_kind": dstats.collective_bytes_by_kind,
+            "collective_bytes_by_site": dstats.collective_bytes_by_site,
             "top_collectives": dstats.top_collectives,
         },
         "roofline": {

@@ -92,6 +92,9 @@ class ProgramStats:
     peak_bytes: int = 0
     #: Σ collective bytes / the bandwidth of each one's group
     collective_seconds: float = 0.0
+    #: "kind site" (e.g. "all-reduce act-grad") -> bytes per device
+    collective_bytes_by_site: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
 
 
 class OpCounter(TorchDispatchMode):
@@ -221,6 +224,9 @@ class OpCounter(TorchDispatchMode):
         top = sorted(((b, f"{kind} x{n} {nb}B {site}")
                       for (kind, site, nb), (b, n) in self._sites.items()),
                      reverse=True)[:12]
+        by_site: Dict[str, float] = {}
+        for (kind, site, _), (b, _) in self._sites.items():
+            by_site[f"{kind} {site}"] = by_site.get(f"{kind} {site}", 0.0) + b
         return ProgramStats(
             dot_flops=self.dot_flops,
             collective_bytes=float(sum(self.coll_bytes.values())),
@@ -228,7 +234,8 @@ class OpCounter(TorchDispatchMode):
             collective_bytes_by_kind=dict(self.coll_bytes),
             top_collectives=top, dot_bytes=self.dot_bytes,
             conv_flops=self.conv_flops, peak_bytes=self.peak,
-            collective_seconds=self.coll_seconds)
+            collective_seconds=self.coll_seconds,
+            collective_bytes_by_site=by_site)
 
 
 def _tensors(out):

@@ -14,11 +14,21 @@ rank projects its own positions, with RoPE at their global positions,
 all-gathers K and V over the sequence group and attends its queries
 against the keys up to its shard's end: the queries are the last Sq of
 Sk positions, which every implementation takes (``Sq <= Sk``).
+
+Under tensor parallelism (``tp``, ``runtime/sharding.py::TPContext``) a
+rank computes its query heads and their kv heads: the normed input
+enters through *f*, the projection runs on the rank's column shards of
+``wq``/``wk``/``wv`` (and the biases), RoPE and the q/k norms per head
+(their replicated weights through *f*, since each rank's gradient of
+them covers its own heads only), attention over the local heads, and the
+row-parallel ``wo`` product leaves through *g*.  A weight cut inside a
+head (fewer kv heads than ranks) is gathered at use and sliced to the
+heads the rank reads (``TPContext.take``).
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -50,10 +60,14 @@ def init_attention(gen: torch.Generator, arch: ArchConfig,
 
 
 def _project_qkv(params, arch: ArchConfig, x: torch.Tensor,
-                 positions: torch.Tensor, *, fused: bool = False
+                 positions: torch.Tensor, *, fused: bool = False,
+                 heads: Optional[Tuple[int, int]] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q [B, S, H, hd], k and v [B, S, KV, hd]; ``heads`` (H, KV)
+    overrides the architecture's counts (a rank's heads under TP)."""
     B, S, _ = x.shape
-    H, KV, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
+    H, KV = heads or (arch.num_heads, arch.num_kv_heads)
+    hd = arch.head_dim
     if fused and S > 1:
         bias = ((params["bq"], params["bk"], params["bv"])
                 if arch.qkv_bias else (None, None, None))
@@ -142,18 +156,43 @@ def _sdpa_blocked(q, k, v, *, causal: bool, window: int,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
 
 
+def _tp_params(params, arch: ArchConfig, tp) -> Tuple[dict, Tuple[int, int]]:
+    """The attention weights a rank of ``tp`` computes its heads with, and
+    its (query heads, kv heads) counts (module docstring)."""
+    hd, H, KV = arch.head_dim, arch.num_heads, arch.num_kv_heads
+    (q0, q1), (k0, k1) = tp.heads, tp.kv_heads
+    cols = {"q": (q0 * hd, q1 * hd, H * hd), "k": (k0 * hd, k1 * hd, KV * hd),
+            "v": (k0 * hd, k1 * hd, KV * hd)}
+    p = dict(params)
+    for c, (lo, hi, full) in cols.items():
+        p["w" + c] = tp.take(params["w" + c], 1, lo, hi, full)
+        if arch.qkv_bias:
+            p["b" + c] = tp.take(params["b" + c], 0, lo, hi, full)
+    p["wo"] = tp.take(params["wo"], 0, *cols["q"])
+    if arch.qk_norm:
+        p["q_norm"], p["k_norm"] = tp.f(params["q_norm"]), tp.f(params["k_norm"])
+    return p, (q1 - q0, k1 - k0)
+
+
 def attention(params, arch: ArchConfig, x: torch.Tensor, *,
               impl: str = "blocked", block_kv: int = 512,
-              fused: bool = False, seq=None) -> torch.Tensor:
+              fused: bool = False, seq=None, tp=None) -> torch.Tensor:
     """Training attention.  x: [B, S, d_model], or this rank's positions
-    of the sequence when ``seq`` is a sliced ``SeqShard``."""
+    of the sequence when ``seq`` is a sliced ``SeqShard``; under ``tp``
+    this rank's heads, summed over the model group (module
+    docstring)."""
     if impl not in ("naive", "blocked", "kernel"):
         raise ValueError(f"unknown attention impl {impl!r}")
     B, S, _ = x.shape
     sliced = seq is not None and seq.sliced
     start = seq.start if sliced else 0
     positions = torch.arange(start, start + S, device=x.device).expand(B, S)
-    q, k, v = _project_qkv(params, arch, x, positions, fused=fused)
+    heads = None
+    if tp is not None:
+        params, heads = _tp_params(params, arch, tp)
+        x = tp.f(x)
+    q, k, v = _project_qkv(params, arch, x, positions, fused=fused,
+                           heads=heads)
     if sliced:
         # K and V of every position up to this shard's end, in one gather
         KV = k.shape[2]
@@ -168,7 +207,8 @@ def attention(params, arch: ArchConfig, x: torch.Tensor, *,
                           block_kv=min(block_kv, Sk))
     else:
         o = _sdpa_naive(q, k, v, causal=True, window=window)
-    return o.reshape(B, S, -1) @ params["wo"].to(x.dtype)
+    o = o.reshape(B, S, -1) @ params["wo"].to(x.dtype)
+    return tp.g(o) if tp is not None else o
 
 
 # ----------------------------------------------------------------------

@@ -3,6 +3,13 @@ and chunked).
 
 Plain functions on tensors; parameters are plain dicts with the JAX
 package's keys (``repro/models/layers.py``), so weights map 1:1.
+
+Vocab-parallel forms, for a table whose rows are cut over the model
+axis (``tp``, ``runtime/sharding.py::TPContext``; each rank holds rows
+[v0, v1)): ``vocab_embed`` looks up the tokens this rank's rows hold and
+sums the ranks' rows through *g*; the CEs take this rank's logits of
+*f*(x) and join the global maximum, the sum of exponentials and the gold
+logit (from the rank that holds it) over the model group.
 """
 from __future__ import annotations
 
@@ -92,20 +99,55 @@ def embed(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return F.embedding(tokens.long(), params["table"].to(dtype))
 
 
+def vocab_embed(params, tokens: torch.Tensor, dtype, tp) -> torch.Tensor:
+    """``embed`` of a vocab-parallel table: the tokens outside this
+    rank's rows look up row 0 and are zeroed before the sum, so their
+    cotangent never reaches row 0 (module docstring)."""
+    v0, v1 = tp.vocab
+    t = tokens.long()
+    inside = (t >= v0) & (t < v1)
+    rows = F.embedding(torch.where(inside, t - v0, 0),
+                       params["table"].to(dtype))
+    return tp.g(rows * inside[..., None].to(dtype), "vocab")
+
+
 def unembed(params, x: torch.Tensor) -> torch.Tensor:
     """Project to vocab logits in fp32 (stable loss)."""
     return x.float() @ params["table"].float().t()
 
 
+def vocab_nll(logits: torch.Tensor, labels: torch.Tensor, tp
+              ) -> torch.Tensor:
+    """Per-position NLL from this rank's logits [..., v1 - v0] of its
+    vocabulary rows: log-sum-exp shifted by the global maximum, the sum
+    of exponentials and the gold logit summed over the model group
+    through *g* in one call."""
+    v0, v1 = tp.vocab
+    logits = logits.float()
+    m = tp.max(logits.amax(-1))
+    lab = labels.long() - v0
+    inside = (lab >= 0) & (lab < v1 - v0)
+    gold = torch.gather(logits, -1, lab.clamp(0, v1 - v0 - 1)[..., None])
+    se, gold = tp.g(torch.stack([
+        torch.exp(logits - m[..., None]).sum(-1),
+        torch.where(inside, gold[..., 0], 0.0)]), "vocab").unbind(0)
+    return torch.log(se) + m - gold
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None, tp=None
+                  ) -> torch.Tensor:
     """Mean token NLL.  ``labels`` are pre-shifted next-token targets
     aligned with ``logits`` (labels[..., t] is the target for position
-    t); ``mask`` (0/1) excludes positions."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    t); ``mask`` (0/1) excludes positions.  With ``tp`` the logits are
+    this rank's vocabulary rows' (``vocab_nll``)."""
+    if tp is not None:
+        nll = vocab_nll(logits, labels, tp)
+    else:
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        nll = logz - gold
     if mask is not None:
         mask = mask.float()
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
@@ -115,13 +157,17 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def fused_cross_entropy(x: torch.Tensor, table: torch.Tensor,
                         labels: torch.Tensor, chunk: int,
                         mask: Optional[torch.Tensor] = None,
-                        drop_last: bool = True) -> torch.Tensor:
+                        drop_last: bool = True, tp=None) -> torch.Tensor:
     """Next-token CE from the hidden states without the [B, S, V] logits:
     ``chunk`` positions at a time, each chunk's [B, c, V] logits built
     for its sums and built again in backward (a checkpoint per chunk).
     x: [B, S, d] after the final norm; labels: [B, S] pre-shifted; the
     final position is excluded, as in the whole CE (``drop_last=False``
-    keeps every position: a sequence shard's mask already weighs it)."""
+    keeps every position: a sequence shard's mask already weighs it).
+    With ``tp`` ``table`` is this rank's vocabulary rows: x enters
+    through *f* and each chunk's NLL is ``vocab_nll``'s."""
+    if tp is not None:
+        x = tp.f(x, "vocab")
     B, S, d = x.shape
     cut = S - 1 if drop_last else S
     xs, ls = x[:, :cut], labels[:, :cut].long()
@@ -133,6 +179,8 @@ def fused_cross_entropy(x: torch.Tensor, table: torch.Tensor,
 
     def body(xc, lc, mc, w):
         logits = xc.float() @ w.t()
+        if tp is not None:
+            return (vocab_nll(logits, lc, tp) * mc).sum(), mc.sum()
         gold = torch.gather(logits, -1, lc[..., None])[..., 0]
         nll = (torch.logsumexp(logits, -1) - gold) * mc
         return nll.sum(), mc.sum()

@@ -25,6 +25,19 @@ rank's probabilities) and divides, so each rank computes the
 reference's global loss.  Where a sequence stays whole on a group its
 ranks hold the same tokens; they are counted once per rank in both the
 sums and the count, which leaves the means unchanged.
+
+Expert parallelism (``tp``, ``runtime/sharding.py::TPContext``): where
+the model axis divides the experts, each rank holds the experts
+``tp.experts`` of every stacked weight.  The router, its top-k and the
+load-balance loss run on every rank of the model group alike, from the
+full routing; each rank computes its experts' contributions alone (the
+dense dispatch's routing weights, the capacity dispatch's queue places
+and combine weights sliced to its experts after the full routing, the
+grouped dispatch's one-hot over its experts), and the parts are summed
+through *g*.  The tokens enter the experts through *f*, and so do the
+combine weights, whose gradient each rank gives for its experts only.
+The shared expert is column / row parallel as an MLP, its part summed
+with the experts'.
 """
 from __future__ import annotations
 
@@ -99,24 +112,68 @@ def _shared(params, x, y):
     return y + mlp(params["shared"], x, "swiglu") if "shared" in params else y
 
 
-def moe_mlp(params, arch: ArchConfig, x: torch.Tensor, seq=None
+def _parallel(tp) -> bool:
+    """Whether this rank holds a part of the experts (module
+    docstring)."""
+    return tp is not None and tp.experts is not None
+
+
+def _expert_input(x: torch.Tensor, tp) -> torch.Tensor:
+    """x as the experts take it: through *f* where they are cut."""
+    return tp.f(x, "experts") if _parallel(tp) else x
+
+
+def _local(t: torch.Tensor, tp, dim: int) -> torch.Tensor:
+    """Routing weights over E along ``dim``, cut to this rank's experts
+    through *f* where they are cut; as they are otherwise."""
+    if not _parallel(tp):
+        return t
+    lo, hi = tp.experts
+    return tp.f(t, "experts").narrow(dim, lo, hi - lo)
+
+
+def _finish(params, x: torch.Tensor, xe: torch.Tensor, y: torch.Tensor, tp
+            ) -> torch.Tensor:
+    """The experts' output ``y`` plus the shared expert's: on one card
+    ``_shared``; under ``tp`` the parts of the ones cut over the model
+    axis summed through *g*, the whole ones added after (``xe``: the
+    tokens through *f*, or ``x`` where the experts are whole)."""
+    sp = tp is not None and tp.shared_ff is not None and "shared" in params
+    if not _parallel(tp) and not sp:
+        return _shared(params, x, y)
+    part, whole = (y, None) if _parallel(tp) else (None, y)
+    if "shared" in params:
+        if sp:
+            s = mlp(params["shared"], xe if _parallel(tp)
+                    else tp.f(x, "experts"), "swiglu")
+            part = s if part is None else part + s
+        else:
+            s = mlp(params["shared"], x, "swiglu")
+            whole = s if whole is None else whole + s
+    out = tp.g(part, "experts")
+    return out if whole is None else whole + out
+
+
+def moe_mlp(params, arch: ArchConfig, x: torch.Tensor, seq=None, tp=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense dispatch.  x: [b, S, d] -> (y, aux loss)."""
     m = arch.moe
     probs, top_w, top_i = _route(params["router"], x, m.top_k)
     # the scatter's gradient reaches top_w only
-    route = torch.zeros_like(probs).scatter(-1, top_i, top_w).to(x.dtype)
-    h = F.silu(torch.einsum("bsd,edf->bsef", x, params["gate"].to(x.dtype)))
-    h = h * torch.einsum("bsd,edf->bsef", x, params["up"].to(x.dtype))
+    route = _local(torch.zeros_like(probs).scatter(-1, top_i, top_w)
+                   .to(x.dtype), tp, -1)
+    xe = _expert_input(x, tp)
+    h = F.silu(torch.einsum("bsd,edf->bsef", xe, params["gate"].to(x.dtype)))
+    h = h * torch.einsum("bsd,edf->bsef", xe, params["up"].to(x.dtype))
     y = torch.einsum("bsef,efd->bsed", h, params["down"].to(x.dtype))
     y = torch.einsum("bsed,bse->bsd", y, route)
     chosen = torch.zeros_like(probs).scatter(-1, top_i, 1.0).detach()
-    return _shared(params, x, y), _load_balance(probs, chosen, m, seq)
+    return _finish(params, x, xe, y, tp), _load_balance(probs, chosen, m, seq)
 
 
 def moe_mlp_capacity(params, arch: ArchConfig, x: torch.Tensor, seq=None,
-                     *, capacity_factor: float = 1.25, group_size: int = 1024,
-                     scan_groups: bool = True
+                     tp=None, *, capacity_factor: float = 1.25,
+                     group_size: int = 1024, scan_groups: bool = True
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity dispatch over groups of ``group_size`` positions per
     batch row: an expert takes at most C = ceil(top_k * G / E *
@@ -139,12 +196,13 @@ def moe_mlp_capacity(params, arch: ArchConfig, x: torch.Tensor, seq=None,
             f"hold whole groups")
     pad = (-S) % gs
     x_in = F.pad(x, (0, 0, 0, pad)) if pad else x
+    xe_in = _expert_input(x_in, tp)
     ng = (S + pad) // gs
     C = max(1, int(math.ceil(m.top_k * gs / m.num_experts * capacity_factor)))
     wg, wu, wd = (params[k].to(x.dtype) for k in ("gate", "up", "down"))
     slots = torch.arange(C, device=x.device, dtype=torch.float32)
 
-    def group(xg):                                  # [B, gs, d]
+    def group(xg, xeg):                             # [B, gs, d] each
         probs, top_w, top_i = _route(params["router"], xg, m.top_k)
         onehot = F.one_hot(top_i, m.num_experts).float()     # [B, gs, k, E]
         flat = onehot.reshape(-1, gs * m.top_k, m.num_experts)
@@ -155,7 +213,11 @@ def moe_mlp_capacity(params, arch: ArchConfig, x: torch.Tensor, seq=None,
         pos_c = (pos[..., None] == slots).to(x.dtype)        # [B,gs,k,E,C]
         dispatch = pos_c.sum(2)
         combine = torch.einsum("bgkec,bgk->bgec", pos_c, top_w.to(x.dtype))
-        xe = torch.einsum("bgd,bgec->becd", xg, dispatch)    # [B, E, C, d]
+        if _parallel(tp):
+            # this rank's experts' queues, placed by the full routing
+            dispatch = dispatch[:, :, tp.experts[0]:tp.experts[1]]
+            combine = _local(combine, tp, 2)
+        xe = torch.einsum("bgd,bgec->becd", xeg, dispatch)   # [B, E, C, d]
         h = F.silu(torch.einsum("becd,edf->becf", xe, wg))
         h = h * torch.einsum("becd,edf->becf", xe, wu)
         ye = torch.einsum("becf,efd->becd", h, wd)
@@ -168,7 +230,8 @@ def moe_mlp_capacity(params, arch: ArchConfig, x: torch.Tensor, seq=None,
         # per group its aux loss, or with ``seq`` its statistics' sums
         ys, parts = [], []
         for i in range(ng):
-            yg, part = group(x_in[:, i * gs:(i + 1) * gs])
+            yg, part = group(x_in[:, i * gs:(i + 1) * gs],
+                             xe_in[:, i * gs:(i + 1) * gs])
             ys.append(yg)
             parts.append(part)
         y = torch.cat(ys, 1)[:, :S]
@@ -186,32 +249,39 @@ def moe_mlp_capacity(params, arch: ArchConfig, x: torch.Tensor, seq=None,
             aux = aux + part
         aux = aux / ng
     else:
-        y, aux = group(x_in.reshape(b * ng, gs, d))
+        y, aux = group(x_in.reshape(b * ng, gs, d),
+                       xe_in.reshape(b * ng, gs, d))
         y = y.reshape(b, S + pad, d)[:, :S]
         if seq is not None:
             aux = _balance_of(seq.all_reduce(aux, "router"), m)
-    return _shared(params, x, y), aux
+    return _finish(params, x, xe_in[:, :S] if pad else xe_in, y, tp), aux
 
 
-def moe_mlp_grouped(params, arch: ArchConfig, x: torch.Tensor, seq=None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_mlp_grouped(params, arch: ArchConfig, x: torch.Tensor, seq=None,
+                    tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k gather: each token's k experts' weights gathered by a
-    one-hot product, so the FLOPs scale with k, not E."""
+    one-hot product, so the FLOPs scale with k, not E (under ``tp`` a
+    one-hot over this rank's experts: a pick of another rank's expert
+    gathers zeros and adds nothing)."""
     m = arch.moe
     probs, top_w, top_i = _route(params["router"], x, m.top_k)
     onehot = F.one_hot(top_i, m.num_experts).to(x.dtype)   # [b, S, k, E]
+    xe, w = x, top_w
+    if _parallel(tp):
+        onehot = onehot[..., tp.experts[0]:tp.experts[1]]
+        xe, w = _expert_input(x, tp), tp.f(top_w, "experts")
     wg = torch.einsum("bske,edf->bskdf", onehot, params["gate"].to(x.dtype))
     wu = torch.einsum("bske,edf->bskdf", onehot, params["up"].to(x.dtype))
     wd = torch.einsum("bske,efd->bskfd", onehot, params["down"].to(x.dtype))
-    h = F.silu(torch.einsum("bsd,bskdf->bskf", x, wg))
-    h = h * torch.einsum("bsd,bskdf->bskf", x, wu)
+    h = F.silu(torch.einsum("bsd,bskdf->bskf", xe, wg))
+    h = h * torch.einsum("bsd,bskdf->bskf", xe, wu)
     y = torch.einsum("bskf,bskfd->bskd", h, wd)
-    y = torch.einsum("bskd,bsk->bsd", y, top_w.to(x.dtype))
+    y = torch.einsum("bskd,bsk->bsd", y, w.to(x.dtype))
     chosen = F.one_hot(top_i, m.num_experts).float().sum(2)
-    return _shared(params, x, y), _load_balance(probs, chosen, m, seq)
+    return _finish(params, x, xe, y, tp), _load_balance(probs, chosen, m, seq)
 
 
 IMPLS = {"dense": moe_mlp, "grouped": moe_mlp_grouped,
          "capacity": moe_mlp_capacity,
-         "capacity_vec": lambda p, a, x, seq=None: moe_mlp_capacity(
-             p, a, x, seq, scan_groups=False)}
+         "capacity_vec": lambda p, a, x, seq=None, tp=None: moe_mlp_capacity(
+             p, a, x, seq, tp, scan_groups=False)}

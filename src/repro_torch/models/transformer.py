@@ -24,6 +24,15 @@ sequence group (``models/attention.py``, ``models/ssm.py``), the MoE
 sums its router statistics over every batch rank (``models/moe.py``)
 and ``loss`` averages over this rank's labelled positions.
 
+``tp`` (``runtime/sharding.py::TPContext``, None on one card) is a
+rank's part of Megatron tensor and expert parallelism: the attention
+runs its heads (``models/attention.py``), the MLP its columns between
+*f* and *g*, the MoE its experts (``models/moe.py``), and a table cut
+over the vocabulary embeds and scores vocab-parallel
+(``models/layers.py``).  The residual stream, the norms and the fused
+residual-add + RMSNorm stay whole and the same on every rank of the
+model group.  Without either context the model is the one-card model.
+
 The vision and audio frontends are stubs, as in the JAX package:
 ``frontend_embeds`` [b, F, d] are concatenated ahead of the token
 embeddings and the loss drops their F positions.  ``remat`` recomputes
@@ -51,7 +60,7 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (cross_entropy, embed,
                                        fused_cross_entropy, init_embedding,
                                        init_mlp, init_rms_norm, mlp, rms_norm,
-                                       unembed)
+                                       unembed, vocab_embed)
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -91,6 +100,8 @@ class Model:
     unshard: Callable[[Dict], Dict] = _identity_unshard
     #: a rank's sequence layout on a process mesh (module docstring)
     seq: Optional[object] = None
+    #: a rank's part of tensor and expert parallelism (module docstring)
+    tp: Optional[object] = None
 
     def __post_init__(self):
         if self.attn_impl == "auto":
@@ -158,7 +169,7 @@ class Model:
             return self.constrain(x, "act"), aux
         fused = self.fuse == "fused"
         branch = attn_lib.attention(bp["attn"], a, h, impl=self.attn_impl,
-                                    fused=fused, seq=seq)
+                                    fused=fused, seq=seq, tp=self.tp)
         if a.hybrid_parallel_heads:
             branch = 0.5 * (branch + ssm_lib.mamba(bp["mamba"], a, h,
                                                    evaluator=self.ssd_impl,
@@ -177,11 +188,15 @@ class Model:
     def _ffn(self, bp: Dict, x, h, aux, seq=None):
         """The block's MLP or MoE on h, added to the residual x; the MoE's
         load-balance loss is added to aux."""
-        a = self.arch
+        a, tp = self.arch, self.tp
         if a.moe is not None:
-            y, a_loss = moe_lib.IMPLS[self.moe_impl](bp["moe"], a, h, seq)
+            y, a_loss = moe_lib.IMPLS[self.moe_impl](bp["moe"], a, h, seq,
+                                                     tp=tp)
             return x + y, aux + a_loss
-        if a.d_ff:
+        if a.d_ff and tp is not None and tp.ff is not None:
+            # column-parallel up / gate, row-parallel down
+            x = x + tp.g(mlp(bp["mlp"], tp.f(h), a.mlp_variant))
+        elif a.d_ff:
             x = x + mlp(bp["mlp"], h, a.mlp_variant)
         return x, aux
 
@@ -214,7 +229,10 @@ class Model:
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Forward up to (and including) the final norm; no head.  Under
         ``seq``, of this rank's positions only."""
-        x = embed(params["embed"], tokens, self.dtype)
+        if self._vocab_tp is not None:
+            x = vocab_embed(params["embed"], tokens, self.dtype, self.tp)
+        else:
+            x = embed(params["embed"], tokens, self.dtype)
         if frontend_embeds is not None:
             x = torch.cat([frontend_embeds.to(self.dtype), x], dim=1)
         shard = self.seq.shard(x.shape[1]) if self.seq is not None else None
@@ -224,6 +242,19 @@ class Model:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         x, aux = self.run_blocks(params["blocks"], x, aux, shard)
         return self._norm(params["final_norm"], x), aux
+
+    @property
+    def _vocab_tp(self):
+        """``tp`` where it cuts the table over the vocabulary, else None
+        (the table whole: the one-card embedding and loss)."""
+        return self.tp if self.tp is not None and self.tp.vocab else None
+
+    def _logits(self, head: Dict, x: torch.Tensor) -> torch.Tensor:
+        """The head's logits of x: under a vocab-parallel ``tp`` this
+        rank's vocabulary rows' of *f*(x)."""
+        if self._vocab_tp is not None:
+            return unembed(head, self.tp.f(x, "vocab"))
+        return self.constrain(unembed(head, x), "logits")
 
     def forward(self, params: Dict, tokens: torch.Tensor,
                 frontend_embeds: Optional[torch.Tensor] = None
@@ -250,7 +281,15 @@ class Model:
             x = x[:, x.shape[1] - labels.shape[1]:]
             head = params.get("head", params["embed"])
             nll = fused_cross_entropy(x, head["table"], labels,
-                                      self.loss_chunk, mask)
+                                      self.loss_chunk, mask,
+                                      tp=self._vocab_tp)
+        elif self._vocab_tp is not None:
+            x, aux = self.hidden_states(params, batch["tokens"], fe)
+            logits = self._logits(params.get("head", params["embed"]),
+                                  x[:, x.shape[1] - labels.shape[1]:])
+            nll = cross_entropy(logits[:, :-1], labels[:, :-1],
+                                mask[:, :-1] if mask is not None else None,
+                                tp=self.tp)
         else:
             logits, aux = self.forward(params, batch["tokens"], fe)
             logits = logits[:, logits.shape[1] - labels.shape[1]:]
@@ -308,10 +347,11 @@ class Model:
             nll = x.float().sum() * 0.0
         elif self.loss_chunk:
             nll = fused_cross_entropy(x, head["table"], labels,
-                                      self.loss_chunk, w, drop_last=False)
+                                      self.loss_chunk, w, drop_last=False,
+                                      tp=self._vocab_tp)
         else:
-            logits = self.constrain(unembed(head, x), "logits")
-            nll = cross_entropy(logits, labels, w)
+            nll = cross_entropy(self._logits(head, x), labels, w,
+                                tp=self._vocab_tp)
         return nll + coef * aux, {"nll": nll, "aux": aux}
 
     # ------------------------------------------------------------------

@@ -8,6 +8,16 @@ transposes (the reference's GSPMD program writes them implicitly):
 * ``all_reduce_sum``: the sum over a group; its backward sums the
   cotangents over the same group (the global objective is the sum of the
   ranks' local objectives).
+* ``copy_to_model`` and ``reduce_from_model``: Megatron's *f* and *g*
+  over the tensor-parallel (``model``) group, whose ranks compute the
+  same tokens and count the objective once between them.  *f* is the
+  identity forward and sums the cotangent over the group backward (a
+  replicated tensor entering a region where each rank computes its own
+  heads, columns, experts or vocabulary rows); *g* sums the ranks'
+  partial results forward and passes the cotangent on unchanged
+  backward (leaving that region).  ``all_max``: the elementwise maximum
+  over a group, with no gradient (the vocab-parallel log-sum-exp's
+  shift).
 * ``send_hop`` / ``recv_hop``: the pipeline hop.  ``send_hop`` sends an
   activation to the next stage and returns a zero scalar to add to the
   stage's loss; its backward receives the activation's cotangent from
@@ -57,7 +67,9 @@ class Transport:
     and the host seconds spent inside the calls, which include waiting
     for the other ranks and, for a CUDA tensor, for the work queued
     before it.  A call given a ``tag`` (what it moves: "kv", "mixer",
-    "router") adds its bytes to ``tagged[tag][kind]`` too."""
+    "router"; under TP "tp" for the attention's and the MLP's
+    activations, "vocab" for the embedding's and the loss's, "experts"
+    for the MoE's) adds its bytes to ``tagged[tag][kind]`` too."""
 
     def __init__(self, backend: str):
         self.backend = backend
@@ -209,6 +221,59 @@ def all_reduce_sum(t: torch.Tensor, mesh, axis, tag: Optional[str] = None
     if mesh.size(axis) == 1:
         return t
     return _AllReduceSum.apply(t, mesh, axis, tag)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, tag):
+        ctx.mesh, ctx.axis, ctx.tag = mesh, axis, tag
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.transport.all_reduce(g, ctx.mesh.group(ctx.axis)[0],
+                                              ctx.tag), None, None, None)
+
+
+def copy_to_model(t: torch.Tensor, mesh, axis, tag: Optional[str] = None
+                  ) -> torch.Tensor:
+    """Megatron's *f*: ``t`` as it is; its cotangent summed over
+    ``axis``."""
+    if mesh.size(axis) == 1:
+        return t
+    return _CopyToModel.apply(t, mesh, axis, tag)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, tag):
+        return mesh.transport.all_reduce(t, mesh.group(axis)[0], tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+def reduce_from_model(t: torch.Tensor, mesh, axis, tag: Optional[str] = None
+                      ) -> torch.Tensor:
+    """Megatron's *g*: the sum of ``t`` over ``axis``; its cotangent
+    passed on as it is."""
+    if mesh.size(axis) == 1:
+        return t
+    return _ReduceFromModel.apply(t, mesh, axis, tag)
+
+
+def all_max(t: torch.Tensor, mesh, axis, tag: Optional[str] = None
+            ) -> torch.Tensor:
+    """The elementwise maximum of ``t`` over ``axis`` (no gradient): the
+    members' ``t`` all-gathered and reduced here, so every member takes
+    the same value."""
+    t = t.detach()
+    n = mesh.size(axis)
+    if n == 1:
+        return t
+    parts = mesh.transport.all_gather(t[None], mesh.group(axis)[0], n, 0, tag)
+    return parts.amax(0)
 
 
 class _SendHop(torch.autograd.Function):

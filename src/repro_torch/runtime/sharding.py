@@ -25,7 +25,11 @@ its rows of the batch, and ``seq_context`` gives the model its
 ``SeqContext`` (the model's ``seq``): the batch axes a small batch
 leaves uncovered, over which the sequence shards as the reference's
 ``P(batch, seq)`` constraint shards it, and every batch axis, over which
-the MoE router's statistics are summed.  Handed a ``recorder``
+the MoE router's statistics are summed.  Under ``tp`` ``tp_context``
+gives the model its ``TPContext`` (the model's ``tp``): this rank's
+heads, MLP columns, experts and vocabulary rows, and Megatron's *f* and
+*g* over the model axis, which the model places where the reference's
+GSPMD program would put its collectives.  Handed a ``recorder``
 (``launch/opcount.py``), they record the collectives the strategy's
 layout implies where the reference's GSPMD program would run them: the
 dry-run's trace.
@@ -39,7 +43,9 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.runtime.collectives import all_reduce_sum, gather_at_use
+from repro_torch.runtime.collectives import (all_max, all_reduce_sum,
+                                            copy_to_model, gather_at_use,
+                                            reduce_from_model)
 from repro_torch.utils.tree import flatten_with_path, tree_unflatten_like
 
 Spec = Tuple[Any, ...]
@@ -194,6 +200,15 @@ class ShardingStrategy:
                           tuple(a for a in mesh.shape
                                 if a in self.batch_axes))
 
+    def tp_context(self, mesh, arch) -> Optional["TPContext"]:
+        """The model's ``tp`` under ``tp`` on a ``ProcessMesh`` whose
+        model axis is larger than 1; None elsewhere (one card, FSDP, an
+        ``AbstractMesh``)."""
+        if (self.strategy != "tp" or not on_ranks(mesh)
+                or mesh.size(self.model_axis) == 1):
+            return None
+        return TPContext.of(mesh, self.model_axis, arch)
+
     def act_constrainer(self, mesh, global_batch: int, recorder=None):
         """The model's ``constrain(x, name)`` hook: the identity, or with
         a ``recorder`` the TP collectives at each residual-stream site
@@ -211,7 +226,8 @@ class ShardingStrategy:
         from ``like``, the full parameter tree (a shard's shape does not
         name the dimension it was cut along); with a ``recorder`` FSDP's
         all-gather at use and its gradient reduce-scatter are recorded.
-        TP: the identity."""
+        TP: the identity (a block weight cut inside a head is gathered
+        where the attention takes its heads, ``TPContext.take``)."""
         if self.strategy != "fsdp":
             return _identity_tree
         cast = getattr(torch, self.gather_dtype) if self.gather_dtype else None
@@ -318,6 +334,108 @@ class SeqShard:
         """The sum of ``t`` over every batch axis (the context's
         ``stat_axis``); its backward sums the cotangents over them."""
         return all_reduce_sum(t, self.ctx.mesh, self.ctx.stat_axis, tag)
+
+
+def _part(total: int, n: int, r: int) -> Optional[Tuple[int, int]]:
+    """Rank r's [lo, hi) of a dimension of ``total`` cut into n equal
+    parts, or None where n does not divide it (the spec keeps it whole:
+    ``ShardingStrategy._maybe``)."""
+    if total % n:
+        return None
+    k = total // n
+    return r * k, (r + 1) * k
+
+
+def tp_heads(arch, n: int, r: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """Rank r's query heads and kv heads of ``arch`` over a model axis of
+    n: H / n query heads each, and the kv heads they read, KV / n of them
+    where n divides KV, else the one kv head a rank's query heads share
+    (n a multiple of KV).  Raises ``NotImplementedError`` where the heads
+    do not fall so."""
+    H, KV = arch.num_heads, arch.num_kv_heads
+    if H % n or (KV % n and n % KV):
+        raise NotImplementedError(
+            f"tp over a model axis of {n}: {H} query heads / {KV} kv heads "
+            f"do not fall on whole heads a rank")
+    q0, q1 = _part(H, n, r)
+    if KV % n == 0:
+        return (q0, q1), _part(KV, n, r)
+    k0 = q0 // (H // KV)
+    return (q0, q1), (k0, k0 + 1)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TPContext:
+    """A rank's view of Megatron tensor and expert parallelism on a
+    ``ProcessMesh`` (``ShardingStrategy.tp_context``).  The ranks along
+    ``axis`` (the model axis) hold the same rows of the batch and the
+    replicated residual stream; each computes its query heads ``heads``
+    and their kv heads ``kv_heads``, its columns ``ff`` of the MLP (and
+    ``shared_ff`` of the MoE's shared expert), its experts ``experts`` and
+    its rows ``vocab`` of the embedding table: each a [lo, hi) range, or
+    None where the spec keeps that dimension whole (the model axis does
+    not divide it), and the computation there runs as on one card, the
+    same on every rank.  ``f`` and ``g`` are Megatron's operators over
+    ``axis`` (``runtime/collectives.py``): a replicated tensor enters a
+    rank's part through ``f``, and the parts leave through ``g``.  The
+    objective is counted once a model group: a gradient is never taken
+    for the whole from one rank's part, and never summed twice."""
+
+    mesh: Any
+    axis: str
+    heads: Optional[Tuple[int, int]]
+    kv_heads: Optional[Tuple[int, int]]
+    ff: Optional[Tuple[int, int]]
+    shared_ff: Optional[Tuple[int, int]]
+    experts: Optional[Tuple[int, int]]
+    vocab: Optional[Tuple[int, int]]
+
+    @classmethod
+    def of(cls, mesh, axis: str, arch) -> "TPContext":
+        n, r = mesh.size(axis), mesh.axis_index(axis)
+        heads = kv = None
+        if arch.num_heads:
+            heads, kv = tp_heads(arch, n, r)
+        moe = arch.moe
+        return cls(mesh, axis, heads, kv,
+                   _part(arch.d_ff, n, r) if arch.d_ff else None,
+                   (_part(moe.shared_expert_d_ff, n, r)
+                    if moe is not None and moe.shared_expert_d_ff else None),
+                   _part(moe.num_experts, n, r) if moe is not None else None,
+                   _part(arch.vocab_size, n, r))
+
+    def f(self, t: torch.Tensor, tag: str = "tp") -> torch.Tensor:
+        """Megatron's *f*: the identity; the cotangent summed over the
+        model group."""
+        return copy_to_model(t, self.mesh, self.axis, tag)
+
+    def g(self, t: torch.Tensor, tag: str = "tp") -> torch.Tensor:
+        """Megatron's *g*: the ranks' parts summed; the cotangent passed
+        on."""
+        return reduce_from_model(t, self.mesh, self.axis, tag)
+
+    def max(self, t: torch.Tensor, tag: str = "vocab") -> torch.Tensor:
+        """The elementwise maximum over the model group, no gradient."""
+        return all_max(t, self.mesh, self.axis, tag)
+
+    def take(self, w: torch.Tensor, dim: int, lo: int, hi: int, full: int,
+             tag: str = "tp") -> torch.Tensor:
+        """Columns [lo, hi) along ``dim`` of a weight whose full extent
+        there is ``full``, from what this rank holds of it: its shard as
+        it is where the shard is exactly those columns; else the weight
+        gathered at use (a cut inside a head: the gather's backward
+        reduce-scatters the sum of the ranks' gradients) or, held whole,
+        through ``f`` (its gradient summed over the group), and then
+        sliced."""
+        have = w.shape[dim]
+        if have != full:
+            r = self.mesh.axis_index(self.axis)
+            if (lo, hi) == (r * have, (r + 1) * have):
+                return w
+            w = gather_at_use(w, self.mesh, self.axis, dim, tag)
+        else:
+            w = self.f(w, tag)
+        return w.narrow(dim, lo, hi - lo)
 
 
 def _key_name(k) -> str:

@@ -10,20 +10,26 @@ prices without running anything.
 
 ``SPMDExecutor`` runs the train program behind the ``Executor``
 interface: on one card (no mesh, or a mesh whose axes all have size 1),
-or over a ``ProcessMesh`` (``launch/mesh.py``) with ``strategy="fsdp"``,
-with or without ZeRO-1.  On a process mesh each rank holds only its
-shards of the params and the moments, takes its rows of the global
-batch, gathers each weight at use and reduce-scatters its gradient
-(``runtime/collectives.py``), sums the gradients over the batch axes a
-leaf is not sharded over, clips by the global norm with each element
-counted once, and steps AdamW on its shard (then, under ZeRO-1,
-all-gathers the updated slice over the data axes): the function the
-reference's one GSPMD program computes.  A global batch too small to
-cover every batch axis shards the sequence over the rest
-(``ShardingStrategy.seq_context``: each rank takes its rows of the batch
-whole, and the model keeps its positions of the sequence), and an MoE
-sums its router statistics over every batch rank.  TP and expert
-parallelism raise ``NotImplementedError`` (ROADMAP item 17c).
+or over a ``ProcessMesh`` (``launch/mesh.py``) with ``strategy="fsdp"``
+or ``"tp"``, with or without ZeRO-1.  On a process mesh each rank holds
+only its shards of the params and the moments, takes its rows of the
+global batch, sums the gradients over the batch axes a leaf is not
+sharded over, clips by the global norm with each element counted once,
+and steps AdamW on its shard (then, under ZeRO-1, all-gathers the
+updated slice over the data axes): the function the reference's one
+GSPMD program computes.  Under FSDP it gathers each weight at use and
+reduce-scatters its gradient (``runtime/collectives.py``).  Under TP
+(Megatron tensor parallelism and expert parallelism) the batch shards
+over the data axes only; the ranks of a model group compute the same
+rows, each its heads, MLP columns, experts and vocabulary rows
+(``ShardingStrategy.tp_context``, the model's ``tp``), joined by
+Megatron's *f* and *g*, and nothing outside the blocks is gathered.  A
+global batch too small to cover every batch axis shards the sequence
+over the rest (``ShardingStrategy.seq_context``: each rank takes its
+rows of the batch whole, and the model keeps its positions of the
+sequence), and an MoE sums its router statistics over every batch rank.
+The Mamba2 mixer under TP raises ``NotImplementedError`` (ROADMAP item
+17c).
 ``recover``/``join`` raise ``ExecutorUnsupported`` by design: one SPMD
 program cannot express a heterogeneous survivor set, so the engine keeps
 the plan consistent and the caller rebinds a ``HeteroTrainer``
@@ -48,7 +54,7 @@ from repro_torch.runtime.executor import (Executor, ExecutorUnsupported,
 from repro_torch.runtime.sharding import (ShardingStrategy, gather_tree,
                                           on_ranks, shard_shape, shard_tree,
                                           sharded_dims, spec_axes,
-                                          spec_leaves)
+                                          spec_leaves, tp_heads)
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
 
 
@@ -162,7 +168,9 @@ def build_mesh_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     shards, its AdamW shards, its rows of the batch) -> (params, state,
     stats), updated in place.  ``model``'s ``unshard`` hook gathers the
     block weights (``strategy.unshard_blocks``); the embedding, final
-    norm and head are gathered here.  The loss is the global masked
+    norm and head are gathered here, except under TP (``model.tp``),
+    where the model takes its shards as they are.  The loss is the
+    global masked
     mean: each rank's objective is its NLL sum over the global token
     count, and the ranks' objectives sum to the reference's loss, so
     their gradients sum to its gradient.  ``batch_axis`` is every batch
@@ -191,7 +199,7 @@ def build_mesh_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
         with torch.enable_grad():
             used = []
             for (path, spec, _), t in zip(entries, leaves):
-                if not path.startswith("blocks/"):
+                if model.tp is None and not path.startswith("blocks/"):
                     for dim, axis in sharded_dims(spec):
                         t = gather_at_use(t, mesh, axis, dim)
                 used.append(t)
@@ -303,7 +311,7 @@ class SPMDExecutor(Executor):
                  cache: Optional[ProgramCache] = None):
         if mesh is not None:
             strategy = strategy or ShardingStrategy()
-            check_layout(mesh, strategy)
+            check_layout(mesh, strategy, model.arch)
             if not on_ranks(mesh) and \
                     any(n != 1 for n in mesh.shape.values()):
                 raise TypeError(
@@ -352,7 +360,8 @@ class SPMDExecutor(Executor):
         process mesh every spec is the identity layout, so the program
         is ``build_train_step``'s with or without a mesh of size one.  On
         a process mesh the model gets the sequence context of the global
-        batch (``ShardingStrategy.seq_context``)."""
+        batch (``ShardingStrategy.seq_context``) and, under TP, its
+        tensor-parallel context (``ShardingStrategy.tp_context``)."""
         mesh = self.mesh
         key = ("spmd-train", kops.backend_signature(self.device),
                tuple(sorted((k, tuple(v.shape), str(v.dtype))
@@ -363,9 +372,10 @@ class SPMDExecutor(Executor):
             return self.cache.get_or_build(
                 key, lambda: build_train_step(self.model, self.opt_cfg))
         seq = self.strategy.seq_context(mesh, batch["tokens"].shape[0])
+        tp = self.strategy.tp_context(mesh, self.model.arch)
         return self.cache.get_or_build(key, lambda: build_mesh_train_step(
-            dataclasses.replace(self._model, seq=seq), self.opt_cfg, mesh,
-            self.pspecs, self.ospecs, seq.stat_axis))
+            dataclasses.replace(self._model, seq=seq, tp=tp), self.opt_cfg,
+            mesh, self.pspecs, self.ospecs, seq.stat_axis))
 
     # Executor interface ------------------------------------------------
     def bind(self) -> None:
@@ -440,12 +450,19 @@ class SPMDExecutor(Executor):
                           data_state=data_state or {}, rng_seed=rng_seed)
 
 
-def check_layout(mesh, strategy: ShardingStrategy) -> None:
-    """Raise ``NotImplementedError`` (ROADMAP item 17c) for a layout this
-    data plane does not run: Megatron TP and expert parallelism."""
-    if all(n == 1 for n in mesh.shape.values()):
+def check_layout(mesh, strategy: ShardingStrategy, arch: ArchConfig
+                 ) -> None:
+    """Raise ``NotImplementedError`` for a layout this data plane does not
+    run: the Mamba2 mixer (an SSM or hybrid architecture) under TP over a
+    model axis larger than 1 (ROADMAP item 17c), and heads that do not
+    fall whole on the model axis's ranks (``sharding.tp_heads``)."""
+    n = mesh.shape[strategy.model_axis]
+    if strategy.strategy != "tp" or n == 1:
         return
-    if strategy.strategy != "fsdp":
+    if arch.family == "ssm" or arch.hybrid_parallel_heads:
         raise NotImplementedError(
-            f"strategy={strategy.strategy!r} over {dict(mesh.shape)}: "
-            f"Megatron TP and expert parallelism are ROADMAP item 17c")
+            f"strategy='tp' over {dict(mesh.shape)} for {arch.name} "
+            f"({arch.family}): the Mamba2 mixer's column cut is ROADMAP "
+            f"item 17c")
+    if arch.num_heads:
+        tp_heads(arch, n, 0)

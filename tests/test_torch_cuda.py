@@ -984,6 +984,116 @@ def test_spmd_executor_over_a_process_mesh_on_card_tracks_plain_cpu(card):
         assert (diff > lr / 10).float().mean() < 1e-3
 
 
+def tp_rank_on_card(params_np, batches, arch_kw):
+    """A rank of the card's 2 x 2 mesh under ``strategy="tp"`` (run by
+    ``spawn_world``): reduced qwen3 with ``arch_kw``."""
+    import dataclasses
+    from repro_torch.configs import ShapeConfig, get_arch, reduced
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch.mesh import ProcessMesh, init_world
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import ShardingStrategy, SPMDExecutor
+    from repro_torch.runtime.sharding import gather_tree
+    from repro_torch.utils.device import strict_fp32_numerics
+    from repro_torch.utils.tree import tree_map
+    dev = init_world("cuda")
+    strict_fp32_numerics()
+    mesh = ProcessMesh(("data", "model"), (2, 2))
+    arch = dataclasses.replace(reduced(get_arch("qwen3_1_7b"), layers=2),
+                               **arch_kw)
+    model = Model(arch, dtype=torch.float32, attn_impl="kernel",
+                  fuse="fused", remat=True, loss_chunk=16)
+    ex = SPMDExecutor(model, params_from_numpy(params_np, dev),
+                      adamw.AdamWConfig(lr=1e-3, warmup_steps=0,
+                                        clip_norm=1.0, weight_decay=0.0),
+                      mesh=mesh, strategy=ShardingStrategy(strategy="tp"),
+                      shape=ShapeConfig("t", 64, 8, "train"))
+    build.reset_launches()
+    losses = [float(ex.step(b)["loss"]) for b in batches]
+    full = gather_tree(ex.pspecs, ex.params, mesh)
+    return {"losses": losses, "launches": dict(build.LAUNCHES),
+            "params": tree_map(lambda t: t.cpu(), full),
+            "backend": mesh.backend, "compiles": ex.cache.stats.compiles}
+
+
+def test_spmd_tp_over_a_process_mesh_on_card_tracks_plain_cpu(card):
+    """SPMDExecutor under strategy="tp" over a data 2 x model 2
+    ProcessMesh of 4 rank processes sharing the card (gloo): reduced
+    qwen3 with 2 kv heads (GQA, q/k norms, the tied table
+    vocab-parallel) through the flash and fused kernels at a rank's
+    heads, with remat and the chunked CE, against the one-process
+    executor on the CPU's plain versions: three steps' losses at
+    tests/test_executor.py's fp32 tolerance on every rank (bitwise equal
+    across ranks), the parameters by its tracking rule, one build and
+    every kernel launched in every rank."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import ShapeConfig, get_arch, reduced
+    from repro_torch.convert import to_numpy
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import SPMDExecutor
+    from repro_torch.utils.tree import tree_leaves
+    kw = {"num_kv_heads": 2}
+    arch = dataclasses.replace(reduced(get_arch("qwen3_1_7b"), layers=2),
+                               **kw)
+    model = Model(arch, dtype=torch.float32, attn_impl="kernel",
+                  fuse="fused", remat=True, loss_chunk=16)
+    lr = 1e-3
+    params = model.init(torch.Generator().manual_seed(0))
+    cpu = SPMDExecutor(model, params, adamw.AdamWConfig(
+        lr=lr, warmup_steps=0, clip_norm=1.0, weight_decay=0.0),
+        shape=ShapeConfig("t", 64, 8, "train"))
+    src = SyntheticLM(arch.vocab_size, 64, seed=5)
+    batches = [src.batch(np.arange(8 * i, 8 * i + 8)) for i in range(3)]
+    want = [float(cpu.step(b)["loss"]) for b in batches]
+    ranks = spawn_world(f"{__name__}:tp_rank_on_card", 4,
+                        {"params_np": to_numpy(params), "batches": batches,
+                         "arch_kw": kw},
+                        device="cuda", timeout=600,
+                        paths=[__file__.rsplit("/", 1)[0]])
+    for r in ranks:
+        assert r["backend"] == "gloo" and r["compiles"] == 1
+        assert r["losses"] == ranks[0]["losses"]
+        np.testing.assert_allclose(r["losses"], want, rtol=5e-4, atol=5e-7)
+        assert all(r["launches"][k] > 0 for k in r["launches"]
+                   if not k.startswith("ssd")), r["launches"]
+    for a, b in zip(tree_leaves(ranks[0]["params"]), tree_leaves(cpu.params)):
+        diff = (a - b).abs()
+        assert diff.max() <= 2.5 * lr, diff.max()
+        assert (diff > lr / 10).float().mean() < 1e-3
+
+
+#: the kernels at chip_smoke.py's shard shapes of its phase 18 (a rank's
+#: heads, columns and rows under TP): (kernel, label, GEMM layout)
+TP_SHAPES = ([("gemm_bias", label, layout) for label in ("tp-a", "tp-b", "tp-c")
+              for layout in ("fwd", "dx", "dW")]
+             + [(name, label, "fwd") for name in TENSOR_CORE_FLASH
+                for label in ("tp-a", "tp-b", "tp-c")]
+             + [(name, "tp-c", "fwd")
+                for name in ("add_rmsnorm_fwd", "add_rmsnorm_bwd")])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,label,layout", TP_SHAPES,
+                         ids=[f"{n}-{lab}-{lay}" for n, lab, lay in TP_SHAPES])
+def test_kernels_at_tp_shard_shapes_match_plain(card, name, label, layout,
+                                                dtype):
+    """Each kernel at phase 18's shard shapes (the fused QKV of 8 heads
+    of 64, of GQA 8 / 4 heads of 64 and of 128 at d 2048; flash at a
+    rank's 8 query heads over 8 or 4 kv heads; the norms at d 2048)
+    against its plain version with chip_smoke.py's comparison, which
+    also reruns it bitwise."""
+    cs = _chip_smoke()
+    kern, plain, _ = cs.kernel_table(card)[name]
+    shape = dict(cs._shapes(cs.CARD_SHAPES, name))[label]
+    args = cs.make_inputs(name, shape, dtype, card, seed=13, layout=layout)
+    cs.compare(name, kern, plain, args, dtype)
+
+
 # ----------------------------------------------------------------------
 # The autotuner's variants: every built tile and chunk, no fallback
 # ----------------------------------------------------------------------

@@ -155,7 +155,8 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1]) == record
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "config"}
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "config",
+            "tp_launches"}
     assert [k["name"] for k in record["kernels"]] == [
         "add_rmsnorm_fwd", "add_rmsnorm_bwd", "gemm_bias", "flash_fwd",
         "flash_bwd_dq", "flash_bwd_dkdv", "ssd_fwd", "ssd_bwd"]
@@ -172,9 +173,13 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     configs = {k["name"]: k["config"] for k in record["kernels"]}
     assert set(configs["gemm_bias"]) == {"fwd", "dx", "dW"}
     assert set(configs["ssd_fwd"]) == {"chunk"}
-    for kind in ("flash", "gqa", "window"):
+    for kind in ("flash", "gqa", "window", "tp-a", "tp-b", "tp-c"):
         assert any(ln.startswith("[check] flash_bwd_dkdv") and kind in ln
                    for ln in lines), kind
+    for label in ("tp-a", "tp-b", "tp-c"):      # phase 18's shard shapes
+        for layout in ("fwd", "dx", "dW"):
+            assert any(ln.split()[:4] == ["[time]", "gemm_bias", layout, label]
+                       for ln in lines), (layout, label)
     for path in ("flash", "naive"):       # each path's epilogue shapes
         for layout in ("fwd", "dx", "dW"):
             assert any(ln.split()[:4] == ["[time]", "gemm_bias", layout, path]
@@ -240,6 +245,12 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
                    for ln in lines), (name, tag)
         assert any(ln.startswith(f"[seq] {name} step seconds") and
                    "bitwise on every rank" in ln for ln in lines), name
+    for name in ("18a", "18b", "18c"):
+        for tag in ("vs one program's", "bitwise across the model group",
+                    "= the dry-run's per-card args less the batch",
+                    "the dry-run's all-reduce bytes", "launches a rank"):
+            assert any(ln.startswith(f"[tp] {name}") and tag in ln
+                       for ln in lines), (name, tag)
 
 
 def _zero(i):

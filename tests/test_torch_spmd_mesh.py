@@ -17,7 +17,8 @@ each element counted once).  Every rank's losses are bitwise equal, both
 reruns are bitwise the first run, each rank's state bytes are the
 dry-run's per-card args less the batch, and each batch shape builds one
 program.  ``all_reduce_sum``'s backward sums the group's cotangents.
-TP raises: ROADMAP item 17c.  MoE over several batch ranks and a batch
+TP runs in tests/test_torch_spmd_tp.py; the Mamba2 mixer under TP
+raises: ROADMAP item 17c.  MoE over several batch ranks and a batch
 that leaves a batch axis uncovered (the sequence then shards over it)
 run in tests/test_torch_spmd_seq.py.
 
@@ -218,11 +219,13 @@ def test_sharded_state_is_smaller_than_one_card(results):
     assert world[0]["2x2_no_zero1"]["held"] > world[0]["2x2"]["held"]
 
 
-@pytest.mark.parametrize("case", ["tp"])
+@pytest.mark.parametrize("case", ["mamba2_780m", "hymba_1_5b"])
 def test_layouts_of_item_17c_raise(case):
-    model = make_model("gpt3_medium")
+    """TP of the Mamba2 mixer (an SSM, and the hybrid's heads beside
+    attention) raises before any process group is needed."""
+    model = make_model(case)
     params = model.init(torch.Generator().manual_seed(0))
-    strategy = ShardingStrategy(strategy=case)
+    strategy = ShardingStrategy(strategy="tp")
     with pytest.raises(NotImplementedError, match="17c"):
         SPMDExecutor(model, params, adamw.AdamWConfig(**opt_config(1.0)),
                      mesh=make_mesh((2, 2), ("data", "model")),
