@@ -67,8 +67,8 @@ Phases, each fatal on failure:
      failure, asserting what phases 6-8 assert and that each fused and
      flash kernel launched once per layer and microbatch (gemm_bias
      three times: the fused QKV's forward, dx and dW).
- 11. serving: qwen3-1.7b at full width and depth (28 layers, d 2048, 16
-     query / 8 kv heads of 128, vocab 151936), fp32, behind
+ 11. serving: qwen3-1.7b at full width (d 2048, 16 query / 8 kv heads
+     of 128, vocab 151936), depth cut to 14 of 28 layers, fp32, behind
      ``repro_torch.launch.serve``'s engine (6 nodes, f 1, n0 2), 4 slots
      a replica, 16 requests of 64 prompt and 32 new tokens at
      temperature 0.8, unfailed and with a node killed after 8 ticks;
@@ -82,16 +82,17 @@ Phases, each fatal on failure:
      recovery downtime, replayed / migrated counts, copy bytes, peak
      memory and the phase's seconds.
  12. multi-process: gpt3-medium as in phase 7 at microbatch 1 (full
-     width and depth, sequence 2048, flash kernels, 5 nodes, f 1, n0
-     2).  Leg 1, the single-process trainer: 2 steps, a node recovered,
-     2 steps.  Leg 2, ``MultiHostExecutor`` with 3 worker processes on
-     the card (rank 1 hosts that node alone): the same plan; each step's
-     loss and grad norm bitwise leg 1's; rank 1 SIGKILLed, its death
-     detected from the coordination channel within 30 s; the two-phase
-     recovery pulling layer state across processes (bytes fetched > 0),
-     to leg 1's instances; 0 builds on the survivors, divergence 0, the
-     snapshot's params bitwise leg 1's, and the kernels launched by the
-     workers (none by the coordinator) as phase 10 counts them.  Prints
+     width, depth cut to 12 of 24 blocks, sequence 2048, flash kernels,
+     5 nodes, f 1, n0 2).  Leg 1, the single-process trainer: 2 steps,
+     a node recovered, 2 steps.  Leg 2, ``MultiHostExecutor`` with 3
+     worker processes on the card (rank 1 hosts that node alone): the
+     same plan; each step's loss and grad norm bitwise leg 1's; rank 1
+     SIGKILLed, its death detected from the coordination channel within
+     30 s; the two-phase recovery pulling layer state across processes
+     (bytes fetched > 0), to leg 1's instances; 0 builds on the
+     survivors, divergence 0, the snapshot's params bitwise leg 1's, and
+     the kernels launched by the workers (none by the coordinator), each
+     norm and flash kernel once per layer and microbatch.  Prints
      spawn, setup and warm seconds, each step's split into the grads
      phase, the wire and the commit with the bytes each way, kill ->
      detect seconds, the recovery breakdown, each surviving worker's
@@ -144,10 +145,10 @@ Phases, each fatal on failure:
      entry, and that two fresh interpreters resolve the same.
  17. sequence parallelism and MoE over batch ranks: one world of 4 rank
      processes on data 2 x model 2 (FSDP + ZeRO-1, gloo) runs
-     gpt3-medium (the sequence over model), granite-moe (8 blocks, the
-     router statistics over 4 batch ranks) and mamba2-780m (16 blocks),
-     each held to a one-program ``SPMDExecutor`` on the same weights and
-     sequences (``[seq]`` lines).
+     gpt3-medium (12 blocks, the sequence over model), granite-moe (8
+     blocks, the router statistics over 4 batch ranks) and mamba2-780m
+     (16 blocks), each held to a one-program ``SPMDExecutor`` on the
+     same weights and sequences (``[seq]`` lines).
  18. Megatron tensor and expert parallelism (``strategy="tp"``): one
      world of 4 rank processes on data 2 x model 2 (ZeRO-1, gloo),
      global batch 2 (one sequence of 2048 a model group), phase 13's
@@ -167,14 +168,25 @@ Phases, each fatal on failure:
      rank's), the bytes a rank a step by kind and by tag beside the
      dry-run's all-reduce bytes for the same layout (a trace run beside
      the ranks), the launches and each rank's peak memory.
+ 19. the Mamba2 mixer under TP: phase 18's world and layout, each rank
+     computing its whole heads, 2 steps of 19a mamba2-780m (16 of 48
+     blocks, 24 Mamba2 heads of 64 a rank at state 128, the tied table
+     vocab-parallel) and 19b hymba-1.5b (8 of 32 blocks, attention 15 /
+     10 query heads over 3 / 2 kv heads a rank under its window of 2048,
+     25 Mamba2 heads a rank at state 16, the table whole), at full width
+     with the flash, epilogue and SSD kernels.  Held as phase 18 holds
+     its scenarios, and each rank's "tp" and "ssm_norm" all-reduce bytes
+     equal the count from the shapes (``tp_mixer_bytes``), printed
+     beside their ratio to the dry-run's act + act-grad bytes (its trace
+     runs beside phases 17 and 18).
 The autotuner reads an empty persisted table in a temporary directory
-and never tunes in phases 1-15, 17 and 18: they run the packaged
-table's configurations.
+and never tunes in phases 1-15 and 17-19: they run the packaged
+table's configurations (the heuristic at shapes it has no entry for).
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line
 (each kernel's launches counted on the path that reports it: phase 7
 for the six, phase 8 for the SSD pair; error, times, bound and the
 resolved ``config`` at the shapes that path gives it; ``tp_launches``:
-rank 0's launches over phase 18's three scenarios) and ``{"ok":
+rank 0's launches over phases 18 and 19's five scenarios) and ``{"ok":
 true, "device": {...}}``.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
@@ -274,14 +286,15 @@ SSD = ("ssd_fwd", "ssd_bwd")
 CARD_SHAPES = {
     "add_rmsnorm_fwd": [("flash", (4096, 1024)), ("naive", (1024, 1024)),
                         ("moe", (2048, 1024)), ("ragged", (1000, 999)),
-                        ("tp-c", (2048, 2048))],
+                        ("tp-c", (2048, 2048)), ("tp-d", (2048, 1600))],
     "add_rmsnorm_bwd": [("flash", (4096, 1024)), ("naive", (1024, 1024)),
                         ("moe", (2048, 1024)), ("ragged", (1000, 999)),
-                        ("tp-c", (2048, 2048))],
+                        ("tp-c", (2048, 2048)), ("tp-d", (2048, 1600))],
     "gemm_bias": [("flash", (4096, 1024, 3072)), ("naive", (1024, 1024, 3072)),
                   ("moe", (2048, 1024, 2048)), ("ragged", (1000, 999, 3000)),
                   ("tp-a", (2048, 1024, 1536)), ("tp-b", (2048, 1024, 1024)),
-                  ("tp-c", (2048, 2048, 2048))],
+                  ("tp-c", (2048, 2048, 2048)), ("tp-d", (2048, 1600, 1344)),
+                  ("tp-e", (2048, 1600, 896))],
     # gqa: qwen2.5-3b's heads (16 / kv 2, head dim 128) at a ragged
     # sequence; window: a sliding window of 256 (hymba's 2048 scaled
     # down) with hymba's group of 5 query heads per kv head; d80: GPT-3
@@ -293,40 +306,58 @@ CARD_SHAPES = {
               ("d80", (1, 1000, 32, 32, 80, 0)),
               ("tp-a", (1, 2048, 8, 8, 64, 0)),
               ("tp-b", (1, 2048, 8, 4, 64, 0)),
-              ("tp-c", (1, 2048, 8, 4, 128, 0))],
+              ("tp-c", (1, 2048, 8, 4, 128, 0)),
+              ("tp-d", (1, 2048, 15, 3, 64, 2048)),
+              ("tp-e", (1, 2048, 10, 2, 64, 2048)),
+              ("tp-f", (1, 2048, 25, 5, 64, 2048))],
     # hymba: its SSD heads (50 x 64, state 16) at a ragged sequence;
     # reduced: the reduced configs' widths, per-head B and C
     "ssd": [("mamba", (1, 2048, 48, 64, 128, True)),
             ("hymba", (2, 1000, 50, 64, 16, True)),
-            ("reduced", (2, 300, 8, 16, 16, False))],
+            ("reduced", (2, 300, 8, 16, 16, False)),
+            ("tp-d", (1, 2048, 25, 64, 16, True)),
+            ("tp-g", (1, 2048, 24, 64, 128, True))],
 }
 CPU_SHAPES = {
     "add_rmsnorm_fwd": [("flash", (128, 64)), ("naive", (64, 64)),
                         ("moe", (64, 64)), ("ragged", (33, 47)),
-                        ("tp-c", (64, 128))],
+                        ("tp-c", (64, 128)), ("tp-d", (64, 100))],
     "add_rmsnorm_bwd": [("flash", (128, 64)), ("naive", (64, 64)),
                         ("moe", (64, 64)), ("ragged", (33, 47)),
-                        ("tp-c", (64, 128))],
+                        ("tp-c", (64, 128)), ("tp-d", (64, 100))],
     "gemm_bias": [("flash", (128, 64, 192)), ("naive", (64, 64, 192)),
                   ("moe", (64, 64, 128)), ("ragged", (33, 47, 95)),
                   ("tp-a", (64, 64, 96)), ("tp-b", (64, 64, 64)),
-                  ("tp-c", (64, 128, 128))],
+                  ("tp-c", (64, 128, 128)), ("tp-d", (64, 100, 84)),
+                  ("tp-e", (64, 100, 56))],
     "flash": [("flash", (1, 64, 2, 2, 32, 0)), ("moe", (1, 64, 4, 2, 32, 0)),
               ("gqa", (1, 40, 4, 2, 32, 0)),
               ("window", (1, 40, 4, 1, 32, 16)), ("d80", (1, 40, 2, 2, 80, 0)),
               ("tp-a", (1, 64, 2, 2, 32, 0)), ("tp-b", (1, 64, 2, 1, 32, 0)),
-              ("tp-c", (1, 64, 2, 1, 64, 0))],
+              ("tp-c", (1, 64, 2, 1, 64, 0)), ("tp-d", (1, 40, 15, 3, 16, 40)),
+              ("tp-e", (1, 40, 10, 2, 16, 40)),
+              ("tp-f", (1, 40, 25, 5, 16, 40))],
     "ssd": [("mamba", (1, 100, 3, 16, 16, True)),
             ("hymba", (1, 70, 3, 16, 8, True)),
-            ("reduced", (1, 33, 2, 8, 16, False))],
+            ("reduced", (1, 33, 2, 8, 16, False)),
+            ("tp-d", (1, 70, 5, 16, 8, True)),
+            ("tp-g", (1, 100, 4, 16, 16, True))],
 }
 PATH_LABELS = tuple(label for label, _, _ in PATHS.values())
-#: the shard shapes of phase 18 (one sequence of 2048 a rank, model 2):
-#: tp-a gpt3-medium (8 heads of 64: a fused QKV of 1536 columns), tp-b
-#: granite-moe (GQA 8 / 4 heads of 64: 1024 columns), tp-c qwen3-1.7b
-#: (GQA 8 / 4 heads of 128: 2048 columns at d 2048, and its norms);
-#: checked in phase 3 and timed in phase 4 as the paths' shapes are
-TP_LABELS = ("tp-a", "tp-b", "tp-c")
+#: the shard shapes of phases 18 and 19 (one sequence of 2048 a rank,
+#: model 2): tp-a gpt3-medium (8 heads of 64: a fused QKV of 1536
+#: columns), tp-b granite-moe (GQA 8 / 4 heads of 64: 1024 columns),
+#: tp-c qwen3-1.7b (GQA 8 / 4 heads of 128: 2048 columns at d 2048, and
+#: its norms); hymba-1.5b's whole kv groups, tp-d on rank 0 (15 / 3
+#: heads of 64 under its window of 2048: a fused QKV of 1344 columns at
+#: K = d 1600, 12.5 tiles of 128; its norms at d 1600; its 25 Mamba2
+#: heads of 64 at state 16) and tp-e on rank 1 (10 / 2 heads: 896
+#: columns), tp-f its 25 / 5 heads whole (one program); tp-g
+#: mamba2-780m's 24 Mamba2 heads of 64 a rank at state 128.  Checked in
+#: phase 3 and timed in phase 4 as the paths' shapes are, with the
+#: configuration the autotuner resolves for each (the heuristic where
+#: its table has no entry)
+TP_LABELS = ("tp-a", "tp-b", "tp-c", "tp-d", "tp-e", "tp-f", "tp-g")
 
 
 def reported_path(name):
@@ -405,10 +436,13 @@ def sdpa_forward(q, k, v, window):
     scaled_dot_product_attention call on [B, H, S, D] views, grouped
     query heads where there are fewer kv heads; with fewer queries than
     keys the causal mask is aligned to the keys' end
-    (``causal_lower_right``, as the kernels align it).  Timed only; the
+    (``causal_lower_right``, as the kernels align it).  A window no
+    shorter than the keys (hymba's 2048 at S 2048) cuts no causal pair,
+    so the causal call computes the same function.  Timed only; the
     port never calls it."""
     import torch
-    check(window == 0, "the SDPA yardstick is timed without a window")
+    check(window == 0 or window >= k.shape[1],
+          "the SDPA yardstick is timed where no window cuts a causal pair")
     Sq, Sk = q.shape[1], k.shape[1]
     if Sq == Sk:
         kw = dict(is_causal=True)
@@ -984,12 +1018,15 @@ def time_kernels(device, table, shapes, iters):
     """Phase 4, fp32 (the paths' dtype), at each path's shape.  Returns
     name -> the row at the reported path's shape."""
     import torch
+    from repro_torch.kernels import autotune
     on_card = device.type == "cuda"
+    backend = autotune.backend_of(device)
     rows = {}
     for name, (kern, plain, lib) in table.items():
         for label, shape in _shapes(shapes, name):
             if label not in PATH_LABELS + TP_LABELS:
                 continue
+            cfg = shape_config(backend, name, shape)
             args = make_inputs(name, shape, torch.float32, device, seed=2)
             chunk = ssd_chunk(args[0], args[3]) if name in SSD else 64
             ms = time_ms(kern, args, device, iters)
@@ -1015,7 +1052,8 @@ def time_kernels(device, table, shapes, iters):
                   f"plain {plain_ms:.4f} ms, library "
                   f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}"
                   f"{' (SDPA fwd+bwd - fwd: dq and dk/dv together)' if name in FLASH[1:] else ''}, "
-                  f"bound {bms:.4f} ms ({by}){tc}")
+                  f"bound {bms:.4f} ms ({by}){tc}; config "
+                  f"{cfg['fwd'] if name == 'gemm_bias' else cfg}")
             if len(phases) > 1:
                 print(f"[time] {name:16s} phases (profiler device ms): "
                       + ", ".join(f"{k} {v:.4f}" for k, v in phases.items()))
@@ -1038,7 +1076,7 @@ def time_kernels(device, table, shapes, iters):
                       f"{'not measured' if dms is None else f'{dms:.4f} ms'}), "
                       f"plain {pms:.4f} ms, library {lms:.4f} ms, "
                       f"bound {bl:.4f} ms ({byl}), tensor-core bound "
-                      f"{tcl:.4f} ms (3xTF32)")
+                      f"{tcl:.4f} ms (3xTF32); config {cfg[layout]}")
     return rows
 
 
@@ -1397,15 +1435,20 @@ def run_lifecycle(device):
 
 
 #: phase 11's serving setup (``repro_torch.launch.serve``'s engine: 6
-#: nodes, f 1, n0 2); the CPU rehearsal cuts the lengths and the depth
+#: nodes, f 1, n0 2); the CPU rehearsal cuts the lengths and the depth.
+#: On the card the depth is cut to 14 of qwen3-1.7b's 28 layers: the
+#: phase's ticks are host-bound per layer, and the cut keeps the
+#: script inside its time limit with phase 19.
 SERVING = dict(arch="qwen3-1.7b", nodes=6, slots=4, prompt_len=64,
                decode_steps=32, requests=16, temperature=0.8, fail_at=8,
-               cpu_prompt_len=8, cpu_decode_steps=8, cpu_layers=2)
+               layers=14, cpu_prompt_len=8, cpu_decode_steps=8,
+               cpu_layers=2)
 
 
 def run_serving(device):
     """Phase 11: serve through a node failure; returns the phase's
     launch counts."""
+    import dataclasses
     import gc
     import numpy as np
     import torch
@@ -1419,7 +1462,8 @@ def run_serving(device):
     from repro_torch.utils import prng
     on_card = device.type == "cuda"
     cfg = SERVING
-    arch = get_arch(cfg["arch"])
+    arch = dataclasses.replace(get_arch(cfg["arch"]),
+                               num_layers=cfg["layers"])
     P, N = cfg["prompt_len"], cfg["decode_steps"]
     if not on_card:
         arch = reduced(arch, layers=cfg["cpu_layers"])
@@ -1544,20 +1588,27 @@ def run_serving(device):
     return launches
 
 
-#: phase 12's multi-process setup: phase 7's gpt3-medium (full width and
-#: depth, sequence 2048, flash kernels, 5 nodes, f 1, n0 2, global batch
-#: 16) at microbatch 1, in 3 worker processes with the reference test's
+#: phase 12's multi-process setup: phase 7's gpt3-medium (full width,
+#: sequence 2048, flash kernels, 5 nodes, f 1, n0 2, global batch 16) at
+#: microbatch 1, in 3 worker processes with the reference test's
 #: hosting: rank 1 hosts n2 alone, a non-lead member of replica (n0, n1,
 #: n2), so killing it shrinks the replica rank 0 leads and the rebind
 #: pulls layer state from rank 2.  Microbatch 1: the two lead workers
 #: run their replicas' pipelines at the same time on the one card.
+#: Depth cut to 12 of 24 blocks: the phase's time is mostly the star
+#: design's socket traffic, which scales with the depth, and the cut
+#: makes room for phase 19 in the script's time limit.
 MULTIPROC = dict(nodes=5, f=1, n0=2, global_batch=16, microbatch=1,
-                 seq_len=2048, cpu_seq_len=32, cpu_layers=2, cpu_microbatch=2,
+                 seq_len=2048, layers=12, cpu_seq_len=32, cpu_layers=2,
+                 cpu_microbatch=2,
                  hosting={"n0": 0, "n1": 0, "n2": 1, "n3": 2, "n4": 2})
 #: launches summed over phase 12's workers: each norm and flash kernel
-#: once per layer and microbatch, 24 layers x 16 microbatches x 4 steps;
+#: once per layer and microbatch, 12 layers x 16 microbatches x 4 steps;
 #: gemm_bias three times (the fused QKV's forward, dx and dW)
-MULTIPROC_LAUNCHES = dict(MOE_LAUNCHES)
+MULTIPROC_LAUNCHES = {k: MULTIPROC["layers"] * 16 * 4 for k in
+                      ("add_rmsnorm_fwd", "add_rmsnorm_bwd", "flash_fwd",
+                       "flash_bwd_dq", "flash_bwd_dkdv")}
+MULTIPROC_LAUNCHES["gemm_bias"] = 3 * MULTIPROC["layers"] * 16 * 4
 
 
 def _tree_hashes(tree):
@@ -1624,7 +1675,8 @@ def run_multiprocess(device):
         microbatch=mb, global_batch=cfg["global_batch"], f=cfg["f"],
         n0=cfg["n0"], nodes=nodes, hosting=cfg["hosting"], procs=3, seed=0,
         opt={"lr": 3e-3, "warmup_steps": 0, "weight_decay": 0.0},
-        device=device.type, attn_impl="kernel", full=on_card)
+        device=device.type, attn_impl="kernel", full=on_card,
+        depth=cfg["layers"])
     t_phase = time.perf_counter()
 
     def sync():
@@ -2390,15 +2442,16 @@ def run_pipeline(device, batch):
 #: on the same weights and sequences: name -> (arch, layers on the card
 #: (None: all), global batch, model options).  17a: gpt3-medium, 2
 #: sequences (rows over data, the sequence over model: 1024 positions a
-#: rank, flash at Sq 1024 against Sk 1024 / 2048); 17b: granite-moe, 4
-#: sequences (one a rank: the router statistics over 4 batch ranks),
-#: depth cut to 8 of 24 blocks; 17c: mamba2-780m, 2 sequences (the
-#: mixer's input gathered over model, the scan on each rank), depth cut
-#: to 16 of 48 blocks.  The cuts keep the phase's gloo traffic (each
-#: rank's gathered weights, through the host) inside its time; the
-#: sequences are phase 13's first.
+#: rank, flash at Sq 1024 against Sk 1024 / 2048), depth cut to 12 of
+#: 24 blocks to make room for phase 19 in the script's time limit; 17b:
+#: granite-moe, 4 sequences (one a rank: the router statistics over 4
+#: batch ranks), depth cut to 8 of 24 blocks; 17c: mamba2-780m, 2
+#: sequences (the mixer's input gathered over model, the scan on each
+#: rank), depth cut to 16 of 48 blocks.  The cuts keep the phase's gloo
+#: traffic (each rank's gathered weights, through the host) inside its
+#: time; the sequences are phase 13's first.
 SEQ17 = {
-    "17a": ("gpt3-medium", None, 2, dict(attn_impl="kernel")),
+    "17a": ("gpt3-medium", 12, 2, dict(attn_impl="kernel")),
     "17b": ("granite-moe-1b-a400m", 8, 4, dict(attn_impl="kernel")),
     "17c": ("mamba2-780m", 16, 2, dict(ssd_impl="kernel")),
 }
@@ -2406,12 +2459,12 @@ SEQ17_STEPS = 2
 
 
 def _scenario(name):
-    """A phase 17 (``SEQ17``) or phase 18 (``TP18``) scenario."""
-    return SEQ17[name] if name in SEQ17 else TP18[name]
+    """A phase 17 (``SEQ17``), 18 (``TP18``) or 19 (``TP19``) scenario."""
+    return {**SEQ17, **TP18, **TP19}[name]
 
 
 def seq_model(on_card, name):
-    """(arch, sequence, model) of a phase 17 or 18 scenario: phase 13's
+    """(arch, sequence, model) of a phase 17, 18 or 19 scenario: phase 13's
     model options (fp32, the kernels, remat full, the chunked CE) at the
     scenario's width, its depth on the card (2 blocks and phase 13's CPU
     sequence in the CPU rehearsal)."""
@@ -2431,17 +2484,18 @@ def seq_model(on_card, name):
 
 
 def seq_launches(arch, steps):
-    """Each kernel's launches a rank over ``steps`` phase 17 steps under
-    remat full: a block's forward twice a step, its backward once
-    (``spmd_launches``); a Mamba2 block launches one SSD forward and
-    backward, each over the whole sequence on every rank, and no
-    epilogue or flash kernel."""
+    """Each kernel's launches a rank over ``steps`` phase 17-19 steps
+    under remat full: a block's forward twice a step, its backward once
+    (``spmd_launches``); a Mamba2 mixer launches one SSD forward and
+    backward (over the whole sequence on every rank of a sequence group,
+    at the rank's heads under TP); an SSM block no epilogue or flash
+    kernel, a hybrid block both."""
+    L = arch.num_layers
+    ssd = ({"ssd_fwd": 2 * L * steps, "ssd_bwd": L * steps}
+           if arch.ssm is not None else {"ssd_fwd": 0, "ssd_bwd": 0})
     if arch.family == "ssm":
-        return {"ssd_fwd": 2 * arch.num_layers * steps,
-                "ssd_bwd": arch.num_layers * steps,
-                **{k: 0 for k in FUSED + FLASH}}
-    return {**spmd_launches(arch.num_layers, steps), "ssd_fwd": 0,
-            "ssd_bwd": 0}
+        return {**ssd, **{k: 0 for k in FUSED + FLASH}}
+    return {**spmd_launches(L, steps), **ssd}
 
 
 def _seq_batch(gb, batch):
@@ -2668,7 +2722,24 @@ TP18 = {
     "18b": ("granite-moe-1b-a400m", 8, 2, dict(attn_impl="kernel")),
     "18c": ("qwen3-1.7b", 8, 2, dict(attn_impl="kernel")),
 }
-TP18_STEPS = 2
+#: phase 19's scenarios, the same world and layout as phase 18's: the
+#: Mamba2 mixer under TP, each rank computing its whole heads.  19a:
+#: mamba2-780m (24 Mamba2 heads of 64 a rank at state 128, in_proj's
+#: 6448 columns gathered at use, the tied table of 50280 rows
+#: vocab-parallel: 25140 a rank), depth cut to 16 of 48 blocks as in
+#: phase 17c; 19b: hymba-1.5b (attention 15 / 10 query heads over 3 / 2
+#: kv heads a rank under its window of 2048, 25 Mamba2 heads of 64 a rank
+#: at state 16, the branches under one f and one g, MLP 2752 columns a
+#: rank, the table of 32001 rows whole), depth cut to 8 of 32 blocks.
+#: The cuts keep the gloo traffic (in_proj's and the attention's weights
+#: gathered at use, the gradients and ZeRO-1's gathers through the host)
+#: inside the phase's time; the width is full.
+TP19 = {
+    "19a": ("mamba2-780m", 16, 2, dict(ssd_impl="kernel")),
+    "19b": ("hymba-1.5b", 8, 2, dict(attn_impl="kernel", ssd_impl="kernel")),
+}
+TP_PHASES = {"18": TP18, "19": TP19}
+TP_STEPS = 2
 
 
 def _replicated_hashes(ex):
@@ -2681,9 +2752,31 @@ def _replicated_hashes(ex):
             if "model" not in spec}
 
 
-def tp_rank(on_card, batch):
-    """Phase 18, one rank's part (run by ``spawn_world``): every scenario
-    in turn on this world's data 2 x model 2 mesh under ``tp``."""
+def tp_mixer_bytes(arch, rows, positions, remat=True):
+    """The all-reduce bytes a rank a step of a phase 19 scenario on data
+    2 x model 2, by tag, counted from the shapes as
+    tests/test_torch_spmd_tp_ssm.py counts them.  "tp": per block, each
+    *g* in the forward and each *f* in the backward ([rows, positions, d]
+    fp32): mamba2's mixer one of each (torch's checkpoint stops its
+    recompute at the block's last saved tensor, the input of out_proj's
+    product, so the *g* after it is not rerun); hymba's branch pair one
+    of each, its *g* again in remat's recompute (the MLP's saved tensors
+    come after it), and the MLP's one of each.  At model 2 the spec cuts
+    every mixer and attention weight of both, so none is taken whole
+    through *f*.  "ssm_norm": the gated norm's sum of squares ([rows,
+    positions, 1] fp32) forward, again in the recompute, and its
+    cotangents' sum backward."""
+    act = rows * positions * arch.d_model * 4
+    extra = 1 if remat else 0
+    acts = 2 if arch.family == "ssm" else 2 + extra + 2
+    return {"tp": arch.num_layers * acts * act,
+            "ssm_norm": arch.num_layers * (2 + extra) * rows * positions * 4}
+
+
+def tp_rank(on_card, batch, phase="18"):
+    """Phase 18 or 19, one rank's part (run by ``spawn_world``): the
+    phase's scenarios in turn on this world's data 2 x model 2 mesh under
+    ``tp``."""
     import gc
     import torch
     from repro_torch.configs import ShapeConfig
@@ -2700,9 +2793,9 @@ def tp_rank(on_card, batch):
     strategy = ShardingStrategy(strategy="tp")
     tr = mesh.transport
     out = {"rank": mesh.rank, "coords": mesh.coords}
-    for name, (_, _, gb, _) in TP18.items():
+    for name, (_, _, gb, _) in TP_PHASES[phase].items():
         arch, seq, model = seq_model(on_card, name)
-        shape = ShapeConfig(f"phase18-{name}", seq, gb, "train")
+        shape = ShapeConfig(f"phase{phase}-{name}", seq, gb, "train")
         b = _seq_batch(gb, batch)
         gc.collect()
         if on_card:
@@ -2718,12 +2811,12 @@ def tp_rank(on_card, batch):
         tp = strategy.tp_context(mesh, arch)
         r = {"held": held, "want": want["args"] - want["batch"],
              "heads": tp.heads, "kv_heads": tp.kv_heads,
-             "experts": tp.experts, "vocab": tp.vocab,
-             "builds_at_bind": ex.cache.stats.compiles}
+             "ssm_heads": tp.ssm_heads, "experts": tp.experts,
+             "vocab": tp.vocab, "builds_at_bind": ex.cache.stats.compiles}
         build.reset_launches()
         losses, bits, secs, moved, tagged, hashes = [], [], [], [], [], []
         with track_compiles() as log:
-            for i in range(TP18_STEPS):
+            for i in range(TP_STEPS):
                 tr.reset()
                 _sync(on_card)
                 t0 = time.perf_counter()
@@ -2752,11 +2845,11 @@ def tp_rank(on_card, batch):
     return out
 
 
-def tp_dryrun(on_card):
-    """The dry-run of each phase 18 scenario on an abstract data 2 x
+def tp_dryrun(on_card, phase="18"):
+    """The dry-run of each phase 18 or 19 scenario on an abstract data 2 x
     model 2 mesh under ``tp`` (``launch/dryrun.py::analyze``: a trace on
     fake tensors, no device): {name: its collectives' bytes a device by
-    kind and site}.  Printed as JSON: phase 18 runs it in a process of
+    kind and site}.  Printed as JSON: the phase runs it in a process of
     its own beside the ranks."""
     import torch
     from repro_torch.configs import ShapeConfig
@@ -2764,9 +2857,9 @@ def tp_dryrun(on_card):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.runtime import ShardingStrategy
     out = {}
-    for name, (_, _, gb, _) in TP18.items():
+    for name, (_, _, gb, _) in TP_PHASES[phase].items():
         arch, seq, model = seq_model(on_card, name)
-        a = dryrun.analyze(arch, ShapeConfig(f"phase18-{name}", seq, gb,
+        a = dryrun.analyze(arch, ShapeConfig(f"phase{phase}-{name}", seq, gb,
                                              "train"),
                            make_mesh(MESH["shape"], ("data", "model")),
                            ShardingStrategy(strategy="tp"),
@@ -2778,31 +2871,35 @@ def tp_dryrun(on_card):
     print(json.dumps(out))
 
 
-def _start_tp_dryrun(on_card):
+def start_tp_dryrun(on_card, phase="18"):
     """``tp_dryrun`` in a fresh interpreter (the CPU, no card)."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [SRC, ROOT, os.environ.get("PYTHONPATH", "")]),
         CUDA_VISIBLE_DEVICES="")
     return subprocess.Popen(
         [sys.executable, "-c", f"import chip_smoke; "
-         f"chip_smoke.tp_dryrun({on_card!r})"], env=env,
+         f"chip_smoke.tp_dryrun({on_card!r}, {phase!r})"], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def run_tp(device, batch):
-    """Phase 18: Megatron tensor and expert parallelism, one world of 4
-    fresh rank processes sharing the card (gloo), each scenario held to
-    a one-program SPMDExecutor on the same weights and sequences.
-    Returns rank 0's launches over the three scenarios."""
+def run_tp(device, batch, phase="18", trace=None):
+    """Phase 18 (Megatron tensor and expert parallelism) or 19 (the
+    Mamba2 mixer and hymba under it): one world of 4 fresh rank processes
+    sharing the card (gloo), each scenario held to a one-program
+    SPMDExecutor on the same weights and sequences.  ``trace``: the
+    phase's dry-run (``start_tp_dryrun``), started here if None.  Returns
+    rank 0's launches over the phase's scenarios."""
     import gc
     import torch
     from repro_torch.launch.mesh import spawn_world
     from repro_torch.utils.tree import tree_leaves
     on_card = device.type == "cuda"
+    scenarios = TP_PHASES[phase]
     t_phase = time.perf_counter()
-    trace = _start_tp_dryrun(on_card)
+    trace = trace or start_tp_dryrun(on_card, phase)
     try:
-        refs = {name: _seq_reference(device, name, batch) for name in TP18}
+        refs = {name: _seq_reference(device, name, batch)
+                for name in scenarios}
         gc.collect()
         if on_card:
             torch.cuda.empty_cache()
@@ -2810,7 +2907,8 @@ def run_tp(device, batch):
         poller = _MemoryPeak(on_card)
         try:
             ranks = spawn_world("chip_smoke:tp_rank", ranks_n,
-                                {"on_card": on_card, "batch": batch},
+                                {"on_card": on_card, "batch": batch,
+                                 "phase": phase},
                                 device=device, paths=[ROOT], timeout=900)
         finally:
             smi = poller.stop()
@@ -2825,7 +2923,7 @@ def run_tp(device, batch):
           f"{stderr[-2000:]}")
     dry = json.loads(stdout.strip().splitlines()[-1])
     total = {}
-    for name in TP18:
+    for name in scenarios:
         arch, seq, _ = seq_model(on_card, name)
         loss_ref, aux_ref, p_ref, ref_s = refs[name]
         r0 = ranks[0][name]
@@ -2842,7 +2940,7 @@ def run_tp(device, batch):
                   f"tp {name} rank {rank['rank']}: {r['builds_at_bind']} "
                   f"programs at bind, {r['builds']} after")
             if on_card:
-                want_l = seq_launches(arch, TP18_STEPS)
+                want_l = seq_launches(arch, TP_STEPS)
                 got = {k: r["launches"][k] for k in want_l}
                 check(got == want_l, f"tp {name} rank {rank['rank']} "
                       f"launches {got}, expected {want_l}")
@@ -2871,16 +2969,18 @@ def run_tp(device, batch):
                                         tree_leaves(p_ref), SPMD_OPT["lr"])
         check(ok, f"tp {name} params after step 1 vs one program's: max "
               f"{worst}, fraction above lr/10 {frac}")
+        mixer = (f", Mamba2 heads {r0['ssm_heads']}"
+                 if r0["ssm_heads"] is not None else "")
         print(f"[tp] {name} {arch.name} ({arch.num_layers} blocks, S {seq}, "
-              f"global batch {TP18[name][2]}, data 2 x model 2): a rank's "
-              f"query heads {r0['heads']}, kv heads {r0['kv_heads']}, "
-              f"experts {r0['experts']}, vocabulary rows {r0['vocab']} "
-              f"(None: whole); first loss {losses[0]!r} vs one program's "
-              f"{loss_ref!r} ({ref_s:.4f}s), aux {r0['aux1']!r} vs "
+              f"global batch {scenarios[name][2]}, data 2 x model 2): a "
+              f"rank's query heads {r0['heads']}, kv heads {r0['kv_heads']}"
+              f"{mixer}, experts {r0['experts']}, vocabulary rows "
+              f"{r0['vocab']} (None: whole); first loss {losses[0]!r} vs one "
+              f"program's {loss_ref!r} ({ref_s:.4f}s), aux {r0['aux1']!r} vs "
               f"{aux_ref!r}; params after step 1 track it (max |diff| "
               f"{worst:.3g}, fraction above lr/10 {frac:.3g})")
         slowest = [round(max(rk[name]["secs"][i] for rk in ranks), 4)
-                   for i in range(TP18_STEPS)]
+                   for i in range(TP_STEPS)]
         print(f"[tp] {name} step seconds {[round(t, 4) for t in r0['secs']]}"
               f" (rank 0; slowest rank {slowest}), host seconds inside the "
               f"collectives on rank 0 {r0['comm_s']:.4f}; losses "
@@ -2900,6 +3000,22 @@ def run_tp(device, batch):
               f"{reduced_tags}; the dry-run's all-reduce bytes a device for "
               f"this layout by site {act} (ring bytes: 2 (k-1)/k of the "
               f"buffer, = the buffer at k 2; trace {d['trace_s']}s)")
+        if arch.ssm is not None:
+            want_b = tp_mixer_bytes(arch, 1, seq)
+            for rank in ranks:
+                got_b = [{tag: t.get(tag, {}).get("reduced", 0)
+                          for tag in want_b} for t in rank[name]["tagged"]]
+                check(got_b == [want_b] * TP_STEPS,
+                      f"tp {name} rank {rank['rank']} all-reduce bytes "
+                      f"{got_b}, counted from the shapes {want_b}")
+            acts = sum(v for k, v in d["by_site"].items()
+                       if k in ("all-reduce act", "all-reduce act-grad"))
+            ours = want_b["tp"] + want_b["ssm_norm"]
+            print(f"[tp] {name} all-reduce bytes a rank a step: tp "
+                  f"{want_b['tp']}, ssm_norm {want_b['ssm_norm']} = the "
+                  f"count from the shapes on every rank; their sum over the "
+                  f"dry-run's act + act-grad {round(acts)}: "
+                  f"{ours / acts if acts else float('nan'):.5f}")
         print(f"[tp] {name} launches a rank {r0['launches']}")
         for k, v in r0["launches"].items():
             total[k] = total.get(k, 0) + v
@@ -2910,8 +3026,9 @@ def run_tp(device, batch):
     mem = (f"nvidia-smi memory.used peak {smi} MiB (4 ranks and this "
            f"process)" if on_card else
            "peak memory: not measured (cpu rehearsal)")
-    print(f"[tp] {mem}; the dry-run's trace ended {wait_s:.1f}s after the "
-          f"ranks; phase {time.perf_counter() - t_phase:.1f}s")
+    print(f"[tp] phase {phase}: {mem}; the dry-run's trace ended "
+          f"{wait_s:.1f}s after the ranks; phase "
+          f"{time.perf_counter() - t_phase:.1f}s")
     return total
 
 
@@ -2922,32 +3039,38 @@ def _rounded(d):
 # ----------------------------------------------------------------------
 # Phase 16: the autotuner
 # ----------------------------------------------------------------------
+def shape_config(backend, name, shape):
+    """The configuration the autotuner resolves for kernel ``name`` at
+    ``shape`` (the GEMM: its three products)."""
+    import torch
+    from repro_torch.kernels import autotune
+    f32 = torch.float32
+    if name == "add_rmsnorm_fwd":
+        return {"rows_per_block": 1}
+    if name == "add_rmsnorm_bwd":
+        return autotune.norm_config(backend, f32, *shape)
+    if name == "gemm_bias":
+        M, K, Nq = shape
+        return {lay: autotune.gemm_config_of(backend, f32, m, n, k, layout)
+                for lay, (m, n, k, layout) in (
+                    ("fwd", (M, Nq, K, "kn")), ("dx", (M, K, Nq, "kk")),
+                    ("dW", (K, Nq, M, "mn")))}
+    if name in FLASH:
+        fl = autotune.flash_config(backend, f32, shape[1], shape[4])
+        key = "block_k" if name == "flash_bwd_dkdv" else "block_q"
+        return {key: fl[key]}
+    _, S, _, P, N, _ = shape
+    return autotune.ssd_config(backend, f32, S, P, N)
+
+
 def kernel_configs(device, shapes):
     """name -> the configuration the autotuner resolves for the kernel at
     its reported path's shape (the GEMM: its three products)."""
-    import torch
     from repro_torch.kernels import autotune
     backend = autotune.backend_of(device)
-    f32 = torch.float32
     at = {name: dict(_shapes(shapes, name))[reported_path(name)]
           for name in KERNELS}
-    B, S, H, KV, D, _ = at["flash_fwd"]
-    fl = autotune.flash_config(backend, f32, S, D)
-    b, S2, H2, P, N, _ = at["ssd_fwd"]
-    M, K, Nq = at["gemm_bias"]
-    gemm = {lay: autotune.gemm_config_of(backend, f32, m, n, k, layout)
-            for lay, (m, n, k, layout) in (
-                ("fwd", (M, Nq, K, "kn")), ("dx", (M, K, Nq, "kk")),
-                ("dW", (K, Nq, M, "mn")))}
-    return {"add_rmsnorm_fwd": {"rows_per_block": 1},
-            "add_rmsnorm_bwd": autotune.norm_config(
-                backend, f32, *at["add_rmsnorm_bwd"]),
-            "gemm_bias": gemm,
-            "flash_fwd": {"block_q": fl["block_q"]},
-            "flash_bwd_dq": {"block_q": fl["block_q"]},
-            "flash_bwd_dkdv": {"block_k": fl["block_k"]},
-            "ssd_fwd": autotune.ssd_config(backend, f32, S2, P, N),
-            "ssd_bwd": autotune.ssd_config(backend, f32, S2, P, N)}
+    return {name: shape_config(backend, name, at[name]) for name in KERNELS}
 
 
 #: run by fresh interpreters in phase 16: the configurations they resolve
@@ -3088,8 +3211,18 @@ def _run(device):
     run_mesh(device, p13)
     run_pipeline(device, p13["batch"])
     run_autotune(device)
-    run_seq(device, p13["batch"])
-    tp_launches = run_tp(device, p13["batch"])
+    # phase 19's dry-run traces full-size mixers on the host for minutes:
+    # it runs beside phases 17 and 18
+    trace19 = start_tp_dryrun(on_card, "19")
+    try:
+        run_seq(device, p13["batch"])
+        tp_launches = run_tp(device, p13["batch"])
+        for k, v in run_tp(device, p13["batch"], "19", trace19).items():
+            tp_launches[k] = tp_launches.get(k, 0) + v
+    finally:
+        if trace19.poll() is None:
+            trace19.kill()
+            trace19.wait()
     configs = kernel_configs(device, shapes)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

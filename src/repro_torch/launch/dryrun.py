@@ -17,9 +17,11 @@ its own step functions under FakeTensorMode (``launch/opcount.py``):
     the leftover batch axes where ``act_constrainer`` would shard it,
     FSDP gathering one block at a time (``unshard``; the embedding,
     final norm and head gathered for the whole step), TP on a local
-    architecture whose heads, kv heads, d_ff, experts, SSM heads and
-    vocabulary are divided by the model axis wherever the spec shards
-    them (the divisibility guard decides; counts it cannot divide stay
+    architecture (``local_arch``): the largest rank's whole heads and kv
+    heads, and its Mamba2 heads where ``ArchConfig``'s integer
+    ``expand`` can state them (else whole), with d_ff, experts and
+    vocabulary divided by the model axis wherever the spec shards them
+    (the divisibility guard decides; counts it cannot divide stay
     whole).  Decode runs on a cache at the local batch (under FSDP with
     its whole head_dim: the cache is an argument, its bytes come from the
     specs, and the scores it gives are the same).  The train trace is the loss and its
@@ -66,7 +68,9 @@ from repro_torch.launch.mesh import (data_axes, group_size,
 from repro_torch.launch.opcount import OpCounter
 from repro_torch.models import Model
 from repro_torch.runtime import spmd
-from repro_torch.runtime.sharding import ShardingStrategy, spec_leaves
+from repro_torch.runtime.sharding import (ShardingStrategy, heads_fall,
+                                         spec_leaves, ssm_heads,
+                                         ssm_heads_fall, tp_heads)
 from repro_torch.utils.hw import H100, HardwareSpec
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -114,7 +118,12 @@ def _batch_bytes(mesh, bspec, batch) -> int:
 # ----------------------------------------------------------------------
 def local_arch(arch: ArchConfig, strategy: ShardingStrategy,
                mesh) -> ArchConfig:
-    """The architecture one device computes (module docstring)."""
+    """The architecture one device computes (module docstring): under TP
+    the largest rank's whole heads (``sharding.tp_heads``: hymba's 15 / 3
+    of 25 / 5 at model 2) and Mamba2 heads (``sharding.ssm_heads``, where
+    the integer ``expand`` can state them: mamba2-780m's and hymba's at
+    model 2, neither at 4, where they stay whole); heads no layout places
+    stay whole (``check_layout`` refuses to run them)."""
     k = mesh.shape[strategy.model_axis]
     if k == 1:
         return arch
@@ -122,12 +131,16 @@ def local_arch(arch: ArchConfig, strategy: ShardingStrategy,
         rep: Dict[str, Any] = {}
         hd = arch.head_dim or (arch.d_model // arch.num_heads
                                if arch.num_heads else 0)
-        if arch.num_heads and arch.num_heads % k == 0:
-            heads = arch.num_heads // k
-            kv = max(1, arch.num_kv_heads // k)
-            while heads % kv:
-                kv -= 1
-            rep.update(num_heads=heads, num_kv_heads=kv, head_dim=hd)
+        if arch.num_heads and heads_fall(arch, k):
+            (q0, q1), (k0, k1) = tp_heads(arch, k, 0)
+            rep.update(num_heads=q1 - q0, num_kv_heads=k1 - k0, head_dim=hd)
+        c = arch.ssm
+        if c is not None and ssm_heads_fall(arch, k):
+            h0, h1 = ssm_heads(arch, k, 0)
+            inner = (h1 - h0) * c.head_dim
+            if inner % arch.d_model == 0:
+                rep["ssm"] = dataclasses.replace(
+                    c, expand=inner // arch.d_model)
         if arch.d_ff and arch.d_ff % k == 0:
             rep["d_ff"] = arch.d_ff // k
         if arch.vocab_size % k == 0:

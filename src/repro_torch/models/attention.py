@@ -23,7 +23,11 @@ enters through *f*, the projection runs on the rank's column shards of
 them covers its own heads only), attention over the local heads, and the
 row-parallel ``wo`` product leaves through *g*.  A weight cut inside a
 head (fewer kv heads than ranks) is gathered at use and sliced to the
-heads the rank reads (``TPContext.take``).
+heads the rank reads (``TPContext.take``).  Where the heads do not
+divide the model axis a rank takes whole kv groups with their query
+heads (``sharding.tp_heads``), and every weight is gathered at use.
+With ``part=True`` the caller owns *f* and *g* (hymba's block joins the
+attention and the Mamba2 mixer under one of each).
 """
 from __future__ import annotations
 
@@ -176,10 +180,12 @@ def _tp_params(params, arch: ArchConfig, tp) -> Tuple[dict, Tuple[int, int]]:
 
 def attention(params, arch: ArchConfig, x: torch.Tensor, *,
               impl: str = "blocked", block_kv: int = 512,
-              fused: bool = False, seq=None, tp=None) -> torch.Tensor:
+              fused: bool = False, seq=None, tp=None,
+              part: bool = False) -> torch.Tensor:
     """Training attention.  x: [B, S, d_model], or this rank's positions
     of the sequence when ``seq`` is a sliced ``SeqShard``; under ``tp``
-    this rank's heads, summed over the model group (module
+    this rank's heads, summed over the model group, or with ``part``
+    this rank's unsummed part of x already through *f* (module
     docstring)."""
     if impl not in ("naive", "blocked", "kernel"):
         raise ValueError(f"unknown attention impl {impl!r}")
@@ -190,7 +196,8 @@ def attention(params, arch: ArchConfig, x: torch.Tensor, *,
     heads = None
     if tp is not None:
         params, heads = _tp_params(params, arch, tp)
-        x = tp.f(x)
+        if not part:
+            x = tp.f(x)
     q, k, v = _project_qkv(params, arch, x, positions, fused=fused,
                            heads=heads)
     if sliced:
@@ -208,7 +215,7 @@ def attention(params, arch: ArchConfig, x: torch.Tensor, *,
     else:
         o = _sdpa_naive(q, k, v, causal=True, window=window)
     o = o.reshape(B, S, -1) @ params["wo"].to(x.dtype)
-    return tp.g(o) if tp is not None else o
+    return tp.g(o) if tp is not None and not part else o
 
 
 # ----------------------------------------------------------------------

@@ -20,6 +20,23 @@ conv input and dt) over the sequence group, runs the conv and the SSD
 scan over the whole sequence, keeps its own rows and gates them with
 its own z.  Every rank of the group so computes the whole mixer (the
 SSD state is not passed between ranks).
+
+Under tensor parallelism (``tp``, ``runtime/sharding.py::TPContext``) a
+rank computes its whole Mamba2 heads (``TPContext.ssm_heads``), wherever
+the spec's cut of each weight falls: the input enters through *f*;
+``in_proj`` is taken whole once a call (gathered at use, or through *f*
+where the spec keeps it whole) and narrowed to the rank's z, x and dt
+columns and to B and C, which every head reads and every rank computes;
+``conv_w`` / ``conv_b`` to its x channels and B and C (the conv is
+depthwise, so a channel cut is exact); ``dt_bias``, ``A_log``, ``D``,
+``norm_w`` and ``out_proj``'s rows to its heads (``TPContext.take``).
+The SSD runs on the rank's heads; the gated RMSNorm's sum of squares is
+summed over the model group (``TPContext.sum``, tag "ssm_norm") and
+divided by the whole ``d_inner``; the row-parallel ``out_proj`` product
+leaves through *g*.  B's and C's gradients are each rank's share, summed
+by the gather's reduce-scatter (or *f*) and by the input's *f*.  With
+``part=True`` the caller owns *f* and *g* (hymba's block joins its two
+branches under one of each).
 """
 from __future__ import annotations
 
@@ -189,24 +206,71 @@ def _expand_groups(t, n_heads: int, n_groups: int):
     return t.unsqueeze(-2).expand(*lead, G, reps, N).reshape(*lead, n_heads, N)
 
 
+def _tp_params(params, arch: ArchConfig, tp) -> Dict:
+    """The mixer weights a rank of ``tp`` computes its heads with (module
+    docstring): ``in_proj`` [d, 2 di + 2 gn + nh] and ``conv_w`` /
+    ``conv_b`` over di + 2 gn channels, the rest at its nh heads of P
+    channels (di = nh P)."""
+    c, d_inner, n_heads, conv_dim = _dims(arch)
+    P, gn = c.head_dim, c.n_groups * c.state_size
+    h0, h1 = tp.ssm_heads
+    lo, hi = h0 * P, h1 * P
+    w = tp.whole(params["in_proj"], 1, 2 * d_inner + 2 * gn + n_heads)
+    bc = 2 * d_inner
+    z_x_bc_dt = [(lo, hi), (d_inner + lo, d_inner + hi), (bc, bc + 2 * gn),
+                 (bc + 2 * gn + h0, bc + 2 * gn + h1)]
+    p = {"in_proj": torch.cat([w[:, a:b] for a, b in z_x_bc_dt], 1)}
+    x_bc = [(lo, hi), (d_inner, d_inner + 2 * gn)]
+    for name in ("conv_w", "conv_b"):
+        t = tp.whole(params[name], params[name].dim() - 1, conv_dim)
+        p[name] = torch.cat([t[..., a:b] for a, b in x_bc], -1)
+    for name in ("dt_bias", "A_log", "D"):
+        p[name] = tp.take(params[name], 0, h0, h1, n_heads)
+    p["norm_w"] = tp.take(params["norm_w"], 0, lo, hi, d_inner)
+    p["out_proj"] = tp.take(params["out_proj"], 0, lo, hi, d_inner)
+    return p
+
+
+def _gated_norm(w, y, z, eps: float, d_inner: int, tp=None):
+    """``rms_norm(w, y * silu(z))`` over the whole ``d_inner``: under
+    ``tp`` y and z hold a rank's columns, and the sum of squares is
+    summed over the model group before the division by ``d_inner``."""
+    g = y * F.silu(z)
+    if tp is None:
+        return rms_norm(w, g, eps)
+    g32 = g.float()
+    var = tp.sum((g32 * g32).sum(-1, keepdim=True), "ssm_norm") / d_inner
+    return (g32 * torch.rsqrt(var + eps)).to(g.dtype) * w
+
+
 def mamba(params, arch: ArchConfig, x: torch.Tensor, *,
-          evaluator: str = "chunked", seq=None) -> torch.Tensor:
+          evaluator: str = "chunked", seq=None, tp=None,
+          part: bool = False) -> torch.Tensor:
     """Full-sequence Mamba2 block. x: [b,S,d_model], or this rank's
-    positions of the sequence when ``seq`` is a sliced ``SeqShard``."""
+    positions of the sequence when ``seq`` is a sliced ``SeqShard``;
+    under ``tp`` this rank's heads, summed over the model group, or with
+    ``part`` this rank's unsummed part of x already through *f* (module
+    docstring)."""
     c, d_inner, n_heads, _ = _dims(arch)
+    if tp is not None:
+        params = _tp_params(params, arch, tp)
+        n_heads = tp.ssm_heads[1] - tp.ssm_heads[0]
+        if not part:
+            x = tp.f(x)
+    di = n_heads * c.head_dim      # this rank's d_inner
+    gn = c.n_groups * c.state_size
     proj = x @ params["in_proj"].to(x.dtype)
     sliced = seq is not None and seq.sliced
     if sliced:
         # the conv and scan inputs of every position, in one gather
-        z, rest = proj[..., :d_inner], proj[..., d_inner:]
+        z, rest = proj[..., :di], proj[..., di:]
         xbc, dt_raw = torch.split(seq.gather(rest, "mixer"),
                                   [rest.shape[-1] - n_heads, n_heads], dim=-1)
     else:
-        z, xbc, dt_raw = _split_proj(arch, proj)
+        z, xbc, dt_raw = torch.split(proj, [di, di + 2 * gn, n_heads], dim=-1)
     b, S = xbc.shape[:2]
     xbc = causal_conv1d(xbc, params["conv_w"], params["conv_b"])
-    gn = c.n_groups * c.state_size
-    xin, B, C = torch.split(xbc, [d_inner, gn, gn], dim=-1)
+    xin, B, C = torch.split(xbc, [di, gn, gn], dim=-1)
     xh = xin.reshape(b, S, n_heads, c.head_dim)
     Bh = _expand_groups(B.reshape(b, S, c.n_groups, c.state_size), n_heads,
                         c.n_groups)
@@ -223,12 +287,13 @@ def mamba(params, arch: ArchConfig, x: torch.Tensor, *,
     else:
         raise ValueError(f"unknown SSD evaluator {evaluator!r}")
     y = y + params["D"].to(y.dtype)[None, None, :, None] * xh
-    y = y.reshape(b, S, d_inner)
+    y = y.reshape(b, S, di)
     if sliced:
         y = y[:, seq.start:seq.stop]
-    y = rms_norm(params["norm_w"].to(x.dtype), y * F.silu(z),
-                 arch.rms_norm_eps)
-    return y @ params["out_proj"].to(x.dtype)
+    y = _gated_norm(params["norm_w"].to(x.dtype), y, z, arch.rms_norm_eps,
+                    d_inner, tp)
+    out = y @ params["out_proj"].to(x.dtype)
+    return tp.g(out) if tp is not None and not part else out
 
 
 def init_mamba_cache(arch: ArchConfig, batch: int, dtype, device="cpu"):

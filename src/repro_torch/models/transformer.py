@@ -26,12 +26,15 @@ and ``loss`` averages over this rank's labelled positions.
 
 ``tp`` (``runtime/sharding.py::TPContext``, None on one card) is a
 rank's part of Megatron tensor and expert parallelism: the attention
-runs its heads (``models/attention.py``), the MLP its columns between
-*f* and *g*, the MoE its experts (``models/moe.py``), and a table cut
-over the vocabulary embeds and scores vocab-parallel
-(``models/layers.py``).  The residual stream, the norms and the fused
-residual-add + RMSNorm stay whole and the same on every rank of the
-model group.  Without either context the model is the one-card model.
+runs its heads (``models/attention.py``), the Mamba2 mixer its heads
+(``models/ssm.py``), the MLP its columns between *f* and *g*, the MoE
+its experts (``models/moe.py``), and a table cut over the vocabulary
+embeds and scores vocab-parallel (``models/layers.py``).  hymba's two
+branches share one *f* on the normed input and one *g* on their mean,
+one all-reduce a direction for the pair.  The residual stream, the
+norms and the fused residual-add + RMSNorm stay whole and the same on
+every rank of the model group.  Without either context the model is
+the one-card model.
 
 The vision and audio frontends are stubs, as in the JAX package:
 ``frontend_embeds`` [b, F, d] are concatenated ahead of the token
@@ -165,15 +168,14 @@ class Model:
         h = self._norm(bp["ln1"], x)
         if a.family == "ssm":
             x = x + ssm_lib.mamba(bp["mamba"], a, h, evaluator=self.ssd_impl,
-                                  seq=seq)
+                                  seq=seq, tp=self.tp)
             return self.constrain(x, "act"), aux
         fused = self.fuse == "fused"
-        branch = attn_lib.attention(bp["attn"], a, h, impl=self.attn_impl,
-                                    fused=fused, seq=seq, tp=self.tp)
         if a.hybrid_parallel_heads:
-            branch = 0.5 * (branch + ssm_lib.mamba(bp["mamba"], a, h,
-                                                   evaluator=self.ssd_impl,
-                                                   seq=seq))
+            branch = self._hybrid(bp, h, seq)
+        else:
+            branch = attn_lib.attention(bp["attn"], a, h, impl=self.attn_impl,
+                                        fused=fused, seq=seq, tp=self.tp)
         if fused:
             # one pass over the residual: (x + branch) and its RMSNorm
             x, h = kops.fused_add_rmsnorm(x, branch, bp["ln2"].to(x.dtype),
@@ -184,6 +186,19 @@ class Model:
             h = self._norm(bp["ln2"], x)
         x, aux = self._ffn(bp, x, h, aux, seq)
         return self.constrain(x, "act"), aux
+
+    def _hybrid(self, bp: Dict, h, seq=None):
+        """hymba's mean of its attention and Mamba2 branches on h; under
+        ``tp`` one *f* on h and one *g* on the mean of the rank's parts."""
+        a, tp = self.arch, self.tp
+        if tp is not None:
+            h = tp.f(h)
+        kw = dict(seq=seq, tp=tp, part=tp is not None)
+        y = 0.5 * (attn_lib.attention(bp["attn"], a, h, impl=self.attn_impl,
+                                      fused=self.fuse == "fused", **kw)
+                   + ssm_lib.mamba(bp["mamba"], a, h,
+                                   evaluator=self.ssd_impl, **kw))
+        return tp.g(y) if tp is not None else y
 
     def _ffn(self, bp: Dict, x, h, aux, seq=None):
         """The block's MLP or MoE on h, added to the residual x; the MoE's

@@ -61,6 +61,7 @@ it, as the reference's workers share a host's CPUs.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import os
 import signal
@@ -109,7 +110,8 @@ def make_job_spec(arch: str = "gpt3_medium", layers: int = 4,
                   procs: int = 2, seed: int = 11,
                   opt: Optional[Dict[str, float]] = None,
                   device: str = "cuda", attn_impl: str = "naive",
-                  full: bool = False, params: Optional[str] = None) -> Dict:
+                  full: bool = False, depth: Optional[int] = None,
+                  params: Optional[str] = None) -> Dict:
     """JSON-able job description.  ``hosting`` maps node name -> worker
     rank; the default splits the node list into ``procs`` contiguous
     chunks.  Every process (coordinator included) rebuilds model,
@@ -119,7 +121,8 @@ def make_job_spec(arch: str = "gpt3_medium", layers: int = 4,
     Beyond the reference's fields: ``device`` (the workers' device:
     ``"cuda"`` unless the caller asks for ``"cpu"``), ``attn_impl``,
     ``full`` (the configuration as published instead of
-    ``reduced(arch, layers)``) and ``params`` (the path of an ``.npz``
+    ``reduced(arch, layers)``), ``depth`` (with ``full``, its width at
+    ``depth`` blocks) and ``params`` (the path of an ``.npz``
     of parameters keyed by ``keystr``, loaded in place of
     ``Model.init``: how a run takes the JAX package's weights)."""
     nodes = list(nodes) if nodes is not None else [f"n{i}" for i in range(5)]
@@ -135,7 +138,7 @@ def make_job_spec(arch: str = "gpt3_medium", layers: int = 4,
         "opt": opt or {"lr": 1e-3, "warmup_steps": 0, "clip_norm": 1.0,
                        "weight_decay": 0.0},
         "device": device, "attn_impl": attn_impl, "full": bool(full),
-        "params": params,
+        "depth": depth, "params": params,
     }
 
 
@@ -174,6 +177,8 @@ def build_setup(spec: Dict, skeleton: bool = False):
     arch = get_arch(spec["arch"])
     if not spec.get("full"):
         arch = reduced(arch, layers=spec["layers"])
+    elif spec.get("depth"):
+        arch = dataclasses.replace(arch, num_layers=spec["depth"])
     model = Model(arch, dtype=torch.float32, remat=False,
                   attn_impl=spec.get("attn_impl", "naive"))
     if skeleton:

@@ -27,12 +27,12 @@ leaves uncovered, over which the sequence shards as the reference's
 ``P(batch, seq)`` constraint shards it, and every batch axis, over which
 the MoE router's statistics are summed.  Under ``tp`` ``tp_context``
 gives the model its ``TPContext`` (the model's ``tp``): this rank's
-heads, MLP columns, experts and vocabulary rows, and Megatron's *f* and
-*g* over the model axis, which the model places where the reference's
-GSPMD program would put its collectives.  Handed a ``recorder``
-(``launch/opcount.py``), they record the collectives the strategy's
-layout implies where the reference's GSPMD program would run them: the
-dry-run's trace.
+whole heads (attention and Mamba2), MLP columns, experts and vocabulary
+rows, and Megatron's *f* and *g* over the model axis, which the model
+places where the reference's GSPMD program would put its collectives.
+Handed a ``recorder`` (``launch/opcount.py``), they record the
+collectives the strategy's layout implies where the reference's GSPMD
+program would run them: the dry-run's trace.
 ``shard_tree`` / ``gather_tree`` cut a full tree into this rank's
 shards and put it back together.
 """
@@ -346,22 +346,71 @@ def _part(total: int, n: int, r: int) -> Optional[Tuple[int, int]]:
     return r * k, (r + 1) * k
 
 
+def _even(total: int, n: int, r: int) -> Tuple[int, int]:
+    """Rank r's [lo, hi) of ``total`` whole units over n ranks, as evenly
+    as they fall: the first ``total % n`` ranks take one unit more."""
+    k, extra = divmod(total, n)
+    lo = r * k + min(r, extra)
+    return lo, lo + k + (1 if r < extra else 0)
+
+
+def heads_fall(arch, n: int) -> bool:
+    """Whether ``tp_heads`` places ``arch``'s heads on n ranks: at least
+    n kv heads, or n dividing the query heads and a multiple of the kv
+    heads."""
+    H, KV = arch.num_heads, arch.num_kv_heads
+    return KV >= n or (H % n == 0 and n % KV == 0)
+
+
+def _ssm_head_count(arch) -> int:
+    c = arch.ssm
+    return c.expand * arch.d_model // c.head_dim
+
+
+def ssm_heads_fall(arch, n: int) -> bool:
+    """Whether ``ssm_heads`` places ``arch``'s Mamba2 heads on n ranks:
+    at least n heads, all reading one B / C group (every config's)."""
+    return arch.ssm.n_groups == 1 and _ssm_head_count(arch) >= n
+
+
 def tp_heads(arch, n: int, r: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
     """Rank r's query heads and kv heads of ``arch`` over a model axis of
-    n: H / n query heads each, and the kv heads they read, KV / n of them
-    where n divides KV, else the one kv head a rank's query heads share
-    (n a multiple of KV).  Raises ``NotImplementedError`` where the heads
-    do not fall so."""
+    n.  Where n divides the query heads and divides or is divided by the
+    kv heads: H / n query heads each, and the kv heads they read, KV / n
+    of them where n divides KV, else the one kv head a rank's query heads
+    share.  Otherwise, with at least n kv heads, whole kv groups as
+    evenly as they fall (``_even``), each with its H / KV query heads, so
+    every rank keeps the group size.  Raises ``NotImplementedError``
+    where fewer kv heads than ranks do not divide n (hymba's 5 over 8):
+    no layout of whole heads places them."""
     H, KV = arch.num_heads, arch.num_kv_heads
-    if H % n or (KV % n and n % KV):
+    if H % n == 0 and (KV % n == 0 or n % KV == 0):
+        q0, q1 = _part(H, n, r)
+        if KV % n == 0:
+            return (q0, q1), _part(KV, n, r)
+        k0 = q0 // (H // KV)
+        return (q0, q1), (k0, k0 + 1)
+    if not heads_fall(arch, n):
         raise NotImplementedError(
             f"tp over a model axis of {n}: {H} query heads / {KV} kv heads "
             f"do not fall on whole heads a rank")
-    q0, q1 = _part(H, n, r)
-    if KV % n == 0:
-        return (q0, q1), _part(KV, n, r)
-    k0 = q0 // (H // KV)
-    return (q0, q1), (k0, k0 + 1)
+    k0, k1 = _even(KV, n, r)
+    G = H // KV
+    return (k0 * G, k1 * G), (k0, k1)
+
+
+def ssm_heads(arch, n: int, r: int) -> Tuple[int, int]:
+    """Rank r's Mamba2 heads of ``arch`` over a model axis of n, as evenly
+    as they fall (hymba's 50 over 4: 13 / 13 / 12 / 12).  Raises
+    ``NotImplementedError`` where there are fewer heads than ranks, or
+    more than one B / C group (``ssm_heads_fall``)."""
+    h = _ssm_head_count(arch)
+    if not ssm_heads_fall(arch, n):
+        raise NotImplementedError(
+            f"tp over a model axis of {n}: {h} Mamba2 heads in "
+            f"{arch.ssm.n_groups} B / C group(s) do not fall on whole heads "
+            f"a rank")
+    return _even(h, n, r)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -375,7 +424,10 @@ class TPContext:
     its rows ``vocab`` of the embedding table: each a [lo, hi) range, or
     None where the spec keeps that dimension whole (the model axis does
     not divide it), and the computation there runs as on one card, the
-    same on every rank.  ``f`` and ``g`` are Megatron's operators over
+    same on every rank.  ``ssm_heads`` are its Mamba2 heads.  Heads are
+    placed whole (``tp_heads``, ``ssm_heads``) wherever the spec's cut
+    falls, inside a head too: they decide what a rank computes, never
+    what it stores.  ``f`` and ``g`` are Megatron's operators over
     ``axis`` (``runtime/collectives.py``): a replicated tensor enters a
     rank's part through ``f``, and the parts leave through ``g``.  The
     objective is counted once a model group: a gradient is never taken
@@ -389,6 +441,7 @@ class TPContext:
     shared_ff: Optional[Tuple[int, int]]
     experts: Optional[Tuple[int, int]]
     vocab: Optional[Tuple[int, int]]
+    ssm_heads: Optional[Tuple[int, int]] = None
 
     @classmethod
     def of(cls, mesh, axis: str, arch) -> "TPContext":
@@ -402,7 +455,8 @@ class TPContext:
                    (_part(moe.shared_expert_d_ff, n, r)
                     if moe is not None and moe.shared_expert_d_ff else None),
                    _part(moe.num_experts, n, r) if moe is not None else None,
-                   _part(arch.vocab_size, n, r))
+                   _part(arch.vocab_size, n, r),
+                   ssm_heads(arch, n, r) if arch.ssm is not None else None)
 
     def f(self, t: torch.Tensor, tag: str = "tp") -> torch.Tensor:
         """Megatron's *f*: the identity; the cotangent summed over the
@@ -418,6 +472,23 @@ class TPContext:
         """The elementwise maximum over the model group, no gradient."""
         return all_max(t, self.mesh, self.axis, tag)
 
+    def sum(self, t: torch.Tensor, tag: str) -> torch.Tensor:
+        """The sum over the model group of a statistic each rank takes of
+        its own part; its backward sums the cotangents (each rank's
+        covers only its part's use), unlike *g*'s."""
+        return all_reduce_sum(t, self.mesh, self.axis, tag)
+
+    def whole(self, w: torch.Tensor, dim: int, full: int, tag: str = "tp"
+              ) -> torch.Tensor:
+        """A weight whose full extent along ``dim`` is ``full``, from what
+        this rank holds of it: gathered at use where the spec cuts it
+        there (the gather's backward reduce-scatters the sum of the ranks'
+        gradients), else through ``f`` (its gradient summed over the
+        group)."""
+        if w.shape[dim] != full:
+            return gather_at_use(w, self.mesh, self.axis, dim, tag)
+        return self.f(w, tag)
+
     def take(self, w: torch.Tensor, dim: int, lo: int, hi: int, full: int,
              tag: str = "tp") -> torch.Tensor:
         """Columns [lo, hi) along ``dim`` of a weight whose full extent
@@ -426,16 +497,12 @@ class TPContext:
         gathered at use (a cut inside a head: the gather's backward
         reduce-scatters the sum of the ranks' gradients) or, held whole,
         through ``f`` (its gradient summed over the group), and then
-        sliced."""
+        sliced (``whole``)."""
         have = w.shape[dim]
-        if have != full:
-            r = self.mesh.axis_index(self.axis)
-            if (lo, hi) == (r * have, (r + 1) * have):
-                return w
-            w = gather_at_use(w, self.mesh, self.axis, dim, tag)
-        else:
-            w = self.f(w, tag)
-        return w.narrow(dim, lo, hi - lo)
+        r = self.mesh.axis_index(self.axis)
+        if have != full and (lo, hi) == (r * have, (r + 1) * have):
+            return w
+        return self.whole(w, dim, full, tag).narrow(dim, lo, hi - lo)
 
 
 def _key_name(k) -> str:

@@ -28,8 +28,10 @@ global batch too small to cover every batch axis shards the sequence
 over the rest (``ShardingStrategy.seq_context``: each rank takes its
 rows of the batch whole, and the model keeps its positions of the
 sequence), and an MoE sums its router statistics over every batch rank.
-The Mamba2 mixer under TP raises ``NotImplementedError`` (ROADMAP item
-17c).
+Under TP the Mamba2 mixer runs a rank's whole heads (``models/ssm.py``),
+and heads the model axis does not divide fall as whole kv groups a rank
+(``sharding.tp_heads``); a layout no such placement fits raises
+``NotImplementedError`` (``check_layout``).
 ``recover``/``join`` raise ``ExecutorUnsupported`` by design: one SPMD
 program cannot express a heterogeneous survivor set, so the engine keeps
 the plan consistent and the caller rebinds a ``HeteroTrainer``
@@ -54,7 +56,7 @@ from repro_torch.runtime.executor import (Executor, ExecutorUnsupported,
 from repro_torch.runtime.sharding import (ShardingStrategy, gather_tree,
                                           on_ranks, shard_shape, shard_tree,
                                           sharded_dims, spec_axes,
-                                          spec_leaves, tp_heads)
+                                          spec_leaves, ssm_heads, tp_heads)
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
 
 
@@ -453,16 +455,14 @@ class SPMDExecutor(Executor):
 def check_layout(mesh, strategy: ShardingStrategy, arch: ArchConfig
                  ) -> None:
     """Raise ``NotImplementedError`` for a layout this data plane does not
-    run: the Mamba2 mixer (an SSM or hybrid architecture) under TP over a
-    model axis larger than 1 (ROADMAP item 17c), and heads that do not
-    fall whole on the model axis's ranks (``sharding.tp_heads``)."""
+    run: under TP over a model axis larger than 1, attention heads or
+    Mamba2 heads that no layout of whole heads a rank places
+    (``sharding.tp_heads``: fewer kv heads than ranks, not dividing them;
+    ``sharding.ssm_heads``: fewer Mamba2 heads than ranks)."""
     n = mesh.shape[strategy.model_axis]
     if strategy.strategy != "tp" or n == 1:
         return
-    if arch.family == "ssm" or arch.hybrid_parallel_heads:
-        raise NotImplementedError(
-            f"strategy='tp' over {dict(mesh.shape)} for {arch.name} "
-            f"({arch.family}): the Mamba2 mixer's column cut is ROADMAP "
-            f"item 17c")
     if arch.num_heads:
         tp_heads(arch, n, 0)
+    if arch.ssm is not None:
+        ssm_heads(arch, n, 0)

@@ -173,13 +173,19 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     configs = {k["name"]: k["config"] for k in record["kernels"]}
     assert set(configs["gemm_bias"]) == {"fwd", "dx", "dW"}
     assert set(configs["ssd_fwd"]) == {"chunk"}
-    for kind in ("flash", "gqa", "window", "tp-a", "tp-b", "tp-c"):
+    for kind in ("flash", "gqa", "window", "tp-a", "tp-b", "tp-c", "tp-d",
+                 "tp-e", "tp-f"):
         assert any(ln.startswith("[check] flash_bwd_dkdv") and kind in ln
                    for ln in lines), kind
-    for label in ("tp-a", "tp-b", "tp-c"):      # phase 18's shard shapes
+    # phases 18 and 19's shard shapes
+    for label in ("tp-a", "tp-b", "tp-c", "tp-d", "tp-e"):
         for layout in ("fwd", "dx", "dW"):
             assert any(ln.split()[:4] == ["[time]", "gemm_bias", layout, label]
-                       for ln in lines), (layout, label)
+                       and "config {" in ln for ln in lines), (layout, label)
+    for name, label in (("add_rmsnorm_bwd", "tp-d"), ("flash_fwd", "tp-f"),
+                        ("ssd_fwd", "tp-d"), ("ssd_bwd", "tp-g")):
+        assert any(ln.split()[:4] == ["[time]", name, "fwd", label]
+                   for ln in lines), (name, label)
     for path in ("flash", "naive"):       # each path's epilogue shapes
         for layout in ("fwd", "dx", "dW"):
             assert any(ln.split()[:4] == ["[time]", "gemm_bias", layout, path]
@@ -245,12 +251,17 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
                    for ln in lines), (name, tag)
         assert any(ln.startswith(f"[seq] {name} step seconds") and
                    "bitwise on every rank" in ln for ln in lines), name
-    for name in ("18a", "18b", "18c"):
+    for name in ("18a", "18b", "18c", "19a", "19b"):
         for tag in ("vs one program's", "bitwise across the model group",
                     "= the dry-run's per-card args less the batch",
                     "the dry-run's all-reduce bytes", "launches a rank"):
             assert any(ln.startswith(f"[tp] {name}") and tag in ln
                        for ln in lines), (name, tag)
+    for name in ("19a", "19b"):            # the mixer's heads a rank
+        assert any(ln.startswith(f"[tp] {name}") and "Mamba2 heads (0, 4)"
+                   in ln for ln in lines), name
+        assert any(ln.startswith(f"[tp] {name}") and "= the count from the "
+                   "shapes on every rank" in ln for ln in lines), name
 
 
 def _zero(i):

@@ -212,15 +212,15 @@ def test_mesh_of_size_one_is_accepted_and_larger_raises_item_17b():
     assert_trees_equal(a.params, b.params)
     # a larger mesh runs over a ProcessMesh (tests/test_torch_spmd_mesh.py,
     # tests/test_torch_spmd_seq.py for a batch that leaves a batch axis
-    # uncovered, tests/test_torch_spmd_tp.py for TP); TP of the Mamba2
-    # mixer is item 17c
+    # uncovered, tests/test_torch_spmd_tp.py and
+    # tests/test_torch_spmd_tp_ssm.py for TP, the Mamba2 mixer's too)
     with pytest.raises(TypeError, match="ProcessMesh"):
         SPMDExecutor(model, params, opt_cfg,
                      mesh=make_mesh((1, 2), ("data", "model")),
                      strategy=ShardingStrategy(strategy="tp"), shape=shape)
     mamba = Model(reduced(get_arch("mamba2_780m"), layers=2),
                   dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="17c"):
+    with pytest.raises(TypeError, match="ProcessMesh"):
         SPMDExecutor(mamba, mamba.init(torch.Generator().manual_seed(0)),
                      opt_cfg, mesh=make_mesh((1, 2), ("data", "model")),
                      strategy=ShardingStrategy(strategy="tp"), shape=shape)

@@ -17,13 +17,16 @@ each element counted once).  Every rank's losses are bitwise equal, both
 reruns are bitwise the first run, each rank's state bytes are the
 dry-run's per-card args less the batch, and each batch shape builds one
 program.  ``all_reduce_sum``'s backward sums the group's cotangents.
-TP runs in tests/test_torch_spmd_tp.py; the Mamba2 mixer under TP
-raises: ROADMAP item 17c.  MoE over several batch ranks and a batch
+TP runs in tests/test_torch_spmd_tp.py and, for the Mamba2 mixer and
+hymba, tests/test_torch_spmd_tp_ssm.py; heads no layout of whole heads a
+rank places raise.  MoE over several batch ranks and a batch
 that leaves a batch axis uncovered (the sequence then shards over it)
 run in tests/test_torch_spmd_seq.py.
 
 The module imports no JAX at its top: the ranks import it to run
 ``run_scenarios``."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -219,15 +222,26 @@ def test_sharded_state_is_smaller_than_one_card(results):
     assert world[0]["2x2_no_zero1"]["held"] > world[0]["2x2"]["held"]
 
 
+#: case -> (arch fields replaced, model axis, what the message names):
+#: hymba's 5 kv groups over 8 ranks; a reduced mamba2's 8 Mamba2 heads
+#: over 16
+_UNPLACED = {"hymba_1_5b": ({"num_heads": 10, "num_kv_heads": 5}, 8,
+                            "5 kv heads"),
+             "mamba2_780m": ({}, 16, "8 Mamba2 heads")}
+
+
 @pytest.mark.parametrize("case", ["mamba2_780m", "hymba_1_5b"])
 def test_layouts_of_item_17c_raise(case):
-    """TP of the Mamba2 mixer (an SSM, and the hybrid's heads beside
-    attention) raises before any process group is needed."""
-    model = make_model(case)
+    """TP over heads that no layout of whole heads a rank places raises
+    before any process group is needed (tests/test_torch_spmd_tp_ssm.py
+    runs the Mamba2 mixer and hymba where they fall)."""
+    fields, n, names = _UNPLACED[case]
+    model = Model(dataclasses.replace(reduced(get_arch(case), layers=2),
+                                      **fields), dtype=torch.float32)
     params = model.init(torch.Generator().manual_seed(0))
     strategy = ShardingStrategy(strategy="tp")
-    with pytest.raises(NotImplementedError, match="17c"):
+    with pytest.raises(NotImplementedError, match=names):
         SPMDExecutor(model, params, adamw.AdamWConfig(**opt_config(1.0)),
-                     mesh=make_mesh((2, 2), ("data", "model")),
+                     mesh=make_mesh((1, n), ("data", "model")),
                      strategy=strategy, shape=ShapeConfig("t", SEQ, GB,
                                                           "train"))

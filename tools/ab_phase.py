@@ -8,7 +8,8 @@ change,parent`` compares two commits on one machine.
 
 ``--phase`` names a phase of the tree's own ``chip_smoke.py``: ``naive``
 (6), ``flash`` (7), ``mamba`` (8), ``moe`` (10), ``lifecycle`` (9),
-``serving`` (11), ``multiprocess`` (12) or ``spmd`` (13).  Each run builds the tree's
+``serving`` (11), ``multiprocess`` (12), ``spmd`` (13) or ``tp`` (18, on
+phase 13's sequences).  Each run builds the tree's
 kernels (once per tree: the library is cached under its ``build/``),
 runs the phase with that tree's ``src`` first on the path and prints
 the phase's own lines, each prefixed with the run's label.
@@ -48,6 +49,16 @@ if {exact!r}:
                                     "step_seconds": out["step_seconds"]}}))
 elif phase in paths:
     cs.run_path(dev, *paths[phase])
+elif phase == "tp":
+    import numpy as np
+    from repro_torch.data import ByteCorpus, GlobalBatchDispenser
+    from repro_torch.launch.train import _TEXT
+    seq = cs.SPMD["seq_len"]
+    engine = cs.spmd_engine(cs.spmd_model(True)[0], seq)
+    parts = GlobalBatchDispenser(ByteCorpus(_TEXT * 50, seq_len=seq)
+                                 ).next_step(engine.batch.minibatch_sizes())
+    cs.run_tp(dev, {{k: np.concatenate([b[k] for b in parts])
+                    for k in ("tokens", "labels")}})
 else:
     getattr(cs, "run_" + phase)(dev)
 """
@@ -60,7 +71,7 @@ def main(args=None) -> int:
                     help="comma-separated labels")
     ap.add_argument("--phase", required=True,
                     choices=["naive", "flash", "mamba", "moe", "lifecycle",
-                             "serving", "multiprocess", "spmd"])
+                             "serving", "multiprocess", "spmd", "tp"])
     ap.add_argument("--exact", action="store_true",
                     help="the training command's exact losses and steps")
     ns = ap.parse_args(args)
