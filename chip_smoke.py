@@ -179,15 +179,36 @@ Phases, each fatal on failure:
      equal the count from the shapes (``tp_mixer_bytes``), printed
      beside their ratio to the dry-run's act + act-grad bytes (its trace
      runs beside phases 17 and 18).
-The autotuner reads an empty persisted table in a temporary directory
-and never tunes in phases 1-15 and 17-19: they run the packaged
-table's configurations (the heuristic at shapes it has no entry for).
-The last lines are the card line, a ``{"kernels": [...]}`` JSON line
-(each kernel's launches counted on the path that reports it: phase 7
-for the six, phase 8 for the SSD pair; error, times, bound and the
-resolved ``config`` at the shapes that path gives it; ``tp_launches``:
-rank 0's launches over phases 18 and 19's five scenarios) and ``{"ok":
-true, "device": {...}}``.
+ 20. the reference's default dtype, bf16 activations over fp32
+     parameters: one program (``SPMDExecutor`` from ``build_model``,
+     remat full, the chunked CE at 512, the flash, epilogue and SSD
+     kernels) at full width and depth over phase 13's first 4 sequences
+     of 2048: 20a qwen3-1.7b, 20b hymba-1.5b, 20c qwen2.5-3b, 20d
+     musicgen-large (with 256 frame embeddings from a seed).  Each on
+     one set of seeded weights: a plain fp32 forward loss (blocked
+     attention, the chunked SSD scan, no fused epilogue, under no_grad),
+     then 2 fp32 steps whose first loss equals it (tests/test_executor.py's
+     fp32 tolerance), then 2 bf16 steps whose first loss is within
+     ``BF16_LOSS_RTOL`` of the first fp32 loss; both falling.  Per run:
+     one program, no build after bind, the state equal to the dry-run's
+     args less the batch, each kernel's launches as the shapes count them
+     (``seq_launches``); peak memory beside the dry-run's estimate and
+     the achieved TFLOP/s beside the fp32 and bf16 peaks (the pricing's
+     traces run on the host from the script's start).  20a and 20b go
+     through phase 13's kill and a HeteroTrainer rebound from the bf16
+     snapshot (divergence 0, no build).
+Phases 3-4 also check and time the kernels at phase 20's shapes
+(``P20_LABELS``), timed in bf16.  The autotuner reads an empty persisted
+table in a temporary directory and never tunes in phases 1-15 and 17-20:
+they run the packaged table's configurations (the heuristic at shapes
+it has no entry for).  The last lines are the card line, a
+``{"kernels": [...]}`` JSON line (each kernel's launches counted on the
+path that reports it: phase 7 for the six, phase 8 for the SSD pair;
+error, times, bound and the resolved ``config`` at the shapes that path
+gives it; ``tp_launches``: rank 0's launches over phases 18 and 19's
+five scenarios; ``bf16``: its launches over phase 20's four bf16 runs
+and its bf16 error, times, bound and config at a phase 20 shape,
+``reported_bf16``) and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
 
@@ -286,15 +307,21 @@ SSD = ("ssd_fwd", "ssd_bwd")
 CARD_SHAPES = {
     "add_rmsnorm_fwd": [("flash", (4096, 1024)), ("naive", (1024, 1024)),
                         ("moe", (2048, 1024)), ("ragged", (1000, 999)),
-                        ("tp-c", (2048, 2048)), ("tp-d", (2048, 1600))],
+                        ("tp-c", (2048, 2048)), ("tp-d", (2048, 1600)),
+                        ("20a", (8192, 2048)), ("20b", (8192, 1600)),
+                        ("20d", (9216, 2048))],
     "add_rmsnorm_bwd": [("flash", (4096, 1024)), ("naive", (1024, 1024)),
                         ("moe", (2048, 1024)), ("ragged", (1000, 999)),
-                        ("tp-c", (2048, 2048)), ("tp-d", (2048, 1600))],
+                        ("tp-c", (2048, 2048)), ("tp-d", (2048, 1600)),
+                        ("20a", (8192, 2048)), ("20b", (8192, 1600)),
+                        ("20d", (9216, 2048))],
     "gemm_bias": [("flash", (4096, 1024, 3072)), ("naive", (1024, 1024, 3072)),
                   ("moe", (2048, 1024, 2048)), ("ragged", (1000, 999, 3000)),
                   ("tp-a", (2048, 1024, 1536)), ("tp-b", (2048, 1024, 1024)),
                   ("tp-c", (2048, 2048, 2048)), ("tp-d", (2048, 1600, 1344)),
-                  ("tp-e", (2048, 1600, 896))],
+                  ("tp-e", (2048, 1600, 896)),
+                  ("20a", (8192, 2048, 4096)), ("20b", (8192, 1600, 2240)),
+                  ("20c", (8192, 2048, 2560)), ("20d", (9216, 2048, 6144))],
     # gqa: qwen2.5-3b's heads (16 / kv 2, head dim 128) at a ragged
     # sequence; window: a sliding window of 256 (hymba's 2048 scaled
     # down) with hymba's group of 5 query heads per kv head; d80: GPT-3
@@ -309,39 +336,53 @@ CARD_SHAPES = {
               ("tp-c", (1, 2048, 8, 4, 128, 0)),
               ("tp-d", (1, 2048, 15, 3, 64, 2048)),
               ("tp-e", (1, 2048, 10, 2, 64, 2048)),
-              ("tp-f", (1, 2048, 25, 5, 64, 2048))],
+              ("tp-f", (1, 2048, 25, 5, 64, 2048)),
+              ("20a", (4, 2048, 16, 8, 128, 0)),
+              ("20b", (4, 2048, 25, 5, 64, 2048)),
+              ("20c", (4, 2048, 16, 2, 128, 0)),
+              ("20d", (4, 2304, 32, 32, 64, 0))],
     # hymba: its SSD heads (50 x 64, state 16) at a ragged sequence;
     # reduced: the reduced configs' widths, per-head B and C
     "ssd": [("mamba", (1, 2048, 48, 64, 128, True)),
             ("hymba", (2, 1000, 50, 64, 16, True)),
             ("reduced", (2, 300, 8, 16, 16, False)),
             ("tp-d", (1, 2048, 25, 64, 16, True)),
-            ("tp-g", (1, 2048, 24, 64, 128, True))],
+            ("tp-g", (1, 2048, 24, 64, 128, True)),
+            ("20b", (4, 2048, 50, 64, 16, True))],
 }
 CPU_SHAPES = {
     "add_rmsnorm_fwd": [("flash", (128, 64)), ("naive", (64, 64)),
                         ("moe", (64, 64)), ("ragged", (33, 47)),
-                        ("tp-c", (64, 128)), ("tp-d", (64, 100))],
+                        ("tp-c", (64, 128)), ("tp-d", (64, 100)),
+                        ("20a", (64, 128)), ("20b", (64, 100)),
+                        ("20d", (72, 128))],
     "add_rmsnorm_bwd": [("flash", (128, 64)), ("naive", (64, 64)),
                         ("moe", (64, 64)), ("ragged", (33, 47)),
-                        ("tp-c", (64, 128)), ("tp-d", (64, 100))],
+                        ("tp-c", (64, 128)), ("tp-d", (64, 100)),
+                        ("20a", (64, 128)), ("20b", (64, 100)),
+                        ("20d", (72, 128))],
     "gemm_bias": [("flash", (128, 64, 192)), ("naive", (64, 64, 192)),
                   ("moe", (64, 64, 128)), ("ragged", (33, 47, 95)),
                   ("tp-a", (64, 64, 96)), ("tp-b", (64, 64, 64)),
                   ("tp-c", (64, 128, 128)), ("tp-d", (64, 100, 84)),
-                  ("tp-e", (64, 100, 56))],
+                  ("tp-e", (64, 100, 56)), ("20a", (64, 128, 256)),
+                  ("20b", (64, 100, 140)), ("20c", (64, 128, 160)),
+                  ("20d", (72, 128, 384))],
     "flash": [("flash", (1, 64, 2, 2, 32, 0)), ("moe", (1, 64, 4, 2, 32, 0)),
               ("gqa", (1, 40, 4, 2, 32, 0)),
               ("window", (1, 40, 4, 1, 32, 16)), ("d80", (1, 40, 2, 2, 80, 0)),
               ("tp-a", (1, 64, 2, 2, 32, 0)), ("tp-b", (1, 64, 2, 1, 32, 0)),
               ("tp-c", (1, 64, 2, 1, 64, 0)), ("tp-d", (1, 40, 15, 3, 16, 40)),
               ("tp-e", (1, 40, 10, 2, 16, 40)),
-              ("tp-f", (1, 40, 25, 5, 16, 40))],
+              ("tp-f", (1, 40, 25, 5, 16, 40)),
+              ("20a", (2, 40, 4, 2, 32, 0)), ("20b", (2, 40, 5, 1, 16, 40)),
+              ("20c", (2, 40, 8, 1, 32, 0)), ("20d", (2, 45, 4, 4, 16, 0))],
     "ssd": [("mamba", (1, 100, 3, 16, 16, True)),
             ("hymba", (1, 70, 3, 16, 8, True)),
             ("reduced", (1, 33, 2, 8, 16, False)),
             ("tp-d", (1, 70, 5, 16, 8, True)),
-            ("tp-g", (1, 100, 4, 16, 16, True))],
+            ("tp-g", (1, 100, 4, 16, 16, True)),
+            ("20b", (2, 70, 5, 16, 8, True))],
 }
 PATH_LABELS = tuple(label for label, _, _ in PATHS.values())
 #: the shard shapes of phases 18 and 19 (one sequence of 2048 a rank,
@@ -358,12 +399,28 @@ PATH_LABELS = tuple(label for label, _, _ in PATHS.values())
 #: configuration the autotuner resolves for each (the heuristic where
 #: its table has no entry)
 TP_LABELS = ("tp-a", "tp-b", "tp-c", "tp-d", "tp-e", "tp-f", "tp-g")
+#: phase 20's shapes, one program over 4 sequences (8192 tokens), each
+#: checked in phase 3 and timed in phase 4 in bf16, the dtype phase 20
+#: holds to fp32: 20a qwen3-1.7b (flash 16 / 8 heads of 128; the fused
+#: QKV of 4096 columns at d 2048; norms at d 2048), 20b hymba-1.5b (25 /
+#: 5 heads of 64 under its window of 2048; 2240 columns at d 1600; norms
+#: at d 1600; its 50 Mamba2 heads of 64 at state 16), 20c qwen2.5-3b (16
+#: / 2 heads of 128; 2560 columns), 20d musicgen-large (32 heads of 64
+#: at 2304 positions, 9216 tokens with its frame embeddings; 6144
+#: columns; norms at [9216, 2048])
+P20_LABELS = ("20a", "20b", "20c", "20d")
 
 
 def reported_path(name):
     """The label of the path whose launches, error and times the kernels
     line reports for ``name``."""
     return PATHS[8][0] if name in SSD else PATHS[7][0]
+
+
+def reported_bf16(name):
+    """The phase 20 shape a kernel's ``bf16`` entry of the kernels line
+    reports: qwen3-1.7b's (20a), the SSD's hymba-1.5b's (20b)."""
+    return "20b" if name in SSD else "20a"
 
 
 class SmokeFailure(AssertionError):
@@ -454,7 +511,8 @@ def sdpa_forward(q, k, v, window):
         enable_gqa=q.shape[2] != k.shape[2], **kw)
 
 
-def make_inputs(name, shape, dtype, device, seed, layout="fwd", chunk=None):
+def make_inputs(name, shape, dtype, device, seed, layout="fwd", chunk=None,
+                draw_on_device=False):
     """Inputs for one kernel call.  Norms: shape = (M, d).  GEMM: shape =
     (M, K, N) of the forward x[M,K].W[K,N]; ``layout`` picks the product
     the fused QKV runs: fwd x.W+b, dx g.W^T (W read transposed), dW
@@ -466,12 +524,18 @@ def make_inputs(name, shape, dtype, device, seed, layout="fwd", chunk=None):
     ranges (per-step decays e^(dt.A) of 0.3-1, so the state carries
     across chunks); the backward gets the plain forward's cstates at
     ``chunk`` (default: the call's, ``ssd_chunk``) and a nonzero state
-    cotangent."""
+    cotangent.  The numbers come from a CPU generator, or with
+    ``draw_on_device`` from one on ``device`` (phase 20's shapes: drawing
+    their 50-100 M numbers on the host took most of phases 3-4 there)."""
     import torch
-    g = torch.Generator(device="cpu").manual_seed(seed)
+    g = torch.Generator(device=device if draw_on_device else "cpu"
+                        ).manual_seed(seed)
+
+    def draw(s):
+        return torch.randn(s, generator=g, device=g.device)
 
     def randn(*s, scale=1.0):
-        return (torch.randn(s, generator=g) * scale).to(device=device, dtype=dtype)
+        return (draw(s) * scale).to(device=device, dtype=dtype)
     if name == "add_rmsnorm_fwd":
         M, d = shape
         return (randn(M, d), randn(M, d), randn(d, scale=0.2) + 1.0)
@@ -482,16 +546,15 @@ def make_inputs(name, shape, dtype, device, seed, layout="fwd", chunk=None):
         from repro_torch.kernels import ref
         b, S, H, P, N, expanded = shape
         x = randn(b, S, H, P)
-        dt = torch.nn.functional.softplus(torch.randn((b, S, H), generator=g)
-                                          - 3.0).to(device)
-        A = -torch.exp(torch.randn((H,), generator=g) * 0.5).to(device)
+        dt = torch.nn.functional.softplus(draw((b, S, H)) - 3.0).to(device)
+        A = -torch.exp(draw((H,)) * 0.5).to(device)
         BC = [randn(b, S, 1, N).expand(b, S, H, N) if expanded
               else randn(b, S, H, N) for _ in range(2)]
         if name == "ssd_fwd":
             return (x, dt, A, *BC)
         cstates = ref.ssd_fwd_ref(x, dt, A, *BC,
                                   chunk=ssd_chunk(x, BC[0], chunk))[2]
-        gstate = torch.randn((b, H, P, N), generator=g).to(device)
+        gstate = draw((b, H, P, N)).to(device)
         return (x, dt, A, *BC, cstates, randn(b, S, H, P), gstate)
     if name in FLASH:
         from repro_torch.kernels import ref
@@ -712,22 +775,32 @@ def variants(name, args, dtype, device):
 def check_kernels(device, table, shapes):
     """Phase 3: every built variant of every kernel (``variants``)
     against the plain version, and rerun bitwise; the flash tiles also
-    bitwise equal to each other.  Returns name -> max abs error of the
-    resolved variant at the reported path's shape in fp32."""
+    bitwise equal to each other.  At phase 20's full-size shapes only
+    the resolved variant in bf16 (the autotuner held every candidate
+    against its plain version when it tuned them, and phase 20 holds the
+    fp32 kernels there to the plain forward).  Returns ({name: max abs error of the
+    resolved variant at the reported path's shape in fp32}, the same at
+    its phase 20 shape in bf16)."""
     import torch
-    errors = {}
+    errors, errors_bf16 = {}, {}
     for name, (_, plain, _) in table.items():
         layouts = ("fwd", "dx", "dW") if name == "gemm_bias" else ("fwd",)
         for dtype in (torch.float32, torch.bfloat16):
             for label, shape in _shapes(shapes, name):
+                p20 = label in P20_LABELS
+                if p20 and dtype == torch.float32:
+                    continue            # phase 20 holds fp32 end to end
                 for layout in layouts:
                     first = None
+                    base = make_inputs(name, shape, dtype, device, seed=1,
+                                       layout=layout, draw_on_device=p20)
                     for vlabel, kern, chunk, resolved in variants(
-                            name, make_inputs(name, shape, dtype, device,
-                                              seed=1, layout=layout),
-                            dtype, device):
-                        args = make_inputs(name, shape, dtype, device, seed=1,
-                                           layout=layout, chunk=chunk)
+                            name, base, dtype, device):
+                        if p20 and not resolved:
+                            continue    # tuned and held by the autotuner
+                        args = base if chunk is None else make_inputs(
+                            name, shape, dtype, device, seed=1, layout=layout,
+                            chunk=chunk, draw_on_device=p20)
                         run_plain = (plain if chunk is None else
                                      lambda *a, c=chunk: plain(*a, chunk=c))
                         err, ratio = compare(name, kern, run_plain, args,
@@ -746,7 +819,11 @@ def check_kernels(device, table, shapes):
                         if (resolved and dtype == torch.float32
                                 and label == reported_path(name)):
                             errors[name] = max(errors.get(name, 0.0), err)
-    return errors
+                        if (resolved and dtype == torch.bfloat16
+                                and label == reported_bf16(name)):
+                            errors_bf16[name] = max(
+                                errors_bf16.get(name, 0.0), err)
+    return errors, errors_bf16
 
 
 #: phase 3's and 4's flash shapes with fewer queries than keys, the
@@ -1015,38 +1092,53 @@ def time_offset_flash(device, table, iters):
 
 
 def time_kernels(device, table, shapes, iters):
-    """Phase 4, fp32 (the paths' dtype), at each path's shape.  Returns
-    name -> the row at the reported path's shape."""
+    """Phase 4 at each path's shape, in the dtype the path runs: fp32,
+    and bf16 at phase 20's shapes (``P20_LABELS``).  Returns ({name: the
+    row at the reported path's shape}, {name: the bf16 row at its
+    reported phase 20 shape})."""
     import torch
     from repro_torch.kernels import autotune
     on_card = device.type == "cuda"
     backend = autotune.backend_of(device)
-    rows = {}
+    rows, rows_bf16 = {}, {}
     for name, (kern, plain, lib) in table.items():
         for label, shape in _shapes(shapes, name):
-            if label not in PATH_LABELS + TP_LABELS:
+            if label not in PATH_LABELS + TP_LABELS + P20_LABELS:
                 continue
-            cfg = shape_config(backend, name, shape)
-            args = make_inputs(name, shape, torch.float32, device, seed=2)
+            dtype = torch.bfloat16 if label in P20_LABELS else torch.float32
+            dname = "bf16" if dtype == torch.bfloat16 else "fp32"
+            # phase 20's shapes: fewer calls of the plain versions (10-50
+            # ms a call)
+            n = max(2, iters // 5) if label in P20_LABELS else iters
+            tc_name = "1 bf16 product" if dname == "bf16" else "3xTF32"
+            cfg = shape_config(backend, name, shape, dtype)
+            args = make_inputs(name, shape, dtype, device, seed=2,
+                               draw_on_device=label in P20_LABELS)
             chunk = ssd_chunk(args[0], args[3]) if name in SSD else 64
             ms = time_ms(kern, args, device, iters)
+            # at phase 20's shapes the profiler's time only where events
+            # time the host (the norms) or it splits the phases (the SSD)
+            profiled = on_card and (label not in P20_LABELS
+                                    or name not in FLASH + ("gemm_bias",))
             dev_ms, phases = (device_ms(kern, args, name, iters)
-                              if on_card else (None, {}))
-            plain_ms = time_ms(plain, args, device, iters)
+                              if profiled else (None, {}))
+            plain_ms = time_ms(plain, args, device, n)
             if name in ("flash_bwd_dq", "flash_bwd_dkdv"):
                 lib_ms = sdpa_backward_ms(args, device, iters)
             else:
                 lib_ms = (time_ms(lib, args, device, iters)
                           if lib is not None else None)
-            bms, by = bound(name, shape, torch.float32, chunk)
+            bms, by = bound(name, shape, dtype, chunk)
             tc = (f", tensor-core bound "
-                  f"{tensor_core_bound(name, shape, torch.float32, chunk):.4f}"
-                  f" ms (3xTF32)" if name in TENSOR_CORE else "")
+                  f"{tensor_core_bound(name, shape, dtype, chunk):.4f}"
+                  f" ms ({tc_name})" if name in TENSOR_CORE else "")
+            row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": bms, "bound_by": by}
             if label == reported_path(name):
-                rows[name] = {"ms": ms, "plain_ms": plain_ms,
-                              "library_ms": lib_ms, "bound_ms": bms,
-                              "bound_by": by}
-            print(f"[time] {name:16s} fwd {label:5s} shape={shape} fp32: "
+                rows[name] = row
+            if label == reported_bf16(name):
+                rows_bf16[name] = {"shape": list(shape), **row}
+            print(f"[time] {name:16s} fwd {label:5s} shape={shape} {dname}: "
                   f"kernel {ms:.4f} ms (profiler device time "
                   f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), "
                   f"plain {plain_ms:.4f} ms, library "
@@ -1060,24 +1152,25 @@ def time_kernels(device, table, shapes, iters):
             if name != "gemm_bias":
                 continue
             for layout in ("dx", "dW"):
-                a = make_inputs(name, shape, torch.float32, device, seed=2,
-                                layout=layout)
+                a = make_inputs(name, shape, dtype, device, seed=2,
+                                layout=layout,
+                                draw_on_device=label in P20_LABELS)
                 sh = ((shape[0], shape[2], shape[1]) if layout == "dx"
                       else (shape[1], shape[0], shape[2]))
                 kms = time_ms(kern, a, device, iters)
                 dms = (device_ms(kern, a, name, iters)[0]
-                       if on_card else None)
-                pms = time_ms(plain, a, device, iters)
+                       if profiled else None)
+                pms = time_ms(plain, a, device, n)
                 lms = time_ms(torch.matmul, a[:2], device, iters)
-                bl, byl = bound(name, sh, torch.float32)
-                tcl = tensor_core_bound(name, sh, torch.float32)
+                bl, byl = bound(name, sh, dtype)
+                tcl = tensor_core_bound(name, sh, dtype)
                 print(f"[time] {name:16s} {layout:3s} {label:5s} shape={sh} "
-                      f"fp32: kernel {kms:.4f} ms (profiler device time "
+                      f"{dname}: kernel {kms:.4f} ms (profiler device time "
                       f"{'not measured' if dms is None else f'{dms:.4f} ms'}), "
                       f"plain {pms:.4f} ms, library {lms:.4f} ms, "
                       f"bound {bl:.4f} ms ({byl}), tensor-core bound "
-                      f"{tcl:.4f} ms (3xTF32); config {cfg[layout]}")
-    return rows
+                      f"{tcl:.4f} ms ({tc_name}); config {cfg[layout]}")
+    return rows, rows_bf16
 
 
 # ----------------------------------------------------------------------
@@ -2873,13 +2966,7 @@ def tp_dryrun(on_card, phase="18"):
 
 def start_tp_dryrun(on_card, phase="18"):
     """``tp_dryrun`` in a fresh interpreter (the CPU, no card)."""
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [SRC, ROOT, os.environ.get("PYTHONPATH", "")]),
-        CUDA_VISIBLE_DEVICES="")
-    return subprocess.Popen(
-        [sys.executable, "-c", f"import chip_smoke; "
-         f"chip_smoke.tp_dryrun({on_card!r}, {phase!r})"], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return _host_process(f"tp_dryrun({on_card!r}, {phase!r})")
 
 
 def run_tp(device, batch, phase="18", trace=None):
@@ -3032,6 +3119,468 @@ def run_tp(device, batch, phase="18", trace=None):
     return total
 
 
+# ----------------------------------------------------------------------
+# Phase 20: the reference's default dtype, bf16 activations over fp32
+# parameters, at full width and depth on one card
+# ----------------------------------------------------------------------
+#: phase 20's scenarios, each ONE program (SPMDExecutor) at full width
+#: and depth: 20a qwen3-1.7b (28 blocks, GQA 16 / 8 heads of 128, q/k
+#: norms, the tied table of 151936 rows), 20b hymba-1.5b (32 blocks, GQA
+#: 25 / 5 under its window of 2048 beside 50 Mamba2 heads of 64 at state
+#: 16), 20c qwen2.5-3b (36 blocks, GQA 16 / 2 heads of 128, QKV bias, the
+#: tied table), 20d musicgen-large (48 blocks, 32 heads of 64, 256 audio
+#: frame embeddings ahead of the 2048 tokens, vocab 2048)
+BF16_MODELS = {"20a": "qwen3-1.7b", "20b": "hymba-1.5b", "20c": "qwen2.5-3b",
+               "20d": "musicgen-large"}
+#: the scenarios rebound through a kill: the rebound trainer holds two
+#: replicas, 16 B of fp32 state a parameter each (about 49-51 GiB here;
+#: 92-96 GiB for 20c and 20d, which one card cannot hold)
+BF16_REBIND = ("20a", "20b")
+#: phase 13's sequences (its first 4: the global batch cut from 16 to
+#: keep the phase's time), microbatch 1 for the rebound trainer, 2 steps
+#: a dtype; the weights and musicgen's frame embeddings from ``seed``
+BF16 = dict(global_batch=4, microbatch=1, steps=2, seed=20, cpu_layers=2)
+BF16_DTYPES = ("float32", "bfloat16")
+#: the first bf16 loss against the first fp32 loss on the same weights
+#: and batch: |bf16 - fp32| <= 1e-2 |fp32|, 2.5 bf16 ulps (2^-8 relative)
+#: of the loss.  The loss is an fp32 mean of fp32 log-sum-exps over
+#: hidden states rounded to bf16 at every block's products: each
+#: position's error is a few ulps of its logits, and the mean over 8188
+#: positions averages them
+BF16_LOSS_RTOL = 1e-2
+#: the kernels' entry points in ``kernels/ops.py`` and the kernel each
+#: launches once a call in the forward
+ENTRIES = {"fused_add_rmsnorm": "add_rmsnorm_fwd", "fused_qkv": "gemm_bias",
+           "flash_attention": "flash_fwd", "ssd": "ssd_fwd"}
+
+
+def bf16_model(on_card, name, dtype, plain=False):
+    """(arch, sequence, frontend positions, model) of a phase 20
+    scenario: ``runtime/spmd.py::build_model`` on a 1 x 1 mesh in
+    ``dtype`` with the flash, epilogue and SSD kernels, remat full and
+    the chunked CE, at full width and depth on the card (2 blocks and
+    phase 13's CPU sequence in the CPU rehearsal); ``plain``: the plain
+    path (blocked attention, the chunked SSD scan, no fused epilogue, no
+    remat) for the forward anchor."""
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.runtime import ShardingStrategy
+    from repro_torch.runtime.spmd import build_model
+    arch, seq = get_arch(BF16_MODELS[name]), SPMD["seq_len"]
+    if not on_card:
+        arch = reduced(arch, layers=BF16["cpu_layers"])
+        seq = SPMD["cpu_seq_len"]
+    F = arch.frontend_tokens if arch.frontend else 0
+    dt = getattr(torch, dtype)
+    if plain:
+        model = Model(arch, dtype=dt, attn_impl="blocked", ssd_impl="chunked",
+                      fuse="none", remat=False, loss_chunk=SPMD["loss_chunk"])
+    else:
+        model = build_model(arch, ShardingStrategy(),
+                            make_mesh((1, 1), ("data", "model")),
+                            BF16["global_batch"], dtype=dt,
+                            attn_impl="kernel", ssd_impl="kernel",
+                            fuse="fused", loss_chunk=SPMD["loss_chunk"])
+    return arch, seq, F, model
+
+
+def bf16_shape(name, seq, F):
+    from repro_torch.configs import ShapeConfig
+    return ShapeConfig(f"phase{name}", seq + F, BF16["global_batch"], "train")
+
+
+def bf16_dryrun(on_card):
+    """Phase 20's pricing: ``launch/dryrun.py::analyze`` of each scenario
+    on a 1 x 1 mesh in each dtype it runs (FakeTensor traces, no
+    device).  Prints one JSON line a scenario as it ends, then
+    all of them: {name: {dtype: bytes, predicted peak, fits, the global
+    step's FLOPs, trace seconds}}."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import ShardingStrategy
+    torch.set_num_threads(1)
+    out = {}
+    for name in BF16_MODELS:
+        for dtype in BF16_DTYPES:
+            arch, seq, F, _ = bf16_model(on_card, name, dtype)
+            a = dryrun.analyze(arch, bf16_shape(name, seq, F),
+                               make_mesh((1, 1), ("data", "model")),
+                               ShardingStrategy(), dtype=getattr(torch, dtype),
+                               loss_chunk=SPMD["loss_chunk"], moe_impl="dense")
+            nb = a["bytes"]
+            out.setdefault(name, {})[dtype] = {
+                **nb, "peak": (nb["args"] + nb["temps"] + nb["outputs"]
+                               - nb["alias"]),
+                "fits": a["fits_hbm"], "flops": a["roofline"]["flops_global"],
+                "trace_s": a["trace_s"]}
+        print(json.dumps({name: out[name]}), flush=True)
+    print(json.dumps(out), flush=True)
+
+
+def _host_process(call):
+    """``call`` (a chip_smoke function call, as source) in a fresh
+    interpreter on the CPU, its standard output piped."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC, ROOT, os.environ.get("PYTHONPATH", "")]),
+        CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.{call}"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def start_bf16_dryrun(on_card):
+    """``bf16_dryrun`` in a fresh interpreter (the CPU, no card)."""
+    return _host_process(f"bf16_dryrun({on_card!r})")
+
+
+class count_entries:
+    """Counts the calls of the kernels' entry points (``ENTRIES``) while
+    the block runs: on the CPU, where the plain versions stand in and no
+    kernel launches, the forward half of a launch count."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.counts = dict.fromkeys(ENTRIES.values(), 0)
+        self.saved = {n: getattr(ops, n) for n in ENTRIES}
+
+        def counted(n, fn):
+            def call(*args, **kw):
+                self.counts[ENTRIES[n]] += 1
+                return fn(*args, **kw)
+            return call
+        for n, fn in self.saved.items():
+            setattr(ops, n, counted(n, fn))
+        return self.counts
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for n, fn in self.saved.items():
+            setattr(ops, n, fn)
+
+
+def forward_launches(want):
+    """The forward half of a ``seq_launches`` count: what the entry
+    points launch (the QKV GEMM's forward: its launches less the dx and
+    dW of each backward)."""
+    return {"add_rmsnorm_fwd": want["add_rmsnorm_fwd"],
+            "gemm_bias": want["gemm_bias"] - 2 * want["add_rmsnorm_bwd"],
+            "flash_fwd": want["flash_fwd"], "ssd_fwd": want["ssd_fwd"]}
+
+
+def bf16_engine(arch, seq):
+    """The engine of a rebound scenario: phase 13's (5 nodes, f 1, n0 2)
+    over phase 20's global batch in microbatches of 1."""
+    from repro_torch.core import EngineConfig, OobleckEngine, build_profile
+    return OobleckEngine(
+        build_profile(arch, microbatch=BF16["microbatch"], seq_len=seq),
+        [f"node{i}" for i in range(SPMD["nodes"])],
+        EngineConfig(fault_tolerance=SPMD["f"],
+                     global_batch=BF16["global_batch"],
+                     microbatch=BF16["microbatch"], gpus_per_node=1,
+                     n0_override=SPMD["n0"]))
+
+
+def _bf16_kill(ex, engine):
+    """Phase 13's failure in bf16: a node killed through the engine's
+    monitor, the executor's ``recover`` refused, the plan still covering
+    every replica.  Returns {"victim", "snap": the executor's
+    snapshot}."""
+    from repro_torch.core import verify_replica_coverage
+    from repro_torch.core.monitor import NodeChangeMonitor
+    from repro_torch.runtime import ExecutorUnsupported
+    victim = engine.instances[0].nodes[-1]
+    refused = False
+    try:
+        ex.recover({victim})
+    except ExecutorUnsupported:
+        refused = True
+    check(refused, "bf16: recover did not raise ExecutorUnsupported")
+    engine.monitor.inject(NodeChangeMonitor.FAIL, [victim])
+    engine.monitor.poll(now=0.0)
+    check(victim not in engine.nodes and
+          verify_replica_coverage(engine.instances),
+          f"bf16: the plan after killing {victim}: {engine.nodes}")
+    snap = ex.snapshot()
+    engine.attach_executor(None)
+    return {"victim": victim, "snap": snap}
+
+
+def _bf16_rebind(device, killed, engine, model, seq, opt_cfg):
+    """A HeteroTrainer rebound from the bf16 snapshot that ``killed``
+    (``_bf16_kill``) hands over, the executor already freed: the
+    trainer's two replicas and the snapshot fill most of the card, so
+    the snapshot is dropped before the step.  The trainer syncs per
+    layer: the bucketed plane's packed contributions are a second copy
+    of both replicas' gradients, which with qwen3-1.7b's table untied (a
+    copy for the head stage, as the reference's split makes) ran out of
+    the 80 GB at the sync.  Returns (the victim, rebind
+    seconds, step seconds, loss, the replicas' node counts)."""
+    import gc
+    import torch
+    from repro_torch.data import ByteCorpus, GlobalBatchDispenser
+    from repro_torch.launch.train import _TEXT, microbatches
+    from repro_torch.runtime import HeteroTrainer, track_compiles
+    from repro_torch.utils.tree import tree_leaves
+    on_card = device.type == "cuda"
+    snap = killed.pop("snap")
+    t0 = time.perf_counter()
+    rebound = HeteroTrainer(model, engine, snap.params, opt_cfg,
+                            opt_state=snap.opt_state, sync_mode="perlayer")
+    rebound.warm_templates()
+    if on_card:
+        torch.cuda.synchronize()
+    rebind_s = time.perf_counter() - t0
+    check(all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(rebound.full_params()), tree_leaves(snap.params))),
+          "bf16: the rebound trainer's params differ from the snapshot's")
+    check(rebound.replica_divergence() == 0.0, "bf16: rebound divergence")
+    del snap
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    batches = GlobalBatchDispenser(ByteCorpus(_TEXT * 50, seq_len=seq)
+                                   ).next_step(engine.batch.minibatch_sizes())
+    with track_compiles() as log:
+        t0 = time.perf_counter()
+        loss = float(rebound.step([microbatches(b, BF16["microbatch"])
+                                   for b in batches])["loss"])
+        if on_card:
+            torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    check(math.isfinite(loss) and log.backend_compiles == 0,
+          f"bf16 rebound step: loss {loss}, {log.backend_compiles} builds")
+    check(rebound.replica_divergence() == 0.0,
+          "bf16: divergence after the rebound step")
+    replicas = [i.template.num_nodes for i in engine.instances]
+    engine.attach_executor(None)
+    del rebound
+    return killed["victim"], rebind_s, step_s, loss, replicas
+
+
+def _bf16_scenario(device, name, batch):
+    """One phase 20 scenario: the plain fp32 anchor, then 2 steps of one
+    program in fp32 and in bf16 from the same weights (and, for
+    ``BF16_REBIND``, the kill and rebind in bf16).  Returns its numbers,
+    per dtype."""
+    import gc
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import (ShardingStrategy, SPMDExecutor,
+                                     track_compiles)
+    from repro_torch.utils.tree import tree_leaves
+    on_card = device.type == "cuda"
+    gb, steps = BF16["global_batch"], BF16["steps"]
+    mesh = make_mesh((1, 1), ("data", "model"))
+    opt_cfg = adamw.AdamWConfig(**SPMD_OPT)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def weights(model):
+        # the scenario's weights, drawn anew for each dtype: the same
+        # generator and seed give the same tensors
+        return model.init(torch.Generator(device=device).manual_seed(
+            BF16["seed"]))
+
+    arch, seq, F, model = bf16_model(on_card, name, "float32")
+    shape = bf16_shape(name, seq, F)
+    data = {k: torch.from_numpy(batch[k][:gb]).to(device, torch.int32)
+            for k in ("tokens", "labels")}
+    if F:       # musicgen's frame embeddings, in the specs' dtype
+        data["frontend_embeds"] = (torch.randn(
+            (gb, F, arch.d_model), device=device,
+            generator=torch.Generator(device=device).manual_seed(
+                BF16["seed"])) * 0.02).to(torch.bfloat16)
+    check(tuple(data["tokens"].shape) == (gb, seq),
+          f"bf16 {name} batch {tuple(data['tokens'].shape)}")
+    spec = dryrun.spec_bytes(arch, shape, mesh, ShardingStrategy(),
+                             model=model)
+    want_state = spec["args"] - spec["batch"]
+    want_l = seq_launches(arch, steps)
+    out = {"arch": arch, "seq": seq, "F": F}
+
+    # 1. the plain anchor: the forward alone, fp32, no kernel
+    free()
+    params = weights(model)
+    plain = bf16_model(on_card, name, "float32", plain=True)[3]
+    sync()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss_plain = float(plain.loss(params, data)[0])
+    sync()
+    out["plain"] = (loss_plain, time.perf_counter() - t0)
+    for dtype in BF16_DTYPES:
+        if dtype == "bfloat16":
+            model = bf16_model(on_card, name, dtype)[3]
+            params = weights(model)
+        engine = (bf16_engine(arch, seq)
+                  if dtype == "bfloat16" and name in BF16_REBIND else None)
+        free()
+        base = torch.cuda.memory_allocated() if on_card else 0
+        t0 = time.perf_counter()
+        ex = SPMDExecutor(model, params, opt_cfg, mesh=mesh,
+                          strategy=ShardingStrategy(), shape=shape,
+                          engine=engine)
+        sync()
+        bind_s = time.perf_counter() - t0
+        held = (torch.cuda.memory_allocated() - base if on_card else
+                sum(t.numel() * t.element_size()
+                    for t in tree_leaves((ex.params, ex.opt_state))))
+        del params
+        free()
+        check(abs(held - want_state) <= 1e-3 * want_state,
+              f"bf16 {name} {dtype}: state {held} B against the dry-run's "
+              f"args less the batch {want_state} B")
+        check(ex.cache.stats.compiles == 1,
+              f"bf16 {name} {dtype}: bind built {ex.cache.stats.compiles}")
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        losses, secs = [], []
+        with track_compiles() as log, count_entries() as entries:
+            for _ in range(steps):
+                sync()
+                t0 = time.perf_counter()
+                losses.append(float(ex.step(data)["loss"]))
+                sync()
+                secs.append(time.perf_counter() - t0)
+        launches = {k: build.LAUNCHES[k] for k in want_l}
+        check(all(math.isfinite(x) for x in losses)
+              and all(b < a for a, b in zip(losses, losses[1:])),
+              f"bf16 {name} {dtype} losses {losses}: not finite and falling")
+        check(ex.cache.stats.compiles == 1 and log.backend_compiles == 0,
+              f"bf16 {name} {dtype}: {ex.cache.stats.compiles} programs, "
+              f"{log.backend_compiles} builds after bind")
+        check(entries == forward_launches(want_l),
+              f"bf16 {name} {dtype} entry calls {entries}, the count's "
+              f"forward half {forward_launches(want_l)}")
+        if on_card:
+            check(launches == want_l, f"bf16 {name} {dtype} launches "
+                  f"{launches}, counted from the shapes {want_l}")
+        out[dtype] = dict(losses=losses, secs=secs, bind_s=bind_s,
+                          held=held, launches=launches, entries=dict(entries),
+                          peak=(torch.cuda.max_memory_allocated() if on_card
+                                else 0))
+        killed = _bf16_kill(ex, engine) if engine is not None else None
+        del ex
+        free()
+        if killed is not None:
+            out["rebind"] = _bf16_rebind(device, killed, engine, model, seq,
+                                         opt_cfg)
+            free()
+    first32, first16 = out["float32"]["losses"][0], out["bfloat16"]["losses"][0]
+    tol = EXECUTOR_TOL["atol"] + EXECUTOR_TOL["rtol"] * abs(loss_plain)
+    check(abs(first32 - loss_plain) <= tol,
+          f"bf16 {name}: first fp32 loss {first32!r} vs the plain forward's "
+          f"{loss_plain!r}")
+    gap = abs(first16 - first32) / abs(first32)
+    check(gap <= BF16_LOSS_RTOL,
+          f"bf16 {name}: first bf16 loss {first16!r} vs fp32 {first32!r}: "
+          f"relative gap {gap:.3e} above {BF16_LOSS_RTOL}")
+    out["tol"], out["gap"] = tol, gap
+    return out
+
+
+def _print_bf16(name, r, on_card):
+    """A scenario's ``[bf16]`` lines as it ends: its losses against the
+    plain forward and each other, each dtype's steps and launches, the
+    rebind."""
+    arch, seq, F = r["arch"], r["seq"], r["F"]
+    f32, b16 = r["float32"], r["bfloat16"]
+    loss_plain, plain_s = r["plain"]
+    print(f"[bf16] {name} {arch.name} ({arch.num_layers} blocks, d "
+          f"{arch.d_model}, S {seq}{f' + {F} frame embeddings' if F else ''}"
+          f", global batch {BF16['global_batch']}, one program): plain fp32 "
+          f"forward loss {loss_plain!r} ({plain_s:.4f}s); first fp32 loss "
+          f"{f32['losses'][0]!r} (|diff| "
+          f"{abs(f32['losses'][0] - loss_plain):.3e}, tol {r['tol']:.3e}); "
+          f"first bf16 loss {b16['losses'][0]!r}, relative gap to fp32 "
+          f"{r['gap']:.3e} (tol {BF16_LOSS_RTOL})")
+    for dtype in BF16_DTYPES:
+        d = r[dtype]
+        print(f"[bf16] {name} {dtype}: bind {d['bind_s']:.4f}s, state "
+              f"{d['held']} B = the dry-run's args less the batch; step "
+              f"seconds {[round(t, 4) for t in d['secs']]}, losses "
+              f"{d['losses']}, programs 1, builds after bind 0, "
+              + (f"launches {d['launches']} = the count from the shapes, "
+                 if on_card else "")
+              + f"entry calls {d['entries']} = the count's forward half")
+    if "rebind" in r:
+        victim, rebind_s, step_s, loss, replicas = r["rebind"]
+        print(f"[bf16] {name} bfloat16: killed {victim}: recover raised "
+              f"ExecutorUnsupported, the plan covers every replica "
+              f"({replicas}); HeteroTrainer rebound from the snapshot in "
+              f"{rebind_s:.4f}s (params bitwise, divergence 0), its step "
+              f"{step_s:.4f}s, loss {loss!r}, divergence 0, 0 builds")
+
+
+def run_bf16(device, batch, trace=None):
+    """Phase 20: each scenario (``BF16_MODELS``) as one program at full
+    width and depth, held to the plain fp32 forward, then its bf16 run to
+    its fp32 run; ``trace``: the phase's pricing (``start_bf16_dryrun``),
+    started here if None, whose numbers are printed beside the measured
+    peaks and rates.  Returns the kernels' launches over the bf16 runs
+    of the four scenarios."""
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    trace = trace or start_bf16_dryrun(on_card)
+    runs = {}
+    try:
+        for name in BF16_MODELS:
+            runs[name] = _bf16_scenario(device, name, batch)
+            _print_bf16(name, runs[name], on_card)
+        t_wait = time.perf_counter()
+        stdout, stderr = trace.communicate(timeout=900)
+        wait_s = time.perf_counter() - t_wait
+    finally:
+        if trace.poll() is None:
+            trace.kill()
+            trace.wait()
+    check(trace.returncode == 0, f"bf16 dry-run exited {trace.returncode}: "
+          f"{stderr[-2000:]}")
+    dry = json.loads(stdout.strip().splitlines()[-1])
+    total = {}
+    for name, r in runs.items():
+        for dtype in BF16_DTYPES:
+            d, p = r[dtype], dry[name][dtype]
+            flops, steady = p["flops"], d["secs"][-1]
+            if on_card:
+                print(f"[bf16] {name} {dtype}: peak max_memory_allocated "
+                      f"{d['peak'] / 2**30:.2f} GiB; the dry-run's predicted "
+                      f"peak {p['peak'] / 2**30:.2f} GiB (args "
+                      f"{p['args'] / 2**30:.2f} + temps "
+                      f"{p['temps'] / 2**30:.2f}), measured/predicted "
+                      f"{d['peak'] / p['peak']:.3f}; {flops / 1e12:.2f} TFLOP "
+                      f"a step over {steady:.4f}s = "
+                      f"{flops / steady / 1e12:.2f} TFLOP/s, "
+                      f"{flops / steady / FP32_PEAK:.3f} of the "
+                      f"{FP32_PEAK / 1e12:.0f} TFLOP/s fp32 peak, "
+                      f"{flops / steady / PEAK_FLOPS['torch.bfloat16']:.4f} "
+                      f"of the 989 TFLOP/s bf16 dense peak")
+            else:
+                print(f"[bf16] {name} {dtype}: peak memory and TFLOP/s: not "
+                      f"measured (cpu rehearsal); the dry-run's predicted "
+                      f"peak {p['peak']} B, {flops:.4g} FLOP a step (trace "
+                      f"{p['trace_s']}s)")
+        for k, v in r["bfloat16"]["launches"].items():
+            total[k] = total.get(k, 0) + v
+    print(f"[bf16] phase 20: the dry-run's traces ended {wait_s:.1f}s after "
+          f"the scenarios; phase {time.perf_counter() - t_phase:.1f}s")
+    return total
+
+
 def _rounded(d):
     return {k: round(v, 2) for k, v in d.items()}
 
@@ -3039,44 +3588,49 @@ def _rounded(d):
 # ----------------------------------------------------------------------
 # Phase 16: the autotuner
 # ----------------------------------------------------------------------
-def shape_config(backend, name, shape):
+def shape_config(backend, name, shape, dtype=None):
     """The configuration the autotuner resolves for kernel ``name`` at
-    ``shape`` (the GEMM: its three products)."""
+    ``shape`` in ``dtype`` (default fp32; the GEMM: its three
+    products)."""
     import torch
     from repro_torch.kernels import autotune
-    f32 = torch.float32
+    dt = dtype or torch.float32
     if name == "add_rmsnorm_fwd":
         return {"rows_per_block": 1}
     if name == "add_rmsnorm_bwd":
-        return autotune.norm_config(backend, f32, *shape)
+        return autotune.norm_config(backend, dt, *shape)
     if name == "gemm_bias":
         M, K, Nq = shape
-        return {lay: autotune.gemm_config_of(backend, f32, m, n, k, layout)
+        return {lay: autotune.gemm_config_of(backend, dt, m, n, k, layout)
                 for lay, (m, n, k, layout) in (
                     ("fwd", (M, Nq, K, "kn")), ("dx", (M, K, Nq, "kk")),
                     ("dW", (K, Nq, M, "mn")))}
     if name in FLASH:
-        fl = autotune.flash_config(backend, f32, shape[1], shape[4])
+        fl = autotune.flash_config(backend, dt, shape[1], shape[4])
         key = "block_k" if name == "flash_bwd_dkdv" else "block_q"
         return {key: fl[key]}
     _, S, _, P, N, _ = shape
-    return autotune.ssd_config(backend, f32, S, P, N)
+    return autotune.ssd_config(backend, dt, S, P, N)
 
 
-def kernel_configs(device, shapes):
+def kernel_configs(device, shapes, dtype=None, reported=None):
     """name -> the configuration the autotuner resolves for the kernel at
-    its reported path's shape (the GEMM: its three products)."""
+    its reported shape (``reported``, default the path's) in ``dtype``
+    (the GEMM: its three products)."""
     from repro_torch.kernels import autotune
     backend = autotune.backend_of(device)
-    at = {name: dict(_shapes(shapes, name))[reported_path(name)]
+    reported = reported or reported_path
+    at = {name: dict(_shapes(shapes, name))[reported(name)]
           for name in KERNELS}
-    return {name: shape_config(backend, name, at[name]) for name in KERNELS}
+    return {name: shape_config(backend, name, at[name], dtype)
+            for name in KERNELS}
 
 
 #: run by fresh interpreters in phase 16: the configurations they resolve
 _RESOLVE = ("import json, sys; sys.path.insert(0, {src!r}); "
             "from repro_torch.kernels import autotune; "
-            "print(json.dumps(autotune.resolve_paths({backend!r}), "
+            "print(json.dumps({{k: v for d in autotune.PATH_SHAPES for k, v "
+            "in autotune.resolve_paths({backend!r}, d).items()}}, "
             "sort_keys=True))")
 
 
@@ -3103,16 +3657,17 @@ def run_autotune(device):
     else:
         print("[autotune] tuning: not measured (cpu rehearsal; it times "
               "the CUDA kernels)")
-    resolved = autotune.resolve_paths(backend)
+    resolved = {k: v for dtype in autotune.PATH_SHAPES
+                for k, v in autotune.resolve_paths(backend, dtype).items()}
     ours = {k: v for k, v in autotune._packaged().items()
             if k.split("|")[1] == backend}
     for key, cfg in resolved.items():
-        kind, _, _, shape = key.split("|")
+        kind, _, dtype, shape = key.split("|")
         want = ours.get(key)
         if want is None:
             check(device.type == "cpu" or not ours, f"the packaged table "
                   f"has {backend} entries but none for {key}")
-            want = autotune._heuristic(kind, backend, "float32",
+            want = autotune._heuristic(kind, backend, dtype,
                                        tuple(shape.split("x")))
         check(cfg == want, f"{key} resolves {cfg}, the table says {want}")
     env = autotune.child_env()
@@ -3191,11 +3746,29 @@ def _run(device):
     else:
         print("[device] cpu rehearsal: plain versions stand in for kernels")
         shapes, iters = CPU_SHAPES, 2
+    # phase 20's pricing traces four full-size models on the host: it
+    # runs beside phases 3-19 in one process
+    trace20 = start_bf16_dryrun(on_card)
+    try:
+        record = _phases(device, on_card, shapes, iters, trace20)
+    finally:
+        if trace20.poll() is None:
+            trace20.kill()
+            trace20.wait()
+    if on_card:
+        print(card)
+    print(json.dumps(record))
+    return record
 
+
+def _phases(device, on_card, shapes, iters, trace20):
+    """Phases 3-20 after the card and the build; returns the kernels
+    record."""
+    import torch
     table = kernel_table(device)
-    errors = check_kernels(device, table, shapes)
+    errors, errors_bf16 = check_kernels(device, table, shapes)
     check_offset_flash(device, table)
-    timing = time_kernels(device, table, shapes, iters)
+    timing, timing_bf16 = time_kernels(device, table, shapes, iters)
     time_offset_flash(device, table, iters)
     check_small_model(device)
     run_path(device, 6, FUSED)
@@ -3223,17 +3796,19 @@ def _run(device):
         if trace19.poll() is None:
             trace19.kill()
             trace19.wait()
+    bf16_launches = run_bf16(device, p13["batch"], trace20)
     configs = kernel_configs(device, shapes)
-    record = {"kernels": [
+    configs_bf16 = kernel_configs(device, shapes, torch.bfloat16,
+                                  reported_bf16)
+    return {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errors[name],
          **timing[name], "config": configs[name],
-         "tp_launches": tp_launches.get(name, 0)}
+         "tp_launches": tp_launches.get(name, 0),
+         "bf16": {"launches": bf16_launches.get(name, 0),
+                  "max_abs_err": errors_bf16[name], **timing_bf16[name],
+                  "config": configs_bf16[name]}}
         for name, (replaces, source) in KERNELS.items()]}
-    if on_card:
-        print(card)
-    print(json.dumps(record))
-    return record
 
 
 def main():

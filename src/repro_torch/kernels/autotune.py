@@ -584,39 +584,60 @@ def tune_norm(backend: str, dtype, rows: int, d: int, *,
 # ----------------------------------------------------------------------
 # Packaged-table regeneration: python -m repro_torch.kernels.autotune
 # ----------------------------------------------------------------------
-#: the shapes the training paths of chip_smoke.py give each kernel, fp32:
-#: flash (S, D, [(batch, heads, kv heads), ...] sharing the key) for
-#: gpt3-medium at microbatch 2 and 1 and granite-moe at 1; SSD (S, P, N,
-#: batch, heads) for mamba2-780m; the fused QKV's three products (M, N,
-#: K, layout) of gpt3-medium at 4096 and 2048 tokens and granite-moe at
-#: 2048; the norm (rows, d)
+#: the shapes the training paths of chip_smoke.py give each kernel, per
+#: dtype.  fp32: flash (S, D, [(batch, heads, kv heads), ...] sharing the
+#: key) for gpt3-medium at microbatch 2 and 1 and granite-moe at 1; SSD
+#: (S, P, N, batch, heads) for mamba2-780m; the fused QKV's three
+#: products (M, N, K, layout) of gpt3-medium at 4096 and 2048 tokens and
+#: granite-moe at 2048; the norm (rows, d).  bf16: phase 20's one
+#: program over 4 sequences, 8192 tokens (musicgen-large's 9216 with its
+#: 256 frame embeddings): flash for qwen3-1.7b and qwen2.5-3b (16 / 8 and
+#: 16 / 2 heads of 128), hymba-1.5b (25 / 5 of 64) and musicgen-large (32
+#: of 64 at 2304 positions); hymba's SSD (50 heads at state 16); the
+#: fused QKV of qwen3 (4096 columns at d 2048), qwen2.5 (2560), hymba
+#: (2240 at d 1600) and musicgen (6144); the norms at d 2048 and 1600
 PATH_SHAPES = {
-    "flash": [(2048, 64, [(2, 16, 16), (1, 16, 16), (1, 16, 8)])],
-    "ssd": [(2048, 64, 128, 1, 48)],
-    "gemm": [(4096, 3072, 1024, "kn"), (4096, 1024, 3072, "kk"),
-             (1024, 3072, 4096, "mn"),
-             (2048, 3072, 1024, "kn"), (2048, 1024, 3072, "kk"),
-             (1024, 3072, 2048, "mn"),
-             (2048, 2048, 1024, "kn"), (2048, 1024, 2048, "kk"),
-             (1024, 2048, 2048, "mn")],
-    "norm": [(4096, 1024), (2048, 1024)],
+    "float32": {
+        "flash": [(2048, 64, [(2, 16, 16), (1, 16, 16), (1, 16, 8)])],
+        "ssd": [(2048, 64, 128, 1, 48)],
+        "gemm": [(4096, 3072, 1024, "kn"), (4096, 1024, 3072, "kk"),
+                 (1024, 3072, 4096, "mn"),
+                 (2048, 3072, 1024, "kn"), (2048, 1024, 3072, "kk"),
+                 (1024, 3072, 2048, "mn"),
+                 (2048, 2048, 1024, "kn"), (2048, 1024, 2048, "kk"),
+                 (1024, 2048, 2048, "mn")],
+        "norm": [(4096, 1024), (2048, 1024)],
+    },
+    "bfloat16": {
+        "flash": [(2048, 128, [(4, 16, 8), (4, 16, 2)]),
+                  (2048, 64, [(4, 25, 5)]), (2304, 64, [(4, 32, 32)])],
+        "ssd": [(2048, 64, 16, 4, 50)],
+        "gemm": [prod for rows, d, cols in ((8192, 2048, 4096),
+                                            (8192, 2048, 2560),
+                                            (8192, 1600, 2240),
+                                            (9216, 2048, 6144))
+                 for prod in ((rows, cols, d, "kn"), (rows, d, cols, "kk"),
+                              (d, cols, rows, "mn"))],
+        "norm": [(8192, 2048), (8192, 1600), (9216, 2048)],
+    },
 }
 
 
 def resolve_paths(backend: str, dtype="float32") -> Dict[str, Config]:
-    """key -> resolved configuration of every ``PATH_SHAPES`` key (what
-    the training paths run), through the *_config functions."""
-    out = {}
-    for seq, d, _ in PATH_SHAPES["flash"]:
+    """key -> resolved configuration of every ``PATH_SHAPES`` key of
+    ``dtype`` (what the training paths run), through the *_config
+    functions."""
+    out, shapes = {}, PATH_SHAPES[_dtype_name(dtype)]
+    for seq, d, _ in shapes["flash"]:
         out[_key("flash", backend, dtype, (shape_bucket(seq), d))] = (
             flash_config(backend, dtype, seq, d))
-    for S, P, N, _, _ in PATH_SHAPES["ssd"]:
+    for S, P, N, _, _ in shapes["ssd"]:
         out[_key("ssd", backend, dtype, (shape_bucket(S), P, N))] = (
             ssd_config(backend, dtype, S, P, N))
-    for M, N, K, layout in PATH_SHAPES["gemm"]:
+    for M, N, K, layout in shapes["gemm"]:
         out[_key("gemm", backend, dtype, (shape_bucket(M), N, K, layout))] = (
             gemm_config_of(backend, dtype, M, N, K, layout))
-    for rows, d in PATH_SHAPES["norm"]:
+    for rows, d in shapes["norm"]:
         out[_key("norm", backend, dtype, (shape_bucket(rows), d))] = (
             norm_config(backend, dtype, rows, d))
     return out
@@ -625,28 +646,31 @@ def resolve_paths(backend: str, dtype="float32") -> Dict[str, Config]:
 def tune_paths(backend: str, dtype="float32", *,
                cache: Optional[AutotuneCache] = None,
                persist: bool = False) -> Dict[str, Config]:
-    """Tune every ``PATH_SHAPES`` key on this card; key -> winner (the
-    candidates' times land in ``LAST_TIMES``)."""
-    out = {}
+    """Tune every ``PATH_SHAPES`` key of ``dtype`` on this card; key ->
+    winner (the candidates' times land in ``LAST_TIMES``)."""
+    out, shapes = {}, PATH_SHAPES[_dtype_name(dtype)]
     kw = dict(cache=cache, persist=persist)
-    for seq, d, shapes in PATH_SHAPES["flash"]:
+    for seq, d, sh in shapes["flash"]:
         out[_key("flash", backend, dtype, (shape_bucket(seq), d))] = (
-            tune_flash(backend, dtype, seq, d, shapes=shapes, **kw))
-    for S, P, N, b, H in PATH_SHAPES["ssd"]:
+            tune_flash(backend, dtype, seq, d, shapes=sh, **kw))
+    for S, P, N, b, H in shapes["ssd"]:
         out[_key("ssd", backend, dtype, (shape_bucket(S), P, N))] = (
             tune_ssd(backend, dtype, S, P, N, batch=b, heads=H, **kw))
-    for M, N, K, layout in PATH_SHAPES["gemm"]:
+    for M, N, K, layout in shapes["gemm"]:
         out[_key("gemm", backend, dtype, (shape_bucket(M), N, K, layout))] = (
             tune_gemm(backend, dtype, M, N, K, layout, **kw))
-    for rows, d in PATH_SHAPES["norm"]:
+    for rows, d in shapes["norm"]:
         out[_key("norm", backend, dtype, (shape_bucket(rows), d))] = (
             tune_norm(backend, dtype, rows, d, **kw))
     return out
 
 
-def emit_offline(path: str = _PACKAGED_PATH) -> Dict[str, Config]:
-    """Measure the path shapes on THIS card and write the packaged table
-    to ``path``, merged over its entries for other backends and keys."""
+def emit_offline(path: str = _PACKAGED_PATH,
+                 dtypes: Sequence[str] = tuple(PATH_SHAPES)
+                 ) -> Dict[str, Config]:
+    """Measure the path shapes of ``dtypes`` on THIS card and write the
+    packaged table to ``path``, merged over its entries for other
+    backends, dtypes and keys."""
     backend = backend_of("cuda")
     table: Dict[str, Config] = {}
     for src in (_PACKAGED_PATH, path):
@@ -655,8 +679,10 @@ def emit_offline(path: str = _PACKAGED_PATH) -> Dict[str, Config]:
                 table.update({k: dict(v) for k, v in json.load(f).items()})
         except (OSError, ValueError):
             pass
-    table.update(tune_paths(backend, cache=AutotuneCache(os.devnull),
-                            persist=False))
+    for dtype in dtypes:
+        table.update(tune_paths(backend, dtype,
+                                cache=AutotuneCache(os.devnull),
+                                persist=False))
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     with open(tmp, "w") as f:
@@ -669,10 +695,16 @@ def emit_offline(path: str = _PACKAGED_PATH) -> Dict[str, Config]:
 
 
 if __name__ == "__main__":
-    import sys
+    import argparse
     from repro_torch.utils.device import strict_fp32_numerics
+    ap = argparse.ArgumentParser(description="tune the path shapes on this "
+                                 "card into the packaged table")
+    ap.add_argument("path", nargs="?", default=_PACKAGED_PATH)
+    ap.add_argument("--dtype", action="append", choices=list(PATH_SHAPES),
+                    help="tune only these dtypes' keys (default: all)")
+    args = ap.parse_args()
     strict_fp32_numerics()          # the plain versions in full fp32
-    out = emit_offline(sys.argv[1] if len(sys.argv) > 1 else _PACKAGED_PATH)
+    out = emit_offline(args.path, args.dtype or tuple(PATH_SHAPES))
     for key, times in LAST_TIMES.items():
         print(f"[tune] {key}: " + ", ".join(
             f"{c} {ms:.4f} ms" for c, ms in times.items())

@@ -473,6 +473,7 @@ class HeteroTrainer(Executor):
             all_grads.append(g)
             nlls.append(nll)
             weights.append(len(mbs))
+        g = None    # the list holds the last replica's gradients alone
         grad_norm = self._sync_and_update(all_grads, weights)
         loss = sum(torch.sum(n) for n in nlls) / float(sum(weights))
         return {"loss": loss, "grad_norm": grad_norm,
@@ -502,6 +503,9 @@ class HeteroTrainer(Executor):
 
         # ---- per-layer oracle (paper Figure 9) ----
         synced = perlayer_sync(all_grads, weights, self.num_layers)
+        # the replicas' own gradients are spent: free them before the
+        # update (a model that fills the card has room for one copy)
+        all_grads.clear()
         grad_norm = torch.sqrt(perlayer_global_sumsq(synced, self.num_layers))
         scale = self._clip_scale(grad_norm)
         step_in = self.opt_step

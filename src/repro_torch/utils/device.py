@@ -24,6 +24,9 @@ def resolve_device(device="cuda") -> torch.device:
 
 def strict_fp32_numerics() -> None:
     """Full-fp32 products on the card: no TF32 in cuBLAS or cuDNN, so the
-    port's fp32 path computes what the reference's fp32 path computes."""
+    port's fp32 path computes what the reference's fp32 path computes;
+    and bf16 products summed in fp32 (no reduced-precision reduction in
+    cuBLAS), as the reference's XLA products accumulate."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

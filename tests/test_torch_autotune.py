@@ -414,6 +414,16 @@ def test_resolved_configs_are_legal_and_illegal_ones_raise(fresh):
         fused.norm_bwd_config(100, 64, 4, (0,) * 5, rows_per_block=3)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_every_path_key_resolves_to_a_packaged_h100_entry(fresh, dtype):
+    """What phase 16 of chip_smoke.py asserts on the card: with tuning
+    off, each path key of the H100 (fp32: phases 7-8, 10, 12; bf16:
+    phase 20) resolves to its measured packaged entry."""
+    table = autotune._packaged()
+    resolved = autotune.resolve_paths(CARD, dtype)
+    assert resolved and all(table[k] == v for k, v in resolved.items())
+
+
 def test_candidates_cover_the_parents_choice():
     for M, N, K in GEMM_GRID:
         for size in (4, 2):

@@ -9,6 +9,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -156,12 +157,14 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     assert json.loads(lines[-1]) == record
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "config",
-            "tp_launches"}
+            "tp_launches", "bf16"}
+    bf16_keys = {"launches", "max_abs_err", "shape", "ms", "plain_ms",
+                 "bound_ms", "bound_by", "library_ms", "config"}
     assert [k["name"] for k in record["kernels"]] == [
         "add_rmsnorm_fwd", "add_rmsnorm_bwd", "gemm_bias", "flash_fwd",
         "flash_bwd_dq", "flash_bwd_dkdv", "ssd_fwd", "ssd_bwd"]
     for k in record["kernels"]:
-        assert set(k) == keys
+        assert set(k) == keys and set(k["bf16"]) == bf16_keys
         assert (ROOT / k["source"]).exists()
         path, lines_at = k["replaces"].split(":", 1)       # "file:47" or
         for line in lines_at.split("+:"):                   # "file:247+:274"
@@ -257,11 +260,93 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
                     "the dry-run's all-reduce bytes", "launches a rank"):
             assert any(ln.startswith(f"[tp] {name}") and tag in ln
                        for ln in lines), (name, tag)
+    # phase 20's shapes, checked in both dtypes and timed in bf16
+    for label in ("20a", "20b", "20c", "20d"):
+        for layout in ("fwd", "dx", "dW"):
+            assert any(ln.split()[:4] == ["[time]", "gemm_bias", layout,
+                                          label]
+                       and "bf16: kernel" in ln for ln in lines), label
+        assert any(ln.startswith("[check] flash_bwd_dkdv") and f" {label} "
+                   in ln and "bfloat16" in ln for ln in lines), label
+    assert any(ln.split()[:4] == ["[time]", "ssd_bwd", "fwd", "20b"]
+               and "bf16: kernel" in ln for ln in lines)
+    for name in ("20a", "20b", "20c", "20d"):
+        assert any(ln.startswith(f"[bf16] {name}") and "first bf16 loss" in ln
+                   for ln in lines), name
+    assert sum(ln.startswith("[bf16] 20") and "rebound from the snapshot" in ln
+               for ln in lines) == 2
     for name in ("19a", "19b"):            # the mixer's heads a rank
         assert any(ln.startswith(f"[tp] {name}") and "Mamba2 heads (0, 4)"
                    in ln for ln in lines), name
         assert any(ln.startswith(f"[tp] {name}") and "= the count from the "
                    "shapes on every rank" in ln for ln in lines), name
+
+
+def _phase13_batch(cs):
+    """Phase 13's global batch in the CPU rehearsal (its byte corpus at
+    its CPU sequence)."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data import ByteCorpus, GlobalBatchDispenser
+    from repro_torch.launch.train import _TEXT
+    seq = cs.SPMD["cpu_seq_len"]
+    engine = cs.spmd_engine(reduced(get_arch("gpt3-medium"), layers=2), seq)
+    parts = GlobalBatchDispenser(ByteCorpus(_TEXT * 50, seq_len=seq)
+                                 ).next_step(engine.batch.minibatch_sizes())
+    return {k: np.concatenate([b[k] for b in parts])
+            for k in ("tokens", "labels")}
+
+
+def test_chip_smoke_phase20_rehearsal_on_cpu(capsys):
+    """Phase 20 alone on the CPU: the four scenarios at 2 blocks and
+    phase 13's CPU sequence through the plain versions, each first fp32
+    loss held to the plain forward (EXECUTOR_TOL) and each first bf16
+    loss to it (BF16_LOSS_RTOL); the entry points' calls equal the
+    forward half of the launch count the card asserts (a block's forward
+    twice a step under remat full: 2 blocks x 2 steps x 2); the pricing
+    from its dry-run traces; the kill and rebind of 20a and 20b."""
+    cs = _load_chip_smoke()
+    launches = cs.run_bf16(torch.device("cpu"), _phase13_batch(cs))
+    assert set(launches.values()) == {0}         # no kernel on the CPU
+    lines = capsys.readouterr().out.strip().splitlines()
+    for name, arch in cs.BF16_MODELS.items():
+        head = [ln for ln in lines if ln.startswith(f"[bf16] {name} ")
+                and "first bf16 loss" in ln]
+        assert len(head) == 1 and arch.replace("-", "_").replace(".", "_") \
+            in head[0], name
+        gap = float(head[0].split("relative gap to fp32 ")[1].split()[0])
+        assert 0 < gap <= cs.BF16_LOSS_RTOL, (name, gap)
+        for dtype in cs.BF16_DTYPES:
+            want = (8, 8, 8, 8 if name == "20b" else 0)
+            assert any(ln.startswith(f"[bf16] {name} {dtype}: bind") and
+                       "entry calls {'add_rmsnorm_fwd': %d, 'gemm_bias': %d, "
+                       "'flash_fwd': %d, 'ssd_fwd': %d}" % want in ln
+                       for ln in lines), (name, dtype)
+            assert any(ln.startswith(f"[bf16] {name} {dtype}: peak memory")
+                       and "not measured" in ln and "predicted peak" in ln
+                       for ln in lines), (name, dtype)
+    assert cs.seq_launches(cs.bf16_model(False, "20b", "bfloat16")[0], 2) == {
+        "add_rmsnorm_fwd": 8, "flash_fwd": 8, "add_rmsnorm_bwd": 4,
+        "flash_bwd_dq": 4, "flash_bwd_dkdv": 4, "gemm_bias": 16,
+        "ssd_fwd": 8, "ssd_bwd": 4}
+    assert [ln.split()[1] for ln in lines
+            if "rebound from the snapshot" in ln] == ["20a", "20b"]
+
+
+@pytest.mark.parametrize("fault", ["loss", "launches"])
+def test_chip_smoke_phase20_checks_catch_planted_faults(fault, monkeypatch):
+    """A bf16 loss further from fp32 than the tolerance, or a launch
+    count the entry points do not make, fails the scenario."""
+    cs = _load_chip_smoke()
+    if fault == "loss":
+        monkeypatch.setattr(cs, "BF16_LOSS_RTOL", 1e-9)
+        match = "relative gap"
+    else:
+        real = cs.seq_launches
+        monkeypatch.setattr(cs, "seq_launches", lambda arch, steps: {
+            k: v + 1 for k, v in real(arch, steps).items()})
+        match = "entry calls"
+    with pytest.raises(cs.SmokeFailure, match=match):
+        cs._bf16_scenario(torch.device("cpu"), "20c", _phase13_batch(cs))
 
 
 def _zero(i):
