@@ -68,7 +68,7 @@ Phases, each fatal on failure:
      flash kernel launched once per layer and microbatch (gemm_bias
      three times: the fused QKV's forward, dx and dW).
  11. serving: qwen3-1.7b at full width (d 2048, 16 query / 8 kv heads
-     of 128, vocab 151936), depth cut to 14 of 28 layers, fp32, behind
+     of 128, vocab 151936), depth cut to 8 of 28 layers, fp32, behind
      ``repro_torch.launch.serve``'s engine (6 nodes, f 1, n0 2), 4 slots
      a replica, 16 requests of 64 prompt and 32 new tokens at
      temperature 0.8, unfailed and with a node killed after 8 ticks;
@@ -82,7 +82,7 @@ Phases, each fatal on failure:
      recovery downtime, replayed / migrated counts, copy bytes, peak
      memory and the phase's seconds.
  12. multi-process: gpt3-medium as in phase 7 at microbatch 1 (full
-     width, depth cut to 12 of 24 blocks, sequence 2048, flash kernels,
+     width, depth cut to 6 of 24 blocks, sequence 2048, flash kernels,
      5 nodes, f 1, n0 2).  Leg 1, the single-process trainer: 2 steps,
      a node recovered, 2 steps.  Leg 2, ``MultiHostExecutor`` with 3
      worker processes on the card (rank 1 hosts that node alone): the
@@ -138,6 +138,12 @@ Phases, each fatal on failure:
      launches 6 blocks x M x steps of each norm and flash kernel and
      three times that of ``gemm_bias``.  Prints the step times, the
      bytes each stage sent and reduced, and each stage's peak memory.
+     15b: the same model and microbatches on stage 2 x data 2 (two stage
+     groups, each running the whole pipeline), remat full, 2 steps: the
+     losses held to phase 15's at tests/test_executor.py's fp32
+     tolerance and bitwise on every rank, each stage's two data
+     replicas bitwise equal after the steps, each rank's launches as
+     remat full derives.
  16. the autotuner: each kernel tuned at the paths' shapes
      (``autotune.PATH_SHAPES``) into a scratch cache, printing each
      candidate's time, the winner and the packaged entry; asserts that
@@ -145,15 +151,15 @@ Phases, each fatal on failure:
      entry, and that two fresh interpreters resolve the same.
  17. sequence parallelism and MoE over batch ranks: one world of 4 rank
      processes on data 2 x model 2 (FSDP + ZeRO-1, gloo) runs
-     gpt3-medium (12 blocks, the sequence over model), granite-moe (8
+     gpt3-medium (8 blocks, the sequence over model), granite-moe (4
      blocks, the router statistics over 4 batch ranks) and mamba2-780m
-     (16 blocks), each held to a one-program ``SPMDExecutor`` on the
+     (8 blocks), each held to a one-program ``SPMDExecutor`` on the
      same weights and sequences (``[seq]`` lines).
  18. Megatron tensor and expert parallelism (``strategy="tp"``): one
      world of 4 rank processes on data 2 x model 2 (ZeRO-1, gloo),
      global batch 2 (one sequence of 2048 a model group), phase 13's
-     model options, 2 steps of 18a gpt3-medium (24 blocks, 8 heads a
-     rank, the table whole), 18b granite-moe (8 of 24 blocks, 16 of 32
+     model options, 2 steps of 18a gpt3-medium (8 of 24 blocks, 8 heads
+     a rank, the table whole), 18b granite-moe (8 of 24 blocks, 16 of 32
      experts a rank, GQA 8 / 4 heads) and 18c qwen3-1.7b (8 of 28
      blocks, GQA 8 / 4 heads of 128 with q/k norms, the tied table
      vocab-parallel), at full width.  Each is held to a one-program
@@ -169,9 +175,9 @@ Phases, each fatal on failure:
      dry-run's all-reduce bytes for the same layout (a trace run beside
      the ranks), the launches and each rank's peak memory.
  19. the Mamba2 mixer under TP: phase 18's world and layout, each rank
-     computing its whole heads, 2 steps of 19a mamba2-780m (16 of 48
+     computing its whole heads, 2 steps of 19a mamba2-780m (8 of 48
      blocks, 24 Mamba2 heads of 64 a rank at state 128, the tied table
-     vocab-parallel) and 19b hymba-1.5b (8 of 32 blocks, attention 15 /
+     vocab-parallel) and 19b hymba-1.5b (4 of 32 blocks, attention 15 /
      10 query heads over 3 / 2 kv heads a rank under its window of 2048,
      25 Mamba2 heads a rank at state 16, the table whole), at full width
      with the flash, epilogue and SSD kernels.  Held as phase 18 holds
@@ -197,8 +203,28 @@ Phases, each fatal on failure:
      traces run on the host from the script's start).  20a and 20b go
      through phase 13's kill and a HeteroTrainer rebound from the bf16
      snapshot (divergence 0, no build).
+ 21. serving over the mesh: the prefill and decode bundles
+     (``SPMDServer``) over one world of 4 rank processes on data 2 x
+     model 2 (gloo), fp32, full width, phase 13's first 4 sequences of
+     2048 as prompts: 21a qwen3-1.7b under TP (8 blocks, the tied table
+     vocab-parallel), 21b hymba-1.5b under TP (8 blocks, whole kv groups
+     3 / 2 a rank, 25 Mamba2 heads a rank), 21c granite-moe under FSDP
+     (4 blocks, one row a rank).  Each case prefills, then decodes from
+     an empty cache (teacher-forced ticks on the prompt, then greedy
+     ticks), held to one program (the same Model without a mesh, on the
+     card, on the same weights): the prefill's and the ticks' logits
+     within tests/test_executor.py's fp32 tolerance at the logits'
+     scale, the greedy tokens equal, the ranks' caches gathered within
+     it; outputs replicated across a model group bitwise on its ranks;
+     each rank's all-reduce bytes by tag (and FSDP's gathered bytes)
+     equal to the count from the shapes; two programs a rank; each
+     rank's prefill launches (``serve_launches``), and none in its
+     decode ticks.  Prints the prefill
+     seconds, the ms a tick, gloo's share of each, the bytes by kind and
+     tag, the cache bytes a rank beside the spec's shard and the peaks.
 Phases 3-4 also check and time the kernels at phase 20's shapes
-(``P20_LABELS``), timed in bf16.  The autotuner reads an empty persisted
+(``P20_LABELS``), timed in bf16, and at phase 21's prefill shard shapes
+(``SV_LABELS``, the kernels a prefill runs, fp32).  The autotuner reads an empty persisted
 table in a temporary directory and never tunes in phases 1-15 and 17-20:
 they run the packaged table's configurations (the heuristic at shapes
 it has no entry for).  The last lines are the card line, a
@@ -206,7 +232,8 @@ it has no entry for).  The last lines are the card line, a
 path that reports it: phase 7 for the six, phase 8 for the SSD pair;
 error, times, bound and the resolved ``config`` at the shapes that path
 gives it; ``tp_launches``: rank 0's launches over phases 18 and 19's
-five scenarios; ``bf16``: its launches over phase 20's four bf16 runs
+five scenarios; ``serve_launches``: rank 0's over phase 21's three
+cases; ``bf16``: its launches over phase 20's four bf16 runs
 and its bf16 error, times, bound and config at a phase 20 shape,
 ``reported_bf16``) and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository beside it, it exits
@@ -308,6 +335,7 @@ CARD_SHAPES = {
     "add_rmsnorm_fwd": [("flash", (4096, 1024)), ("naive", (1024, 1024)),
                         ("moe", (2048, 1024)), ("ragged", (1000, 999)),
                         ("tp-c", (2048, 2048)), ("tp-d", (2048, 1600)),
+                        ("sv-a", (4096, 2048)), ("sv-b", (4096, 1600)),
                         ("20a", (8192, 2048)), ("20b", (8192, 1600)),
                         ("20d", (9216, 2048))],
     "add_rmsnorm_bwd": [("flash", (4096, 1024)), ("naive", (1024, 1024)),
@@ -320,6 +348,8 @@ CARD_SHAPES = {
                   ("tp-a", (2048, 1024, 1536)), ("tp-b", (2048, 1024, 1024)),
                   ("tp-c", (2048, 2048, 2048)), ("tp-d", (2048, 1600, 1344)),
                   ("tp-e", (2048, 1600, 896)),
+                  ("sv-a", (4096, 2048, 2048)), ("sv-b", (4096, 1600, 1344)),
+                  ("sv-c", (4096, 1600, 896)),
                   ("20a", (8192, 2048, 4096)), ("20b", (8192, 1600, 2240)),
                   ("20c", (8192, 2048, 2560)), ("20d", (9216, 2048, 6144))],
     # gqa: qwen2.5-3b's heads (16 / kv 2, head dim 128) at a ragged
@@ -337,6 +367,9 @@ CARD_SHAPES = {
               ("tp-d", (1, 2048, 15, 3, 64, 2048)),
               ("tp-e", (1, 2048, 10, 2, 64, 2048)),
               ("tp-f", (1, 2048, 25, 5, 64, 2048)),
+              ("sv-a", (2, 2048, 8, 4, 128, 0)),
+              ("sv-b", (2, 2048, 15, 3, 64, 2048)),
+              ("sv-c", (2, 2048, 10, 2, 64, 2048)),
               ("20a", (4, 2048, 16, 8, 128, 0)),
               ("20b", (4, 2048, 25, 5, 64, 2048)),
               ("20c", (4, 2048, 16, 2, 128, 0)),
@@ -348,12 +381,14 @@ CARD_SHAPES = {
             ("reduced", (2, 300, 8, 16, 16, False)),
             ("tp-d", (1, 2048, 25, 64, 16, True)),
             ("tp-g", (1, 2048, 24, 64, 128, True)),
+            ("sv-b", (2, 2048, 25, 64, 16, True)),
             ("20b", (4, 2048, 50, 64, 16, True))],
 }
 CPU_SHAPES = {
     "add_rmsnorm_fwd": [("flash", (128, 64)), ("naive", (64, 64)),
                         ("moe", (64, 64)), ("ragged", (33, 47)),
                         ("tp-c", (64, 128)), ("tp-d", (64, 100)),
+                        ("sv-a", (64, 128)), ("sv-b", (64, 100)),
                         ("20a", (64, 128)), ("20b", (64, 100)),
                         ("20d", (72, 128))],
     "add_rmsnorm_bwd": [("flash", (128, 64)), ("naive", (64, 64)),
@@ -365,7 +400,9 @@ CPU_SHAPES = {
                   ("moe", (64, 64, 128)), ("ragged", (33, 47, 95)),
                   ("tp-a", (64, 64, 96)), ("tp-b", (64, 64, 64)),
                   ("tp-c", (64, 128, 128)), ("tp-d", (64, 100, 84)),
-                  ("tp-e", (64, 100, 56)), ("20a", (64, 128, 256)),
+                  ("tp-e", (64, 100, 56)), ("sv-a", (64, 128, 128)),
+                  ("sv-b", (64, 100, 84)), ("sv-c", (64, 100, 56)),
+                  ("20a", (64, 128, 256)),
                   ("20b", (64, 100, 140)), ("20c", (64, 128, 160)),
                   ("20d", (72, 128, 384))],
     "flash": [("flash", (1, 64, 2, 2, 32, 0)), ("moe", (1, 64, 4, 2, 32, 0)),
@@ -375,6 +412,8 @@ CPU_SHAPES = {
               ("tp-c", (1, 64, 2, 1, 64, 0)), ("tp-d", (1, 40, 15, 3, 16, 40)),
               ("tp-e", (1, 40, 10, 2, 16, 40)),
               ("tp-f", (1, 40, 25, 5, 16, 40)),
+              ("sv-a", (2, 40, 4, 2, 64, 0)), ("sv-b", (2, 40, 15, 3, 16, 40)),
+              ("sv-c", (2, 40, 10, 2, 16, 40)),
               ("20a", (2, 40, 4, 2, 32, 0)), ("20b", (2, 40, 5, 1, 16, 40)),
               ("20c", (2, 40, 8, 1, 32, 0)), ("20d", (2, 45, 4, 4, 16, 0))],
     "ssd": [("mamba", (1, 100, 3, 16, 16, True)),
@@ -382,6 +421,7 @@ CPU_SHAPES = {
             ("reduced", (1, 33, 2, 8, 16, False)),
             ("tp-d", (1, 70, 5, 16, 8, True)),
             ("tp-g", (1, 100, 4, 16, 16, True)),
+            ("sv-b", (2, 70, 5, 16, 8, True)),
             ("20b", (2, 70, 5, 16, 8, True))],
 }
 PATH_LABELS = tuple(label for label, _, _ in PATHS.values())
@@ -399,6 +439,19 @@ PATH_LABELS = tuple(label for label, _, _ in PATHS.values())
 #: configuration the autotuner resolves for each (the heuristic where
 #: its table has no entry)
 TP_LABELS = ("tp-a", "tp-b", "tp-c", "tp-d", "tp-e", "tp-f", "tp-g")
+#: phase 21's prefill shard shapes under TP (two sequences of 2048 a
+#: rank, model 2): sv-a qwen3-1.7b (the fused QKV of 8 / 4 heads of 128,
+#: 2048 columns at d 2048; flash at 8 / 4 heads of 128; norms at [4096,
+#: 2048]); hymba-1.5b's whole kv groups, sv-b on rank 0 (15 / 3 heads of
+#: 64 under its window: 1344 columns at d 1600; norms at d 1600; its 25
+#: Mamba2 heads at state 16) and sv-c on rank 1 (10 / 2 heads: 896
+#: columns).  21c's FSDP rank (one sequence, every head) runs the moe
+#: path's shapes.  Only the kernels a prefill runs (``SERVE_KERNELS``),
+#: in fp32, the dtype phase 21 serves in: checked in phase 3 in every
+#: built variant and timed in phase 4 (phase 21 holds its decode ticks
+#: to no launch)
+SV_LABELS = ("sv-a", "sv-b", "sv-c")
+SERVE_KERNELS = ("add_rmsnorm_fwd", "gemm_bias", "flash_fwd", "ssd_fwd")
 #: phase 20's shapes, one program over 4 sequences (8192 tokens), each
 #: checked in phase 3 and timed in phase 4 in bf16, the dtype phase 20
 #: holds to fp32: 20a qwen3-1.7b (flash 16 / 8 heads of 128; the fused
@@ -790,7 +843,11 @@ def check_kernels(device, table, shapes):
                 p20 = label in P20_LABELS
                 if p20 and dtype == torch.float32:
                     continue            # phase 20 holds fp32 end to end
-                for layout in layouts:
+                if label in SV_LABELS and (dtype != torch.float32 or
+                                           name not in SERVE_KERNELS):
+                    continue            # phase 21 prefills in fp32
+                for layout in (layouts[:1] if label in SV_LABELS
+                               else layouts):
                     first = None
                     base = make_inputs(name, shape, dtype, device, seed=1,
                                        layout=layout, draw_on_device=p20)
@@ -1103,7 +1160,9 @@ def time_kernels(device, table, shapes, iters):
     rows, rows_bf16 = {}, {}
     for name, (kern, plain, lib) in table.items():
         for label, shape in _shapes(shapes, name):
-            if label not in PATH_LABELS + TP_LABELS + P20_LABELS:
+            if label not in PATH_LABELS + TP_LABELS + P20_LABELS + SV_LABELS:
+                continue
+            if label in SV_LABELS and name not in SERVE_KERNELS:
                 continue
             dtype = torch.bfloat16 if label in P20_LABELS else torch.float32
             dname = "bf16" if dtype == torch.bfloat16 else "fp32"
@@ -1149,7 +1208,7 @@ def time_kernels(device, table, shapes, iters):
             if len(phases) > 1:
                 print(f"[time] {name:16s} phases (profiler device ms): "
                       + ", ".join(f"{k} {v:.4f}" for k, v in phases.items()))
-            if name != "gemm_bias":
+            if name != "gemm_bias" or label in SV_LABELS:
                 continue
             for layout in ("dx", "dW"):
                 a = make_inputs(name, shape, dtype, device, seed=2,
@@ -1529,12 +1588,13 @@ def run_lifecycle(device):
 
 #: phase 11's serving setup (``repro_torch.launch.serve``'s engine: 6
 #: nodes, f 1, n0 2); the CPU rehearsal cuts the lengths and the depth.
-#: On the card the depth is cut to 14 of qwen3-1.7b's 28 layers: the
-#: phase's ticks are host-bound per layer, and the cut keeps the
-#: script inside its time limit with phase 19.
+#: On the card the depth is cut to 8 of qwen3-1.7b's 28 layers: the
+#: phase's ticks are host-bound per layer, and the cut (14 since phase
+#: 19, 8 since phases 15b and 21) keeps the script inside its time
+#: limit.
 SERVING = dict(arch="qwen3-1.7b", nodes=6, slots=4, prompt_len=64,
                decode_steps=32, requests=16, temperature=0.8, fail_at=8,
-               layers=14, cpu_prompt_len=8, cpu_decode_steps=8,
+               layers=8, cpu_prompt_len=8, cpu_decode_steps=8,
                cpu_layers=2)
 
 
@@ -1688,11 +1748,12 @@ def run_serving(device):
 #: n2), so killing it shrinks the replica rank 0 leads and the rebind
 #: pulls layer state from rank 2.  Microbatch 1: the two lead workers
 #: run their replicas' pipelines at the same time on the one card.
-#: Depth cut to 12 of 24 blocks: the phase's time is mostly the star
+#: Depth cut to 6 of 24 blocks: the phase's time is mostly the star
 #: design's socket traffic, which scales with the depth, and the cut
-#: makes room for phase 19 in the script's time limit.
+#: (12 since phase 19, 6 since phases 15b and 21) keeps the script
+#: inside its time limit.
 MULTIPROC = dict(nodes=5, f=1, n0=2, global_batch=16, microbatch=1,
-                 seq_len=2048, layers=12, cpu_seq_len=32, cpu_layers=2,
+                 seq_len=2048, layers=6, cpu_seq_len=32, cpu_layers=2,
                  cpu_microbatch=2,
                  hosting={"n0": 0, "n1": 0, "n2": 1, "n3": 2, "n4": 2})
 #: launches summed over phase 12's workers: each norm and flash kernel
@@ -2377,8 +2438,11 @@ def _pipe_batch(batch):
                                       -1) for k in ("tokens", "labels"))
 
 
-def pipe_rank(on_card, tokens, labels):
-    """Phase 15, one stage's part (run by ``spawn_world``)."""
+def pipe_rank(on_card, tokens, labels, axes=("stage",), shape=None,
+              steps=None, remat=False):
+    """Phase 15 (or 15b), one stage's part (run by ``spawn_world``) on a
+    mesh of ``axes`` and ``shape`` (phase 15's: 4 stages)."""
+    import hashlib
     import torch
     from repro_torch.kernels import build
     from repro_torch.launch.mesh import ProcessMesh
@@ -2387,9 +2451,12 @@ def pipe_rank(on_card, tokens, labels):
     from repro_torch.runtime.spmd_pipeline import (make_pipeline_train_step,
                                                    stage_params)
     from repro_torch.utils.tree import tree_map
+    from repro_torch.runtime.coordination import leaf_bytes
+    from repro_torch.utils.tree import tree_leaves
     dev = _world_device(on_card)
-    mesh = ProcessMesh(("stage",), (PIPE["stages"],))
-    _, _, model = spmd_model(on_card, layers=PIPE["cpu_layers"], remat=False)
+    mesh = ProcessMesh(axes, shape or (PIPE["stages"],))
+    steps = steps or PIPE["steps"]
+    _, _, model = spmd_model(on_card, layers=PIPE["cpu_layers"], remat=remat)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     local = stage_params(params, mesh)
     del params
@@ -2402,10 +2469,10 @@ def pipe_rank(on_card, tokens, labels):
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
-    out = {"stage": mesh.axis_index("stage")}
+    out = {"stage": mesh.axis_index("stage"), "coords": mesh.coords}
     losses, secs, moved, comm_s = [], [], [], []
     with track_compiles() as log:
-        for i in range(PIPE["steps"]):
+        for i in range(steps):
             tr.reset()
             _sync(on_card)
             t0 = time.perf_counter()
@@ -2422,13 +2489,16 @@ def pipe_rank(on_card, tokens, labels):
     out.update(losses=losses, secs=secs, moved=moved, comm_s=comm_s,
                launches=dict(build.LAUNCHES), builds=log.backend_compiles,
                peak=torch.cuda.max_memory_allocated() if on_card else 0,
-               reserved=torch.cuda.max_memory_reserved() if on_card else 0)
+               reserved=torch.cuda.max_memory_reserved() if on_card else 0,
+               hash=hashlib.sha256(b"".join(
+                   leaf_bytes(t) for t in tree_leaves(local))).hexdigest())
     return out
 
 
 def run_pipeline(device, batch):
     """Phase 15: ``runtime/spmd_pipeline.py`` over 4 stage ranks, held
-    to one process's plain full-model step on the same sequences."""
+    to one process's plain full-model step on the same sequences.
+    Returns the stages' losses."""
     import gc
     import torch
     from repro_torch.launch.mesh import spawn_world
@@ -2525,6 +2595,76 @@ def run_pipeline(device, batch):
     else:
         print(f"[pipeline] peak memory: not measured (cpu rehearsal); phase "
               f"{time.perf_counter() - t_phase:.1f}s")
+    return losses
+
+
+#: phase 15b: phase 15's model and microbatches on stage 2 x data 2 (two
+#: stage groups of 2 stages, each running the whole pipeline on the same
+#: microbatches), 2 steps, remat full: without it a stage of 12 blocks
+#: holds 4 microbatches' activations, and the 4 ranks ran out of the
+#: card (cuBLAS could not allocate its handle); the recompute repeats
+#: the forward exactly, so the losses are phase 15's function
+PIPE15B = dict(axes=("stage", "data"), shape=(2, 2), steps=2, remat=True)
+
+
+def run_pipeline_beside(device, batch, losses15):
+    """Phase 15b: the pipeline beside a data axis, held to phase 15's
+    stage-only losses (``losses15``) at tests/test_executor.py's fp32
+    tolerance, its two data replicas bitwise equal."""
+    from repro_torch.launch.mesh import spawn_world
+    on_card = device.type == "cuda"
+    cfg = PIPE15B
+    t_phase = time.perf_counter()
+    arch, _, _ = spmd_model(on_card, layers=PIPE["cpu_layers"], remat=False)
+    tokens, labels = _pipe_batch(batch)
+    ranks = spawn_world("chip_smoke:pipe_rank", 4,
+                        {"on_card": on_card, "tokens": tokens,
+                         "labels": labels, "axes": cfg["axes"],
+                         "shape": cfg["shape"], "steps": cfg["steps"],
+                         "remat": cfg["remat"]},
+                        device=device, paths=[ROOT], timeout=600)
+    r0 = ranks[0]
+    losses = r0["losses"]
+    S = cfg["shape"][cfg["axes"].index("stage")]
+    groups = {}
+    for r in ranks:
+        check(r["losses"] == losses, f"pipeline 15b rank {r['coords']} "
+              f"losses {r['losses']} vs rank 0's {losses}")
+        check(r["builds"] == 0, f"pipeline 15b: {r['builds']} builds")
+        groups.setdefault(r["stage"], []).append(r)
+        if on_card:
+            # remat full: each block's forward twice a microbatch
+            want_l = spmd_launches((arch.num_layers // S)
+                                   * PIPE["microbatches"], cfg["steps"])
+            got = {k: r["launches"][k] for k in want_l}
+            check(got == want_l, f"pipeline 15b rank {r['coords']} launches "
+                  f"{got}, expected {want_l}")
+    for stage, members in groups.items():
+        check(len(members) == 2 and members[0]["hash"] == members[1]["hash"],
+              f"pipeline 15b stage {stage}: the data replicas' parameters "
+              f"differ")
+    for a, b in zip(losses, losses15):
+        tol = EXECUTOR_TOL["atol"] + EXECUTOR_TOL["rtol"] * abs(b)
+        check(abs(a - b) <= tol, f"pipeline 15b losses {losses} vs phase "
+              f"15's {losses15}")
+    print(f"[pipeline] 15b: stage {S} x data 2 ({arch.num_layers // S} "
+          f"blocks a stage, M {PIPE['microbatches']} x "
+          f"{PIPE['microbatch']} on each stage group, remat full): losses {losses} vs "
+          f"phase 15's {losses15[:len(losses)]} (EXECUTOR_TOL; first "
+          f"bitwise: {losses[0] == losses15[0]}), bitwise on every rank; "
+          f"each stage's data replicas bitwise equal after "
+          f"{cfg['steps']} steps; builds 0")
+    print(f"[pipeline] 15b step seconds {[round(t, 4) for t in r0['secs']]} "
+          f"(rank 0; slowest rank "
+          f"{[round(max(r['secs'][i] for r in ranks), 4) for i in range(cfg['steps'])]}); "
+          f"bytes a step (point-to-point / reduced) "
+          f"{[(r['moved'][-1]['p2p'], r['moved'][-1]['reduced']) for r in ranks]}; "
+          f"host seconds inside them, rank 0 "
+          f"{[round(x, 4) for x in r0['comm_s']]}; peak max_memory_allocated "
+          f"a rank "
+          f"{[round(r['peak'] / 2**30, 2) for r in ranks] if on_card else 'not measured (cpu rehearsal)'}"
+          f"{' GiB' if on_card else ''}; phase "
+          f"{time.perf_counter() - t_phase:.1f}s")
 
 
 # ----------------------------------------------------------------------
@@ -2535,18 +2675,20 @@ def run_pipeline(device, batch):
 #: on the same weights and sequences: name -> (arch, layers on the card
 #: (None: all), global batch, model options).  17a: gpt3-medium, 2
 #: sequences (rows over data, the sequence over model: 1024 positions a
-#: rank, flash at Sq 1024 against Sk 1024 / 2048), depth cut to 12 of
-#: 24 blocks to make room for phase 19 in the script's time limit; 17b:
+#: rank, flash at Sq 1024 against Sk 1024 / 2048), depth cut to 8 of 24
+#: blocks to keep the script inside its time limit (12 since phase 19, 8
+#: since phases 15b and 21); 17b:
 #: granite-moe, 4 sequences (one a rank: the router statistics over 4
-#: batch ranks), depth cut to 8 of 24 blocks; 17c: mamba2-780m, 2
+#: batch ranks), depth cut to 4 of 24 blocks; 17c: mamba2-780m, 2
 #: sequences (the mixer's input gathered over model, the scan on each
-#: rank), depth cut to 16 of 48 blocks.  The cuts keep the phase's gloo
+#: rank), depth cut to 8 of 48 blocks (17b from 8 and 17c from 16 since
+#: phases 15b and 21).  The cuts keep the phase's gloo
 #: traffic (each rank's gathered weights, through the host) inside its
 #: time; the sequences are phase 13's first.
 SEQ17 = {
-    "17a": ("gpt3-medium", 12, 2, dict(attn_impl="kernel")),
-    "17b": ("granite-moe-1b-a400m", 8, 4, dict(attn_impl="kernel")),
-    "17c": ("mamba2-780m", 16, 2, dict(ssd_impl="kernel")),
+    "17a": ("gpt3-medium", 8, 2, dict(attn_impl="kernel")),
+    "17b": ("granite-moe-1b-a400m", 4, 4, dict(attn_impl="kernel")),
+    "17c": ("mamba2-780m", 8, 2, dict(ssd_impl="kernel")),
 }
 SEQ17_STEPS = 2
 
@@ -2802,7 +2944,8 @@ def run_seq(device, batch):
 #: SPMDExecutor on the same weights and sequences: name -> (arch, layers
 #: on the card (None: all), global batch, model options).  Global batch
 #: 2: one sequence of 2048 a data rank, computed by its model group of
-#: 2.  18a: gpt3-medium (8 heads a rank, the table of 50257 rows whole);
+#: 2.  18a: gpt3-medium, depth cut to 8 of 24 blocks (8 heads a rank,
+#: the table of 50257 rows whole);
 #: 18b: granite-moe, depth cut to 8 of 24 blocks (16 of 32 experts a
 #: rank in the dense dispatch, GQA 8 / 4 heads of 64, the tied table of
 #: 49155 rows whole); 18c: qwen3-1.7b, depth cut to 8 of 28 blocks (GQA
@@ -2811,7 +2954,7 @@ def run_seq(device, batch):
 #: gradients' all-reduce and the moments' gathers through the host)
 #: inside its time; the width is full and the sequences are phase 13's.
 TP18 = {
-    "18a": ("gpt3-medium", None, 2, dict(attn_impl="kernel")),
+    "18a": ("gpt3-medium", 8, 2, dict(attn_impl="kernel")),
     "18b": ("granite-moe-1b-a400m", 8, 2, dict(attn_impl="kernel")),
     "18c": ("qwen3-1.7b", 8, 2, dict(attn_impl="kernel")),
 }
@@ -2819,17 +2962,17 @@ TP18 = {
 #: Mamba2 mixer under TP, each rank computing its whole heads.  19a:
 #: mamba2-780m (24 Mamba2 heads of 64 a rank at state 128, in_proj's
 #: 6448 columns gathered at use, the tied table of 50280 rows
-#: vocab-parallel: 25140 a rank), depth cut to 16 of 48 blocks as in
+#: vocab-parallel: 25140 a rank), depth cut to 8 of 48 blocks as in
 #: phase 17c; 19b: hymba-1.5b (attention 15 / 10 query heads over 3 / 2
 #: kv heads a rank under its window of 2048, 25 Mamba2 heads of 64 a rank
 #: at state 16, the branches under one f and one g, MLP 2752 columns a
-#: rank, the table of 32001 rows whole), depth cut to 8 of 32 blocks.
+#: rank, the table of 32001 rows whole), depth cut to 4 of 32 blocks.
 #: The cuts keep the gloo traffic (in_proj's and the attention's weights
 #: gathered at use, the gradients and ZeRO-1's gathers through the host)
 #: inside the phase's time; the width is full.
 TP19 = {
-    "19a": ("mamba2-780m", 16, 2, dict(ssd_impl="kernel")),
-    "19b": ("hymba-1.5b", 8, 2, dict(attn_impl="kernel", ssd_impl="kernel")),
+    "19a": ("mamba2-780m", 8, 2, dict(ssd_impl="kernel")),
+    "19b": ("hymba-1.5b", 4, 2, dict(attn_impl="kernel", ssd_impl="kernel")),
 }
 TP_PHASES = {"18": TP18, "19": TP19}
 TP_STEPS = 2
@@ -3581,6 +3724,397 @@ def run_bf16(device, batch, trace=None):
     return total
 
 
+# ----------------------------------------------------------------------
+# Phase 21: the prefill and decode bundles run over the process mesh
+# ----------------------------------------------------------------------
+#: phase 21's cases over one world of 4 rank processes on data 2 x model
+#: 2, each served by ``SPMDServer`` and held to one program (the same
+#: Model without a mesh, on the card, on the same weights): name ->
+#: (arch, blocks on the card, strategy, model options, (teacher-forced
+#: ticks, greedy ticks) on the card).  Prompts: phase 13's first 4
+#: sequences of 2048; fp32; full width.  21a: qwen3-1.7b under TP (8 /
+#: 4 heads of 128 a rank, the tied table vocab-parallel: 75968 rows a
+#: rank), 8 of 28 blocks as phase 18c; 21b: hymba-1.5b under TP (15 / 3
+#: and 10 / 2 heads under its window of 2048, 25 Mamba2 heads a rank, the
+#: table of 32001 rows whole), 8 of 32 blocks and 16 ticks, because the
+#: spec's cut of its attention weights falls inside a head and its
+#: in_proj is taken whole, so every tick gathers them at use (≈ 66 MB a
+#: block, 529 MB a tick: at 64 + 32 ticks its decode took 109 s of the
+#: phase's 170 s on an H100 whose host ran gloo slowly); 21c:
+#: granite-moe under FSDP (one row a rank; the capacity dispatch for
+#: prefill, the server's grouped one for decode), 4 of 24 blocks and 16
+#: ticks, because FSDP gathers every weight on every tick.  The cuts keep
+#: the gloo traffic inside the phase's time.
+SERVE21 = {
+    "21a": ("qwen3-1.7b", 8, "tp", dict(attn_impl="kernel"), (64, 32)),
+    "21b": ("hymba-1.5b", 8, "tp", dict(attn_impl="kernel",
+                                        ssd_impl="kernel"), (8, 8)),
+    "21c": ("granite-moe-1b-a400m", 4, "fsdp", dict(attn_impl="kernel"),
+            (8, 8)),
+}
+SERVE21_BATCH = 4
+SERVE21_CPU_TICKS = (4, 2)
+
+
+def serve_model(on_card, name):
+    """(arch, sequence, (teacher-forced, greedy) ticks, model) of a phase
+    21 case: fp32, the kernels, no remat, the capacity dispatch (the
+    server's decode takes the grouped one); 2 blocks, phase 13's CPU
+    sequence and a few ticks in the CPU rehearsal."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import Model
+    arch_name, layers, _, opts, ticks = SERVE21[name]
+    arch, seq = get_arch(arch_name), SPMD["seq_len"]
+    if on_card:
+        arch = dataclasses.replace(arch, num_layers=layers)
+    else:
+        arch, seq, ticks = (reduced(arch, layers=2), SPMD["cpu_seq_len"],
+                            SERVE21_CPU_TICKS)
+    model = Model(arch, dtype=torch.float32, fuse="fused", remat=False,
+                  moe_impl="capacity", **opts)
+    return arch, seq, ticks, model
+
+
+def serve_launches(arch):
+    """Each kernel's launches in one prefill of a rank: a block's fused
+    QKV, flash forward and fused residual-add + RMSNorm once (a Mamba2
+    mixer's SSD forward once).  The decode ticks are held to none."""
+    L = arch.num_layers
+    out = {k: 0 for k in KERNELS}
+    if arch.family != "ssm":
+        out.update({k: L for k in ("add_rmsnorm_fwd", "gemm_bias",
+                                   "flash_fwd")})
+    if arch.ssm is not None:
+        out["ssd_fwd"] = L
+    return out
+
+
+def serve_reduced_bytes(arch, strategy, rows, positions, vocab_cut,
+                        groups=1):
+    """The all-reduce (and broadcast) bytes of one call on a rank of data
+    2 x model 2, by tag, counted from the shapes.  TP: per block each *g*
+    ([rows, positions, d] fp32): the attention's or hymba's branch pair's
+    one and the MLP's one; the gated norm's sum of squares ([rows,
+    positions, 1]) under "ssm_norm"; the vocab-parallel embedding's *g*
+    under "vocab".  FSDP: the MoE router's statistics ([groups, 2E + 1]
+    fp32 a block) in prefill, where every rank holds other tokens."""
+    act = rows * positions * arch.d_model * 4
+    if strategy == "fsdp":
+        m = arch.moe
+        return {"router": (arch.num_layers * groups * (2 * m.num_experts + 1)
+                           * 4 if m is not None and positions > 1 else 0)}
+    acts = 1 if arch.family == "ssm" else 2
+    return {"tp": arch.num_layers * acts * act,
+            "ssm_norm": (arch.num_layers * rows * positions * 4
+                         if arch.ssm is not None else 0),
+            "vocab": act if vocab_cut else 0}
+
+
+def _tensor_bytes(tree):
+    from repro_torch.utils.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def serve_rank(on_card, batch):
+    """Phase 21, one rank's part (run by ``spawn_world``): every case in
+    turn on this world's data 2 x model 2 mesh."""
+    import gc
+    import hashlib
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import ProcessMesh
+    from repro_torch.runtime import ShardingStrategy, SPMDServer
+    from repro_torch.runtime.sharding import sharded_dims, spec_leaves
+    dev = _world_device(on_card)
+    mesh = ProcessMesh(("data", "model"), MESH["shape"])
+    tr = mesh.transport
+    out = {"rank": mesh.rank, "coords": mesh.coords}
+    for name, (_, _, strat, _, _) in SERVE21.items():
+        arch, seq, (forced, greedy), model = serve_model(on_card, name)
+        strategy = ShardingStrategy(strategy=strat)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        server = SPMDServer(model, params, mesh, strategy,
+                            ShapeConfig(f"phase21-{name}", seq,
+                                        SERVE21_BATCH, "prefill"))
+        # FSDP gathers each cut leaf whole once a call
+        gathered = sum(t.numel() * t.element_size() for _, spec, t in
+                       spec_leaves(server.pspecs, params)
+                       if sharded_dims(spec))
+        del params
+        tp = server._model.tp
+        tokens = torch.from_numpy(
+            server.rows(batch["tokens"][:SERVE21_BATCH, :seq])).to(dev)
+        r = {"rows": tokens.shape[0], "gathered_want": gathered,
+             "kv_heads": tp.kv_heads if tp is not None else None,
+             "ssm_heads": tp.ssm_heads if tp is not None else None,
+             "vocab": tp.vocab if tp is not None else None}
+        build.reset_launches()
+        tr.reset()
+        _sync(on_card)
+        t0 = time.perf_counter()
+        logits = server.prefill({"tokens": tokens})
+        _sync(on_card)
+        r.update(prefill_s=time.perf_counter() - t0, prefill_comm_s=tr.seconds,
+                 prefill_bytes=dict(tr.bytes),
+                 prefill_tagged={k: dict(v) for k, v in tr.tagged.items()},
+                 launches=dict(build.LAUNCHES))
+        full = server.gather_rows(logits)
+        r["prefill"] = full.cpu() if mesh.rank == 0 else None
+        hashes = [hashlib.sha256(logits.cpu().numpy().tobytes()).hexdigest()]
+        cache = server.init_cache(forced + greedy)
+        r["cache_held"] = _tensor_bytes(cache)
+        tok, ticks, tick_s, comm_s, picks = tokens[:, :1], [], [], 0.0, []
+        build.reset_launches()
+        for t in range(forced + greedy):
+            tr.reset()
+            _sync(on_card)
+            t0 = time.perf_counter()
+            lg, cache = server.decode(tok, cache, t)
+            _sync(on_card)
+            tick_s.append(time.perf_counter() - t0)
+            comm_s += tr.seconds
+            if t == 0:
+                r["tick_bytes"] = dict(tr.bytes)
+                r["tick_tagged"] = {k: dict(v) for k, v in tr.tagged.items()}
+            hashes.append(hashlib.sha256(lg.cpu().numpy().tobytes()
+                                         ).hexdigest())
+            whole = server.gather_rows(lg)
+            if mesh.rank == 0:
+                ticks.append(whole.cpu())
+            nxt = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            if t + 1 >= forced:
+                picks.append(server.gather_rows(nxt).cpu())
+            tok = tokens[:, t + 1:t + 2] if t + 1 < forced else nxt
+        r["decode_launches"] = dict(build.LAUNCHES)
+        full = server.gather_cache(cache)
+        r.update(tick_s=tick_s, decode_comm_s=comm_s, hashes=hashes,
+                 ticks=torch.stack(ticks) if ticks else None,
+                 picks=torch.cat(picks, 1),
+                 cache=({p: {k: v.cpu() for k, v in leaves.items()}
+                         for p, leaves in full.items()}
+                        if mesh.rank == 0 else None),
+                 builds=server.cache.stats.compiles,
+                 peak=torch.cuda.max_memory_allocated() if on_card else 0)
+        out[name] = r
+        del server, cache, full
+    return out
+
+
+def serve_reference(device, name, batch):
+    """A phase 21 case as one program on this process's device: the same
+    Model without a mesh on the same weights, the prefill and the same
+    ticks.  Returns its outputs on the host and the cache's spec bytes a
+    rank of data 2 x model 2 (``cache_shardings``)."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.launch.mesh import group_size, make_mesh
+    from repro_torch.runtime import ShardingStrategy
+    from repro_torch.runtime.sharding import sharded_dims, spec_leaves
+    from repro_torch.runtime.spmd import DECODE_MOE_IMPL
+    on_card = device.type == "cuda"
+    arch, seq, (forced, greedy), model = serve_model(on_card, name)
+    decode = dataclasses.replace(model, moe_impl=DECODE_MOE_IMPL)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    tokens = torch.from_numpy(batch["tokens"][:SERVE21_BATCH, :seq]
+                              ).to(device)
+    with torch.no_grad():
+        _sync(on_card)
+        t0 = time.perf_counter()
+        prefill = model.prefill(params, tokens)
+        _sync(on_card)
+        prefill_s = time.perf_counter() - t0
+        cache = model.init_cache(SERVE21_BATCH, forced + greedy, device)
+        tok, ticks, picks, gaps = tokens[:, :1], [], [], []
+        t0 = time.perf_counter()
+        for t in range(forced + greedy):
+            lg = decode.decode_step_(params, tok, cache, t)
+            ticks.append(lg.cpu())
+            nxt = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            if t + 1 >= forced:
+                picks.append(nxt.cpu())
+                top2 = lg[:, -1].topk(2, -1).values
+                gaps.append(float((top2[:, 0] - top2[:, 1]).min()))
+            tok = tokens[:, t + 1:t + 2] if t + 1 < forced else nxt
+        _sync(on_card)
+        tick_s = (time.perf_counter() - t0) / (forced + greedy)
+    mesh = make_mesh(MESH["shape"], ("data", "model"))
+    specs = ShardingStrategy(strategy=SERVE21[name][2]).cache_shardings(
+        mesh, cache, SERVE21_BATCH)
+    spec_bytes = sum(t.numel() * t.element_size() // math.prod(
+        group_size(mesh, a) for _, a in sharded_dims(spec))
+        for _, spec, t in spec_leaves(specs, cache))
+    out = {"prefill": prefill.cpu(), "ticks": torch.stack(ticks),
+           "picks": torch.cat(picks, 1), "gap": min(gaps),
+           "cache": {p: {k: v.cpu() for k, v in leaves.items()}
+                     for p, leaves in cache.items()},
+           "spec_bytes": spec_bytes, "prefill_s": prefill_s,
+           "tick_s": tick_s}
+    del params, cache, prefill
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _within(got, want):
+    """(max |got - want|, the largest ratio of an element's error to its
+    limit): the limit is tests/test_executor.py's fp32 tolerance at the
+    scale of the element's row, the largest magnitude of ``want`` along
+    the last dimension (the logits of a row share one scale, and
+    elements near zero carry the rounding of the whole dot product; a
+    cache's row is a head's vector or a state's last axis).  Within it
+    where the ratio is at most 1."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    limit = (EXECUTOR_TOL["atol"] + EXECUTOR_TOL["rtol"]
+             * want.abs().amax(-1, keepdim=True))
+    return float(diff.max()), float((diff / limit).max())
+
+
+def run_serve(device, batch):
+    """Phase 21: the prefill and decode bundles over one world of 4 fresh
+    rank processes sharing the card (gloo), each case held to one
+    program.  Returns rank 0's launches over the cases."""
+    import gc
+    import torch
+    from repro_torch.launch.mesh import spawn_world
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    refs = {name: serve_reference(device, name, batch) for name in SERVE21}
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    poller = _MemoryPeak(on_card)
+    try:
+        ranks = spawn_world("chip_smoke:serve_rank", 4,
+                            {"on_card": on_card, "batch": batch},
+                            device=device, paths=[ROOT], timeout=900)
+    finally:
+        smi = poller.stop()
+    total = {}
+    for name, (_, _, strat, _, _) in SERVE21.items():
+        arch, seq, (forced, greedy), _ = serve_model(on_card, name)
+        ref, r0 = refs[name], ranks[0][name]
+        for rank in ranks:
+            r = rank[name]
+            check(r["builds"] == 2, f"serve {name} rank {rank['rank']}: "
+                  f"{r['builds']} programs (one prefill, one decode)")
+            check(torch.equal(r["picks"], r0["picks"]),
+                  f"serve {name} rank {rank['rank']}: greedy tokens differ")
+            if on_card:
+                want_l = serve_launches(arch)
+                got = {k: r["launches"][k] for k in want_l}
+                check(got == want_l, f"serve {name} rank {rank['rank']} "
+                      f"launches {got}, expected {want_l}")
+            check(not any(r["decode_launches"].values()),
+                  f"serve {name} rank {rank['rank']}: the decode ticks "
+                  f"launched {r['decode_launches']}")
+            rows, positions = r["rows"], seq
+            want_b = serve_reduced_bytes(arch, strat, rows, positions,
+                                         r["vocab"] is not None,
+                                         groups=seq // min(1024, seq))
+            got_b = {tag: r["prefill_tagged"].get(tag, {}).get("reduced", 0)
+                     for tag in want_b}
+            check(got_b == want_b, f"serve {name} rank {rank['rank']} "
+                  f"prefill all-reduce bytes {got_b}, counted {want_b}")
+            want_t = serve_reduced_bytes(arch, strat, rows, 1,
+                                         r["vocab"] is not None)
+            got_t = {tag: r["tick_tagged"].get(tag, {}).get("reduced", 0)
+                     for tag in want_t}
+            check(got_t == want_t, f"serve {name} rank {rank['rank']} tick "
+                  f"all-reduce bytes {got_t}, counted {want_t}")
+            if strat == "fsdp":
+                for what in ("prefill_bytes", "tick_bytes"):
+                    check(r[what]["gathered"] == r["gathered_want"],
+                          f"serve {name} rank {rank['rank']} {what} "
+                          f"gathered {r[what]['gathered']} B, the cut "
+                          f"leaves' {r['gathered_want']} B")
+            if r["vocab"] is not None:
+                v = rows * arch.vocab_size * 4
+                check(r["prefill_tagged"]["vocab"]["gathered"] == v,
+                      f"serve {name}: the logits' gather "
+                      f"{r['prefill_tagged']['vocab']['gathered']} B vs {v}")
+        # outputs replicated across a model group: bitwise on its ranks
+        groups = {}
+        for rank in ranks:
+            key = (rank["coords"]["data"] if strat == "tp" else rank["rank"])
+            groups.setdefault(key, []).append(rank[name]["hashes"])
+        for members in groups.values():
+            check(all(m == members[0] for m in members),
+                  f"serve {name}: a model group's ranks differ")
+        perr, pratio = _within(r0["prefill"], ref["prefill"])
+        check(pratio <= 1, f"serve {name} prefill logits off by {perr} "
+              f"({pratio:.3g} of the limit) from one program's")
+        check(torch.equal(r0["picks"], ref["picks"]),
+              f"serve {name} greedy tokens {r0['picks'].tolist()} vs one "
+              f"program's {ref['picks'].tolist()}")
+        terr, tratio = _within(r0["ticks"], ref["ticks"])
+        check(tratio <= 1, f"serve {name} decode logits off by {terr} "
+              f"({tratio:.3g} of the limit)")
+        cerr, cratio = 0.0, 0.0
+        for p, leaves in ref["cache"].items():
+            for k, v in leaves.items():
+                e, ratio = _within(r0["cache"][p][k], v)
+                cerr, cratio = max(cerr, e), max(cratio, ratio)
+                check(ratio <= 1, f"serve {name} gathered cache {p}/{k} off "
+                      f"by {e} ({ratio:.3g} of the limit)")
+        held = [rank[name]["cache_held"] for rank in ranks]
+        print(f"[mesh-serve] {name} {arch.name} ({arch.num_layers} blocks, "
+              f"{strat}, data 2 x model 2, global batch {SERVE21_BATCH} x S "
+              f"{seq}): {r0['rows']} rows a rank, kv heads {r0['kv_heads']}, "
+              f"Mamba2 heads {r0['ssm_heads']}, vocabulary rows "
+              f"{r0['vocab']} (None: whole); prefill logits within "
+              f"{perr:.3g} of one program's ({pratio:.3g} of the limit, "
+              f"EXECUTOR_TOL at a row's scale); {forced} teacher-forced + "
+              f"{greedy} greedy ticks: tokens equal one program's, logits "
+              f"within {terr:.3g} ({tratio:.3g} of the limit; smallest "
+              f"top-2 gap of a greedy pick {ref['gap']:.4g}); the gathered "
+              f"cache within {cerr:.3g} ({cratio:.3g} of the limit) of one "
+              f"program's; the ticks launched no kernel on any rank")
+        slow_p = max(rk[name]["prefill_s"] for rk in ranks)
+        tick_ms = [1e3 * sum(rk[name]["tick_s"]) / len(rk[name]["tick_s"])
+                   for rk in ranks]
+        print(f"[mesh-serve] {name} prefill {r0['prefill_s']:.4f}s (rank 0; "
+              f"slowest rank {slow_p:.4f}s; one program {ref['prefill_s']:.4f}s)"
+              f", gloo's share {r0['prefill_comm_s'] / r0['prefill_s']:.3f}; "
+              f"a decode tick {tick_ms[0]:.2f} ms (rank 0; slowest rank "
+              f"{max(tick_ms):.2f}; one program {1e3 * ref['tick_s']:.2f} "
+              f"ms), gloo's share "
+              f"{r0['decode_comm_s'] / sum(r0['tick_s']):.3f}; outputs "
+              f"replicated across a model group bitwise on its ranks; "
+              f"programs 2 a rank")
+        print(f"[mesh-serve] {name} bytes on rank 0: prefill {r0['prefill_bytes']}"
+              f", by tag {_tag_bytes(r0['prefill_tagged'])}; a tick "
+              f"{r0['tick_bytes']}, by tag {_tag_bytes(r0['tick_tagged'])}; "
+              f"all-reduce bytes by tag = the count from the shapes on every "
+              f"rank")
+        print(f"[mesh-serve] {name} cache bytes a rank {held} (its rows and, "
+              f"under TP, its heads) vs the spec's shard "
+              f"{ref['spec_bytes']} (cache_shardings): "
+              f"{'equal' if set(held) == {ref['spec_bytes']} else 'differ'}")
+        print(f"[mesh-serve] {name} launches a rank {r0['launches']}")
+        for k, v in r0["launches"].items():
+            total[k] = total.get(k, 0) + v
+        if on_card:
+            print(f"[mesh-serve] {name} peak max_memory_allocated a rank "
+                  f"{[round(rk[name]['peak'] / 2**30, 2) for rk in ranks]} "
+                  f"GiB")
+    mem = (f"nvidia-smi memory.used peak {smi} MiB (4 ranks and this "
+           f"process)" if on_card else
+           "peak memory: not measured (cpu rehearsal)")
+    print(f"[mesh-serve] phase 21: {mem}; phase "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    return total
+
+
 def _rounded(d):
     return {k: round(v, 2) for k, v in d.items()}
 
@@ -3762,7 +4296,7 @@ def _run(device):
 
 
 def _phases(device, on_card, shapes, iters, trace20):
-    """Phases 3-20 after the card and the build; returns the kernels
+    """Phases 3-21 after the card and the build; returns the kernels
     record."""
     import torch
     table = kernel_table(device)
@@ -3782,7 +4316,8 @@ def _phases(device, on_card, shapes, iters, trace20):
     run_multiprocess(device)
     _, p13 = run_spmd(device)
     run_mesh(device, p13)
-    run_pipeline(device, p13["batch"])
+    losses15 = run_pipeline(device, p13["batch"])
+    run_pipeline_beside(device, p13["batch"], losses15)
     run_autotune(device)
     # phase 19's dry-run traces full-size mixers on the host for minutes:
     # it runs beside phases 17 and 18
@@ -3797,6 +4332,7 @@ def _phases(device, on_card, shapes, iters, trace20):
             trace19.kill()
             trace19.wait()
     bf16_launches = run_bf16(device, p13["batch"], trace20)
+    launches21 = run_serve(device, p13["batch"])
     configs = kernel_configs(device, shapes)
     configs_bf16 = kernel_configs(device, shapes, torch.bfloat16,
                                   reported_bf16)
@@ -3805,6 +4341,7 @@ def _phases(device, on_card, shapes, iters, trace20):
          "launches": launches[name], "max_abs_err": errors[name],
          **timing[name], "config": configs[name],
          "tp_launches": tp_launches.get(name, 0),
+         "serve_launches": launches21.get(name, 0),
          "bf16": {"launches": bf16_launches.get(name, 0),
                   "max_abs_err": errors_bf16[name], **timing_bf16[name],
                   "config": configs_bf16[name]}}

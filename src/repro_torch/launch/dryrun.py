@@ -185,7 +185,8 @@ def _run(model, shape, params, batch, cache=None):
     if shape.kind == "train":
         return spmd.loss_and_grads(model, params, batch)[1]
     if shape.kind == "prefill":
-        return spmd.build_prefill_step(model)(params, batch)
+        return spmd.build_mesh_prefill_step(model, None, None)(params,
+                                                                batch)
     # the in-place decode: the donated cache is written, not copied.  A
     # scalar position would index the cache through its value, which a
     # fake tensor has not: per-row positions (the serving plane's form)
@@ -255,7 +256,7 @@ def analyze(arch: ArchConfig, shape: ShapeConfig, mesh,
     """Every term of one cell on ``mesh`` (module docstring)."""
     chips = mesh_chips(mesh)
     moe_impl = moe_impl or ("capacity" if shape.kind != "decode"
-                            else "grouped")
+                            else spmd.DECODE_MOE_IMPL)
     t0 = time.time()
     model = _model(arch, strategy, mesh, shape, dtype, remat_policy,
                    moe_impl, loss_chunk)

@@ -27,7 +27,8 @@ heads the rank reads (``TPContext.take``).  Where the heads do not
 divide the model axis a rank takes whole kv groups with their query
 heads (``sharding.tp_heads``), and every weight is gathered at use.
 With ``part=True`` the caller owns *f* and *g* (hymba's block joins the
-attention and the Mamba2 mixer under one of each).
+attention and the Mamba2 mixer under one of each).  The decode takes the
+same heads and writes them into a cache held at the rank's kv heads.
 """
 from __future__ import annotations
 
@@ -222,17 +223,22 @@ def attention(params, arch: ArchConfig, x: torch.Tensor, *,
 # Decode path (KV cache)
 # ----------------------------------------------------------------------
 def init_kv_cache(arch: ArchConfig, batch: int, max_len: int, dtype,
-                  device="cpu"):
+                  device="cpu", kv_heads: Optional[Tuple[int, int]] = None):
     """[batch, L, KV, hd] k and v; with a sliding window L is the window
-    (a ring buffer), else ``max_len``."""
+    (a ring buffer), else ``max_len``.  ``kv_heads``: a rank's [lo, hi)
+    of the kv heads under TP (``TPContext.kv_heads``), the heads its
+    decode writes."""
     KV, hd = arch.num_kv_heads, arch.head_dim
+    if kv_heads is not None:
+        KV = kv_heads[1] - kv_heads[0]
     L = min(max_len, arch.sliding_window) if arch.sliding_window else max_len
     return {"k": torch.zeros((batch, L, KV, hd), dtype=dtype, device=device),
             "v": torch.zeros((batch, L, KV, hd), dtype=dtype, device=device)}
 
 
 def decode_attention_(params, arch: ArchConfig, x: torch.Tensor, cache: dict,
-                      pos: torch.Tensor, write=None) -> torch.Tensor:
+                      pos: torch.Tensor, write=None, *, tp=None,
+                      part: bool = False) -> torch.Tensor:
     """One-token decode, writing the new K/V rows into ``cache`` in place
     (the reference's ``decode_attention`` returns a new cache, donated
     under jit; this is its torch form).  x: [B, 1, d]; pos: a scalar
@@ -241,12 +247,21 @@ def decode_attention_(params, arch: ArchConfig, x: torch.Tensor, cache: dict,
     of the rows where it is False; those rows' outputs are then
     meaningless.  A position at or past a full-length cache writes its
     last slot (the reference drops such a write; only rows whose output
-    is discarded reach one).  Returns out [B, 1, d]."""
+    is discarded reach one).  Under ``tp`` the rank's heads, as
+    ``attention`` takes them, against ``cache`` at its kv heads
+    (``init_kv_cache(..., kv_heads=)``); ``part`` as ``attention``'s.
+    Returns out [B, 1, d]."""
     B = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device)
     vec = pos.dim() == 1
     positions = pos[:, None] if vec else pos.expand(B, 1)
-    q, k, v = _project_qkv(params, arch, x, positions)
+    heads = None
+    if tp is not None:
+        params, heads = _tp_params(params, arch, tp)
+        if not part:
+            x = tp.f(x)
+    H, KV = heads or (arch.num_heads, arch.num_kv_heads)
+    q, k, v = _project_qkv(params, arch, x, positions, heads=heads)
     ck, cv = cache["k"], cache["v"]
     L = ck.shape[1]
     slot = pos % L if arch.sliding_window else pos
@@ -259,7 +274,7 @@ def decode_attention_(params, arch: ArchConfig, x: torch.Tensor, cache: dict,
         keep = ~write[:, None, None]
         ck[at] = torch.where(keep, ck[at], k[:, 0])
         cv[at] = torch.where(keep, cv[at], v[:, 0])
-    KV, hd, H = arch.num_kv_heads, arch.head_dim, arch.num_heads
+    hd = arch.head_dim
     qg = q.reshape(B, KV, H // KV, hd)
     scores = torch.einsum("bkgd,bskd->bkgs", qg, ck).float() / math.sqrt(hd)
     idx = torch.arange(L, device=x.device)
@@ -271,4 +286,5 @@ def decode_attention_(params, arch: ArchConfig, x: torch.Tensor, cache: dict,
     scores = scores.masked_fill(~valid, float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     o = torch.einsum("bkgs,bskd->bkgd", probs, cv).reshape(B, 1, H * hd)
-    return o @ params["wo"].to(x.dtype)
+    o = o @ params["wo"].to(x.dtype)
+    return tp.g(o) if tp is not None and not part else o

@@ -36,12 +36,14 @@ divided by the whole ``d_inner``; the row-parallel ``out_proj`` product
 leaves through *g*.  B's and C's gradients are each rank's share, summed
 by the gather's reduce-scatter (or *f*) and by the input's *f*.  With
 ``part=True`` the caller owns *f* and *g* (hymba's block joins its two
-branches under one of each).
+branches under one of each).  The decode takes the same weights and
+carries the rank's conv channels (its x channels and the whole B and C)
+and its heads' SSM states.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -192,12 +194,6 @@ def init_mamba(gen: torch.Generator, arch: ArchConfig,
     }
 
 
-def _split_proj(arch: ArchConfig, proj):
-    c, d_inner, n_heads, _ = _dims(arch)
-    gn = c.n_groups * c.state_size
-    return torch.split(proj, [d_inner, d_inner + 2 * gn, n_heads], dim=-1)
-
-
 def _expand_groups(t, n_heads: int, n_groups: int):
     """[..., G, N] -> [..., H, N] by repeating each group: a stride-0
     view when n_groups = 1 (a copy otherwise)."""
@@ -296,25 +292,42 @@ def mamba(params, arch: ArchConfig, x: torch.Tensor, *,
     return tp.g(out) if tp is not None and not part else out
 
 
-def init_mamba_cache(arch: ArchConfig, batch: int, dtype, device="cpu"):
+def init_mamba_cache(arch: ArchConfig, batch: int, dtype, device="cpu",
+                     heads: Optional[Tuple[int, int]] = None):
+    """The conv state [batch, width - 1, conv channels] and the SSM state
+    [batch, heads, P, N] fp32.  ``heads``: a rank's [lo, hi) of the
+    Mamba2 heads under TP (``TPContext.ssm_heads``): its x channels
+    beside the whole B and C, and its heads' states."""
     c, d_inner, n_heads, conv_dim = _dims(arch)
+    if heads is not None:
+        n_heads = heads[1] - heads[0]
+        conv_dim = n_heads * c.head_dim + 2 * c.n_groups * c.state_size
     return {"conv": torch.zeros((batch, c.conv_width - 1, conv_dim),
                                 dtype=dtype, device=device),
             "ssm": torch.zeros((batch, n_heads, c.head_dim, c.state_size),
                                dtype=torch.float32, device=device)}
 
 
-def mamba_decode(params, arch: ArchConfig, x: torch.Tensor, cache: Dict):
+def mamba_decode(params, arch: ArchConfig, x: torch.Tensor, cache: Dict, *,
+                 tp=None, part: bool = False):
     """One-token decode. x: [b,1,d_model] -> (out [b,1,d_model], the new
-    cache)."""
+    cache).  Under ``tp`` the rank's whole heads, with the weights
+    ``mamba`` takes, against ``cache`` at its heads
+    (``init_mamba_cache(..., heads=)``); ``part`` as ``mamba``'s."""
     c, d_inner, n_heads, _ = _dims(arch)
+    if tp is not None:
+        params = _tp_params(params, arch, tp)
+        n_heads = tp.ssm_heads[1] - tp.ssm_heads[0]
+        if not part:
+            x = tp.f(x)
+    di = n_heads * c.head_dim      # this rank's d_inner
+    gn = c.n_groups * c.state_size
     b = x.shape[0]
     proj = x[:, 0] @ params["in_proj"].to(x.dtype)
-    z, xbc, dt_raw = _split_proj(arch, proj)
+    z, xbc, dt_raw = torch.split(proj, [di, di + 2 * gn, n_heads], dim=-1)
     xbc, conv_state = conv_step(xbc, cache["conv"], params["conv_w"],
                                 params["conv_b"])
-    gn = c.n_groups * c.state_size
-    xin, B, C = torch.split(xbc, [d_inner, gn, gn], dim=-1)
+    xin, B, C = torch.split(xbc, [di, gn, gn], dim=-1)
     xh = xin.reshape(b, n_heads, c.head_dim)
     Bh = _expand_groups(B.reshape(b, c.n_groups, c.state_size), n_heads,
                         c.n_groups)
@@ -324,18 +337,20 @@ def mamba_decode(params, arch: ArchConfig, x: torch.Tensor, cache: Dict):
     A = -torch.exp(params["A_log"].float())
     y, ssm_state = ssd_step(xh, dt, A, Bh, Ch, cache["ssm"])
     y = y + params["D"].to(y.dtype)[None, :, None] * xh
-    y = rms_norm(params["norm_w"].to(x.dtype), y.reshape(b, d_inner)
-                 * F.silu(z), arch.rms_norm_eps)
+    y = _gated_norm(params["norm_w"].to(x.dtype), y.reshape(b, di), z,
+                    arch.rms_norm_eps, d_inner, tp)
     out = (y @ params["out_proj"].to(x.dtype))[:, None, :]
+    if tp is not None and not part:
+        out = tp.g(out)
     return out, {"conv": conv_state, "ssm": ssm_state}
 
 
 def mamba_decode_(params, arch: ArchConfig, x: torch.Tensor, cache: Dict,
-                  write=None) -> torch.Tensor:
+                  write=None, *, tp=None, part: bool = False) -> torch.Tensor:
     """``mamba_decode`` writing the new conv and SSM states into ``cache``
     in place; ``write`` ([B] bool) keeps the states of the rows where it
     is False.  Returns out [b, 1, d_model]."""
-    out, new = mamba_decode(params, arch, x, cache)
+    out, new = mamba_decode(params, arch, x, cache, tp=tp, part=part)
     for name, t in new.items():
         if write is not None:
             t = torch.where(write.reshape(-1, *(1,) * (t.dim() - 1)), t,

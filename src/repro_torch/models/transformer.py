@@ -33,8 +33,11 @@ embeds and scores vocab-parallel (``models/layers.py``).  hymba's two
 branches share one *f* on the normed input and one *g* on their mean,
 one all-reduce a direction for the pair.  The residual stream, the
 norms and the fused residual-add + RMSNorm stay whole and the same on
-every rank of the model group.  Without either context the model is
-the one-card model.
+every rank of the model group.  Serving runs the same parts: the decode
+tick's mixers write a cache held at the rank's heads (``init_cache``),
+and ``prefill`` and ``decode_step_`` gather the vocab-parallel logits
+over the model group.  Without either context the model is the one-card
+model.
 
 The vision and audio frontends are stubs, as in the JAX package:
 ``frontend_embeds`` [b, F, d] are concatenated ahead of the token
@@ -244,10 +247,7 @@ class Model:
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Forward up to (and including) the final norm; no head.  Under
         ``seq``, of this rank's positions only."""
-        if self._vocab_tp is not None:
-            x = vocab_embed(params["embed"], tokens, self.dtype, self.tp)
-        else:
-            x = embed(params["embed"], tokens, self.dtype)
+        x = self._embed(params, tokens)
         if frontend_embeds is not None:
             x = torch.cat([frontend_embeds.to(self.dtype), x], dim=1)
         shard = self.seq.shard(x.shape[1]) if self.seq is not None else None
@@ -257,6 +257,11 @@ class Model:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         x, aux = self.run_blocks(params["blocks"], x, aux, shard)
         return self._norm(params["final_norm"], x), aux
+
+    def _embed(self, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+        if self._vocab_tp is not None:
+            return vocab_embed(params["embed"], tokens, self.dtype, self.tp)
+        return embed(params["embed"], tokens, self.dtype)
 
     @property
     def _vocab_tp(self):
@@ -270,6 +275,14 @@ class Model:
         if self._vocab_tp is not None:
             return unembed(head, self.tp.f(x, "vocab"))
         return self.constrain(unembed(head, x), "logits")
+
+    def _whole_logits(self, head: Dict, x: torch.Tensor) -> torch.Tensor:
+        """The serving logits of x over the whole vocabulary: under a
+        vocab-parallel ``tp`` this rank's rows gathered over the model
+        group, as the reference's serving out-specs replicate V."""
+        if self._vocab_tp is None:
+            return self.constrain(unembed(head, x), "logits")
+        return self.tp.gather(self._logits(head, x), x.dim() - 1, "vocab")
 
     def forward(self, params: Dict, tokens: torch.Tensor,
                 frontend_embeds: Optional[torch.Tensor] = None
@@ -375,33 +388,47 @@ class Model:
     def init_cache(self, batch: int, max_len: int, device="cuda") -> Dict:
         """Per-layer caches stacked on a leading [L] axis: the attention
         KV cache (a ring buffer of the window's length with a sliding
-        window) and the Mamba conv and SSM states."""
-        a, dev = self.arch, resolve_device(device)
+        window) and the Mamba conv and SSM states, of ``batch`` rows (a
+        rank's rows on a process mesh); under ``tp`` at the rank's kv
+        heads and Mamba2 heads, the cache its decode writes."""
+        a, dev, tp = self.arch, resolve_device(device), self.tp
         c: Dict = {}
         if a.family == "ssm" or a.hybrid_parallel_heads:
-            c["mamba"] = ssm_lib.init_mamba_cache(a, batch, self.dtype, dev)
+            c["mamba"] = ssm_lib.init_mamba_cache(
+                a, batch, self.dtype, dev,
+                heads=tp.ssm_heads if tp is not None else None)
         if a.num_heads:
-            c["attn"] = attn_lib.init_kv_cache(a, batch, max_len, self.dtype,
-                                               dev)
+            c["attn"] = attn_lib.init_kv_cache(
+                a, batch, max_len, self.dtype, dev,
+                kv_heads=tp.kv_heads if tp is not None else None)
         return tree_map(lambda t: t.expand(a.num_layers, *t.shape).clone(), c)
 
     def decode_block_(self, bp: Dict, cache: Dict, x: torch.Tensor,
                       pos: torch.Tensor, write=None) -> torch.Tensor:
         """One block's decode, writing its new K/V rows and Mamba states
         into ``cache`` (this layer's views) in place; ``write`` ([b] bool)
-        keeps the cache of the rows where it is False."""
-        a = self.arch
+        keeps the cache of the rows where it is False.  Under ``tp`` the
+        mixers, the MLP and the MoE run the rank's part, hymba's two
+        branches under one *f* and one *g* as in ``_hybrid``."""
+        a, tp = self.arch, self.tp
         bp = self.unshard(bp)
         h = self._norm(bp["ln1"], x)
         if a.family == "ssm":
             return x + ssm_lib.mamba_decode_(bp["mamba"], a, h,
-                                             cache["mamba"], write)
-        y = attn_lib.decode_attention_(bp["attn"], a, h, cache["attn"], pos,
-                                       write)
+                                             cache["mamba"], write, tp=tp)
         if a.hybrid_parallel_heads:
-            ym = ssm_lib.mamba_decode_(bp["mamba"], a, h, cache["mamba"],
-                                       write)
+            hp = tp.f(h) if tp is not None else h
+            kw = dict(tp=tp, part=tp is not None)
+            y = attn_lib.decode_attention_(bp["attn"], a, hp, cache["attn"],
+                                           pos, write, **kw)
+            ym = ssm_lib.mamba_decode_(bp["mamba"], a, hp, cache["mamba"],
+                                       write, **kw)
             y = 0.5 * (y + ym)
+            if tp is not None:
+                y = tp.g(y)
+        else:
+            y = attn_lib.decode_attention_(bp["attn"], a, h, cache["attn"],
+                                           pos, write, tp=tp)
         x = x + y
         x, _ = self._ffn(bp, x, self._norm(bp["ln2"], x), 0.0)
         return self.constrain(x, "act")
@@ -412,16 +439,15 @@ class Model:
         ``cache`` in place, the serving plane's decode tick (the torch
         form of the reference's donated cache).  ``write`` ([b] bool)
         keeps the cache of the rows where it is False.  Returns logits
-        [b, 1, V]."""
-        x = self.constrain(embed(params["embed"], token, self.dtype), "act")
+        [b, 1, V] (over the whole vocabulary under ``tp`` too)."""
+        x = self.constrain(self._embed(params, token), "act")
         pos = torch.as_tensor(pos, device=x.device)
         for i in range(self.arch.num_layers):
             x = self.decode_block_(tree_map(lambda t: t[i], params["blocks"]),
                                    tree_map(lambda t: t[i], cache), x, pos,
                                    write)
         x = self._norm(params["final_norm"], x)
-        head = params.get("head", params["embed"])
-        return self.constrain(unembed(head, x), "logits")
+        return self._whole_logits(params.get("head", params["embed"]), x)
 
     def decode_step(self, params: Dict, token: torch.Tensor, cache: Dict,
                     pos) -> Tuple[torch.Tensor, Dict]:
@@ -435,7 +461,16 @@ class Model:
                 frontend_embeds: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         """Last-position logits [b, 1, V] only: the hidden states are
-        sliced before the head, so the [b, S, V] logits are never built."""
+        sliced before the head, so the [b, S, V] logits are never built.
+        Under a sliced ``seq`` the last position's hidden state comes from
+        the rank that holds it, so every rank of the sequence group
+        returns the same logits; under ``tp`` they cover the whole
+        vocabulary."""
         x, _ = self.hidden_states(params, tokens, frontend_embeds)
-        head = params.get("head", params["embed"])
-        return self.constrain(unembed(head, x[:, -1:]), "logits")
+        last = x[:, -1:]
+        if self.seq is not None:
+            F_ = frontend_embeds.shape[1] if frontend_embeds is not None else 0
+            shard = self.seq.shard(F_ + tokens.shape[1])
+            if shard.sliced:
+                last = shard.from_last(last, "seq")
+        return self._whole_logits(params.get("head", params["embed"]), last)

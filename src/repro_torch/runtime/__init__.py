@@ -20,7 +20,7 @@ from repro_torch.runtime.multihost import (MultiHostExecutor, ShardTrainer,
                                            make_job_spec)
 from repro_torch.runtime import spmd
 from repro_torch.runtime.sharding import ShardingStrategy
-from repro_torch.runtime.spmd import SPMDExecutor
+from repro_torch.runtime.spmd import SPMDExecutor, SPMDServer
 from repro_torch.runtime.sync_exec import (BucketedSync, BucketExec,
                                            perlayer_global_sumsq,
                                            perlayer_sync)
@@ -38,7 +38,7 @@ __all__ = ["CoordinatorServer", "DataServer", "EpochMismatch",
            "HeteroTrainer", "split_into_layers",
            "MultiHostExecutor", "ShardTrainer", "build_setup",
            "layer_state_hash", "make_job_spec",
-           "ShardingStrategy", "SPMDExecutor", "spmd",
+           "ShardingStrategy", "SPMDExecutor", "SPMDServer", "spmd",
            "BucketedSync", "BucketExec", "perlayer_global_sumsq",
            "perlayer_sync",
            "Topology", "TransferPlan", "TransferPlanError",

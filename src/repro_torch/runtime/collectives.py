@@ -149,13 +149,14 @@ class Transport:
             return None
         return [o.to(t.device) for o in outs]
 
-    def broadcast(self, t: torch.Tensor, pg, src: int) -> torch.Tensor:
+    def broadcast(self, t: torch.Tensor, pg, src: int,
+                  tag: Optional[str] = None) -> torch.Tensor:
         """Global rank ``src``'s ``t`` on every member."""
         t0 = time.perf_counter()
         buf = self._out("broadcast", t)
         buf = buf.clone() if buf.data_ptr() == t.data_ptr() else buf
         dist.broadcast(buf, src=src, group=pg)
-        self._count("reduced", t, t0)
+        self._count("reduced", t, t0, tag)
         return buf.to(t.device)
 
     def send(self, t: torch.Tensor, dst: int) -> None:

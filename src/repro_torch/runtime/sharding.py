@@ -34,7 +34,10 @@ Handed a ``recorder`` (``launch/opcount.py``), they record the
 collectives the strategy's layout implies where the reference's GSPMD
 program would run them: the dry-run's trace.
 ``shard_tree`` / ``gather_tree`` cut a full tree into this rank's
-shards and put it back together.
+shards and put it back together; ``shard_cache`` / ``gather_cache`` do
+the same for a serving cache, laid out as a rank's decode writes it
+(its rows and, under TP, its heads: ``shard_cache`` says where that
+differs from ``cache_shardings``).
 """
 from __future__ import annotations
 
@@ -335,6 +338,14 @@ class SeqShard:
         ``stat_axis``); its backward sums the cotangents over them."""
         return all_reduce_sum(t, self.ctx.mesh, self.ctx.stat_axis, tag)
 
+    def from_last(self, t: torch.Tensor, tag: str) -> torch.Tensor:
+        """``t`` as the rank holding the sequence's last position has it
+        (the last of the sequence group), on every rank of the group; no
+        gradient."""
+        mesh = self.ctx.mesh
+        pg, ranks = mesh.group(self.ctx.axis)
+        return mesh.transport.broadcast(t.detach(), pg, ranks[-1], tag)
+
 
 def _part(total: int, n: int, r: int) -> Optional[Tuple[int, int]]:
     """Rank r's [lo, hi) of a dimension of ``total`` cut into n equal
@@ -467,6 +478,12 @@ class TPContext:
         """Megatron's *g*: the ranks' parts summed; the cotangent passed
         on."""
         return reduce_from_model(t, self.mesh, self.axis, tag)
+
+    def gather(self, t: torch.Tensor, dim: int, tag: str) -> torch.Tensor:
+        """The model group's ``t`` concatenated along ``dim`` in rank
+        order (each rank's equal part, as the vocabulary rows); its
+        backward reduce-scatters."""
+        return gather_at_use(t, self.mesh, self.axis, dim, tag)
 
     def max(self, t: torch.Tensor, tag: str = "vocab") -> torch.Tensor:
         """The elementwise maximum over the model group, no gradient."""
@@ -626,6 +643,119 @@ def gather_tree(specs: Any, tree: Any, mesh, to_root: bool = False) -> Any:
     if to_root and mesh.rank != 0:
         return None
     return tree_unflatten_like(tree, leaves)
+
+
+# ----------------------------------------------------------------------
+# A rank's serving cache on a ProcessMesh
+# ----------------------------------------------------------------------
+def batch_rows(strategy: ShardingStrategy, mesh, global_batch: int
+               ) -> Tuple[Any, int, int]:
+    """(the axes the batch's rows shard over or None, this rank's first
+    row, its row past the last) under ``batch_spec``: every row where the
+    batch is too small to cut (the ranks of those axes then hold the same
+    rows)."""
+    bspec = strategy.batch_spec(mesh, global_batch)
+    if not bspec:
+        return None, 0, global_batch
+    n = global_batch // mesh.size(bspec[0])
+    i = mesh.axis_index(bspec[0])
+    return bspec[0], i * n, (i + 1) * n
+
+
+def _cache_cuts(arch, strategy: ShardingStrategy, mesh):
+    """{cache leaf: (dimension, [(lo, hi)] of each model rank, the
+    dimension's whole tail every rank holds)} of the head cut under TP
+    (empty elsewhere): the attention's kv heads, the Mamba2 heads' SSM
+    states and their x channels of the conv state (B and C, the conv
+    channels after ``d_inner``, whole on every rank)."""
+    if strategy.tp_context(mesh, arch) is None:
+        return {}
+    n = mesh.size(strategy.model_axis)
+    cuts = {}
+    if arch.num_heads:
+        kv = [tp_heads(arch, n, r)[1] for r in range(n)]
+        cuts["attn/k"] = cuts["attn/v"] = (3, kv, None)
+    if arch.ssm is not None:
+        heads = [ssm_heads(arch, n, r) for r in range(n)]
+        P = arch.ssm.head_dim
+        cuts["mamba/ssm"] = (2, heads, None)
+        cuts["mamba/conv"] = (3, [(lo * P, hi * P) for lo, hi in heads],
+                              _ssm_head_count(arch) * P)
+    return cuts
+
+
+def shard_cache(cache: Any, arch, strategy: ShardingStrategy, mesh,
+                global_batch: int) -> Any:
+    """This rank's part of a one-program serving cache (``Model.init_cache``
+    of the global batch, [L, B, ...] leaves): its rows (``batch_rows``)
+    and, under TP, its heads (``_cache_cuts``).  That is the cache a
+    rank's decode writes, and it differs from ``cache_shardings``'s spec,
+    which cuts the attention cache's head_dim (or, where that does not
+    divide, its kv heads) and the conv channels over ``model`` wherever
+    the rows leave the model axis free: a rank under TP computes whole
+    heads, so it holds whole heads (the same bytes as the spec's shard
+    where the model axis divides the kv heads; more on the ranks with
+    one kv group more where it does not, and less on the others), and
+    the conv's B and C channels, which every rank computes, whole on
+    every rank; under FSDP with rows too few to cover the model axis
+    the model group computes the same rows and each holds them whole."""
+    _, r0, r1 = batch_rows(strategy, mesh, global_batch)
+    cuts = _cache_cuts(arch, strategy, mesh)
+    r = mesh.axis_index(strategy.model_axis)
+
+    def one(path, t):
+        t = t[:, r0:r1]
+        if path in cuts:
+            dim, parts, tail = cuts[path]
+            lo, hi = parts[r]
+            mine = t.narrow(dim, lo, hi - lo)
+            if tail is not None:
+                mine = torch.cat([mine, t.narrow(dim, tail,
+                                                 t.shape[dim] - tail)], dim)
+            t = mine
+        return t.contiguous().clone()
+    return _map_with_path(one, cache)
+
+
+def _gather_parts(t: torch.Tensor, mesh, axis, dim: int, sizes
+                  ) -> torch.Tensor:
+    """The group's parts of ``t`` along ``dim``, of ``sizes`` in rank
+    order, concatenated: each padded to the largest for the gather."""
+    most = max(sizes)
+    if t.shape[dim] < most:
+        pad = list(t.shape)
+        pad[dim] = most - t.shape[dim]
+        t = torch.cat([t, t.new_zeros(pad)], dim)
+    pg, _ = mesh.group(axis)
+    full = mesh.transport.all_gather(t, pg, len(sizes), dim)
+    return torch.cat([full.narrow(dim, i * most, k)
+                      for i, k in enumerate(sizes)], dim)
+
+
+def gather_cache(cache: Any, arch, strategy: ShardingStrategy, mesh,
+                 global_batch: int) -> Any:
+    """One program's serving cache from every rank's part (the inverse
+    of ``shard_cache``), on every rank."""
+    axis, _, _ = batch_rows(strategy, mesh, global_batch)
+    cuts = _cache_cuts(arch, strategy, mesh)
+    r = mesh.axis_index(strategy.model_axis) if cuts else 0
+
+    def one(path, t):
+        if path in cuts:
+            dim, parts, tail = cuts[path]
+            k = parts[r][1] - parts[r][0]
+            whole = _gather_parts(t.narrow(dim, 0, k), mesh,
+                                  strategy.model_axis, dim,
+                                  [hi - lo for lo, hi in parts])
+            if tail is not None:
+                whole = torch.cat([whole, t.narrow(dim, k, t.shape[dim] - k)],
+                                  dim)
+            t = whole
+        if axis is None:
+            return t.clone()
+        return mesh.transport.all_gather(t, mesh.group(axis)[0],
+                                         mesh.size(axis), 1)
+    return _map_with_path(one, cache)
 
 
 def strategy_for(arch, name: str = "fsdp",

@@ -32,6 +32,9 @@ Under TP the Mamba2 mixer runs a rank's whole heads (``models/ssm.py``),
 and heads the model axis does not divide fall as whole kv groups a rank
 (``sharding.tp_heads``); a layout no such placement fits raises
 ``NotImplementedError`` (``check_layout``).
+``SPMDServer`` runs the prefill and decode bundles the same way: a rank
+serves its rows of the global batch with its shards, under the same
+contexts, and holds the cache its decode writes.
 ``recover``/``join`` raise ``ExecutorUnsupported`` by design: one SPMD
 program cannot express a heterogeneous survivor set, so the engine keeps
 the plan consistent and the caller rebinds a ``HeteroTrainer``
@@ -53,11 +56,13 @@ from repro_torch.optim import adamw
 from repro_torch.runtime.collectives import all_reduce_sum, gather_at_use
 from repro_torch.runtime.executor import (Executor, ExecutorUnsupported,
                                           ProgramCache)
-from repro_torch.runtime.sharding import (ShardingStrategy, gather_tree,
-                                          on_ranks, shard_shape, shard_tree,
-                                          sharded_dims, spec_axes,
+from repro_torch.runtime.sharding import (ShardingStrategy, batch_rows,
+                                          gather_cache, gather_tree,
+                                          on_ranks, shard_cache, shard_shape,
+                                          shard_tree, sharded_dims, spec_axes,
                                           spec_leaves, ssm_heads, tp_heads)
-from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
+from repro_torch.utils.tree import (tree_leaves, tree_leaves_with_path,
+                                    tree_map, tree_unflatten_like)
 
 
 def build_model(arch: ArchConfig, strategy: ShardingStrategy, mesh,
@@ -163,6 +168,18 @@ def apply_sharded(cfg: adamw.AdamWConfig, mesh, params, grads: List,
             {"lr": lr, "grad_norm": gnorm})
 
 
+def _at_use(model: Model, mesh, path: str, spec, t: torch.Tensor
+            ) -> torch.Tensor:
+    """A rank's leaf as the model takes it: a non-block leaf (the
+    embedding, the final norm, the head) gathered over the axes its spec
+    cuts, except under TP (``model.tp``), where the model takes its
+    shards; a block leaf as it is (``model.unshard`` gathers it)."""
+    if model.tp is None and not path.startswith("blocks/"):
+        for dim, axis in sharded_dims(spec):
+            t = gather_at_use(t, mesh, axis, dim)
+    return t
+
+
 def build_mesh_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
                           mesh, pspecs: Any, ospecs: Any,
                           batch_axis) -> Callable:
@@ -199,12 +216,8 @@ def build_mesh_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
                             device=labels.device))
         total = all_reduce_sum(cnt, mesh, batch_axis)
         with torch.enable_grad():
-            used = []
-            for (path, spec, _), t in zip(entries, leaves):
-                if model.tp is None and not path.startswith("blocks/"):
-                    for dim, axis in sharded_dims(spec):
-                        t = gather_at_use(t, mesh, axis, dim)
-                used.append(t)
+            used = [_at_use(model, mesh, path, spec, t)
+                    for (path, spec, _), t in zip(entries, leaves)]
             loss, metrics = model.loss(tree_unflatten_like(params, used),
                                        batch)
             obj = loss * (cnt / torch.clamp(total, min=1.0))
@@ -226,16 +239,57 @@ def build_mesh_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     return train_step
 
 
-def build_prefill_step(model: Model) -> Callable:
+def _mesh_params(model: Model, mesh, pspecs, params):
+    """``params`` as the model takes them on a rank (``_at_use``); as
+    they are on one card (no ``pspecs``)."""
+    if pspecs is None:
+        return params
+    return tree_unflatten_like(params, [
+        _at_use(model, mesh, path, spec, t)
+        for path, spec, t in spec_leaves(pspecs, params)])
+
+
+#: the MoE dispatch of a decode step: the reference's dry-run serves MoE
+#: models with the capacity dispatch for prefill and the grouped one for
+#: decode (one token a row)
+DECODE_MOE_IMPL = "grouped"
+
+
+def build_mesh_prefill_step(model: Model, mesh, pspecs: Any) -> Callable:
+    """``prefill_bundle``'s step on one rank of ``mesh``: (this rank's
+    param shards, its rows of the batch) -> its rows of the last
+    position's logits [b, 1, V] over the whole vocabulary (the bundle's
+    out-spec).  ``model`` carries the strategy's hooks (FSDP's
+    ``unshard`` gathers each block's weights at use) and the rank's
+    ``seq`` and ``tp``, as the train program's; the embedding, final
+    norm and head are gathered here except under TP.  Where the
+    sequence shards (a batch too small for the batch axes), the last
+    position's hidden state comes from the rank holding it
+    (``Model.prefill``).  With no mesh and no ``pspecs``: the one-card
+    step, ``Model.prefill`` without gradients."""
     def prefill_step(params, batch):
-        return model.prefill(params, batch["tokens"],
-                             batch.get("frontend_embeds"))
+        with torch.no_grad():
+            return model.prefill(_mesh_params(model, mesh, pspecs, params),
+                                 batch["tokens"],
+                                 batch.get("frontend_embeds"))
     return prefill_step
 
 
-def build_decode_step(model: Model) -> Callable:
+def build_mesh_decode_step(model: Model, mesh, pspecs: Any) -> Callable:
+    """``decode_bundle``'s step on one rank of ``mesh``: (this rank's
+    param shards, its rows' tokens [b, 1], its cache, the position) ->
+    (its rows of the logits [b, 1, V] over the whole vocabulary, its
+    cache, written in place: the torch form of the donated cache).  The
+    rank's cache is its rows and, under TP, its heads
+    (``Model.init_cache``, ``sharding.shard_cache``).  A decode tick
+    shards no sequence (S 1): rows too few for the batch axes stay whole
+    on the ranks that share them, the reference's rule.  With no mesh
+    and no ``pspecs``: the one-card step."""
     def decode_step(params, token, cache, pos):
-        return model.decode_step(params, token, cache, pos)
+        with torch.no_grad():
+            return model.decode_step_(
+                _mesh_params(model, mesh, pspecs, params), token, cache,
+                pos), cache
     return decode_step
 
 
@@ -245,8 +299,10 @@ def build_decode_step(model: Model) -> Callable:
 @dataclasses.dataclass
 class StepBundle:
     """A step function with the specs (``runtime/sharding.py``) of its
-    positional inputs and of its outputs.  The reference's ``.jit`` has
-    no counterpart: the port runs the function as it is."""
+    positional inputs and of its outputs.  What the reference's ``.jit``
+    does with them the port does on ranks: ``SPMDExecutor`` runs the
+    train bundle's function over a ``ProcessMesh``, ``SPMDServer`` the
+    prefill and decode bundles'; ``fn`` is the one-card function."""
 
     fn: Callable
     in_specs: Tuple
@@ -277,7 +333,7 @@ def prefill_bundle(model: Model, strategy: ShardingStrategy, mesh,
     batch_spec: Dict[str, Any] = {"tokens": bspec}
     if model.arch.frontend:
         batch_spec["frontend_embeds"] = bspec
-    return StepBundle(fn=build_prefill_step(model),
+    return StepBundle(fn=build_mesh_prefill_step(model, None, None),
                       in_specs=(pspec, batch_spec),
                       out_specs=(bspec[0] if bspec else None,))
 
@@ -288,7 +344,7 @@ def decode_bundle(model: Model, strategy: ShardingStrategy, mesh,
     pspec = strategy.param_shardings(mesh, params_shape)
     cspec = strategy.cache_shardings(mesh, cache_shape, shape.global_batch)
     bspec = strategy.batch_spec(mesh, shape.global_batch)
-    return StepBundle(fn=build_decode_step(model),
+    return StepBundle(fn=build_mesh_decode_step(model, None, None),
                       in_specs=(pspec, bspec, cspec, ()),
                       out_specs=(bspec, cspec))
 
@@ -450,6 +506,140 @@ class SPMDExecutor(Executor):
         return TrainState(step=int(o.step), params=params,
                           opt_state=adamw.AdamWState(o.step.clone(), m, v),
                           data_state=data_state or {}, rng_seed=rng_seed)
+
+
+class SPMDServer:
+    """The prefill and decode bundles run over a mesh: the counterpart of
+    the reference's ``prefill_bundle(...).jit()`` and
+    ``decode_bundle(...).jit()`` on one rank of a ``ProcessMesh`` (or on
+    one card, without a mesh or on a mesh whose axes all have size 1).
+
+    On a process mesh the rank holds its shards of the params
+    (``param_shardings``) and serves its rows of the global batch
+    ``shape.global_batch`` (``batch_spec``; ``rows`` cuts them): the
+    prefill and decode steps take and return the rank's rows, as the
+    bundles' specs place them (``build_mesh_prefill_step``,
+    ``build_mesh_decode_step``).  The model gets the sequence and
+    tensor-parallel contexts the train program gets
+    (``SPMDExecutor._program``).  A rank's cache is its rows and, under
+    TP, its heads (``init_cache``; ``sharding.shard_cache`` for how it
+    differs from ``cache_shardings``); ``gather_cache`` and
+    ``gather_rows`` put one program's cache and logits together.  Each
+    step is built once into a ``ProgramCache`` under ("spmd-prefill" or
+    "spmd-decode", backend signature, the rank's input shapes, mesh
+    shape, strategy, rank).  The decode steps take the MoE dispatch
+    ``DECODE_MOE_IMPL``, the prefill steps the model's."""
+
+    def __init__(self, model: Model, params: Dict, mesh: Optional[Any] = None,
+                 strategy: Optional[ShardingStrategy] = None,
+                 shape: Optional[ShapeConfig] = None,
+                 cache: Optional[ProgramCache] = None):
+        if mesh is not None:
+            strategy = strategy or ShardingStrategy()
+            check_layout(mesh, strategy, model.arch)
+            if not on_ranks(mesh) and \
+                    any(n != 1 for n in mesh.shape.values()):
+                raise TypeError(
+                    f"SPMDServer over {dict(mesh.shape)}: an AbstractMesh "
+                    f"only describes a layout; run over a ProcessMesh "
+                    f"(launch/mesh.py) to place it on ranks")
+        self.model = model
+        self.mesh = mesh
+        self.strategy = strategy
+        self.global_batch = shape.global_batch if shape is not None else None
+        self.cache = cache or ProgramCache()
+        self.distributed = on_ranks(mesh)
+        if self.distributed:
+            if self.global_batch is None:
+                raise ValueError("SPMDServer on a ProcessMesh needs shape=, "
+                                 "whose global batch lays out the rows")
+            self.pspecs = strategy.param_shardings(mesh, params)
+            gb = self.global_batch
+            self._model = dataclasses.replace(
+                model, unshard=strategy.unshard_blocks(mesh, like=params),
+                constrain=strategy.act_constrainer(mesh, gb),
+                seq=strategy.seq_context(mesh, gb),
+                tp=strategy.tp_context(mesh, model.arch))
+            self.params = shard_tree(self.pspecs, params, mesh)
+        else:
+            self.pspecs, self._model, self.params = None, model, params
+        self.device = tree_leaves(self.params)[0].device
+
+    def rows(self, v):
+        """This rank's rows of a global-batch array (all of them on one
+        card)."""
+        if not self.distributed:
+            return v
+        _, r0, r1 = batch_rows(self.strategy, self.mesh, self.global_batch)
+        return v[r0:r1]
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The global batch's rows of ``t`` from every rank's."""
+        if not self.distributed:
+            return t
+        axis, _, _ = batch_rows(self.strategy, self.mesh, self.global_batch)
+        if axis is None:
+            return t
+        return self.mesh.transport.all_gather(
+            t, self.mesh.group(axis)[0], self.mesh.size(axis), 0)
+
+    def _program(self, kind: str, shapes) -> Callable:
+        mesh = self.mesh
+        key = ("spmd-" + kind, kops.backend_signature(self.device), shapes,
+               tuple(mesh.shape.items()) if mesh is not None else (),
+               self.strategy, mesh.rank if self.distributed else 0)
+        model = self._model
+        if kind == "decode":
+            model = dataclasses.replace(model, moe_impl=DECODE_MOE_IMPL)
+        step = (build_mesh_prefill_step if kind == "prefill"
+                else build_mesh_decode_step)
+        return self.cache.get_or_build(key, lambda: step(model, mesh,
+                                                         self.pspecs))
+
+    @staticmethod
+    def _shapes(tree) -> Tuple:
+        return tuple((p, tuple(t.shape), str(t.dtype))
+                     for p, t in tree_leaves_with_path(tree))
+
+    def prefill(self, batch: Dict) -> torch.Tensor:
+        """This rank's rows of the batch ({"tokens": [b, S], and the
+        frontend's "frontend_embeds"}) -> its rows of the last position's
+        logits [b, 1, V]."""
+        return self._program("prefill", self._shapes(batch))(self.params,
+                                                            batch)
+
+    def init_cache(self, max_len: int) -> Dict:
+        """This rank's empty cache for ``max_len`` positions: its rows of
+        the global batch and, under TP, its heads."""
+        rows = self.global_batch
+        if self.distributed:
+            _, r0, r1 = batch_rows(self.strategy, self.mesh, rows)
+            rows = r1 - r0
+        return self._model.init_cache(rows, max_len, self.device)
+
+    def decode(self, token: torch.Tensor, cache: Dict, pos
+               ) -> Tuple[torch.Tensor, Dict]:
+        """One tick on this rank's rows: (tokens [b, 1], its cache, the
+        position: a scalar or [b]) -> (logits [b, 1, V], its cache,
+        written in place)."""
+        prog = self._program("decode", self._shapes(
+            {"token": token, "cache": cache,
+             "pos": torch.as_tensor(pos)}))
+        return prog(self.params, token, cache, pos)
+
+    def shard_cache(self, cache: Dict) -> Dict:
+        """This rank's part of a one-program cache of the global batch."""
+        if not self.distributed:
+            return cache
+        return shard_cache(cache, self.model.arch, self.strategy, self.mesh,
+                           self.global_batch)
+
+    def gather_cache(self, cache: Dict) -> Dict:
+        """One program's cache from every rank's part, on every rank."""
+        if not self.distributed:
+            return cache
+        return gather_cache(cache, self.model.arch, self.strategy, self.mesh,
+                            self.global_batch)
 
 
 def check_layout(mesh, strategy: ShardingStrategy, arch: ArchConfig

@@ -5,7 +5,14 @@ Each rank of a ``"stage"`` axis of a ``ProcessMesh`` (``launch/mesh.py``)
 owns L/S consecutive blocks of a uniform template (``stage_params``;
 ``L % S == 0``); the embedding, final norm and head are replicated on
 every stage, as in the reference, where they live outside its
-``shard_map``.  The schedule is the reference's: M + S - 1 ticks, and at
+``shard_map``.  Beside other mesh axes (``("stage", "data")``, in either
+order) each coordinate of the other axes is a stage group of its own,
+the ranks sharing that coordinate: every group runs the whole pipeline
+on the same microbatches, as the reference's ``P()`` spec of them makes
+every coordinate do, and everything below happens within a group.  The
+groups' ranks of one stage so hold bitwise-equal parameters after every
+step (the microbatches are not split over the other axes: neither are
+the reference's).  The schedule is the reference's: M + S - 1 ticks, and at
 tick t stage s runs microbatch t - s when there is one.  Stage 0 embeds;
 a stage hands its output to the next with ``collectives.send_hop`` and
 the next takes it with ``recv_hop``; the last stage runs the final norm,
@@ -18,7 +25,8 @@ visits its microbatches from M - 1 down to 0, receiving each cotangent
 from the next stage before sending its own to the previous one (the
 order ``runtime/collectives.py`` writes down).  The gradients of the
 replicated parameters (the embedding on stage 0, the final norm and the
-head on the last stage, a tied head on both) are summed across stages;
+head on the last stage, a tied head on both) are summed across the stage
+group;
 the global-norm clip counts each element once; AdamW steps each stage's
 blocks and the replicated leaves, which stay equal on every stage.
 
@@ -53,12 +61,8 @@ def stack_by_stage(params_blocks, num_stages: int):
 
 
 def _stages(mesh, stage_axis: str) -> Tuple[int, int, Tuple[int, ...]]:
-    """(S, this rank's stage, the stage group's ranks in stage order)."""
-    others = {a: n for a, n in mesh.shape.items() if a != stage_axis}
-    if any(n != 1 for n in others.values()):
-        raise NotImplementedError(
-            f"a pipeline over {dict(mesh.shape)}: stages beside other mesh "
-            f"axes larger than 1 are ROADMAP item 17c")
+    """(S, this rank's stage, its stage group's ranks in stage order):
+    the group of the ranks that share every other coordinate."""
     _, ranks = mesh.group(stage_axis)
     return mesh.size(stage_axis), mesh.axis_index(stage_axis), ranks
 

@@ -1017,6 +1017,107 @@ def tp_rank_on_card(params_np, batches, arch_kw):
             "backend": mesh.backend, "compiles": ex.cache.stats.compiles}
 
 
+#: reduced qwen3 (4 / 4 heads, the tied table vocab-parallel) and hymba
+#: with 10 / 5 heads under a window of 8 (whole kv groups, 3 and 2 a
+#: rank; the ring buffer wraps within the ticks)
+SERVE_ON_CARD = {"qwen3_1_7b": {},
+                 "hymba_1_5b": {"num_heads": 10, "num_kv_heads": 5,
+                                "sliding_window": 8}}
+
+
+def _serve_model(name, kernels):
+    import dataclasses
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import Model
+    arch = dataclasses.replace(reduced(get_arch(name), layers=2),
+                               **SERVE_ON_CARD[name])
+    kw = (dict(attn_impl="kernel", ssd_impl="kernel", fuse="fused")
+          if kernels else dict(attn_impl="naive", ssd_impl="chunked",
+                               fuse="none"))
+    return Model(arch, dtype=torch.float32, remat=False, **kw)
+
+
+def serve_rank_on_card(name, params_np, tokens, ticks):
+    """A rank of the card's 2 x 2 mesh serving under ``strategy="tp"``
+    (run by ``spawn_world``): the prefill through the kernels at the
+    rank's heads, then ``ticks`` teacher-forced decode ticks from an
+    empty cache."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch.mesh import ProcessMesh, init_world
+    from repro_torch.runtime import ShardingStrategy, SPMDServer
+    from repro_torch.utils.device import strict_fp32_numerics
+    dev = init_world("cuda")
+    strict_fp32_numerics()
+    mesh = ProcessMesh(("data", "model"), (2, 2))
+    server = SPMDServer(_serve_model(name, True),
+                        params_from_numpy(params_np, dev), mesh,
+                        ShardingStrategy(strategy="tp"),
+                        ShapeConfig("s", tokens.shape[1], tokens.shape[0],
+                                    "prefill"))
+    build.reset_launches()
+    rows = torch.from_numpy(server.rows(tokens)).to(dev)
+    prefill = server.gather_rows(server.prefill({"tokens": rows})).cpu()
+    launches = dict(build.LAUNCHES)
+    cache = server.init_cache(ticks)
+    logits = []
+    for t in range(ticks):
+        out, cache = server.decode(rows[:, t:t + 1], cache, t)
+        logits.append(server.gather_rows(out).cpu())
+    full = server.gather_cache(cache)
+    return {"prefill": prefill, "decode": torch.stack(logits),
+            "cache": {p: {k: v.cpu() for k, v in leaves.items()}
+                      for p, leaves in full.items()},
+            "launches": launches, "backend": mesh.backend,
+            "compiles": server.cache.stats.compiles}
+
+
+@pytest.mark.parametrize("name", list(SERVE_ON_CARD))
+def test_spmd_server_tp_decode_on_card_tracks_plain_cpu(card, name):
+    """SPMDServer under strategy="tp" over a data 2 x model 2 ProcessMesh
+    of 4 rank processes sharing the card (gloo): the prefill through the
+    flash, fused-QKV, norm (and hymba's SSD) kernels at the rank's heads,
+    and 12 decode ticks at them from an empty cache, against one CPU
+    process's plain model on the same weights: logits and the gathered
+    cache at 1e-4 (every kernel's fp32 tolerance), bitwise equal on
+    every rank, one build a step."""
+    from repro_torch.convert import to_numpy
+    from repro_torch.launch.mesh import spawn_world
+    ticks = 12
+    model = _serve_model(name, False)
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, model.arch.vocab_size, (4, 16),
+                           generator=torch.Generator().manual_seed(3),
+                           dtype=torch.int32)
+    with torch.no_grad():
+        want_prefill = model.prefill(params, tokens)
+        cache = model.init_cache(4, ticks, "cpu")
+        want = torch.stack([model.decode_step_(params, tokens[:, t:t + 1],
+                                               cache, t)
+                            for t in range(ticks)])
+    ranks = spawn_world(f"{__name__}:serve_rank_on_card", 4,
+                        {"name": name, "params_np": to_numpy(params),
+                         "tokens": tokens.numpy(), "ticks": ticks},
+                        device="cuda", timeout=600,
+                        paths=[__file__.rsplit("/", 1)[0]])
+    for r in ranks:
+        assert r["backend"] == "gloo" and r["compiles"] == 2
+        assert torch.equal(r["prefill"], ranks[0]["prefill"])
+        assert torch.equal(r["decode"], ranks[0]["decode"])
+        assert r["launches"]["flash_fwd"] == 2
+        assert r["launches"]["gemm_bias"] == 2
+        assert r["launches"]["add_rmsnorm_fwd"] == 2
+        assert r["launches"]["ssd_fwd"] == (2 if name == "hymba_1_5b" else 0)
+    torch.testing.assert_close(ranks[0]["prefill"], want_prefill,
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ranks[0]["decode"], want, rtol=1e-4,
+                               atol=1e-4)
+    for part, leaves in cache.items():
+        for k, v in leaves.items():
+            torch.testing.assert_close(ranks[0]["cache"][part][k], v,
+                                       rtol=1e-4, atol=1e-4)
+
+
 def test_spmd_tp_over_a_process_mesh_on_card_tracks_plain_cpu(card):
     """SPMDExecutor under strategy="tp" over a data 2 x model 2
     ProcessMesh of 4 rank processes sharing the card (gloo): reduced

@@ -157,7 +157,7 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     assert json.loads(lines[-1]) == record
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "config",
-            "tp_launches", "bf16"}
+            "tp_launches", "serve_launches", "bf16"}
     bf16_keys = {"launches", "max_abs_err", "shape", "ms", "plain_ms",
                  "bound_ms", "bound_by", "library_ms", "config"}
     assert [k["name"] for k in record["kernels"]] == [
@@ -275,6 +275,26 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
                    for ln in lines), name
     assert sum(ln.startswith("[bf16] 20") and "rebound from the snapshot" in ln
                for ln in lines) == 2
+    # phase 21's prefill shard shapes: the kernels a prefill runs, fp32
+    for name, label in (("add_rmsnorm_fwd", "sv-a"), ("gemm_bias", "sv-b"),
+                        ("flash_fwd", "sv-c"), ("ssd_fwd", "sv-b")):
+        assert any(ln.startswith(f"[check] {name}") and f" {label} " in ln
+                   and "float32" in ln for ln in lines), (name, label)
+        assert any(ln.split()[:4] == ["[time]", name, "fwd", label]
+                   and "config" in ln for ln in lines), (name, label)
+    assert not any(ln.startswith("[check] flash_bwd_dq") and " sv-" in ln
+                   for ln in lines)
+    for tag in ("15b: stage 2 x data 2", "data replicas bitwise equal",
+                "15b step seconds"):
+        assert any(ln.startswith("[pipeline]") and tag in ln
+                   for ln in lines), tag
+    for name in ("21a", "21b", "21c"):
+        for tag in ("tokens equal one program's", "bitwise on its ranks",
+                    "= the count from the shapes on every rank",
+                    "vs the spec's shard", "launches a rank",
+                    "of the limit", "the ticks launched no kernel"):
+            assert any(ln.startswith(f"[mesh-serve] {name}") and tag in ln
+                       for ln in lines), (name, tag)
     for name in ("19a", "19b"):            # the mixer's heads a rank
         assert any(ln.startswith(f"[tp] {name}") and "Mamba2 heads (0, 4)"
                    in ln for ln in lines), name
