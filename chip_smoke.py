@@ -264,6 +264,7 @@ PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
 # Printed beside the bound above, which stays the kernels line's
 # bound_ms.
 TENSOR_CORE = ("gemm_bias", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv",
+               "gemm_bias_wgmma", "flash_fwd_wgmma",
                "ssd_fwd", "ssd_bwd")
 TC_PEAK_FLOPS = {"torch.float32": 495e12 / 3, "torch.bfloat16": 989e12}
 
@@ -314,7 +315,39 @@ KERNELS = {   # name -> (TPU kernel it replaces, CUDA source)
     "flash_bwd_dkdv": (f"{FLASH_TPU}:247+:274", FLASH_SOURCE),
     "ssd_fwd": ("src/repro/kernels/ssd.py:54", SSD_SOURCE),
     "ssd_bwd": ("src/repro/kernels/ssd.py:190", SSD_SOURCE),
+    "gemm_bias_wgmma": ("src/repro/kernels/fused.py:167",
+                        "src/repro_torch/kernels/csrc/gemm_wgmma.cu"),
+    "flash_fwd_wgmma": (f"{FLASH_TPU}:101",
+                        "src/repro_torch/kernels/csrc/flash_wgmma.cu"),
 }
+#: the bf16 instances on wgmma and TMA that carry phase 20's QKV
+#: GEMM and flash forward, each beside the kernel whose function, inputs,
+#: tolerances and bound it shares.  The wrapper picks the instance from
+#: its operands (``takes_wgmma``): phases 3-4 hold and time the wgmma
+#: entries at phase 20's shapes, in bf16, and the mma.sync entries at the
+#: other shapes in fp32, and in bf16 where the inputs reach them (rows
+#: TMA cannot read, head dims with no wgmma instance)
+WGMMA = {"gemm_bias_wgmma": "gemm_bias", "flash_fwd_wgmma": "flash_fwd"}
+
+
+def base_of(name):
+    """The kernel whose function ``name`` computes (itself, or the one a
+    wgmma instance shares)."""
+    return WGMMA.get(name, name)
+
+
+def takes_wgmma(name, args):
+    """Whether the wrapper of the QKV GEMM or the flash forward runs its
+    wgmma instance on the call ``args`` (else its mma.sync one)."""
+    from repro_torch.kernels import flash, fused
+    if base_of(name) == "gemm_bias":
+        a, b = args[:2]
+        return fused.gemm_config(
+            a.shape[0], b.shape[1], a.shape[1], a.stride(), b.stride(),
+            a.data_ptr(), b.data_ptr(), a.element_size()).maps is not None
+    return flash.forward_instance(*args[:3], 64) is not None
+
+
 FUSED = ("add_rmsnorm_fwd", "add_rmsnorm_bwd", "gemm_bias")
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
 SSD = ("ssd_fwd", "ssd_bwd")
@@ -486,6 +519,7 @@ def check(cond, msg):
 
 
 def _shapes(table, name):
+    name = base_of(name)
     return table["flash" if name in FLASH else "ssd" if name in SSD else name]
 
 
@@ -495,7 +529,9 @@ def _shapes(table, name):
 def kernel_table(device):
     """name -> (kernel, plain, library or None), all on the same inputs.
     On the CPU (rehearsal) the plain versions stand in for the kernels.
-    The flash entries take the window as their last argument."""
+    The flash entries take the window as their last argument.  The QKV
+    GEMM's and flash forward's wrappers pick their instance from the
+    inputs, so a ``WGMMA`` entry is the same wrapper as its kernel's."""
     import torch
     from repro_torch.kernels import ref
     plain = {
@@ -516,6 +552,9 @@ def kernel_table(device):
     }
     library = {"gemm_bias": lambda a, b, bias: torch.addmm(bias, a, b),
                "flash_fwd": sdpa_forward}
+    for name, of in WGMMA.items():
+        plain[name] = plain[of]
+        library[name] = library[of]
     if device.type == "cpu":
         kern = plain
     else:
@@ -526,6 +565,8 @@ def kernel_table(device):
                 res, w, gres, gh, 1e-6),
             "gemm_bias": fused.gemm_bias,
             "flash_fwd": flash.flash_fwd,
+            "gemm_bias_wgmma": fused.gemm_bias,
+            "flash_fwd_wgmma": flash.flash_fwd,
             "flash_bwd_dq": flash.flash_bwd_dq,
             "flash_bwd_dkdv": flash.flash_bwd_dkdv,
             "ssd_fwd": ssd.ssd_fwd,
@@ -581,6 +622,7 @@ def make_inputs(name, shape, dtype, device, seed, layout="fwd", chunk=None,
     ``draw_on_device`` from one on ``device`` (phase 20's shapes: drawing
     their 50-100 M numbers on the host took most of phases 3-4 there)."""
     import torch
+    name = base_of(name)
     g = torch.Generator(device=device if draw_on_device else "cpu"
                         ).manual_seed(seed)
 
@@ -644,6 +686,7 @@ def _conds(name, args, want, chunk=None):
     positive; the backward with ``magnitudes=True``), at the call's
     chunk."""
     import torch
+    name = base_of(name)
     scales = [None] * len(want)
     if name in SSD:
         from repro_torch.kernels import ref
@@ -740,7 +783,7 @@ TOL_BF16 = {
 def tolerances(name, dtype):
     """Per output: dict(rtol, atol, ctol)."""
     import torch
-    return (TOL_BF16 if dtype == torch.bfloat16 else TOL_FP32)[name]
+    return (TOL_BF16 if dtype == torch.bfloat16 else TOL_FP32)[base_of(name)]
 
 
 def compare(name, kern, plain, args, dtype, chunk=None):
@@ -775,7 +818,7 @@ def compare(name, kern, plain, args, dtype, chunk=None):
 
 
 _FLASH_KERNEL = {"flash_fwd": "fwd", "flash_bwd_dq": "dq",
-                 "flash_bwd_dkdv": "dkdv"}
+                 "flash_bwd_dkdv": "dkdv", "flash_fwd_wgmma": "fwd"}
 
 
 def variants(name, args, dtype, device):
@@ -790,7 +833,7 @@ def variants(name, args, dtype, device):
     if device.type == "cpu":
         return [("resolved", kern, None, True)]
     from repro_torch.kernels import autotune, flash, fused, ssd
-    if name in FLASH:
+    if base_of(name) in FLASH:
         q = args[0]
         k = _FLASH_KERNEL[name]
         kw = "block_k" if k == "dkdv" else "block_q"
@@ -802,7 +845,7 @@ def variants(name, args, dtype, device):
         want = ssd_chunk(args[0], args[3])
         return [(f"chunk={c}", functools.partial(kern, chunk=c), c, c == want)
                 for c in ssd.CHUNKS]
-    if name == "gemm_bias":
+    if base_of(name) == "gemm_bias":
         a, b = args[:2]
         cfg = fused.gemm_config(a.shape[0], b.shape[1], a.shape[1],
                                 a.stride(), b.stride(), a.data_ptr(),
@@ -811,8 +854,8 @@ def variants(name, args, dtype, device):
         legal = (fused.gemm_candidates(a.shape[1], a.element_size())
                  if cfg.vec else [(64, 64, 1)])
         return [(f"{bm}x{bn}/split{sp}",
-                 functools.partial(fused.gemm_bias, choice=(bm, bn, sp)), None,
-                 (bm, bn, sp) == (cfg.bm, cfg.bn, cfg.splits))
+                 functools.partial(fused.gemm_bias, choice=(bm, bn, sp)),
+                 None, (bm, bn, sp) == (cfg.bm, cfg.bn, cfg.splits))
                 for bm, bn, sp in legal]
     if name == "add_rmsnorm_bwd":
         res = args[0]
@@ -837,12 +880,22 @@ def check_kernels(device, table, shapes):
     import torch
     errors, errors_bf16 = {}, {}
     for name, (_, plain, _) in table.items():
-        layouts = ("fwd", "dx", "dW") if name == "gemm_bias" else ("fwd",)
-        for dtype in (torch.float32, torch.bfloat16):
+        layouts = (("fwd", "dx", "dW") if base_of(name) == "gemm_bias"
+                   else ("fwd",))
+        for dtype in ((torch.bfloat16,) if name in WGMMA
+                      else (torch.float32, torch.bfloat16)):
             for label, shape in _shapes(shapes, name):
                 p20 = label in P20_LABELS
                 if p20 and dtype == torch.float32:
                     continue            # phase 20 holds fp32 end to end
+                # phase 20's shapes run the wgmma instances, the others
+                # in bf16 too where TMA reads them, so the mma.sync
+                # entries are held off phase 20's shapes where their
+                # inputs reach them (the card tests hold the wgmma
+                # instances at other shapes)
+                if p20 == (name in WGMMA.values()) and (
+                        name in WGMMA or name in WGMMA.values()):
+                    continue
                 if label in SV_LABELS and (dtype != torch.float32 or
                                            name not in SERVE_KERNELS):
                     continue            # phase 21 prefills in fp32
@@ -851,6 +904,13 @@ def check_kernels(device, table, shapes):
                     first = None
                     base = make_inputs(name, shape, dtype, device, seed=1,
                                        layout=layout, draw_on_device=p20)
+                    if (dtype == torch.bfloat16 and name in WGMMA.values()
+                            and takes_wgmma(name, base)):
+                        continue        # the wgmma instance's input
+                    check(name not in WGMMA or device.type == "cpu"
+                          or takes_wgmma(name, base),
+                          f"{name} {label} {layout}: the inputs do not "
+                          f"reach the wgmma instance")
                     for vlabel, kern, chunk, resolved in variants(
                             name, base, dtype, device):
                         if p20 and not resolved:
@@ -862,7 +922,7 @@ def check_kernels(device, table, shapes):
                                      lambda *a, c=chunk: plain(*a, chunk=c))
                         err, ratio = compare(name, kern, run_plain, args,
                                              dtype, chunk)
-                        if name in FLASH and device.type == "cuda":
+                        if base_of(name) in FLASH and device.type == "cuda":
                             out = _flat(kern(*args))
                             first = first or out
                             check(all(torch.equal(a, b)
@@ -1078,6 +1138,7 @@ def work(name, shape, dtype, chunk=64):
     mask keeps: 2 products in the forward, 3 in dq, 4 in dk/dv; the SSD
     kernels as ``_ssd_work`` at ``chunk``."""
     import torch
+    name = base_of(name)
     s = torch.tensor([], dtype=dtype).element_size()
     if name in SSD:
         nbytes, ops = _ssd_work(name, shape, s, chunk)
@@ -1164,13 +1225,16 @@ def time_kernels(device, table, shapes, iters):
                 continue
             if label in SV_LABELS and name not in SERVE_KERNELS:
                 continue
+            if (label in P20_LABELS) != (name in WGMMA) and (
+                    name in WGMMA or name in WGMMA.values()):
+                continue    # phase 20's shapes run the wgmma instances only
             dtype = torch.bfloat16 if label in P20_LABELS else torch.float32
             dname = "bf16" if dtype == torch.bfloat16 else "fp32"
             # phase 20's shapes: fewer calls of the plain versions (10-50
             # ms a call)
             n = max(2, iters // 5) if label in P20_LABELS else iters
             tc_name = "1 bf16 product" if dname == "bf16" else "3xTF32"
-            cfg = shape_config(backend, name, shape, dtype)
+            cfg = shape_config(backend, base_of(name), shape, dtype)
             args = make_inputs(name, shape, dtype, device, seed=2,
                                draw_on_device=label in P20_LABELS)
             chunk = ssd_chunk(args[0], args[3]) if name in SSD else 64
@@ -1178,7 +1242,8 @@ def time_kernels(device, table, shapes, iters):
             # at phase 20's shapes the profiler's time only where events
             # time the host (the norms) or it splits the phases (the SSD)
             profiled = on_card and (label not in P20_LABELS
-                                    or name not in FLASH + ("gemm_bias",))
+                                    or name not in FLASH + ("gemm_bias",)
+                                    ) and name not in WGMMA
             dev_ms, phases = (device_ms(kern, args, name, iters)
                               if profiled else (None, {}))
             plain_ms = time_ms(plain, args, device, n)
@@ -1204,11 +1269,11 @@ def time_kernels(device, table, shapes, iters):
                   f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}"
                   f"{' (SDPA fwd+bwd - fwd: dq and dk/dv together)' if name in FLASH[1:] else ''}, "
                   f"bound {bms:.4f} ms ({by}){tc}; config "
-                  f"{cfg['fwd'] if name == 'gemm_bias' else cfg}")
+                  f"{cfg['fwd'] if base_of(name) == 'gemm_bias' else cfg}")
             if len(phases) > 1:
                 print(f"[time] {name:16s} phases (profiler device ms): "
                       + ", ".join(f"{k} {v:.4f}" for k, v in phases.items()))
-            if name != "gemm_bias" or label in SV_LABELS:
+            if base_of(name) != "gemm_bias" or label in SV_LABELS:
                 continue
             for layout in ("dx", "dW"):
                 a = make_inputs(name, shape, dtype, device, seed=2,
@@ -3413,6 +3478,17 @@ def forward_launches(want):
             "flash_fwd": want["flash_fwd"], "ssd_fwd": want["ssd_fwd"]}
 
 
+def wgmma_launches(want):
+    """A bf16 run's count: its flash forwards and QKV GEMMs (forward, dx,
+    dW) run the wgmma instances, which every phase 20 shape takes, and
+    their mma.sync instances launch none."""
+    out = dict(want)
+    for name, of in WGMMA.items():
+        if of in out:
+            out[name], out[of] = out[of], 0
+    return out
+
+
 def bf16_engine(arch, seq):
     """The engine of a rebound scenario: phase 13's (5 nodes, f 1, n0 2)
     over phase 20's global batch in microbatches of 1."""
@@ -3599,7 +3675,8 @@ def _bf16_scenario(device, name, batch):
                 losses.append(float(ex.step(data)["loss"]))
                 sync()
                 secs.append(time.perf_counter() - t0)
-        launches = {k: build.LAUNCHES[k] for k in want_l}
+        want = wgmma_launches(want_l) if dtype == "bfloat16" else want_l
+        launches = {k: build.LAUNCHES[k] for k in want}
         check(all(math.isfinite(x) for x in losses)
               and all(b < a for a, b in zip(losses, losses[1:])),
               f"bf16 {name} {dtype} losses {losses}: not finite and falling")
@@ -3610,8 +3687,8 @@ def _bf16_scenario(device, name, batch):
               f"bf16 {name} {dtype} entry calls {entries}, the count's "
               f"forward half {forward_launches(want_l)}")
         if on_card:
-            check(launches == want_l, f"bf16 {name} {dtype} launches "
-                  f"{launches}, counted from the shapes {want_l}")
+            check(launches == want, f"bf16 {name} {dtype} launches "
+                  f"{launches}, counted from the shapes {want}")
         out[dtype] = dict(losses=losses, secs=secs, bind_s=bind_s,
                           held=held, launches=launches, entries=dict(entries),
                           peak=(torch.cuda.max_memory_allocated() if on_card
@@ -4156,7 +4233,7 @@ def kernel_configs(device, shapes, dtype=None, reported=None):
     reported = reported or reported_path
     at = {name: dict(_shapes(shapes, name))[reported(name)]
           for name in KERNELS}
-    return {name: shape_config(backend, name, at[name], dtype)
+    return {name: shape_config(backend, base_of(name), at[name], dtype)
             for name in KERNELS}
 
 
@@ -4336,15 +4413,25 @@ def _phases(device, on_card, shapes, iters, trace20):
     configs = kernel_configs(device, shapes)
     configs_bf16 = kernel_configs(device, shapes, torch.bfloat16,
                                   reported_bf16)
+    def bf16(name):
+        return {"launches": bf16_launches.get(name, 0),
+                **({"max_abs_err": errors_bf16[name]}
+                   if name in errors_bf16 else {}),
+                **timing_bf16.get(name, {}), "config": configs_bf16[name]}
+    # the wgmma instances run on phase 20's path alone, in bf16: their
+    # launches are phase 20's, their numbers those at 20a's shape
     return {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errors[name],
          **timing[name], "config": configs[name],
          "tp_launches": tp_launches.get(name, 0),
          "serve_launches": launches21.get(name, 0),
-         "bf16": {"launches": bf16_launches.get(name, 0),
-                  "max_abs_err": errors_bf16[name], **timing_bf16[name],
-                  "config": configs_bf16[name]}}
+         "bf16": bf16(name)}
+        if name not in WGMMA else
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "dtype": "bfloat16", "path": "phase 20",
+         **{k: v for k, v in bf16(name).items() if k != "config"},
+         "config": configs_bf16[name]}
         for name, (replaces, source) in KERNELS.items()]}
 
 

@@ -142,8 +142,8 @@ def _heuristic(kind: str, backend: str, dtype,
         return {"chunk": 64 if card else min(128, _bucket(seq))}
     if kind == "gemm":
         _, N, K, _ = shape
-        bm, bn, splits = fused.gemm_plan(seq, int(N), int(K),
-                                         _torch_dtype(dtype).itemsize)
+        size = _torch_dtype(dtype).itemsize
+        bm, bn, splits = fused.gemm_plan(seq, int(N), int(K), size)
         return {"block_rows": bm, "block_cols": bn, "splits": splits}
     if kind == "norm":
         return {"rows_per_block": fused.norm_bwd_rows(seq, int(shape[1]))[0]}
@@ -541,7 +541,8 @@ def tune_gemm(backend: str, dtype, M: int, N: int, K: int, layout: str, *,
               persist: bool = True, cache: Optional[AutotuneCache] = None
               ) -> Config:
     """Time every legal (tile, split) of C[M, N] = A.B in ``layout`` with
-    16-byte copies; store the fastest."""
+    16-byte copies (bf16: the wgmma instance's, which such calls run);
+    store the fastest."""
     from repro_torch.kernels import fused, ref
     dev, dt = _device(backend), _torch_dtype(dtype)
     a, b = gemm_operands(M, N, K, layout, dt, dev,

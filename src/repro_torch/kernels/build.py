@@ -63,7 +63,14 @@ SIGNATURES = {
     # gemm_bias: A, B, bias, C, the split's fp32 workspace, M, N, K, the
     # strides of A and B, then fused.gemm_config's tile, split and copies
     "gemm_bias": (_vp,) * 5 + (_int,) * 7 + (_int,) * 7 + (_int, _vp),
+    # gemm_bias_wgmma: A, B, bias, C, the split's workspace, M, N, K,
+    # splits, kchunk, the layouts, the two tensor-map specs (kernels/
+    # tma.py) and the stream
+    "gemm_bias_wgmma": (_vp,) * 5 + (_int,) * 7 + (_vp, _vp, _vp),
     "flash_fwd": (_vp,) * 5 + _FLASH_SHAPE + (_int, _int, _vp),
+    # flash_fwd_wgmma: q, k, v, o, lse, B, Sq, Sk, H, KV, D, window,
+    # scale, the three tensor-map specs, the tile and the stream
+    "flash_fwd_wgmma": (_vp,) * 5 + (_int,) * 7 + (_float, _vp, _int, _vp),
     "flash_bwd_dq": (_vp,) * 7 + _FLASH_SHAPE + (_int,) * 3 + (_int, _int,
                                                                _vp),
     "flash_bwd_dkdv": (_vp,) * 8 + _FLASH_SHAPE + (_int,) * 3 + (_int, _int,

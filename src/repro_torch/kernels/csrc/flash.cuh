@@ -41,9 +41,13 @@
 // zeroed accumulator and promotes it into fp32 registers once per block.
 // The softmax, p and ds are formed on the C fragments in registers; a
 // row's max and sum are reduced over the 4 lanes that hold it, in a
-// fixed order.  mma.sync and not wgmma: wgmma's .tf32 operands must be
-// K-major in shared memory, and these products read Q, dO, K and V both
-// ways; a wgmma/TMA design would transpose them in shared memory first.
+// fixed order.  mma.sync and not wgmma for fp32: wgmma's .tf32 operands
+// must be K-major in shared memory, and these products read Q, dO, K and
+// V both ways; a wgmma/TMA design would transpose them in shared memory
+// first.  bf16 operands wgmma reads in either order: the bf16 forward at
+// head dims 64 and 128 runs flash_wgmma.cu's warp-specialised wgmma + TMA
+// instance wherever TMA reads q, k and v (kernels/flash.py); the
+// backward kernels are next.
 //
 // Plain C interface (extern "C"), loaded with ctypes by kernels/build.py.
 // Every launcher takes the stream it must launch on, allocates nothing,

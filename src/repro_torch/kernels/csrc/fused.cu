@@ -413,7 +413,8 @@ add_rmsnorm_bwd_dw_kernel(const float* __restrict__ partial,
 // 4-stage ring of BK-slices in dynamic shared memory, filled by
 // 16-byte cp.async copies that stay in flight while earlier slices
 // compute (4-byte copies, or plain loads for bf16, where a row is not
-// 16-byte aligned, as at the ragged shapes).  A shared tile keeps the
+// 16-byte aligned, as at the ragged shapes; bf16 is built with those
+// plain loads alone, see below).  A shared tile keeps the
 // global stride-1 dimension, so the four layouts (A K- or M-major, B
 // K- or N-major; the forward, dx and dW use three) are template
 // instances whose padded pitches put every fragment read on 32 banks;
@@ -421,11 +422,14 @@ add_rmsnorm_bwd_dw_kernel(const float* __restrict__ partial,
 // fp32 partials that a second kernel sums in a fixed order with the
 // bias: no atomics, bitwise-equal reruns.  kernels/fused.py::gemm_config
 // picks the tile, the split and the copy width.
-// Why mma.sync and not wgmma + TMA: wgmma takes .tf32 operands only
-// K-major in shared memory, and the forward's W and the dW product's x
-// are MN-major.  A warp-specialised wgmma/TMA design needs them
-// transposed in shared memory first; it is the next step, now that the
-// 3xTF32 numerics hold on the card.
+// Why mma.sync here: wgmma takes .tf32 operands only K-major in shared
+// memory, and the forward's W and the dW product's x are MN-major, so an
+// fp32 wgmma design would transpose them in shared memory first.  bf16
+// operands wgmma takes in either major order, so every bf16 call whose
+// rows allow 16-byte copies runs gemm_wgmma.cu's warp-specialised
+// wgmma + TMA instance (TMA reads exactly such rows); this kernel keeps
+// fp32 and the bf16 calls with element copies (rows not 16-byte
+// aligned), and its bf16 entry refuses 16-byte copies.
 // ---------------------------------------------------------------------
 constexpr int GBK = 32;        // K slice per ring stage = promotion interval
 constexpr int GSTAGES = 4;     // ring depth
@@ -694,8 +698,8 @@ int launch_gemm(const GemmArgs& p, int splits, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// The built tiles: 64 x 64 for every type and copy width, 128 x 128 for
-// fp32 with 16-byte copies (kernels/fused.py::GEMM_TILES).
+// The built tiles: 64 x 64 for every built type and copy width, 128 x 128
+// for fp32 with 16-byte copies (kernels/fused.py::MMA_TILES).
 template <typename T, bool AK, bool BKM, bool VEC>
 int gemm_tile(int bm, int bn, const GemmArgs& p, int splits,
               cudaStream_t s) {
@@ -849,11 +853,10 @@ int gemm_bias(const void* A, const void* B, const void* bias, void* C,
                                           splits, s)
                : gemm_layout<float, false>(a_kmajor, b_kmajor, bm, bn, p,
                                            splits, s);
-  if (dtype == kBF16)
-    return vec ? gemm_layout<__nv_bfloat16, true>(a_kmajor, b_kmajor, bm, bn,
-                                                  p, splits, s)
-               : gemm_layout<__nv_bfloat16, false>(a_kmajor, b_kmajor, bm,
-                                                   bn, p, splits, s);
+  // bf16 with 16-byte copies is gemm_bias_wgmma's (gemm_wgmma.cu)
+  if (dtype == kBF16 && !vec)
+    return gemm_layout<__nv_bfloat16, false>(a_kmajor, b_kmajor, bm, bn, p,
+                                             splits, s);
   return (int)cudaErrorInvalidValue;
 }
 

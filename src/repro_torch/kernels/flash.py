@@ -3,7 +3,10 @@ kernels of ``csrc/flash.cuh`` (entry points in ``csrc/flash.cu``;
 ``ops.FlashAttention`` is their ``torch.autograd.Function``).
 
   * ``flash_fwd``: (out, lse) in one kernel; the [S, S] scores never
-    reach device memory.
+    reach device memory.  In bf16 at head dims 64 and 128, wherever TMA
+    can read q, k and v in place (``tma.flash_maps``), it runs the
+    warp-specialised wgmma instance (``csrc/flash_wgmma.cu``, launched as
+    ``flash_fwd_wgmma``); elsewhere flash.cuh's mma.sync instance.
   * ``flash_bwd_dq`` and ``flash_bwd_dkdv``: the two-pass backward, p
     rebuilt from the saved lse.  dk and dv come from ONE kernel that
     loops the G query heads of each kv head itself, so they are written
@@ -31,12 +34,13 @@ Tiles: the forward and dq take ``block_q``, the rows of their q blocks
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import autotune
+from repro_torch.kernels import autotune, tma
 from repro_torch.kernels.build import check_tensors, current_stream, launch
 
 #: head dims with a template instance in csrc/flash.cuh: the reduced
@@ -48,12 +52,19 @@ KERNELS = ("fwd", "dq", "dkdv")
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
+#: head dims of the bf16 wgmma forward (csrc/flash_wgmma.cu), whose q
+#: tiles are 64 and 128 rows (one or two consumer warpgroups)
+WGMMA_HEAD_DIMS = tuple(tma.FLASH_KV_ROWS)
+
+
 def built(kernel: str, D: int, dtype: torch.dtype, tile: int) -> bool:
     """Whether ``kernel`` ("fwd", "dq", "dkdv") has an instance at head
     dim D, dtype and tile rows (csrc/flash.cuh's ``wide_built``): the
     64-row tile at every ``HEAD_DIMS``; the 128-row one at D 64, and at
     D 128 for the forward and in bf16 (fp32 dq and dk/dv would need
-    270,336 bytes of shared memory, past the 232,448 a block may take)."""
+    270,336 bytes of shared memory, past the 232,448 a block may take).
+    The bf16 forward's wgmma instance builds the same two tiles at
+    ``WGMMA_HEAD_DIMS`` (csrc/flash_wgmma.cu's launcher)."""
     if tile == 64:
         return D in HEAD_DIMS
     return tile == 128 and (D == 64 or (D == 128 and (
@@ -129,15 +140,34 @@ def check_tile(name: str, kernel: str, D: int, dtype: torch.dtype,
                          f"in {dtype} (built: {tiles(kernel, D, dtype)})")
 
 
+def forward_instance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     block_q: int) -> Optional[tma.Spec]:
+    """The tensor-map specs of the wgmma forward for this call, or None
+    for flash.cuh's mma.sync instance: bf16 at ``WGMMA_HEAD_DIMS`` where
+    TMA can read q, k and v in place (``tma.flash_maps``)."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in WGMMA_HEAD_DIMS:
+        return None
+    return tma.flash_maps(q, k, v, block_q)
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               window: int = 0, block_q: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (out [B,Sq,H,D] in q's dtype, lse [B,H,Sq] fp32)."""
+    """Returns (out [B,Sq,H,D] in q's dtype, lse [B,H,Sq] fp32), from the
+    wgmma instance where ``forward_instance`` allows it, else from
+    flash.cuh's."""
     code, B, Sq, Sk, H, KV, D = _check("flash_fwd", q, k, v, window=window)
     block_q = resolve_tiles(q, block_q, 0)[0]
     check_tile("flash_fwd", "fwd", D, q.dtype, block_q)
+    maps = forward_instance(q, k, v, block_q)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if maps is not None:
+        launch("flash_fwd_wgmma", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               out.data_ptr(), lse.data_ptr(), B, Sq, Sk, H, KV, D, window,
+               1.0 / math.sqrt(D), (ctypes.c_longlong * len(maps))(*maps),
+               block_q, current_stream(q))
+        return out, lse
     launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
            out.data_ptr(), lse.data_ptr(), B, Sq, Sk, H, KV, D, window,
            1.0 / math.sqrt(D), *_strides(q), *_strides(k), *_strides(v),

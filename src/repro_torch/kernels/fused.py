@@ -15,7 +15,11 @@
     each call's operand layouts and copy width from the strides and
     addresses, and its tile and split over K through the autotuner
     (``kernels/autotune.py``: a measured table entry, else the planning
-    model ``gemm_plan``; never a clock at run time).
+    model ``gemm_plan``; never a clock at run time).  In bf16, wherever
+    TMA can read both operands (``tma.gemm_maps``), the call runs the
+    warp-specialised wgmma instance (``csrc/gemm_wgmma.cu``, launched as
+    ``gemm_bias_wgmma``), else fused.cu's mma.sync instance with
+    element copies; fp32 always runs fused.cu's.
 
 Every wrapper takes CUDA tensors only and raises on anything else; the
 CPU path never reaches this module (``kernels/ops.py`` routes a CPU
@@ -28,9 +32,11 @@ import dataclasses
 import functools
 from typing import List, Optional, Sequence, Tuple
 
+import ctypes
+
 import torch
 
-from repro_torch.kernels import autotune
+from repro_torch.kernels import autotune, tma
 from repro_torch.kernels.build import check_tensors, current_stream, launch
 
 _DTYPE_OF_SIZE = {4: "float32", 2: "bfloat16"}
@@ -48,8 +54,16 @@ GEMM_BK = 32
 #: built tiles (bm, bn) -> (blocks resident per SM, relative rate of an
 #: SM on that tile): 128 x 128 runs one 8-warp block per SM, 64 x 64 three
 #: 4-warp blocks, each warp with a smaller tile and so more shared loads
-#: per product.  128 x 128 is built for fp32 with 16-byte copies only.
-GEMM_TILES = {(128, 128): (1, 1.0), (64, 64): (3, 0.6)}
+#: per product; 128 x 256 is the bf16 wgmma instance's one tile
+#: (csrc/gemm_wgmma.cu, three warpgroups), the planning model's unit rate
+GEMM_TILES = {(128, 128): (1, 1.0), (64, 64): (3, 0.6), (128, 256): (1, 1.0)}
+#: fused.cu's tiles with 16-byte copies (fp32; bf16 calls with 16-byte
+#: rows run the wgmma instance); its element-copy instance, for rows TMA
+#: cannot read, takes 64 x 64 in both dtypes
+MMA_TILES = ((128, 128), (64, 64))
+#: the wgmma instance's tile and K slice: a split covers whole slices
+WGMMA_TILE = (tma.GEMM_ROWS, tma.GEMM_COLS)
+WGMMA_BK = tma.GEMM_BK
 #: assumed multiply-adds per second of one SM on the 128 x 128 tile,
 #: 3xTF32 (the planning model's unit; only ratios matter)
 _SM_MACS = 4.2e11
@@ -71,12 +85,16 @@ class GemmConfig:
     a_kmajor: bool          # A's K stride is 1 (row-major A)
     b_kmajor: bool          # B's K stride is 1 (B read transposed)
     vec: bool
+    #: the wgmma instance's tensor-map specs of A and B, or None (the
+    #: mma.sync instance)
+    maps: Optional[Tuple[tma.Spec, tma.Spec]] = None
 
 
-def gemm_kchunk(K: int, splits: int) -> int:
-    """K rows per split: whole ``GEMM_BK`` slices."""
+def gemm_kchunk(K: int, splits: int, bk: int = GEMM_BK) -> int:
+    """K rows per split: whole slices of ``bk`` (``GEMM_BK``, or
+    ``WGMMA_BK`` for the wgmma instance)."""
     per_split = -(-K // splits)
-    return -(-per_split // GEMM_BK) * GEMM_BK
+    return -(-per_split // bk) * bk
 
 
 def _vec_ok(unit: int, lead: int, addr: int, itemsize: int) -> bool:
@@ -87,14 +105,14 @@ def _vec_ok(unit: int, lead: int, addr: int, itemsize: int) -> bool:
 
 
 def _gemm_seconds(M: int, N: int, K: int, bm: int, bn: int,
-                  splits: int) -> float:
+                  splits: int, bk: int = GEMM_BK) -> float:
     """Planning model: waves of resident blocks times one block's
     multiply-adds over its SM's share of the rate, plus the second
     pass's bytes and launch when split."""
     occ, rate = GEMM_TILES[(bm, bn)]
     jobs = -(-M // bm) * -(-N // bn) * splits
     waves = -(-jobs // (GEMM_SMS * occ))
-    block_s = occ * bm * bn * gemm_kchunk(K, splits) / (rate * _SM_MACS)
+    block_s = occ * bm * bn * gemm_kchunk(K, splits, bk) / (rate * _SM_MACS)
     reduce_s = (0.0 if splits == 1 else
                 (splits + 1) * M * N * 4 / _HBM_BYTES_PER_S + _LAUNCH_S)
     return waves * block_s + reduce_s
@@ -103,15 +121,16 @@ def _gemm_seconds(M: int, N: int, K: int, bm: int, bn: int,
 @functools.lru_cache(maxsize=None)
 def gemm_candidates(K: int, itemsize: int) -> Tuple[Tuple[int, int, int], ...]:
     """The legal (bm, bn, splits) of a call with 16-byte copies: the
-    built tiles (128 x 128 for fp32 only) and 1-4 splits that each cover
+    built tiles of its instance (fp32: fused.cu's ``MMA_TILES``; bf16:
+    the wgmma instance's ``WGMMA_TILE``) and 1-4 splits that each cover
     a nonempty range of K (the element-copy instance takes 64 x 64 and
     one split alone)."""
+    wgmma = itemsize == 2
+    bk = WGMMA_BK if wgmma else GEMM_BK
     out = []
-    for bm, bn in GEMM_TILES:
-        if (bm, bn) == (128, 128) and itemsize != 4:
-            continue
+    for bm, bn in ([WGMMA_TILE] if wgmma else MMA_TILES):
         for splits in range(1, _MAX_SPLITS + 1):
-            if gemm_kchunk(K, splits) * (splits - 1) >= K:
+            if gemm_kchunk(K, splits, bk) * (splits - 1) >= K:
                 break
             out.append((bm, bn, splits))
     return tuple(out)
@@ -122,8 +141,10 @@ def gemm_plan(M: int, N: int, K: int, itemsize: int) -> Tuple[int, int, int]:
     minimises ``_gemm_seconds``; ties go to the larger tile and the fewer
     splits.  The autotuner's heuristic for a key with no measured
     entry."""
+    bk = WGMMA_BK if itemsize == 2 else GEMM_BK
     return min(gemm_candidates(K, itemsize),
-               key=lambda c: (_gemm_seconds(M, N, K, *c), -c[0] * c[1], c[2]))
+               key=lambda c: (_gemm_seconds(M, N, K, *c, bk), -c[0] * c[1],
+                              c[2]))
 
 
 def gemm_config(M: int, N: int, K: int, a_strides: Sequence[int],
@@ -135,12 +156,14 @@ def gemm_config(M: int, N: int, K: int, a_strides: Sequence[int],
 
     Layouts: A is K-major when its K stride is 1 (else M-major), B when
     its K stride is 1 and its N stride is not (else N-major).  Copies
-    are 16-byte where both operands allow it (``_vec_ok``), else one
-    element each (the 64 x 64 tile, no split).  With 16-byte copies the
-    (tile, split) is ``choice`` where given, else the autotuner's entry
-    for ``backend`` (``autotune.gemm_config_of``), else, with no backend,
-    the planning model ``gemm_plan``; one that is not among
-    ``gemm_candidates`` raises."""
+    are 16-byte where both operands allow it (``_vec_ok``; in bf16 where
+    TMA can read both, ``tma.gemm_maps``, and the call then runs the
+    wgmma instance), else one element each (fused.cu's 64 x 64 tile, no
+    split).  With 16-byte copies the (tile, split) is ``choice`` where
+    given, else the autotuner's entry for ``backend``
+    (``autotune.gemm_config_of``), else, with no backend, the planning
+    model ``gemm_plan``; one that is not among ``gemm_candidates``
+    raises."""
     sam, sak = a_strides
     sbk, sbn = b_strides
     a_kmajor = sak == 1
@@ -149,6 +172,9 @@ def gemm_config(M: int, N: int, K: int, a_strides: Sequence[int],
                    a_addr, itemsize)
            and _vec_ok(sbk if b_kmajor else sbn, sbn if b_kmajor else sbk,
                        b_addr, itemsize))
+    maps = (tma.gemm_maps(M, N, K, a_strides, b_strides, a_addr, b_addr)
+            if itemsize == 2 and vec else None)
+    vec = vec and (itemsize == 4 or maps is not None)
     legal = gemm_candidates(K, itemsize) if vec else ((64, 64, 1),)
     if choice is None and not vec:
         choice = (64, 64, 1)
@@ -164,8 +190,9 @@ def gemm_config(M: int, N: int, K: int, a_strides: Sequence[int],
         raise ValueError(f"gemm_bias: (tile, split) {choice} is not built "
                          f"for this call (one of {legal})")
     bm, bn, splits = choice
-    return GemmConfig(bm, bn, splits, gemm_kchunk(K, splits), a_kmajor,
-                      b_kmajor, vec)
+    bk = GEMM_BK if maps is None else WGMMA_BK
+    return GemmConfig(bm, bn, splits, gemm_kchunk(K, splits, bk), a_kmajor,
+                      b_kmajor, vec, maps)
 
 
 # ----------------------------------------------------------------------
@@ -333,7 +360,8 @@ def gemm_bias(a: torch.Tensor, b: torch.Tensor,
     """C = a.b (+ bias) with an fp32 accumulator, cast to a's dtype.
     a: [M, K], b: [K, N], any strides (a transposed view costs no copy);
     bias: [N] or None.  C is a new contiguous [M, N] tensor.  ``choice``
-    (bm, bn, splits) defaults to the autotuner's (``gemm_config``)."""
+    (bm, bn, splits) defaults to the autotuner's (``gemm_config``, which
+    also picks the instance from the operands)."""
     tensors = (a, b) if bias is None else (a, b, bias)
     code = check_tensors("gemm_bias", *tensors)
     (M, K), (K2, N) = a.shape, b.shape
@@ -348,12 +376,19 @@ def gemm_bias(a: torch.Tensor, b: torch.Tensor,
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
     ws = (torch.empty((cfg.splits, M, N), dtype=torch.float32,
                       device=a.device) if cfg.splits > 1 else None)
-    launch("gemm_bias", a.data_ptr(), b.data_ptr(),
-           None if bias is None else bias.data_ptr(), c.data_ptr(),
-           None if ws is None else ws.data_ptr(),
-           M, N, K, a.stride(0), a.stride(1), b.stride(0), b.stride(1),
-           cfg.bm, cfg.bn, cfg.splits, cfg.kchunk, int(cfg.a_kmajor),
-           int(cfg.b_kmajor), int(cfg.vec), code, current_stream(a))
+    ptrs = (a.data_ptr(), b.data_ptr(),
+            None if bias is None else bias.data_ptr(), c.data_ptr(),
+            None if ws is None else ws.data_ptr())
+    if cfg.maps is not None:
+        a_map, b_map = ((ctypes.c_longlong * len(m))(*m) for m in cfg.maps)
+        launch("gemm_bias_wgmma", *ptrs, M, N, K, cfg.splits, cfg.kchunk,
+               int(cfg.a_kmajor), int(cfg.b_kmajor), a_map, b_map,
+               current_stream(a))
+        return c
+    launch("gemm_bias", *ptrs, M, N, K, a.stride(0), a.stride(1), b.stride(0),
+           b.stride(1), cfg.bm, cfg.bn, cfg.splits, cfg.kchunk,
+           int(cfg.a_kmajor), int(cfg.b_kmajor), int(cfg.vec), code,
+           current_stream(a))
     return c
 
 

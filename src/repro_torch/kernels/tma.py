@@ -1,0 +1,115 @@
+"""Tensor maps of the wgmma kernels (``csrc/gemm_wgmma.cu``,
+``csrc/flash_wgmma.cu``), computed on the host.
+
+A kernel reads an operand through a TMA tensor map that the C entry
+point encodes (``csrc/hopper.cuh::encode_map``, libcuda's
+``cuTensorMapEncodeTiled``: bf16, 128-byte swizzle, out-of-bounds
+elements as 0) from a spec computed here: the dims (innermost first),
+the strides in bytes of dims 1.., and the box the kernel copies.  The
+rules a spec must keep (``cuTensorMapEncodeTiled``'s documentation):
+the base 16-byte aligned; every dim in [1, 2^32]; every stride a
+positive multiple of 16 below 2^40; every box dim in [1, 256]; the box's
+inner extent a multiple of 16 bytes and, under the 128-byte swizzle, at
+most 128.  ``spec`` returns None for a call that breaks one, and the
+wrappers then take the mma.sync instances (``kernels/fused.py``,
+``kernels/flash.py``).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional, Sequence, Tuple
+
+#: bytes of an element (bf16: the wgmma kernels' only dtype)
+ITEMSIZE = 2
+#: elements of the box's inner extent: one 128-byte swizzle row
+INNER = 128 // ITEMSIZE
+#: the rows and columns of C a GEMM block computes and its K slice
+#: (gemm_wgmma.cu WBM, WBN, WBK)
+GEMM_ROWS, GEMM_COLS, GEMM_BK = 128, 256, 64
+
+Spec = Tuple[int, ...]
+
+
+def spec(dims: Sequence[int], strides: Sequence[int], box: Sequence[int],
+         addr: int) -> Optional[Spec]:
+    """(dims..., strides..., box...) of a legal map, else None.  dims and
+    box innermost first; strides in bytes, of dims 1.. (one fewer)."""
+    dims, strides, box = tuple(dims), tuple(strides), tuple(box)
+    if (addr % 16 or len(strides) != len(dims) - 1 or len(box) != len(dims)
+            or not all(1 <= d <= 2 ** 32 for d in dims)
+            or not all(0 < s < 2 ** 40 and s % 16 == 0 for s in strides)
+            or not all(1 <= b <= 256 for b in box)
+            or (box[0] * ITEMSIZE) % 16 or box[0] * ITEMSIZE > 128):
+        return None
+    return dims + strides + box
+
+
+def gemm_maps(M: int, N: int, K: int, a_strides: Sequence[int],
+              b_strides: Sequence[int], a_addr: int, b_addr: int
+              ) -> Optional[Tuple[Spec, Spec]]:
+    """The specs of A [M, K] and B [K, N] (strides in elements, as the
+    [M, K] and [K, N] views) for ``gemm_bias_wgmma``, or None.  A K-major
+    operand (its K stride 1) is one box of 64 K by the tile's rows (A) or
+    columns (B); an M- or N-major one boxes of 64 of its stride-1 dim by
+    64 K (the kernel issues the others at +64, +128, ...)."""
+    sam, sak = a_strides
+    sbk, sbn = b_strides
+    if sak == 1:
+        a = spec((K, M), (sam * ITEMSIZE,), (INNER, GEMM_ROWS), a_addr)
+    elif sam == 1:
+        a = spec((M, K), (sak * ITEMSIZE,), (INNER, GEMM_BK), a_addr)
+    else:
+        return None
+    if sbk == 1 and sbn != 1:
+        b = spec((K, N), (sbn * ITEMSIZE,), (INNER, GEMM_COLS), b_addr)
+    elif sbn == 1:
+        b = spec((N, K), (sbk * ITEMSIZE,), (INNER, GEMM_BK), b_addr)
+    else:
+        return None
+    return None if a is None or b is None else (a, b)
+
+
+#: head dims of the wgmma flash forward and its kv rows a stage
+#: (flash_wgmma.cu FwGeom::BK)
+FLASH_KV_ROWS = {64: 128, 128: 64}
+
+
+def flash_map(shape: Sequence[int], strides: Sequence[int], addr: int,
+              rows: int) -> Optional[Spec]:
+    """The spec of one attention operand [B, S, heads, D] (strides in
+    elements, the head dim dense): dims (D, heads, S, B), a box of 64
+    columns of one head's ``rows`` positions (the kernel issues one a 64
+    columns of D)."""
+    B, S, heads, D = shape
+    if strides[3] != 1:
+        return None
+    return spec((D, heads, S, B),
+                tuple(s * ITEMSIZE for s in (strides[2], strides[1],
+                                             strides[0])),
+                (INNER, 1, rows, 1), addr)
+
+
+def flash_maps(q, k, v, tile: int) -> Optional[Spec]:
+    """The three specs of q, k and v (tensors, or anything with
+    ``shape``, ``stride()`` and ``data_ptr()``) for ``flash_fwd_wgmma``
+    at q tile ``tile``, concatenated, or None where a head dim has no
+    instance or a map is illegal."""
+    return _flash_maps(tuple((tuple(t.shape), tuple(t.stride()),
+                              t.data_ptr() % 16) for t in (q, k, v)), tile)
+
+
+@functools.lru_cache(maxsize=1024)
+def _flash_maps(operands, tile: int) -> Optional[Spec]:
+    # cached by shapes, strides and the bases' alignment (the specs hold
+    # no address): the wrapper's host time a call
+    D = operands[0][0][-1]
+    if D not in FLASH_KV_ROWS:
+        return None
+    out = ()
+    for (shape, strides, misalign), rows in zip(
+            operands, (tile, FLASH_KV_ROWS[D], FLASH_KV_ROWS[D])):
+        s = flash_map(shape, strides, misalign, rows)
+        if s is None:
+            return None
+        out += s
+    return out

@@ -25,8 +25,12 @@ its own step functions under FakeTensorMode (``launch/opcount.py``):
     whole).  Decode runs on a cache at the local batch (under FSDP with
     its whole head_dim: the cache is an argument, its bytes come from the
     specs, and the scores it gives are the same).  The train trace is the loss and its
-    backward: the optimizer's update runs in place on the donated state
-    and holds no more than one leaf's temporaries;
+    backward; the optimizer's update runs in place on the donated state,
+    a piece at a time (``spmd.apply_sharded``), and its temporaries,
+    ``spmd.UPDATE_COPIES`` fp32 copies of the largest piece of a
+    device's leaves (``spmd.update_temp_bytes``: the largest row of any
+    leaf, one block slice of the largest stacked leaf), are added to the
+    trace's peak;
   * collectives: recorded at the strategy's hooks in the per-device
     trace, plus the gradients' all-reduce over the data axes; priced per
     group on NVLink or the network (``launch/mesh.py``);
@@ -335,6 +339,8 @@ def analyze(arch: ArchConfig, shape: ShapeConfig, mesh,
              "collective_s": dstats.collective_seconds}
     bottleneck = max(terms, key=terms.get).replace("_s", "")
     temps = dstats.peak_bytes
+    if shape.kind == "train":
+        temps += spmd.update_temp_bytes([t.shape for t in tree_leaves(lp)])
     mf = model_flops(arch, shape)
     return {
         "chips": chips, "trace_s": round(trace_s, 1),

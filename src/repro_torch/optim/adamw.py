@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -67,25 +67,42 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
-def update(cfg: AdamWConfig, params, grads, state: AdamWState
+def step_scalars(cfg: AdamWConfig, step: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(lr, bc1, bc2) of the step after ``step``: the schedule's rate and
+    the two bias corrections."""
+    step = step + 1
+    return (schedule(cfg, step), 1 - cfg.beta1 ** step.float(),
+            1 - cfg.beta2 ** step.float())
+
+
+def update(cfg: AdamWConfig, params, grads, state: AdamWState,
+           decay: Optional[Sequence[bool]] = None,
+           scalars: Optional[Tuple[torch.Tensor, ...]] = None
            ) -> Tuple[Any, AdamWState, torch.Tensor]:
     """One AdamW step on already-clipped fp32 grads (no norm computed):
     returns (new params, new state, lr).  Out of place: the caller
-    replaces its tensors with the returned ones."""
+    replaces its tensors with the returned ones.  ``decay``, one flag a
+    leaf in ``tree_leaves`` order, says which leaves take weight decay;
+    by default those with ndim >= 2 (a caller stepping a piece of a leaf
+    passes the whole leaf's rule).  ``scalars``: ``step_scalars(cfg,
+    state.step)``, where a caller stepping many pieces computed them
+    once."""
     step = state.step + 1
-    lr = schedule(cfg, step)
+    lr, bc1, bc2 = scalars or step_scalars(cfg, state.step)
     b1, b2 = cfg.beta1, cfg.beta2
     m = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.m, grads)
     v = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state.v, grads)
-    bc1 = 1 - b1 ** step.float()
-    bc2 = 1 - b2 ** step.float()
+
+    flags = iter(decay if decay is not None else
+                 [p.ndim >= 2 for p in tree_leaves(params)])
 
     def upd(p, m, v):
         mhat = m / bc1
         vhat = v / bc2
         delta = mhat / (torch.sqrt(vhat) + cfg.eps)
         p32 = p.float()
-        if p.ndim >= 2:
+        if next(flags):
             delta = delta + cfg.weight_decay * p32
         return (p32 - lr * delta).to(p.dtype)
 

@@ -43,6 +43,7 @@ the plan consistent and the caller rebinds a ``HeteroTrainer``
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -113,22 +114,69 @@ def _zero1_dim(pspec, ospec):
     return None
 
 
+#: fp32 temporaries one ``adamw.update`` call holds at its peak, in
+#: copies of the piece it steps (the new m and v, m-hat, v-hat, the root,
+#: delta, the decay term, the new parameter): what ``launch/dryrun.py``
+#: adds to a train step's temps (``update_temp_bytes``)
+UPDATE_COPIES = 8
+
+
+def update_pieces(shapes) -> List[List[Tuple[int, int]]]:
+    """Per leaf, the dim-0 row ranges [r0, r1) ``apply_sharded`` steps it
+    in: ranges of as many rows as fit ``cap`` elements, the largest row
+    (``prod(shape[1:])``) of any leaf, at least one row.  A block leaf
+    stacked over the depth with the largest row is stepped one block
+    slice at a time, a small one (an [L, d] norm scale) and every leaf
+    no larger than ``cap`` whole, the embedding in ranges of its
+    vocabulary rows; a scalar whole."""
+    shapes = [tuple(s) for s in shapes]
+    rows = [max(1, math.prod(s[1:])) for s in shapes]
+    cap = max((r for s, r in zip(shapes, rows) if s), default=1)
+    out = []
+    for s, r in zip(shapes, rows):
+        if not s:
+            out.append([(0, 0)])
+            continue
+        step = max(1, cap // r)
+        out.append([(r0, min(r0 + step, s[0])) for r0 in range(0, s[0], step)]
+                   or [(0, 0)])
+    return out
+
+
+def update_temp_bytes(shapes) -> int:
+    """Bytes of the update's temporaries at their peak: ``UPDATE_COPIES``
+    fp32 copies of the largest piece ``update_pieces`` steps."""
+    largest = max((max(r1 - r0, 1) * math.prod(tuple(s)[1:])
+                   for s, ranges in zip(shapes, update_pieces(shapes))
+                   for r0, r1 in ranges), default=0)
+    return UPDATE_COPIES * 4 * largest
+
+
 def apply_sharded(cfg: adamw.AdamWConfig, mesh, params, grads: List,
                   state: adamw.AdamWState, pspecs: List, ospecs: List):
     """``adamw.apply`` on this rank's shards, written into ``params``
-    and the moments in place, leaf by leaf, with each gradient dropped
-    from ``grads`` (a list in ``tree_leaves(params)`` order) once used:
-    the update holds one leaf's temporaries at a time, as the
-    reference's donated program does, not a second copy of the state.
-    ``pspecs``/``ospecs`` are the leaves' param and moment specs; with
-    every leaf replicated ``mesh`` may be None (one card) and the
-    arithmetic is ``adamw.apply``'s, element for element.
+    and the moments in place, piece by piece, with each gradient dropped
+    from ``grads`` (a list in ``tree_leaves(params)`` order) once used.
+    A block leaf is stacked over the depth, so a whole leaf's
+    temporaries are ``UPDATE_COPIES`` copies of every block's weight:
+    each leaf is stepped in the dim-0 pieces of ``update_pieces`` (the
+    largest stacked leaves one block slice at a time, smaller leaves in
+    as few pieces as fit one such slice), each piece's new m, v and
+    parameter written back into their slices, so at most one piece's
+    temporaries live at once (``update_temp_bytes``, which the dry-run
+    adds to a train step's temps).  Weight decay follows the whole
+    leaf's rule (ndim >= 2), not the piece's.  ``pspecs``/``ospecs`` are
+    the leaves' param and moment specs; with every leaf replicated
+    ``mesh`` may be None (one card).  The arithmetic is elementwise with
+    scalar bias corrections, so the result is ``adamw.apply``'s, bit for
+    bit.
 
     The global norm counts each element once: the squares of the leaves
     sharded over the same axes are summed over those axes, a replicated
     leaf's once.  A moment ZeRO-1 shards further is stepped on its slice
-    of the parameter, whose update is then all-gathered over the data
-    axes.  Returns (the new state, {"lr", "grad_norm"})."""
+    of the parameter, whose update is assembled piece by piece into one
+    buffer and then all-gathered over the data axes.  Returns (the new
+    state, {"lr", "grad_norm"})."""
     parts: Dict[Tuple[str, ...], torch.Tensor] = {}
     for g, spec in zip(grads, pspecs):
         axes = spec_axes(mesh, spec)
@@ -141,29 +189,41 @@ def apply_sharded(cfg: adamw.AdamWConfig, mesh, params, grads: List,
     gnorm = torch.sqrt(total)
     scale = (torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                          max=1.0) if cfg.clip_norm else None)
-    lr = adamw.schedule(cfg, state.step + 1)
-    for i, (p, m, v) in enumerate(zip(tree_leaves(params),
-                                      tree_leaves(state.m),
+    scalars = adamw.step_scalars(cfg, state.step)
+    lr = scalars[0]
+    leaves = tree_leaves(params)
+    zs = [_zero1_dim(ps, os) for ps, os in zip(pspecs, ospecs)]
+    # the pieces are cut from what is stepped: the ZeRO-1 slice where
+    # the moment narrows the parameter
+    shapes = [m.shape for m in tree_leaves(state.m)]
+    pieces = update_pieces(shapes)
+    for i, (p, m, v) in enumerate(zip(leaves, tree_leaves(state.m),
                                       tree_leaves(state.v))):
-        g, grads[i] = grads[i].float(), None
-        if scale is not None:
-            g = g * scale.to(g.dtype)
-        z = _zero1_dim(pspecs[i], ospecs[i])
-        p_sl = p
+        g_all, grads[i] = grads[i], None
+        z, p_sl = zs[i], p
         if z is not None:
             dim, axis = z
             n = p.shape[dim] // group_size(mesh, axis)
             p_sl = p.narrow(dim, mesh.axis_index(axis) * n, n)
-            g = g.narrow(dim, mesh.axis_index(axis) * n, n)
-        (p2,), st, _ = adamw.update(cfg, [p_sl], [g],
-                                    adamw.AdamWState(state.step, [m], [v]))
-        m.copy_(st.m[0])
-        v.copy_(st.v[0])
-        if z is None:
-            p.copy_(p2)
-        else:
+            g_all = g_all.narrow(dim, mesh.axis_index(axis) * n, n)
+        new = p if z is None else torch.empty_like(p_sl)
+        for r0, r1 in pieces[i]:
+            cut = ((lambda t: t) if p_sl.ndim == 0 else
+                   (lambda t, r0=r0, r1=r1: t.narrow(0, r0, r1 - r0)))
+            g = cut(g_all).float()
+            if scale is not None:
+                g = g * scale.to(g.dtype)
+            (p2,), st, _ = adamw.update(
+                cfg, [cut(p_sl)], [g],
+                adamw.AdamWState(state.step, [cut(m)], [cut(v)]),
+                decay=[p.ndim >= 2], scalars=scalars)
+            cut(m).copy_(st.m[0])
+            cut(v).copy_(st.v[0])
+            cut(new).copy_(p2)
+        if z is not None:
+            dim, axis = z
             p.copy_(mesh.transport.all_gather(
-                p2, mesh.group(axis)[0], group_size(mesh, axis), dim))
+                new, mesh.group(axis)[0], group_size(mesh, axis), dim))
     return (adamw.AdamWState(state.step + 1, state.m, state.v),
             {"lr": lr, "grad_norm": gnorm})
 

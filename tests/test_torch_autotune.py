@@ -311,16 +311,19 @@ def test_ops_ssd_default_chunk_matches_the_jax_package(tmp_path, monkeypatch,
 def _parent_gemm_choice(M, N, K, itemsize):
     """The GEMM's (tile, split) as the kernels chose it before the
     autotuner: the planning model's minimum over the built tiles and 1-4
-    nonempty splits, ties to the larger tile and the fewer splits."""
+    nonempty splits, ties to the larger tile and the fewer splits.  In
+    bf16 the tiles are those of the instance an aligned call runs: the
+    wgmma one's 128 x 256 over 64-wide K slices."""
+    wgmma = itemsize == 2
+    bk = fused.WGMMA_BK if wgmma else fused.GEMM_BK
+    tiles = [fused.WGMMA_TILE] if wgmma else fused.MMA_TILES
     best = None
-    for bm, bn in fused.GEMM_TILES:
-        if (bm, bn) == (128, 128) and itemsize != 4:
-            continue
+    for bm, bn in tiles:
         for splits in range(1, 5):
-            kchunk = fused.gemm_kchunk(K, splits)
+            kchunk = fused.gemm_kchunk(K, splits, bk)
             if kchunk * (splits - 1) >= K:
                 break
-            key = (fused._gemm_seconds(M, N, K, bm, bn, splits), -bm * bn,
+            key = (fused._gemm_seconds(M, N, K, bm, bn, splits, bk), -bm * bn,
                    splits)
             if best is None or key < best[0]:
                 best = (key, (bm, bn, splits))
@@ -401,9 +404,12 @@ def test_resolved_configs_are_legal_and_illegal_ones_raise(fresh):
         elif kind == "norm":
             M, d = autotune._seq_of(dims[0]), int(dims[1])
             assert cfg["rows_per_block"] in fused.norm_rows_candidates(M, d)
-    with pytest.raises(ValueError, match="not built"):
+    with pytest.raises(ValueError, match="not built"):   # bf16: the wgmma
         fused.gemm_config(4096, 3072, 1024, (1024, 1), (3072, 1), 0, 0, 2,
-                          choice=(128, 128, 1))
+                          choice=(64, 64, 1))
+    with pytest.raises(ValueError, match="not built"):   # ... or fused.cu's
+        fused.gemm_config(4096, 3072, 999, (999, 1), (3072, 1), 0, 0, 2,
+                          choice=(128, 256, 1))
     with pytest.raises(ValueError, match="not built"):
         fused.gemm_config(64, 64, 32, (32, 1), (64, 1), 0, 0, 4,
                           choice=(64, 64, 2))

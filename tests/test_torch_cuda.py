@@ -565,7 +565,8 @@ def test_eager_walker_matches_compiled_on_card(card):
             te.recover({victim})
         assert torch.equal(_drive(tc, dc)["loss"], _drive(te, de)["loss"])
     assert all(build.LAUNCHES[k] > 0 for k in build.LAUNCHES
-               if not k.startswith("ssd")), build.LAUNCHES
+               if not k.startswith("ssd") and not k.endswith("_wgmma")
+               ), build.LAUNCHES
     for a, b in zip(tree_leaves(tc.full_params()),
                     tree_leaves(te.full_params())):
         assert torch.equal(a, b)
@@ -865,7 +866,8 @@ def test_multihost_workers_on_card_are_bitwise_through_a_sigkill(card):
         assert mh.replica_divergence() == 0
     launched = counts[0]["launches"]
     assert all(launched[k] > 0 for k in launched
-               if not k.startswith("ssd")), launched
+               if not k.startswith("ssd") and not k.endswith("_wgmma")
+               ), launched
 
 
 def test_spmd_executor_with_kernels_tracks_plain_cpu(card):
@@ -900,7 +902,8 @@ def test_spmd_executor_with_kernels_tracks_plain_cpu(card):
         lg, lc = gpu.step(batch)["loss"], cpu.step(batch)["loss"]
         torch.testing.assert_close(lg.cpu(), lc, rtol=5e-4, atol=5e-7)
     assert all(build.LAUNCHES[k] > 0 for k in build.LAUNCHES
-               if not k.startswith("ssd")), build.LAUNCHES
+               if not k.startswith("ssd") and not k.endswith("_wgmma")
+               ), build.LAUNCHES
     for a, b in zip(tree_leaves(gpu.params), tree_leaves(cpu.params)):
         diff = (a.cpu() - b).abs()
         assert diff.max() <= 2.5 * lr, diff.max()
@@ -977,7 +980,8 @@ def test_spmd_executor_over_a_process_mesh_on_card_tracks_plain_cpu(card):
         assert r["losses"] == ranks[0]["losses"]
         np.testing.assert_allclose(r["losses"], want, rtol=5e-4, atol=5e-7)
         assert all(r["launches"][k] > 0 for k in r["launches"]
-                   if not k.startswith("ssd")), r["launches"]
+                   if not k.startswith("ssd") and not k.endswith("_wgmma")
+                   ), r["launches"]
     for a, b in zip(tree_leaves(ranks[0]["params"]), tree_leaves(cpu.params)):
         diff = (a - b).abs()
         assert diff.max() <= 2.5 * lr, diff.max()
@@ -1161,7 +1165,8 @@ def test_spmd_tp_over_a_process_mesh_on_card_tracks_plain_cpu(card):
         assert r["losses"] == ranks[0]["losses"]
         np.testing.assert_allclose(r["losses"], want, rtol=5e-4, atol=5e-7)
         assert all(r["launches"][k] > 0 for k in r["launches"]
-                   if not k.startswith("ssd")), r["launches"]
+                   if not k.startswith("ssd") and not k.endswith("_wgmma")
+                   ), r["launches"]
     for a, b in zip(tree_leaves(ranks[0]["params"]), tree_leaves(cpu.params)):
         diff = (a - b).abs()
         assert diff.max() <= 2.5 * lr, diff.max()
@@ -1318,9 +1323,8 @@ def test_gemm_every_tile_and_split_matches_plain(card, layout):
         cands = fused.gemm_candidates(args[0].shape[1], args[0].element_size())
         assert len(cands) == (8 if dtype == torch.float32 else 4)
         for choice in cands:
-            cs.compare("gemm_bias", functools.partial(fused.gemm_bias,
-                                                      choice=choice),
-                       plain, args, dtype)
+            cs.compare("gemm_bias", functools.partial(
+                fused.gemm_bias, choice=choice), plain, args, dtype)
 
 
 def test_norm_every_row_partition_matches_plain(card):
@@ -1334,3 +1338,127 @@ def test_norm_every_row_partition_matches_plain(card):
                 cs.compare("add_rmsnorm_bwd",
                            lambda *a, n=n: fused.add_rmsnorm_bwd(
                                *a, 1e-6, rows_per_block=n), plain, args, dtype)
+
+
+# ----------------------------------------------------------------------
+# The bf16 wgmma instances (csrc/gemm_wgmma.cu, csrc/flash_wgmma.cu)
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("M,K,N", [(300, 200, 264), (8, 64, 8),
+                                   (129, 72, 136), (1000, 1000, 3000)],
+                         ids=["ragged", "one-block", "edges", "wide"])
+@pytest.mark.parametrize("layout", ["fwd", "dx", "dW"])
+def test_gemm_wgmma_matches_plain_at_ragged_edges(card, M, K, N, layout):
+    """The wgmma GEMM at every split against the plain product (bf16
+    tolerance, a bitwise rerun), where M, N and K are not whole tiles or
+    K slices (multiples of 8: TMA's 16-byte rows), in each layout; the
+    mma.sync instance launches none."""
+    import functools
+    cs = _chip_smoke()
+    args = cs.make_inputs("gemm_bias", (M, K, N), torch.bfloat16, card,
+                          seed=21, layout=layout)
+    build.reset_launches()
+    for choice in fused.gemm_candidates(args[0].shape[1], 2):
+        cs.compare("gemm_bias_wgmma", functools.partial(
+            fused.gemm_bias, choice=choice), ref.matmul_bias_ref, args,
+            torch.bfloat16)
+    assert build.LAUNCHES["gemm_bias_wgmma"] > 0, build.LAUNCHES
+    assert build.LAUNCHES["gemm_bias"] == 0, build.LAUNCHES
+
+
+def test_gemm_dispatch_takes_the_wgmma_instance_where_tma_reads(card):
+    """bf16 with 16-byte rows: the wgmma instance; rows of 999 elements:
+    the mma.sync instance with element copies, and a tile of the wgmma
+    one raises there; fp32: the mma.sync instance.  fused.cu's bf16
+    entry refuses 16-byte copies (those calls are the wgmma
+    instance's)."""
+    cs = _chip_smoke()
+    for shape, dtype, launcher in (
+            ((256, 1024, 512), torch.bfloat16, "gemm_bias_wgmma"),
+            ((256, 999, 512), torch.bfloat16, "gemm_bias"),
+            ((256, 1024, 512), torch.float32, "gemm_bias")):
+        args = cs.make_inputs("gemm_bias", shape, dtype, card, seed=22)
+        build.reset_launches()
+        cs.compare("gemm_bias", fused.gemm_bias, ref.matmul_bias_ref, args,
+                   dtype)
+        assert build.LAUNCHES[launcher] == 2, (shape, build.LAUNCHES)
+    x, w, b = cs.make_inputs("gemm_bias", (256, 999, 512), torch.bfloat16,
+                             card, seed=22)
+    with pytest.raises(ValueError, match="not built"):
+        fused.gemm_bias(x, w, b, choice=(128, 256, 1))
+    x, w, b = cs.make_inputs("gemm_bias", (256, 1024, 512), torch.bfloat16,
+                             card, seed=22)
+    c = torch.empty(256, 512, dtype=torch.bfloat16, device=card)
+    build.reset_launches()
+    with pytest.raises(RuntimeError, match="gemm_bias"):
+        build.launch("gemm_bias", x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                     c.data_ptr(), None, 256, 512, 1024, *x.stride(),
+                     *w.stride(), 64, 64, 1, 1024, 1, 0, 1,
+                     build.check_tensors("gemm_bias", x),
+                     build.current_stream(x))
+    assert sum(build.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 130, 2, 2, 64, 0), (2, 300, 8, 2, 128, 0), (1, 400, 5, 1, 64, 96),
+    (1, 200, 4, 2, 128, 0, 500), (2, 129, 4, 4, 64, 40, 257)],
+    ids=["causal", "gqa", "window", "sq-lt-sk", "window-sq-lt-sk"])
+def test_flash_wgmma_matches_plain_and_its_tiles_agree(card, shape):
+    """The wgmma forward at both q tiles against the plain forward (bf16
+    tolerance, a bitwise rerun), the tiles bitwise equal: ragged
+    sequences, grouped query heads, the sliding window, fewer queries
+    than keys."""
+    import functools
+    cs = _chip_smoke()
+    args = cs.make_inputs("flash_fwd", shape, torch.bfloat16, card, seed=23)
+    build.reset_launches()
+    outs = []
+    for bq in (64, 128):
+        kern = functools.partial(flash.flash_fwd, block_q=bq)
+        cs.compare("flash_fwd_wgmma", kern, cs.kernel_table(card)[
+            "flash_fwd"][1], args, torch.bfloat16)
+        outs.append(cs._flat(kern(*args)))
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    assert build.LAUNCHES["flash_fwd_wgmma"] == 6, build.LAUNCHES
+    assert build.LAUNCHES["flash_fwd"] == 0, build.LAUNCHES
+
+
+def test_flash_wgmma_reads_the_fused_qkv_views(card):
+    """q, k and v as views of one fused QKV output (qwen3-1.7b's 16 / 8
+    heads of 128 at a short sequence): the wrapper's default dispatch
+    takes the wgmma instance and matches the plain forward on contiguous
+    copies."""
+    B, S, H, KV, D = 2, 320, 16, 8, 128
+    g = torch.Generator(device=card).manual_seed(24)
+    qkv = torch.randn(B, S, (H + 2 * KV) * D, generator=g,
+                      device=card).to(torch.bfloat16)
+    q = qkv[..., :H * D].view(B, S, H, D)
+    k = qkv[..., H * D:(H + KV) * D].view(B, S, KV, D)
+    v = qkv[..., (H + KV) * D:].view(B, S, KV, D)
+    build.reset_launches()
+    out, lse = flash.flash_fwd(q, k, v)
+    assert build.LAUNCHES["flash_fwd_wgmma"] == 1, build.LAUNCHES
+    want, wlse = ref.flash_fwd_ref(q.contiguous(), k.contiguous(),
+                                   v.contiguous())
+    p, _ = ref.flash_bwd_terms(q, k, v, wlse, torch.zeros_like(q),
+                               torch.zeros_like(wlse))
+    cond = torch.einsum("bkgqs,bskd->bqkgd", p, v.float().abs()).reshape(
+        q.shape)
+    _sum_close(out, want, cond, 1e-4, 1e-4)
+    torch.testing.assert_close(lse, wlse, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_dispatch_keeps_the_mma_instance_where_wgmma_cannot(card):
+    """Head dim 80 (no wgmma instance) and rows not 16-byte aligned run
+    flash.cuh's instance."""
+    cs = _chip_smoke()
+    args = cs.make_inputs("flash_fwd", (1, 100, 2, 2, 80, 0), torch.bfloat16,
+                          card, seed=25)
+    build.reset_launches()
+    flash.flash_fwd(*args)
+    assert build.LAUNCHES["flash_fwd"] == 1, build.LAUNCHES
+    base = torch.zeros(1, 100, 2 * 64 + 4, device=card, dtype=torch.bfloat16)
+    q = base[..., :128].unflatten(-1, (2, 64))          # rows of 264 bytes
+    assert flash.forward_instance(q, q, q, 64) is None
+    flash.flash_fwd(q, q, q)
+    assert build.LAUNCHES["flash_fwd"] == 2, build.LAUNCHES
+    assert build.LAUNCHES["flash_fwd_wgmma"] == 0, build.LAUNCHES

@@ -440,3 +440,122 @@ def test_offset_kv_block_no_query_sees_walks_nothing():
     qlo, qhi, nqb = _q_range_at(0, Sq, Sk, window, 64)
     assert nqb == 0 and qhi == 0
     assert _q_range_at(7, Sq, Sk, window, 64)[2] == 1
+
+
+# ----------------------------------------------------------------------
+# The bf16 wgmma forward (csrc/flash_wgmma.cu), emulated
+# ----------------------------------------------------------------------
+from repro_torch.kernels import tma  # noqa: E402
+from test_torch_gemm_tiles import (_bf16, _emulated_wgmma_gemm,  # noqa: E402
+                                   _rz32)
+
+
+def emulated_wgmma_fwd(q, k, v, window, split=True):
+    """(out, lse) of flash_wgmma.cu from bf16 operands, emulated row by
+    row (a row's sums do not depend on the block's consumer warpgroups,
+    and a kv block none of whose keys a row sees leaves it unchanged, so
+    only the rows that see a block take it): per kv block of
+    ``tma.FLASH_KV_ROWS[D]`` keys, S = Q.K^T in k16 steps rounded toward
+    zero into one zeroed accumulator; m kept in unscaled score units, p =
+    2^(s.c - m.c) with c = log2(e)/sqrt(D) (the FFMA rounded once), corr
+    = 2^((m_old - m).c), l = l.corr + rowsum(p); O = O.corr, then P
+    split as hi + lo in bf16 (``split``; else P rounded to bf16 alone)
+    and lo.V then hi.V each k16 step rounded toward zero into O (the
+    kernel promotes nothing); O / l rounded to bf16, lse = m.scale +
+    log(max(l, 1e-20))."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    BK = tma.FLASH_KV_ROWS[D]
+    scale = np.float32(1.0 / math.sqrt(D))
+    c2 = np.float32(scale * np.float32(1.4426950408889634))
+    out = np.zeros_like(q)
+    lse = np.zeros((B, H, S), np.float32)
+    pos = np.arange(S)
+    for b in range(B):
+        for h in range(H):
+            qt, kt, vt = q[b, :, h], k[b, :, h // G], v[b, :, h // G]
+            o = np.zeros((S, D), np.float32)
+            m = np.full(S, NEG_INF, np.float32)
+            l = np.zeros(S, np.float32)
+            for k0 in range(0, S, BK):
+                kpos = np.arange(k0, min(k0 + BK, S))
+                sees = pos >= k0
+                if window > 0:
+                    sees &= pos - kpos[-1] < window
+                r = pos[sees]
+                ok = kpos[None, :] <= r[:, None]
+                if window > 0:
+                    ok &= kpos[None, :] > r[:, None] - window
+                s = _emulated_wgmma_gemm(qt[r], np.ascontiguousarray(
+                    kt[kpos].T), promote=D)
+                s = np.where(ok, s, NEG_INF).astype(np.float32)
+                mx = np.maximum(m[r], s.max(1))
+                mc = (mx * c2).astype(np.float32)
+                p = np.exp2((s.astype(np.float64) * c2 - mc[:, None]
+                             ).astype(np.float32)).astype(np.float32)
+                p = np.where(ok, p, 0).astype(np.float32)
+                corr = np.exp2(((m[r] - mx).astype(np.float32) * c2
+                                ).astype(np.float32)).astype(np.float32)
+                l[r] = (l[r] * corr + p.sum(1, dtype=np.float32)
+                        ).astype(np.float32)
+                m[r] = mx
+                hi = _bf16(p)
+                lo = _bf16(p - hi)
+                acc = (o[r] * corr[:, None]).astype(np.float32)
+                for j in range(0, len(kpos), 16):
+                    vs = vt[kpos[j:j + 16]].astype(np.float64)
+                    for part in ((lo, hi) if split else (hi,)):
+                        acc = _rz32(acc.astype(np.float64)
+                                    + part[:, j:j + 16].astype(np.float64)
+                                    @ vs)
+                o[r] = acc
+            li = np.maximum(l, np.float32(1e-20))
+            out[b, :, h] = _bf16(o / li[:, None])
+            lse[b, h] = (m.astype(np.float64) * scale + np.log(li)
+                         ).astype(np.float32)
+    return out, lse
+
+
+def _worst_bf16(got, want, args):
+    """Largest |emulated - plain| / limit of each output under
+    chip_smoke.py's bf16 flash tolerance."""
+    out = []
+    for g, w, cond, tol in zip(got, want, CS._conds("flash_fwd", args, want),
+                               CS.TOL_BF16["flash_fwd"]):
+        w = w.double()
+        limit = tol["atol"] + tol["rtol"] * w.abs()
+        if cond is not None:
+            limit = limit + tol["ctol"] * cond.double()
+        out.append(float(((torch.from_numpy(g).double() - w).abs()
+                          / limit).max()))
+    return out
+
+
+#: phase 20's head dims at S 2048 (one sequence, one kv head): 20a's and
+#: 20c's 128, 20b's 64 under hymba's window (cut to 512 here, so it
+#: cuts causal pairs)
+WGMMA_CASES = {"d128": (1, 2048, 2, 1, 128, 0),
+               "d64-window": (1, 2048, 2, 1, 64, 512)}
+
+
+@pytest.mark.parametrize("split", [True, False],
+                         ids=["hi-lo-holds", "one-bf16-p-fails"])
+@pytest.mark.parametrize("label", list(WGMMA_CASES))
+def test_emulated_wgmma_forward_against_the_bf16_tolerance(label, split):
+    """The wgmma forward's arithmetic at phase 20's S 2048 and head dims,
+    bf16 inputs, against the plain forward under chip_smoke.py's bf16
+    tolerance: with P split as hi + lo it holds; with one bf16 P (a
+    single P.V product) the output misses 1e-3 of its cond where few
+    terms cancel, so the split stays."""
+    shape = WGMMA_CASES[label]
+    window = shape[-1]
+    q, k, v, _ = (_bf16(x) for x in _inputs(shape))
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    want = ref.flash_fwd_ref(tq, tk, tv, window=window)
+    got = emulated_wgmma_fwd(q, k, v, window, split=split)
+    worst = _worst_bf16(got, want, (tq, tk, tv, window))
+    assert worst[1] < 0.25, worst            # lse: fp32 on both sides
+    if split:
+        assert worst[0] < 0.5, worst
+    else:
+        assert worst[0] > 1.0, worst

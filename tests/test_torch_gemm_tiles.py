@@ -22,6 +22,7 @@ import pathlib
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.kernels import fused
 
@@ -77,8 +78,10 @@ def test_gemm_config_is_deterministic_and_covers_each_output_once(
     cfg = fused.gemm_config(M, N, K, sa, sb, 256, 512, itemsize)
     assert cfg == fused.gemm_config(M, N, K, sa, sb, 256, 512, itemsize)
     assert (cfg.bm, cfg.bn) in fused.GEMM_TILES
-    assert itemsize == 4 or (cfg.bm, cfg.bn) == (64, 64)
-    assert cfg.kchunk % fused.GEMM_BK == 0
+    # bf16: the wgmma instance's tile where TMA reads both operands
+    assert itemsize == 4 or (cfg.bm, cfg.bn) == (
+        fused.WGMMA_TILE if cfg.maps else (64, 64))
+    assert cfg.kchunk % (fused.WGMMA_BK if cfg.maps else fused.GEMM_BK) == 0
     blocks = _blocks(cfg, M, N, K)
     ranges = sorted({(k0, k1) for *_, k0, k1 in blocks})
     assert len(ranges) == cfg.splits
@@ -201,3 +204,53 @@ def test_emulated_kernel_arithmetic_against_the_fp32_tolerance(small_terms):
         assert worst < 0.25, worst
     else:
         assert worst > 1.0, worst
+
+
+# ----------------------------------------------------------------------
+# The wgmma instance's bf16 arithmetic, emulated
+# ----------------------------------------------------------------------
+def _bf16(x):
+    """fp32 -> bf16 (round to nearest even), back as fp32."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _emulated_wgmma_gemm(a, b, promote=None):
+    """C = a.b as csrc/gemm_wgmma.cu computes it from bf16 operands, in
+    fp32 before its final rounding: per k16 step the 16 products summed
+    exactly and rounded toward zero into the wgmma accumulator
+    (tools/mma_rounding.py on the H100: wgmma's bf16 accumulator rounds
+    toward zero, a k step's products are summed exactly and each step is
+    rounded in on its own), over the whole K; with ``promote`` the
+    accumulator is instead zeroed and added into an fp32 sum every
+    ``promote`` k, the design the kernel does not take."""
+    return _emulated_gemm(a, b, small_terms=False, step=16,
+                          promote=promote or a.shape[1])
+
+
+def test_emulated_wgmma_arithmetic_against_the_bf16_tolerance():
+    """The dW product's operands at phase 20's K = 8192 (x^T and an
+    unscaled gradient, bf16 values), held to TOL_BF16["gemm_bias"]
+    against the plain product (fp32 sums, one rounding to bf16: the two
+    may round to neighbouring bf16 values).  The kernel's order, the
+    whole K in the truncating accumulator, holds it; promoting every 64
+    k would be closer to the exact product, but the tolerance does not
+    need it, so the kernel spends neither the wait on every slice nor
+    the second accumulator's registers."""
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(0)
+    a = _bf16(rng.standard_normal((32, 8192)))
+    b = _bf16(rng.standard_normal((8192, 32)))
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    plain = ref.matmul_bias_ref(torch.from_numpy(a).to(torch.bfloat16),
+                                torch.from_numpy(b).to(torch.bfloat16)
+                                ).float().numpy().astype(np.float64)
+    (tol,) = CS.TOL_BF16["gemm_bias"]
+    limit = tol["atol"] + tol["rtol"] * np.abs(plain)
+    errs = {}
+    for promote in (None, fused.WGMMA_BK):
+        acc = _emulated_wgmma_gemm(a, b, promote)
+        got = _bf16(acc).astype(np.float64)
+        assert float((np.abs(got - plain) / limit).max()) < 1.0, promote
+        errs[promote] = float(np.abs(acc - exact).max())
+    assert errs[fused.WGMMA_BK] < errs[None], errs

@@ -35,8 +35,10 @@ def atomics(source: str):
 def test_every_source_is_read():
     names = {p.name for p in SOURCES}
     assert {"flash.cuh", "flash.cu", "fused.cu", "ssd.cu",
-            "tensor_core.cuh"} <= names
-    assert len([n for n in names if n.startswith("flash_")]) == 6
+            "tensor_core.cuh", "hopper.cuh", "gemm_wgmma.cu",
+            "flash_wgmma.cu"} <= names
+    # six mma.sync instance sources and the wgmma forward
+    assert len([n for n in names if n.startswith("flash_")]) == 7
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)

@@ -160,17 +160,37 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
             "tp_launches", "serve_launches", "bf16"}
     bf16_keys = {"launches", "max_abs_err", "shape", "ms", "plain_ms",
                  "bound_ms", "bound_by", "library_ms", "config"}
+    # the wgmma instances carry phase 20's flash forward and QKV GEMM:
+    # their entries are bf16 and phase 20's; the mma.sync instances' bf16
+    # entries keep phase 20's launches (none) and the configuration
+    wgmma = {"gemm_bias_wgmma", "flash_fwd_wgmma"}
     assert [k["name"] for k in record["kernels"]] == [
         "add_rmsnorm_fwd", "add_rmsnorm_bwd", "gemm_bias", "flash_fwd",
-        "flash_bwd_dq", "flash_bwd_dkdv", "ssd_fwd", "ssd_bwd"]
+        "flash_bwd_dq", "flash_bwd_dkdv", "ssd_fwd", "ssd_bwd",
+        "gemm_bias_wgmma", "flash_fwd_wgmma"]
     for k in record["kernels"]:
-        assert set(k) == keys and set(k["bf16"]) == bf16_keys
+        if k["name"] in wgmma:
+            assert set(k) == (keys - {"tp_launches", "serve_launches", "bf16"}
+                              | {"dtype", "path", "shape"})
+        elif k["name"] in ("gemm_bias", "flash_fwd"):
+            assert set(k) == keys and set(k["bf16"]) == {"launches",
+                                                         "config"}
+        else:
+            assert set(k) == keys and set(k["bf16"]) == bf16_keys
         assert (ROOT / k["source"]).exists()
         path, lines_at = k["replaces"].split(":", 1)       # "file:47" or
         for line in lines_at.split("+:"):                   # "file:247+:274"
             src_line = (ROOT / path).read_text().splitlines()[int(line) - 1]
             assert src_line.startswith("def _"), src_line
     assert any("[check] gemm_bias        dW" in ln for ln in lines)
+    # bf16 GEMM calls whose rows TMA reads are the wgmma instance's: the
+    # mma.sync entry is held in bf16 only where its inputs reach it, rows
+    # of K or N elements that are not whole 16-byte units
+    cs = _load_chip_smoke()
+    assert {ln.split()[3] for ln in lines
+            if ln.startswith("[check] gemm_bias ") and "bfloat16" in ln} == {
+        label for label, (_, K, N) in cs.CPU_SHAPES["gemm_bias"]
+        if (K % 8 or N % 8) and label not in cs.P20_LABELS + cs.SV_LABELS}
     assert any(ln.startswith("[autotune]") and "fresh interpreters resolve "
                "the same" in ln for ln in lines)
     configs = {k["name"]: k["config"] for k in record["kernels"]}
@@ -260,12 +280,18 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
                     "the dry-run's all-reduce bytes", "launches a rank"):
             assert any(ln.startswith(f"[tp] {name}") and tag in ln
                        for ln in lines), (name, tag)
-    # phase 20's shapes, checked in both dtypes and timed in bf16
+    # phase 20's shapes, checked in both dtypes and timed in bf16; the
+    # QKV GEMM and flash forward there on their wgmma instances
     for label in ("20a", "20b", "20c", "20d"):
         for layout in ("fwd", "dx", "dW"):
-            assert any(ln.split()[:4] == ["[time]", "gemm_bias", layout,
-                                          label]
+            assert any(ln.split()[:4] == ["[time]", "gemm_bias_wgmma",
+                                          layout, label]
                        and "bf16: kernel" in ln for ln in lines), label
+        assert any(ln.split()[:4] == ["[time]", "flash_fwd_wgmma", "fwd",
+                                      label]
+                   and "bf16: kernel" in ln for ln in lines), label
+        assert not any(ln.split()[:2] == ["[time]", "flash_fwd"]
+                       and f" {label} " in ln for ln in lines), label
         assert any(ln.startswith("[check] flash_bwd_dkdv") and f" {label} "
                    in ln and "bfloat16" in ln for ln in lines), label
     assert any(ln.split()[:4] == ["[time]", "ssd_bwd", "fwd", "20b"]

@@ -11,6 +11,8 @@ interface beside the trainer and the simulator policy.  Then the port's
 batches: reduced gpt3-medium (remat and the chunked CE) and reduced
 granite-moe, three steps, losses at tests/test_executor.py's fp32
 tolerance and parameters by its tracking rule."""
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -277,3 +279,167 @@ def test_tracks_the_reference_spmd_executor(name, remat, loss_chunk):
         assert diff.max() <= 2.5 * lr, diff.max()
         assert (diff > lr / 10).mean() < 1e-3
     assert ex.cache.stats.compiles == 1
+
+
+# ----------------------------------------------------------------------
+# The update a piece at a time (apply_sharded)
+# ----------------------------------------------------------------------
+from repro_torch.runtime import spmd as tspmd  # noqa: E402
+
+L = 3
+
+
+def _stacked_tree(gen, dtype=torch.float32):
+    """A block leaf [L, 8, 6], a stacked norm scale [L, 8] (ndim 2:
+    decayed, where its slice [8] would not be), an embedding [50, 8]
+    and a final norm [8]."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen).to(dtype)
+    return {"blocks": {"w": rand(L, 8, 6), "norm": rand(L, 8)},
+            "embed": rand(50, 8), "final": rand(8)}
+
+
+def _opt_cfg():
+    return adamw.AdamWConfig(lr=1e-2, weight_decay=0.1, clip_norm=0.5,
+                             warmup_steps=1, total_steps=10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_apply_sharded_is_bitwise_adamw_apply_on_stacked_leaves(dtype):
+    gen = torch.Generator().manual_seed(3)
+    cfg = _opt_cfg()
+    want = _stacked_tree(gen, dtype)
+    got = {k: (v.clone() if isinstance(v, torch.Tensor) else
+               {n: t.clone() for n, t in v.items()}) for k, v in want.items()}
+    ws, gs = adamw.init(want), adamw.init(got)
+    whole = [()] * len(tree_leaves(got))
+    for _ in range(3):
+        grads = _stacked_tree(gen)
+        want, ws, wstats = adamw.apply(cfg, want, grads, ws)
+        gs, gstats = tspmd.apply_sharded(cfg, None, got,
+                                         tree_leaves(grads), gs, whole, whole)
+        assert torch.equal(gstats["grad_norm"], wstats["grad_norm"])
+    assert int(gs.step) == int(ws.step) == 3
+    for tree_w, tree_g in ((want, got), (ws.m, gs.m), (ws.v, gs.v)):
+        for x, y in zip(tree_leaves(tree_w), tree_leaves(tree_g)):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.mark.parametrize("sliced", [False, True],
+                         ids=["norm-whole", "norm-by-slice"])
+def test_stacked_norm_scale_keeps_the_whole_leafs_decay(sliced):
+    """With no gradient only weight decay moves a parameter: the stacked
+    [L, d] norm scale moves (the whole leaf's ndim >= 2 rule), the final
+    [d] norm does not; also where the norm is the tree's largest row and
+    so is stepped one block slice at a time."""
+    gen = torch.Generator().manual_seed(4)
+    cfg = adamw.AdamWConfig(lr=1.0, weight_decay=0.5, clip_norm=0.0,
+                            warmup_steps=0)
+    p = _stacked_tree(gen)
+    if sliced:
+        p = {"blocks": {"norm": p["blocks"]["norm"]}, "final": p["final"]}
+        assert tspmd.update_pieces([t.shape for t in tree_leaves(p)])[0] == [
+            (i, i + 1) for i in range(L)]
+    before = {"norm": p["blocks"]["norm"].clone(), "final": p["final"].clone()}
+    zeros = [torch.zeros_like(t) for t in tree_leaves(p)]
+    whole = [()] * len(zeros)
+    tspmd.apply_sharded(cfg, None, p, zeros, adamw.init(p), whole, whole)
+    assert torch.equal(p["final"], before["final"])
+    assert torch.equal(p["blocks"]["norm"], before["norm"] * 0.5)
+
+
+def test_update_sees_at_most_one_block_slice(monkeypatch):
+    """A recording stub of ``adamw.update``: no call sees more elements
+    than the largest block slice, the block leaf [L, 8, 6] is stepped
+    one slice (dim 0 of 1) at a time, the small stacked norm [L, 8] in
+    one piece, and the pieces cover every leaf."""
+    gen = torch.Generator().manual_seed(5)
+    p = _stacked_tree(gen)
+    seen, real = [], adamw.update
+
+    def record(cfg, params, grads, state, decay=None, scalars=None):
+        seen.append((tuple(params[0].shape), tuple(decay)))
+        return real(cfg, params, grads, state, decay, scalars)
+    monkeypatch.setattr(adamw, "update", record)
+    grads = _stacked_tree(gen)
+    whole = [()] * len(tree_leaves(p))
+    tspmd.apply_sharded(_opt_cfg(), None, p, tree_leaves(grads),
+                        adamw.init(p), whole, whole)
+    cap = 8 * 6                              # the largest block slice
+    # leaves in tree order: blocks/norm, blocks/w, embed, final
+    assert all(math.prod(s) <= cap for s, _ in seen)
+    assert seen[:1 + L] == ([((L, 8), (True,))]
+                            + [((1, 8, 6), (True,))] * L)
+    rest = seen[1 + L:]
+    assert sum(s[0] for s, d in rest if d == (True,)) == 50
+    assert rest[-1] == ((8,), (False,))
+
+
+class _Zero1Mesh:
+    """One rank of data 2 whose all_gather records the piece it is
+    handed and returns ``whole``, the gathered result."""
+
+    def __init__(self, rank, whole):
+        self.shape = {"data": 2}
+        self.rank, self.gathered = rank, []
+        mesh = self
+
+        class _Transport:
+            @staticmethod
+            def all_gather(t, group, n, dim):
+                mesh.gathered.append(t.clone())
+                return whole
+        self.transport = _Transport()
+
+    def axis_index(self, axis):
+        return self.rank
+
+    def group(self, axes):
+        return (None,)
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_zero1_moment_narrowed_on_dim0_is_bitwise(rank):
+    """A replicated stacked leaf whose moments ZeRO-1 shards on dim 0
+    (the stacked dim itself): the rank steps its block slices of the
+    narrowed parameter, assembles them into one buffer before the
+    all_gather, and its moments and gathered slice are ``adamw.apply``'s
+    bit for bit."""
+    gen = torch.Generator().manual_seed(6)
+    cfg = _opt_cfg()
+    w = torch.randn((4, 8, 6), generator=gen)
+    g = torch.randn((4, 8, 6), generator=gen)
+    want_p, want_s, _ = adamw.apply(cfg, {"blocks": {"w": w.clone()}},
+                                    {"blocks": {"w": g}},
+                                    adamw.init({"blocks": {"w": w}}))
+    rows = slice(2 * rank, 2 * rank + 2)
+    params = {"blocks": {"w": w.clone()}}
+    state = adamw.AdamWState(torch.zeros((), dtype=torch.int32),
+                             [torch.zeros(2, 8, 6)], [torch.zeros(2, 8, 6)])
+    mesh = _Zero1Mesh(rank, want_p["blocks"]["w"])
+    tspmd.apply_sharded(cfg, mesh, params, [g.clone()], state, [()],
+                        [("data",)])
+    (piece,) = mesh.gathered
+    assert torch.equal(piece, want_p["blocks"]["w"][rows])
+    assert torch.equal(state.m[0], want_s.m["blocks"]["w"][rows])
+    assert torch.equal(state.v[0], want_s.v["blocks"]["w"][rows])
+    assert torch.equal(params["blocks"]["w"], want_p["blocks"]["w"])
+
+
+def test_dry_run_counts_the_update_temporaries():
+    """``update_temp_bytes``: ``UPDATE_COPIES`` fp32 copies of the
+    largest piece, the largest row of any leaf (here one block slice of
+    the stacked leaf); every leaf is cut to pieces no larger, a small
+    stacked one left whole; with no leaf of more than 2 dims the
+    largest row is the embedding's."""
+    shapes = [(3, 8, 6), (3, 8), (50, 8), (8,)]
+    pieces = tspmd.update_pieces(shapes)
+    assert pieces[0] == [(0, 1), (1, 2), (2, 3)]
+    assert pieces[1] == [(0, 3)]
+    assert pieces[2] == [(r, min(r + 6, 50)) for r in range(0, 50, 6)]
+    assert pieces[3] == [(0, 8)]
+    assert tspmd.update_temp_bytes(shapes) == tspmd.UPDATE_COPIES * 4 * 48
+    assert tspmd.update_temp_bytes([(50, 8), (8,)]) == (
+        tspmd.UPDATE_COPIES * 4 * 8)
+    assert tspmd.update_pieces([()]) == [[(0, 0)]]

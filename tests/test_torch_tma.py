@@ -1,0 +1,144 @@
+"""The wgmma instances' tensor maps and dispatch, on the CPU.
+
+``kernels/tma.py`` computes each operand's TMA tensor map (dims,
+strides in bytes, box) on the host, and the wrappers take the wgmma
+instances exactly where those maps are legal (``kernels/fused.py::
+gemm_config``, ``kernels/flash.py::forward_instance``).  These tests hold,
+for every phase 20 shape of chip_smoke.py, the fused QKV GEMM's three
+products and the flash forward on the fused QKV output's views: that
+the specs keep ``cuTensorMapEncodeTiled``'s rules (a 16-byte aligned base, strides
+positive multiples of 16 bytes, a box of at most 256 a dim whose inner
+extent is the 128-byte swizzle row), that they describe the operand as
+it lies in memory, and that the wgmma instance is chosen; and where a
+rule breaks, that the mma.sync instance is.  Meta tensors stand in for
+the operands (shapes, strides and a zero address, no storage)."""
+import pytest
+import torch
+
+from repro_torch.kernels import flash, fused, tma
+from test_torch_gemm_tiles import CS, _layout
+
+P20_GEMM = [(label, shape) for label, shape in CS.CARD_SHAPES["gemm_bias"]
+            if label in CS.P20_LABELS]
+P20_FLASH = [(label, shape) for label, shape in CS.CARD_SHAPES["flash"]
+             if label in CS.P20_LABELS]
+
+
+def _legal(spec, rank):
+    """``cuTensorMapEncodeTiled``'s rules on one spec of ``rank`` dims."""
+    dims, strides, box = (spec[:rank], spec[rank:2 * rank - 1],
+                          spec[2 * rank - 1:])
+    assert len(spec) == 3 * rank - 1
+    assert all(1 <= d <= 2 ** 32 for d in dims)
+    assert all(0 < s < 2 ** 40 and s % 16 == 0 for s in strides)
+    assert all(1 <= b <= 256 for b in box)
+    assert box[0] * tma.ITEMSIZE == 128
+    return dims, strides, box
+
+
+@pytest.mark.parametrize("layout", ["fwd", "dx", "dW"])
+@pytest.mark.parametrize("label,shape", P20_GEMM, ids=[l for l, _ in P20_GEMM])
+def test_gemm_maps_at_phase_20_shapes(label, shape, layout):
+    """Each product of the fused QKV at phase 20's shapes takes the wgmma
+    instance, its maps over A and B as they lie in memory: a K-major
+    operand one box of 64 K by the tile's 128 rows (A) or 256 columns
+    (B), an M- or N-major one boxes of 64 by 64 K."""
+    M, N, K, sa, sb = _layout(shape, layout)
+    cfg = fused.gemm_config(M, N, K, sa, sb, 0, 256, 2)
+    assert cfg.maps is not None and (cfg.bm, cfg.bn) == fused.WGMMA_TILE
+    assert cfg.kchunk % fused.WGMMA_BK == 0
+    a, b = (_legal(s, 2) for s in cfg.maps)
+    if cfg.a_kmajor:
+        assert a == ((K, M), (sa[0] * 2,), (64, 128))
+    else:
+        assert a == ((M, K), (sa[1] * 2,), (64, 64))
+    if cfg.b_kmajor:
+        assert b == ((K, N), (sb[1] * 2,), (64, 256))
+    else:
+        assert b == ((N, K), (sb[0] * 2,), (64, 64))
+    assert (cfg.a_kmajor, cfg.b_kmajor) == {
+        "fwd": (True, False), "dx": (True, True), "dW": (False, False)}[layout]
+
+
+@pytest.mark.parametrize("sa,sb,aa,ab", [
+    ((999, 1), (3000, 1), 0, 0),        # rows of 999 bf16: 1998 bytes
+    ((1000, 1), (3000, 1), 8, 0),       # A's base 8 bytes off
+    ((2000, 2), (3000, 1), 0, 0),       # no stride-1 dim
+    ((1000, 1), (1, 1004), 0, 0),       # W^T of rows of 1004: 2008 bytes
+    ((1000, 1), (0, 1), 0, 0),          # B broadcast over K: stride 0
+])
+def test_gemm_takes_the_mma_instance_where_tma_cannot(sa, sb, aa, ab):
+    """Where TMA cannot read an operand the call runs fused.cu's
+    element-copy instance (64 x 64, no split): bf16 has no mma.sync
+    instance with 16-byte copies, so a stride of 0, whose rows would
+    take them, takes element copies too."""
+    cfg = fused.gemm_config(1000, 3000, 1000, sa, sb, aa, ab, 2)
+    assert cfg.maps is None and not cfg.vec
+    assert (cfg.bm, cfg.bn, cfg.splits) == (64, 64, 1)
+    with pytest.raises(ValueError, match="not built"):
+        fused.gemm_config(1000, 3000, 1000, sa, sb, aa, ab, 2,
+                          choice=fused.gemm_plan(1000, 3000, 1000, 2))
+
+
+def test_fp32_and_the_asked_mma_instance_take_no_maps():
+    """fp32 runs fused.cu's instance with 16-byte copies at phase 20's
+    shapes, and bf16 asks for fused.cu's element-copy one only through
+    its operands (rows of 999), neither with a tensor map."""
+    M, N, K, sa, sb = _layout(dict(P20_GEMM)["20a"], "fwd")
+    cfg = fused.gemm_config(M, N, K, sa, sb, 0, 0, 4)
+    assert cfg.maps is None and cfg.vec
+    assert (cfg.bm, cfg.bn) in fused.MMA_TILES
+    cfg = fused.gemm_config(M, N, 999, (999, 1), sb, 0, 0, 2)
+    assert cfg.maps is None and (cfg.bm, cfg.bn, cfg.vec) == (64, 64, False)
+
+
+def _fused_views(B, S, H, KV, D, dtype=torch.bfloat16):
+    """q, k and v as views of one fused QKV output [B * S, (H + 2KV) D],
+    as ``ops.fused_qkv`` hands them over."""
+    qkv = torch.empty(B * S, (H + 2 * KV) * D, dtype=dtype, device="meta")
+    q = qkv[:, :H * D].reshape(B, S, H, D)
+    k = qkv[:, H * D:(H + KV) * D].reshape(B, S, KV, D)
+    v = qkv[:, (H + KV) * D:].reshape(B, S, KV, D)
+    return q, k, v
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("label,shape", P20_FLASH,
+                         ids=[l for l, _ in P20_FLASH])
+def test_flash_maps_at_phase_20_shapes_on_fused_views(label, shape, tile):
+    """The flash forward at phase 20's shapes on the fused QKV views (and
+    on contiguous q and k, as RoPE hands them over) takes the wgmma
+    instance at both q tiles, each map over its operand in place: dims
+    (D, heads, S, B), the (head, seq, batch) strides in bytes, a box of
+    64 columns of one head's rows (the q tile, or the kv rows of a
+    stage)."""
+    B, S, H, KV, D, _ = shape
+    q, k, v = _fused_views(B, S, H, KV, D)
+    cols = (H + 2 * KV) * D * 2
+    for qq, kk in ((q, k), (q.contiguous(), k.contiguous())):
+        maps = flash.forward_instance(qq, kk, v, tile)
+        assert maps is not None and len(maps) == 33
+        for t, spec, rows in ((qq, maps[:11], tile),
+                              (kk, maps[11:22], tma.FLASH_KV_ROWS[D]),
+                              (v, maps[22:], tma.FLASH_KV_ROWS[D])):
+            dims, strides, box = _legal(spec, 4)
+            assert dims == (D, t.shape[2], S, B)
+            assert strides == tuple(2 * s for s in (t.stride(2), t.stride(1),
+                                                    t.stride(0)))
+            assert box == (64, 1, rows, 1)
+        assert maps[22 + 5] == cols            # v's row stride: the fused row
+
+
+def test_flash_takes_the_mma_instance_where_tma_cannot():
+    """Head dims without a wgmma instance, fp32, rows not 16-byte aligned
+    or a misaligned base: no maps, the mma.sync instance."""
+    q, k, v = _fused_views(2, 100, 4, 2, 80)
+    assert flash.forward_instance(q, k, v, 64) is None
+    q, k, v = _fused_views(2, 100, 4, 2, 64, torch.float32)
+    assert flash.forward_instance(q, k, v, 64) is None
+    rows = torch.empty(2, 100, 2 * 64 + 4, dtype=torch.bfloat16,
+                       device="meta")
+    q = rows[..., :128].unflatten(-1, (2, 64))      # rows of 264 bytes
+    assert flash.forward_instance(q, q, q, 64) is None
+    assert tma.flash_map((2, 100, 2, 64), (25600, 128, 64, 1), 8, 64) is None
+    assert tma.flash_map((2, 100, 2, 64), (25600, 128, 64, 1), 0, 64)

@@ -19,7 +19,14 @@ partial rows summed by ``torch.sum``; and a tree whose flash launchers
 take no tile (before the autotuner) is called with the tile argument
 dropped, its 64-row tile only; and a tree whose flash launchers take one
 sequence length (before Sq <= Sk) is called with the key length dropped,
-at Sq == Sk only.  Per tree, each kernel is first
+at Sq == Sk only; and a tree with no wgmma instances
+(before ``csrc/gemm_wgmma.cu`` and ``csrc/flash_wgmma.cu``) has its bf16
+QKV GEMM and flash forward called through ``build.launch`` on its
+mma.sync launchers, 16-byte copies at the tiles its own packaged table
+names (this checkout's wrappers send such calls to the wgmma
+launchers), while a tree that has them runs them through the wrappers
+(each tree resolves its tiles from its own ``autotune_offline.json``).  Per
+tree, each kernel is first
 held against its plain version (chip_smoke.py's comparison), then timed
 with CUDA events, at the shape of the path the kernels line reports
 (``--labels`` names others of chip_smoke.py's shapes; the GEMM in its
@@ -164,6 +171,8 @@ def load(lib: pathlib.Path, scratch: bool, norm_bwd, tile: bool = True,
     from repro_torch.kernels import build, fused
     cdll = ctypes.CDLL(str(lib))
     for name, argtypes in build.SIGNATURES.items():
+        if not hasattr(cdll, name):
+            continue              # a launcher the tree does not have
         fn = getattr(cdll, name)
         if name == "ssd_bwd" and not scratch:
             argtypes = argtypes[:13] + argtypes[14:]
@@ -178,6 +187,77 @@ def load(lib: pathlib.Path, scratch: bool, norm_bwd, tile: bool = True,
     build._LIB = (cdll if scratch and tile and sk
                   else _Compat(cdll, scratch, tile, sk))
     fused.add_rmsnorm_bwd = norm_bwd
+
+
+def has_wgmma(tree: str) -> bool:
+    """Whether the tree has the wgmma instances of the bf16 QKV GEMM and
+    flash forward."""
+    return (pathlib.Path(tree).resolve()
+            / "src/repro_torch/kernels/csrc/gemm_wgmma.cu").exists()
+
+
+def use_table(tree: str) -> None:
+    """Resolve tiles from the tree's packaged autotune table."""
+    from repro_torch.kernels import autotune
+    path = (pathlib.Path(tree).resolve()
+            / "src/repro_torch/kernels/autotune_offline.json")
+    autotune._PACKAGED = {k: {a: int(b) for a, b in v.items()}
+                          for k, v in json.loads(path.read_text()).items()}
+
+
+def kernel_of(cs, table, name, dtype, wgmma: bool):
+    """The callable that times kernel ``name`` of a tree in ``dtype``:
+    the wrapper, except for the bf16 QKV GEMM and flash forward of a
+    tree with no wgmma instances (``wgmma`` False): its mma.sync
+    launchers called directly (``mma_bf16``)."""
+    import torch
+    if dtype != torch.bfloat16 or name not in cs.WGMMA.values() or wgmma:
+        return table[name][0]
+    return mma_bf16(name)
+
+
+def mma_bf16(name: str):
+    """The bf16 ``gemm_bias`` (a, b, bias) or ``flash_fwd`` (q, k, v,
+    window) of a tree with no wgmma instances: its launcher with 16-byte
+    copies, at the (tile, split) or q tile of the tree's packaged table
+    (``use_table``)."""
+    import math
+    import torch
+    from repro_torch.kernels import autotune, build, flash, fused
+
+    def gemm(a, b, bias):
+        (M, K), N = a.shape, b.shape[1]
+        a_k, b_k = a.stride(1) == 1, b.stride(0) == 1 and b.stride(1) != 1
+        cfg = autotune.gemm_config_of(autotune.backend_of(a.device), a.dtype,
+                                      M, N, K, autotune.gemm_layout(a_k, b_k))
+        splits = cfg["splits"]
+        c = torch.empty((M, N), dtype=a.dtype, device=a.device)
+        ws = (torch.empty((splits, M, N), dtype=torch.float32,
+                          device=a.device) if splits > 1 else None)
+        tensors = (a, b) if bias is None else (a, b, bias)
+        build.launch("gemm_bias", a.data_ptr(), b.data_ptr(),
+                     None if bias is None else bias.data_ptr(), c.data_ptr(),
+                     None if ws is None else ws.data_ptr(), M, N, K,
+                     *a.stride(), *b.stride(), cfg["block_rows"],
+                     cfg["block_cols"], splits, fused.gemm_kchunk(K, splits),
+                     int(a_k), int(b_k), 1,
+                     build.check_tensors("gemm_bias", *tensors),
+                     build.current_stream(a))
+        return c
+
+    def forward(q, k, v, window):
+        (B, Sq, H, D), (Sk, KV) = q.shape, k.shape[1:3]
+        out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        build.launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), lse.data_ptr(), B, Sq, Sk, H, KV, D,
+                     window, 1.0 / math.sqrt(D), *flash._strides(q),
+                     *flash._strides(k), *flash._strides(v),
+                     flash.resolve_tiles(q)[0],
+                     build.check_tensors("flash_fwd", q, k, v),
+                     build.current_stream(q))
+        return out, lse
+    return gemm if name == "gemm_bias" else forward
 
 
 def main(argv=None) -> int:
@@ -233,15 +313,19 @@ def main(argv=None) -> int:
                     cases.append((name, layout, shape_label, dt,
                                   cs.make_inputs(name, shapes[shape_label],
                                                  dt, dev, seed=2,
-                                                 layout=layout)))
+                                                 layout=layout,
+                                                 draw_on_device=shape_label
+                                                 in cs.P20_LABELS)))
     checked, first = set(), {}
     for label in args.order.split(","):
         load(libs[label], takes_scratch(trees[label]),
              one_pass_norm_bwd if one_pass_norm(trees[label])
              else two_pass_norm_bwd, takes_tile(trees[label]),
              takes_sk(trees[label]))
+        use_table(trees[label])
         for i, (name, layout, shape_label, dtype, inputs) in enumerate(cases):
-            kern, plain, _ = table[name]
+            plain = table[name][1]
+            kern = kernel_of(cs, table, name, dtype, has_wgmma(trees[label]))
             if label not in checked:
                 cs.compare(name, kern, plain, inputs, dtype)
             if args.bitwise:
@@ -264,6 +348,9 @@ def main(argv=None) -> int:
             if args.phases:
                 row["device_ms"] = cs.device_ms(kern, inputs, name,
                                                 args.iters)[1]
+            if dtype == torch.bfloat16 and name in cs.WGMMA.values():
+                row["instance"] = ("wgmma" if has_wgmma(trees[label])
+                                   else "mma.sync")
             print(json.dumps(row), flush=True)
         checked.add(label)
     return 0
