@@ -264,8 +264,8 @@ PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
 # Printed beside the bound above, which stays the kernels line's
 # bound_ms.
 TENSOR_CORE = ("gemm_bias", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv",
-               "gemm_bias_wgmma", "flash_fwd_wgmma",
-               "ssd_fwd", "ssd_bwd")
+               "gemm_bias_wgmma", "flash_fwd_wgmma", "flash_bwd_dq_wgmma",
+               "flash_bwd_dkdv_wgmma", "ssd_fwd", "ssd_bwd")
 TC_PEAK_FLOPS = {"torch.float32": 495e12 / 3, "torch.bfloat16": 989e12}
 
 PATHS = {   # phase -> (label, argv on the card, argv of the CPU rehearsal)
@@ -305,6 +305,7 @@ MOE_LAUNCHES["gemm_bias"] = 3 * 24 * 16 * 4
 FUSED_SOURCE = "src/repro_torch/kernels/csrc/fused.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash.cuh"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd.cu"
+FLASH_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_bwd_wgmma.cu"
 FLASH_TPU = "src/repro/kernels/flash_attention.py"
 KERNELS = {   # name -> (TPU kernel it replaces, CUDA source)
     "add_rmsnorm_fwd": ("src/repro/kernels/fused.py:47", FUSED_SOURCE),
@@ -319,15 +320,19 @@ KERNELS = {   # name -> (TPU kernel it replaces, CUDA source)
                         "src/repro_torch/kernels/csrc/gemm_wgmma.cu"),
     "flash_fwd_wgmma": (f"{FLASH_TPU}:101",
                         "src/repro_torch/kernels/csrc/flash_wgmma.cu"),
+    "flash_bwd_dq_wgmma": (f"{FLASH_TPU}:220", FLASH_BWD_SOURCE),
+    "flash_bwd_dkdv_wgmma": (f"{FLASH_TPU}:247+:274", FLASH_BWD_SOURCE),
 }
 #: the bf16 instances on wgmma and TMA that carry phase 20's QKV
-#: GEMM and flash forward, each beside the kernel whose function, inputs,
-#: tolerances and bound it shares.  The wrapper picks the instance from
-#: its operands (``takes_wgmma``): phases 3-4 hold and time the wgmma
-#: entries at phase 20's shapes, in bf16, and the mma.sync entries at the
-#: other shapes in fp32, and in bf16 where the inputs reach them (rows
-#: TMA cannot read, head dims with no wgmma instance)
-WGMMA = {"gemm_bias_wgmma": "gemm_bias", "flash_fwd_wgmma": "flash_fwd"}
+#: GEMM and flash forward and backward, each beside the kernel whose
+#: function, inputs, tolerances and bound it shares.  The wrapper picks
+#: the instance from its operands (``takes_wgmma``): phases 3-4 hold and
+#: time the wgmma entries at phase 20's shapes, in bf16, and the mma.sync
+#: entries at the other shapes in fp32, and in bf16 where the inputs
+#: reach them (rows TMA cannot read, head dims with no wgmma instance)
+WGMMA = {"gemm_bias_wgmma": "gemm_bias", "flash_fwd_wgmma": "flash_fwd",
+         "flash_bwd_dq_wgmma": "flash_bwd_dq",
+         "flash_bwd_dkdv_wgmma": "flash_bwd_dkdv"}
 
 
 def base_of(name):
@@ -337,7 +342,7 @@ def base_of(name):
 
 
 def takes_wgmma(name, args):
-    """Whether the wrapper of the QKV GEMM or the flash forward runs its
+    """Whether the wrapper of the QKV GEMM or a flash kernel runs its
     wgmma instance on the call ``args`` (else its mma.sync one)."""
     from repro_torch.kernels import flash, fused
     if base_of(name) == "gemm_bias":
@@ -345,7 +350,10 @@ def takes_wgmma(name, args):
         return fused.gemm_config(
             a.shape[0], b.shape[1], a.shape[1], a.stride(), b.stride(),
             a.data_ptr(), b.data_ptr(), a.element_size()).maps is not None
-    return flash.forward_instance(*args[:3], 64) is not None
+    if base_of(name) == "flash_fwd":
+        return flash.forward_instance(*args[:3], 64) is not None
+    return flash.backward_instance(*args[:4], _FLASH_KERNEL[name],
+                                   64) is not None
 
 
 FUSED = ("add_rmsnorm_fwd", "add_rmsnorm_bwd", "gemm_bias")
@@ -554,7 +562,8 @@ def kernel_table(device):
                "flash_fwd": sdpa_forward}
     for name, of in WGMMA.items():
         plain[name] = plain[of]
-        library[name] = library[of]
+        if of in library:
+            library[name] = library[of]
     if device.type == "cpu":
         kern = plain
     else:
@@ -569,6 +578,8 @@ def kernel_table(device):
             "flash_fwd_wgmma": flash.flash_fwd,
             "flash_bwd_dq": flash.flash_bwd_dq,
             "flash_bwd_dkdv": flash.flash_bwd_dkdv,
+            "flash_bwd_dq_wgmma": flash.flash_bwd_dq,
+            "flash_bwd_dkdv_wgmma": flash.flash_bwd_dkdv,
             "ssd_fwd": ssd.ssd_fwd,
             "ssd_bwd": ssd.ssd_bwd,
         }
@@ -818,7 +829,8 @@ def compare(name, kern, plain, args, dtype, chunk=None):
 
 
 _FLASH_KERNEL = {"flash_fwd": "fwd", "flash_bwd_dq": "dq",
-                 "flash_bwd_dkdv": "dkdv", "flash_fwd_wgmma": "fwd"}
+                 "flash_bwd_dkdv": "dkdv", "flash_fwd_wgmma": "fwd",
+                 "flash_bwd_dq_wgmma": "dq", "flash_bwd_dkdv_wgmma": "dkdv"}
 
 
 def variants(name, args, dtype, device):
@@ -1247,7 +1259,7 @@ def time_kernels(device, table, shapes, iters):
             dev_ms, phases = (device_ms(kern, args, name, iters)
                               if profiled else (None, {}))
             plain_ms = time_ms(plain, args, device, n)
-            if name in ("flash_bwd_dq", "flash_bwd_dkdv"):
+            if base_of(name) in FLASH[1:]:
                 lib_ms = sdpa_backward_ms(args, device, iters)
             else:
                 lib_ms = (time_ms(lib, args, device, iters)
@@ -1267,7 +1279,7 @@ def time_kernels(device, table, shapes, iters):
                   f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), "
                   f"plain {plain_ms:.4f} ms, library "
                   f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}"
-                  f"{' (SDPA fwd+bwd - fwd: dq and dk/dv together)' if name in FLASH[1:] else ''}, "
+                  f"{' (SDPA fwd+bwd - fwd: dq and dk/dv together)' if base_of(name) in FLASH[1:] else ''}, "
                   f"bound {bms:.4f} ms ({by}){tc}; config "
                   f"{cfg['fwd'] if base_of(name) == 'gemm_bias' else cfg}")
             if len(phases) > 1:

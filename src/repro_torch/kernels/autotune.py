@@ -440,9 +440,10 @@ def tune_flash(backend: str, dtype, seq_len: int, head_dim: int, *,
                shapes: Iterable[Tuple[int, int, int]] = ((1, 2, 2),),
                persist: bool = True, cache: Optional[AutotuneCache] = None
                ) -> Config:
-    """Time the built q tiles of the forward + dq and the built kv tiles
-    of dk/dv, each summed over ``shapes`` ((batch, heads, kv heads) that
-    share this key); store the winner of each (``_winner``)."""
+    """Time the built q tiles of the forward + dq (each timed apart) and
+    the built kv tiles of dk/dv, each summed over ``shapes`` ((batch,
+    heads, kv heads) that share this key); store the winner of each
+    (``_winner``)."""
     from repro_torch.kernels import flash, ref
     dev, dt = _device(backend), _torch_dtype(dtype)
     gen = torch.Generator().manual_seed(0)
@@ -464,11 +465,14 @@ def tune_flash(backend: str, dtype, seq_len: int, head_dim: int, *,
             _hold(f"flash_bwd_dq q tile {bq}",
                   [flash.flash_bwd_dq(q, k, v, g, lse, delta, 0, bq)],
                   want[:1], dt)
-            ms = _time(lambda: (flash.flash_fwd(q, k, v, 0, bq),
-                                flash.flash_bwd_dq(q, k, v, g, lse, delta, 0,
-                                                   bq)))
-            times[("q", bq)] = times.get(("q", bq), 0.0) + ms
-            per_shape[f"q{bq}@{B}x{H}x{KV}"] = ms
+            # the forward and dq apart, so that a q tile that suits one
+            # and not the other shows (they share block_q)
+            fwd = _time(lambda: flash.flash_fwd(q, k, v, 0, bq))
+            dq = _time(lambda: flash.flash_bwd_dq(q, k, v, g, lse, delta, 0,
+                                                  bq))
+            times[("q", bq)] = times.get(("q", bq), 0.0) + fwd + dq
+            per_shape[f"fwd{bq}@{B}x{H}x{KV}"] = fwd
+            per_shape[f"dq{bq}@{B}x{H}x{KV}"] = dq
         for bk in ktiles:
             _hold(f"flash_bwd_dkdv kv tile {bk}",
                   flash.flash_bwd_dkdv(q, k, v, g, lse, delta, 0, bk),
@@ -646,10 +650,14 @@ def resolve_paths(backend: str, dtype="float32") -> Dict[str, Config]:
 
 def tune_paths(backend: str, dtype="float32", *,
                cache: Optional[AutotuneCache] = None,
-               persist: bool = False) -> Dict[str, Config]:
-    """Tune every ``PATH_SHAPES`` key of ``dtype`` on this card; key ->
-    winner (the candidates' times land in ``LAST_TIMES``)."""
+               persist: bool = False,
+               kinds: Optional[Sequence[str]] = None) -> Dict[str, Config]:
+    """Tune every ``PATH_SHAPES`` key of ``dtype`` (of ``kinds``, default
+    all) on this card; key -> winner (the candidates' times land in
+    ``LAST_TIMES``)."""
     out, shapes = {}, PATH_SHAPES[_dtype_name(dtype)]
+    shapes = {k: v if kinds is None or k in kinds else []
+              for k, v in shapes.items()}
     kw = dict(cache=cache, persist=persist)
     for seq, d, sh in shapes["flash"]:
         out[_key("flash", backend, dtype, (shape_bucket(seq), d))] = (
@@ -667,11 +675,12 @@ def tune_paths(backend: str, dtype="float32", *,
 
 
 def emit_offline(path: str = _PACKAGED_PATH,
-                 dtypes: Sequence[str] = tuple(PATH_SHAPES)
+                 dtypes: Sequence[str] = tuple(PATH_SHAPES),
+                 kinds: Optional[Sequence[str]] = None
                  ) -> Dict[str, Config]:
-    """Measure the path shapes of ``dtypes`` on THIS card and write the
-    packaged table to ``path``, merged over its entries for other
-    backends, dtypes and keys."""
+    """Measure the path shapes of ``dtypes`` (of ``kinds``, default all)
+    on THIS card and write the packaged table to ``path``, merged over
+    its entries for other backends, dtypes, kinds and keys."""
     backend = backend_of("cuda")
     table: Dict[str, Config] = {}
     for src in (_PACKAGED_PATH, path):
@@ -683,7 +692,7 @@ def emit_offline(path: str = _PACKAGED_PATH,
     for dtype in dtypes:
         table.update(tune_paths(backend, dtype,
                                 cache=AutotuneCache(os.devnull),
-                                persist=False))
+                                persist=False, kinds=kinds))
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     with open(tmp, "w") as f:
@@ -703,9 +712,13 @@ if __name__ == "__main__":
     ap.add_argument("path", nargs="?", default=_PACKAGED_PATH)
     ap.add_argument("--dtype", action="append", choices=list(PATH_SHAPES),
                     help="tune only these dtypes' keys (default: all)")
+    ap.add_argument("--kind", action="append",
+                    choices=list(PATH_SHAPES["float32"]),
+                    help="tune only these kernels' keys (default: all)")
     args = ap.parse_args()
     strict_fp32_numerics()          # the plain versions in full fp32
-    out = emit_offline(args.path, args.dtype or tuple(PATH_SHAPES))
+    out = emit_offline(args.path, args.dtype or tuple(PATH_SHAPES),
+                       args.kind)
     for key, times in LAST_TIMES.items():
         print(f"[tune] {key}: " + ", ".join(
             f"{c} {ms:.4f} ms" for c, ms in times.items())

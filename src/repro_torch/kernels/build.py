@@ -73,6 +73,13 @@ SIGNATURES = {
     "flash_fwd_wgmma": (_vp,) * 5 + (_int,) * 7 + (_float, _vp, _int, _vp),
     "flash_bwd_dq": (_vp,) * 7 + _FLASH_SHAPE + (_int,) * 3 + (_int, _int,
                                                                _vp),
+    # flash_bwd_dq_wgmma: q, k, v, dO, lse, delta, dq, B, Sq, Sk, H, KV,
+    # D, window, scale, the four tensor-map specs, the tile and the
+    # stream; flash_bwd_dkdv_wgmma the same with dk and dv
+    "flash_bwd_dq_wgmma": (_vp,) * 7 + (_int,) * 7 + (_float, _vp, _int,
+                                                       _vp),
+    "flash_bwd_dkdv_wgmma": (_vp,) * 8 + (_int,) * 7 + (_float, _vp, _int,
+                                                         _vp),
     "flash_bwd_dkdv": (_vp,) * 8 + _FLASH_SHAPE + (_int,) * 3 + (_int, _int,
                                                                  _vp),
     # ssd launchers: pointers (the backward's last its fp32 scratch), then

@@ -58,13 +58,6 @@
 
 namespace {
 
-// 2^x, the multi-function unit's approximation (relative error ~2^-22)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <int D, int NC>
 struct FwGeom {
   static constexpr int BQ = 64 * NC;           // query rows of a block

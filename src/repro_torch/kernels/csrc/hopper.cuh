@@ -1,10 +1,10 @@
 // Hopper's asynchronous machinery, shared by the warp-specialised
-// kernels (gemm_wgmma.cu, flash_wgmma.cu): TMA tensor maps and bulk
-// tensor copies, mbarriers, wgmma on shared-memory matrix descriptors,
-// and setmaxnreg.  All of it is PTX written inline (PTX ISA 8.x,
-// sm_90a); the tensor maps are encoded on the host through libcuda's
-// cuTensorMapEncodeTiled, reached with cudaGetDriverEntryPoint
-// (no -lcuda).
+// kernels (gemm_wgmma.cu, flash_wgmma.cu, flash_bwd_wgmma.cu): TMA
+// tensor maps and bulk tensor copies, mbarriers, wgmma on shared-memory
+// matrix descriptors, setmaxnreg and the multi-function unit's ex2.
+// All of it is PTX written inline (PTX ISA 8.x, sm_90a); the tensor
+// maps are encoded on the host through libcuda's cuTensorMapEncodeTiled,
+// reached with cudaGetDriverEntryPoint (no -lcuda).
 //
 // Shared tiles use the 128-byte swizzle: a TMA box whose inner
 // dimension is 64 bf16 (128 bytes) lands as rows of 128 bytes, the
@@ -107,6 +107,13 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// 2^x, the multi-function unit's approximation (relative error ~2^-22)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---- wgmma ----

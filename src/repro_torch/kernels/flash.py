@@ -10,7 +10,12 @@ kernels of ``csrc/flash.cuh`` (entry points in ``csrc/flash.cu``;
   * ``flash_bwd_dq`` and ``flash_bwd_dkdv``: the two-pass backward, p
     rebuilt from the saved lse.  dk and dv come from ONE kernel that
     loops the G query heads of each kv head itself, so they are written
-    once, at kv-head resolution, with no atomics.
+    once, at kv-head resolution, with no atomics.  In bf16 at head dims
+    64 and 128, wherever TMA can read q, k, v and dO in place
+    (``tma.flash_bwd_maps``), both run the warp-specialised wgmma
+    instances (``csrc/flash_bwd_wgmma.cu``, launched as
+    ``flash_bwd_dq_wgmma`` and ``flash_bwd_dkdv_wgmma``); elsewhere
+    flash.cuh's mma.sync instances.
   * ``delta = rowsum(dO * O)`` is an input of both backward kernels:
     one plain PyTorch reduction (``ref.flash_delta``), as the JAX
     package computes it in plain jnp outside its kernels.
@@ -52,8 +57,9 @@ KERNELS = ("fwd", "dq", "dkdv")
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-#: head dims of the bf16 wgmma forward (csrc/flash_wgmma.cu), whose q
-#: tiles are 64 and 128 rows (one or two consumer warpgroups)
+#: head dims of the bf16 wgmma instances (csrc/flash_wgmma.cu,
+#: csrc/flash_bwd_wgmma.cu), whose tiles are 64 and 128 rows (one or two
+#: consumer warpgroups)
 WGMMA_HEAD_DIMS = tuple(tma.FLASH_KV_ROWS)
 
 
@@ -63,8 +69,8 @@ def built(kernel: str, D: int, dtype: torch.dtype, tile: int) -> bool:
     64-row tile at every ``HEAD_DIMS``; the 128-row one at D 64, and at
     D 128 for the forward and in bf16 (fp32 dq and dk/dv would need
     270,336 bytes of shared memory, past the 232,448 a block may take).
-    The bf16 forward's wgmma instance builds the same two tiles at
-    ``WGMMA_HEAD_DIMS`` (csrc/flash_wgmma.cu's launcher)."""
+    The bf16 wgmma instances of all three kernels build the same two
+    tiles at ``WGMMA_HEAD_DIMS`` (``WGMMA_INSTANCES``)."""
     if tile == 64:
         return D in HEAD_DIMS
     return tile == 128 and (D == 64 or (D == 128 and (
@@ -79,6 +85,11 @@ def tiles(kernel: str, D: int, dtype: torch.dtype) -> List[int]:
 #: every built (kernel, head dim, dtype, tile): the autotuner's candidates
 INSTANCES = tuple((k, D, dt, t) for k in KERNELS for D in HEAD_DIMS
                   for dt in _DTYPES for t in tiles(k, D, dt))
+#: the (kernel, head dim, dtype, tile) of the wgmma instances: a call
+#: takes one where its operands allow it (``forward_instance``,
+#: ``backward_instance``), else flash.cuh's of the same tile
+WGMMA_INSTANCES = tuple((k, D, torch.bfloat16, t) for k in KERNELS
+                        for D in WGMMA_HEAD_DIMS for t in (64, 128))
 
 
 def _strides(t: torch.Tensor) -> Tuple[int, int, int]:
@@ -150,6 +161,18 @@ def forward_instance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return tma.flash_maps(q, k, v, block_q)
 
 
+def backward_instance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      g: torch.Tensor, kernel: str, tile: int
+                      ) -> Optional[tma.Spec]:
+    """The tensor-map specs of the wgmma ``kernel`` ("dq" or "dkdv") at
+    ``tile`` for this call, or None for flash.cuh's mma.sync instance:
+    bf16 at ``WGMMA_HEAD_DIMS`` where TMA can read q, k, v and dO in place
+    (``tma.flash_bwd_maps``)."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in WGMMA_HEAD_DIMS:
+        return None
+    return tma.flash_bwd_maps(q, k, v, g, kernel, tile)
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               window: int = 0, block_q: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -179,13 +202,23 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                  window: int = 0, block_q: Optional[int] = None
                  ) -> torch.Tensor:
-    """dq [B,Sq,H,D] from dO = g, the forward's lse and delta."""
+    """dq [B,Sq,H,D] from dO = g, the forward's lse and delta, from the
+    wgmma instance where ``backward_instance`` allows it, else from
+    flash.cuh's."""
     code, B, Sq, Sk, H, KV, D = _check("flash_bwd_dq", q, k, v, g,
                                        window=window)
     _check_rows("flash_bwd_dq", lse, delta, B, H, Sq)
     block_q = resolve_tiles(q, block_q, 0)[0]
     check_tile("flash_bwd_dq", "dq", D, q.dtype, block_q)
+    maps = backward_instance(q, k, v, g, "dq", block_q)
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    if maps is not None:
+        launch("flash_bwd_dq_wgmma", q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+               dq.data_ptr(), B, Sq, Sk, H, KV, D, window,
+               1.0 / math.sqrt(D), (ctypes.c_longlong * len(maps))(*maps),
+               block_q, current_stream(q))
+        return dq
     launch("flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
            B, Sq, Sk, H, KV, D, window, 1.0 / math.sqrt(D), *_strides(q),
@@ -198,14 +231,24 @@ def flash_bwd_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                    window: int = 0, block_k: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv), each [B,Sk,KV,D], summed over the group in fp32."""
+    """(dk, dv), each [B,Sk,KV,D], summed over the group in fp32, from
+    the wgmma instance where ``backward_instance`` allows it, else from
+    flash.cuh's."""
     code, B, Sq, Sk, H, KV, D = _check("flash_bwd_dkdv", q, k, v, g,
                                        window=window)
     _check_rows("flash_bwd_dkdv", lse, delta, B, H, Sq)
     block_k = resolve_tiles(q, 0, block_k)[1]
     check_tile("flash_bwd_dkdv", "dkdv", D, q.dtype, block_k)
+    maps = backward_instance(q, k, v, g, "dkdv", block_k)
     dk = torch.empty((B, Sk, KV, D), dtype=k.dtype, device=k.device)
     dv = torch.empty((B, Sk, KV, D), dtype=v.dtype, device=v.device)
+    if maps is not None:
+        launch("flash_bwd_dkdv_wgmma", q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+               dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KV, D, window,
+               1.0 / math.sqrt(D), (ctypes.c_longlong * len(maps))(*maps),
+               block_k, current_stream(q))
+        return dk, dv
     launch("flash_bwd_dkdv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
            dv.data_ptr(), B, Sq, Sk, H, KV, D, window, 1.0 / math.sqrt(D),

@@ -1,5 +1,6 @@
 """Tensor maps of the wgmma kernels (``csrc/gemm_wgmma.cu``,
-``csrc/flash_wgmma.cu``), computed on the host.
+``csrc/flash_wgmma.cu``, ``csrc/flash_bwd_wgmma.cu``), computed on the
+host.
 
 A kernel reads an operand through a TMA tensor map that the C entry
 point encodes (``csrc/hopper.cuh::encode_map``, libcuda's
@@ -69,8 +70,9 @@ def gemm_maps(M: int, N: int, K: int, a_strides: Sequence[int],
     return None if a is None or b is None else (a, b)
 
 
-#: head dims of the wgmma flash forward and its kv rows a stage
-#: (flash_wgmma.cu FwGeom::BK)
+#: head dims of the wgmma flash kernels and the kv rows of a stage of the
+#: forward and dq (flash_wgmma.cu FwGeom::BK, flash_bwd_wgmma.cu
+#: DqGeom::BK)
 FLASH_KV_ROWS = {64: 128, 128: 64}
 
 
@@ -94,21 +96,46 @@ def flash_maps(q, k, v, tile: int) -> Optional[Spec]:
     ``shape``, ``stride()`` and ``data_ptr()``) for ``flash_fwd_wgmma``
     at q tile ``tile``, concatenated, or None where a head dim has no
     instance or a map is illegal."""
-    return _flash_maps(tuple((tuple(t.shape), tuple(t.stride()),
-                              t.data_ptr() % 16) for t in (q, k, v)), tile)
+    rows = FLASH_KV_ROWS.get(q.shape[-1])
+    if rows is None:
+        return None
+    return _flash_maps(_operands(q, k, v), (tile, rows, rows))
+
+
+#: the query rows of dk/dv's stages in the wgmma backward
+#: (flash_bwd_wgmma.cu DkvGeom::BQ); dq's kv stages are the forward's
+#: ``FLASH_KV_ROWS``
+FLASH_DKDV_Q_ROWS = 64
+
+
+def flash_bwd_maps(q, k, v, g, kernel: str, tile: int) -> Optional[Spec]:
+    """The four specs of q, k, v and dO for ``flash_bwd_dq_wgmma``
+    (``kernel`` "dq": q and dO boxes of ``tile`` rows, k and v of
+    ``FLASH_KV_ROWS[D]``) or ``flash_bwd_dkdv_wgmma`` ("dkdv": k and v
+    boxes of ``tile`` rows, q and dO of ``FLASH_DKDV_Q_ROWS``),
+    concatenated, or None where a head dim has no instance or a map is
+    illegal."""
+    rows = FLASH_KV_ROWS.get(q.shape[-1])
+    if rows is None:
+        return None
+    q_rows, kv_rows = ((tile, rows) if kernel == "dq"
+                       else (FLASH_DKDV_Q_ROWS, tile))
+    return _flash_maps(_operands(q, k, v, g),
+                       (q_rows, kv_rows, kv_rows, q_rows))
+
+
+def _operands(*tensors):
+    return tuple((tuple(t.shape), tuple(t.stride()), t.data_ptr() % 16)
+                 for t in tensors)
 
 
 @functools.lru_cache(maxsize=1024)
-def _flash_maps(operands, tile: int) -> Optional[Spec]:
-    # cached by shapes, strides and the bases' alignment (the specs hold
-    # no address): the wrapper's host time a call
-    D = operands[0][0][-1]
-    if D not in FLASH_KV_ROWS:
-        return None
+def _flash_maps(operands, rows) -> Optional[Spec]:
+    # cached by shapes, strides, the bases' alignment and the boxes' rows
+    # (the specs hold no address): the wrapper's host time a call
     out = ()
-    for (shape, strides, misalign), rows in zip(
-            operands, (tile, FLASH_KV_ROWS[D], FLASH_KV_ROWS[D])):
-        s = flash_map(shape, strides, misalign, rows)
+    for (shape, strides, misalign), r in zip(operands, rows):
+        s = flash_map(shape, strides, misalign, r)
         if s is None:
             return None
         out += s

@@ -524,3 +524,20 @@ def test_a_tuned_entry_keeps_the_heuristic_inside_the_margin(fresh):
     assert autotune._pick("gemm", CARD, "float32", shape, times, cache,
                           False) == want
     assert cache.peek("gemm", CARD, "float32", shape) == want
+
+
+def test_packaged_bf16_flash_tiles_name_wgmma_instances(fresh):
+    """Phase 20's bf16 flash keys, retuned with the wgmma backward: the
+    forward and dq share block_q 128 (each one's fastest q tile, so dq
+    keeps no key of its own); dk/dv takes the 64-row kv tile at 2048 x
+    128, where qwen2.5-3b's group of 8 query heads fills the card only
+    with the smaller tile, and the 128-row one at head dim 64.  Every
+    resolved tile is a wgmma instance."""
+    want = {"2048x128": (128, 64), "2048x64": (128, 128),
+            "4096r2304x64": (128, 128)}
+    for bucket, (bq, bk) in want.items():
+        cfg = autotune._packaged()[f"flash|{CARD}|bfloat16|{bucket}"]
+        assert (cfg["block_q"], cfg["block_k"]) == (bq, bk), bucket
+        D = int(bucket.split("x")[-1])
+        for kernel, tile in (("fwd", bq), ("dq", bq), ("dkdv", bk)):
+            assert (kernel, D, torch.bfloat16, tile) in flash.WGMMA_INSTANCES

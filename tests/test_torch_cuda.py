@@ -1462,3 +1462,104 @@ def test_flash_dispatch_keeps_the_mma_instance_where_wgmma_cannot(card):
     flash.flash_fwd(q, q, q)
     assert build.LAUNCHES["flash_fwd"] == 2, build.LAUNCHES
     assert build.LAUNCHES["flash_fwd_wgmma"] == 0, build.LAUNCHES
+
+
+#: the wgmma backward's cases: phase 20's four shapes (G 2, 5, 8 and 1),
+#: fewer queries than keys, a window that cuts causal pairs
+WGMMA_BWD_SHAPES = [
+    *[(label, shape) for label, shape in _chip_smoke().CARD_SHAPES["flash"]
+      if label in ("20a", "20b", "20c", "20d")],
+    ("sq-lt-sk", (1, 200, 4, 2, 128, 0, 500)),
+    ("window-sq-lt-sk", (2, 129, 4, 4, 64, 40, 257)),
+    ("window", (1, 400, 5, 1, 64, 96))]
+
+
+@pytest.mark.parametrize("name", ["flash_bwd_dq", "flash_bwd_dkdv"])
+@pytest.mark.parametrize("label,shape", WGMMA_BWD_SHAPES,
+                         ids=[l for l, _ in WGMMA_BWD_SHAPES])
+def test_flash_wgmma_backward_matches_plain_and_its_tiles_agree(card, label,
+                                                                shape, name):
+    """The wgmma dq and dk/dv at both tiles against the plain backward
+    (bf16 tolerance, a bitwise rerun), the tiles bitwise equal, each call
+    on the wgmma instance."""
+    import functools
+    cs = _chip_smoke()
+    args = cs.make_inputs(name, shape, torch.bfloat16, card, seed=26,
+                          draw_on_device=True)
+    plain = cs.kernel_table(card)[name][1]
+    kw = "block_q" if name == "flash_bwd_dq" else "block_k"
+    build.reset_launches()
+    outs = []
+    for tile in (64, 128):
+        kern = functools.partial(cs.kernel_table(card)[name][0],
+                                 **{kw: tile})
+        cs.compare(name + "_wgmma", kern, plain, args, torch.bfloat16)
+        outs.append(cs._flat(kern(*args)))
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    assert build.LAUNCHES[name + "_wgmma"] == 6, build.LAUNCHES
+    assert build.LAUNCHES[name] == 0, build.LAUNCHES
+
+
+def test_flash_backward_dispatch_keeps_the_mma_instance_where_tma_cannot(
+        card):
+    """Head dim 80 (no wgmma instance), fp32, and a dO whose rows are
+    not 16-byte aligned run flash.cuh's dq and dk/dv; the same call with
+    a contiguous dO runs the wgmma ones, and both agree with the plain
+    backward."""
+    cs = _chip_smoke()
+    for name in ("flash_bwd_dq", "flash_bwd_dkdv"):
+        kern, plain, _ = cs.kernel_table(card)[name]
+        for shape, dtype in (((1, 100, 2, 2, 80, 0), torch.bfloat16),
+                             ((1, 100, 4, 2, 64, 0), torch.float32)):
+            args = cs.make_inputs(name, shape, dtype, card, seed=27)
+            build.reset_launches()
+            kern(*args)
+            assert build.LAUNCHES[name] == 1, build.LAUNCHES
+            assert build.LAUNCHES[name + "_wgmma"] == 0, build.LAUNCHES
+        args = cs.make_inputs(name, (1, 100, 4, 2, 64, 0), torch.bfloat16,
+                              card, seed=27)
+        rows = torch.zeros(1, 100, 4 * 64 + 4, device=card,
+                           dtype=torch.bfloat16)
+        g = rows[..., :256].unflatten(-1, (4, 64))       # rows of 520 bytes
+        g.copy_(args[3])
+        odd = args[:3] + (g,) + args[4:]
+        assert flash.backward_instance(*odd[:4], "dq", 64) is None
+        build.reset_launches()
+        cs.compare(name, kern, plain, odd, torch.bfloat16)
+        assert build.LAUNCHES[name] == 2, build.LAUNCHES
+        cs.compare(name, kern, plain, args, torch.bfloat16)
+        assert build.LAUNCHES[name + "_wgmma"] == 2, build.LAUNCHES
+
+
+@pytest.mark.parametrize("shape", [(2, 300, 16, 2, 128, 0),
+                                   (2, 257, 10, 2, 64, 96)],
+                         ids=["gqa-d128", "window-d64"])
+def test_flash_attention_bf16_gradients_on_card_track_plain_cpu(card, shape):
+    """``FlashAttention`` in bf16 on the card (the wgmma forward, dq and
+    dk/dv) against the plain bf16 route on the CPU, on the same numbers:
+    the output and each gradient within twice the plain route's own
+    bf16-to-fp32 gap (relative Frobenius norms)."""
+    B, S, H, KV, D, window = shape
+    gen = torch.Generator().manual_seed(28)
+    q, dout = (torch.randn(B, S, H, D, generator=gen).to(torch.bfloat16)
+               for _ in range(2))
+    k, v = (torch.randn(B, S, KV, D, generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+
+    def run(device, dtype):
+        leaves = [t.to(device=device, dtype=dtype).requires_grad_(True)
+                  for t in (q, k, v)]
+        out = ops.flash_attention(*leaves, window=window)
+        grads = torch.autograd.grad(out, leaves, dout.to(device, dtype))
+        return [t.detach().float().cpu() for t in (out, *grads)]
+    build.reset_launches()
+    got = run(card, torch.bfloat16)
+    assert all(build.LAUNCHES[n] == 1 for n in (
+        "flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma")), \
+        build.LAUNCHES
+    assert all(build.LAUNCHES[n] == 0 for n in (
+        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")), build.LAUNCHES
+    plain, exact = run("cpu", torch.bfloat16), run("cpu", torch.float32)
+    for name, a, b, c in zip(("out", "dq", "dk", "dv"), got, plain, exact):
+        err, gap = (a - b).norm() / c.norm(), (b - c).norm() / c.norm()
+        assert err <= 2 * gap, (name, float(err), float(gap))

@@ -34,7 +34,15 @@ an emulation of the kernels' walks, their block bounds taken at key
 positions and their per-warp skips, computes every visible (q, k) pair
 exactly once and no other, dk/dv writes each kv row once, and at Sq ==
 Sk every bound is the whole-sequence one.
+
+The bf16 wgmma kernels (csrc/flash_wgmma.cu, csrc/flash_bwd_wgmma.cu)
+are emulated from bf16 operands at phase 20's S 2048 and held to
+chip_smoke.py's bf16 tolerance: each k16 step's products summed exactly
+and rounded toward zero into the accumulator, no promotion, and p (ds)
+split as hi + lo where a product takes it from registers; the same
+emulation with one bf16 P (and dS) misses, so the split stays.
 """
+import functools
 import math
 
 import numpy as np
@@ -559,3 +567,214 @@ def test_emulated_wgmma_forward_against_the_bf16_tolerance(label, split):
         assert worst[0] < 0.5, worst
     else:
         assert worst[0] > 1.0, worst
+
+
+
+# ----------------------------------------------------------------------
+# The bf16 wgmma backward (csrc/flash_bwd_wgmma.cu), emulated
+# ----------------------------------------------------------------------
+LOG2E = np.float32(1.4426950408889634)
+_CUT = np.uint64(0xFFFFFFFFE0000000)    # float64 bits kept by float32's 24
+
+
+def _rz(x):
+    """float64 -> float32 rounded toward zero, as ``_rz32``: the float64
+    mantissa cut to float32's 24 bits (exact in float32's normal range),
+    the rare results below it through ``_rz32``."""
+    x = np.ascontiguousarray(x, np.float64)
+    r = (x.view(np.uint64) & _CUT).view(np.float64).astype(np.float32)
+    tiny = np.flatnonzero(np.abs(r) < np.float32(2.0 ** -126))
+    tiny = tiny[x.ravel()[tiny] != 0]
+    if tiny.size:
+        r.ravel()[tiny] = _rz32(x.ravel()[tiny])
+    return r
+
+
+def _wgmma_dot_t(a, b):
+    """a.b^T over D as the wgmma kernels sum a score tile: k16 steps
+    rounded toward zero into one zeroed accumulator (S = Q.K^T and S^T =
+    K.Q^T take the same products in the same order, so one matrix serves
+    both)."""
+    acc = np.zeros((a.shape[0], b.shape[0]), np.float32)
+    for kk in range(0, a.shape[1], 16):
+        acc = _rz(acc + a[:, kk:kk + 16].astype(np.float64)
+                  @ b[:, kk:kk + 16].T.astype(np.float64))
+    return acc
+
+
+def _span(j, first, end, n):
+    """[j + first, j + end) clamped to [0, n), each None for the edge:
+    the accumulator rows a k16 step at column j can change (the rows
+    that see none of columns j .. j + 15 take zero terms there, which
+    leave an accumulator unchanged)."""
+    return (0 if first is None else min(max(j + first, 0), n),
+            n if end is None else min(max(j + end, 0), n))
+
+
+def wgmma_bwd_terms(q, k, v, dout, lse, delta, window):
+    """{(batch, query head): (p, ds)}, [Sq, Sk] fp32 as both wgmma
+    backward kernels form them on the accumulator registers: s and dp
+    from ``_wgmma_dot_t``, p = 2^(s.c - lse.log2(e)) with c =
+    log2(e)/sqrt(D) (the FFMA rounded once, lse.log2(e) rounded to fp32
+    first), 0 where a pair is not visible, ds = (p.(dp - delta)).scale
+    rounded at each step.  Scores are formed only over the visible
+    columns of each 256 rows."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G, off = H // KV, Sk - Sq
+    scale = np.float32(1.0 / math.sqrt(D))
+    c2 = np.float32(scale * LOG2E)
+    out = {}
+    for b in range(B):
+        for h in range(H):
+            p = np.zeros((Sq, Sk), np.float32)
+            ds = np.zeros((Sq, Sk), np.float32)
+            for r0 in range(0, Sq, 256):
+                r1 = min(r0 + 256, Sq)
+                c0 = max(r0 + off - window + 1, 0) if window > 0 else 0
+                c1 = r1 + off
+                qpos = np.arange(r0, r1)[:, None] + off
+                kpos = np.arange(c0, c1)[None, :]
+                ok = kpos <= qpos
+                if window > 0:
+                    ok &= kpos > qpos - window
+                s = _wgmma_dot_t(q[b, r0:r1, h], k[b, c0:c1, h // G])
+                dp = _wgmma_dot_t(dout[b, r0:r1, h], v[b, c0:c1, h // G])
+                l2 = (lse[b, h, r0:r1] * LOG2E).astype(np.float32)[:, None]
+                pb = np.exp2((s.astype(np.float64) * c2 - l2
+                              ).astype(np.float32)).astype(np.float32)
+                pb = np.where(ok, pb, np.float32(0)).astype(np.float32)
+                t = (dp - delta[b, h, r0:r1][:, None]).astype(np.float32)
+                p[r0:r1, c0:c1] = pb
+                ds[r0:r1, c0:c1] = ((pb * t).astype(np.float32) * scale
+                                    ).astype(np.float32)
+            out[b, h] = (p, ds)
+    return out
+
+
+def _wgmma_acc(acc, x, y, split, span):
+    """acc += x.y as wgmma with A = x from registers and B = y MN-major,
+    k16 steps of x's columns in order, each rounded toward zero into acc
+    (no promotion): x split as hi + lo in bf16, lo.y then hi.y a step, or
+    rounded to bf16 alone; ``span(j)``: the rows step j can change."""
+    hi = _bf16(x)
+    parts = (_bf16(x - hi), hi) if split else (hi,)
+    for j in range(0, x.shape[1], 16):
+        r0, r1 = span(j)
+        if r0 >= r1:
+            continue
+        ys = y[j:j + 16].astype(np.float64)
+        for part in parts:
+            acc[r0:r1] = _rz(acc[r0:r1] + part[r0:r1, j:j + 16] @ ys)
+    return acc
+
+
+def emulated_wgmma_dq(k, terms, window, split=True):
+    """dq [B, Sq, H, D] of flash_bwd_wgmma.cu from bf16 operands and
+    ``wgmma_bwd_terms``: per query row, dq += dS.K over the kv positions
+    in order (kv blocks in order, k16 steps in a block) in one
+    accumulator, rounded to bf16 once."""
+    B, Sk, KV, D = k.shape
+    Sq = next(iter(terms.values()))[0].shape[0]
+    H, off = len(terms) // B, Sk - Sq
+    dq = np.zeros((B, Sq, H, D), np.float32)
+    for (b, h), (_, ds) in terms.items():
+        acc = np.zeros((Sq, D), np.float32)
+        _wgmma_acc(acc, ds, k[b, :, h // (H // KV)], split,
+                   lambda j: _span(j, -off, window + 15 - off
+                                   if window > 0 else None, Sq))
+        dq[b, :, h] = _bf16(acc)
+    return dq
+
+
+def emulated_wgmma_dkdv(q, k, dout, terms, window, split=True):
+    """(dk, dv) [B, Sk, KV, D] of flash_bwd_wgmma.cu from bf16 operands
+    and ``wgmma_bwd_terms``: per kv row one accumulator each, over the G
+    query heads of its kv head in order and in each the queries in order
+    (q blocks in order, k16 steps in a block): dv += P^T.dO, dk +=
+    dS^T.Q; rounded to bf16 once."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G, off = H // KV, Sk - Sq
+    dk, dv = np.zeros_like(k), np.zeros_like(k)
+    for b in range(B):
+        for kvh in range(KV):
+            ak = np.zeros((Sk, D), np.float32)
+            av = np.zeros((Sk, D), np.float32)
+            for h in range(kvh * G, (kvh + 1) * G):
+                p, ds = terms[b, h]
+                for acc, x, y in ((av, p, dout), (ak, ds, q)):
+                    _wgmma_acc(acc, np.ascontiguousarray(x.T), y[b, :, h],
+                               split, lambda j: _span(
+                                   j, off - window + 1 if window > 0
+                                   else None, off + 16, Sk))
+            dk[b, :, kvh], dv[b, :, kvh] = _bf16(ak), _bf16(av)
+    return dk, dv
+
+
+#: label -> (B, S, H, KV, D, window), the outputs one bf16 P and dS (no
+#: hi + lo split) push past the bf16 tolerance: phase 20's S 2048 at 20c's
+#: group of 8 query heads on one kv head of 128 (the longest sum of dk
+#: and dv: 8 x 2048 query rows), at head dim 64 under a window of 512
+#: (20b's 2048 cut down so that it cuts causal pairs), and at S 512
+#: where one bf16 P^T misses in dv
+WGMMA_BWD_CASES = {"d128-g8": ((1, 2048, 8, 1, 128, 0), ("dq",)),
+                   "d64-window": ((1, 2048, 2, 1, 64, 512), ("dq", "dk")),
+                   "d64-s512": ((1, 512, 2, 1, 64, 0), ("dq", "dv"))}
+
+
+@functools.lru_cache(maxsize=1)
+def _wgmma_bwd_case(label):
+    """(bf16 operands as fp32 numpy, the plain backward, its args, the
+    kernels' terms) of one case: the plain forward's lse and delta, as
+    chip_smoke.py's make_inputs builds them."""
+    shape = WGMMA_BWD_CASES[label][0]
+    window = shape[-1]
+    q, k, v, g = (_bf16(x) for x in _inputs(shape))
+    tq, tk, tv, tg = (torch.from_numpy(x).to(torch.bfloat16)
+                      for x in (q, k, v, g))
+    out, lse = ref.flash_fwd_ref(tq, tk, tv, window=window)
+    delta = ref.flash_delta(out, tg)
+    args = (tq, tk, tv, tg, lse, delta, window)
+    want = ref.flash_bwd_ref(tq, tk, tv, None, lse, tg, window=window,
+                             delta=delta)
+    terms = wgmma_bwd_terms(q, k, v, g, lse.numpy(), delta.numpy(), window)
+    return (q, k, g), want, args, terms
+
+
+def _worst_bwd(name, got, want, args):
+    """Largest |emulated - plain| / limit of each output under
+    chip_smoke.py's bf16 tolerance of kernel ``name``."""
+    out = []
+    for g, w, cond, tol in zip(got, want, CS._conds(name, args, want),
+                               CS.TOL_BF16[name]):
+        w = w.double()
+        limit = tol["atol"] + tol["rtol"] * w.abs() + tol["ctol"] * cond.double()
+        out.append(float(((torch.from_numpy(g).double() - w).abs()
+                          / limit).max()))
+    return out
+
+
+@pytest.mark.parametrize("split", [True, False],
+                         ids=["hi-lo-holds", "one-bf16-misses"])
+@pytest.mark.parametrize("label", list(WGMMA_BWD_CASES))
+def test_emulated_wgmma_backward_against_the_bf16_tolerance(label, split):
+    """The wgmma dq and dk/dv arithmetic at phase 20's S 2048, bf16
+    inputs, against the plain backward under chip_smoke.py's bf16
+    tolerance, without promoting any accumulator: with p and ds split as
+    hi + lo every output holds, dk and dv too at G 8 (8 x 2048 query rows
+    into one accumulator); with one bf16 P and dS the case's listed
+    outputs miss 1e-3 of their cond where few terms cancel, so every
+    product that takes p or ds from registers keeps the split."""
+    (q, k, g), want, args, terms = _wgmma_bwd_case(label)
+    window = args[-1]
+    worst = dict(zip(("dq",), _worst_bwd(
+        "flash_bwd_dq", [emulated_wgmma_dq(k, terms, window, split)],
+        want[:1], args)))
+    worst.update(zip(("dk", "dv"), _worst_bwd(
+        "flash_bwd_dkdv", emulated_wgmma_dkdv(q, k, g, terms, window, split),
+        want[1:], args)))
+    if split:
+        assert max(worst.values()) < 0.5, worst
+    else:
+        assert all(worst[o] > 1.0 for o in WGMMA_BWD_CASES[label][1]), worst

@@ -36,9 +36,9 @@ def test_every_source_is_read():
     names = {p.name for p in SOURCES}
     assert {"flash.cuh", "flash.cu", "fused.cu", "ssd.cu",
             "tensor_core.cuh", "hopper.cuh", "gemm_wgmma.cu",
-            "flash_wgmma.cu"} <= names
-    # six mma.sync instance sources and the wgmma forward
-    assert len([n for n in names if n.startswith("flash_")]) == 7
+            "flash_wgmma.cu", "flash_bwd_wgmma.cu"} <= names
+    # six mma.sync instance sources, the wgmma forward and backward
+    assert len([n for n in names if n.startswith("flash_")]) == 8
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)

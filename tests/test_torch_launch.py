@@ -160,19 +160,23 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
             "tp_launches", "serve_launches", "bf16"}
     bf16_keys = {"launches", "max_abs_err", "shape", "ms", "plain_ms",
                  "bound_ms", "bound_by", "library_ms", "config"}
-    # the wgmma instances carry phase 20's flash forward and QKV GEMM:
-    # their entries are bf16 and phase 20's; the mma.sync instances' bf16
-    # entries keep phase 20's launches (none) and the configuration
-    wgmma = {"gemm_bias_wgmma", "flash_fwd_wgmma"}
+    # the wgmma instances carry phase 20's QKV GEMM and flash forward and
+    # backward: their entries are bf16 and phase 20's; the mma.sync
+    # instances' bf16 entries keep phase 20's launches (none) and the
+    # configuration
+    wgmma = {"gemm_bias_wgmma", "flash_fwd_wgmma", "flash_bwd_dq_wgmma",
+             "flash_bwd_dkdv_wgmma"}
     assert [k["name"] for k in record["kernels"]] == [
         "add_rmsnorm_fwd", "add_rmsnorm_bwd", "gemm_bias", "flash_fwd",
         "flash_bwd_dq", "flash_bwd_dkdv", "ssd_fwd", "ssd_bwd",
-        "gemm_bias_wgmma", "flash_fwd_wgmma"]
+        "gemm_bias_wgmma", "flash_fwd_wgmma", "flash_bwd_dq_wgmma",
+        "flash_bwd_dkdv_wgmma"]
     for k in record["kernels"]:
         if k["name"] in wgmma:
             assert set(k) == (keys - {"tp_launches", "serve_launches", "bf16"}
                               | {"dtype", "path", "shape"})
-        elif k["name"] in ("gemm_bias", "flash_fwd"):
+        elif k["name"] in ("gemm_bias", "flash_fwd", "flash_bwd_dq",
+                           "flash_bwd_dkdv"):
             assert set(k) == keys and set(k["bf16"]) == {"launches",
                                                          "config"}
         else:

@@ -3,9 +3,10 @@
 ``kernels/tma.py`` computes each operand's TMA tensor map (dims,
 strides in bytes, box) on the host, and the wrappers take the wgmma
 instances exactly where those maps are legal (``kernels/fused.py::
-gemm_config``, ``kernels/flash.py::forward_instance``).  These tests hold,
-for every phase 20 shape of chip_smoke.py, the fused QKV GEMM's three
-products and the flash forward on the fused QKV output's views: that
+gemm_config``, ``kernels/flash.py::forward_instance`` and
+``backward_instance``).  These tests hold, for every phase 20 shape of
+chip_smoke.py, the fused QKV GEMM's three products and the flash
+forward, dq and dk/dv on the fused QKV output's views: that
 the specs keep ``cuTensorMapEncodeTiled``'s rules (a 16-byte aligned base, strides
 positive multiples of 16 bytes, a box of at most 256 a dim whose inner
 extent is the 128-byte swizzle row), that they describe the operand as
@@ -142,3 +143,55 @@ def test_flash_takes_the_mma_instance_where_tma_cannot():
     assert flash.forward_instance(q, q, q, 64) is None
     assert tma.flash_map((2, 100, 2, 64), (25600, 128, 64, 1), 8, 64) is None
     assert tma.flash_map((2, 100, 2, 64), (25600, 128, 64, 1), 0, 64)
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkdv"])
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("label,shape", P20_FLASH,
+                         ids=[l for l, _ in P20_FLASH])
+def test_flash_backward_maps_at_phase_20_shapes_on_fused_views(label, shape,
+                                                               tile, kernel):
+    """dq and dk/dv at phase 20's shapes on the fused QKV views (and on
+    contiguous q and k), dO contiguous as the autograd function hands it
+    over, take the wgmma instances at both tiles, each map over its
+    operand in place: dq's q and dO boxes of the tile's rows and k and v
+    of the forward's kv stage, dk/dv's k and v of the tile's rows and q
+    and dO of 64."""
+    B, S, H, KV, D, _ = shape
+    q, k, v = _fused_views(B, S, H, KV, D)
+    g = torch.empty(B, S, H, D, dtype=torch.bfloat16, device="meta")
+    q_rows, kv_rows = ((tile, tma.FLASH_KV_ROWS[D]) if kernel == "dq"
+                       else (64, tile))
+    for qq, kk in ((q, k), (q.contiguous(), k.contiguous())):
+        maps = flash.backward_instance(qq, kk, v, g, kernel, tile)
+        assert maps is not None and len(maps) == 44
+        for i, (t, rows) in enumerate(((qq, q_rows), (kk, kv_rows),
+                                       (v, kv_rows), (g, q_rows))):
+            dims, strides, box = _legal(maps[11 * i:11 * i + 11], 4)
+            assert dims == (D, t.shape[2], S, B)
+            assert strides == tuple(2 * s for s in (t.stride(2), t.stride(1),
+                                                    t.stride(0)))
+            assert box == (64, 1, rows, 1)
+        assert maps[22 + 5] == (H + 2 * KV) * D * 2   # v: the fused row
+
+
+def test_flash_backward_takes_the_mma_instance_where_tma_cannot():
+    """Head dims without a wgmma instance, fp32, a dO whose rows are not
+    16-byte aligned or whose base is misaligned: no maps, the mma.sync
+    instances of dq and dk/dv."""
+    for kernel in ("dq", "dkdv"):
+        q, k, v = _fused_views(2, 100, 4, 2, 80)
+        assert flash.backward_instance(q, k, v, q, kernel, 64) is None
+        q, k, v = _fused_views(2, 100, 4, 2, 64, torch.float32)
+        assert flash.backward_instance(q, k, v, q, kernel, 64) is None
+        q, k, v = _fused_views(2, 100, 4, 2, 64)
+        rows = torch.empty(2, 100, 4 * 64 + 4, dtype=torch.bfloat16,
+                           device="meta")
+        g = rows[..., :256].unflatten(-1, (4, 64))      # rows of 520 bytes
+        assert flash.backward_instance(q, k, v, g, kernel, 64) is None
+        assert flash.backward_instance(q, k, v, q.contiguous(), kernel, 64)
+    shape, strides = (2, 100, 4, 64), (25600, 256, 64, 1)
+    ops = tuple((shape, strides, 0) for _ in range(4))
+    assert tma._flash_maps(ops, (64, 128, 128, 64))
+    assert tma._flash_maps(ops[:3] + ((shape, strides, 8),),
+                           (64, 128, 128, 64)) is None

@@ -8,8 +8,11 @@ change,parent`` compares two commits on one machine.
 
 ``--phase`` names a phase of the tree's own ``chip_smoke.py``: ``naive``
 (6), ``flash`` (7), ``mamba`` (8), ``moe`` (10), ``lifecycle`` (9),
-``serving`` (11), ``multiprocess`` (12), ``spmd`` (13) or ``tp`` (18, on
-phase 13's sequences).  Each run builds the tree's
+``serving`` (11), ``multiprocess`` (12), ``spmd`` (13), ``tp`` (18, on
+phase 13's sequences) or ``bf16`` (20, on phase 13's sequences; each
+run also waits for the phase's dry-run trace of four full-size models,
+which ``chip_smoke.py`` overlaps with phases 3-19: ≈ 285 s a run on
+the H100 machine's host, ≈ 6 min a run in all).  Each run builds the tree's
 kernels (once per tree: the library is cached under its ``build/``),
 runs the phase with that tree's ``src`` first on the path and prints
 the phase's own lines, each prefixed with the run's label.
@@ -49,7 +52,7 @@ if {exact!r}:
                                     "step_seconds": out["step_seconds"]}}))
 elif phase in paths:
     cs.run_path(dev, *paths[phase])
-elif phase == "tp":
+elif phase in ("tp", "bf16"):
     import numpy as np
     from repro_torch.data import ByteCorpus, GlobalBatchDispenser
     from repro_torch.launch.train import _TEXT
@@ -57,8 +60,8 @@ elif phase == "tp":
     engine = cs.spmd_engine(cs.spmd_model(True)[0], seq)
     parts = GlobalBatchDispenser(ByteCorpus(_TEXT * 50, seq_len=seq)
                                  ).next_step(engine.batch.minibatch_sizes())
-    cs.run_tp(dev, {{k: np.concatenate([b[k] for b in parts])
-                    for k in ("tokens", "labels")}})
+    getattr(cs, "run_" + phase)(dev, {{k: np.concatenate([b[k] for b in parts])
+                                      for k in ("tokens", "labels")}})
 else:
     getattr(cs, "run_" + phase)(dev)
 """
@@ -71,7 +74,7 @@ def main(args=None) -> int:
                     help="comma-separated labels")
     ap.add_argument("--phase", required=True,
                     choices=["naive", "flash", "mamba", "moe", "lifecycle",
-                             "serving", "multiprocess", "spmd", "tp"])
+                             "serving", "multiprocess", "spmd", "tp", "bf16"])
     ap.add_argument("--exact", action="store_true",
                     help="the training command's exact losses and steps")
     ns = ap.parse_args(args)

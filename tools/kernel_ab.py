@@ -19,13 +19,15 @@ partial rows summed by ``torch.sum``; and a tree whose flash launchers
 take no tile (before the autotuner) is called with the tile argument
 dropped, its 64-row tile only; and a tree whose flash launchers take one
 sequence length (before Sq <= Sk) is called with the key length dropped,
-at Sq == Sk only; and a tree with no wgmma instances
-(before ``csrc/gemm_wgmma.cu`` and ``csrc/flash_wgmma.cu``) has its bf16
-QKV GEMM and flash forward called through ``build.launch`` on its
-mma.sync launchers, 16-byte copies at the tiles its own packaged table
-names (this checkout's wrappers send such calls to the wgmma
-launchers), while a tree that has them runs them through the wrappers
-(each tree resolves its tiles from its own ``autotune_offline.json``).  Per
+at Sq == Sk only; and a tree with no wgmma instance of a kernel
+(before ``csrc/gemm_wgmma.cu`` and ``csrc/flash_wgmma.cu`` for the bf16
+QKV GEMM and flash forward, before ``csrc/flash_bwd_wgmma.cu`` for dq
+and dk/dv) has that kernel called in bf16 through ``build.launch`` on
+its mma.sync launcher, 16-byte copies at the tiles its own packaged
+table names (this checkout's wrappers send such calls to the wgmma
+launchers), while a tree that has the instance runs it through the
+wrapper (each tree resolves its tiles from its own
+``autotune_offline.json``).  Per
 tree, each kernel is first
 held against its plain version (chip_smoke.py's comparison), then timed
 with CUDA events, at the shape of the path the kernels line reports
@@ -189,11 +191,14 @@ def load(lib: pathlib.Path, scratch: bool, norm_bwd, tile: bool = True,
     fused.add_rmsnorm_bwd = norm_bwd
 
 
-def has_wgmma(tree: str) -> bool:
-    """Whether the tree has the wgmma instances of the bf16 QKV GEMM and
-    flash forward."""
+def has_wgmma(tree: str, name: str) -> bool:
+    """Whether the tree has the wgmma instance of kernel ``name`` (the
+    bf16 QKV GEMM and flash forward: gemm_wgmma.cu; dq and dk/dv:
+    flash_bwd_wgmma.cu)."""
+    source = ("flash_bwd_wgmma.cu" if name.startswith("flash_bwd")
+              else "gemm_wgmma.cu")
     return (pathlib.Path(tree).resolve()
-            / "src/repro_torch/kernels/csrc/gemm_wgmma.cu").exists()
+            / "src/repro_torch/kernels/csrc" / source).exists()
 
 
 def use_table(tree: str) -> None:
@@ -207,9 +212,9 @@ def use_table(tree: str) -> None:
 
 def kernel_of(cs, table, name, dtype, wgmma: bool):
     """The callable that times kernel ``name`` of a tree in ``dtype``:
-    the wrapper, except for the bf16 QKV GEMM and flash forward of a
-    tree with no wgmma instances (``wgmma`` False): its mma.sync
-    launchers called directly (``mma_bf16``)."""
+    the wrapper, except for a bf16 kernel whose wgmma instance the tree
+    does not have (``wgmma`` False): its mma.sync launcher called
+    directly (``mma_bf16``)."""
     import torch
     if dtype != torch.bfloat16 or name not in cs.WGMMA.values() or wgmma:
         return table[name][0]
@@ -217,10 +222,11 @@ def kernel_of(cs, table, name, dtype, wgmma: bool):
 
 
 def mma_bf16(name: str):
-    """The bf16 ``gemm_bias`` (a, b, bias) or ``flash_fwd`` (q, k, v,
-    window) of a tree with no wgmma instances: its launcher with 16-byte
-    copies, at the (tile, split) or q tile of the tree's packaged table
-    (``use_table``)."""
+    """The bf16 ``gemm_bias`` (a, b, bias), ``flash_fwd`` (q, k, v,
+    window), ``flash_bwd_dq`` or ``flash_bwd_dkdv`` (q, k, v, dO, lse,
+    delta, window) of a tree with no wgmma instance of it: its launcher
+    with 16-byte copies, at the (tile, split) or q / kv tile of the
+    tree's packaged table (``use_table``)."""
     import math
     import torch
     from repro_torch.kernels import autotune, build, flash, fused
@@ -257,7 +263,22 @@ def mma_bf16(name: str):
                      build.check_tensors("flash_fwd", q, k, v),
                      build.current_stream(q))
         return out, lse
-    return gemm if name == "gemm_bias" else forward
+
+    def backward(q, k, v, g, lse, delta, window):
+        (B, Sq, H, D), (Sk, KV) = q.shape, k.shape[1:3]
+        dq = name == "flash_bwd_dq"
+        outs = ([torch.empty_like(q)] if dq
+                else [torch.empty_like(k), torch.empty_like(v)])
+        build.launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                     *(t.data_ptr() for t in outs), B, Sq, Sk, H, KV, D,
+                     window, 1.0 / math.sqrt(D), *flash._strides(q),
+                     *flash._strides(k), *flash._strides(v),
+                     *flash._strides(g), flash.resolve_tiles(q)[0 if dq else 1],
+                     build.check_tensors(name, q, k, v, g),
+                     build.current_stream(q))
+        return outs[0] if dq else tuple(outs)
+    return {"gemm_bias": gemm, "flash_fwd": forward}.get(name, backward)
 
 
 def main(argv=None) -> int:
@@ -325,7 +346,8 @@ def main(argv=None) -> int:
         use_table(trees[label])
         for i, (name, layout, shape_label, dtype, inputs) in enumerate(cases):
             plain = table[name][1]
-            kern = kernel_of(cs, table, name, dtype, has_wgmma(trees[label]))
+            kern = kernel_of(cs, table, name, dtype,
+                             has_wgmma(trees[label], name))
             if label not in checked:
                 cs.compare(name, kern, plain, inputs, dtype)
             if args.bitwise:
@@ -349,7 +371,7 @@ def main(argv=None) -> int:
                 row["device_ms"] = cs.device_ms(kern, inputs, name,
                                                 args.iters)[1]
             if dtype == torch.bfloat16 and name in cs.WGMMA.values():
-                row["instance"] = ("wgmma" if has_wgmma(trees[label])
+                row["instance"] = ("wgmma" if has_wgmma(trees[label], name)
                                    else "mma.sync")
             print(json.dumps(row), flush=True)
         checked.add(label)
