@@ -185,6 +185,16 @@ Phases, each fatal on failure:
      equal the count from the shapes (``tp_mixer_bytes``), printed
      beside their ratio to the dry-run's act + act-grad bytes (its trace
      runs beside phases 17 and 18).
+     19c: hymba-1.5b at full width over data 1 x model 8, one world of 8
+     rank processes of its own (gloo), 2 of 32 blocks, phase 13's first
+     2 sequences, 2 steps: query heads 4 / 3 / ... / 3 of 25 over 5 kv
+     heads, ranks 1, 4 and 6 straddling two kv groups, their heads run
+     as two flash pieces a block (``TPContext.pieces``).  Held as phase
+     19 holds its scenarios (the whole-leaf gradients of in_proj and the
+     heads' vectors in the "tp" count); rank 1's flash launches twice
+     rank 0's; each rank's peak beside the dry-run's per-card peak (its
+     trace beside phases 17 and 18).  Phase 3 checks the pieces' flash
+     shapes (``19c-1``..``19c-4``).
  20. the reference's default dtype, bf16 activations over fp32
      parameters: one program (``SPMDExecutor`` from ``build_model``,
      remat full, the chunked CE at 512, the flash, epilogue and SSD
@@ -231,8 +241,8 @@ it has no entry for).  The last lines are the card line, a
 ``{"kernels": [...]}`` JSON line (each kernel's launches counted on the
 path that reports it: phase 7 for the six, phase 8 for the SSD pair;
 error, times, bound and the resolved ``config`` at the shapes that path
-gives it; ``tp_launches``: rank 0's launches over phases 18 and 19's
-five scenarios; ``serve_launches``: rank 0's over phase 21's three
+gives it; ``tp_launches``: rank 0's launches over phases 18, 19 and
+19c's six scenarios; ``serve_launches``: rank 0's over phase 21's three
 cases; ``bf16``: its launches over phase 20's four bf16 runs
 and its bf16 error, times, bound and config at a phase 20 shape,
 ``reported_bf16``) and ``{"ok": true, "device": {...}}``.
@@ -396,7 +406,9 @@ CARD_SHAPES = {
     # gqa: qwen2.5-3b's heads (16 / kv 2, head dim 128) at a ragged
     # sequence; window: a sliding window of 256 (hymba's 2048 scaled
     # down) with hymba's group of 5 query heads per kv head; d80: GPT-3
-    # 2.7B's 32 heads of 80 at a ragged sequence
+    # 2.7B's 32 heads of 80 at a ragged sequence; 19c-1..19c-4: phase
+    # 19c's flash pieces, 1-4 of hymba's query heads over one kv head
+    # (checked in phase 3, not timed)
     "flash": [("flash", (2, 2048, 16, 16, 64, 0)),
               ("moe", (1, 2048, 16, 8, 64, 0)),
               ("gqa", (2, 1000, 16, 2, 128, 0)),
@@ -411,6 +423,10 @@ CARD_SHAPES = {
               ("sv-a", (2, 2048, 8, 4, 128, 0)),
               ("sv-b", (2, 2048, 15, 3, 64, 2048)),
               ("sv-c", (2, 2048, 10, 2, 64, 2048)),
+              ("19c-1", (2, 2048, 1, 1, 64, 2048)),
+              ("19c-2", (2, 2048, 2, 1, 64, 2048)),
+              ("19c-3", (2, 2048, 3, 1, 64, 2048)),
+              ("19c-4", (2, 2048, 4, 1, 64, 2048)),
               ("20a", (4, 2048, 16, 8, 128, 0)),
               ("20b", (4, 2048, 25, 5, 64, 2048)),
               ("20c", (4, 2048, 16, 2, 128, 0)),
@@ -455,6 +471,10 @@ CPU_SHAPES = {
               ("tp-f", (1, 40, 25, 5, 16, 40)),
               ("sv-a", (2, 40, 4, 2, 64, 0)), ("sv-b", (2, 40, 15, 3, 16, 40)),
               ("sv-c", (2, 40, 10, 2, 16, 40)),
+              ("19c-1", (2, 40, 1, 1, 16, 40)),
+              ("19c-2", (2, 40, 2, 1, 16, 40)),
+              ("19c-3", (2, 40, 3, 1, 16, 40)),
+              ("19c-4", (2, 40, 4, 1, 16, 40)),
               ("20a", (2, 40, 4, 2, 32, 0)), ("20b", (2, 40, 5, 1, 16, 40)),
               ("20c", (2, 40, 8, 1, 32, 0)), ("20d", (2, 45, 4, 4, 16, 0))],
     "ssd": [("mamba", (1, 100, 3, 16, 16, True)),
@@ -2771,8 +2791,9 @@ SEQ17_STEPS = 2
 
 
 def _scenario(name):
-    """A phase 17 (``SEQ17``), 18 (``TP18``) or 19 (``TP19``) scenario."""
-    return {**SEQ17, **TP18, **TP19}[name]
+    """A phase 17 (``SEQ17``), 18 (``TP18``) or 19 (``TP19``, ``TP19C``)
+    scenario."""
+    return {**SEQ17, **TP18, **TP19, **TP19C}[name]
 
 
 def seq_model(on_card, name):
@@ -2788,6 +2809,7 @@ def seq_model(on_card, name):
     arch, seq = get_arch(arch_name), SPMD["seq_len"]
     if not on_card:
         arch, seq = reduced(arch, layers=2), SPMD["cpu_seq_len"]
+        arch = dataclasses.replace(arch, **TP_CPU_FIELDS.get(name, {}))
     elif layers is not None:
         arch = dataclasses.replace(arch, num_layers=layers)
     model = Model(arch, dtype=torch.float32, fuse="fused", remat=True,
@@ -3051,8 +3073,29 @@ TP19 = {
     "19a": ("mamba2-780m", 8, 2, dict(ssd_impl="kernel")),
     "19b": ("hymba-1.5b", 4, 2, dict(attn_impl="kernel", ssd_impl="kernel")),
 }
-TP_PHASES = {"18": TP18, "19": TP19}
+#: phase 19c: hymba-1.5b at full width over data 1 x model 8, a world of
+#: 8 rank processes of its own: query heads 4 / 3 / ... / 3 of 25 over 5
+#: kv heads, ranks 1, 4 and 6 straddling two kv groups (two flash pieces
+#: a block: ``TPContext.pieces``), every attention weight gathered at use,
+#: in_proj (6482 columns) and the 50 heads' dt_bias / A_log / D whole
+#: through f, 7 / 6 Mamba2 heads a rank; depth cut to 2 of 32 blocks,
+#: phase 13's first 2 sequences.  The CPU rehearsal runs it on model 4
+#: with the reduced hymba at 9 / 3 heads, which places pieces the same
+#: way (``TP_CPU_FIELDS``)
+TP19C = {
+    "19c": ("hymba-1.5b", 2, 2, dict(attn_impl="kernel", ssd_impl="kernel")),
+}
+TP_PHASES = {"18": TP18, "19": TP19, "19c": TP19C}
 TP_STEPS = 2
+#: the reduced arch's fields replaced in the CPU rehearsal
+TP_CPU_FIELDS = {"19c": {"num_heads": 9, "num_kv_heads": 3}}
+
+
+def tp_mesh(on_card, phase):
+    """The (data, model) mesh of a phase 18, 19 or 19c world."""
+    if phase == "19c":
+        return (1, 8) if on_card else (1, 4)
+    return MESH["shape"]
 
 
 def _replicated_hashes(ex):
@@ -3065,31 +3108,57 @@ def _replicated_hashes(ex):
             if "model" not in spec}
 
 
-def tp_mixer_bytes(arch, rows, positions, remat=True):
-    """The all-reduce bytes a rank a step of a phase 19 scenario on data
-    2 x model 2, by tag, counted from the shapes as
+def _whole_mixer_bytes(arch, model):
+    """Bytes of a block's Mamba2 mixer and attention weights the spec
+    keeps whole (the model axis does not divide the cut dimension): each
+    taken through *f*, whose backward all-reduces its gradient, tagged
+    "tp", once a step (tests/test_torch_spmd_tp_ssm.py counts the same)."""
+    c = arch.ssm
+    d_inner = c.expand * arch.d_model
+    heads = d_inner // c.head_dim
+    gn = c.n_groups * c.state_size
+    conv_dim = d_inner + 2 * gn
+    cut = {"in_proj": (arch.d_model * (2 * d_inner + 2 * gn + heads),
+                       2 * d_inner + 2 * gn + heads),
+           "conv_w": (c.conv_width * conv_dim, conv_dim),
+           "conv_b": (conv_dim, conv_dim),
+           "dt_bias": (heads, heads), "A_log": (heads, heads),
+           "D": (heads, heads)}
+    if arch.num_heads:
+        q = arch.num_heads * arch.head_dim
+        kv = arch.num_kv_heads * arch.head_dim
+        cut.update(wq=(arch.d_model * q, q), wk=(arch.d_model * kv, kv),
+                   wv=(arch.d_model * kv, kv))
+    return 4 * sum(n for n, dim in cut.values() if dim % model)
+
+
+def tp_mixer_bytes(arch, rows, positions, remat=True, model=2):
+    """The all-reduce bytes a rank a step of a phase 19 scenario over a
+    model axis of ``model``, by tag, counted from the shapes as
     tests/test_torch_spmd_tp_ssm.py counts them.  "tp": per block, each
     *g* in the forward and each *f* in the backward ([rows, positions, d]
     fp32): mamba2's mixer one of each (torch's checkpoint stops its
     recompute at the block's last saved tensor, the input of out_proj's
     product, so the *g* after it is not rerun); hymba's branch pair one
     of each, its *g* again in remat's recompute (the MLP's saved tensors
-    come after it), and the MLP's one of each.  At model 2 the spec cuts
-    every mixer and attention weight of both, so none is taken whole
-    through *f*.  "ssm_norm": the gated norm's sum of squares ([rows,
-    positions, 1] fp32) forward, again in the recompute, and its
-    cotangents' sum backward."""
+    come after it), and the MLP's one of each; plus the weights the spec
+    keeps whole, through *f* (``_whole_mixer_bytes``: none of either
+    model at model 2; hymba-1.5b's in_proj of 6482 columns and its 50
+    heads' dt_bias, A_log and D at model 8).  "ssm_norm": the gated
+    norm's sum of squares ([rows, positions, 1] fp32) forward, again in
+    the recompute, and its cotangents' sum backward."""
     act = rows * positions * arch.d_model * 4
     extra = 1 if remat else 0
     acts = 2 if arch.family == "ssm" else 2 + extra + 2
-    return {"tp": arch.num_layers * acts * act,
+    return {"tp": arch.num_layers * (acts * act
+                                     + _whole_mixer_bytes(arch, model)),
             "ssm_norm": arch.num_layers * (2 + extra) * rows * positions * 4}
 
 
 def tp_rank(on_card, batch, phase="18"):
-    """Phase 18 or 19, one rank's part (run by ``spawn_world``): the
-    phase's scenarios in turn on this world's data 2 x model 2 mesh under
-    ``tp``."""
+    """Phase 18, 19 or 19c, one rank's part (run by ``spawn_world``):
+    the phase's scenarios in turn on this world's mesh (``tp_mesh``)
+    under ``tp``."""
     import gc
     import torch
     from repro_torch.configs import ShapeConfig
@@ -3102,7 +3171,7 @@ def tp_rank(on_card, batch, phase="18"):
     from repro_torch.runtime.sharding import gather_tree
     from repro_torch.utils.tree import tree_leaves, tree_map
     dev = _world_device(on_card)
-    mesh = ProcessMesh(("data", "model"), MESH["shape"])
+    mesh = ProcessMesh(("data", "model"), tp_mesh(on_card, phase))
     strategy = ShardingStrategy(strategy="tp")
     tr = mesh.transport
     out = {"rank": mesh.rank, "coords": mesh.coords}
@@ -3124,7 +3193,8 @@ def tp_rank(on_card, batch, phase="18"):
         tp = strategy.tp_context(mesh, arch)
         r = {"held": held, "want": want["args"] - want["batch"],
              "heads": tp.heads, "kv_heads": tp.kv_heads,
-             "ssm_heads": tp.ssm_heads, "experts": tp.experts,
+             "pieces": tp.pieces, "ssm_heads": tp.ssm_heads,
+             "experts": tp.experts,
              "vocab": tp.vocab, "builds_at_bind": ex.cache.stats.compiles}
         build.reset_launches()
         losses, bits, secs, moved, tagged, hashes = [], [], [], [], [], []
@@ -3159,11 +3229,12 @@ def tp_rank(on_card, batch, phase="18"):
 
 
 def tp_dryrun(on_card, phase="18"):
-    """The dry-run of each phase 18 or 19 scenario on an abstract data 2 x
-    model 2 mesh under ``tp`` (``launch/dryrun.py::analyze``: a trace on
-    fake tensors, no device): {name: its collectives' bytes a device by
-    kind and site}.  Printed as JSON: the phase runs it in a process of
-    its own beside the ranks."""
+    """The dry-run of each phase 18, 19 or 19c scenario on an abstract
+    mesh of the phase's shape (``tp_mesh``) under ``tp``
+    (``launch/dryrun.py::analyze``: a trace on fake tensors, no device):
+    {name: its collectives' bytes a device by kind and site, and its
+    per-device args and temps}.  Printed as JSON: the phase runs it in a
+    process of its own beside the ranks."""
     import torch
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch import dryrun
@@ -3174,12 +3245,17 @@ def tp_dryrun(on_card, phase="18"):
         arch, seq, model = seq_model(on_card, name)
         a = dryrun.analyze(arch, ShapeConfig(f"phase{phase}-{name}", seq, gb,
                                              "train"),
-                           make_mesh(MESH["shape"], ("data", "model")),
+                           make_mesh(tp_mesh(on_card, phase),
+                                     ("data", "model")),
                            ShardingStrategy(strategy="tp"),
                            dtype=torch.float32, moe_impl=model.moe_impl,
                            loss_chunk=model.loss_chunk)
+        nb = a["bytes"]
         out[name] = {"by_kind": a["ops"]["collective_bytes_by_kind"],
                      "by_site": a["ops"]["collective_bytes_by_site"],
+                     "args": nb["args"], "temps": nb["temps"],
+                     "peak": (nb["args"] + nb["temps"] + nb["outputs"]
+                              - nb["alias"]),
                      "trace_s": a["trace_s"]}
     print(json.dumps(out))
 
@@ -3190,12 +3266,15 @@ def start_tp_dryrun(on_card, phase="18"):
 
 
 def run_tp(device, batch, phase="18", trace=None):
-    """Phase 18 (Megatron tensor and expert parallelism) or 19 (the
-    Mamba2 mixer and hymba under it): one world of 4 fresh rank processes
-    sharing the card (gloo), each scenario held to a one-program
-    SPMDExecutor on the same weights and sequences.  ``trace``: the
-    phase's dry-run (``start_tp_dryrun``), started here if None.  Returns
-    rank 0's launches over the phase's scenarios."""
+    """Phase 18 (Megatron tensor and expert parallelism), 19 (the
+    Mamba2 mixer and hymba under it) or 19c (hymba's query heads
+    straddling kv groups over model 8): one world of fresh rank processes
+    sharing the card (gloo; 4, or 8 for 19c: ``tp_mesh``), each scenario
+    held to a one-program SPMDExecutor on the same weights and
+    sequences.  A rank whose query heads are several pieces launches the
+    flash kernels once a piece.  ``trace``: the phase's dry-run
+    (``start_tp_dryrun``), started here if None.  Returns rank 0's
+    launches over the phase's scenarios."""
     import gc
     import torch
     from repro_torch.launch.mesh import spawn_world
@@ -3210,7 +3289,8 @@ def run_tp(device, batch, phase="18", trace=None):
         gc.collect()
         if on_card:
             torch.cuda.empty_cache()
-        ranks_n = MESH["shape"][0] * MESH["shape"][1]
+        shape = tp_mesh(on_card, phase)
+        ranks_n = shape[0] * shape[1]
         poller = _MemoryPeak(on_card)
         try:
             ranks = spawn_world("chip_smoke:tp_rank", ranks_n,
@@ -3248,6 +3328,8 @@ def run_tp(device, batch, phase="18", trace=None):
                   f"programs at bind, {r['builds']} after")
             if on_card:
                 want_l = seq_launches(arch, TP_STEPS)
+                for k in FLASH:           # once a piece of its heads
+                    want_l[k] *= len(r["pieces"] or (None,))
                 got = {k: r["launches"][k] for k in want_l}
                 check(got == want_l, f"tp {name} rank {rank['rank']} "
                       f"launches {got}, expected {want_l}")
@@ -3279,7 +3361,8 @@ def run_tp(device, batch, phase="18", trace=None):
         mixer = (f", Mamba2 heads {r0['ssm_heads']}"
                  if r0["ssm_heads"] is not None else "")
         print(f"[tp] {name} {arch.name} ({arch.num_layers} blocks, S {seq}, "
-              f"global batch {scenarios[name][2]}, data 2 x model 2): a "
+              f"global batch {scenarios[name][2]}, data {shape[0]} x model "
+              f"{shape[1]}): a "
               f"rank's query heads {r0['heads']}, kv heads {r0['kv_heads']}"
               f"{mixer}, experts {r0['experts']}, vocabulary rows "
               f"{r0['vocab']} (None: whole); first loss {losses[0]!r} vs one "
@@ -3290,7 +3373,8 @@ def run_tp(device, batch, phase="18", trace=None):
                    for i in range(TP_STEPS)]
         print(f"[tp] {name} step seconds {[round(t, 4) for t in r0['secs']]}"
               f" (rank 0; slowest rank {slowest}), host seconds inside the "
-              f"collectives on rank 0 {r0['comm_s']:.4f}; losses "
+              f"collectives on rank 0 {r0['comm_s']:.4f} (gloo's share of "
+              f"its steps {r0['comm_s'] / sum(r0['secs']):.3f}); losses "
               f"{[round(x, 4) for x in losses]} bitwise on every rank; "
               f"{n_whole} leaves not cut over model bitwise across the "
               f"model group after every step; programs 1, builds after "
@@ -3308,7 +3392,8 @@ def run_tp(device, batch, phase="18", trace=None):
               f"this layout by site {act} (ring bytes: 2 (k-1)/k of the "
               f"buffer, = the buffer at k 2; trace {d['trace_s']}s)")
         if arch.ssm is not None:
-            want_b = tp_mixer_bytes(arch, 1, seq)
+            want_b = tp_mixer_bytes(arch, scenarios[name][2] // shape[0], seq,
+                                    model=shape[1])
             for rank in ranks:
                 got_b = [{tag: t.get(tag, {}).get("reduced", 0)
                           for tag in want_b} for t in rank[name]["tagged"]]
@@ -3324,14 +3409,32 @@ def run_tp(device, batch, phase="18", trace=None):
                   f"dry-run's act + act-grad {round(acts)}: "
                   f"{ours / acts if acts else float('nan'):.5f}")
         print(f"[tp] {name} launches a rank {r0['launches']}")
+        pieces = [len(rk[name]["pieces"] or (None,)) for rk in ranks]
+        if max(pieces) > 1:
+            # the first rank whose query heads straddle kv groups (rank 1
+            # on model 8) against rank 0, whose heads are one piece
+            s = pieces.index(max(pieces))
+            rs = ranks[s][name]
+            flash = {rank: {k: ranks[rank][name]["launches"][k]
+                            for k in FLASH} for rank in (0, s)}
+            check(not on_card or all(
+                flash[s][k] == pieces[s] * flash[0][k] for k in FLASH),
+                f"tp {name}: rank {s}'s flash launches {flash[s]} are not "
+                f"{pieces[s]} x rank 0's {flash[0]}")
+            print(f"[tp] {name} flash pieces a block by rank {pieces}: rank "
+                  f"{s}'s query heads {rs['heads']} over kv heads "
+                  f"{rs['kv_heads']} in pieces {rs['pieces']}; flash "
+                  f"launches rank 0 {flash[0]}, rank {s} {flash[s]}")
         for k, v in r0["launches"].items():
             total[k] = total.get(k, 0) + v
         if on_card:
             print(f"[tp] {name} peak max_memory_allocated a rank "
                   f"{[round(rk[name]['peak'] / 2**30, 2) for rk in ranks]} "
-                  f"GiB")
-    mem = (f"nvidia-smi memory.used peak {smi} MiB (4 ranks and this "
-           f"process)" if on_card else
+                  f"GiB; the dry-run's per-card peak {d['peak'] / 2**30:.2f} "
+                  f"GiB (args {d['args'] / 2**30:.2f}, temps "
+                  f"{d['temps'] / 2**30:.2f}; rank 0's heads traced)")
+    mem = (f"nvidia-smi memory.used peak {smi} MiB ({ranks_n} ranks and "
+           f"this process)" if on_card else
            "peak memory: not measured (cpu rehearsal)")
     print(f"[tp] phase {phase}: {mem}; the dry-run's trace ended "
           f"{wait_s:.1f}s after the ranks; phase "
@@ -4408,18 +4511,20 @@ def _phases(device, on_card, shapes, iters, trace20):
     losses15 = run_pipeline(device, p13["batch"])
     run_pipeline_beside(device, p13["batch"], losses15)
     run_autotune(device)
-    # phase 19's dry-run traces full-size mixers on the host for minutes:
-    # it runs beside phases 17 and 18
-    trace19 = start_tp_dryrun(on_card, "19")
+    # phase 19's and 19c's dry-runs trace full-size mixers on the host
+    # for minutes: they run beside phases 17 and 18
+    traces = {p: start_tp_dryrun(on_card, p) for p in ("19", "19c")}
     try:
         run_seq(device, p13["batch"])
         tp_launches = run_tp(device, p13["batch"])
-        for k, v in run_tp(device, p13["batch"], "19", trace19).items():
-            tp_launches[k] = tp_launches.get(k, 0) + v
+        for p, trace in traces.items():
+            for k, v in run_tp(device, p13["batch"], p, trace).items():
+                tp_launches[k] = tp_launches.get(k, 0) + v
     finally:
-        if trace19.poll() is None:
-            trace19.kill()
-            trace19.wait()
+        for trace in traces.values():
+            if trace.poll() is None:
+                trace.kill()
+                trace.wait()
     bf16_launches = run_bf16(device, p13["batch"], trace20)
     launches21 = run_serve(device, p13["batch"])
     configs = kernel_configs(device, shapes)

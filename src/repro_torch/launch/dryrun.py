@@ -17,9 +17,10 @@ its own step functions under FakeTensorMode (``launch/opcount.py``):
     the leftover batch axes where ``act_constrainer`` would shard it,
     FSDP gathering one block at a time (``unshard``; the embedding,
     final norm and head gathered for the whole step), TP on a local
-    architecture (``local_arch``): the largest rank's whole heads and kv
-    heads, and its Mamba2 heads where ``ArchConfig``'s integer
-    ``expand`` can state them (else whole), with d_ff, experts and
+    architecture (``local_arch``): rank 0's query heads (the most a rank
+    computes) and the kv heads they read, and its Mamba2 heads where
+    ``ArchConfig``'s integer ``expand`` can state them (else whole), with
+    d_ff, experts and
     vocabulary divided by the model axis wherever the spec shards them
     (the divisibility guard decides; counts it cannot divide stay
     whole).  Decode runs on a cache at the local batch (under FSDP with
@@ -72,9 +73,8 @@ from repro_torch.launch.mesh import (data_axes, group_size,
 from repro_torch.launch.opcount import OpCounter
 from repro_torch.models import Model
 from repro_torch.runtime import spmd
-from repro_torch.runtime.sharding import (ShardingStrategy, heads_fall,
-                                         spec_leaves, ssm_heads,
-                                         ssm_heads_fall, tp_heads)
+from repro_torch.runtime.sharding import (ShardingStrategy, spec_leaves,
+                                         ssm_heads, ssm_heads_fall, tp_heads)
 from repro_torch.utils.hw import H100, HardwareSpec
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -123,11 +123,17 @@ def _batch_bytes(mesh, bspec, batch) -> int:
 def local_arch(arch: ArchConfig, strategy: ShardingStrategy,
                mesh) -> ArchConfig:
     """The architecture one device computes (module docstring): under TP
-    the largest rank's whole heads (``sharding.tp_heads``: hymba's 15 / 3
-    of 25 / 5 at model 2) and Mamba2 heads (``sharding.ssm_heads``, where
+    rank 0's heads (``sharding.tp_heads``), the rank that computes the
+    most query heads, with the kv heads they read: hymba's 15 / 3 of 25 /
+    5 at model 2, 4 / 1 at model 8 (ranks 1-7 compute 3, and ranks 1, 4
+    and 6 read 2 kv heads, a second k / v projection of one head that
+    this trace leaves out), qwen2.5-32b's 3 / 1 of 40 / 8 at model 16.
+    Rank 0's query heads are always one piece (``sharding.tp_pieces``):
+    they start a group, and with fewer kv heads than ranks they number
+    at most ceil(H / n) <= G.  Mamba2 heads (``sharding.ssm_heads``) where
     the integer ``expand`` can state them: mamba2-780m's and hymba's at
-    model 2, neither at 4, where they stay whole); heads no layout places
-    stay whole (``check_layout`` refuses to run them)."""
+    model 2, neither at 4, where they stay whole; fewer query heads than
+    ranks stay whole (``check_layout`` refuses to run them)."""
     k = mesh.shape[strategy.model_axis]
     if k == 1:
         return arch
@@ -135,7 +141,7 @@ def local_arch(arch: ArchConfig, strategy: ShardingStrategy,
         rep: Dict[str, Any] = {}
         hd = arch.head_dim or (arch.d_model // arch.num_heads
                                if arch.num_heads else 0)
-        if arch.num_heads and heads_fall(arch, k):
+        if arch.num_heads >= k:
             (q0, q1), (k0, k1) = tp_heads(arch, k, 0)
             rep.update(num_heads=q1 - q0, num_kv_heads=k1 - k0, head_dim=hd)
         c = arch.ssm

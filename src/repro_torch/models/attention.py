@@ -25,10 +25,17 @@ row-parallel ``wo`` product leaves through *g*.  A weight cut inside a
 head (fewer kv heads than ranks) is gathered at use and sliced to the
 heads the rank reads (``TPContext.take``).  Where the heads do not
 divide the model axis a rank takes whole kv groups with their query
-heads (``sharding.tp_heads``), and every weight is gathered at use.
-With ``part=True`` the caller owns *f* and *g* (hymba's block joins the
-attention and the Mamba2 mixer under one of each).  The decode takes the
-same heads and writes them into a cache held at the rank's kv heads.
+heads, or, with fewer kv heads than ranks, its query heads as evenly as
+they fall and every kv head they read (``sharding.tp_heads``), and every
+weight is gathered at use.  Query heads that straddle kv groups run as
+pieces (``TPContext.pieces``), each an ordinary GQA call over its own kv
+heads (whole groups, or part of one group over one kv head), and the
+pieces' outputs are concatenated in head order before ``wo``'s rows; a
+kv head two ranks split is computed by both from the same inputs, and
+the gather's backward sums its weights' gradient.  With ``part=True``
+the caller owns *f* and *g* (hymba's block joins the attention and the
+Mamba2 mixer under one of each).  The decode takes the same heads and
+pieces and writes them into a cache held at the rank's kv heads.
 """
 from __future__ import annotations
 
@@ -161,6 +168,16 @@ def _sdpa_blocked(q, k, v, *, causal: bool, window: int,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
 
 
+def _by_piece(attend, q, k, v, pieces):
+    """``attend(q, k, v)`` over each piece ((query lo, hi), (kv lo, hi))
+    of q's and k / v's heads (dimension 2), concatenated along the query
+    heads; one piece (or none: one card) attends the whole."""
+    if pieces is None or len(pieces) == 1:
+        return attend(q, k, v)
+    return torch.cat([attend(q[:, :, a:b], k[:, :, c:d], v[:, :, c:d])
+                      for (a, b), (c, d) in pieces], dim=2)
+
+
 def _tp_params(params, arch: ArchConfig, tp) -> Tuple[dict, Tuple[int, int]]:
     """The attention weights a rank of ``tp`` computes its heads with, and
     its (query heads, kv heads) counts (module docstring)."""
@@ -208,13 +225,15 @@ def attention(params, arch: ArchConfig, x: torch.Tensor, *,
         k, v = kv[:, :, :KV], kv[:, :, KV:]
     Sk = k.shape[1]
     window = arch.sliding_window
-    if impl == "kernel" and Sk > 1:
-        o = kops.flash_attention(q, k, v, window=window)
-    elif impl == "blocked" and Sk > 1:
-        o = _sdpa_blocked(q, k, v, causal=True, window=window,
-                          block_kv=min(block_kv, Sk))
-    else:
-        o = _sdpa_naive(q, k, v, causal=True, window=window)
+
+    def attend(q, k, v):
+        if impl == "kernel" and Sk > 1:
+            return kops.flash_attention(q, k, v, window=window)
+        if impl == "blocked" and Sk > 1:
+            return _sdpa_blocked(q, k, v, causal=True, window=window,
+                                 block_kv=min(block_kv, Sk))
+        return _sdpa_naive(q, k, v, causal=True, window=window)
+    o = _by_piece(attend, q, k, v, tp.pieces if tp is not None else None)
     o = o.reshape(B, S, -1) @ params["wo"].to(x.dtype)
     return tp.g(o) if tp is not None and not part else o
 
@@ -260,7 +279,7 @@ def decode_attention_(params, arch: ArchConfig, x: torch.Tensor, cache: dict,
         params, heads = _tp_params(params, arch, tp)
         if not part:
             x = tp.f(x)
-    H, KV = heads or (arch.num_heads, arch.num_kv_heads)
+    H = heads[0] if heads else arch.num_heads
     q, k, v = _project_qkv(params, arch, x, positions, heads=heads)
     ck, cv = cache["k"], cache["v"]
     L = ck.shape[1]
@@ -275,16 +294,23 @@ def decode_attention_(params, arch: ArchConfig, x: torch.Tensor, cache: dict,
         ck[at] = torch.where(keep, ck[at], k[:, 0])
         cv[at] = torch.where(keep, cv[at], v[:, 0])
     hd = arch.head_dim
-    qg = q.reshape(B, KV, H // KV, hd)
-    scores = torch.einsum("bkgd,bskd->bkgs", qg, ck).float() / math.sqrt(hd)
     idx = torch.arange(L, device=x.device)
     p = pos[:, None] if vec else pos
     s = slot[:, None] if vec else slot
     # a filled ring buffer holds the window's positions in every slot
     valid = ((idx <= s) | (p >= L)) if arch.sliding_window else idx <= p
     valid = valid.reshape(-1, 1, 1, L)
-    scores = scores.masked_fill(~valid, float("-inf"))
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    o = torch.einsum("bkgs,bskd->bkgd", probs, cv).reshape(B, 1, H * hd)
-    o = o @ params["wo"].to(x.dtype)
+
+    def attend(q, ck, cv):
+        kv = ck.shape[2]
+        qg = q.reshape(B, kv, q.shape[2] // kv, hd)
+        scores = (torch.einsum("bkgd,bskd->bkgs", qg, ck).float()
+                  / math.sqrt(hd))
+        scores = scores.masked_fill(~valid, float("-inf"))
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        return torch.einsum("bkgs,bskd->bkgd", probs, cv).reshape(
+            B, 1, q.shape[2], hd)
+    o = _by_piece(attend, q.reshape(B, 1, H, hd), ck, cv,
+                  tp.pieces if tp is not None else None)
+    o = o.reshape(B, 1, H * hd) @ params["wo"].to(x.dtype)
     return tp.g(o) if tp is not None and not part else o

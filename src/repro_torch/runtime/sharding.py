@@ -27,9 +27,11 @@ leaves uncovered, over which the sequence shards as the reference's
 ``P(batch, seq)`` constraint shards it, and every batch axis, over which
 the MoE router's statistics are summed.  Under ``tp`` ``tp_context``
 gives the model its ``TPContext`` (the model's ``tp``): this rank's
-whole heads (attention and Mamba2), MLP columns, experts and vocabulary
-rows, and Megatron's *f* and *g* over the model axis, which the model
-places where the reference's GSPMD program would put its collectives.
+whole heads (attention and Mamba2; attention heads in pieces of one GQA
+shape where a rank's query heads straddle kv groups), MLP columns,
+experts and vocabulary rows, and Megatron's *f* and *g* over the model
+axis, which the model places where the reference's GSPMD program would
+put its collectives.
 Handed a ``recorder`` (``launch/opcount.py``), they record the
 collectives the strategy's layout implies where the reference's GSPMD
 program would run them: the dry-run's trace.
@@ -366,9 +368,10 @@ def _even(total: int, n: int, r: int) -> Tuple[int, int]:
 
 
 def heads_fall(arch, n: int) -> bool:
-    """Whether ``tp_heads`` places ``arch``'s heads on n ranks: at least
-    n kv heads, or n dividing the query heads and a multiple of the kv
-    heads."""
+    """Whether ``arch``'s heads fall on n ranks as whole kv groups or
+    even parts of one (``tp_heads``' first two rules): at least n kv
+    heads, or n dividing the query heads and a multiple of the kv heads.
+    Elsewhere a rank's query heads may straddle two kv groups."""
     H, KV = arch.num_heads, arch.num_kv_heads
     return KV >= n or (H % n == 0 and n % KV == 0)
 
@@ -390,10 +393,15 @@ def tp_heads(arch, n: int, r: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
     kv heads: H / n query heads each, and the kv heads they read, KV / n
     of them where n divides KV, else the one kv head a rank's query heads
     share.  Otherwise, with at least n kv heads, whole kv groups as
-    evenly as they fall (``_even``), each with its H / KV query heads, so
-    every rank keeps the group size.  Raises ``NotImplementedError``
-    where fewer kv heads than ranks do not divide n (hymba's 5 over 8):
-    no layout of whole heads places them."""
+    evenly as they fall (``_even``), each with its G = H / KV query heads,
+    so every rank keeps the group size.  Otherwise (fewer kv heads than
+    ranks, not dividing them: hymba's 5 over 8) the query heads as evenly
+    as they fall, and the kv heads they read, [q0 // G, ceil(q1 / G)): a
+    kv head whose group two ranks split is computed on both (its columns
+    gathered at use, ``TPContext.take``) and stored by the spec alone, and
+    a rank's query heads run as pieces of one GQA shape each
+    (``tp_pieces``).  Raises ``NotImplementedError`` where there are fewer
+    query heads than ranks: a rank would compute none."""
     H, KV = arch.num_heads, arch.num_kv_heads
     if H % n == 0 and (KV % n == 0 or n % KV == 0):
         q0, q1 = _part(H, n, r)
@@ -401,13 +409,36 @@ def tp_heads(arch, n: int, r: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
             return (q0, q1), _part(KV, n, r)
         k0 = q0 // (H // KV)
         return (q0, q1), (k0, k0 + 1)
-    if not heads_fall(arch, n):
-        raise NotImplementedError(
-            f"tp over a model axis of {n}: {H} query heads / {KV} kv heads "
-            f"do not fall on whole heads a rank")
-    k0, k1 = _even(KV, n, r)
     G = H // KV
-    return (k0 * G, k1 * G), (k0, k1)
+    if KV >= n:
+        k0, k1 = _even(KV, n, r)
+        return (k0 * G, k1 * G), (k0, k1)
+    if H < n:
+        raise NotImplementedError(
+            f"tp over a model axis of {n}: {H} query heads leave a rank "
+            f"with no query head")
+    q0, q1 = _even(H, n, r)
+    return (q0, q1), (q0 // G, -(-q1 // G))
+
+
+def tp_pieces(arch, heads: Tuple[int, int]
+              ) -> Tuple[Tuple[Tuple[int, int], Tuple[int, int]], ...]:
+    """The query heads ``heads`` = [q0, q1) of ``arch`` cut at multiples of
+    the group size G = H / KV into pieces, each ((query lo, hi), (kv lo,
+    hi)) of one GQA shape: a run of whole groups (G query heads a kv
+    head) or part of one group (over one kv head).  The query heads of
+    ``tp_heads`` where ``heads_fall`` holds are one piece."""
+    G = arch.num_heads // arch.num_kv_heads
+    a, q1 = heads
+    out = []
+    while a < q1:
+        if a % G:                   # the rest of a group begun before a
+            b = min(q1, a - a % G + G)
+        else:                       # whole groups, else part of one
+            b = q1 - q1 % G if q1 - q1 % G > a else q1
+        out.append(((a, b), (a // G, -(-b // G))))
+        a = b
+    return tuple(out)
 
 
 def ssm_heads(arch, n: int, r: int) -> Tuple[int, int]:
@@ -438,7 +469,12 @@ class TPContext:
     same on every rank.  ``ssm_heads`` are its Mamba2 heads.  Heads are
     placed whole (``tp_heads``, ``ssm_heads``) wherever the spec's cut
     falls, inside a head too: they decide what a rank computes, never
-    what it stores.  ``f`` and ``g`` are Megatron's operators over
+    what it stores.  ``pieces``: its query heads cut into pieces of one
+    GQA shape each (``tp_pieces``), as ((query lo, hi), (kv lo, hi))
+    relative to ``heads`` and ``kv_heads``; one piece wherever
+    ``heads_fall`` holds, two or three where a rank's query heads
+    straddle kv groups, whose kv head two ranks then both compute.
+    ``f`` and ``g`` are Megatron's operators over
     ``axis`` (``runtime/collectives.py``): a replicated tensor enters a
     rank's part through ``f``, and the parts leave through ``g``.  The
     objective is counted once a model group: a gradient is never taken
@@ -453,13 +489,17 @@ class TPContext:
     experts: Optional[Tuple[int, int]]
     vocab: Optional[Tuple[int, int]]
     ssm_heads: Optional[Tuple[int, int]] = None
+    pieces: Optional[Tuple] = None
 
     @classmethod
     def of(cls, mesh, axis: str, arch) -> "TPContext":
         n, r = mesh.size(axis), mesh.axis_index(axis)
-        heads = kv = None
+        heads = kv = pieces = None
         if arch.num_heads:
             heads, kv = tp_heads(arch, n, r)
+            pieces = tuple(((a - heads[0], b - heads[0]),
+                            (c - kv[0], d - kv[0]))
+                           for (a, b), (c, d) in tp_pieces(arch, heads))
         moe = arch.moe
         return cls(mesh, axis, heads, kv,
                    _part(arch.d_ff, n, r) if arch.d_ff else None,
@@ -467,7 +507,8 @@ class TPContext:
                     if moe is not None and moe.shared_expert_d_ff else None),
                    _part(moe.num_experts, n, r) if moe is not None else None,
                    _part(arch.vocab_size, n, r),
-                   ssm_heads(arch, n, r) if arch.ssm is not None else None)
+                   ssm_heads(arch, n, r) if arch.ssm is not None else None,
+                   pieces)
 
     def f(self, t: torch.Tensor, tag: str = "tp") -> torch.Tensor:
         """Megatron's *f*: the identity; the cotangent summed over the
@@ -665,9 +706,10 @@ def batch_rows(strategy: ShardingStrategy, mesh, global_batch: int
 def _cache_cuts(arch, strategy: ShardingStrategy, mesh):
     """{cache leaf: (dimension, [(lo, hi)] of each model rank, the
     dimension's whole tail every rank holds)} of the head cut under TP
-    (empty elsewhere): the attention's kv heads, the Mamba2 heads' SSM
-    states and their x channels of the conv state (B and C, the conv
-    channels after ``d_inner``, whole on every rank)."""
+    (empty elsewhere): the attention's kv heads (two ranks' ranges share
+    a kv head whose group they split), the Mamba2 heads' SSM states and
+    their x channels of the conv state (B and C, the conv channels after
+    ``d_inner``, whole on every rank)."""
     if strategy.tp_context(mesh, arch) is None:
         return {}
     n = mesh.size(strategy.model_axis)
@@ -695,7 +737,8 @@ def shard_cache(cache: Any, arch, strategy: ShardingStrategy, mesh,
     the rows leave the model axis free: a rank under TP computes whole
     heads, so it holds whole heads (the same bytes as the spec's shard
     where the model axis divides the kv heads; more on the ranks with
-    one kv group more where it does not, and less on the others), and
+    one kv group more where it does not, and less on the others; a kv
+    head two ranks compute is held, and written alike, by both), and
     the conv's B and C channels, which every rank computes, whole on
     every rank; under FSDP with rows too few to cover the model axis
     the model group computes the same rows and each holds them whole."""
@@ -732,10 +775,23 @@ def _gather_parts(t: torch.Tensor, mesh, axis, dim: int, sizes
                       for i, k in enumerate(sizes)], dim)
 
 
+def _first_owned(parts):
+    """Each rank's range of ``parts`` (ascending [lo, hi) ranges, a rank's
+    first unit possibly its predecessor's last) less what an earlier rank
+    holds: every unit from its first owner."""
+    out, end = [], parts[0][0]
+    for lo, hi in parts:
+        start = min(max(lo, end), hi)
+        out.append((start, hi))
+        end = max(end, hi)
+    return out
+
+
 def gather_cache(cache: Any, arch, strategy: ShardingStrategy, mesh,
                  global_batch: int) -> Any:
     """One program's serving cache from every rank's part (the inverse
-    of ``shard_cache``), on every rank."""
+    of ``shard_cache``), on every rank: a kv head two ranks hold comes
+    from the first."""
     axis, _, _ = batch_rows(strategy, mesh, global_batch)
     cuts = _cache_cuts(arch, strategy, mesh)
     r = mesh.axis_index(strategy.model_axis) if cuts else 0
@@ -744,9 +800,11 @@ def gather_cache(cache: Any, arch, strategy: ShardingStrategy, mesh,
         if path in cuts:
             dim, parts, tail = cuts[path]
             k = parts[r][1] - parts[r][0]
-            whole = _gather_parts(t.narrow(dim, 0, k), mesh,
-                                  strategy.model_axis, dim,
-                                  [hi - lo for lo, hi in parts])
+            owned = _first_owned(parts)
+            lo, hi = owned[r]
+            whole = _gather_parts(t.narrow(dim, lo - parts[r][0], hi - lo),
+                                  mesh, strategy.model_axis, dim,
+                                  [b - a for a, b in owned])
             if tail is not None:
                 whole = torch.cat([whole, t.narrow(dim, k, t.shape[dim] - k)],
                                   dim)

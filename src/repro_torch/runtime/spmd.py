@@ -29,8 +29,10 @@ over the rest (``ShardingStrategy.seq_context``: each rank takes its
 rows of the batch whole, and the model keeps its positions of the
 sequence), and an MoE sums its router statistics over every batch rank.
 Under TP the Mamba2 mixer runs a rank's whole heads (``models/ssm.py``),
-and heads the model axis does not divide fall as whole kv groups a rank
-(``sharding.tp_heads``); a layout no such placement fits raises
+and attention heads the model axis does not divide fall as whole kv
+groups a rank or, with fewer kv heads than ranks, as evenly as the query
+heads fall, in pieces over the kv heads they read (``sharding.tp_heads``,
+``tp_pieces``); a layout no such placement fits raises
 ``NotImplementedError`` (``check_layout``).
 ``SPMDServer`` runs the prefill and decode bundles the same way: a rank
 serves its rows of the global batch with its shards, under the same
@@ -705,10 +707,11 @@ class SPMDServer:
 def check_layout(mesh, strategy: ShardingStrategy, arch: ArchConfig
                  ) -> None:
     """Raise ``NotImplementedError`` for a layout this data plane does not
-    run: under TP over a model axis larger than 1, attention heads or
-    Mamba2 heads that no layout of whole heads a rank places
-    (``sharding.tp_heads``: fewer kv heads than ranks, not dividing them;
-    ``sharding.ssm_heads``: fewer Mamba2 heads than ranks)."""
+    run: under TP over a model axis larger than 1, fewer query heads than
+    ranks (``sharding.tp_heads``: a rank would compute none), fewer
+    Mamba2 heads than ranks or several B / C groups
+    (``sharding.ssm_heads``); the message names which.  Query heads that
+    straddle kv groups run (``TPContext.pieces``)."""
     n = mesh.shape[strategy.model_axis]
     if strategy.strategy != "tp" or n == 1:
         return

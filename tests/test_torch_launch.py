@@ -278,7 +278,7 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
                    for ln in lines), (name, tag)
         assert any(ln.startswith(f"[seq] {name} step seconds") and
                    "bitwise on every rank" in ln for ln in lines), name
-    for name in ("18a", "18b", "18c", "19a", "19b"):
+    for name in ("18a", "18b", "18c", "19a", "19b", "19c"):
         for tag in ("vs one program's", "bitwise across the model group",
                     "= the dry-run's per-card args less the batch",
                     "the dry-run's all-reduce bytes", "launches a rank"):
@@ -328,8 +328,21 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     for name in ("19a", "19b"):            # the mixer's heads a rank
         assert any(ln.startswith(f"[tp] {name}") and "Mamba2 heads (0, 4)"
                    in ln for ln in lines), name
+    for name in ("19a", "19b", "19c"):
         assert any(ln.startswith(f"[tp] {name}") and "= the count from the "
                    "shapes on every rank" in ln for ln in lines), name
+    # 19c on model 4 with 9 / 3 heads: rank 2's heads straddle two kv
+    # groups and run as two flash pieces; the pieces' shapes in phase 3
+    assert any(ln.startswith("[tp] 19c flash pieces a block by rank "
+                             "[1, 1, 2, 1]: rank 2's query heads (5, 7)")
+               for ln in lines)
+    assert any(ln.startswith("[tp] 19c hymba_1_5b_smoke") and
+               "data 1 x model 4" in ln for ln in lines)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
+        for label in ("19c-1", "19c-2", "19c-3", "19c-4"):
+            assert any(ln.startswith(f"[check] {name}") and f" {label} "
+                       in ln and "float32" in ln for ln in lines), (name,
+                                                                   label)
 
 
 def _phase13_batch(cs):

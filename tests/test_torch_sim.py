@@ -2,8 +2,11 @@
 tests/test_simulator.py (the paper's §7 claims) on the port, and the
 port against the JAX package's ``repro.sim``: the same traces, and for
 each policy the same ``SimResult`` on the same traces, profiles and
-hardware numbers."""
+hardware numbers; and examples/spot_trace_replay_torch.py against the
+reference's examples/spot_trace_replay.py on its trace."""
 import dataclasses
+import importlib.util
+import os
 
 import pytest
 
@@ -232,3 +235,62 @@ def test_run_sim_matches_the_jax_package(trace, frozen_planner_clocks):
         want = jsim.run_sim(theirs[name], jevents, HORIZON, GB)
         assert dataclasses.asdict(got) == dataclasses.asdict(want), name
         assert got.committed_samples > 0 and got.events_handled > 0, name
+
+
+# ----------------------------------------------------------------------
+# examples/spot_trace_replay_torch.py against the reference's example
+# ----------------------------------------------------------------------
+EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
+POLICIES = ("oobleck", "varuna", "bamboo")
+
+
+def _load_example(name):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(EXAMPLES, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def spot_replays():
+    """Each policy's ``SimResult`` from ``examples/spot_trace_replay.py``
+    (loaded by path and run as it is, its ``run_sim`` calls recorded) and
+    from the port's example costed on the reference's hardware numbers,
+    both packages' planner clocks reading 0."""
+    import repro.core.engine
+    import repro.core.reconfigure
+    import repro_torch.core.engine
+    import repro_torch.core.reconfigure
+    ref = _load_example("spot_trace_replay")
+    port = _load_example("spot_trace_replay_torch")
+    recorded, ref_run_sim = {}, ref.run_sim
+
+    def run_sim(policy, *args, **kw):
+        recorded[policy.name] = ref_run_sim(policy, *args, **kw)
+        return recorded[policy.name]
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (repro.core.engine, repro.core.reconfigure,
+                    repro_torch.core.engine, repro_torch.core.reconfigure):
+            mp.setattr(mod, "_time", _FrozenClock)
+        mp.setattr(ref, "run_sim", run_sim)
+        ref.main()
+        ours = port.main(hw.HardwareSpec(**dataclasses.asdict(jhw.V5E)))
+    return ours, recorded
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_spot_replay_matches_the_reference_example(spot_replays, policy):
+    """On the example's trace (30 nodes, 6 h, seed 42) each policy's
+    ``SimResult`` equals the reference example's field by field."""
+    ours, theirs = spot_replays
+    assert sorted(ours) == sorted(theirs) == sorted(POLICIES)
+    got, want = ours[policy], theirs[policy]
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    # on the reference's 16 GiB chips Bamboo's redundant layers stop it
+    # at the start (the reference example prints "OOM"); the others run
+    # through every event
+    if policy == "bamboo":
+        assert got.stopped_reason == "OOM"
+    else:
+        assert got.events_handled > 0 and got.committed_samples > 0

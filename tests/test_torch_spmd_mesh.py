@@ -223,10 +223,9 @@ def test_sharded_state_is_smaller_than_one_card(results):
 
 
 #: case -> (arch fields replaced, model axis, what the message names):
-#: hymba's 5 kv groups over 8 ranks; a reduced mamba2's 8 Mamba2 heads
-#: over 16
-_UNPLACED = {"hymba_1_5b": ({"num_heads": 10, "num_kv_heads": 5}, 8,
-                            "5 kv heads"),
+#: a reduced hymba's 4 query heads over 8 ranks (a rank would compute
+#: none); a reduced mamba2's 8 Mamba2 heads over 16
+_UNPLACED = {"hymba_1_5b": ({}, 8, "4 query heads"),
              "mamba2_780m": ({}, 16, "8 Mamba2 heads")}
 
 
@@ -234,7 +233,9 @@ _UNPLACED = {"hymba_1_5b": ({"num_heads": 10, "num_kv_heads": 5}, 8,
 def test_layouts_of_item_17c_raise(case):
     """TP over heads that no layout of whole heads a rank places raises
     before any process group is needed (tests/test_torch_spmd_tp_ssm.py
-    runs the Mamba2 mixer and hymba where they fall)."""
+    runs the Mamba2 mixer and hymba where they fall, and
+    tests/test_torch_spmd_tp_heads.py query heads that straddle kv
+    groups)."""
     fields, n, names = _UNPLACED[case]
     model = Model(dataclasses.replace(reduced(get_arch(case), layers=2),
                                       **fields), dtype=torch.float32)

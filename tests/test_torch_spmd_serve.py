@@ -468,9 +468,9 @@ def test_server_on_an_abstract_mesh_raises():
         SPMDServer(model, params, make_mesh((2, 2), ("data", "model")),
                    ShardingStrategy(strategy="tp"),
                    ShapeConfig("s", 8, 4, "p"))
-    with pytest.raises(NotImplementedError, match="kv heads"):
-        SPMDServer(Model(dataclasses.replace(
-            reduced(get_arch("hymba_1_5b"), layers=2), num_heads=10,
-            num_kv_heads=5), dtype=torch.float32), None,
-            make_mesh((1, 8), ("data", "model")),
-            ShardingStrategy(strategy="tp"), ShapeConfig("s", 8, 4, "p"))
+    # 4 query heads over 8 ranks: a rank would compute none
+    with pytest.raises(NotImplementedError, match="4 query heads"):
+        SPMDServer(Model(reduced(get_arch("hymba_1_5b"), layers=2),
+                         dtype=torch.float32), None,
+                   make_mesh((1, 8), ("data", "model")),
+                   ShardingStrategy(strategy="tp"), ShapeConfig("s", 8, 4, "p"))

@@ -46,7 +46,8 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, ShapeConfig, get_arch, reduced
 from repro_torch.runtime.sharding import (heads_fall, ssm_heads,
-                                          ssm_heads_fall, tp_heads)
+                                          ssm_heads_fall, tp_heads,
+                                          tp_pieces)
 
 LR, STEPS = 1e-3, 2
 #: tests/test_executor.py's fp32 tolerance (tree_allclose_ulp)
@@ -341,34 +342,50 @@ def _old_tp_heads(arch, n, r):
     return (q0, q1), (k0, k0 + 1)
 
 
-@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("n", [2, 4, 8, 16])
 @pytest.mark.parametrize("name", ARCH_IDS)
 def test_heads_fall_whole_on_every_config(name, n):
     arch = get_arch(name)
     H, KV = arch.num_heads, arch.num_kv_heads
     if H:
         old = H % n == 0 and (KV % n == 0 or n % KV == 0)
-        if not heads_fall(arch, n):
-            assert KV < n and not old
-            with pytest.raises(NotImplementedError, match="whole heads"):
-                tp_heads(arch, n, 0)
-        else:
-            places = [tp_heads(arch, n, r) for r in range(n)]
-            if old:       # the even ranges, unchanged
-                assert places == [_old_tp_heads(arch, n, r)
-                                  for r in range(n)]
-            else:         # whole kv groups, the first ranks one more
-                assert [p[1][0] for p in places] == [0] + [
-                    p[1][1] for p in places[:-1]]
-                assert places[-1][1][1] == KV
-                sizes = [k1 - k0 for _, (k0, k1) in places]
-                assert sizes == sorted(sizes, reverse=True)
-                assert sizes[0] - sizes[-1] <= 1 and sizes[-1] >= 1
+        places = [tp_heads(arch, n, r) for r in range(n)]
+        if old:           # the even ranges, unchanged
+            assert places == [_old_tp_heads(arch, n, r) for r in range(n)]
+        elif heads_fall(arch, n):   # whole kv groups, the first ranks one more
+            assert [p[1][0] for p in places] == [0] + [
+                p[1][1] for p in places[:-1]]
+            assert places[-1][1][1] == KV
+            sizes = [k1 - k0 for _, (k0, k1) in places]
+            assert sizes == sorted(sizes, reverse=True)
+            assert sizes[0] - sizes[-1] <= 1 and sizes[-1] >= 1
+        if heads_fall(arch, n):
             for (q0, q1), (k0, k1) in places:
                 # every rank keeps the group size: q heads G a kv head
                 assert q0 * KV == k0 * H or KV < n
                 assert (q1 - q0) * KV == (k1 - k0) * H or KV < n
-            assert places[-1][0][1] == H
+                assert len(tp_pieces(arch, (q0, q1))) == 1
+        else:
+            # query heads as evenly as they fall, the first ranks one
+            # more, and every kv head they read
+            assert KV < n and not old
+            G = H // KV
+            assert [p[0][0] for p in places] == [0] + [
+                p[0][1] for p in places[:-1]]
+            sizes = [q1 - q0 for (q0, q1), _ in places]
+            assert sizes == sorted(sizes, reverse=True)
+            assert sizes[0] - sizes[-1] <= 1 and sizes[-1] >= 1
+            for (q0, q1), (k0, k1) in places:
+                assert (k0, k1) == (q0 // G, -(-q1 // G))
+                pieces = tp_pieces(arch, (q0, q1))
+                assert [p[0][0] for p in pieces] == [q0] + [
+                    p[0][1] for p in pieces[:-1]]
+                assert pieces[-1][0][1] == q1
+                for (a, b), (c, d) in pieces:   # one GQA shape each
+                    assert (b - a) == (d - c) * G or (d - c == 1
+                                                      and b - a < G)
+                    assert c == a // G and d == -(-b // G)
+        assert places[-1][0][1] == H
     if arch.ssm is not None:
         h = arch.ssm.expand * arch.d_model // arch.ssm.head_dim
         assert ssm_heads_fall(arch, n) == (h >= n)
@@ -379,39 +396,61 @@ def test_heads_fall_whole_on_every_config(name, n):
         assert max(sizes) - min(sizes) <= 1
 
 
+#: hymba-1.5b's 25 / 5 heads at model 8: 4 query heads on rank 0, 3 on
+#: the others; ranks 1, 4 and 6 straddle two kv groups
+HYMBA_MODEL8 = [((0, 4), (0, 1)), ((4, 7), (0, 2)), ((7, 10), (1, 2)),
+                ((10, 13), (2, 3)), ((13, 16), (2, 4)), ((16, 19), (3, 4)),
+                ((19, 22), (3, 5)), ((22, 25), (4, 5))]
+
+
 def test_hymba_and_mamba2_placements():
     """hymba-1.5b's 25 / 5 heads: 15 / 3 and 10 / 2 at model 2, kv groups
-    2 / 1 / 1 / 1 at model 4, no layout at model 8 (5 kv heads over 8);
-    its 50 Mamba2 heads 13 / 13 / 12 / 12 at model 4; mamba2-780m's 48
-    heads 24 a rank at model 2."""
+    2 / 1 / 1 / 1 at model 4, query heads 4 / 3 / ... / 3 at model 8
+    (``HYMBA_MODEL8``, in pieces where they straddle kv groups); its 50
+    Mamba2 heads 13 / 13 / 12 / 12 at model 4; mamba2-780m's 48 heads 24
+    a rank at model 2; qwen2.5-32b's 40 / 8 at model 16, 3 query heads on
+    ranks 0-7 and 2 on ranks 8-15."""
     hymba, mamba = get_arch("hymba_1_5b"), get_arch("mamba2_780m")
     assert [tp_heads(hymba, 2, r) for r in range(2)] == [
         ((0, 15), (0, 3)), ((15, 25), (3, 5))]
     assert [tp_heads(hymba, 4, r)[1] for r in range(4)] == [
         (0, 2), (2, 3), (3, 4), (4, 5)]
-    with pytest.raises(NotImplementedError, match="5 kv heads"):
-        tp_heads(hymba, 8, 0)
+    assert [tp_heads(hymba, 8, r) for r in range(8)] == HYMBA_MODEL8
+    assert [tp_pieces(hymba, q) for q, _ in HYMBA_MODEL8[:2]] == [
+        (((0, 4), (0, 1)),), (((4, 5), (0, 1)), ((5, 7), (1, 2)))]
+    assert tp_pieces(hymba, (13, 16)) == (((13, 15), (2, 3)),
+                                          ((15, 16), (3, 4)))
+    assert tp_pieces(hymba, (19, 22)) == (((19, 20), (3, 4)),
+                                          ((20, 22), (4, 5)))
     assert [ssm_heads(hymba, 4, r) for r in range(4)] == [
         (0, 13), (13, 26), (26, 38), (38, 50)]
     assert ssm_heads(hymba, 8, 7) == (44, 50)
     assert [ssm_heads(mamba, 2, r) for r in range(2)] == [(0, 24), (24, 48)]
+    qwen = get_arch("qwen2_5_32b")
+    assert [q1 - q0 for (q0, q1), _ in
+            (tp_heads(qwen, 16, r) for r in range(16))] == [3] * 8 + [2] * 8
+    assert tp_heads(qwen, 16, 1) == ((3, 6), (0, 2))
 
 
 def test_check_layout_and_the_dry_run_arch():
     """``check_layout`` refuses only what no placement fits; the dry-run
-    traces the largest rank's heads."""
+    traces rank 0's heads, the most query heads a rank computes."""
     from repro_torch.launch.dryrun import local_arch
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.runtime import ShardingStrategy
     from repro_torch.runtime.spmd import check_layout
     tp = ShardingStrategy(strategy="tp")
     hymba, mamba = get_arch("hymba_1_5b"), get_arch("mamba2_780m")
-    for k in (2, 4):
+    qwen = get_arch("qwen2_5_32b")
+    for k in (2, 4, 8, 16):
         mesh = make_mesh((1, k), ("data", "model"))
         check_layout(mesh, tp, hymba)
         check_layout(mesh, tp, mamba)
-    with pytest.raises(NotImplementedError, match="kv heads"):
-        check_layout(make_mesh((1, 8), ("data", "model")), tp, hymba)
+        check_layout(mesh, tp, qwen)
+    # 4 query heads over 8 ranks: a rank would compute none
+    with pytest.raises(NotImplementedError, match="4 query heads"):
+        check_layout(make_mesh((1, 8), ("data", "model")), tp,
+                     reduced(hymba, layers=2))
     small = reduced(mamba, layers=2)                 # 8 Mamba2 heads
     with pytest.raises(NotImplementedError, match="Mamba2 heads"):
         check_layout(make_mesh((1, 16), ("data", "model")), tp, small)
@@ -426,6 +465,17 @@ def test_check_layout_and_the_dry_run_arch():
     four = local_arch(hymba, tp, make_mesh((1, 4), ("data", "model")))
     # 13 heads of 64 are not an integer expand of d 1600: whole
     assert (four.num_heads, four.num_kv_heads, four.ssm) == (10, 2, hymba.ssm)
+    eight = local_arch(hymba, tp, make_mesh((1, 8), ("data", "model")))
+    assert (eight.num_heads, eight.num_kv_heads, eight.head_dim) == (4, 1, 64)
+    assert eight.d_ff == hymba.d_ff // 8 and eight.ssm == hymba.ssm
+    q16 = local_arch(qwen, tp, make_mesh((1, 16), ("data", "model")))
+    assert (q16.num_heads, q16.num_kv_heads, q16.head_dim) == (3, 1, 128)
+    # rank 0's query heads are one piece wherever they fall: the most a
+    # rank computes starts a group and, with fewer kv heads than ranks,
+    # is at most G
+    for a in (hymba, qwen):
+        for k in (2, 4, 8, 16):
+            assert len(tp_pieces(a, tp_heads(a, k, 0)[0])) == 1
     m2 = local_arch(mamba, tp, make_mesh((2, 2), ("data", "model")))
     assert m2.ssm.expand == 1 and m2.vocab_size == mamba.vocab_size // 2
 
