@@ -15,7 +15,10 @@ Phases, each fatal on failure:
      inputs (bitwise equal); each in every built variant: each flash
      tile (bitwise equal to each other), each SSD chunk, each GEMM tile
      x split, each norm backward row partition (``*`` marks the one the
-     autotuner resolves);
+     autotuner resolves); each SSD entry at the shapes and chunks where
+     the wrapper runs it: ssd_wgmma.cu's in bf16 at state 128 and 16,
+     chunk 64, ssd.cu's elsewhere (fp32, chunk 32, the reduced configs'
+     (16, 16));
   4. each kernel's time at each path's shape (CUDA events, and the
      device time of the kernel's own events under torch.profiler, per
      phase for the SSD kernels), its bound (and, for the GEMM, the flash
@@ -43,8 +46,8 @@ Phases, each fatal on failure:
   8. the mamba path: ``--arch mamba2-780m`` at full width and depth (48
      layers, d 1536, SSD heads 48 x 64, state 128, vocab 50280) at
      sequence 2048 with ``--ssd-impl kernel`` and microbatch 1,
-     asserting the same and that each SSD kernel launched once per layer
-     and microbatch;
+     asserting the same and that each SSD kernel (fp32: ssd.cu's)
+     launched once per layer and microbatch, the wgmma pair none;
   9. the lifecycle: gpt3-medium as in phase 7 (full width and depth,
      sequence 2048, flash kernels, 5 nodes, f 1, n0 2) on trainer A,
      warmed: a step; a node killed, recovery from the replicas, a step;
@@ -275,7 +278,8 @@ PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
 # bound_ms.
 TENSOR_CORE = ("gemm_bias", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv",
                "gemm_bias_wgmma", "flash_fwd_wgmma", "flash_bwd_dq_wgmma",
-               "flash_bwd_dkdv_wgmma", "ssd_fwd", "ssd_bwd")
+               "flash_bwd_dkdv_wgmma", "ssd_fwd", "ssd_bwd", "ssd_fwd_wgmma",
+               "ssd_bwd_wgmma")
 TC_PEAK_FLOPS = {"torch.float32": 495e12 / 3, "torch.bfloat16": 989e12}
 
 PATHS = {   # phase -> (label, argv on the card, argv of the CPU rehearsal)
@@ -315,6 +319,7 @@ MOE_LAUNCHES["gemm_bias"] = 3 * 24 * 16 * 4
 FUSED_SOURCE = "src/repro_torch/kernels/csrc/fused.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash.cuh"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd.cu"
+SSD_WGMMA_SOURCE = "src/repro_torch/kernels/csrc/ssd_wgmma.cu"
 FLASH_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_bwd_wgmma.cu"
 FLASH_TPU = "src/repro/kernels/flash_attention.py"
 KERNELS = {   # name -> (TPU kernel it replaces, CUDA source)
@@ -332,6 +337,8 @@ KERNELS = {   # name -> (TPU kernel it replaces, CUDA source)
                         "src/repro_torch/kernels/csrc/flash_wgmma.cu"),
     "flash_bwd_dq_wgmma": (f"{FLASH_TPU}:220", FLASH_BWD_SOURCE),
     "flash_bwd_dkdv_wgmma": (f"{FLASH_TPU}:247+:274", FLASH_BWD_SOURCE),
+    "ssd_fwd_wgmma": ("src/repro/kernels/ssd.py:54", SSD_WGMMA_SOURCE),
+    "ssd_bwd_wgmma": ("src/repro/kernels/ssd.py:190", SSD_WGMMA_SOURCE),
 }
 #: the bf16 instances on wgmma and TMA that carry phase 20's QKV
 #: GEMM and flash forward and backward, each beside the kernel whose
@@ -339,10 +346,16 @@ KERNELS = {   # name -> (TPU kernel it replaces, CUDA source)
 #: the instance from its operands (``takes_wgmma``): phases 3-4 hold and
 #: time the wgmma entries at phase 20's shapes, in bf16, and the mma.sync
 #: entries at the other shapes in fp32, and in bf16 where the inputs
-#: reach them (rows TMA cannot read, head dims with no wgmma instance)
+#: reach them (rows TMA cannot read, head dims with no wgmma instance).
+#: The SSD pair's wgmma instances (``SSD_WG``) run bf16 calls at state
+#: 128 and 16, chunk 64 (``ssd.wgmma_at``): phases 3-4 hold and time
+#: each SSD entry at the shapes, dtypes and chunks where the wrapper runs
+#: it (``ssd_runs``): the wgmma pair in bf16, held at every SSD label
+#: with their (P, N) and timed at the mamba path's shape and 20b's
 WGMMA = {"gemm_bias_wgmma": "gemm_bias", "flash_fwd_wgmma": "flash_fwd",
          "flash_bwd_dq_wgmma": "flash_bwd_dq",
-         "flash_bwd_dkdv_wgmma": "flash_bwd_dkdv"}
+         "flash_bwd_dkdv_wgmma": "flash_bwd_dkdv",
+         "ssd_fwd_wgmma": "ssd_fwd", "ssd_bwd_wgmma": "ssd_bwd"}
 
 
 def base_of(name):
@@ -351,10 +364,15 @@ def base_of(name):
     return WGMMA.get(name, name)
 
 
-def takes_wgmma(name, args):
-    """Whether the wrapper of the QKV GEMM or a flash kernel runs its
-    wgmma instance on the call ``args`` (else its mma.sync one)."""
-    from repro_torch.kernels import flash, fused
+def takes_wgmma(name, args, chunk=None):
+    """Whether the wrapper of the QKV GEMM, a flash kernel or an SSD
+    kernel runs its wgmma instance on the call ``args`` (SSD: at
+    ``chunk``, default the call's) (else its mma.sync one)."""
+    from repro_torch.kernels import flash, fused, ssd
+    if base_of(name) in SSD:
+        x, B, C = args[0], args[3], args[4]
+        gy = args[6] if base_of(name) == "ssd_bwd" else None
+        return ssd.instance(x, B, C, ssd_chunk(x, B, chunk), gy) is not None
     if base_of(name) == "gemm_bias":
         a, b = args[:2]
         return fused.gemm_config(
@@ -369,6 +387,22 @@ def takes_wgmma(name, args):
 FUSED = ("add_rmsnorm_fwd", "add_rmsnorm_bwd", "gemm_bias")
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
 SSD = ("ssd_fwd", "ssd_bwd")
+SSD_WG = ("ssd_fwd_wgmma", "ssd_bwd_wgmma")
+
+
+def ssd_runs(name, label, args, device):
+    """Whether SSD entry ``name`` (``SSD``: ssd.cu's mma.sync instance;
+    ``SSD_WG``: ssd_wgmma.cu's) is what the wrapper runs on ``args`` at
+    its resolved chunk: on the card the wrapper's choice
+    (``takes_wgmma``); on the CPU rehearsal, where the plain versions
+    stand in, the choice the card makes at the label's card shape
+    (``ssd.wgmma_at``)."""
+    if device.type == "cpu":
+        from repro_torch.kernels import ssd
+        P, N = dict(CARD_SHAPES["ssd"])[label][3:5]
+        return (name in SSD_WG) == ssd.wgmma_at(args[0].dtype, P, N)
+    return (name in SSD_WG) == takes_wgmma(name, args)
+
 
 # Shapes per kernel: (label, shape).  Norms (M, d); GEMM (M, K, N) of
 # x[M,K].W[K,N]; flash (B, S, H, KV, D, window).  A label that names a
@@ -528,13 +562,13 @@ P20_LABELS = ("20a", "20b", "20c", "20d")
 def reported_path(name):
     """The label of the path whose launches, error and times the kernels
     line reports for ``name``."""
-    return PATHS[8][0] if name in SSD else PATHS[7][0]
+    return PATHS[8][0] if base_of(name) in SSD else PATHS[7][0]
 
 
 def reported_bf16(name):
     """The phase 20 shape a kernel's ``bf16`` entry of the kernels line
     reports: qwen3-1.7b's (20a), the SSD's hymba-1.5b's (20b)."""
-    return "20b" if name in SSD else "20a"
+    return "20b" if base_of(name) in SSD else "20a"
 
 
 class SmokeFailure(AssertionError):
@@ -602,6 +636,8 @@ def kernel_table(device):
             "flash_bwd_dkdv_wgmma": flash.flash_bwd_dkdv,
             "ssd_fwd": ssd.ssd_fwd,
             "ssd_bwd": ssd.ssd_bwd,
+            "ssd_fwd_wgmma": ssd.ssd_fwd,
+            "ssd_bwd_wgmma": ssd.ssd_bwd,
         }
     return {k: (kern[k], plain[k], library.get(k)) for k in KERNELS}
 
@@ -873,10 +909,11 @@ def variants(name, args, dtype, device):
         return [(f"{kw}={t}", functools.partial(kern, **{kw: t}), None,
                  t == want)
                 for t in flash.tiles(k, q.shape[-1], dtype)]
-    if name in SSD:
+    if base_of(name) in SSD:      # the chunks at which ``name`` runs
         want = ssd_chunk(args[0], args[3])
         return [(f"chunk={c}", functools.partial(kern, chunk=c), c, c == want)
-                for c in ssd.CHUNKS]
+                for c in ssd.CHUNKS
+                if takes_wgmma(name, args, c) == (name in SSD_WG)]
     if base_of(name) == "gemm_bias":
         a, b = args[:2]
         cfg = fused.gemm_config(a.shape[0], b.shape[1], a.shape[1],
@@ -914,7 +951,8 @@ def check_kernels(device, table, shapes):
     for name, (_, plain, _) in table.items():
         layouts = (("fwd", "dx", "dW") if base_of(name) == "gemm_bias"
                    else ("fwd",))
-        for dtype in ((torch.bfloat16,) if name in WGMMA
+        ssd_k = base_of(name) in SSD
+        for dtype in ((torch.bfloat16,) if name in WGMMA and not ssd_k
                       else (torch.float32, torch.bfloat16)):
             for label, shape in _shapes(shapes, name):
                 p20 = label in P20_LABELS
@@ -924,9 +962,12 @@ def check_kernels(device, table, shapes):
                 # in bf16 too where TMA reads them, so the mma.sync
                 # entries are held off phase 20's shapes where their
                 # inputs reach them (the card tests hold the wgmma
-                # instances at other shapes)
-                if p20 == (name in WGMMA.values()) and (
-                        name in WGMMA or name in WGMMA.values()):
+                # instances at other shapes); each SSD entry is held
+                # wherever a call reaches it (``ssd_runs``; ``variants``:
+                # at the chunks it runs)
+                if (p20 == (name in WGMMA.values())
+                        and (name in WGMMA or name in WGMMA.values())
+                        and not (ssd_k and name in SSD_WG)):
                     continue
                 if label in SV_LABELS and (dtype != torch.float32 or
                                            name not in SERVE_KERNELS):
@@ -937,8 +978,12 @@ def check_kernels(device, table, shapes):
                     base = make_inputs(name, shape, dtype, device, seed=1,
                                        layout=layout, draw_on_device=p20)
                     if (dtype == torch.bfloat16 and name in WGMMA.values()
-                            and takes_wgmma(name, base)):
+                            and not ssd_k and takes_wgmma(name, base)):
                         continue        # the wgmma instance's input
+                    if name in SSD_WG and not ssd_runs(name, label, base,
+                                                       device):
+                        continue        # fp32, or (P, N) or rows of no
+                        # wgmma instance
                     check(name not in WGMMA or device.type == "cpu"
                           or takes_wgmma(name, base),
                           f"{name} {label} {layout}: the inputs do not "
@@ -1252,80 +1297,86 @@ def time_kernels(device, table, shapes, iters):
     backend = autotune.backend_of(device)
     rows, rows_bf16 = {}, {}
     for name, (kern, plain, lib) in table.items():
+        ssd_k = base_of(name) in SSD
         for label, shape in _shapes(shapes, name):
             if label not in PATH_LABELS + TP_LABELS + P20_LABELS + SV_LABELS:
                 continue
             if label in SV_LABELS and name not in SERVE_KERNELS:
                 continue
-            if (label in P20_LABELS) != (name in WGMMA) and (
+            if not ssd_k and (label in P20_LABELS) != (name in WGMMA) and (
                     name in WGMMA or name in WGMMA.values()):
                 continue    # phase 20's shapes run the wgmma instances only
-            dtype = torch.bfloat16 if label in P20_LABELS else torch.float32
-            dname = "bf16" if dtype == torch.bfloat16 else "fp32"
-            # phase 20's shapes: fewer calls of the plain versions (10-50
-            # ms a call)
-            n = max(2, iters // 5) if label in P20_LABELS else iters
-            tc_name = "1 bf16 product" if dname == "bf16" else "3xTF32"
-            cfg = shape_config(backend, base_of(name), shape, dtype)
-            args = make_inputs(name, shape, dtype, device, seed=2,
-                               draw_on_device=label in P20_LABELS)
-            chunk = ssd_chunk(args[0], args[3]) if name in SSD else 64
-            ms = time_ms(kern, args, device, iters)
-            # at phase 20's shapes the profiler's time only where events
-            # time the host (the norms) or it splits the phases (the SSD)
-            profiled = on_card and (label not in P20_LABELS
-                                    or name not in FLASH + ("gemm_bias",)
-                                    ) and name not in WGMMA
-            dev_ms, phases = (device_ms(kern, args, name, iters)
-                              if profiled else (None, {}))
-            plain_ms = time_ms(plain, args, device, n)
-            if base_of(name) in FLASH[1:]:
-                lib_ms = sdpa_backward_ms(args, device, iters)
-            else:
-                lib_ms = (time_ms(lib, args, device, iters)
-                          if lib is not None else None)
-            bms, by = bound(name, shape, dtype, chunk)
-            tc = (f", tensor-core bound "
-                  f"{tensor_core_bound(name, shape, dtype, chunk):.4f}"
-                  f" ms ({tc_name})" if name in TENSOR_CORE else "")
-            row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "bound_ms": bms, "bound_by": by}
-            if label == reported_path(name):
-                rows[name] = row
-            if label == reported_bf16(name):
-                rows_bf16[name] = {"shape": list(shape), **row}
-            print(f"[time] {name:16s} fwd {label:5s} shape={shape} {dname}: "
-                  f"kernel {ms:.4f} ms (profiler device time "
-                  f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), "
-                  f"plain {plain_ms:.4f} ms, library "
-                  f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}"
-                  f"{' (SDPA fwd+bwd - fwd: dq and dk/dv together)' if base_of(name) in FLASH[1:] else ''}, "
-                  f"bound {bms:.4f} ms ({by}){tc}; config "
-                  f"{cfg['fwd'] if base_of(name) == 'gemm_bias' else cfg}")
-            if len(phases) > 1:
-                print(f"[time] {name:16s} phases (profiler device ms): "
-                      + ", ".join(f"{k} {v:.4f}" for k, v in phases.items()))
-            if base_of(name) != "gemm_bias" or label in SV_LABELS:
-                continue
-            for layout in ("dx", "dW"):
-                a = make_inputs(name, shape, dtype, device, seed=2,
-                                layout=layout,
-                                draw_on_device=label in P20_LABELS)
-                sh = ((shape[0], shape[2], shape[1]) if layout == "dx"
-                      else (shape[1], shape[0], shape[2]))
-                kms = time_ms(kern, a, device, iters)
-                dms = (device_ms(kern, a, name, iters)[0]
-                       if profiled else None)
-                pms = time_ms(plain, a, device, n)
-                lms = time_ms(torch.matmul, a[:2], device, iters)
-                bl, byl = bound(name, sh, dtype)
-                tcl = tensor_core_bound(name, sh, dtype)
-                print(f"[time] {name:16s} {layout:3s} {label:5s} shape={sh} "
-                      f"{dname}: kernel {kms:.4f} ms (profiler device time "
-                      f"{'not measured' if dms is None else f'{dms:.4f} ms'}), "
-                      f"plain {pms:.4f} ms, library {lms:.4f} ms, "
-                      f"bound {bl:.4f} ms ({byl}), tensor-core bound "
-                      f"{tcl:.4f} ms ({tc_name}); config {cfg[layout]}")
+            # the SSD wgmma pair also in bf16 at the mamba path's shape
+            dtypes = ((torch.bfloat16,) if label in P20_LABELS or (
+                name in SSD_WG and label == PATHS[8][0]) else (torch.float32,))
+            for dtype in dtypes:
+                dname = "bf16" if dtype == torch.bfloat16 else "fp32"
+                # phase 20's shapes: fewer calls of the plain versions (10-50
+                # ms a call)
+                n = max(2, iters // 5) if label in P20_LABELS else iters
+                tc_name = "1 bf16 product" if dname == "bf16" else "3xTF32"
+                cfg = shape_config(backend, base_of(name), shape, dtype)
+                args = make_inputs(name, shape, dtype, device, seed=2,
+                                   draw_on_device=label in P20_LABELS)
+                if ssd_k and not ssd_runs(name, label, args, device):
+                    continue    # the call runs the SSD pair's other instance
+                chunk = ssd_chunk(args[0], args[3]) if ssd_k else 64
+                ms = time_ms(kern, args, device, iters)
+                # at phase 20's shapes the profiler's time only where events
+                # time the host (the norms) or it splits the phases (the SSD)
+                profiled = on_card and (label not in P20_LABELS
+                                        or name not in FLASH + ("gemm_bias",)
+                                        ) and (name not in WGMMA or ssd_k)
+                dev_ms, phases = (device_ms(kern, args, base_of(name), iters)
+                                  if profiled else (None, {}))
+                plain_ms = time_ms(plain, args, device, n)
+                if base_of(name) in FLASH[1:]:
+                    lib_ms = sdpa_backward_ms(args, device, iters)
+                else:
+                    lib_ms = (time_ms(lib, args, device, iters)
+                              if lib is not None else None)
+                bms, by = bound(name, shape, dtype, chunk)
+                tc = (f", tensor-core bound "
+                      f"{tensor_core_bound(name, shape, dtype, chunk):.4f}"
+                      f" ms ({tc_name})" if name in TENSOR_CORE else "")
+                row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "bound_ms": bms, "bound_by": by}
+                if label == reported_path(name) and dtype == torch.float32:
+                    rows[name] = row
+                if label == reported_bf16(name):
+                    rows_bf16[name] = {"shape": list(shape), **row}
+                print(f"[time] {name:16s} fwd {label:5s} shape={shape} {dname}: "
+                      f"kernel {ms:.4f} ms (profiler device time "
+                      f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), "
+                      f"plain {plain_ms:.4f} ms, library "
+                      f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+                      f"{' (SDPA fwd+bwd - fwd: dq and dk/dv together)' if base_of(name) in FLASH[1:] else ''}, "
+                      f"bound {bms:.4f} ms ({by}){tc}; config "
+                      f"{cfg['fwd'] if base_of(name) == 'gemm_bias' else cfg}")
+                if len(phases) > 1:
+                    print(f"[time] {name:16s} phases (profiler device ms): "
+                          + ", ".join(f"{k} {v:.4f}" for k, v in phases.items()))
+                if base_of(name) != "gemm_bias" or label in SV_LABELS:
+                    continue
+                for layout in ("dx", "dW"):
+                    a = make_inputs(name, shape, dtype, device, seed=2,
+                                    layout=layout,
+                                    draw_on_device=label in P20_LABELS)
+                    sh = ((shape[0], shape[2], shape[1]) if layout == "dx"
+                          else (shape[1], shape[0], shape[2]))
+                    kms = time_ms(kern, a, device, iters)
+                    dms = (device_ms(kern, a, name, iters)[0]
+                           if profiled else None)
+                    pms = time_ms(plain, a, device, n)
+                    lms = time_ms(torch.matmul, a[:2], device, iters)
+                    bl, byl = bound(name, sh, dtype)
+                    tcl = tensor_core_bound(name, sh, dtype)
+                    print(f"[time] {name:16s} {layout:3s} {label:5s} shape={sh} "
+                          f"{dname}: kernel {kms:.4f} ms (profiler device time "
+                          f"{'not measured' if dms is None else f'{dms:.4f} ms'}), "
+                          f"plain {pms:.4f} ms, library {lms:.4f} ms, "
+                          f"bound {bl:.4f} ms ({byl}), tensor-core bound "
+                          f"{tcl:.4f} ms ({tc_name}); config {cfg[layout]}")
     return rows, rows_bf16
 
 
@@ -3590,13 +3641,14 @@ def forward_launches(want):
     dW of each backward)."""
     return {"add_rmsnorm_fwd": want["add_rmsnorm_fwd"],
             "gemm_bias": want["gemm_bias"] - 2 * want["add_rmsnorm_bwd"],
-            "flash_fwd": want["flash_fwd"], "ssd_fwd": want["ssd_fwd"]}
+            "flash_fwd": want["flash_fwd"],
+            "ssd_fwd": want["ssd_fwd"]}
 
 
 def wgmma_launches(want):
     """A bf16 run's count: its flash forwards and QKV GEMMs (forward, dx,
-    dW) run the wgmma instances, which every phase 20 shape takes, and
-    their mma.sync instances launch none."""
+    dW) and its SSD pair run the wgmma instances, which every phase 20
+    shape takes, and their mma.sync instances launch none."""
     out = dict(want)
     for name, of in WGMMA.items():
         if of in out:
@@ -4500,7 +4552,8 @@ def _phases(device, on_card, shapes, iters, trace20):
     run_path(device, 6, FUSED)
     launches = run_path(device, 7, FUSED + FLASH)
     mamba = run_path(device, 8, SSD,
-                     exact={k: MAMBA_SSD_LAUNCHES for k in SSD})
+                     exact={**{k: MAMBA_SSD_LAUNCHES for k in SSD},
+                            **dict.fromkeys(SSD_WG, 0)})
     launches.update({k: mamba[k] for k in SSD})
     run_lifecycle(device)
     run_path(device, 10, FUSED + FLASH, exact=MOE_LAUNCHES)

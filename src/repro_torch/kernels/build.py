@@ -87,6 +87,12 @@ SIGNATURES = {
     # B, C (and gy), the dtype code and the stream
     "ssd_fwd": (_vp,) * 8 + (_int,) * 6 + (_int,) * 12 + (_int, _vp),
     "ssd_bwd": (_vp,) * 14 + (_int,) * 6 + (_int,) * 15 + (_int, _vp),
+    # ssd_fwd_wgmma: x, dt, A, B, C, y, state, cstates, b, S, H, N, dt's
+    # strides, bc_head, the tensor-map specs (kernels/tma.py::ssd_maps),
+    # the dtype code and the stream; ssd_bwd_wgmma the backward's
+    # pointers in ssd_bwd's order, then the same
+    "ssd_fwd_wgmma": (_vp,) * 8 + (_int,) * 8 + (_vp, _int, _vp),
+    "ssd_bwd_wgmma": (_vp,) * 14 + (_int,) * 8 + (_vp, _int, _vp),
 }
 
 #: launches per kernel since the last ``reset_launches()``

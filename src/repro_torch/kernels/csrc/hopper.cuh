@@ -1,7 +1,8 @@
 // Hopper's asynchronous machinery, shared by the warp-specialised
-// kernels (gemm_wgmma.cu, flash_wgmma.cu, flash_bwd_wgmma.cu): TMA
-// tensor maps and bulk tensor copies, mbarriers, wgmma on shared-memory
-// matrix descriptors, setmaxnreg and the multi-function unit's ex2.
+// kernels (gemm_wgmma.cu, flash_wgmma.cu, flash_bwd_wgmma.cu,
+// ssd_wgmma.cu): TMA tensor maps and bulk tensor copies, mbarriers,
+// wgmma on shared-memory matrix descriptors, setmaxnreg and the
+// multi-function unit's ex2.
 // All of it is PTX written inline (PTX ISA 8.x, sm_90a); the tensor
 // maps are encoded on the host through libcuda's cuTensorMapEncodeTiled,
 // reached with cudaGetDriverEntryPoint (no -lcuda).
@@ -339,12 +340,15 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of rank R with the 128-byte swizzle, elements past
-// a dimension's end read as 0.  `spec` holds, as the Python side
-// computes them (kernels/tma.py): the R dims (innermost first), the R - 1
-// strides in bytes of dims 1.., the R box dims.  0 or a CUDA error.
-inline int encode_map(CUtensorMap* map, const void* base, int R,
-                      const long long* spec) {
+// A tensor map of rank R (by default bf16 with the 128-byte swizzle),
+// elements past a dimension's end read as 0.  `spec` holds, as the
+// Python side computes them (kernels/tma.py): the R dims (innermost
+// first), the R - 1 strides in bytes of dims 1.., the R box dims.  0 or a
+// CUDA error.
+inline int encode_map(
+    CUtensorMap* map, const void* base, int R, const long long* spec,
+    CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
   cuuint64_t dims[5], strides[4];
@@ -355,10 +359,9 @@ inline int encode_map(CUtensorMap* map, const void* base, int R,
     ones[i] = 1;
   }
   for (int i = 0; i + 1 < R; ++i) strides[i] = (cuuint64_t)spec[R + i];
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)R,
-                        const_cast<void*>(base), dims, strides, box, ones,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUresult r = fn(map, dtype, (cuuint32_t)R, const_cast<void*>(base),
+                        dims, strides, box, ones,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;

@@ -36,7 +36,8 @@
 //   forward  1. ssd_fwd_states_kernel, grid (chunk, head, batch): L_c =
 //               (x * w_last)^T.B into cstates[c + 1] (into the final
 //               state for the last chunk);
-//            2. ssd_fwd_scan_kernel, grid (P.N tile, head, batch): S_0 =
+//            2. ssd_fwd_scan_kernel (csrc/ssd_scan.cuh, which ssd_wgmma.cu
+//               shares), grid (P.N tile, head, batch): S_0 =
 //               0 and S_c+1 = S_c e^cum_Q + L_c in place, chunk by chunk
 //               (the reference's order); the final state last;
 //            3. ssd_fwd_out_kernel, grid (chunk, head, batch): y.
@@ -84,13 +85,13 @@
 // a fixed order: the same inputs give bitwise-equal outputs.
 #include <cstdint>
 
+#include "ssd_scan.cuh"
 #include "tensor_core.cuh"
 
 namespace {
 
 constexpr int NT = 256;         // threads per block: 8 warps
 constexpr int WARPS = NT / 32;
-constexpr unsigned FULL = 0xffffffffu;
 
 // Chunk geometry: Q rows a chunk, rows per lane of a chunk-wide warp
 // scan, the row pitch of a Q x Q tile, and the backward chunk kernel's
@@ -191,69 +192,6 @@ __device__ __forceinline__ void load_dt(float* dst, const float* src,
   if (threadIdx.x < Q) {
     const int row = row0 + threadIdx.x;
     dst[threadIdx.x] = row < S ? src[row * row_stride] : 0.f;
-  }
-}
-
-// cum over one chunk as a warp scan: lane l holds a[k] = dt_i A for its
-// RL rows i = RL l + k (RL = Q / 32); returns their cum in c and (every
-// lane) cum_Q.  Every phase takes cum from here, so all agree bitwise.
-template <int RL>
-__device__ __forceinline__ float chunk_cum(const float (&a)[RL],
-                                           float (&c)[RL]) {
-  const int l = threadIdx.x & 31;
-  float s = a[0];
-#pragma unroll
-  for (int k = 1; k < RL; ++k) s += a[k];
-  for (int o = 1; o < 32; o <<= 1) {
-    const float t = __shfl_up_sync(FULL, s, o);
-    if (l >= o) s += t;
-  }
-  float excl = __shfl_up_sync(FULL, s, 1);
-  if (l == 0) excl = 0.f;
-  c[0] = excl + a[0];
-#pragma unroll
-  for (int k = 1; k < RL; ++k) c[k] = c[k - 1] + a[k];
-  return __shfl_sync(FULL, c[RL - 1], 31);
-}
-
-// Per-chunk decay terms, by warp 0 (lane l owns rows RL l .. RL l + RL -
-// 1): cum, e^cum, e^(cum_Q - cum) and w_last = e^(cum_Q - cum) * dt;
-// sc[0] = e^cum_Q.
-template <int Q>
-__device__ void chunk_decay(const float* dtv, float A, float* cum, float* ecum,
-                            float* el, float* wl, float* sc) {
-  constexpr int RL = Geom<Q>::RL;
-  if (threadIdx.x >= 32) return;
-  const int l = threadIdx.x;
-  float a[RL], c[RL];
-#pragma unroll
-  for (int k = 0; k < RL; ++k) a[k] = dtv[RL * l + k] * A;
-  const float last = chunk_cum<RL>(a, c);
-#pragma unroll
-  for (int k = 0; k < RL; ++k) {
-    const int i = RL * l + k;
-    cum[i] = c[k];
-    ecum[i] = expf(c[k]);
-    el[i] = expf(last - c[k]);
-    wl[i] = el[i] * dtv[i];
-  }
-  if (l == 31) sc[0] = expf(last);
-}
-
-// e^cum_Q of every chunk of one (batch, head) into eq[nc], warp w taking
-// chunks w, w + 8, ...: the scans' decays, from dt in global memory.
-template <int Q>
-__device__ void chunk_decays(float* eq, const float* dt, long long rs, float A,
-                             int nc, int S) {
-  constexpr int RL = Geom<Q>::RL;
-  const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
-  for (int c = warp; c < nc; c += WARPS) {
-    const int r0 = c * Q + RL * l;
-    float a[RL], cum[RL];
-#pragma unroll
-    for (int k = 0; k < RL; ++k) a[k] = (r0 + k < S ? dt[(r0 + k) * rs] : 0.f) * A;
-    const float last = chunk_cum<RL>(a, cum);
-    if (l == 0) eq[c] = expf(last);
   }
 }
 
@@ -408,49 +346,6 @@ ssd_fwd_states_kernel(const SsdArgs a) {
 }
 
 // ---------------------------------------------------------------------
-// Forward, phase 2.  Per (batch, head) and 1024 of the P.N state
-// elements (4 a thread): S_0 = 0, S_c+1 = S_c e^cum_Q,c + L_c in place
-// in cstates, chunk by chunk, and the final state S_nc.
-// ---------------------------------------------------------------------
-template <int P, int N, int Q>
-__global__ void __launch_bounds__(NT) ssd_fwd_scan_kernel(const SsdArgs a) {
-  extern __shared__ float4 smem4[];
-  float* eq = reinterpret_cast<float*>(smem4);   // [nc]
-  const int h = blockIdx.y, bi = blockIdx.z;
-  const long long bh = (long long)bi * a.H + h;
-  chunk_decays<Q>(eq, a.dt + bi * a.dts.b + h * a.dts.h, a.dts.s, a.A[h], a.nc,
-               a.S);
-  __syncthreads();
-  const int e = (blockIdx.x * NT + threadIdx.x) * 4;
-  if (e >= P * N) return;
-  float4* cs = reinterpret_cast<float4*>(a.cstates + bh * a.nc * P * N + e);
-  constexpr int STEP = P * N / 4;                // float4s between chunks
-  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-  cs[0] = s;
-  constexpr int AHEAD = 8;                       // loads in flight
-  for (int c0 = 0; c0 < a.nc; c0 += AHEAD) {
-    float4 L[AHEAD];
-#pragma unroll
-    for (int i = 0; i < AHEAD; ++i) {
-      const int c = c0 + i;
-      if (c + 1 < a.nc) L[i] = cs[(c + 1) * STEP];
-      else if (c + 1 == a.nc)
-        L[i] = *reinterpret_cast<const float4*>(a.state + bh * P * N + e);
-    }
-#pragma unroll
-    for (int i = 0; i < AHEAD; ++i) {
-      const int c = c0 + i;
-      if (c >= a.nc) break;
-      const float d = eq[c];
-      s = make_float4(fmaf(s.x, d, L[i].x), fmaf(s.y, d, L[i].y),
-                      fmaf(s.z, d, L[i].z), fmaf(s.w, d, L[i].w));
-      if (c + 1 < a.nc) cs[(c + 1) * STEP] = s;
-      else *reinterpret_cast<float4*>(a.state + bh * P * N + e) = s;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------
 // Forward, phase 3.  y = W.x + e^cum * (C.S_c^T), W = tri(C.B^T *
 // e^(cum_i - cum_j)) * dt_j, with S_c = cstates[c] loaded into B's
 // buffer once W is formed (so two blocks fit an SM at P 64, N 128).
@@ -571,44 +466,6 @@ ssd_bwd_states_kernel(const SsdArgs a) {
         [&](int i, int n) { return Cm[i * (N + 4) + n0 + n] * ecum[i]; });
     store_tile<float, Til::nb>(
         dst, N, p0, n0, P, [&](int n, int e, int, int) { return acc[n][e]; });
-  }
-}
-
-// ---------------------------------------------------------------------
-// Backward, phase 2.  Per (batch, head) and 1024 of the P.N elements:
-// dS1_nc-1 = gstate, dS1_c-1 = e^cum_Q,c dS1_c + L'_c (the reference's
-// recurrence), the scratch's chunk c turning from L'_c into dS1_c.
-// ---------------------------------------------------------------------
-template <int P, int N, int Q>
-__global__ void __launch_bounds__(NT) ssd_bwd_scan_kernel(const SsdArgs a) {
-  extern __shared__ float4 smem4[];
-  float* eq = reinterpret_cast<float*>(smem4);   // [nc]
-  const int h = blockIdx.y, bi = blockIdx.z;
-  const long long bh = (long long)bi * a.H + h;
-  chunk_decays<Q>(eq, a.dt + bi * a.dts.b + h * a.dts.h, a.dts.s, a.A[h], a.nc,
-               a.S);
-  __syncthreads();
-  const int e = (blockIdx.x * NT + threadIdx.x) * 4;
-  if (e >= P * N) return;
-  float4* sc = reinterpret_cast<float4*>(a.scratch + bh * a.nc * P * N + e);
-  constexpr int STEP = P * N / 4;
-  float4 s = *reinterpret_cast<const float4*>(a.gstate + bh * P * N + e);
-  constexpr int AHEAD = 8;
-  for (int c0 = a.nc - 1; c0 >= 0; c0 -= AHEAD) {
-    float4 L[AHEAD];
-#pragma unroll
-    for (int i = 0; i < AHEAD; ++i)
-      if (c0 - i >= 1) L[i] = sc[(c0 - i) * STEP];
-#pragma unroll
-    for (int i = 0; i < AHEAD; ++i) {
-      const int c = c0 - i;
-      if (c < 0) break;
-      sc[c * STEP] = s;
-      if (c == 0) break;                         // dS1_-1 is not needed
-      const float d = eq[c];
-      s = make_float4(fmaf(d, s.x, L[i].x), fmaf(d, s.y, L[i].y),
-                      fmaf(d, s.z, L[i].z), fmaf(d, s.w, L[i].w));
-    }
   }
 }
 
@@ -897,19 +754,27 @@ int launch(Kernel kernel, dim3 grid, int smem_floats, const SsdArgs& a,
   return (int)cudaGetLastError();
 }
 
+// The scan phase's arguments (csrc/ssd_scan.cuh) over `chunks`: cstates
+// (forward) or the scratch (backward).
+ScanArgs scan_args(const SsdArgs& a, float* chunks) {
+  return ScanArgs{a.dt,      a.A,       chunks,    a.state, a.gstate,
+                  a.dts.b,   a.dts.s,   a.dts.h,   a.S,     a.H,
+                  a.nc};
+}
+
 // The three phases of one direction, in order; the first error stops.
 template <typename T, int P, int N, int Q>
 int launch_pn(bool bwd, const SsdArgs& a, cudaStream_t stream) {
   static_assert(bwd_chunk_floats<P, N, Q>() * 4 <= 232448,
                 "the backward chunk phase exceeds shared memory");
   const dim3 chunks(a.nc, a.H, a.b);
-  const dim3 tiles((P * N + 4 * NT - 1) / (4 * NT), a.H, a.b);
   int err;
   if (!bwd) {
     if ((err = launch(ssd_fwd_states_kernel<T, P, N, Q>, chunks,
                       fwd_states_floats<P, N, Q>(), a, stream)))
       return err;
-    if ((err = launch(ssd_fwd_scan_kernel<P, N, Q>, tiles, a.nc, a, stream)))
+    if ((err = launch_scan<P, N, Q>(false, scan_args(a, a.cstates), a.b,
+                                    stream)))
       return err;
     return launch(ssd_fwd_out_kernel<T, P, N, Q>, chunks,
                   fwd_out_floats<P, N, Q>(), a, stream);
@@ -917,7 +782,8 @@ int launch_pn(bool bwd, const SsdArgs& a, cudaStream_t stream) {
   if ((err = launch(ssd_bwd_states_kernel<T, P, N, Q>, chunks,
                     bwd_states_floats<P, N, Q>(), a, stream)))
     return err;
-  if ((err = launch(ssd_bwd_scan_kernel<P, N, Q>, tiles, a.nc, a, stream)))
+  if ((err = launch_scan<P, N, Q>(true, scan_args(a, a.scratch), a.b,
+                                  stream)))
     return err;
   return launch(ssd_bwd_chunk_kernel<T, P, N, Q>, chunks,
                 bwd_chunk_floats<P, N, Q>(), a, stream, Geom<Q>::CNT);

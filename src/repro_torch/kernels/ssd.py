@@ -1,5 +1,6 @@
 """Mamba2 SSD chunked scan on the card: wrappers around the CUDA kernels
-of ``csrc/ssd.cu`` (``ops.SSD`` is their ``torch.autograd.Function``).
+of ``csrc/ssd.cu`` and ``csrc/ssd_wgmma.cu`` (``ops.SSD`` is their
+``torch.autograd.Function``).
 
   * ``ssd_fwd``: (y, final state, cstates) in three chunk-parallel
     phases launched by one entry point: each chunk's local state, a scan
@@ -19,19 +20,25 @@ B, C, dB and dC [b, S, H, N]; states [b, H, P, N] fp32 and cstates
 backward must take its forward's.  x, dt, B, C and gy are read
 through their strides (the last dim must be dense; B and C may be one
 group expanded over the heads with head stride 0); outputs are new
-contiguous tensors.  Every wrapper takes CUDA tensors only and raises on
-anything else, including a (P, N) or chunk the kernels are not built
-for; the CPU path never reaches this module (``kernels/ops.py`` routes
+contiguous tensors.  In bf16 at (P, N) = (64, 128) and (64, 16), chunk
+64, wherever TMA can read x, B, C (and gy) in place (``tma.ssd_maps``),
+the call runs the warp-specialised wgmma instance (``csrc/ssd_wgmma.cu``,
+launched as ``ssd_fwd_wgmma`` and ``ssd_bwd_wgmma``); every other call
+(fp32, chunk 32, (16, 16), operands TMA cannot read) ssd.cu's mma.sync
+instance.  Every wrapper takes CUDA
+tensors only and raises on anything else, including a (P, N) or chunk
+the kernels are not built for; the CPU path never reaches this module (``kernels/ops.py`` routes
 a CPU tensor to the plain versions in ``kernels/ref.py``).  Launches
 are counted in ``build.LAUNCHES``.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import autotune
+from repro_torch.kernels import autotune, tma
 from repro_torch.kernels.build import check_tensors, current_stream, launch
 from repro_torch.kernels.ref import SSD_CHUNK as CHUNK
 
@@ -105,6 +112,31 @@ def _check_states(name: str, like: torch.Tensor, *states: torch.Tensor
                              f"{t.dtype} {t.device}")
 
 
+def wgmma_at(dtype: torch.dtype, P: int, N: int) -> bool:
+    """Whether a call in ``dtype`` at (P, N), chunk 64, takes the wgmma
+    instance where TMA can read its operands: bf16 at mamba2-780m's and
+    hymba-1.5b's (P, N).  fp32 keeps ssd.cu's: its 3xTF32 wgmma instance
+    was slower in the backward and no faster end to end (PERF.md)."""
+    return dtype == torch.bfloat16 and (P, N) in tma.SSD_SHAPES
+
+
+def instance(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+             chunk: int, gy: Optional[torch.Tensor] = None
+             ) -> Optional[Tuple[tma.Spec, int]]:
+    """The tensor-map specs and B/C head flag of the wgmma instance for
+    this call (``tma.ssd_maps``; with gy: the backward's), or None for
+    ssd.cu's mma.sync instance: chunk ``tma.SSD_CHUNK`` where
+    ``wgmma_at`` and TMA can read the operands in place."""
+    if chunk != tma.SSD_CHUNK or not wgmma_at(x.dtype, x.shape[-1],
+                                              B.shape[-1]):
+        return None
+    return tma.ssd_maps(x, B, C, gy)
+
+
+def _specs(maps: tma.Spec):
+    return (ctypes.c_longlong * len(maps))(*maps)
+
+
 def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             B: torch.Tensor, C: torch.Tensor, chunk: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -118,6 +150,13 @@ def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     state = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
     cstates = torch.empty((b, H, nc, P, N), dtype=torch.float32,
                           device=x.device)
+    inst = instance(x, B, C, chunk)
+    if inst is not None:
+        launch("ssd_fwd_wgmma", x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+               B.data_ptr(), C.data_ptr(), y.data_ptr(), state.data_ptr(),
+               cstates.data_ptr(), b, S, H, N, *_strides(dt), inst[1],
+               _specs(inst[0]), code, current_stream(x))
+        return y, state, cstates
     launch("ssd_fwd", x.data_ptr(), dt.data_ptr(), A.data_ptr(),
            B.data_ptr(), C.data_ptr(), y.data_ptr(), state.data_ptr(),
            cstates.data_ptr(), b, S, H, P, N, chunk, *_strides(x),
@@ -147,6 +186,16 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     # the chunks' local state cotangents, then the carried ones (dS1)
     scratch = torch.empty((b, H, nc, P, N), dtype=torch.float32,
                           device=x.device)
+    inst = instance(x, B, C, chunk, gy)
+    if inst is not None:
+        launch("ssd_bwd_wgmma", x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+               B.data_ptr(), C.data_ptr(), cstates.data_ptr(),
+               gy.data_ptr(), gstate.data_ptr(), dx.data_ptr(),
+               ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+               dA_part.data_ptr(), scratch.data_ptr(), b, S, H, N,
+               *_strides(dt), inst[1], _specs(inst[0]), code,
+               current_stream(x))
+        return dx, ddt, dA_part.sum((0, 2)), dB, dC
     launch("ssd_bwd", x.data_ptr(), dt.data_ptr(), A.data_ptr(),
            B.data_ptr(), C.data_ptr(), cstates.data_ptr(), gy.data_ptr(),
            gstate.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(),

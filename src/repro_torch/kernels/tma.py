@@ -1,6 +1,6 @@
 """Tensor maps of the wgmma kernels (``csrc/gemm_wgmma.cu``,
-``csrc/flash_wgmma.cu``, ``csrc/flash_bwd_wgmma.cu``), computed on the
-host.
+``csrc/flash_wgmma.cu``, ``csrc/flash_bwd_wgmma.cu``,
+``csrc/ssd_wgmma.cu``), computed on the host.
 
 A kernel reads an operand through a TMA tensor map that the C entry
 point encodes (``csrc/hopper.cuh::encode_map``, libcuda's
@@ -13,7 +13,8 @@ positive multiple of 16 below 2^40; every box dim in [1, 256]; the box's
 inner extent a multiple of 16 bytes and, under the 128-byte swizzle, at
 most 128.  ``spec`` returns None for a call that breaks one, and the
 wrappers then take the mma.sync instances (``kernels/fused.py``,
-``kernels/flash.py``).
+``kernels/flash.py``, ``kernels/ssd.py``).  The SSD's rows shorter than
+128 bytes (N 16's B and C) are one dense box a row, no swizzle.
 """
 from __future__ import annotations
 
@@ -136,6 +137,60 @@ def _flash_maps(operands, rows) -> Optional[Spec]:
     out = ()
     for (shape, strides, misalign), r in zip(operands, rows):
         s = flash_map(shape, strides, misalign, r)
+        if s is None:
+            return None
+        out += s
+    return out
+
+
+#: (P, N) and chunk of the SSD wgmma instances (csrc/ssd_wgmma.cu):
+#: mamba2-780m's and hymba-1.5b's heads, one chunk a 64-row wgmma tile
+SSD_SHAPES = ((64, 128), (64, 16))
+SSD_CHUNK = 64
+
+
+def ssd_map(shape: Sequence[int], strides: Sequence[int], addr: int
+            ) -> Optional[Spec]:
+    """The spec of one bf16 SSD operand [b, S, heads, D] (strides in
+    elements, the last dim dense): dims (D, heads, S, b), a box of one
+    head's ``SSD_CHUNK`` rows by 128 bytes of D, or all of D where a row
+    is shorter (the kernel issues one box a 128 bytes).  A head stride of
+    0 (B and C one group expanded over the heads, as the Mamba2 block
+    hands them over) maps the group view: one head, every head of the
+    kernel reading head coordinate 0."""
+    b, S, heads, D = shape
+    if strides[3] != 1:
+        return None
+    hstride = strides[2]
+    if hstride == 0:
+        heads, hstride = 1, strides[1]
+    return spec((D, heads, S, b),
+                tuple(s * ITEMSIZE for s in (hstride, strides[1],
+                                             strides[0])),
+                (min(D, INNER), 1, SSD_CHUNK, 1), addr)
+
+
+def ssd_maps(x, B, C, gy=None) -> Optional[Tuple[Spec, int]]:
+    """(the specs of bf16 x, B, C (and gy) concatenated, bc_head) for
+    ``ssd_fwd_wgmma`` (``ssd_bwd_wgmma`` with gy), or None where (P, N)
+    has no instance, a map is illegal, or B and C are not both per head
+    or both one group over the heads.  bc_head is 1 for B and C per head,
+    0 for one group (head stride 0).  Tensors, or anything with
+    ``shape``, ``stride()`` and ``data_ptr()``."""
+    if (x.shape[-1], B.shape[-1]) not in SSD_SHAPES:
+        return None
+    if (B.stride(2) == 0) != (C.stride(2) == 0):
+        return None
+    tensors = (x, B, C) + ((gy,) if gy is not None else ())
+    got = _ssd_maps(_operands(*tensors))
+    return None if got is None else (got, int(B.stride(2) != 0))
+
+
+@functools.lru_cache(maxsize=1024)
+def _ssd_maps(operands) -> Optional[Spec]:
+    out = ()
+    for shape, strides, misalign in operands:
+        s = ssd_map(shape, strides, misalign)
         if s is None:
             return None
         out += s

@@ -387,8 +387,9 @@ def test_ssd_kernels_match_plain(card, shape, dtype):
 def test_ssd_kernels_rerun_bitwise_and_count_one_launch(card, dtype):
     """At chip_smoke.py's mamba shape (32 chunks, 48 heads, B and C one
     group): three calls of each SSD wrapper give bitwise-equal outputs,
-    and each call counts one launch (its three phases are one entry
-    point)."""
+    and each call counts one launch of the instance it runs (its three
+    phases are one entry point): the wgmma one in bf16, ssd.cu's in
+    fp32."""
     cs = _chip_smoke()
     table = cs.kernel_table(card)
     shape = dict(cs.CARD_SHAPES["ssd"])["mamba"]
@@ -397,7 +398,10 @@ def test_ssd_kernels_rerun_bitwise_and_count_one_launch(card, dtype):
         args = cs.make_inputs(name, shape, dtype, card, seed=10)
         build.reset_launches()
         runs = [kern(*args) for _ in range(3)]
-        assert build.LAUNCHES[name] == 3, build.LAUNCHES
+        ran = name + "_wgmma" if cs.takes_wgmma(name, args) else name
+        assert ran.endswith("_wgmma") == ssd.wgmma_at(dtype, 64, 128)
+        assert build.LAUNCHES[ran] == 3, build.LAUNCHES
+        assert sum(build.LAUNCHES[k] for k in (name, name + "_wgmma")) == 3
         for again in runs[1:]:
             assert all(torch.equal(a, b) for a, b in zip(runs[0], again))
 
@@ -1563,3 +1567,91 @@ def test_flash_attention_bf16_gradients_on_card_track_plain_cpu(card, shape):
     for name, a, b, c in zip(("out", "dq", "dk", "dv"), got, plain, exact):
         err, gap = (a - b).norm() / c.norm(), (b - c).norm() / c.norm()
         assert err <= 2 * gap, (name, float(err), float(gap))
+
+
+# ----------------------------------------------------------------------
+# The SSD pair's wgmma instances (csrc/ssd_wgmma.cu)
+# ----------------------------------------------------------------------
+#: chip_smoke.py's SSD shapes of the training paths the wgmma instances
+#: carry: mamba2-780m (phase 8), hymba-1.5b at S 1000, the TP shards
+#: (phase 19), phase 21's prefill shard and phase 20's hymba
+SSD_WG_LABELS = ("mamba", "hymba", "tp-d", "tp-g", "sv-b", "20b")
+
+
+def _kernel_ab():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools/kernel_ab.py"
+    spec = importlib.util.spec_from_file_location("kernel_ab", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("label", SSD_WG_LABELS)
+def test_ssd_wgmma_matches_plain_and_the_mma_instance(card, label):
+    """Each bf16 wgmma SSD instance at each path's shape, through the
+    wrapper, against the plain version and against ssd.cu's mma.sync
+    instance on the same inputs, under chip_smoke.py's SSD tolerances;
+    two launches bitwise equal (``compare``), counted on the wgmma
+    entry."""
+    cs, ab = _chip_smoke(), _kernel_ab()
+    table = cs.kernel_table(card)
+    shape = dict(cs.CARD_SHAPES["ssd"])[label]
+    dtype = torch.bfloat16
+    for name in ("ssd_fwd", "ssd_bwd"):
+        kern, plain = table[name][:2]
+        args = cs.make_inputs(name, shape, dtype, card, seed=21,
+                              draw_on_device=True)
+        assert cs.takes_wgmma(name, args)
+        build.reset_launches()
+        cs.compare(name, kern, plain, args, dtype)
+        assert build.LAUNCHES[name + "_wgmma"] == 2, build.LAUNCHES
+        cs.compare(name, kern, ab.mma_ssd(name), args, dtype)
+        assert build.LAUNCHES[name] == 1, build.LAUNCHES
+
+
+def test_ssd_wgmma_reads_the_mixer_views(card):
+    """bf16 x, B and C as views of one conv output (the Mamba2 block's:
+    x's rows the conv row apart, B and C one group at head stride 0) take
+    the wgmma instance and match the same inputs made contiguous."""
+    b, S, H, P, N = 2, 300, 6, 64, 128
+    g = torch.Generator(device=card).manual_seed(22)
+    xbc = torch.randn(b, S, H * P + 2 * N, generator=g,
+                      device=card).to(torch.bfloat16)
+    x = xbc[..., :H * P].reshape(b, S, H, P)
+    B, C = (xbc[..., H * P + i * N:H * P + (i + 1) * N].reshape(b, S, 1, N)
+            .expand(b, S, H, N) for i in range(2))
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, S, H, generator=g, device=card) - 3.0)
+    A = -torch.exp(torch.randn(H, generator=g, device=card) * 0.5)
+    assert ssd.instance(x, B, C, 64) is not None
+    build.reset_launches()
+    got = ssd.ssd_fwd(x, dt, A, B, C, chunk=64)
+    assert build.LAUNCHES["ssd_fwd_wgmma"] == 1
+    want = ssd.ssd_fwd(x.contiguous(), dt, A, B.contiguous(),
+                       C.contiguous(), chunk=64)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, want))
+
+
+def test_ssd_wgmma_keeps_the_mma_instance_where_it_cannot(card):
+    """fp32, and in bf16 chunk 32, (P, N) = (16, 16) and a misaligned x
+    take ssd.cu's instance (counted on it), never the wgmma one."""
+    cs = _chip_smoke()
+    import functools
+    for shape, dtype, chunk, shift in (
+            ((1, 300, 4, 64, 128, True), torch.float32, 64, False),
+            ((1, 300, 4, 64, 128, True), torch.bfloat16, 32, False),
+            ((2, 300, 8, 16, 16, False), torch.bfloat16, 64, False),
+            ((1, 300, 4, 64, 16, True), torch.bfloat16, 64, True)):
+        args = list(cs.make_inputs("ssd_fwd", shape, dtype, card, seed=23,
+                                   chunk=chunk))
+        if shift:
+            buf = torch.empty(args[0].numel() + 1, dtype=dtype, device=card)
+            args[0] = buf[1:].view(args[0].shape).copy_(args[0])
+        build.reset_launches()
+        cs.compare("ssd_fwd", functools.partial(ssd.ssd_fwd, chunk=chunk),
+                   functools.partial(cs.kernel_table(card)["ssd_fwd"][1],
+                                     chunk=chunk), tuple(args), dtype, chunk)
+        assert build.LAUNCHES["ssd_fwd_wgmma"] == 0, build.LAUNCHES
+        assert build.LAUNCHES["ssd_fwd"] == 2, build.LAUNCHES

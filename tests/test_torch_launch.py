@@ -165,18 +165,20 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
     # instances' bf16 entries keep phase 20's launches (none) and the
     # configuration
     wgmma = {"gemm_bias_wgmma", "flash_fwd_wgmma", "flash_bwd_dq_wgmma",
-             "flash_bwd_dkdv_wgmma"}
+             "flash_bwd_dkdv_wgmma", "ssd_fwd_wgmma", "ssd_bwd_wgmma"}
+    # the SSD pair's wgmma instances run bf16 alone (phase 20's 20b);
+    # ssd.cu's pair keeps phase 8 (fp32 mamba2-780m)
     assert [k["name"] for k in record["kernels"]] == [
         "add_rmsnorm_fwd", "add_rmsnorm_bwd", "gemm_bias", "flash_fwd",
         "flash_bwd_dq", "flash_bwd_dkdv", "ssd_fwd", "ssd_bwd",
         "gemm_bias_wgmma", "flash_fwd_wgmma", "flash_bwd_dq_wgmma",
-        "flash_bwd_dkdv_wgmma"]
+        "flash_bwd_dkdv_wgmma", "ssd_fwd_wgmma", "ssd_bwd_wgmma"]
     for k in record["kernels"]:
         if k["name"] in wgmma:
             assert set(k) == (keys - {"tp_launches", "serve_launches", "bf16"}
                               | {"dtype", "path", "shape"})
         elif k["name"] in ("gemm_bias", "flash_fwd", "flash_bwd_dq",
-                           "flash_bwd_dkdv"):
+                           "flash_bwd_dkdv", "ssd_fwd", "ssd_bwd"):
             assert set(k) == keys and set(k["bf16"]) == {"launches",
                                                          "config"}
         else:
@@ -223,8 +225,10 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
         for dtype in ("float32", "bfloat16"):
             assert any(ln.startswith("[check] ssd_bwd") and kind in ln
                        and dtype in ln for ln in lines), (kind, dtype)
-    assert any(ln.split()[:4] == ["[time]", "ssd_bwd", "fwd", "mamba"]
-               for ln in lines)
+    for name, dt in (("ssd_fwd", "fp32"), ("ssd_bwd", "fp32"),
+                     ("ssd_fwd_wgmma", "bf16"), ("ssd_bwd_wgmma", "bf16")):
+        assert any(ln.split()[:4] == ["[time]", name, "fwd", "mamba"]
+                   and f"{dt}: kernel" in ln for ln in lines), (name, dt)
     for model in ("mamba2", "hymba", "granite-moe (4", "qwen2-moe",
                   "granite-moe remat", "hymba remat dots",
                   "granite-moe chunked CE"):
@@ -298,7 +302,7 @@ def test_chip_smoke_rehearsal_on_cpu(capsys):
                        and f" {label} " in ln for ln in lines), label
         assert any(ln.startswith("[check] flash_bwd_dkdv") and f" {label} "
                    in ln and "bfloat16" in ln for ln in lines), label
-    assert any(ln.split()[:4] == ["[time]", "ssd_bwd", "fwd", "20b"]
+    assert any(ln.split()[:4] == ["[time]", "ssd_bwd_wgmma", "fwd", "20b"]
                and "bf16: kernel" in ln for ln in lines)
     for name in ("20a", "20b", "20c", "20d"):
         assert any(ln.startswith(f"[bf16] {name}") and "first bf16 loss" in ln

@@ -17,13 +17,25 @@ B and C one group over the heads, at each built chunk (64 and 32,
 ``ssd.CHUNKS``; the ``-q32`` cases, their ragged last chunks at other
 rows).  The same emulation without the small terms (1xTF32) must fail
 the tolerance, so it would catch a kernel that drops them.
+
+The bf16 wgmma instances (csrc/ssd_wgmma.cu, chunk 64 at (P, N) =
+(64, 128) and (64, 16)) are emulated apart (``emulated_wgmma_fwd`` /
+``_bwd``): each product's whole K accumulates in one wgmma accumulator,
+every instruction's exact sum rounded into it toward zero
+(tools/mma_rounding.py) at wgmma's k step of 16, the bf16 inputs exact
+and each fp32 factor (the decayed, dt-weighted scores W and D, the
+states S and dS1, x * w_last and gy * e^cum) split as hi + lo bf16.
+Held to the plain versions under chip_smoke.py's TOL_BF16 (the states,
+ddt and dA at the fp32 tolerance), with a ragged last chunk and B and C
+one group over the heads; the same emulation without the lo terms must
+fail.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ref, ssd
-from test_torch_gemm_tiles import CS, _emulated_gemm
+from test_torch_gemm_tiles import CS, _emulated_gemm, _rz32
 
 f32 = np.float32
 
@@ -237,3 +249,191 @@ def test_scan_phases_match_the_sequential_recurrence():
         w = (w * eq[c] + L[c]).astype(f32)
     np.testing.assert_array_equal(buf, np.stack(want))
     np.testing.assert_array_equal(s, w)
+
+
+# ----------------------------------------------------------------------
+# The wgmma instances (csrc/ssd_wgmma.cu)
+# ----------------------------------------------------------------------
+#: the wgmma instances' (P, N) at ragged S, B and C one group
+WG_SHAPES = {"mamba": SHAPES["mamba"], "hymba": SHAPES["hymba"]}
+
+
+def _bf16(x):
+    """fp32 -> bf16 (round to nearest even), as fp32."""
+    return torch.from_numpy(np.ascontiguousarray(x, f32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _wg(a, b, a_split=False, b_split=False, lo=True):
+    """a [M, K].b [K, W] as the bf16 wgmma instance issues it: every
+    instruction's k step of 16 summed exactly, then rounded into the one
+    accumulator of the product's whole K toward zero; bf16 operands, an
+    fp32 factor (``a_split`` / ``b_split``) as hi + lo, the terms
+    a_lo.b_hi, a_hi.b_lo, a_hi.b_hi in that order; ``lo`` False drops the
+    lo terms."""
+    a, b = np.ascontiguousarray(a, f32), np.ascontiguousarray(b, f32)
+    ah, bh = _bf16(a), _bf16(b)
+    terms = []
+    if lo and a_split:
+        terms.append((_bf16(a - ah), bh))
+    if lo and b_split:
+        terms.append((ah, _bf16(b - bh)))
+    terms.append((ah, bh))
+    acc = np.zeros((a.shape[0], b.shape[1]), f32)
+    for k in range(0, a.shape[1], 16):
+        for x, y in terms:
+            acc = _rz32(acc.astype(np.float64) + x[:, k:k + 16].astype(
+                np.float64) @ y[k:k + 16].astype(np.float64))
+    return acc
+
+
+def emulated_wgmma_fwd(x, dt, A, B, C, lo=True):
+    """(y, final state, cstates) of the wgmma forward at chunk 64: the
+    states phase (x * w_last)^T.B (x * w_last split in bf16), the scan,
+    then y = W.x + e^cum (C.S^T) (W and S split in bf16)."""
+    Q = 64
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    nc = -(-S // Q)
+    y = np.zeros_like(x)
+    state = np.zeros((b, H, P, N), f32)
+    cstates = np.zeros((b, H, nc, P, N), f32)
+    for bi in range(b):
+        for h in range(H):
+            terms = []
+            for c in range(nc):
+                dtq = _chunk(dt[..., None], bi, h, c, Q)[:, 0]
+                *_, wl, eq, _ = _decay(dtq, A[h])
+                xw = _chunk(x, bi, h, c, Q) * wl[:, None]
+                terms.append((eq, _wg(xw.T, _chunk(B, bi, h, c, Q),
+                                      a_split=True, lo=lo)))
+            s = np.zeros((P, N), f32)
+            for c, (eq, L) in enumerate(terms):
+                cstates[bi, h, c] = s
+                s = (s * eq + L).astype(f32)
+            state[bi, h] = s
+            for c in range(nc):
+                dtq = _chunk(dt[..., None], bi, h, c, Q)[:, 0]
+                cum, ecum, _, _, _, decay = _decay(dtq, A[h])
+                xq, Bq, Cq = (_chunk(t, bi, h, c, Q) for t in (x, B, C))
+                W = _wg(Cq, Bq.T, lo=lo) * decay * dtq[None, :]
+                yq = (_wg(W, xq, a_split=True, lo=lo)
+                      + ecum[:, None] * _wg(Cq, cstates[bi, h, c].T,
+                                            b_split=True, lo=lo))
+                rows = min(Q, S - c * Q)
+                y[bi, c * Q:c * Q + rows, h] = _bf16(yq[:rows])
+    return y, state, cstates
+
+
+def emulated_wgmma_bwd(x, dt, A, B, C, cstates, gy, gstate, lo=True):
+    """(dx, ddt, dA, dB, dC) of the wgmma backward at chunk 64: the states
+    phase (gy * e^cum)^T.C, the reverse scan, then the chunk phase's
+    products with W, D, dS1 and S0 the fp32 factors (split in bf16)."""
+    Q = 64
+    b, S, H, P = x.shape
+    nc = -(-S // Q)
+    dx, dB, dC = np.zeros_like(x), np.zeros_like(B), np.zeros_like(C)
+    ddt = np.zeros_like(dt)
+    dA = np.zeros(H, f32)
+
+    def mm(a, b_, **kw):
+        return _wg(a, b_, lo=lo, **kw)
+    for bi in range(b):
+        for h in range(H):
+            dS1 = [None] * nc
+            locs, eqs = [], []
+            for c in range(nc):
+                dtq = _chunk(dt[..., None], bi, h, c, Q)[:, 0]
+                _, ecum, _, _, eq, _ = _decay(dtq, A[h])
+                Ge = _chunk(gy, bi, h, c, Q) * ecum[:, None]
+                locs.append(mm(Ge.T, _chunk(C, bi, h, c, Q), a_split=True))
+                eqs.append(eq)
+            s = gstate[bi, h]
+            for c in reversed(range(nc)):
+                dS1[c] = s
+                s = (eqs[c] * s + locs[c]).astype(f32)
+            parts = []
+            for c in range(nc):
+                dtq = _chunk(dt[..., None], bi, h, c, Q)[:, 0]
+                cum, ecum, el, wl, eq, decay = _decay(dtq, A[h])
+                xq, Bq, Cq, G = (_chunk(t, bi, h, c, Q) for t in (x, B, C, gy))
+                S0, dS = cstates[bi, h, c], dS1[c]
+                cb, dW = mm(Cq, Bq.T), mm(G, xq.T)
+                W = cb * decay * dtq[None, :]
+                D = dW * decay * dtq[None, :]
+                X = dW * decay * cb
+                xdS = mm(xq, dS, b_split=True)
+                GS0 = mm(G, S0, b_split=True)
+                dxq = (mm(W.T, G, a_split=True)
+                       + mm(Bq, dS.T, b_split=True) * wl[:, None])
+                dBq = mm(D.T, Cq, a_split=True) + xdS * wl[:, None]
+                dCq = mm(D, Bq, a_split=True) + GS0 * ecum[:, None]
+                dw = (xdS * Bq).sum(1, dtype=f32)
+                v = dw * wl
+                dc = ((X * dtq[None, :]).sum(1) - dtq * X.sum(0)
+                      + (GS0 * Cq).sum(1) * ecum - v).astype(f32)
+                dc[-1] += f32((dS * S0).sum()) * eq + v.sum()
+                da = np.cumsum(dc[::-1])[::-1].astype(f32)
+                rows = min(Q, S - c * Q)
+                sl = slice(c * Q, c * Q + rows)
+                ddt[bi, sl, h] = (X.sum(0) + dw * el + da * A[h])[:rows]
+                dx[bi, sl, h], dB[bi, sl, h], dC[bi, sl, h] = (
+                    _bf16(t[:rows]) for t in (dxq, dBq, dCq))
+                parts.append(f32((da * dtq).sum()))
+            dA[h] += f32(sum(parts))
+    return dx, ddt, dA, dB, dC
+
+
+def _worst_at(name, got, want, args, dtype):
+    """``_worst`` under chip_smoke.py's tolerance of ``dtype``."""
+    worst = 0.0
+    for g, w, cond, tol in zip(got, want, CS._conds(name, args, want, 64),
+                               CS.tolerances(name, dtype)):
+        w = w.double()
+        limit = tol["atol"] + tol["rtol"] * w.abs() + tol["ctol"] * cond.double()
+        worst = max(worst, float(((torch.from_numpy(np.asarray(g)).double()
+                                   - w).abs() / limit).max()))
+    return worst
+
+
+def _wg_inputs(label, seed):
+    """_inputs with x, B, C and gy in bf16 (bf16 values as fp32 for the
+    emulation, bf16 tensors for the plain versions)."""
+    x, dt, A, B, C, gy, gstate = _inputs(WG_SHAPES[label], seed)
+    x, B, C, gy = (_bf16(t) for t in (x, B, C, gy))
+
+    def t(a, cast=True):
+        return (torch.from_numpy(a).to(torch.bfloat16) if cast
+                else torch.from_numpy(a))
+    prim = (t(x), t(dt, False), t(A, False), t(B), t(C))
+    return (x, dt, A, B, C, gy, gstate), prim
+
+
+@pytest.mark.parametrize("lo", [True, False], ids=["lo-holds", "no-lo-fails"])
+@pytest.mark.parametrize("label", list(WG_SHAPES))
+def test_emulated_wgmma_forward_against_the_tolerance(label, lo):
+    (x, dt, A, B, C, _, _), prim = _wg_inputs(label, 0)
+    got = emulated_wgmma_fwd(x, dt, A, B, C, lo=lo)
+    worst = _worst_at("ssd_fwd", got, ref.ssd_fwd_ref(*prim, chunk=64), prim,
+                      torch.bfloat16)
+    if lo:
+        assert worst < 0.5, worst
+    else:
+        assert worst > 1.0, worst
+
+
+@pytest.mark.parametrize("lo", [True, False], ids=["lo-holds", "no-lo-fails"])
+@pytest.mark.parametrize("label", list(WG_SHAPES))
+def test_emulated_wgmma_backward_against_the_tolerance(label, lo):
+    (x, dt, A, B, C, gy, gstate), prim = _wg_inputs(label, 1)
+    cstates = ref.ssd_fwd_ref(*prim, chunk=64)[2]
+    args = (*prim, cstates, torch.from_numpy(gy).to(torch.bfloat16),
+            torch.from_numpy(gstate))
+    got = emulated_wgmma_bwd(x, dt, A, B, C, cstates.numpy(), gy, gstate,
+                             lo=lo)
+    worst = _worst_at("ssd_bwd", got, ref.ssd_bwd_ref(*args, chunk=64), args,
+                      torch.bfloat16)
+    if lo:
+        assert worst < 0.5, worst
+    else:
+        assert worst > 1.0, worst

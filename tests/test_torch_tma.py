@@ -16,7 +16,7 @@ the operands (shapes, strides and a zero address, no storage)."""
 import pytest
 import torch
 
-from repro_torch.kernels import flash, fused, tma
+from repro_torch.kernels import flash, fused, ssd, tma
 from test_torch_gemm_tiles import CS, _layout
 
 P20_GEMM = [(label, shape) for label, shape in CS.CARD_SHAPES["gemm_bias"]
@@ -195,3 +195,125 @@ def test_flash_backward_takes_the_mma_instance_where_tma_cannot():
     assert tma._flash_maps(ops, (64, 128, 128, 64))
     assert tma._flash_maps(ops[:3] + ((shape, strides, 8),),
                            (64, 128, 128, 64)) is None
+
+
+# ----------------------------------------------------------------------
+# The SSD wgmma instances (csrc/ssd_wgmma.cu, kernels/ssd.py::instance)
+# ----------------------------------------------------------------------
+#: chip_smoke.py's SSD shapes the wgmma instances are built for
+SSD_WG = [(label, shape) for label, shape in CS.CARD_SHAPES["ssd"]
+          if tuple(shape[3:5]) in tma.SSD_SHAPES]
+
+
+def _mixer_views(b, S, H, P, N, dtype):
+    """x, B and C as the Mamba2 block hands them over: views of one conv
+    output [b, S, H P + 2 N], B and C one group expanded over the heads
+    (head stride 0, ``models/ssm.py::_expand_groups``)."""
+    xbc = torch.empty(b, S, H * P + 2 * N, dtype=dtype, device="meta")
+    x = xbc[..., :H * P].reshape(b, S, H, P)
+    B, C = (xbc[..., H * P + i * N:H * P + (i + 1) * N].reshape(b, S, 1, N)
+            .unsqueeze(-2).expand(b, S, 1, H, N).reshape(b, S, H, N)
+            for i in range(2))
+    return x, B, C
+
+
+def _legal_ssd(spec):
+    dims, strides, box = spec[:4], spec[4:7], spec[7:]
+    assert all(1 <= d <= 2 ** 32 for d in dims)
+    assert all(0 < s < 2 ** 40 and s % 16 == 0 for s in strides)
+    assert all(1 <= b <= 256 for b in box)
+    assert box[0] * 2 == min(128, dims[0] * 2)
+    return dims, strides, box
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("label,shape", SSD_WG, ids=[l for l, _ in SSD_WG])
+def test_ssd_maps_on_the_mixer_views(label, shape, dtype):
+    """Forward and backward at each wgmma SSD shape of chip_smoke.py (S
+    1000 at hymba's, a ragged last chunk TMA zero-fills) have legal maps
+    on the mixer's views: x over (P, H, S, b) in place, B and C over their
+    group view (one head, the seq stride standing in for the head's),
+    each box one head's 64 rows by 128 bytes of the row or the whole of N
+    16's shorter row; gy contiguous.  bf16 calls take the wgmma instance
+    on them, fp32 calls ssd.cu's."""
+    b, S, H, P, N, _ = shape
+    x, B, C = _mixer_views(b, S, H, P, N, dtype)
+    assert B.stride(2) == 0 and C.stride(2) == 0
+    gy = torch.empty(b, S, H, P, dtype=dtype, device="meta")
+    item = 2
+    for g, count in ((None, 3), (gy, 4)):
+        routed = ssd.instance(x, B, C, 64, g)
+        assert (routed is not None) == (dtype == torch.bfloat16)
+        assert ssd.wgmma_at(dtype, P, N) == (dtype == torch.bfloat16)
+        if routed is None:
+            continue
+        specs, bc_head = tma.ssd_maps(x, B, C, g)
+        assert routed == (specs, bc_head)
+        assert bc_head == 0 and len(specs) == 11 * count
+        for i, t in enumerate((x, B, C, g)[:count]):
+            dims, strides, box = _legal_ssd(specs[11 * i:11 * i + 11])
+            D = t.shape[-1]
+            heads = 1 if t.stride(2) == 0 else H
+            assert dims == (D, heads, S, b)
+            hstride = t.stride(2) or t.stride(1)
+            assert strides == tuple(item * s for s in (hstride, t.stride(1),
+                                                       t.stride(0)))
+            assert box == (min(D, 128 // item), 1, 64, 1)
+        assert specs[4 + 1] == (H * P + 2 * N) * item   # x's row: the conv row
+
+
+def test_ssd_stride_zero_head_view_maps_its_group_tensor():
+    """A head stride of 0 maps the group tensor [b, S, 1, N] underneath
+    (bc_head 0); B and C per head map every head (bc_head 1); one of each
+    takes the mma.sync instance."""
+    bf16 = torch.bfloat16
+    x = torch.empty(2, 1000, 50, 64, dtype=bf16, device="meta")
+    grp = torch.empty(2, 1000, 1, 16, dtype=bf16, device="meta")
+    B = grp.expand(2, 1000, 50, 16)
+    per = torch.empty(2, 1000, 50, 16, dtype=bf16, device="meta")
+    specs, bc = tma.ssd_maps(x, B, B)
+    assert bc == 0 and specs[11:15] == (16, 1, 1000, 2)
+    assert specs[15:18] == (32, 32, 32000)
+    assert specs[18:22] == (16, 1, 64, 1)
+    assert specs[11:22] == tma.ssd_map(grp.shape, grp.stride(), 0)
+    specs, bc = tma.ssd_maps(x, per, per)
+    assert bc == 1 and specs[11:15] == (16, 50, 1000, 2)
+    assert tma.ssd_maps(x, B, per) is None
+
+
+def test_ssd_takes_the_mma_instance_where_tma_cannot():
+    """Rows of x not 16-byte aligned, a misaligned base, chunk 32, the
+    reduced configs' (16, 16), a state size without an instance and fp32:
+    no maps, ssd.cu's mma.sync instance."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x, B, C = _mixer_views(1, 2048, 48, 64, 128, dtype)
+        assert (ssd.instance(x, B, C, 64) is not None) == (
+            dtype == torch.bfloat16)
+        assert ssd.instance(x, B, C, 32) is None
+        rows = torch.empty(1, 2048, 48 * 64 + 2, dtype=dtype, device="meta")
+        xs = rows[..., :48 * 64].reshape(1, 2048, 48, 64)   # a row of 3074
+        assert ssd.instance(xs, B, C, 64) is None
+        x16, B16, C16 = _mixer_views(2, 300, 8, 16, 16, dtype)
+        assert ssd.instance(x16, B16, C16, 64) is None
+        x32, B32, C32 = _mixer_views(2, 300, 8, 64, 32, dtype)
+        assert ssd.instance(x32, B32, C32, 64) is None
+    shape, strides = (1, 2048, 48, 64), (2048 * 3328, 3328, 64, 1)
+    assert tma.ssd_map(shape, strides, 0)
+    assert tma.ssd_map(shape, strides, 8) is None
+    assert tma._ssd_maps(((shape, strides, 0),))
+    assert tma._ssd_maps(((shape, strides, 8),)) is None
+
+
+def test_ssd_routes_where_the_wgmma_instance_measured_faster():
+    """bf16 at both state sizes in both directions takes the wgmma
+    instance; fp32 keeps ssd.cu's (its 3xTF32 wgmma instance measured
+    slower in the backward and no faster end to end, PERF.md)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for N in (128, 16):
+            x, B, C = _mixer_views(1, 2048, 24, 64, N, dtype)
+            gy = torch.empty(1, 2048, 24, 64, dtype=dtype, device="meta")
+            fwd = ssd.instance(x, B, C, 64) is not None
+            bwd = ssd.instance(x, B, C, 64, gy) is not None
+            bf16 = dtype == torch.bfloat16
+            assert fwd == bf16 and bwd == bf16, (dtype, N)

@@ -27,7 +27,12 @@ its mma.sync launcher, 16-byte copies at the tiles its own packaged
 table names (this checkout's wrappers send such calls to the wgmma
 launchers), while a tree that has the instance runs it through the
 wrapper (each tree resolves its tiles from its own
-``autotune_offline.json``).  Per
+``autotune_offline.json``); and a tree without ``csrc/ssd_wgmma.cu``
+has its SSD kernels called, in both dtypes, through ``build.launch`` on
+ssd.cu's launchers, so ``--kernels ssd_fwd,ssd_bwd --labels mamba,20b
+--dtypes float32,bfloat16 --phases`` times the parent's SSD instances
+against the instances this checkout's wrappers pick (bf16: the wgmma
+ones), each with its per-phase split and the instance it ran.  Per
 tree, each kernel is first
 held against its plain version (chip_smoke.py's comparison), then timed
 with CUDA events, at the shape of the path the kernels line reports
@@ -194,8 +199,9 @@ def load(lib: pathlib.Path, scratch: bool, norm_bwd, tile: bool = True,
 def has_wgmma(tree: str, name: str) -> bool:
     """Whether the tree has the wgmma instance of kernel ``name`` (the
     bf16 QKV GEMM and flash forward: gemm_wgmma.cu; dq and dk/dv:
-    flash_bwd_wgmma.cu)."""
+    flash_bwd_wgmma.cu; the SSD pair: ssd_wgmma.cu)."""
     source = ("flash_bwd_wgmma.cu" if name.startswith("flash_bwd")
+              else "ssd_wgmma.cu" if name.startswith("ssd")
               else "gemm_wgmma.cu")
     return (pathlib.Path(tree).resolve()
             / "src/repro_torch/kernels/csrc" / source).exists()
@@ -216,9 +222,58 @@ def kernel_of(cs, table, name, dtype, wgmma: bool):
     does not have (``wgmma`` False): its mma.sync launcher called
     directly (``mma_bf16``)."""
     import torch
+    if name in cs.SSD and not wgmma:
+        return mma_ssd(name)
     if dtype != torch.bfloat16 or name not in cs.WGMMA.values() or wgmma:
         return table[name][0]
     return mma_bf16(name)
+
+
+def mma_ssd(name: str):
+    """``ssd_fwd`` or ``ssd_bwd`` of a tree with no wgmma instance of the
+    SSD: ssd.cu's launcher at the call's chunk (the tree's packaged
+    table), in either dtype."""
+    import torch
+    from repro_torch.kernels import build, ssd
+
+    def strides(t):
+        return t.stride(0), t.stride(1), t.stride(2)
+
+    def forward(x, dt, A, B, C):
+        b, S, H, P = x.shape
+        N, chunk = B.shape[-1], ssd.resolve_chunk(x, B)
+        nc = -(-S // chunk)
+        y = torch.empty_like(x)
+        st = torch.empty((b, H, P, N), device=x.device)
+        cst = torch.empty((b, H, nc, P, N), device=x.device)
+        build.launch("ssd_fwd", x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                     B.data_ptr(), C.data_ptr(), y.data_ptr(), st.data_ptr(),
+                     cst.data_ptr(), b, S, H, P, N, chunk, *strides(x),
+                     *strides(dt), *strides(B), *strides(C),
+                     build.check_tensors("ssd_fwd", x, B, C),
+                     build.current_stream(x))
+        return y, st, cst
+
+    def backward(x, dt, A, B, C, cst, gy, gstate):
+        b, S, H, P = x.shape
+        N, chunk = B.shape[-1], ssd.resolve_chunk(x, B)
+        nc = -(-S // chunk)
+        dx = torch.empty_like(x)
+        ddt = torch.empty((b, S, H), device=x.device)
+        dB, dC = (torch.empty((b, S, H, N), dtype=B.dtype, device=x.device)
+                  for _ in range(2))
+        dA = torch.empty((b, H, nc), device=x.device)
+        scratch = torch.empty((b, H, nc, P, N), device=x.device)
+        build.launch("ssd_bwd", x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                     B.data_ptr(), C.data_ptr(), cst.data_ptr(),
+                     gy.data_ptr(), gstate.data_ptr(), dx.data_ptr(),
+                     ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                     dA.data_ptr(), scratch.data_ptr(), b, S, H, P, N, chunk,
+                     *strides(x), *strides(dt), *strides(B), *strides(C),
+                     *strides(gy), build.check_tensors("ssd_bwd", x, B, C, gy),
+                     build.current_stream(x))
+        return dx, ddt, dA.sum((0, 2)), dB, dC
+    return forward if name == "ssd_fwd" else backward
 
 
 def mma_bf16(name: str):
@@ -370,7 +425,11 @@ def main(argv=None) -> int:
             if args.phases:
                 row["device_ms"] = cs.device_ms(kern, inputs, name,
                                                 args.iters)[1]
-            if dtype == torch.bfloat16 and name in cs.WGMMA.values():
+            if name in cs.SSD:
+                row["instance"] = (
+                    "wgmma" if has_wgmma(trees[label], name)
+                    and cs.takes_wgmma(name, inputs) else "mma.sync")
+            elif dtype == torch.bfloat16 and name in cs.WGMMA.values():
                 row["instance"] = ("wgmma" if has_wgmma(trees[label], name)
                                    else "mma.sync")
             print(json.dumps(row), flush=True)

@@ -9,7 +9,8 @@ with .tf32 operands and m16n8k16 with .bf16 operands, as
 ``src/repro_torch/kernels/csrc/tensor_core.cuh`` issues them, and
 ``wgmma.mma_async`` m64n64k16 with .bf16 operands from shared memory, as
 ``csrc/hopper.cuh`` issues it (its own wrappers, included from the
-checkout).  Each case starts the accumulator at c = 1 and adds terms
+checkout), and m64n32k8 with .tf32 operands, A from registers, as
+``csrc/ssd_wgmma.cu`` issues it.  Each case starts the accumulator at c = 1 and adds terms
 x = f * ulp(1), ulp(1) = 2^-23, placed at chosen k positions of row 0
 of A against ones in column 0 of B (every such x is exact in TF32 and
 bf16):
@@ -127,11 +128,58 @@ __global__ void probe_wgmma_bf16(const float* xs, const int* ks, const int* n,
   }
 }
 
+// One warpgroup, wgmma m64n32k8 with .tf32 operands as
+// csrc/ssd_wgmma.cu issues it: A from registers (row 0's terms in warp
+// 0's lanes g = 0: a0 at k t, a2 at k t + 4 of each k8 step), B a 32 x 32
+// fp32 K-major tile in the 128-byte swizzle (row n 0 unswizzled: ones).
+__global__ void probe_wgmma_tf32(const float* xs, const int* ks, const int* n,
+                                 float* out, int cases) {
+  __shared__ __align__(1024) float B[32 * 32];
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool row0 = threadIdx.x < 32 && g == 0;
+  for (int e = threadIdx.x; e < 32 * 32; e += 128) B[e] = e < 32 ? 1.f : 0.f;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  for (int i = 0; i < cases; ++i) {
+    float d[16];
+    for (int r = 0; r < 16; ++r) d[r] = 0.f;
+    if (threadIdx.x == 0) d[0] = 1.f;
+    wgmma_fence();
+    for (int kk = 0; kk < 4; ++kk) {
+      float a0 = 0.f, a2 = 0.f;
+      for (int j = 0; j < n[i]; ++j) {
+        const int k = ks[i * MAXT + j] - 8 * kk;
+        if (row0 && k == t) a0 = xs[i * MAXT + j];
+        if (row0 && k == t + 4) a2 = xs[i * MAXT + j];
+      }
+      const uint32_t a[4] = {__float_as_uint(a0), 0u, __float_as_uint(a2), 0u};
+      const uint64_t db = sw128_desc(B + 8 * kk, 16, 1024);
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, "
+          "%8, %9, %10, %11, %12, %13, %14, %15}, "
+          "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+            "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+            "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+            "+f"(d[15])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      wgmma_commit();
+      wgmma_wait<0>();
+    }
+    reg_fence(d);
+    if (threadIdx.x == 0) out[i] = d[0];
+    __syncthreads();
+  }
+}
+
 extern "C" int run_probe(int kind, const float* xs, const int* ks,
                          const int* n, float* out, int cases) {
   if (kind == 0) probe_tf32<<<1, 32>>>(xs, ks, n, out, cases);
   if (kind == 1) probe_mma_bf16<<<1, 32>>>(xs, ks, n, out, cases);
   if (kind == 2) probe_wgmma_bf16<<<1, 128>>>(xs, ks, n, out, cases);
+  if (kind == 3) probe_wgmma_tf32<<<1, 128>>>(xs, ks, n, out, cases);
   return (int)cudaGetLastError();
 }
 """
@@ -144,7 +192,7 @@ CASES = ([(f"one {f}", [(f, 0)]) for f in FRACTIONS]
          + [("two 0.75 in one k step", [(0.75, 0), (0.75, 1)]),
             ("two 0.75 in two k steps", [(0.75, 0), (0.75, 16)])])
 PRODUCTS = {0: "mma.sync m16n8k8 tf32", 1: "mma.sync m16n8k16 bf16",
-            2: "wgmma m64n64k16 bf16"}
+            2: "wgmma m64n64k16 bf16", 3: "wgmma m64n32k8 tf32"}
 
 
 def verdicts(ulps):
